@@ -33,7 +33,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--steps", type=int, default=10000)
     p.add_argument("--precision", choices=sorted(PRECISIONS), default="f32",
                    help="bf16 storage is ROADMAP B3")
-    p.add_argument("--backend", default="auto", help="auto|torch|cuda")
+    p.add_argument("--backend", default="auto",
+                   help="auto|torch|cuda|torch-ds64|cuda-ds64 "
+                        "(the ds64 backends are pair-DP; use with --precision f64)")
     p.add_argument("--geometry", default="barrier",
                    help="empty|channel|barrier|reference|cylinder")
     p.add_argument("--print-stats-every", type=int, default=1000)
@@ -44,13 +46,19 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def resolve_backend(name: str) -> str:
-    """"auto" is "cuda" when a CUDA card is available, else "torch"."""
+def resolve_backend(name: str, dtype=np.float32) -> str:
+    """"auto" is "cuda" for float32 when a CUDA card is available, else
+    "torch" (which then runs on the card if there is one): the kernel
+    takes float32 only, and the JAX package sends float64 to its plain
+    engine on the accelerator too. Any other name is returned as it is,
+    so an explicit choice that cannot run raises instead of rerouting."""
     if name != "auto":
         return name
     import torch
 
-    return "cuda" if torch.cuda.is_available() else "torch"
+    if torch.cuda.is_available() and np.dtype(dtype) == np.dtype(np.float32):
+        return "cuda"
+    return "torch"
 
 
 def main(argv=None) -> int:
@@ -67,11 +75,11 @@ def main(argv=None) -> int:
         dtype=PRECISIONS[args.precision],
     )
     walls = geometry.build(args.geometry, cfg.nx, cfg.ny)
-    sim = Simulation(cfg, walls, backend=resolve_backend(args.backend))
+    sim = Simulation(cfg, walls, backend=resolve_backend(args.backend, cfg.dtype))
 
     mb = cfg.nx * cfg.ny * 9 * np.dtype(cfg.dtype).itemsize / 1024 / 1024
     print(f"Lattice Size: {cfg.nx}x{cfg.ny} ({mb:.2f} MB) "
-          f"backend={sim.backend} precision={args.precision}")
+          f"backend={sim.backend} precision={args.precision} device={sim.device}")
 
     if args.warmup:
         # absorb the kernel build and first launches outside the timed

@@ -6,6 +6,15 @@ the port's backends.
 - "cuda": a persistent ops/fused_kernel.Session around the hand-written
   CUDA kernel, the counterpart of "pallas". It raises without a CUDA
   card, and on dtypes the kernel does not take yet; it never reroutes.
+- "torch-ds64": the eager pair-DP engine (ops/ds_engine.py, the exact
+  tier) on any device, the counterpart of "xla-ds64".
+- "cuda-ds64": a persistent ops/fused_ds_kernel.Session around the CUDA
+  ds kernel at the fast tier, the counterpart of "pallas-ds64". Like
+  "cuda", it raises without a card.
+
+The ds backends carry a df64.DS pair and need a float64 LatticeConfig
+(the host-side precision of state() and f0); state(), macroscopic(),
+reynolds() and probe_values() use the pair recombined to float64.
 """
 
 from __future__ import annotations
@@ -18,7 +27,7 @@ import torch
 
 from ..core import geometry
 from ..core.spec import NSPEEDS, W, LatticeConfig
-from ..ops import fused_kernel
+from ..ops import df64, ds_engine, fused_ds_kernel, fused_kernel
 from ..ops import stream_collide as torch_ops
 from ..utils.interop import to_numpy, torch_dtype
 
@@ -32,6 +41,13 @@ def register_backend(name: str, run_steps: Callable) -> None:
 
 register_backend("torch", torch_ops.run_steps)
 register_backend("cuda", fused_kernel.run_steps)
+register_backend("torch-ds64", ds_engine.run_steps)
+register_backend("cuda-ds64", fused_ds_kernel.run_steps)
+
+# backends whose state is a df64.DS pair, and backends that run a
+# hand-written kernel through a persistent session (CUDA only)
+_DS_BACKENDS = {"torch-ds64", "cuda-ds64"}
+_KERNEL_BACKENDS = {"cuda", "cuda-ds64"}
 
 
 def available_backends() -> list[str]:
@@ -52,10 +68,19 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def default_device(backend: str) -> str:
+    """The device a backend runs on when none is given: "cuda" for the
+    kernel backends; for the others "cuda" when a card is available,
+    else "cpu" (JAX's default device, the accelerator when there is
+    one)."""
+    if backend in _KERNEL_BACKENDS or torch.cuda.is_available():
+        return "cuda"
+    return "cpu"
+
+
 class Simulation:
-    """A running lattice. `backend` selects the compute path ("torch" or
-    "cuda", see the module docstring); `device` defaults to "cuda" for
-    the cuda backend and "cpu" for the torch backend."""
+    """A running lattice. `backend` selects the compute path (see the
+    module docstring); `device` defaults to default_device(backend)."""
 
     def __init__(
         self,
@@ -74,11 +99,14 @@ class Simulation:
             raise ValueError(f"walls shape {walls.shape} != lattice {(cfg.nx, cfg.ny)}")
         if backend not in _BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; have {available_backends()}")
-        if device is None:
-            device = "cuda" if backend == "cuda" else "cpu"
-        self.device = torch.device(device)
-        if backend == "cuda" and self.device.type != "cuda":
-            raise ValueError(f"backend 'cuda' runs on a CUDA device, not {self.device}")
+        if backend in _DS_BACKENDS and np.dtype(cfg.dtype) != np.dtype(np.float64):
+            raise ValueError(
+                "ds backends carry DP-class state; construct the LatticeConfig "
+                "with dtype=np.float64 (the host-side precision of state()/f0)"
+            )
+        self.device = torch.device(default_device(backend) if device is None else device)
+        if backend in _KERNEL_BACKENDS and self.device.type != "cuda":
+            raise ValueError(f"backend {backend!r} runs on a CUDA device, not {self.device}")
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 f"backend {backend!r} on {self.device} needs a CUDA card, and "
@@ -89,13 +117,19 @@ class Simulation:
         self.walls_np = np.asarray(walls, dtype=bool)
         self.walls = torch.as_tensor(self.walls_np, device=self.device)
         f_init = initial_state(cfg) if f0 is None else np.asarray(f0, np.dtype(cfg.dtype))
-        f = torch.tensor(f_init, dtype=dtype, device=self.device)
+        if backend in _DS_BACKENDS:
+            f = df64.from_f64(f_init, self.device)
+        else:
+            f = torch.tensor(f_init, dtype=dtype, device=self.device)
         # persistent kernel session: buffers and solid plane are built
         # once, and run() is then launches only
         self._session = None
         self._f = None
         if backend == "cuda":
             self._session = fused_kernel.Session(cfg, self.walls_np, device=self.device)
+        elif backend == "cuda-ds64":
+            self._session = fused_ds_kernel.Session(cfg, self.walls_np, device=self.device)
+        if self._session is not None:
             self._session.load(f)
         else:
             self._f = f
@@ -103,13 +137,14 @@ class Simulation:
         self.elapsed = 0.0
 
     @property
-    def f(self) -> torch.Tensor:
-        """Current state on the device. On the cuda backend this is a copy
-        of the session's live buffer, so it stays valid across run()."""
+    def f(self):
+        """Current state on the device: a tensor, or a df64.DS pair on the
+        ds backends. On the kernel backends this is a copy of the
+        session's live buffers, so it stays valid across run()."""
         return self._session.state() if self._session is not None else self._f
 
     @f.setter
-    def f(self, value: torch.Tensor) -> None:
+    def f(self, value) -> None:
         if self._session is not None:
             self._session.load(value)
         else:
@@ -135,14 +170,23 @@ class Simulation:
         probes_np = np.asarray(probes)
         if probes_np.ndim != 2 or probes_np.shape[1] != 2:
             raise ValueError(f"probes must be (P, 2) (i, j) sites, got {probes_np.shape}")
-        return to_numpy(torch_ops.probe_values(self.f, probes_np))
+        return to_numpy(torch_ops.probe_values(self._f64(), probes_np))
+
+    def _f64(self) -> torch.Tensor:
+        """The state on the device; on the ds backends the pair
+        recombined to float64 (exact)."""
+        f = self.f
+        return ds_engine.recombine(f) if self.backend in _DS_BACKENDS else f
 
     def state(self) -> np.ndarray:
-        """Current state as a host array in the storage dtype."""
+        """Current state as a host array: float64 on the ds backends (the
+        pair recombined), the storage dtype otherwise."""
+        if self.backend in _DS_BACKENDS:
+            return ds_engine.state_f64(self.f)
         return to_numpy(self.f)
 
     def macroscopic(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-        rho, ux, uy = torch_ops.macroscopic(self.f)
+        rho, ux, uy = torch_ops.macroscopic(self._f64())
         return to_numpy(rho), to_numpy(ux), to_numpy(uy)
 
     def speed_squared(self) -> np.ndarray:
@@ -154,7 +198,7 @@ class Simulation:
     def reynolds(self, col: int | None = None) -> float:
         """Reynolds number at a column (default ny/2, the reference's
         regression scalar, src/latticeboltzmann.c:522-547)."""
-        return float(torch_ops.reynolds(self.f, self.walls, self.cfg, col))
+        return float(torch_ops.reynolds(self._f64(), self.walls, self.cfg, col))
 
     @property
     def mlups(self) -> float:

@@ -121,18 +121,36 @@ def _require_float32(cfg: LatticeConfig) -> None:
         )
 
 
+def check_device(t: torch.Tensor) -> None:
+    """Raise unless t lies on the CPU (where a wrapper takes the plain
+    version) or on the current device of an available CUDA card."""
+    if t.device.type == "cpu":
+        return
+    if t.device.type != "cuda" or not torch.cuda.is_available():
+        raise RuntimeError(
+            f"the kernel needs a CUDA tensor on an available card, got a tensor on {t.device}"
+        )
+    if t.get_device() != torch.cuda.current_device():
+        raise ValueError(
+            f"tensor on {t.device}, current device cuda:{torch.cuda.current_device()}"
+        )
+
+
+def check_solid_plane(solid, shape: tuple, device: torch.device) -> None:
+    """Raise unless solid is a contiguous uint8 (NX, NY) plane on
+    `device` holding codes 0 and 1 only."""
+    if solid is None:
+        raise ValueError("the masked variant needs a solid plane")
+    if solid.dtype != torch.uint8 or tuple(solid.shape) != shape:
+        raise ValueError(f"solid must be uint8 {shape}, got {solid.dtype} {tuple(solid.shape)}")
+    if not solid.is_contiguous() or solid.device != device:
+        raise ValueError("solid must be contiguous and on src's device")
+    check_solid(solid)
+
+
 def _check(src, dst, solid, cfg: LatticeConfig, has_walls: bool) -> None:
     _require_float32(cfg)
-    if src.device.type != "cpu":
-        if src.device.type != "cuda" or not torch.cuda.is_available():
-            raise RuntimeError(
-                f"the stream-collide kernel needs a CUDA tensor on an available "
-                f"card, got a tensor on {src.device}"
-            )
-        if src.get_device() != torch.cuda.current_device():
-            raise ValueError(
-                f"tensor on {src.device}, current device cuda:{torch.cuda.current_device()}"
-            )
+    check_device(src)
     shape = (NSPEEDS, cfg.nx, cfg.ny)
     if src is dst or src.data_ptr() == dst.data_ptr():
         raise ValueError("step is out of place: src and dst must be distinct buffers")
@@ -146,13 +164,7 @@ def _check(src, dst, solid, cfg: LatticeConfig, has_walls: bool) -> None:
     if dst.device != src.device:
         raise ValueError(f"dst on {dst.device}, src on {src.device}")
     if has_walls:
-        if solid is None:
-            raise ValueError("the masked variant needs a solid plane")
-        if solid.dtype != torch.uint8 or tuple(solid.shape) != shape[1:]:
-            raise ValueError(f"solid must be uint8 {shape[1:]}, got {solid.dtype} {tuple(solid.shape)}")
-        if not solid.is_contiguous() or solid.device != src.device:
-            raise ValueError("solid must be contiguous and on src's device")
-        check_solid(solid)
+        check_solid_plane(solid, shape[1:], src.device)
 
 
 def step(

@@ -4,7 +4,9 @@ Both packages keep the state as speed-major (9, NX, NY) planes and the
 geometry as an (NX, NY) bool mask, so crossing over is a numpy round
 trip: the JAX package hands out `Simulation.state()` and `walls_np`
 (latticeboltzmann_tpu/models/engine.py:485-492), and the port takes
-them here. Nothing in this module imports jax.
+them here. A pair-DP state (the JAX package's df64.DS) crosses as its
+two float32 component arrays, bit for bit. Nothing in this module
+imports jax.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import numpy as np
 import torch
 
 from ..core.spec import LatticeConfig
+from ..ops.df64 import DS
 
 _TORCH_DTYPES = {
     np.dtype(np.float32): torch.float32,
@@ -58,3 +61,22 @@ def from_numpy_state(
 def to_numpy(f: torch.Tensor) -> np.ndarray:
     """A host numpy copy of a port tensor (any device)."""
     return f.detach().cpu().numpy()
+
+
+def from_ds_pair(hi_np: np.ndarray, lo_np: np.ndarray, device: str | torch.device) -> DS:
+    """A port DS pair on `device` from the two float32 component arrays
+    of a JAX df64.DS (np.asarray(f.hi), np.asarray(f.lo)), copied bit
+    for bit."""
+    hi_np, lo_np = np.asarray(hi_np), np.asarray(lo_np)
+    if hi_np.dtype != np.float32 or lo_np.dtype != np.float32 or hi_np.shape != lo_np.shape:
+        raise ValueError(
+            f"a ds pair is two same-shape float32 arrays, got {hi_np.dtype}{hi_np.shape} "
+            f"and {lo_np.dtype}{lo_np.shape}"
+        )
+    return DS(torch.tensor(hi_np, device=device), torch.tensor(lo_np, device=device))
+
+
+def to_ds_pair(f: DS) -> tuple[np.ndarray, np.ndarray]:
+    """The two float32 host arrays (hi, lo) of a port DS pair, which
+    the JAX package's df64.DS takes as they are."""
+    return to_numpy(f.hi), to_numpy(f.lo)
