@@ -1,9 +1,10 @@
 """Headline benchmark of the port: 800x4000 channel flow on the
 reference's exact scene, on one CUDA card. Prints ONE JSON line.
 
---precision f32 (the default) runs the float32 kernel; ds64 runs the
-pair-DP kernel (backend cuda-ds64 on a float64 config), the JAX
-package's bench_suite.py rows (latticeboltzmann_tpu/bench_suite.py:61-64).
+--precision f32 (the default) runs the float32 kernel; bf16 runs it with
+bf16 storage and float32 arithmetic, and ds64 the pair-DP kernel
+(backend cuda-ds64 on a float64 config): the JAX package's bench_suite.py
+rows (latticeboltzmann_tpu/bench_suite.py:40-43 and :61-64).
 
 The method is the JAX package's bench.py (the repository root's, lines
 139-187): a slope rate from runs of 1680 and 5040 steps, which cancels
@@ -12,11 +13,12 @@ the degraded flag when the best end-to-end rate is under half the slope
 rate after one retry; and a guard that the state is finite and
 non-negative and Re finite. torch.cuda.synchronize() is the completion
 barrier (Simulation.run blocks on it). The line adds the effective
-bandwidth, bytes per site update x MLUPS (72 B for f32; 144 B for ds64,
-two f32 components), and the card's name and power limit.
+bandwidth, bytes per site update x MLUPS (72 B for f32; 36 B for bf16;
+144 B for ds64, two f32 components), and the card's name and power
+limit.
 
 Usage: python -m latticeboltzmann_tpu_torch.bench [--backend auto|cuda|torch]
-           [--precision f32|ds64]
+           [--precision f32|bf16|ds64]
 A run that finds no CUDA card fails; it does not fall back to the CPU.
 """
 
@@ -42,7 +44,7 @@ def card_info() -> str:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--backend", default="auto")
-    ap.add_argument("--precision", choices=("f32", "ds64"), default="f32")
+    ap.add_argument("--precision", choices=("f32", "bf16", "ds64"), default="f32")
     ap.add_argument("--steps", type=int, default=10000)
     ap.add_argument("--nx", type=int, default=800)
     ap.add_argument("--ny", type=int, default=4000)
@@ -56,17 +58,19 @@ def main(argv=None) -> int:
 
     from .cli import resolve_backend
     from .core import geometry
-    from .core.spec import LatticeConfig, bytes_per_site_update
+    from .core.spec import LatticeConfig
     from .models.engine import Simulation
     from .ops.fused_ds_kernel import BYTES_PER_SITE_DS
+    from .utils.interop import bytes_per_site as storage_bytes_per_site
 
     if args.precision == "ds64":
         # pair-DP: the host-side state is float64, the card runs f32 pairs
         backend = "cuda-ds64" if args.backend == "auto" else args.backend
         dtype, bytes_per_site = np.float64, BYTES_PER_SITE_DS
     else:
-        backend = resolve_backend(args.backend)
-        dtype, bytes_per_site = np.float32, bytes_per_site_update(np.float32)
+        dtype = np.float32 if args.precision == "f32" else "bfloat16"
+        backend = resolve_backend(args.backend, dtype)
+        bytes_per_site = storage_bytes_per_site(dtype)
     cfg = LatticeConfig(nx=args.nx, ny=args.ny, dtype=dtype)
     walls = geometry.reference_barrier(cfg.nx, cfg.ny)
     sim = Simulation(cfg, walls, backend=backend, device="cuda")

@@ -1,8 +1,8 @@
 """Command-line runner: `python -m latticeboltzmann_tpu_torch`, the
 main-path flags of latticeboltzmann_tpu/cli.py.
 
-Snapshots, checkpoints, probes, the movie, profiling, skew and fast
-math are ROADMAP A6/A7.
+Snapshots, checkpoints, probes, the movie, profiling and skew are
+ROADMAP A6/A7.
 
 Usage:
     python -m latticeboltzmann_tpu_torch [--nx 400 --ny 2000 ...]
@@ -16,7 +16,7 @@ import time
 
 import numpy as np
 
-PRECISIONS = {"f32": np.float32, "f64": np.float64}
+PRECISIONS = {"f32": np.float32, "f64": np.float64, "bf16": "bfloat16"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -32,13 +32,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--density", type=float, default=0.1)
     p.add_argument("--steps", type=int, default=10000)
     p.add_argument("--precision", choices=sorted(PRECISIONS), default="f32",
-                   help="bf16 storage is ROADMAP B3")
+                   help="bf16 is bf16 storage with float32 arithmetic")
     p.add_argument("--backend", default="auto",
                    help="auto|torch|cuda|torch-ds64|cuda-ds64 "
                         "(the ds64 backends are pair-DP; use with --precision f64)")
     p.add_argument("--geometry", default="barrier",
                    help="empty|channel|barrier|reference|cylinder")
     p.add_argument("--print-stats-every", type=int, default=1000)
+    p.add_argument("--fast-math", action="store_true",
+                   help="approximate 1/rho in the cuda kernel (the reference's "
+                        "-Ofast analog, Makefile:2); other backends ignore it")
     p.add_argument("--warmup", type=int, default=8,
                    help="steps run once before timing starts to absorb the "
                         "kernel build and first-launch costs (state is reset "
@@ -47,16 +50,19 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def resolve_backend(name: str, dtype=np.float32) -> str:
-    """"auto" is "cuda" for float32 when a CUDA card is available, else
-    "torch" (which then runs on the card if there is one): the kernel
-    takes float32 only, and the JAX package sends float64 to its plain
-    engine on the accelerator too. Any other name is returned as it is,
-    so an explicit choice that cannot run raises instead of rerouting."""
+    """"auto" is "cuda" for float32 and bf16 when a CUDA card is
+    available, else "torch" (which then runs on the card if there is
+    one): the kernel takes those two storage dtypes, and the JAX package
+    sends float64 to its plain engine on the accelerator too. Any other
+    name is returned as it is, so an explicit choice that cannot run
+    raises instead of rerouting."""
     if name != "auto":
         return name
     import torch
 
-    if torch.cuda.is_available() and np.dtype(dtype) == np.dtype(np.float32):
+    from .utils.interop import storage_dtype
+
+    if torch.cuda.is_available() and storage_dtype(dtype) in (torch.float32, torch.bfloat16):
         return "cuda"
     return "torch"
 
@@ -68,6 +74,7 @@ def main(argv=None) -> int:
     from .core.spec import LatticeConfig
     from .models.engine import Simulation
     from .utils import stats
+    from .utils.interop import storage_dtype
 
     cfg = LatticeConfig(
         nx=args.nx, ny=args.ny, tau=args.tau, csq=args.csq,
@@ -75,9 +82,10 @@ def main(argv=None) -> int:
         dtype=PRECISIONS[args.precision],
     )
     walls = geometry.build(args.geometry, cfg.nx, cfg.ny)
-    sim = Simulation(cfg, walls, backend=resolve_backend(args.backend, cfg.dtype))
+    sim = Simulation(cfg, walls, backend=resolve_backend(args.backend, cfg.dtype),
+                     fast_math=args.fast_math)
 
-    mb = cfg.nx * cfg.ny * 9 * np.dtype(cfg.dtype).itemsize / 1024 / 1024
+    mb = cfg.nx * cfg.ny * 9 * storage_dtype(cfg.dtype).itemsize / 1024 / 1024
     print(f"Lattice Size: {cfg.nx}x{cfg.ny} ({mb:.2f} MB) "
           f"backend={sim.backend} precision={args.precision} device={sim.device}")
 

@@ -4,8 +4,11 @@ the port's backends.
 - "torch": the portable engine (ops/stream_collide.py) on any device,
   the counterpart of "xla".
 - "cuda": a persistent ops/fused_kernel.Session around the hand-written
-  CUDA kernel, the counterpart of "pallas". It raises without a CUDA
-  card, and on dtypes the kernel does not take yet; it never reroutes.
+  CUDA kernel, the counterpart of "pallas": float32 or bf16 storage, the
+  mask computed in the kernel from geometry.infer_spec's closed form
+  when there is one (as the JAX main path does), free-slip codes and
+  fast math. It raises without a CUDA card, and on float64; it never
+  reroutes.
 - "torch-ds64": the eager pair-DP engine (ops/ds_engine.py, the exact
   tier) on any device, the counterpart of "xla-ds64".
 - "cuda-ds64": a persistent ops/fused_ds_kernel.Session around the CUDA
@@ -15,6 +18,17 @@ the port's backends.
 The ds backends carry a df64.DS pair and need a float64 LatticeConfig
 (the host-side precision of state() and f0); state(), macroscopic(),
 reynolds() and probe_values() use the pair recombined to float64.
+
+Options, as the JAX facade's capability sets (engine.py:82-118 there):
+slip_x/slip_y on _SLIP_BACKENDS, else NotImplementedError; fast_math on
+_FASTMATH_BACKENDS, and ignored elsewhere, as the JAX _backend_kwargs
+ignores it; the closed-form wall spec on _WALL_SPEC_BACKENDS.
+
+bf16 storage (LatticeConfig(dtype="bfloat16"), or a JAX config's bf16
+type): the host side never needs numpy bf16, so state(), macroscopic()
+and f0 use float32 holding the exact bf16 values. That is the one place
+where the port differs from the JAX facade, whose state() is
+`np.asarray(self.f)` in bf16.
 """
 
 from __future__ import annotations
@@ -29,7 +43,7 @@ from ..core import geometry
 from ..core.spec import NSPEEDS, W, LatticeConfig
 from ..ops import df64, ds_engine, fused_ds_kernel, fused_kernel
 from ..ops import stream_collide as torch_ops
-from ..utils.interop import to_numpy, torch_dtype
+from ..utils.interop import round_bf16, state_tensor, storage_dtype, to_numpy
 
 # backend name -> run_steps(f, walls, cfg, n_steps) -> f
 _BACKENDS: dict[str, Callable] = {}
@@ -48,6 +62,11 @@ register_backend("cuda-ds64", fused_ds_kernel.run_steps)
 # hand-written kernel through a persistent session (CUDA only)
 _DS_BACKENDS = {"torch-ds64", "cuda-ds64"}
 _KERNEL_BACKENDS = {"cuda", "cuda-ds64"}
+# backends that take free-slip masks, the approximate 1/rho, and the
+# closed-form wall spec (no mask plane read)
+_SLIP_BACKENDS = {"torch", "cuda"}
+_FASTMATH_BACKENDS = {"cuda"}
+_WALL_SPEC_BACKENDS = {"cuda"}
 
 
 def available_backends() -> list[str]:
@@ -55,11 +74,23 @@ def available_backends() -> list[str]:
 
 
 def initial_state(cfg: LatticeConfig) -> np.ndarray:
-    """Rest-equilibrium initial fill (src/latticeboltzmann.c:583-591)."""
-    f = np.empty((NSPEEDS, cfg.nx, cfg.ny), dtype=np.dtype(cfg.dtype))
-    rho = np.asarray(cfg.initial_density, dtype=np.dtype(cfg.dtype))
+    """Rest-equilibrium initial fill (src/latticeboltzmann.c:583-591).
+
+    bf16 storage returns float32 holding the exact bf16 values, rounded
+    twice as the JAX package's numpy bf16 arithmetic rounds them:
+    bf16(bf16(density) * bf16(W[s])) (the product of two bf16 values is
+    exact in float32)."""
+    st = storage_dtype(cfg.dtype)
+    if st == torch.bfloat16:
+        rho = round_bf16(np.float32(cfg.initial_density))
+        w = round_bf16(W.astype(np.float32))
+        fill = round_bf16(rho * w)
+        return np.broadcast_to(fill[:, None, None], (NSPEEDS, cfg.nx, cfg.ny)).copy()
+    dtype = np.float64 if st == torch.float64 else np.float32
+    f = np.empty((NSPEEDS, cfg.nx, cfg.ny), dtype=dtype)
+    rho = np.asarray(cfg.initial_density, dtype=dtype)
     for s in range(NSPEEDS):
-        f[s] = rho * np.asarray(W[s], dtype=np.dtype(cfg.dtype))
+        f[s] = rho * np.asarray(W[s], dtype=dtype)
     return f
 
 
@@ -90,19 +121,28 @@ class Simulation:
         backend: str = "torch",
         device: str | torch.device | None = None,
         f0: np.ndarray | None = None,
+        slip_x: np.ndarray | None = None,
+        slip_y: np.ndarray | None = None,
+        fast_math: bool = False,
     ):
         self.cfg = cfg
-        dtype = torch_dtype(cfg.dtype)  # raises on what the port does not take
+        storage_dtype(cfg.dtype)  # raises on what the port does not take
         if walls is None:
             walls = geometry.channel_with_barrier(cfg.nx, cfg.ny)
         if walls.shape != (cfg.nx, cfg.ny):
             raise ValueError(f"walls shape {walls.shape} != lattice {(cfg.nx, cfg.ny)}")
         if backend not in _BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; have {available_backends()}")
-        if backend in _DS_BACKENDS and np.dtype(cfg.dtype) != np.dtype(np.float64):
+        if backend in _DS_BACKENDS and storage_dtype(cfg.dtype) != torch.float64:
             raise ValueError(
                 "ds backends carry DP-class state; construct the LatticeConfig "
                 "with dtype=np.float64 (the host-side precision of state()/f0)"
+            )
+        has_slip = slip_x is not None or slip_y is not None
+        if has_slip and backend not in _SLIP_BACKENDS:
+            raise NotImplementedError(
+                f"free-slip boundaries are not implemented on the {backend!r} "
+                f"backend; supported: {sorted(_SLIP_BACKENDS)}"
             )
         self.device = torch.device(default_device(backend) if device is None else device)
         if backend in _KERNEL_BACKENDS and self.device.type != "cuda":
@@ -114,19 +154,42 @@ class Simulation:
             )
         self.backend = backend
         self._run_steps = _BACKENDS[backend]
+        # kept as given; outside _FASTMATH_BACKENDS it is ignored, as the
+        # JAX facade's _backend_kwargs ignores it
+        self.fast_math = fast_math
         self.walls_np = np.asarray(walls, dtype=bool)
         self.walls = torch.as_tensor(self.walls_np, device=self.device)
-        f_init = initial_state(cfg) if f0 is None else np.asarray(f0, np.dtype(cfg.dtype))
+        # closed-form geometry spec (None for arbitrary masks): the kernel
+        # computes the mask instead of reading a plane. Slip masks are
+        # arbitrary, so slip runs read the class plane.
+        self.wall_spec = (
+            geometry.infer_spec(self.walls_np)
+            if backend in _WALL_SPEC_BACKENDS and not has_slip
+            else None
+        )
+        self.slip_x = None if slip_x is None else np.asarray(slip_x, dtype=bool)
+        self.slip_y = None if slip_y is None else np.asarray(slip_y, dtype=bool)
+        self._slip = {}
+        if has_slip and backend == "torch":
+            self._slip = {
+                name: None if m is None else torch.as_tensor(m, device=self.device)
+                for name, m in (("slip_x", self.slip_x), ("slip_y", self.slip_y))
+            }
+        f_init = initial_state(cfg) if f0 is None else f0
         if backend in _DS_BACKENDS:
-            f = df64.from_f64(f_init, self.device)
+            f = df64.from_f64(np.asarray(f_init, np.float64), self.device)
         else:
-            f = torch.tensor(f_init, dtype=dtype, device=self.device)
-        # persistent kernel session: buffers and solid plane are built
+            f = state_tensor(f_init, cfg.dtype, self.device)
+        # persistent kernel session: buffers and geometry are built
         # once, and run() is then launches only
         self._session = None
         self._f = None
         if backend == "cuda":
-            self._session = fused_kernel.Session(cfg, self.walls_np, device=self.device)
+            self._session = fused_kernel.Session(
+                cfg, self.walls_np, device=self.device, wall_spec=self.wall_spec,
+                slip_x=self.slip_x, slip_y=self.slip_y,
+                fast_math=fast_math and backend in _FASTMATH_BACKENDS,
+            )
         elif backend == "cuda-ds64":
             self._session = fused_ds_kernel.Session(cfg, self.walls_np, device=self.device)
         if self._session is not None:
@@ -158,7 +221,7 @@ class Simulation:
         if self._session is not None:
             self._session.advance(n_steps)
         else:
-            self._f = self._run_steps(self._f, self.walls, self.cfg, n_steps)
+            self._f = self._run_steps(self._f, self.walls, self.cfg, n_steps, **self._slip)
         if block:
             _sync(self.device)
         self.elapsed += time.perf_counter() - t0
@@ -180,7 +243,9 @@ class Simulation:
 
     def state(self) -> np.ndarray:
         """Current state as a host array: float64 on the ds backends (the
-        pair recombined), the storage dtype otherwise."""
+        pair recombined), float32 for bf16 storage (the exact upcast:
+        numpy has no bf16 without ml_dtypes), the storage dtype
+        otherwise."""
         if self.backend in _DS_BACKENDS:
             return ds_engine.state_f64(self.f)
         return to_numpy(self.f)
@@ -192,8 +257,8 @@ class Simulation:
     def speed_squared(self) -> np.ndarray:
         """|u|^2 field, the quantity PrintLattice dumps
         (src/latticeboltzmann.c:631-633)."""
-        _, ux, uy = self.macroscopic()
-        return np.asarray(ux * ux + uy * uy)
+        _, ux, uy = torch_ops.macroscopic(self._f64())
+        return to_numpy(ux * ux + uy * uy)
 
     def reynolds(self, col: int | None = None) -> float:
         """Reynolds number at a column (default ny/2, the reference's

@@ -110,15 +110,18 @@ def load_library() -> ctypes.CDLL:
     """Build (at first use) and load the kernel library, with every
     entry point's argument and return types declared."""
     lib = ctypes.CDLL(str(build()))
-    fn = lib.lbm_stream_collide_f32_launch
+    fn = lib.lbm_stream_collide_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [
         ctypes.c_void_p,  # src
         ctypes.c_void_p,  # dst
-        ctypes.c_void_p,  # solid (may be null for the wall-free variant)
+        ctypes.c_void_p,  # solid class plane (null unless geometry 1)
+        ctypes.c_void_p,  # spec: 10 host int64 (null unless geometry 2)
         ctypes.c_int64,   # nx
         ctypes.c_int64,   # ny
-        ctypes.c_int64,   # has_walls
+        ctypes.c_int64,   # storage: 0 float32, 1 bfloat16
+        ctypes.c_int64,   # geometry: 0 none, 1 plane, 2 spec
+        ctypes.c_int64,   # fast_math
         ctypes.c_void_p,  # params: 9 host floats
         ctypes.c_void_p,  # cudaStream_t
     ]

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ..core.spec import NSPEEDS, LatticeConfig
+from ..utils.interop import storage_dtype
 from . import cuda_build, df64, ds_engine
 from .df64 import DS
 from .fused_kernel import check_device, check_solid_plane
@@ -82,7 +83,7 @@ def step_reference(
 
 
 def _require_float64(cfg: LatticeConfig) -> None:
-    if np.dtype(cfg.dtype) != np.dtype(np.float64):
+    if storage_dtype(cfg.dtype) != torch.float64:
         raise ValueError(
             "the ds kernel carries DP-class state; construct the LatticeConfig "
             "with dtype=np.float64 (the host-side precision of the pair)"
@@ -112,7 +113,7 @@ def _check(src: DS, dst: DS, solid, cfg: LatticeConfig, has_walls: bool) -> None
         raise ValueError("step is out of place: src.hi, src.lo, dst.hi and dst.lo "
                          "must be four distinct buffers")
     if has_walls:
-        check_solid_plane(solid, shape[1:], dev)
+        check_solid_plane(solid, shape[1:], dev, max_code=1)
 
 
 def step(

@@ -2,18 +2,27 @@
 Session / run_steps surface of latticeboltzmann_tpu/ops/fused_kernel.py.
 
 One launch of csrc/lbm_step.cu advances the whole lattice one step out
-of place: forcing at column 0, periodic pull, BGK collision and
-bounce-back, in the JAX package's fused-kernel arithmetic order. The
-`step` wrapper launches it for CUDA tensors and takes `step_reference`,
-its plain PyTorch version, for CPU tensors; anything else raises.
+of place: forcing at column 0, periodic pull, BGK collision and the
+solid classes (bounce-back, free-slip), in the JAX package's
+fused-kernel arithmetic order. The `step` wrapper launches it for CUDA
+tensors and takes `step_reference`, its plain PyTorch version, for CPU
+tensors; anything else raises.
 
-State is the unpadded (9, NX, NY) float32 layout: the TPU kernel's
-mirror-pad lanes, VMEM staging and temporal blocking have no
-counterpart here (ROADMAP, "Not to port").
+Variants, all single-chip (the JAX kernel at T=1):
+- storage: float32, or bfloat16 with float32 arithmetic;
+- geometry: none (wall-free), a uint8 class plane (0 fluid, 1
+  bounce-back, 2 slip_x, 3 slip_y; `class_plane`), or a closed-form wall
+  spec evaluated in the kernel (no plane read; geometry.infer_spec);
+- fast_math: an approximate 1/rho.
+
+State is the unpadded (9, NX, NY) layout: the TPU kernel's mirror-pad
+lanes, VMEM staging and temporal blocking have no counterpart here
+(ROADMAP, "Not to port").
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 
@@ -21,16 +30,35 @@ import numpy as np
 import torch
 from torch.utils.weak import WeakIdKeyDictionary
 
-from ..core.spec import NSPEEDS, OPPOSITE, W, LatticeConfig
+from ..core import geometry
+from ..core.spec import NSPEEDS, OPPOSITE, REFLECT_X, REFLECT_Y, W, LatticeConfig
+from ..utils.interop import storage_dtype
 from . import cuda_build, stream_collide
 
-# kernel launches made by `step`, for callers that must show a run went
-# through the kernel (chip_smoke.py resets and reads it)
+# kernel launches made by `step`, in all and by variant name
+# (`variant_name`), for callers that must show a run went through the
+# kernel (chip_smoke.py resets and reads both)
 LAUNCHES = 0
+VARIANT_LAUNCHES: collections.Counter = collections.Counter()
 
-# solid planes whose codes were checked, by tensor, with the version
-# counter at the check: the check syncs with the device, so it runs once
-# per plane and again only after an in-place write to it
+# the storage and geometry codes of the launcher in csrc/lbm_step.cu
+_STORAGE = {torch.float32: 0, torch.bfloat16: 1}
+_GEOMETRY = {"none": 0, "plane": 1, "spec": 2}
+# solid-class codes: 0 fluid, 1 bounce-back, 2 slip_x, 3 slip_y
+MAX_CODE = 3
+# the int64 fields of a wall spec in the kernel's Spec order
+SPEC_FIELDS = 10
+# fast math has no bitwise reference: rcp.approx.f32 is within about one
+# float32 ulp of 1/rho, so each step moves a value by a few ulps (~1e-7
+# relative). The fast-math variant is held to step_reference (IEEE 1/rho)
+# by the max relative difference after FAST_MATH_STEPS chained steps on
+# each side; an H100 measured 1.18e-6 at 800x4000 (PERF.md).
+FAST_MATH_RTOL = 1e-5
+FAST_MATH_STEPS = 10
+
+# solid planes whose codes were checked, by tensor: (version counter at
+# the check, largest code). The check syncs with the device, so it runs
+# once per plane and again only after an in-place write to it
 _CHECKED_SOLID = WeakIdKeyDictionary()
 
 
@@ -39,8 +67,9 @@ def kernel_constants(cfg: LatticeConfig) -> tuple[float, ...]:
     """The kernel's launch constants, rounded to float32 the way the JAX
     fused kernel rounds them (ops/fused_kernel.py:424-434 there, then
     the folded products at :1041-1053): (c1, iw0, iw14, iw58, k3, k6,
-    half, a14, a58), the order of Params in csrc/lbm_step.cu. Cached:
-    `step` reads them at every launch."""
+    half, a14, a58), the order of Params in csrc/lbm_step.cu. Float32
+    for every storage dtype. Cached: `step` reads them at every
+    launch."""
     dt = np.float32
     one, three, half, sixth = dt(1.0), dt(3.0), dt(0.5), dt(1.0 / 6.0)
     csq, icsq, itau = dt(cfg.csq), dt(1.0 / cfg.csq), dt(1.0 / cfg.tau)
@@ -51,6 +80,64 @@ def kernel_constants(cfg: LatticeConfig) -> tuple[float, ...]:
         float(x) for x in (one - itau, itau * w[0], itau * w[1], itau * w[5],
                            three * icsq, sixth * csq, half, a14, a58)
     )
+
+
+def class_plane(walls, slip_x=None, slip_y=None) -> np.ndarray:
+    """Solid-class codes as one (NX, NY) uint8 plane: 0 fluid, 1
+    bounce-back wall, 2 slip_x, 3 slip_y. Precedence walls > slip_x >
+    slip_y, as the JAX package's class_plane (ops/fused_kernel.py:
+    1879-1889 there, which holds the same codes as float32)."""
+    walls = np.asarray(walls, dtype=bool)
+    cls = walls.astype(np.uint8)
+    if slip_y is not None:
+        cls[np.asarray(slip_y, dtype=bool) & ~walls] = 3
+    if slip_x is not None:
+        cls[np.asarray(slip_x, dtype=bool) & ~walls] = 2
+    return cls
+
+
+def kernel_spec(spec, nx: int, ny: int) -> tuple[int, ...]:
+    """A wall spec as the kernel's Spec fields: (channel, rect, r0, r1,
+    c0, c1, circle, ci2, cj2, r2q), int64. The kernel takes at most one
+    ("channel",), one ("rect", r0, r1, c0, c1) and one ("circle2", ci2,
+    cj2, r2q), which covers everything geometry.infer_spec returns;
+    anything else raises ValueError, as does a circle2 whose integer test
+    could overflow int64 on an nx x ny lattice."""
+    out = [0] * SPEC_FIELDS
+    seen = set()
+    for prim in spec:
+        kind = prim[0] if isinstance(prim, tuple) and prim else None
+        shape = {"channel": 1, "rect": 5, "circle2": 4}.get(kind)
+        if shape is None or kind in seen or len(prim) != shape:
+            raise ValueError(
+                f"the kernel takes at most one ('channel',), one ('rect', r0, r1, c0, c1) "
+                f"and one ('circle2', ci2, cj2, r2q); got {spec!r}"
+            )
+        if not all(isinstance(v, (int, np.integer)) for v in prim[1:]):
+            raise ValueError(f"wall-spec primitive {prim!r} must hold integers")
+        seen.add(kind)
+        vals = [int(v) for v in prim[1:]]
+        if kind == "channel":
+            out[0] = 1
+        elif kind == "rect":
+            out[1:6] = [1, *vals]
+        else:
+            out[6:10] = [1, *vals]
+    if any(abs(v) >= 2**62 for v in out):
+        raise ValueError(f"wall-spec values out of range: {spec!r}")
+    if out[6]:
+        di = max(abs(out[7]), abs(2 * (nx - 1) - out[7]))
+        dj = max(abs(out[8]), abs(2 * (ny - 1) - out[8]))
+        if di * di + dj * dj >= 2**63:
+            raise ValueError(f"circle2 {spec!r} overflows int64 on a {nx}x{ny} lattice")
+    return tuple(out)
+
+
+def variant_name(dtype: torch.dtype, geometry_kind: str, slip: bool, fast_math: bool) -> str:
+    """The key of VARIANT_LAUNCHES: storage-geometry[-slip][-fast], e.g.
+    "f32-spec", "bf16-plane-slip", "f32-spec-fast"."""
+    name = f"{'bf16' if dtype == torch.bfloat16 else 'f32'}-{geometry_kind}"
+    return name + ("-slip" if slip else "") + ("-fast" if fast_math else "")
 
 
 def collide_reference(pulled: torch.Tensor, cfg: LatticeConfig) -> torch.Tensor:
@@ -81,44 +168,68 @@ def collide_reference(pulled: torch.Tensor, cfg: LatticeConfig) -> torch.Tensor:
     return torch.stack(out)
 
 
+@functools.lru_cache(maxsize=8)
+def _spec_plane(spec: tuple, nx: int, ny: int, device: torch.device) -> torch.Tensor:
+    """A wall spec as a read-only uint8 plane on `device`. Cached:
+    geometry.spec_mask builds the mask on the host, which at 800x4000
+    costs more than the step itself."""
+    return torch.as_tensor(geometry.spec_mask(spec, nx, ny).astype(np.uint8), device=device)
+
+
 def step_reference(
-    src: torch.Tensor, solid: torch.Tensor | None, cfg: LatticeConfig
+    src: torch.Tensor,
+    solid: torch.Tensor | None,
+    cfg: LatticeConfig,
+    *,
+    wall_spec=None,
+    fast_math: bool = False,
 ) -> torch.Tensor:
     """Plain PyTorch version of the kernel's one step: forcing, pull,
-    collision in the fused order, bounce-back with wall-f0 passthrough.
-    solid: (NX, NY) uint8 codes (0 fluid, 1 bounce-back), or None for
-    the wall-free variant. Returns a new tensor."""
-    walls = (
-        torch.zeros(src.shape[1:], dtype=torch.bool, device=src.device)
-        if solid is None else solid != 0
-    )
-    pulled = stream_collide.pull(stream_collide.apply_source(src, walls, cfg))
-    out = collide_reference(pulled, cfg)
+    collision in the fused order, then the solid classes (bounce-back
+    with wall-f0 passthrough, the slip reflections). Returns a new
+    tensor of src's dtype.
+
+    solid: (NX, NY) uint8 codes (0 fluid, 1 bounce-back, 2 slip_x, 3
+    slip_y); or wall_spec, a closed-form spec materialized through
+    geometry.spec_mask; neither is the wall-free variant. Forcing skips
+    every nonzero code.
+
+    bfloat16 src is the JAX Pallas kernel at T=1: the exact upcast goes
+    through the float32 step, whose forced column stays float32 through
+    the pull (the XLA engine instead rounds it to bf16 first), and the
+    result is rounded once, to nearest even.
+
+    fast_math is taken for the kernel's signature and computes IEEE
+    1/rho: the approximate reciprocal has no bitwise reference (the
+    kernel's fast-math variant is held to this within FAST_MATH_RTOL)."""
+    del fast_math
+    if wall_spec is not None:
+        if solid is not None:
+            raise ValueError("give a solid plane or a wall spec, not both")
+        solid = _spec_plane(tuple(map(tuple, wall_spec)), cfg.nx, cfg.ny, src.device)
+    f = src.float() if src.dtype == torch.bfloat16 else src
     if solid is None:
-        return out
-    return torch.where(walls[None], pulled[OPPOSITE.tolist()], out)
+        solid = torch.zeros(src.shape[1:], dtype=torch.uint8, device=src.device)
+    pulled = stream_collide.pull(stream_collide.apply_source(f, solid != 0, cfg))
+    out = collide_reference(pulled, cfg)
+    for code, table in ((2, REFLECT_X), (3, REFLECT_Y), (1, OPPOSITE)):
+        out = torch.where((solid == code)[None], pulled[table.tolist()], out)
+    return out.to(src.dtype)
 
 
-def check_solid(solid: torch.Tensor) -> None:
-    """Raise unless every code is 0 (fluid) or 1 (bounce-back): the slip
-    codes 2/3 of the JAX package's class_plane are ROADMAP B3. Syncs
-    with the device, so `step` memoizes it per plane."""
-    if _CHECKED_SOLID.get(solid) == solid._version:
-        return
-    if solid.numel() and int(solid.max()) > 1:
+def check_solid(solid: torch.Tensor, max_code: int = MAX_CODE) -> int:
+    """Raise unless every code is in 0..max_code; return the largest
+    code. Syncs with the device, so it is memoized per plane."""
+    memo = _CHECKED_SOLID.get(solid)
+    if memo is None or memo[0] != solid._version:
+        memo = (solid._version, int(solid.max()) if solid.numel() else 0)
+        _CHECKED_SOLID[solid] = memo
+    if memo[1] > max_code:
         raise ValueError(
-            "solid codes other than 0 (fluid) and 1 (bounce-back) are not "
-            "supported yet (slip codes 2/3 are ROADMAP B3)"
+            f"solid code {memo[1]} found; this kernel takes codes 0-{max_code} "
+            "(0 fluid, 1 bounce-back, 2 slip_x, 3 slip_y)"
         )
-    _CHECKED_SOLID[solid] = solid._version
-
-
-def _require_float32(cfg: LatticeConfig) -> None:
-    if np.dtype(cfg.dtype) != np.dtype(np.float32):
-        raise NotImplementedError(
-            f"the stream-collide kernel takes float32 state only; "
-            f"{np.dtype(cfg.dtype)} is ROADMAP B3"
-        )
+    return memo[1]
 
 
 def check_device(t: torch.Tensor) -> None:
@@ -136,99 +247,157 @@ def check_device(t: torch.Tensor) -> None:
         )
 
 
-def check_solid_plane(solid, shape: tuple, device: torch.device) -> None:
+def check_solid_plane(solid, shape: tuple, device: torch.device,
+                      max_code: int = MAX_CODE) -> int:
     """Raise unless solid is a contiguous uint8 (NX, NY) plane on
-    `device` holding codes 0 and 1 only."""
-    if solid is None:
-        raise ValueError("the masked variant needs a solid plane")
+    `device` holding codes 0..max_code; return its largest code."""
+    if not isinstance(solid, torch.Tensor):
+        raise ValueError(f"the masked variant needs a uint8 solid plane, got {type(solid)}")
     if solid.dtype != torch.uint8 or tuple(solid.shape) != shape:
         raise ValueError(f"solid must be uint8 {shape}, got {solid.dtype} {tuple(solid.shape)}")
     if not solid.is_contiguous() or solid.device != device:
         raise ValueError("solid must be contiguous and on src's device")
-    check_solid(solid)
+    return check_solid(solid, max_code)
 
 
-def _check(src, dst, solid, cfg: LatticeConfig, has_walls: bool) -> None:
-    _require_float32(cfg)
+def _storage(cfg: LatticeConfig) -> torch.dtype:
+    st = storage_dtype(cfg.dtype)
+    if st not in _STORAGE:
+        raise NotImplementedError(
+            f"the stream-collide kernel takes float32 and bfloat16 storage; {st} is "
+            "ROADMAP B15 (the f64 variant)"
+        )
+    return st
+
+
+def _check(src, dst, geom, cfg: LatticeConfig) -> tuple[str, object]:
+    """Validate a launch; return the geometry kind and what the launch
+    needs of it (the plane's largest code, or the kernel's spec
+    fields)."""
+    st = _storage(cfg)
     check_device(src)
     shape = (NSPEEDS, cfg.nx, cfg.ny)
     if src is dst or src.data_ptr() == dst.data_ptr():
         raise ValueError("step is out of place: src and dst must be distinct buffers")
     for name, t in (("src", src), ("dst", dst)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype} (other dtypes: ROADMAP B3)")
+        if t.dtype != st:
+            raise TypeError(f"{name} must be {st} (the config's storage), got {t.dtype}")
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} shape {tuple(t.shape)} != {shape}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if dst.device != src.device:
         raise ValueError(f"dst on {dst.device}, src on {src.device}")
-    if has_walls:
-        check_solid_plane(solid, shape[1:], src.device)
+    if geom is None:
+        return "none", None
+    if isinstance(geom, tuple):
+        return "spec", kernel_spec(geom, cfg.nx, cfg.ny)
+    return "plane", check_solid_plane(geom, shape[1:], src.device)
 
 
 def step(
     src: torch.Tensor,
     dst: torch.Tensor,
-    solid: torch.Tensor | None,
+    geom,
     cfg: LatticeConfig,
     *,
-    has_walls: bool,
+    fast_math: bool = False,
 ) -> torch.Tensor:
-    """One step src -> dst; returns dst. On a CUDA tensor it launches the
-    kernel (the masked variant when has_walls, else the wall-free one)
-    on the current stream and counts it in LAUNCHES; on a CPU tensor it
-    writes step_reference's result. Raises on anything the kernel does
-    not take, and on any other device."""
+    """One step src -> dst; returns dst. geom is None (the wall-free
+    variant), a uint8 (NX, NY) class plane, or a wall spec tuple (the
+    mask computed in the kernel). src and dst hold the config's storage
+    dtype, float32 or bfloat16. On a CUDA tensor it launches the kernel
+    on the current stream and counts it in LAUNCHES and
+    VARIANT_LAUNCHES; on a CPU tensor it writes step_reference's result.
+    Raises on anything the kernel does not take, and on any other
+    device."""
     global LAUNCHES
-    _check(src, dst, solid, cfg, has_walls)
+    kind, info = _check(src, dst, geom, cfg)
     if src.device.type == "cpu":
-        dst.copy_(step_reference(src, solid if has_walls else None, cfg))
+        if kind == "spec":
+            dst.copy_(step_reference(src, None, cfg, wall_spec=geom))
+        else:
+            dst.copy_(step_reference(src, geom, cfg))
         return dst
     params = (ctypes.c_float * 9)(*kernel_constants(cfg))
-    rc = cuda_build.load_library().lbm_stream_collide_f32_launch(
-        src.data_ptr(), dst.data_ptr(), solid.data_ptr() if has_walls else None,
-        cfg.nx, cfg.ny, int(has_walls), ctypes.addressof(params),
-        torch.cuda.current_stream(src.device).cuda_stream,
+    spec = (ctypes.c_int64 * SPEC_FIELDS)(*info) if kind == "spec" else None
+    rc = cuda_build.load_library().lbm_stream_collide_launch(
+        src.data_ptr(), dst.data_ptr(),
+        geom.data_ptr() if kind == "plane" else None,
+        ctypes.addressof(spec) if spec is not None else None,
+        cfg.nx, cfg.ny, _STORAGE[src.dtype], _GEOMETRY[kind], int(fast_math),
+        ctypes.addressof(params), torch.cuda.current_stream(src.device).cuda_stream,
     )
     if rc != 0:
-        raise RuntimeError(f"lbm_stream_collide_f32 launch failed: cudaError {rc}")
+        raise RuntimeError(f"lbm_stream_collide launch failed: cudaError {rc}")
     LAUNCHES += 1
+    VARIANT_LAUNCHES[variant_name(src.dtype, kind, kind == "plane" and info > 1,
+                                  fast_math)] += 1
     return dst
+
+
+def _host_mask(x):
+    return x.cpu().numpy() if torch.is_tensor(x) else x
 
 
 class Session:
     """Persistent state for one lattice configuration on one device: the
-    solid plane and two preallocated (9, NX, NY) buffers that swap roles
-    every step (the analog of the JAX kernel's aliased donor buffer).
-    The masked variant runs when the mask has a solid site, the
-    wall-free variant otherwise.
+    geometry and two preallocated (9, NX, NY) buffers of the storage
+    dtype that swap roles every step (the analog of the JAX kernel's
+    aliased donor buffer).
+
+    The geometry: with slip masks, the class plane (slip masks are
+    arbitrary, so they force the plane, as the JAX Session does at
+    ops/fused_kernel.py:2778-2780); else none when the mask has no solid
+    site; else wall_spec when one is given (the caller vouches that it
+    reproduces `walls`; geometry.infer_spec's result does); else the
+    walls as a uint8 plane.
 
     Usage:
-        sess = Session(cfg, walls, device="cuda")
+        sess = Session(cfg, walls, device="cuda", wall_spec=spec)
         sess.load(f)       # copy the state in
         sess.advance(n)    # n launches, no host sync
         sess.block()       # completion barrier
         f = sess.state()   # a copy; the session keeps running
     """
 
-    def __init__(self, cfg: LatticeConfig, walls, *, device: str | torch.device):
-        _require_float32(cfg)
-        walls_np = np.asarray(walls, dtype=bool)
+    def __init__(
+        self,
+        cfg: LatticeConfig,
+        walls,
+        *,
+        device: str | torch.device,
+        wall_spec=None,
+        slip_x=None,
+        slip_y=None,
+        fast_math: bool = False,
+    ):
+        self.dtype = _storage(cfg)
+        walls_np = np.asarray(_host_mask(walls), dtype=bool)
         if walls_np.shape != (cfg.nx, cfg.ny):
             raise ValueError(f"walls shape {walls_np.shape} != {(cfg.nx, cfg.ny)}")
         self.cfg = cfg
         self.device = torch.device(device)
-        self.has_walls = bool(walls_np.any())
-        self.solid = torch.as_tensor(walls_np.astype(np.uint8), device=self.device)
+        self.fast_math = fast_math
+        if slip_x is not None or slip_y is not None:
+            cls = class_plane(walls_np, _host_mask(slip_x), _host_mask(slip_y))
+            self.geom = torch.as_tensor(cls, device=self.device)
+        elif not walls_np.any():
+            self.geom = None
+        elif wall_spec is not None:
+            self.geom = tuple(wall_spec)
+            kernel_spec(self.geom, cfg.nx, cfg.ny)  # refuse what the kernel does not take
+        else:
+            self.geom = torch.as_tensor(walls_np.astype(np.uint8), device=self.device)
+        self.has_walls = self.geom is not None
         self._a = self._b = None
 
     def load(self, f: torch.Tensor) -> None:
         """Copy (9, NX, NY) state into the session's buffers (allocated
-        at the first load)."""
+        at the first load; a float32 f is rounded to bf16 storage)."""
         if self._a is None:
             shape = (NSPEEDS, self.cfg.nx, self.cfg.ny)
-            self._a = torch.empty(shape, dtype=torch.float32, device=self.device)
+            self._a = torch.empty(shape, dtype=self.dtype, device=self.device)
             self._b = torch.empty_like(self._a)
         self._a.copy_(f)
 
@@ -236,7 +405,7 @@ class Session:
         """n_steps launches, swapping the two buffers after each."""
         a, b = self._a, self._b
         for _ in range(n_steps):
-            step(a, b, self.solid, self.cfg, has_walls=self.has_walls)
+            step(a, b, self.geom, self.cfg, fast_math=self.fast_math)
             a, b = b, a
         self._a, self._b = a, b
 
@@ -255,11 +424,21 @@ class Session:
         return out
 
 
-def run_steps(f: torch.Tensor, walls, cfg: LatticeConfig, n_steps: int) -> torch.Tensor:
+def run_steps(
+    f: torch.Tensor,
+    walls,
+    cfg: LatticeConfig,
+    n_steps: int,
+    *,
+    wall_spec=None,
+    slip_x=None,
+    slip_y=None,
+    fast_math: bool = False,
+) -> torch.Tensor:
     """Unpadded in, unpadded out: the one-shot form of Session on f's
     device. `f` is not modified."""
-    sess = Session(cfg, walls.cpu().numpy() if torch.is_tensor(walls) else walls,
-                   device=f.device)
+    sess = Session(cfg, walls, device=f.device, wall_spec=wall_spec,
+                   slip_x=slip_x, slip_y=slip_y, fast_math=fast_math)
     sess.load(f)
     sess.advance(n_steps)
     return sess.unload()

@@ -12,6 +12,11 @@ Every divisor is a tensor on the state's device, never a Python scalar:
 PyTorch's CUDA division by a host scalar multiplies by its reciprocal,
 which rounds differently.
 
+bfloat16 is a storage precision, as in the JAX engine
+(latticeboltzmann_tpu/ops/stream_collide.py:25-33): the forcing runs in
+float32 and rounds the forced column back to bf16 before the pull; the
+pulled planes go up to float32, and the step's result is rounded once.
+
 The hand-written CUDA kernel (ops/fused_kernel.py) is the performance
 path; this module is the semantics anchor.
 """
@@ -22,14 +27,15 @@ import numpy as np
 import torch
 
 from ..core.spec import E, NSPEEDS, OPPOSITE, REFLECT_X, REFLECT_Y, W, LatticeConfig
-from ..utils.interop import torch_dtype
+from ..utils.interop import compute_dtype
 
 
 def _np_dtype(cfg: LatticeConfig):
-    """Compute precision as a numpy scalar type: the constants below are
-    rounded to it on the host, exactly as the JAX engine rounds them."""
-    torch_dtype(cfg.dtype)  # raises on what the port does not take
-    return np.dtype(cfg.dtype).type
+    """Compute precision as a numpy scalar type (float32 for bf16
+    storage): the constants below are rounded to it on the host, exactly
+    as the JAX engine rounds them. Raises on what the port does not
+    take."""
+    return np.float64 if compute_dtype(cfg.dtype) == torch.float64 else np.float32
 
 
 def _full(x: float, like: torch.Tensor) -> torch.Tensor:
@@ -40,12 +46,13 @@ def apply_source(f: torch.Tensor, walls: torch.Tensor, cfg: LatticeConfig) -> to
     """Channel forcing on column j=0 (src/latticeboltzmann.c:489-518).
 
     walls: (NX, NY) bool. Adds accel*w to speeds (5,1,8), subtracts from
-    (6,3,7) on fluid sites where all three decrements stay > 0.
-    Returns a new tensor."""
+    (6,3,7) on fluid sites where all three decrements stay > 0. Guard
+    and increments run in the compute dtype; the forced column is
+    rounded back to the storage dtype. Returns a new tensor."""
     dt = _np_dtype(cfg)
     a14 = float(dt(cfg.accel) * dt(W[1]))
     a58 = float(dt(cfg.accel) * dt(W[5]))
-    col = f[:, :, 0]  # (9, NX)
+    col = f[:, :, 0].to(compute_dtype(cfg.dtype))  # (9, NX)
     ok = (
         (~walls[:, 0])
         & (col[6] - a58 > 0)
@@ -60,7 +67,7 @@ def apply_source(f: torch.Tensor, walls: torch.Tensor, cfg: LatticeConfig) -> to
     delta[3] = -a14
     delta_t = torch.as_tensor(delta, device=f.device)
     out = f.clone()
-    out[:, :, 0] = torch.where(ok[None, :], col + delta_t[:, None], col)
+    out[:, :, 0] = torch.where(ok[None, :], col + delta_t[:, None], col).to(f.dtype)
     return out
 
 
@@ -77,7 +84,8 @@ def pull(f: torch.Tensor) -> torch.Tensor:
 
 def collide(pulled: torch.Tensor, cfg: LatticeConfig) -> torch.Tensor:
     """BGK collision, scalar-kernel association order
-    (src/latticeboltzmann.c:258-296)."""
+    (src/latticeboltzmann.c:258-296). `pulled` must already be in the
+    compute dtype (stream_collide casts bf16 storage up to float32)."""
     dt = _np_dtype(cfg)
     ft = pulled
     one = float(dt(1.0))
@@ -126,14 +134,18 @@ def stream_collide(
 
     slip_x / slip_y: optional masks of free-slip (specular-reflection)
     solid sites with wall plane normal to x / y. Precedence on overlap:
-    walls > slip_x > slip_y."""
-    pulled = pull(f)
+    walls > slip_x > slip_y.
+
+    With bf16 storage the step computes in float32 and rounds once on
+    return; the selected pulled values are bf16 values already, so the
+    rounding leaves the wall sites exact."""
+    pulled = pull(f).to(compute_dtype(cfg.dtype))
     out = collide(pulled, cfg)
     if slip_y is not None:
         out = torch.where(slip_y[None, :, :], _gather(pulled, REFLECT_Y), out)
     if slip_x is not None:
         out = torch.where(slip_x[None, :, :], _gather(pulled, REFLECT_X), out)
-    return torch.where(walls[None, :, :], _gather(pulled, OPPOSITE), out)
+    return torch.where(walls[None, :, :], _gather(pulled, OPPOSITE), out).to(f.dtype)
 
 
 def step(

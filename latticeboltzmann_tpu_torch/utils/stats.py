@@ -17,9 +17,8 @@ import dataclasses
 import sys
 import time
 
-import numpy as np
-
 from ..core.spec import FLOP_PER_SITE, NSPEEDS, LatticeConfig
+from .interop import storage_dtype
 
 
 @dataclasses.dataclass
@@ -30,7 +29,7 @@ class RunStats:
     out: object = sys.stdout
 
     def __post_init__(self):
-        self.itemsize = np.dtype(self.cfg.dtype).itemsize
+        self.itemsize = storage_dtype(self.cfg.dtype).itemsize
 
     def modeled_bytes(self, n_steps: int) -> float:
         """Reference bandwidth model (src/latticeboltzmann.c:657-658):

@@ -118,34 +118,37 @@ def _refusal(case):
     solid = torch.as_tensor(walls.astype(np.uint8))
     if case == "no_card":
         meta = src.to("meta")
-        return RuntimeError, lambda: fk.step(meta, torch.empty_like(meta), None, cfg,
-                                             has_walls=False)
+        return RuntimeError, lambda: fk.step(meta, torch.empty_like(meta), None, cfg)
     if case == "src_is_dst":
-        return ValueError, lambda: fk.step(src, src, solid, cfg, has_walls=True)
+        return ValueError, lambda: fk.step(src, src, solid, cfg)
     if case == "slip_code":
-        solid[3, 3] = 2
-        return ValueError, lambda: fk.step(src, dst, solid, cfg, has_walls=True)
+        # codes 2/3 are the slip classes; 4 is no class at all
+        solid[3, 3] = 4
+        return ValueError, lambda: fk.step(src, dst, solid, cfg)
     if case == "float64":
-        return TypeError, lambda: fk.step(src.double(), dst.double(), solid, cfg,
-                                          has_walls=True)
+        return TypeError, lambda: fk.step(src.double(), dst.double(), solid, cfg)
     if case == "f64_config":
         cfg64 = LatticeConfig(nx=16, ny=40, dtype=np.float64)
-        return NotImplementedError, lambda: fk.step(src, dst, solid, cfg64, has_walls=True)
+        return NotImplementedError, lambda: fk.step(src, dst, solid, cfg64)
     if case == "shape":
-        return ValueError, lambda: fk.step(src[:, :8].contiguous(), dst, solid, cfg,
-                                           has_walls=True)
+        return ValueError, lambda: fk.step(src[:, :8].contiguous(), dst, solid, cfg)
     if case == "strided":
-        return ValueError, lambda: fk.step(src.transpose(1, 2), dst, solid, cfg,
-                                           has_walls=True)
+        return ValueError, lambda: fk.step(src.transpose(1, 2), dst, solid, cfg)
     if case == "no_solid":
-        return ValueError, lambda: fk.step(src, dst, None, cfg, has_walls=True)
+        # a geometry that is neither None, a uint8 plane nor a spec tuple
+        return ValueError, lambda: fk.step(src, dst, walls, cfg)
+    if case == "long_spec":
+        spec = (("channel",), ("rect", 5, 9, 10, 13), ("rect", 1, 2, 1, 2))
+        return ValueError, lambda: fk.step(src, dst, spec, cfg)
+    if case == "dtype_mismatch":
+        return TypeError, lambda: fk.step(src, dst.to(torch.bfloat16), solid, cfg)
     raise AssertionError(case)
 
 
 @pytest.mark.parametrize(
     "case",
     ["no_card", "src_is_dst", "slip_code", "float64", "f64_config", "shape",
-     "strided", "no_solid"],
+     "strided", "no_solid", "long_spec", "dtype_mismatch"],
 )
 def test_wrapper_refuses(case):
     exc, call = _refusal(case)
@@ -156,21 +159,31 @@ def test_wrapper_refuses(case):
 
 
 def test_solid_check_reruns_after_in_place_write():
+    """A plane that passed is checked again after an in-place write: a
+    slip code (3) is taken, a code past the classes (4) is refused."""
     cfg, walls = _barrier_16x40()
     src = torch.as_tensor(initial_state(cfg))
     dst = torch.empty_like(src)
     solid = torch.as_tensor(walls.astype(np.uint8))
-    fk.step(src, dst, solid, cfg, has_walls=True)
+    fk.step(src, dst, solid, cfg)
     solid[0, 0] = 3
-    with pytest.raises(ValueError, match="ROADMAP B3"):
-        fk.step(src, dst, solid, cfg, has_walls=True)
+    fk.step(src, dst, solid, cfg)
+    solid[0, 0] = 4
+    with pytest.raises(ValueError, match="codes 0-3"):
+        fk.step(src, dst, solid, cfg)
 
 
 def test_session_refuses_other_dtypes():
-    for dtype in (np.float64, "bfloat16"):
-        with pytest.raises(NotImplementedError, match="ROADMAP B3"):
+    """float32 and bf16 storage run; float16 and float64 raise, and so
+    does a wall spec the kernel does not take."""
+    for dtype in (np.float16, np.float64):
+        with pytest.raises(NotImplementedError):
             fk.Session(LatticeConfig(nx=8, ny=8, dtype=dtype), geometry.empty(8, 8),
                        device="cpu")
+    cfg, walls = _barrier_16x40()
+    with pytest.raises(ValueError, match="at most one"):
+        fk.Session(cfg, walls, device="cpu",
+                   wall_spec=(("channel",), ("rect", 5, 9, 10, 13), ("rect", 1, 2, 1, 2)))
 
 
 def test_kernel_constants_round_like_the_pallas_kernel():
