@@ -53,15 +53,38 @@ Phases, each of which raises on failure:
    "torch" backend;
 14. times: the bf16 spec and plane variants at 800x4000, the bf16 spec
    variant and a bf16 state copy at 4000x16000, the bf16 plain version,
-   the slip and fast-math variants beside theirs.
+   the slip and fast-math variants beside theirs;
+15. the ext-halo forms of both kernels (the row-sharded path) against
+   their plain versions (step_reference_ext) on meshes of 2 and 4
+   virtual shards of the card, 10 single steps at the four scenes of
+   phase 3, with the forcing guard off at column 0 on both sides of a
+   shard boundary: float32 wall-free, plane, spec and slip, bf16 spec,
+   ds fast and exact tiers, bitwise; fast math on 4 shards within
+   FAST_MATH_RTOL of the IEEE single-chip plain version;
+16. the sharded main paths on the 800x4000 reference scene, every launch
+   counted: sharded-cuda over 1 and 4 virtual shards for WARMUP +
+   MAIN_STEPS steps, bitwise equal to phase 4's cuda state;
+   sharded-cuda-fused over 4 shards, FUSED_STEPS steps, and
+   sharded-cuda-ds64 over 4 shards, DS_SHARDED_STEPS steps, bitwise
+   equal to cuda and cuda-ds64; with two or more cards also a mesh of
+   the cards;
+17. times: us/step of each sharded path beside cuda and cuda-ds64, in
+   turns, with the host's enqueue time; the halo exchange per step; the
+   ext-halo kernels' launches of one step (interior + edges, or one per
+   shard) beside the single-chip launch, as the host launches them and
+   queued behind a spin (the card's own time), and their plain versions.
 
-The line before the last is the card's name and power limit; the last
-is {"ok": true, "device": {...}}. Without a CUDA card it exits non-zero
-and prints no result.
+The kernels line gives every kernel's bound: the larger of its bytes
+(each input read once, each output written once) over the card's
+published memory rate and its f32 operations over the published f32
+rate (PEAK_BYTES_PER_S, PEAK_F32_OPS_PER_S). The line before the last is
+the card's name and power limit; the last is {"ok": true, "device":
+{...}}. Without a CUDA card it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import sys
 import time
@@ -89,6 +112,33 @@ BF16_RTOL, BF16_ATOL = 0.05, 2e-3
 # after fused_kernel.FAST_MATH_STEPS chained steps
 # steps of the slip and fast-math paths through the facade
 OPTION_STEPS = 1000
+# the sharded paths held against a single-chip path other than phase 4's
+FUSED_STEPS = 1000
+DS_SHARDED_STEPS = 2000
+# virtual shards of one card on the sharded main paths (200-row shards)
+VIRTUAL_SHARDS = 4
+# the bound's denominators: one H100 SXM's published rates (NVIDIA's data
+# sheet): HBM bytes per second and float32 operations per second outside
+# the tensor cores
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_OPS_PER_S = 67e12
+# float32 operations per site update: the reference's 124 FLOP for the
+# stream-collide kernel; about 1.1k (fast tier) and 2.6k (exact) for the
+# pair-DP kernel (csrc/lbm_ds_step.cu's header)
+F32_OPS_PER_SITE = 124
+DS_OPS_PER_SITE = {False: 1100, True: 2600}
+
+
+def bound(n_bytes, n_ops):
+    """The kernels line's bound keys for work that moves n_bytes and does
+    n_ops float32 operations: the larger of the two times at the card's
+    published rates, which of them it is, and library_ms, None: no single
+    PyTorch call computes a fused lattice-Boltzmann step."""
+    t_bytes = n_bytes / PEAK_BYTES_PER_S
+    t_ops = n_ops / PEAK_F32_OPS_PER_S
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None}
 
 
 def perturbed_state(cfg, rng):
@@ -106,19 +156,28 @@ def reset_counts():
     from latticeboltzmann_tpu_torch.ops import fused_ds_kernel, fused_kernel
 
     fused_kernel.LAUNCHES = fused_ds_kernel.LAUNCHES = 0
+    fused_kernel.EXT_LAUNCHES = fused_ds_kernel.EXT_LAUNCHES = 0
     fused_kernel.VARIANT_LAUNCHES.clear()
+    fused_kernel.EXT_VARIANT_LAUNCHES.clear()
 
 
 def read_counts():
-    """{variant: launches} of the stream-collide kernel, and the ds
-    kernel's under "ds"."""
+    """{variant: launches} of the stream-collide kernel, its ext-halo
+    form's as "ext-<variant>", and the ds kernel's under "ds" and
+    "ds-ext"."""
     from latticeboltzmann_tpu_torch.ops import fused_ds_kernel, fused_kernel
 
     counts = dict(fused_kernel.VARIANT_LAUNCHES)
     if sum(counts.values()) != fused_kernel.LAUNCHES:
         raise AssertionError(f"variant counts {counts} != {fused_kernel.LAUNCHES} launches")
+    ext = dict(fused_kernel.EXT_VARIANT_LAUNCHES)
+    if sum(ext.values()) != fused_kernel.EXT_LAUNCHES:
+        raise AssertionError(f"ext variant counts {ext} != {fused_kernel.EXT_LAUNCHES} launches")
+    counts.update({f"ext-{v}": n for v, n in ext.items()})
     if fused_ds_kernel.LAUNCHES:
         counts["ds"] = fused_ds_kernel.LAUNCHES
+    if fused_ds_kernel.EXT_LAUNCHES:
+        counts["ds-ext"] = fused_ds_kernel.EXT_LAUNCHES
     return counts
 
 
@@ -228,6 +287,25 @@ def event_ms(fn, n):
     return t0.elapsed_time(t1) / n
 
 
+def queued_ms(fn, n, sleep_cycles=60_000_000):
+    """Device milliseconds per call of fn over n calls: the card first
+    spins for sleep_cycles (about 30 ms), long enough for the host to
+    queue all n calls behind it, so the events time the launches back to
+    back and not the host's launch rate (the sharded step's 12 small
+    launches are host-bound, and event_ms would time the host)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(sleep_cycles)
+    t0.record()
+    for _ in range(n):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / n
+
+
 def rates_printer(cfg, bps):
     """A printer of one time per step at cfg's size, with MLUPS and the
     effective GB/s at bps bytes per site."""
@@ -257,15 +335,16 @@ def slope(sim):
     return (t2 - t1) / (n2 - n1)
 
 
-def in_turns(rates, prefix, fns, n):
-    """Time each labelled fn by CUDA events over n calls, in turns a, b,
-    ..., ..., b, a; print every time in the order taken and return
-    {label: best ms}."""
+def in_turns(rates, prefix, fns, n, timer=event_ms):
+    """Time each labelled fn by CUDA events (timer: event_ms or
+    queued_ms) over n calls, in turns a, b, ..., ..., b, a; print every
+    time in the order taken and return {label: best ms}."""
     order = list(fns) + list(reversed(fns))
     best = {}
     for label in order:
-        ms = event_ms(fns[label], n)
-        rates(f"{prefix}, {label} (CUDA events, {n} calls, in turns)", ms * 1e-3)
+        ms = timer(fns[label], n)
+        how = "queued behind a spin, in turns" if timer is queued_ms else "in turns"
+        rates(f"{prefix}, {label} (CUDA events, {n} calls, {how})", ms * 1e-3)
         best[label] = min(best.get(label, ms), ms)
     return best
 
@@ -361,13 +440,16 @@ def main() -> int:
         "ms": kernel_ms,
         "plain_ms": plain_ms,
         "plane_ms": plane_ms,
+        # the spec variant: 9 f32 values read and 9 written per site
+        **bound(2 * a.numel() * a.element_size(), F32_OPS_PER_SITE * cfg.sites),
     }
     del sim, eng, a, b
 
     ds = ds_phases()
     options = option_phases(f32_main)
+    ext = sharded_phases(f32_main)
 
-    print(json.dumps({"kernels": [f32_entry, *options, ds]}))
+    print(json.dumps({"kernels": [f32_entry, *options, ds, *ext]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
@@ -473,6 +555,9 @@ def ds_phases():
         "plain_ms": plain[False],
         "exact_tier_ms": ms[True],
         "exact_tier_plain_ms": plain[True],
+        # the fast tier, masked: both pair components read and written,
+        # and the mask byte
+        **bound(4 * a.hi.numel() * 4 + solid.numel(), DS_OPS_PER_SITE[False] * cfg.sites),
     }
 
 
@@ -673,20 +758,368 @@ def option_phases(f32_main):
 
     source = "latticeboltzmann_tpu_torch/csrc/lbm_step.cu"
     replaces = "latticeboltzmann_tpu/ops/fused_kernel.py:1757"
+    n_f = 9 * cfg.sites  # f values of one state at 800x4000
+    ops = F32_OPS_PER_SITE * cfg.sites
     return [
         {"name": "lbm_stream_collide<__nv_bfloat16> (plane, wall-free, spec)",
          "route": "cuda", "source": source, "replaces": replaces,
          "launches": bf16_launches, "max_abs_err": bf16_err, "ms": bf16_ms,
          "plain_ms": bf16_plain_ms, "plane_ms": bf16_plane_ms,
-         "ms_4000x16000": big_ms},
+         "ms_4000x16000": big_ms, **bound(2 * n_f * 2, ops)},
         {"name": "lbm_stream_collide<float, plane> with slip codes 2/3",
          "route": "cuda", "source": source, "replaces": replaces,
          "launches": slip_launches, "max_abs_err": slip_err,
-         "ms": t["plane with slip codes"], "plain_ms": slip_plain_ms},
+         "ms": t["plane with slip codes"], "plain_ms": slip_plain_ms,
+         **bound(2 * n_f * 4 + cls.numel(), ops)},
         {"name": "lbm_stream_collide<float, spec> fast math (rcp.approx.f32)",
          "route": "cuda", "source": source, "replaces": replaces,
          "launches": fast_launches, "max_abs_err": fast_abs, "max_rel_err": fast_rel,
-         "ms": t["spec, fast math"], "plain_ms": fast_plain_ms},
+         "ms": t["spec, fast math"], "plain_ms": fast_plain_ms, **bound(2 * n_f * 4, ops)},
+    ]
+
+
+def guard_off_at_boundaries(f, nx):
+    """A copy of the state f with the forcing guard failing (f6 below its
+    decrement) at column 0 of the last row of the 4-shard mesh's first
+    shard and of the first row of its third, which is also the 2-shard
+    mesh's boundary: an edge row's forcing then depends on its halo row's
+    own guard."""
+    f = f.copy()
+    f[6, [nx // 4 - 1, nx // 2], 0] = 1e-6
+    return f
+
+
+def ring_halos(shards):
+    """Each shard's (top, bot) halo rows, all 9 planes of its ring
+    neighbours' boundary rows, as contiguous (9, NY) tensors."""
+    n = len(shards)
+    return [(shards[(k - 1) % n][:, -1].contiguous(), shards[(k + 1) % n][:, 0].contiguous())
+            for k in range(n)]
+
+
+def shard_planes(plane, n):
+    """A class plane on the card as each of n shards' ShardPlane."""
+    from latticeboltzmann_tpu_torch.ops.fused_kernel import ShardPlane
+
+    nx = plane.shape[0]
+    L = nx // n
+    return [ShardPlane(plane[k * L:(k + 1) * L].contiguous(), plane[(k * L - 1) % nx].contiguous(),
+                       plane[(k * L + L) % nx].contiguous()) for k in range(n)]
+
+
+def ext_calls(launcher, L, src, dst, halo, geom, **kw):
+    """One shard's ext-halo launches of one step: the interior rows
+    [1, L-1) without halos, then rows 0 and L-1 (one launch for a shard
+    of fewer than 3 rows)."""
+    if L < 3:
+        return [launcher(src, dst, halo, geom, row0=0, rows=L, **kw)]
+    return [launcher(src, dst, None, geom, row0=1, rows=L - 2, **kw),
+            *(launcher(src, dst, halo, geom, row0=r, rows=1, **kw) for r in (0, L - 1))]
+
+
+def compare_ext(name, cfg, geom, f0, n, steps=10, fast_math=False):
+    """`steps` steps of the ext-halo stream-collide kernel over n virtual
+    shards of the card, each shard held against step_reference_ext from
+    the same input (bitwise, unless fast_math). geom: None, a host class
+    plane, or a wall spec. Returns (joined state, max |diff|)."""
+    from latticeboltzmann_tpu_torch.ops import fused_kernel
+    from latticeboltzmann_tpu_torch.utils.interop import state_tensor
+
+    dev = torch.device("cuda")
+    L = cfg.nx // n
+    plane = isinstance(geom, np.ndarray)
+    geoms = shard_planes(torch.as_tensor(geom, device=dev), n) if plane else [geom] * n
+    f = state_tensor(f0, cfg.dtype, dev)
+    err = 0.0
+    for _ in range(steps):
+        shards = [f[:, k * L:(k + 1) * L].contiguous() for k in range(n)]
+        halos = ring_halos(shards)
+        outs = []
+        for k in range(n):
+            dst = torch.full_like(shards[k], float("nan"))
+            for call in ext_calls(fused_kernel.ext_launcher, L, shards[k], dst, halos[k],
+                                  geoms[k], cfg=cfg, row_offset=k * L, fast_math=fast_math):
+                call()
+            ref = fused_kernel.step_reference_ext(shards[k], halos[k], geoms[k], cfg,
+                                                  row_offset=k * L)
+            d = (dst.float() - ref.float()).abs()
+            e = float(d.max())
+            if not fast_math and not (torch.equal(dst, ref) and e <= KERNEL_ATOL):
+                bad = torch.nonzero(dst != ref)
+                raise AssertionError(
+                    f"{name}: ext-halo kernel != step_reference_ext on shard {k} of {n}, "
+                    f"max |diff| {e!r} at {bad.shape[0]} values (first {bad[:5].tolist()})")
+            err = max(err, e)
+            outs.append(dst)
+        f = torch.cat(outs, dim=1)
+    torch.cuda.synchronize()
+    kind = "wall-free" if geom is None else ("plane" if plane else "spec")
+    print(f"ext-halo kernel vs step_reference_ext {name} ({f.dtype}, {kind}, "
+          f"fast math {fast_math}), {n} virtual shards, {steps} steps: max |diff| = {err!r}")
+    return f, err
+
+
+def compare_ds_ext(name, cfg, walls, f0, n, exact, steps=10):
+    """The same for the ext-halo ds kernel: the masked variant when walls
+    has a solid site, else the wall-free one; bitwise. Returns max
+    |diff| over both pair components."""
+    from latticeboltzmann_tpu_torch.ops import df64, fused_ds_kernel
+
+    dev = torch.device("cuda")
+    L = cfg.nx // n
+    has_walls = bool(walls.any())
+    planes = shard_planes(torch.as_tensor(walls.astype(np.uint8), device=dev), n)
+    a = df64.from_f64(f0, dev)
+    err = 0.0
+    for _ in range(steps):
+        shards = [df64.DS(a.hi[:, k * L:(k + 1) * L].contiguous(),
+                          a.lo[:, k * L:(k + 1) * L].contiguous()) for k in range(n)]
+        his, los = ring_halos([s.hi for s in shards]), ring_halos([s.lo for s in shards])
+        outs = []
+        for k in range(n):
+            halo = tuple(df64.DS(h, lo) for h, lo in zip(his[k], los[k]))
+            dst = df64.DS(torch.full_like(shards[k].hi, float("nan")),
+                          torch.full_like(shards[k].lo, float("nan")))
+            for call in ext_calls(fused_ds_kernel.ext_launcher, L, shards[k], dst, halo,
+                                  planes[k], cfg=cfg, has_walls=has_walls, exact=exact):
+                call()
+            ref = fused_ds_kernel.step_reference_ext(shards[k].hi, shards[k].lo, halo,
+                                                     planes[k] if has_walls else None, cfg, exact)
+            d = torch.maximum((dst.hi - ref.hi).abs(), (dst.lo - ref.lo).abs())
+            e = float(d.max())
+            if not (torch.equal(dst.hi, ref.hi) and torch.equal(dst.lo, ref.lo)):
+                raise AssertionError(
+                    f"{name}: ext-halo ds kernel ({'exact' if exact else 'fast'}) != "
+                    f"step_reference_ext on shard {k} of {n}, max |diff| {e!r}")
+            err = max(err, e)
+            outs.append(dst)
+        a = df64.DS(torch.cat([o.hi for o in outs], 1), torch.cat([o.lo for o in outs], 1))
+    torch.cuda.synchronize()
+    print(f"ext-halo ds kernel vs step_reference_ext {name} ({'exact' if exact else 'fast'} "
+          f"tier, {'masked' if has_walls else 'wall-free'}), {n} virtual shards, {steps} steps: "
+          f"max |diff| = {err!r}")
+    return err
+
+
+def card_mesh_size(nx):
+    """The most cards, at least 2, over which nx rows split evenly; 0 on a
+    machine with one card."""
+    return max((n for n in range(2, torch.cuda.device_count() + 1) if nx % n == 0), default=0)
+
+
+def sharded_phases(f32_main):
+    """Phases 15-17: the ext-halo kernels and the row-sharded paths.
+    f32_main: phase 4's float32 state after WARMUP + MAIN_STEPS steps.
+    Returns the kernels line's entries of the two ext-halo kernels."""
+    from latticeboltzmann_tpu_torch import LatticeConfig, Simulation, geometry, initial_state
+    from latticeboltzmann_tpu_torch.models import engine
+    from latticeboltzmann_tpu_torch.ops import df64, fused_ds_kernel, fused_kernel
+    from latticeboltzmann_tpu_torch.parallel import sharded
+    from latticeboltzmann_tpu_torch.utils.interop import bytes_per_site, state_tensor
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rng = np.random.default_rng(SEED + 2)
+
+    # 15. the ext-halo kernels against their plain versions
+    ext_err = ds_ext_err = 0.0
+    for name, cfg, w in scenes(np.float32):
+        f0 = guard_off_at_boundaries(perturbed_state(cfg, rng), cfg.nx)
+        slip_w, slip_x, slip_y = slip_scene(cfg.nx, cfg.ny)
+        spec = geometry.infer_spec(w)
+        geoms = {"wall-free": None, "plane": w.astype(np.uint8), "spec": spec,
+                 "slip": fused_kernel.class_plane(slip_w, slip_x, slip_y)}
+        cfg16 = dataclasses.replace(cfg, dtype="bfloat16")
+        for n in (2, 4):
+            for kind, g in geoms.items():
+                ext_err = max(ext_err, compare_ext(f"{name}, {kind}", cfg, g, f0, n)[1])
+            ext_err = max(ext_err, compare_ext(f"{name}, spec", cfg16, spec, f0, n)[1])
+    cfg = LatticeConfig(nx=800, ny=4000, dtype=np.float32)
+    walls = geometry.reference_barrier(cfg.nx, cfg.ny)
+    spec = geometry.infer_spec(walls)
+    f0 = perturbed_state(cfg, rng)
+    steps, bar = fused_kernel.FAST_MATH_STEPS, fused_kernel.FAST_MATH_RTOL
+    got, _ = compare_ext("800x4000 reference_barrier", cfg, spec, f0, VIRTUAL_SHARDS,
+                         steps=steps, fast_math=True)
+    ref = state_tensor(f0, cfg.dtype, dev)
+    for _ in range(steps):
+        ref = fused_kernel.step_reference(ref, None, cfg, wall_spec=spec)
+    fast_rel = float(((got - ref).abs() / ref.abs()).max())
+    if not fast_rel <= bar:
+        raise AssertionError(f"ext-halo fast math after {steps} steps: max rel {fast_rel!r} > {bar}")
+    print(f"ext-halo fast-math kernel, {VIRTUAL_SHARDS} virtual shards, vs the single-chip "
+          f"step_reference (IEEE 1/rho) after {steps} chained steps: max rel {fast_rel!r} "
+          f"(bar {bar})")
+    for name, cfg64, w in scenes(np.float64):
+        f = initial_state(cfg64)
+        f64 = guard_off_at_boundaries(f * (1.0 + 0.05 * rng.uniform(-1.0, 1.0, f.shape)),
+                                      cfg64.nx)
+        for n in (2, 4):
+            for exact in (False, True):
+                ds_ext_err = max(ds_ext_err, compare_ds_ext(name, cfg64, w, f64, n, exact))
+
+    # 16. the sharded main paths, every launch counted
+    meshes = {"1 shard": sharded.make_mesh(devices=[dev]),
+              f"{VIRTUAL_SHARDS} virtual shards": sharded.make_mesh(
+                  devices=[dev] * VIRTUAL_SHARDS)}
+    n_cards = card_mesh_size(cfg.nx)
+    if n_cards:
+        meshes[f"{n_cards} cards"] = sharded.make_mesh(n_cards)
+    print(f"sharded meshes: {', '.join(f'{k} {[str(d) for d in m.devices]}' for k, m in meshes.items())}")
+    sims = {}
+
+    def launches_per_step(mesh, overlap=True):
+        L = cfg.nx // mesh.size
+        return mesh.size * (3 if overlap and L >= 3 else 1)
+
+    def sharded_path(label, backend, make, mesh, cfg_, n_steps, key, per_step, want, warmup=0):
+        """Register `backend` over `mesh`, drive it through Simulation for
+        warmup + n_steps counted steps and hold its state bitwise to
+        `want`."""
+        engine.register_backend(backend, make(mesh))
+        reset_counts()
+        sim = Simulation(cfg_, walls, backend=backend)
+        sim.run(warmup)
+        sim.elapsed, sim.steps_done = 0.0, 0
+        sim.run(n_steps)
+        n = expect_counts(f"{backend} over {label}",
+                          {key: (warmup + n_steps) * per_step})[key]
+        got = sim.state()
+        if not np.array_equal(got, want):
+            raise AssertionError(f"{backend} over {label}: state != the single-chip path's after "
+                                 f"{warmup + n_steps} steps, max |diff| "
+                                 f"{float(np.abs(got - want).max())!r}")
+        print(f"{backend} over {label}: {warmup + n_steps} steps, {n} counted ext-halo launches "
+              f"({per_step} per step), bitwise equal to the single-chip path, Re "
+              f"{sim.reynolds()!r}, {sim.mlups!r} MLUPS ({sim.elapsed!r} s)")
+        sims[f"{backend}, {label}"] = sim
+        return n
+
+    key = f"ext-{fused_kernel.variant_name(torch.float32, 'spec', False, False)}"
+    launches = {}
+    for label, mesh in meshes.items():
+        launches[label] = sharded_path(
+            label, "sharded-cuda", lambda m: sharded.make_cuda_backend(m, overlap=True), mesh,
+            cfg, MAIN_STEPS, key, launches_per_step(mesh), f32_main, warmup=WARMUP)
+    want = Simulation(cfg, walls, backend="cuda").run(FUSED_STEPS).state()
+    mesh4 = meshes[f"{VIRTUAL_SHARDS} virtual shards"]
+    sharded_path(f"{VIRTUAL_SHARDS} virtual shards", "sharded-cuda-fused",
+                 lambda m: sharded.make_cuda_backend(m, overlap=False), mesh4, cfg, FUSED_STEPS,
+                 key, launches_per_step(mesh4, overlap=False), want)
+    cfg64 = LatticeConfig(nx=800, ny=4000, dtype=np.float64)
+    want = Simulation(cfg64, walls, backend="cuda-ds64").run(DS_SHARDED_STEPS).state()
+    ds_launches = sharded_path(
+        f"{VIRTUAL_SHARDS} virtual shards", "sharded-cuda-ds64", sharded.make_cuda_ds_backend,
+        mesh4, cfg64, DS_SHARDED_STEPS, "ds-ext", launches_per_step(mesh4), want)
+    del want
+
+    # 17. times, in turns: each path's us/step end to end (a sync per
+    # run) with the host's enqueue time, and the halo exchange per step
+    def path_ms(sim, n):
+        sim.elapsed, sim.steps_done = 0.0, 0
+        t0 = time.perf_counter()
+        sim.run(n, block=False)
+        enqueue = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e3, enqueue / n * 1e3
+
+    def paths_in_turns(rates, group, n):
+        for label in list(group) + list(reversed(group)):
+            ms, enq = path_ms(group[label], n)
+            rates(f"{label} (host clock, {n} steps, in turns; enqueue {enq * 1e3!r} us/step)",
+                  ms * 1e-3)
+
+    rates = rates_printer(cfg, bytes_per_site(np.float32))
+    f32_paths = {"cuda": Simulation(cfg, walls, backend="cuda")}
+    f32_paths.update({k: s for k, s in sims.items() if not k.startswith("sharded-cuda-ds64")})
+    paths_in_turns(rates, f32_paths, 2000)
+    rates64 = rates_printer(cfg64, fused_ds_kernel.BYTES_PER_SITE_DS)
+    ds_key = f"sharded-cuda-ds64, {VIRTUAL_SHARDS} virtual shards"
+    paths_in_turns(rates64, {"cuda-ds64": Simulation(cfg64, walls, backend="cuda-ds64"),
+                             ds_key: sims[ds_key]}, 1000)
+    for label in (f"sharded-cuda, {VIRTUAL_SHARDS} virtual shards", ds_key):
+        ms = event_ms(sims[label]._session.copy_halos, 500)
+        print(f"halo exchange alone, {label}: {ms * 1e3!r} us/step (CUDA events, 500 exchanges)")
+    del sims, f32_paths
+
+    # the ext-halo kernels' launches of one step at the main path's
+    # shapes, halos in place, beside the single-chip launch
+    n, L = VIRTUAL_SHARDS, cfg.nx // VIRTUAL_SHARDS
+    full = torch.as_tensor(perturbed_state(cfg, rng), device=dev)
+    out = torch.empty_like(full)
+    srcs = [full[:, k * L:(k + 1) * L].contiguous() for k in range(n)]
+    dsts = [torch.empty_like(s) for s in srcs]
+    halos = ring_halos(srcs)
+    overlap_calls, fused_calls = [], []
+    for k in range(n):
+        overlap_calls += ext_calls(fused_kernel.ext_launcher, L, srcs[k], dsts[k], halos[k],
+                                   spec, cfg=cfg, row_offset=k * L)
+        fused_calls.append(fused_kernel.ext_launcher(srcs[k], dsts[k], halos[k], spec, cfg,
+                                                     row_offset=k * L))
+    # as the host launches them (event_ms), then the card's own time
+    # (queued_ms), which the kernels line reports
+    overlap = f"ext-halo, {n} shards, interior + edges ({len(overlap_calls)} launches)"
+    group = {
+        "single-chip kernel (1 launch)": lambda: fused_kernel.step(full, out, spec, cfg),
+        overlap: lambda: [c() for c in overlap_calls],
+        f"ext-halo, {n} shards, one launch per shard ({n})": lambda: [c() for c in fused_calls],
+    }
+    in_turns(rates, "f32 spec, one step's launches", group, 500)
+    ext_ms = in_turns(rates, "f32 spec, one step's launches", group, 50, timer=queued_ms)[overlap]
+    ext_plain_ms = event_ms(lambda: [fused_kernel.step_reference_ext(
+        srcs[k], halos[k], spec, cfg, row_offset=k * L) for k in range(n)], 20)
+    rates(f"step_reference_ext over {n} shards, its plain version (CUDA events, 20 steps)",
+          ext_plain_ms * 1e-3)
+    halo_bytes = sum(h.numel() * h.element_size() for pair in halos for h in pair)
+    f32_bound = bound(2 * full.numel() * 4 + halo_bytes, F32_OPS_PER_SITE * cfg.sites)
+    del full, out, srcs, dsts, halos, overlap_calls, fused_calls
+
+    f = initial_state(cfg64)
+    a = df64.from_f64(f * (1.0 + 0.05 * rng.uniform(-1.0, 1.0, f.shape)), dev)
+    b = df64.DS(torch.empty_like(a.hi), torch.empty_like(a.lo))
+    solid = torch.as_tensor(walls.astype(np.uint8), device=dev)
+    planes = shard_planes(solid, n)
+    srcs = [df64.DS(a.hi[:, k * L:(k + 1) * L].contiguous(), a.lo[:, k * L:(k + 1) * L].contiguous())
+            for k in range(n)]
+    dsts = [df64.DS(torch.empty_like(s.hi), torch.empty_like(s.lo)) for s in srcs]
+    his, los = ring_halos([s.hi for s in srcs]), ring_halos([s.lo for s in srcs])
+    halos = [tuple(df64.DS(h, lo) for h, lo in zip(his[k], los[k])) for k in range(n)]
+    ds_calls = []
+    for k in range(n):
+        ds_calls += ext_calls(fused_ds_kernel.ext_launcher, L, srcs[k], dsts[k], halos[k],
+                              planes[k], cfg=cfg64, has_walls=True)
+    overlap = f"ext-halo, {n} shards, interior + edges ({len(ds_calls)} launches)"
+    group = {
+        "single-chip kernel (1 launch)": lambda: fused_ds_kernel.step(a, b, solid, cfg64,
+                                                                      has_walls=True),
+        overlap: lambda: [c() for c in ds_calls],
+    }
+    in_turns(rates64, "ds fast tier, one step's launches", group, 200)
+    ds_ext_ms = in_turns(rates64, "ds fast tier, one step's launches", group, 50,
+                         timer=queued_ms)[overlap]
+    ds_ext_plain_ms = event_ms(lambda: [fused_ds_kernel.step_reference_ext(
+        srcs[k].hi, srcs[k].lo, halos[k], planes[k], cfg64, False) for k in range(n)], 3)
+    rates64(f"ds step_reference_ext over {n} shards, its plain version (CUDA events, 3 steps)",
+            ds_ext_plain_ms * 1e-3)
+    # halo rows: both components of each, and their class rows
+    halo_bytes = sum(c.numel() * 4 for h in halos for pair in h for c in pair)
+    halo_bytes += sum(p.top.numel() + p.bot.numel() for p in planes)
+    ds_bound = bound(4 * a.hi.numel() * 4 + solid.numel() + halo_bytes,
+                     DS_OPS_PER_SITE[False] * cfg64.sites)
+
+    label4 = f"{VIRTUAL_SHARDS} virtual shards"
+    return [
+        {"name": "lbm_stream_collide<float, spec> ext-halo form (row-sharded; "
+                 f"{VIRTUAL_SHARDS} virtual shards, interior + edge launches)",
+         "route": "cuda", "source": "latticeboltzmann_tpu_torch/csrc/lbm_step.cu",
+         "replaces": "latticeboltzmann_tpu/ops/fused_kernel.py:1757",
+         "launches": launches[label4], "max_abs_err": ext_err, "max_rel_err_fast_math": fast_rel,
+         "ms": ext_ms, "plain_ms": ext_plain_ms, **f32_bound},
+        {"name": "lbm_stream_collide_ds ext-halo form (row-sharded; "
+                 f"{VIRTUAL_SHARDS} virtual shards, fast tier, masked)",
+         "route": "cuda", "source": "latticeboltzmann_tpu_torch/csrc/lbm_ds_step.cu",
+         "replaces": "latticeboltzmann_tpu/ops/fused_ds_kernel.py:272",
+         "launches": ds_launches, "max_abs_err": ds_ext_err,
+         "ms": ds_ext_ms, "plain_ms": ds_ext_plain_ms, **ds_bound},
     ]
 
 

@@ -17,8 +17,12 @@ bandwidth, bytes per site update x MLUPS (72 B for f32; 36 B for bf16;
 144 B for ds64, two f32 components), and the card's name and power
 limit.
 
-Usage: python -m latticeboltzmann_tpu_torch.bench [--backend auto|cuda|torch]
+Usage: python -m latticeboltzmann_tpu_torch.bench [--backend auto|cuda|torch|...]
            [--precision f32|bf16|ds64]
+--backend sharded-cuda (f32) and --precision ds64 --backend
+sharded-cuda-ds64 are the row-sharded rows of bench_suite.py (:36-37,
+:71-73): the rows split over every visible card, on one card the
+1-device mesh, the per-chip program of the JAX row (:65-70).
 A run that finds no CUDA card fails; it does not fall back to the CPU.
 """
 

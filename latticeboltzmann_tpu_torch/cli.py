@@ -34,8 +34,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--precision", choices=sorted(PRECISIONS), default="f32",
                    help="bf16 is bf16 storage with float32 arithmetic")
     p.add_argument("--backend", default="auto",
-                   help="auto|torch|cuda|torch-ds64|cuda-ds64 "
-                        "(the ds64 backends are pair-DP; use with --precision f64)")
+                   help="auto|torch|cuda|torch-ds64|cuda-ds64|sharded|sharded-sync"
+                        "|sharded-cuda|sharded-cuda-fused|sharded-cuda-ds64 "
+                        "(the ds64 backends are pair-DP; use with --precision f64; the "
+                        "sharded ones split the rows over every visible card)")
     p.add_argument("--geometry", default="barrier",
                    help="empty|channel|barrier|reference|cylinder")
     p.add_argument("--print-stats-every", type=int, default=1000)

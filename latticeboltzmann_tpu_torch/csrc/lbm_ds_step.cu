@@ -3,11 +3,20 @@
 // periodic pull stream, BGK collision at pair precision and bounce-back.
 //
 // Replaces latticeboltzmann_tpu/ops/fused_ds_kernel.py::_make_ds_pass as
-// launched by its pl.pallas_call (ops/fused_ds_kernel.py:272), in its local
-// (non-sharded) form, one time step per launch. Template parameters:
-// HAS_WALLS selects the masked or wall-free variant, EXACT the collision
-// tier: ds_engine.collide_planes (exact, ~2.6k f32 ops per site) or
-// ds_engine.collide_planes_fast (fast, ~1.1k ops, the default).
+// launched by its pl.pallas_call (ops/fused_ds_kernel.py:272), one time
+// step per launch, in two forms: the local form
+// (lbm_stream_collide_ds_launch, the whole lattice, periodic in both
+// axes) and the ext-halo form (lbm_stream_collide_ds_ext_launch, the
+// ext_halo=True variant at :242-254 as _get_sharded_runner :385-472 drives
+// it per shard): a shard's local block, of which one launch writes a row
+// range, with the rows beyond the block taken from two halo rows of each
+// pair component instead of the x wrap. Template parameters: HAS_WALLS
+// selects the masked or wall-free variant, EXACT the collision tier:
+// ds_engine.collide_planes (exact, ~2.6k f32 ops per site) or
+// ds_engine.collide_planes_fast (fast, ~1.1k ops, the default). The two
+// forms are two kernels that share what follows the pull (collide_store);
+// the local kernel keeps its own row indexing, as in the stream-collide
+// kernel (csrc/lbm_step.cu).
 //
 // Bound: a site update moves 145 B (9 hi and 9 lo floats read and written,
 // plus the mask byte) against ~1.1k (fast) or ~2.6k (exact) f32 ops, about
@@ -33,8 +42,8 @@
 // .step_reference in the port) bit for bit.
 //
 // Not carried over from the TPU kernel: the mirror-pad lanes (the y wrap
-// is an index wrap here), row blocks and halo rows, pad re-mirroring and
-// temporal blocking.
+// is an index wrap here), row blocks and their halo rows, pad re-mirroring
+// and temporal blocking.
 //
 // Forcing: the TPU kernel forces column 0 of its window before the pull.
 // Here each forced speed whose source site lies in column 0 re-evaluates
@@ -42,6 +51,17 @@
 // components). Every forced speed has e_y != 0, so only destination
 // columns 1 and NY-1 take this branch. The forcing uses the full pair add
 // and sub (not the fast tier's add_s), as the TPU kernel does.
+//
+// Forcing in the halo rows (ext-halo form): an edge row pulls from a halo
+// row, and the pair guard of that row's column-0 site reads f6, f3 and f7,
+// both components of each, there. Each halo row therefore carries all 9
+// speed planes of both components of the neighbour's boundary row, as the
+// JAX sharded runner ships them (fused_ds_kernel.py:436-437 there), and
+// the guard is evaluated here from them; the halo's class row (the
+// neighbour's, static) is exchanged once per run. Cost: 4 x 9 x NY x 4 B
+// of halo per shard per step (576 KB at NY = 4000, 0.5% of a 200-row
+// shard's 115 MB step), against 3 planes of each component plus a guard
+// bit that the sender would compute in a launch of its own.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -282,6 +302,18 @@ __device__ __forceinline__ void collide_exact(const ds (&p)[9], ds (&out)[9], co
 
 // --- the step --------------------------------------------------------------
 
+// Where a shard's local block sits and what lies beyond it (ext-halo
+// form).
+struct Ext {
+  const float* top_hi;       // (9, ny): the row above local row 0, hi and lo
+  const float* top_lo;
+  const float* bot_hi;       // (9, ny): the row below local row nx - 1
+  const float* bot_lo;
+  const uint8_t* solid_top;  // (ny): the halo rows' class rows (masked variant)
+  const uint8_t* solid_bot;
+  int64_t row0;              // first local row this launch writes
+};
+
 // Forcing guard of the column-0 site in row `row`, at pair precision:
 // fluid, and f6 - a58, f3 - a14, f7 - a58 all > 0
 // (src/latticeboltzmann.c:500-513, fused_ds_kernel.py:179-185).
@@ -299,17 +331,46 @@ __device__ __forceinline__ bool forced_at(const float* __restrict__ hi,
   return gt_zero(sub(f6, a58)) && gt_zero(sub(f3, a14)) && gt_zero(sub(f7, a58));
 }
 
+// What follows the pull in both forms: the collision at the tier, then
+// bounce-back when solid_site() (called after the collision, where the
+// local kernel always read the mask), stored at offset `site` of each of
+// the dst planes.
+template <bool EXACT, typename SolidSite>
+__device__ __forceinline__ void collide_store(const ds (&p)[9], SolidSite solid_site,
+                                              float* __restrict__ dst_hi,
+                                              float* __restrict__ dst_lo, int64_t plane,
+                                              int64_t site, const Params& k) {
+  // the opposite speed, as in core/spec.py
+  constexpr int OPP[9] = {0, 3, 4, 1, 2, 7, 8, 5, 6};
+  ds out[9];
+  if constexpr (EXACT) {
+    collide_exact(p, out, k);
+  } else {
+    collide_fast(p, out, k);
+  }
+  if (solid_site()) {
+    // bounce-back; OPP[0] == 0 passes the site's own f0 through
+#pragma unroll
+    for (int s = 0; s < 9; ++s) out[s] = p[OPP[s]];
+  }
+#pragma unroll
+  for (int s = 0; s < 9; ++s) {
+    dst_hi[s * plane + site] = out[s].hi;
+    dst_lo[s * plane + site] = out[s].lo;
+  }
+}
+
+// The local form: every row of the lattice, periodic in both axes.
 template <bool HAS_WALLS, bool EXACT>
 __global__ void __launch_bounds__(kBlock)
 lbm_stream_collide_ds(const float* __restrict__ src_hi, const float* __restrict__ src_lo,
                       float* __restrict__ dst_hi, float* __restrict__ dst_lo,
                       const uint8_t* __restrict__ solid, int64_t nx, int64_t ny,
                       Params k) {
-  // e_s = (e_x, e_y), the opposite speed, and the forcing increment sign
-  // (+1 speeds gain, -1 speeds lose), as in core/spec.py
+  // e_s = (e_x, e_y) and the forcing increment sign (+1 speeds gain, -1
+  // speeds lose), as in core/spec.py
   constexpr int EX[9] = {0, 0, 1, 0, -1, 1, 1, -1, -1};
   constexpr int EY[9] = {0, 1, 0, -1, 0, 1, -1, -1, 1};
-  constexpr int OPP[9] = {0, 3, 4, 1, 2, 7, 8, 5, 6};
   constexpr int FORCE[9] = {0, 1, 0, -1, 0, 1, -1, -1, 1};
   // the pairs a14 and a58 sit after the other constants of each tier
   constexpr int A14 = EXACT ? 16 : 26;
@@ -345,30 +406,115 @@ lbm_stream_collide_ds(const float* __restrict__ src_hi, const float* __restrict_
     p[s] = v;
   }
 
-  ds out[9];
-  if constexpr (EXACT) {
-    collide_exact(p, out, k);
-  } else {
-    collide_fast(p, out, k);
-  }
-
   const int64_t site = static_cast<int64_t>(i) * ny + j;
-  if (HAS_WALLS && solid[site] != 0) {
-    // bounce-back; OPP[0] == 0 passes the site's own f0 through
-#pragma unroll
-    for (int s = 0; s < 9; ++s) out[s] = p[OPP[s]];
-  }
-#pragma unroll
-  for (int s = 0; s < 9; ++s) {
-    dst_hi[s * plane + site] = out[s].hi;
-    dst_lo[s * plane + site] = out[s].lo;
-  }
+  collide_store<EXACT>(p, [&] { return HAS_WALLS && solid[site] != 0; }, dst_hi, dst_lo, plane,
+                       site, k);
 }
 
+// The ext-halo form's forced_at, for a row that may be a halo row: hi and
+// lo are the row's column-0 values of speed 0, stride the distance between
+// its speed planes, cls_row its class row.
+template <bool HAS_WALLS>
+__device__ __forceinline__ bool forced_row(const float* __restrict__ hi,
+                                           const float* __restrict__ lo,
+                                           const uint8_t* __restrict__ cls_row,
+                                           int64_t stride, ds a14, ds a58) {
+  if (HAS_WALLS && cls_row[0] != 0) return false;
+  const ds f6 = {hi[6 * stride], lo[6 * stride]};
+  const ds f3 = {hi[3 * stride], lo[3 * stride]};
+  const ds f7 = {hi[7 * stride], lo[7 * stride]};
+  return gt_zero(sub(f6, a58)) && gt_zero(sub(f3, a14)) && gt_zero(sub(f7, a58));
+}
+
+// The ext-halo form: local rows [e.row0, e.row0 + gridDim.x) of a shard's
+// (9, nx, ny) pair of blocks, periodic in y; the source rows past the
+// block are the halo rows, each read through its column-0 addresses, the
+// stride between its speed planes and its class row.
 template <bool HAS_WALLS, bool EXACT>
-void launch(dim3 grid, cudaStream_t st, const float* sh, const float* sl, float* dh,
-            float* dl, const uint8_t* w, int64_t nx, int64_t ny, const Params& k) {
-  lbm_stream_collide_ds<HAS_WALLS, EXACT><<<grid, kBlock, 0, st>>>(sh, sl, dh, dl, w, nx, ny, k);
+__global__ void __launch_bounds__(kBlock)
+lbm_stream_collide_ds_ext(const float* __restrict__ src_hi, const float* __restrict__ src_lo,
+                          float* __restrict__ dst_hi, float* __restrict__ dst_lo,
+                          const uint8_t* __restrict__ solid, Ext e, int64_t nx, int64_t ny,
+                          Params k) {
+  // e_s = (e_x, e_y) and the forcing increment sign, as in core/spec.py
+  constexpr int EX[9] = {0, 0, 1, 0, -1, 1, 1, -1, -1};
+  constexpr int EY[9] = {0, 1, 0, -1, 0, 1, -1, -1, 1};
+  constexpr int FORCE[9] = {0, 1, 0, -1, 0, 1, -1, -1, 1};
+  constexpr int A14 = EXACT ? 16 : 26;
+  constexpr int A58 = EXACT ? 18 : 28;
+
+  const int i = static_cast<int>(e.row0) + static_cast<int>(blockIdx.x);
+  const int j = blockIdx.y * kBlock + threadIdx.x;
+  const int nxi = static_cast<int>(nx);
+  const int nyi = static_cast<int>(ny);
+  if (j >= nyi) return;
+  const int64_t plane = nx * ny;
+  const int cols[3] = {(j + 1) % nyi, j, (j - 1 + nyi) % nyi};
+  const ds a14 = pair(k, A14);
+  const ds a58 = pair(k, A58);
+
+  // source rows i - e_x, indexed by e_x + 1 (rows i + 1, i, i - 1)
+  const float* row_hi[3];
+  const float* row_lo[3];
+  int64_t stride[3];
+  const uint8_t* cls_row[3];
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+    const int li = i + 1 - r;
+    if (li < 0 || li >= nxi) {
+      row_hi[r] = li < 0 ? e.top_hi : e.bot_hi;
+      row_lo[r] = li < 0 ? e.top_lo : e.bot_lo;
+      stride[r] = ny;
+      cls_row[r] = li < 0 ? e.solid_top : e.solid_bot;
+    } else {
+      const int64_t off = static_cast<int64_t>(li) * ny;
+      row_hi[r] = src_hi + off;
+      row_lo[r] = src_lo + off;
+      stride[r] = plane;
+      cls_row[r] = HAS_WALLS ? solid + off : nullptr;
+    }
+  }
+
+  // pull: p_s(i, j) = f_s(i - e_x, j - e_y), with the source site's
+  // forcing applied first
+  ds p[9];
+#pragma unroll
+  for (int s = 0; s < 9; ++s) {
+    const int r = EX[s] + 1;
+    const int64_t sj = cols[EY[s] + 1];
+    const int64_t idx = s * stride[r] + sj;
+    ds v = {row_hi[r][idx], row_lo[r][idx]};
+    if (FORCE[s] != 0 && sj == 0 &&
+        forced_row<HAS_WALLS>(row_hi[r], row_lo[r], cls_row[r], stride[r], a14, a58)) {
+      const ds a = (s == 1 || s == 3) ? a14 : a58;
+      v = add(v, FORCE[s] > 0 ? a : neg(a));
+    }
+    p[s] = v;
+  }
+
+  collide_store<EXACT>(p, [&] { return HAS_WALLS && cls_row[1][j] != 0; }, dst_hi, dst_lo,
+                       plane, static_cast<int64_t>(i) * ny + j, k);
+}
+
+// The checks both entry points share; true when the launch is refused.
+// grid.x = rows (at most 2^31 - 1), grid.y = column tiles (at most
+// 65535); the kernel's 32-bit index arithmetic needs nx, ny < 2^30
+bool refused(int64_t nx, int64_t ny) {
+  return nx < 1 || ny < 1 || nx >= (1LL << 30) || ny >= (1LL << 30) ||
+         (ny + kBlock - 1) / kBlock > 65535LL;
+}
+
+// The launch constants from their host floats: 20 (exact) or 30 (fast).
+Params params_from(const void* params, int64_t exact) {
+  Params k{};
+  const float* h = static_cast<const float*>(params);
+  const int n = exact ? 20 : kMaxParams;
+  for (int q = 0; q < n; ++q) k.v[q] = h[q];
+  return k;
+}
+
+dim3 grid_of(int64_t rows, int64_t ny) {
+  return dim3(static_cast<unsigned>(rows), static_cast<unsigned>((ny + kBlock - 1) / kBlock));
 }
 
 }  // namespace
@@ -383,18 +529,9 @@ extern "C" int lbm_stream_collide_ds_launch(const void* src_hi, const void* src_
                                             const void* solid, int64_t nx, int64_t ny,
                                             int64_t has_walls, int64_t exact,
                                             const void* params, void* stream) {
-  // grid.x = rows (at most 2^31 - 1), grid.y = column tiles (at most
-  // 65535); the kernel's 32-bit index arithmetic needs nx, ny < 2^30
-  if (nx < 1 || ny < 1 || nx >= (1LL << 30) || ny >= (1LL << 30) ||
-      (ny + kBlock - 1) / kBlock > 65535LL) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  Params k{};
-  const float* h = static_cast<const float*>(params);
-  const int n = exact ? 20 : kMaxParams;
-  for (int q = 0; q < n; ++q) k.v[q] = h[q];
-  const dim3 grid(static_cast<unsigned>(nx),
-                  static_cast<unsigned>((ny + kBlock - 1) / kBlock));
+  if (refused(nx, ny)) return static_cast<int>(cudaErrorInvalidValue);
+  const Params k = params_from(params, exact);
+  const dim3 grid = grid_of(nx, ny);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* sh = static_cast<const float*>(src_hi);
   const float* sl = static_cast<const float*>(src_lo);
@@ -403,15 +540,64 @@ extern "C" int lbm_stream_collide_ds_launch(const void* src_hi, const void* src_
   const uint8_t* w = static_cast<const uint8_t*>(solid);
   if (has_walls) {
     if (exact) {
-      launch<true, true>(grid, st, sh, sl, dh, dl, w, nx, ny, k);
+      lbm_stream_collide_ds<true, true><<<grid, kBlock, 0, st>>>(sh, sl, dh, dl, w, nx, ny, k);
     } else {
-      launch<true, false>(grid, st, sh, sl, dh, dl, w, nx, ny, k);
+      lbm_stream_collide_ds<true, false><<<grid, kBlock, 0, st>>>(sh, sl, dh, dl, w, nx, ny, k);
     }
   } else {
     if (exact) {
-      launch<false, true>(grid, st, sh, sl, dh, dl, w, nx, ny, k);
+      lbm_stream_collide_ds<false, true><<<grid, kBlock, 0, st>>>(sh, sl, dh, dl, w, nx, ny, k);
     } else {
-      launch<false, false>(grid, st, sh, sl, dh, dl, w, nx, ny, k);
+      lbm_stream_collide_ds<false, false><<<grid, kBlock, 0, st>>>(sh, sl, dh, dl, w, nx, ny, k);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The ext-halo form: one pair step of the local rows [row0, row0 + rows)
+// of a shard's (9, nx, ny) blocks, as the local form but for the rows
+// beyond the block. top_hi/top_lo and bot_hi/bot_lo: (9, ny) float32
+// device rows, the row above local row 0 and the row below local row
+// nx - 1, all 9 speed planes of both components; required when the range
+// touches row 0 (top) or row nx - 1 (bot), never read otherwise.
+// solid_top, solid_bot: their (ny) uint8 class rows, required with them
+// in the masked variant. Returns cudaGetLastError() after the launch.
+extern "C" int lbm_stream_collide_ds_ext_launch(
+    const void* src_hi, const void* src_lo, void* dst_hi, void* dst_lo, const void* top_hi,
+    const void* top_lo, const void* bot_hi, const void* bot_lo, const void* solid,
+    const void* solid_top, const void* solid_bot, int64_t nx, int64_t ny, int64_t row0,
+    int64_t rows, int64_t has_walls, int64_t exact, const void* params, void* stream) {
+  const bool top = top_hi != nullptr && top_lo != nullptr &&
+                   (!has_walls || solid_top != nullptr);
+  const bool bot = bot_hi != nullptr && bot_lo != nullptr &&
+                   (!has_walls || solid_bot != nullptr);
+  if (refused(nx, ny) || (has_walls && solid == nullptr) || row0 < 0 || rows < 1 ||
+      row0 + rows > nx || (row0 == 0 && !top) || (row0 + rows == nx && !bot)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Params k = params_from(params, exact);
+  const dim3 grid = grid_of(rows, ny);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Ext e{static_cast<const float*>(top_hi), static_cast<const float*>(top_lo),
+              static_cast<const float*>(bot_hi), static_cast<const float*>(bot_lo),
+              static_cast<const uint8_t*>(solid_top), static_cast<const uint8_t*>(solid_bot),
+              row0};
+  const float* sh = static_cast<const float*>(src_hi);
+  const float* sl = static_cast<const float*>(src_lo);
+  float* dh = static_cast<float*>(dst_hi);
+  float* dl = static_cast<float*>(dst_lo);
+  const uint8_t* w = static_cast<const uint8_t*>(solid);
+  if (has_walls) {
+    if (exact) {
+      lbm_stream_collide_ds_ext<true, true><<<grid, kBlock, 0, st>>>(sh, sl, dh, dl, w, e, nx, ny, k);
+    } else {
+      lbm_stream_collide_ds_ext<true, false><<<grid, kBlock, 0, st>>>(sh, sl, dh, dl, w, e, nx, ny, k);
+    }
+  } else {
+    if (exact) {
+      lbm_stream_collide_ds_ext<false, true><<<grid, kBlock, 0, st>>>(sh, sl, dh, dl, w, e, nx, ny, k);
+    } else {
+      lbm_stream_collide_ds_ext<false, false><<<grid, kBlock, 0, st>>>(sh, sl, dh, dl, w, e, nx, ny, k);
     }
   }
   return static_cast<int>(cudaGetLastError());

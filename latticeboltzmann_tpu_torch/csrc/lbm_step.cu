@@ -3,9 +3,18 @@
 // (bounce-back, free-slip reflections).
 //
 // Replaces latticeboltzmann_tpu/ops/fused_kernel.py::_make_kernel as
-// launched by make_step's pl.pallas_call (ops/fused_kernel.py:1757), in
-// its single-chip variants, one time step per launch (T=1). Two template
-// axes select the variant at compile time:
+// launched by make_step's pl.pallas_call (ops/fused_kernel.py:1757), one
+// time step per launch (T=1), in two forms:
+// - the single-chip form (lbm_stream_collide_launch): the whole lattice,
+//   periodic in both axes;
+// - the ext-halo form (lbm_stream_collide_ext_launch), the pallas_call's
+//   external_halo=True variant (:1676-1696) as the row-sharded path
+//   launches it per shard (parallel/sharded.py:312-376 there): a local
+//   block of L rows, of which one launch writes the row range [row0,
+//   row0 + rows), so the interior and the two edge rows launch apart; the
+//   rows above and below the block come from two halo rows instead of the
+//   x wrap.
+// Two template axes select the variant at compile time:
 // - the storage type T: float, or __nv_bfloat16 with float arithmetic
 //   (the TPU kernel's bf16 storage, :277-280, :420-422, window cast to f32
 //   at :1194-1203);
@@ -14,6 +23,11 @@
 //   class_plane :1879), or a closed-form wall spec evaluated from the site
 //   indices (:1220-1269), which reads no plane at all.
 // fast_math (an approximate 1/rho, :1028-1036) is a uniform run-time flag.
+// The two forms are two kernels (lbm_stream_collide, lbm_stream_collide_ext)
+// that share what follows the pull (collide_store). The single-chip kernel
+// keeps its own row indexing: routing both forms through one kernel, with
+// per-row pointers, strides and global rows, cost the single-chip bf16
+// step 20% on an H100 (82 against 68 us at 800x4000).
 //
 // Bound: device-memory bytes. A site update reads 9 f values and writes 9:
 // 72 B in float32, 36 B in bf16, plus 1 B of class plane in the plane
@@ -37,14 +51,31 @@
 // (1, 3, 5, 6, 7, 8) has e_y != 0, so only destination columns 1 and NY-1
 // ever take this branch.
 //
+// Forcing in the halo rows (ext-halo form): an edge row pulls speeds 2, 5,
+// 6 (or 4, 7, 8) from a halo row, and the guard of that row's column-0
+// site reads f6, f3 and f7 there and its solid class. Each halo row
+// therefore carries all 9 speed planes of the neighbour's boundary row, as
+// the JAX fused sharded path ships them (sharded.py:438-439 there), and
+// the guard is evaluated here from them: 2 x 9 x NY x sizeof(T) bytes of
+// halo per shard per step (288 KB in float32 at NY = 4000, 0.5% of a
+// 200-row shard's 57.6 MB step), against 3 planes plus a guard bit that
+// the sender would have to compute in a launch of its own. The class of a
+// halo row is the neighbour's class row (plane variant, exchanged once per
+// run: it is static) or the spec evaluated at the halo's global row.
+//
+// Global rows (ext-halo form): the spec variant evaluates the wall spec at
+// the site's global row, offset + i, periodic in the global row count
+// gnx, in 64-bit integers: the channel walls are rows 0 and gnx - 1 of the
+// whole lattice, and the row above shard 0 is global row gnx - 1.
+//
 // Arithmetic keeps the TPU kernel's association order (moments from the
 // d56/d78/d58/d67 partial sums, the base/q +- eu pairs,
 // ops/fused_kernel.py:1020-1105) with host-rounded constants; built with
 // -fmad=false and IEEE division it rounds exactly like the plain PyTorch
-// version (ops/fused_kernel.py::step_reference in the port). bf16 loads
-// are exact (__bfloat162float); the forced column stays float through the
-// pull, and each result is rounded once, to nearest even
-// (__float2bfloat16_rn, as PyTorch's .to(torch.bfloat16)).
+// versions (ops/fused_kernel.py::step_reference and step_reference_ext in
+// the port). bf16 loads are exact (__bfloat162float); the forced column
+// stays float through the pull, and each result is rounded once, to
+// nearest even (__float2bfloat16_rn, as PyTorch's .to(torch.bfloat16)).
 //
 // bf16 rounding schedule: this kernel rounds to bf16 after every step, as
 // the JAX kernel in interpret mode (T=1) and the JAX XLA engine do. The
@@ -84,6 +115,19 @@ struct Spec {
   int64_t r0, r1, c0, c1;
   int64_t circle;   // (2i - ci2)^2 + (2j - cj2)^2 <= r2q
   int64_t ci2, cj2, r2q;
+};
+
+// Where a shard's local block sits and what lies beyond it (ext-halo
+// form).
+template <typename T>
+struct Ext {
+  const T* top;              // (9, ny): the row above local row 0
+  const T* bot;              // (9, ny): the row below local row nx - 1
+  const uint8_t* solid_top;  // (ny): top's class row (plane variant)
+  const uint8_t* solid_bot;  // (ny): bot's class row (plane variant)
+  int64_t row0;              // first local row this launch writes
+  int64_t offset;            // global row of local row 0
+  int64_t gnx;               // global row count
 };
 
 enum Geometry : int { kNone = 0, kPlane = 1, kSpec = 2 };
@@ -139,54 +183,52 @@ __device__ __forceinline__ bool forced_at(const T* __restrict__ src,
          (load(src + 7 * plane + site) - k.a58 > 0.0f);
 }
 
+// The ext-halo form's solid_class and forced_at, for a row that may be a
+// halo row: the row's class row (plane variant) or its global row gi of a
+// gnx-row lattice (spec variant); for the guard also the row's column-0
+// value of speed 0 and the stride between its speed planes.
+template <int GEOM>
+__device__ __forceinline__ int row_class(const uint8_t* __restrict__ cls_row,
+                                         const Spec& g, int64_t gi, int64_t j,
+                                         int64_t gnx) {
+  if (GEOM == kPlane) return cls_row[j];
+  if (GEOM == kSpec) return spec_solid(g, gi, j, gnx) ? 1 : 0;
+  return 0;
+}
+
+template <typename T, int GEOM>
+__device__ __forceinline__ bool forced_row(const T* __restrict__ row, int64_t stride,
+                                           const uint8_t* __restrict__ cls_row,
+                                           const Spec& g, int64_t gi, int64_t gnx,
+                                           const Params& k) {
+  if (row_class<GEOM>(cls_row, g, gi, 0, gnx) != 0) return false;
+  return (load(row + 6 * stride) - k.a58 > 0.0f) &&
+         (load(row + 3 * stride) - k.a14 > 0.0f) &&
+         (load(row + 7 * stride) - k.a58 > 0.0f);
+}
+
 __device__ __forceinline__ float approx_reciprocal(float x) {
   float r;
   asm("rcp.approx.f32 %0, %1;" : "=f"(r) : "f"(x));
   return r;
 }
 
-template <typename T, int GEOM>
-__global__ void __launch_bounds__(kBlock)
-lbm_stream_collide(const T* __restrict__ src, T* __restrict__ dst,
-                   const uint8_t* __restrict__ solid, Spec g, int64_t nx,
-                   int64_t ny, Params k, int fast_math) {
-  // e_s = (e_x, e_y), the opposite and the two mirrored speeds, and the
-  // forcing increment sign (+1 speeds gain, -1 speeds lose), as in
-  // core/spec.py
-  constexpr int EX[9] = {0, 0, 1, 0, -1, 1, 1, -1, -1};
-  constexpr int EY[9] = {0, 1, 0, -1, 0, 1, -1, -1, 1};
+// What follows the pull in both forms: moments, BGK relaxation and the
+// site's solid class, from its pulled values p, stored at offset `site` of
+// each of dst's planes. site_class() gives the class; it is called after
+// the relaxation, where the single-chip kernel always evaluated it: an
+// evaluation before the pull's guard branches kept the spec variant's
+// 64-bit class arithmetic live across them (40 and 46 registers against
+// 32 and 30, the bf16 step 28% slower on an H100).
+template <typename T, int GEOM, typename SiteClass>
+__device__ __forceinline__ void collide_store(const float (&p)[9], SiteClass site_class,
+                                              T* __restrict__ dst, int64_t plane,
+                                              int64_t site, const Params& k,
+                                              int fast_math) {
+  // the opposite and the two mirrored speeds, as in core/spec.py
   constexpr int OPP[9] = {0, 3, 4, 1, 2, 7, 8, 5, 6};
   constexpr int REFLECT_X[9] = {0, 1, 4, 3, 2, 8, 7, 6, 5};
   constexpr int REFLECT_Y[9] = {0, 3, 2, 1, 4, 6, 5, 8, 7};
-  constexpr int FORCE[9] = {0, 1, 0, -1, 0, 1, -1, -1, 1};
-
-  // index arithmetic in 32 bits (the launcher bounds nx and ny), plane
-  // offsets in 64: at 4000 x 16000, 9 * nx * ny is about 5.8e8
-  const int i = blockIdx.x;
-  const int j = blockIdx.y * kBlock + threadIdx.x;
-  const int nxi = static_cast<int>(nx);
-  const int nyi = static_cast<int>(ny);
-  if (j >= nyi) return;
-  const int64_t plane = nx * ny;
-  // source rows i - e_x and columns j - e_y, indexed by e + 1; the
-  // operands of % are never negative
-  const int rows[3] = {(i + 1) % nxi, i, (i - 1 + nxi) % nxi};
-  const int cols[3] = {(j + 1) % nyi, j, (j - 1 + nyi) % nyi};
-
-  // pull: p_s(i, j) = f_s(i - e_x, j - e_y), periodic in both axes
-  float p[9];
-#pragma unroll
-  for (int s = 0; s < 9; ++s) {
-    const int64_t si = rows[EX[s] + 1];
-    const int64_t sj = cols[EY[s] + 1];
-    float v = load(src + s * plane + si * ny + sj);
-    if (FORCE[s] != 0 && sj == 0 &&
-        forced_at<T, GEOM>(src, solid, g, si, nx, ny, plane, k)) {
-      const float a = (s == 1 || s == 3) ? k.a14 : k.a58;
-      v = v + (FORCE[s] > 0 ? a : -a);
-    }
-    p[s] = v;
-  }
 
   // moments from shared partial sums
   const float d56 = p[5] + p[6];
@@ -221,7 +263,7 @@ lbm_stream_collide(const T* __restrict__ src, T* __restrict__ dst,
 
   // solid classes: bounce-back (OPP[0] == 0 passes the site's own f0
   // through) and the specular reflections of free-slip walls
-  const int cls = solid_class<GEOM>(solid, g, i, j, nx, ny);
+  const int cls = site_class();
   if (cls == 1) {
 #pragma unroll
     for (int s = 0; s < 9; ++s) out[s] = p[OPP[s]];
@@ -233,9 +275,116 @@ lbm_stream_collide(const T* __restrict__ src, T* __restrict__ dst,
     for (int s = 0; s < 9; ++s) out[s] = p[REFLECT_Y[s]];
   }
 
-  const int64_t site = static_cast<int64_t>(i) * ny + j;
 #pragma unroll
   for (int s = 0; s < 9; ++s) store(dst + s * plane + site, out[s]);
+}
+
+// The single-chip form: every row of the lattice, periodic in both axes.
+template <typename T, int GEOM>
+__global__ void __launch_bounds__(kBlock)
+lbm_stream_collide(const T* __restrict__ src, T* __restrict__ dst,
+                   const uint8_t* __restrict__ solid, Spec g, int64_t nx,
+                   int64_t ny, Params k, int fast_math) {
+  // e_s = (e_x, e_y) and the forcing increment sign (+1 speeds gain, -1
+  // speeds lose), as in core/spec.py
+  constexpr int EX[9] = {0, 0, 1, 0, -1, 1, 1, -1, -1};
+  constexpr int EY[9] = {0, 1, 0, -1, 0, 1, -1, -1, 1};
+  constexpr int FORCE[9] = {0, 1, 0, -1, 0, 1, -1, -1, 1};
+
+  // index arithmetic in 32 bits (the launcher bounds nx and ny), plane
+  // offsets in 64: at 4000 x 16000, 9 * nx * ny is about 5.8e8
+  const int i = blockIdx.x;
+  const int j = blockIdx.y * kBlock + threadIdx.x;
+  const int nxi = static_cast<int>(nx);
+  const int nyi = static_cast<int>(ny);
+  if (j >= nyi) return;
+  const int64_t plane = nx * ny;
+  // source rows i - e_x and columns j - e_y, indexed by e + 1; the
+  // operands of % are never negative
+  const int rows[3] = {(i + 1) % nxi, i, (i - 1 + nxi) % nxi};
+  const int cols[3] = {(j + 1) % nyi, j, (j - 1 + nyi) % nyi};
+
+  // pull: p_s(i, j) = f_s(i - e_x, j - e_y), periodic in both axes
+  float p[9];
+#pragma unroll
+  for (int s = 0; s < 9; ++s) {
+    const int64_t si = rows[EX[s] + 1];
+    const int64_t sj = cols[EY[s] + 1];
+    float v = load(src + s * plane + si * ny + sj);
+    if (FORCE[s] != 0 && sj == 0 &&
+        forced_at<T, GEOM>(src, solid, g, si, nx, ny, plane, k)) {
+      const float a = (s == 1 || s == 3) ? k.a14 : k.a58;
+      v = v + (FORCE[s] > 0 ? a : -a);
+    }
+    p[s] = v;
+  }
+  collide_store<T, GEOM>(
+      p, [&] { return solid_class<GEOM>(solid, g, i, j, nx, ny); }, dst, plane,
+      static_cast<int64_t>(i) * ny + j, k, fast_math);
+}
+
+// The ext-halo form: local rows [e.row0, e.row0 + gridDim.x) of a shard's
+// (9, nx, ny) block, periodic in y; the source rows past the block are
+// the halo rows. Each source row is read through its column-0 address,
+// the stride between its speed planes, its class row and its global row.
+template <typename T, int GEOM>
+__global__ void __launch_bounds__(kBlock)
+lbm_stream_collide_ext(const T* __restrict__ src, T* __restrict__ dst,
+                       const uint8_t* __restrict__ solid, Spec g, Ext<T> e,
+                       int64_t nx, int64_t ny, Params k, int fast_math) {
+  // e_s = (e_x, e_y) and the forcing increment sign (+1 speeds gain, -1
+  // speeds lose), as in core/spec.py
+  constexpr int EX[9] = {0, 0, 1, 0, -1, 1, 1, -1, -1};
+  constexpr int EY[9] = {0, 1, 0, -1, 0, 1, -1, -1, 1};
+  constexpr int FORCE[9] = {0, 1, 0, -1, 0, 1, -1, -1, 1};
+
+  const int i = static_cast<int>(e.row0) + static_cast<int>(blockIdx.x);
+  const int j = blockIdx.y * kBlock + threadIdx.x;
+  const int nxi = static_cast<int>(nx);
+  const int nyi = static_cast<int>(ny);
+  if (j >= nyi) return;
+  const int64_t plane = nx * ny;
+  const int cols[3] = {(j + 1) % nyi, j, (j - 1 + nyi) % nyi};
+
+  // source rows i - e_x, indexed by e_x + 1 (rows i + 1, i, i - 1); the
+  // global rows wrap at gnx (the row above shard 0 is row gnx - 1)
+  const T* row[3];
+  int64_t stride[3];
+  const uint8_t* cls_row[3];
+  int64_t grow[3];
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+    const int li = i + 1 - r;
+    if (li < 0 || li >= nxi) {
+      row[r] = li < 0 ? e.top : e.bot;
+      stride[r] = ny;
+      cls_row[r] = li < 0 ? e.solid_top : e.solid_bot;
+    } else {
+      row[r] = src + static_cast<int64_t>(li) * ny;
+      stride[r] = plane;
+      cls_row[r] = GEOM == kPlane ? solid + static_cast<int64_t>(li) * ny : nullptr;
+    }
+    const int64_t gi = e.offset + li;
+    grow[r] = gi < 0 ? gi + e.gnx : (gi >= e.gnx ? gi - e.gnx : gi);
+  }
+
+  // pull: p_s(i, j) = f_s(i - e_x, j - e_y)
+  float p[9];
+#pragma unroll
+  for (int s = 0; s < 9; ++s) {
+    const int r = EX[s] + 1;
+    const int64_t sj = cols[EY[s] + 1];
+    float v = load(row[r] + s * stride[r] + sj);
+    if (FORCE[s] != 0 && sj == 0 &&
+        forced_row<T, GEOM>(row[r], stride[r], cls_row[r], g, grow[r], e.gnx, k)) {
+      const float a = (s == 1 || s == 3) ? k.a14 : k.a58;
+      v = v + (FORCE[s] > 0 ? a : -a);
+    }
+    p[s] = v;
+  }
+  collide_store<T, GEOM>(
+      p, [&] { return row_class<GEOM>(cls_row[1], g, grow[1], j, e.gnx); }, dst, plane,
+      static_cast<int64_t>(i) * ny + j, k, fast_math);
 }
 
 template <typename T>
@@ -253,6 +402,46 @@ void launch(const dim3& grid, cudaStream_t st, const void* src, void* dst,
   }
 }
 
+template <typename T>
+void launch_ext(const dim3& grid, cudaStream_t st, const void* src, void* dst,
+                const uint8_t* solid, const Spec& g, const Ext<T>& e, int64_t nx,
+                int64_t ny, const Params& k, int fast_math, int64_t geometry) {
+  const T* s = static_cast<const T*>(src);
+  T* d = static_cast<T*>(dst);
+  if (geometry == kPlane) {
+    lbm_stream_collide_ext<T, kPlane><<<grid, kBlock, 0, st>>>(s, d, solid, g, e, nx, ny, k, fast_math);
+  } else if (geometry == kSpec) {
+    lbm_stream_collide_ext<T, kSpec><<<grid, kBlock, 0, st>>>(s, d, solid, g, e, nx, ny, k, fast_math);
+  } else {
+    lbm_stream_collide_ext<T, kNone><<<grid, kBlock, 0, st>>>(s, d, solid, g, e, nx, ny, k, fast_math);
+  }
+}
+
+// The checks both entry points share; true when the launch is refused.
+bool refused(const void* solid, const void* spec, int64_t nx, int64_t ny, int64_t storage,
+             int64_t geometry) {
+  // grid.x = rows (at most 2^31 - 1), grid.y = column tiles (at most
+  // 65535); the kernel's 32-bit index arithmetic needs nx, ny < 2^30
+  return nx < 1 || ny < 1 || nx >= (1LL << 30) || ny >= (1LL << 30) ||
+         (ny + kBlock - 1) / kBlock > 65535LL || storage < 0 || storage > 1 ||
+         geometry < kNone || geometry > kSpec ||
+         (geometry == kPlane && solid == nullptr) ||
+         (geometry == kSpec && spec == nullptr);
+}
+
+// The launch constants from their 9 host floats.
+Params params_from(const void* params) {
+  const float* h = static_cast<const float*>(params);
+  return Params{h[0], h[1], h[2], h[3], h[4], h[5], h[6], h[7], h[8]};
+}
+
+// The wall spec from its 10 host int64 (geometry 2), else an empty one.
+Spec spec_from(const void* spec, int64_t geometry) {
+  if (geometry != kSpec) return Spec{};
+  const int64_t* v = static_cast<const int64_t*>(spec);
+  return Spec{v[0], v[1], v[2], v[3], v[4], v[5], v[6], v[7], v[8], v[9]};
+}
+
 }  // namespace
 
 // One step src -> dst on `stream`. src, dst: (9, nx, ny), device,
@@ -267,22 +456,11 @@ extern "C" int lbm_stream_collide_launch(const void* src, void* dst,
                                          int64_t storage, int64_t geometry,
                                          int64_t fast_math, const void* params,
                                          void* stream) {
-  // grid.x = rows (at most 2^31 - 1), grid.y = column tiles (at most
-  // 65535); the kernel's 32-bit index arithmetic needs nx, ny < 2^30
-  if (nx < 1 || ny < 1 || nx >= (1LL << 30) || ny >= (1LL << 30) ||
-      (ny + kBlock - 1) / kBlock > 65535LL || storage < 0 || storage > 1 ||
-      geometry < kNone || geometry > kSpec ||
-      (geometry == kPlane && solid == nullptr) ||
-      (geometry == kSpec && spec == nullptr)) {
+  if (refused(solid, spec, nx, ny, storage, geometry)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const float* h = static_cast<const float*>(params);
-  const Params k{h[0], h[1], h[2], h[3], h[4], h[5], h[6], h[7], h[8]};
-  Spec g{};
-  if (geometry == kSpec) {
-    const int64_t* v = static_cast<const int64_t*>(spec);
-    g = Spec{v[0], v[1], v[2], v[3], v[4], v[5], v[6], v[7], v[8], v[9]};
-  }
+  const Params k = params_from(params);
+  const Spec g = spec_from(spec, geometry);
   const dim3 grid(static_cast<unsigned>(nx),
                   static_cast<unsigned>((ny + kBlock - 1) / kBlock));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -292,6 +470,50 @@ extern "C" int lbm_stream_collide_launch(const void* src, void* dst,
     launch<__nv_bfloat16>(grid, st, src, dst, w, g, nx, ny, k, fast, geometry);
   } else {
     launch<float>(grid, st, src, dst, w, g, nx, ny, k, fast, geometry);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The ext-halo form: one step of the local rows [row0, row0 + rows) of a
+// shard's (9, nx, ny) block src -> dst on `stream`, as the single-chip
+// form but for the rows beyond the block. top and bot: (9, ny) device rows
+// of src's storage, the row above local row 0 and the row below local row
+// nx - 1, each with all 9 speed planes; required when the range touches
+// row 0 (top) or row nx - 1 (bot), and never read otherwise. solid_top and
+// solid_bot: their (ny) uint8 class rows, required with them in the plane
+// variant. offset: the global row of local row 0; gnx: the global row
+// count (offset + nx <= gnx), the spec's periodicity. Returns
+// cudaGetLastError() after the launch.
+extern "C" int lbm_stream_collide_ext_launch(
+    const void* src, void* dst, const void* top, const void* bot, const void* solid,
+    const void* solid_top, const void* solid_bot, const void* spec, int64_t nx, int64_t ny,
+    int64_t row0, int64_t rows, int64_t offset, int64_t gnx, int64_t storage,
+    int64_t geometry, int64_t fast_math, const void* params, void* stream) {
+  const bool plane = geometry == kPlane;
+  if (refused(solid, spec, nx, ny, storage, geometry) || row0 < 0 || rows < 1 ||
+      row0 + rows > nx || offset < 0 || gnx >= (1LL << 62) || offset + nx > gnx ||
+      (row0 == 0 && (top == nullptr || (plane && solid_top == nullptr))) ||
+      (row0 + rows == nx && (bot == nullptr || (plane && solid_bot == nullptr)))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Params k = params_from(params);
+  const Spec g = spec_from(spec, geometry);
+  const dim3 grid(static_cast<unsigned>(rows),
+                  static_cast<unsigned>((ny + kBlock - 1) / kBlock));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const uint8_t* w = static_cast<const uint8_t*>(solid);
+  const uint8_t* wt = static_cast<const uint8_t*>(solid_top);
+  const uint8_t* wb = static_cast<const uint8_t*>(solid_bot);
+  const int fast = fast_math != 0;
+  if (storage == 1) {
+    using B = __nv_bfloat16;
+    const Ext<B> e{static_cast<const B*>(top), static_cast<const B*>(bot), wt, wb,
+                   row0, offset, gnx};
+    launch_ext<B>(grid, st, src, dst, w, g, e, nx, ny, k, fast, geometry);
+  } else {
+    const Ext<float> e{static_cast<const float*>(top), static_cast<const float*>(bot), wt,
+                       wb, row0, offset, gnx};
+    launch_ext<float>(grid, st, src, dst, w, g, e, nx, ny, k, fast, geometry);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -14,12 +14,32 @@ the port's backends.
 - "cuda-ds64": a persistent ops/fused_ds_kernel.Session around the CUDA
   ds kernel at the fast tier, the counterpart of "pallas-ds64". Like
   "cuda", it raises without a card.
+- "sharded" / "sharded-sync": the eager row-sharded runner
+  (parallel/sharded.py) with the overlap / sync schedule, on any device,
+  the counterparts of the JAX backends of the same names.
+- "sharded-cuda" / "sharded-cuda-fused": a persistent
+  parallel/sharded.ShardedSession around the ext-halo form of the CUDA
+  kernel, overlap (interior, then edge launches) / one launch per shard:
+  the counterparts of "sharded-pallas" / "sharded-pallas-fused".
+- "sharded-cuda-ds64": a persistent ShardedDSSession around the ext-halo
+  form of the ds kernel at the fast tier, the counterpart of
+  "sharded-pallas-ds64".
+The sharded backends run over make_mesh(), every visible card; a caller
+registers one over another mesh (devices may repeat) with
+register_backend(name, sharded.make_backend(mesh, overlap=...)) or
+sharded.make_cuda_backend(...), as in the JAX package. The kernel
+backends raise without a card.
+
+A backend function with a `session` attribute (session(cfg, walls, *,
+device, **options) -> a session with load, advance, state) runs through
+a persistent session that the facade keeps; any other runs as
+run_steps(f, walls, cfg, n_steps, **options).
 
 The ds backends carry a df64.DS pair and need a float64 LatticeConfig
 (the host-side precision of state() and f0); state(), macroscopic(),
 reynolds() and probe_values() use the pair recombined to float64.
 
-Options, as the JAX facade's capability sets (engine.py:82-118 there):
+Options, as the JAX facade's capability sets (engine.py:73-118 there):
 slip_x/slip_y on _SLIP_BACKENDS, else NotImplementedError; fast_math on
 _FASTMATH_BACKENDS, and ignored elsewhere, as the JAX _backend_kwargs
 ignores it; the closed-form wall spec on _WALL_SPEC_BACKENDS.
@@ -43,6 +63,7 @@ from ..core import geometry
 from ..core.spec import NSPEEDS, W, LatticeConfig
 from ..ops import df64, ds_engine, fused_ds_kernel, fused_kernel
 from ..ops import stream_collide as torch_ops
+from ..parallel import sharded
 from ..utils.interop import round_bf16, state_tensor, storage_dtype, to_numpy
 
 # backend name -> run_steps(f, walls, cfg, n_steps) -> f
@@ -53,20 +74,37 @@ def register_backend(name: str, run_steps: Callable) -> None:
     _BACKENDS[name] = run_steps
 
 
+def _with_session(run_steps: Callable, session: Callable) -> Callable:
+    """run_steps as a backend whose facade keeps a persistent session."""
+
+    def run(*args, **kwargs):
+        return run_steps(*args, **kwargs)
+
+    run.session = session
+    return run
+
+
 register_backend("torch", torch_ops.run_steps)
-register_backend("cuda", fused_kernel.run_steps)
+register_backend("cuda", _with_session(fused_kernel.run_steps, fused_kernel.Session))
 register_backend("torch-ds64", ds_engine.run_steps)
-register_backend("cuda-ds64", fused_ds_kernel.run_steps)
+register_backend("cuda-ds64", _with_session(fused_ds_kernel.run_steps, fused_ds_kernel.Session))
+register_backend("sharded", sharded.make_backend(overlap=True))
+register_backend("sharded-sync", sharded.make_backend(overlap=False))
+register_backend("sharded-cuda", sharded.make_cuda_backend(overlap=True))
+register_backend("sharded-cuda-fused", sharded.make_cuda_backend(overlap=False))
+register_backend("sharded-cuda-ds64", sharded.make_cuda_ds_backend())
 
 # backends whose state is a df64.DS pair, and backends that run a
 # hand-written kernel through a persistent session (CUDA only)
-_DS_BACKENDS = {"torch-ds64", "cuda-ds64"}
-_KERNEL_BACKENDS = {"cuda", "cuda-ds64"}
+_DS_BACKENDS = {"torch-ds64", "cuda-ds64", "sharded-cuda-ds64"}
+_KERNEL_BACKENDS = {"cuda", "cuda-ds64", "sharded-cuda", "sharded-cuda-fused",
+                    "sharded-cuda-ds64"}
 # backends that take free-slip masks, the approximate 1/rho, and the
 # closed-form wall spec (no mask plane read)
-_SLIP_BACKENDS = {"torch", "cuda"}
-_FASTMATH_BACKENDS = {"cuda"}
-_WALL_SPEC_BACKENDS = {"cuda"}
+_SLIP_BACKENDS = {"torch", "cuda", "sharded", "sharded-sync", "sharded-cuda",
+                  "sharded-cuda-fused"}
+_FASTMATH_BACKENDS = {"cuda", "sharded-cuda", "sharded-cuda-fused"}
+_WALL_SPEC_BACKENDS = {"cuda", "sharded-cuda", "sharded-cuda-fused"}
 
 
 def available_backends() -> list[str]:
@@ -169,29 +207,32 @@ class Simulation:
         )
         self.slip_x = None if slip_x is None else np.asarray(slip_x, dtype=bool)
         self.slip_y = None if slip_y is None else np.asarray(slip_y, dtype=bool)
-        self._slip = {}
-        if has_slip and backend == "torch":
-            self._slip = {
-                name: None if m is None else torch.as_tensor(m, device=self.device)
-                for name, m in (("slip_x", self.slip_x), ("slip_y", self.slip_y))
-            }
         f_init = initial_state(cfg) if f0 is None else f0
         if backend in _DS_BACKENDS:
             f = df64.from_f64(np.asarray(f_init, np.float64), self.device)
         else:
             f = state_tensor(f_init, cfg.dtype, self.device)
+        # the options a backend takes, by the capability sets
+        options = {}
+        if has_slip:
+            options.update(slip_x=self.slip_x, slip_y=self.slip_y)
+        if backend in _WALL_SPEC_BACKENDS:
+            options["wall_spec"] = self.wall_spec
+        if backend in _FASTMATH_BACKENDS:
+            options["fast_math"] = fast_math
         # persistent kernel session: buffers and geometry are built
         # once, and run() is then launches only
         self._session = None
         self._f = None
-        if backend == "cuda":
-            self._session = fused_kernel.Session(
-                cfg, self.walls_np, device=self.device, wall_spec=self.wall_spec,
-                slip_x=self.slip_x, slip_y=self.slip_y,
-                fast_math=fast_math and backend in _FASTMATH_BACKENDS,
-            )
-        elif backend == "cuda-ds64":
-            self._session = fused_ds_kernel.Session(cfg, self.walls_np, device=self.device)
+        self._options = {}
+        session = getattr(self._run_steps, "session", None)
+        if session is not None:
+            self._session = session(cfg, self.walls_np, device=self.device, **options)
+        else:
+            self._options = {
+                name: torch.as_tensor(m, device=self.device) if name.startswith("slip") else m
+                for name, m in options.items() if m is not None
+            }
         if self._session is not None:
             self._session.load(f)
         else:
@@ -221,7 +262,7 @@ class Simulation:
         if self._session is not None:
             self._session.advance(n_steps)
         else:
-            self._f = self._run_steps(self._f, self.walls, self.cfg, n_steps, **self._slip)
+            self._f = self._run_steps(self._f, self.walls, self.cfg, n_steps, **self._options)
         if block:
             _sync(self.device)
         self.elapsed += time.perf_counter() - t0

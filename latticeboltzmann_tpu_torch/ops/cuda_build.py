@@ -125,6 +125,29 @@ def load_library() -> ctypes.CDLL:
         ctypes.c_void_p,  # params: 9 host floats
         ctypes.c_void_p,  # cudaStream_t
     ]
+    fn = lib.lbm_stream_collide_ext_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [
+        ctypes.c_void_p,  # src: the shard's (9, nx, ny) block
+        ctypes.c_void_p,  # dst
+        ctypes.c_void_p,  # top halo row (9, ny), or null
+        ctypes.c_void_p,  # bot halo row (9, ny), or null
+        ctypes.c_void_p,  # solid class plane (null unless geometry 1)
+        ctypes.c_void_p,  # top halo class row (ny), or null
+        ctypes.c_void_p,  # bot halo class row (ny), or null
+        ctypes.c_void_p,  # spec: 10 host int64 (null unless geometry 2)
+        ctypes.c_int64,   # nx: the shard's rows
+        ctypes.c_int64,   # ny
+        ctypes.c_int64,   # row0: first row written
+        ctypes.c_int64,   # rows written
+        ctypes.c_int64,   # offset: global row of local row 0
+        ctypes.c_int64,   # gnx: global rows
+        ctypes.c_int64,   # storage: 0 float32, 1 bfloat16
+        ctypes.c_int64,   # geometry: 0 none, 1 plane, 2 spec
+        ctypes.c_int64,   # fast_math
+        ctypes.c_void_p,  # params: 9 host floats
+        ctypes.c_void_p,  # cudaStream_t
+    ]
     fn = lib.lbm_stream_collide_ds_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [
@@ -135,6 +158,29 @@ def load_library() -> ctypes.CDLL:
         ctypes.c_void_p,  # solid (may be null for the wall-free variant)
         ctypes.c_int64,   # nx
         ctypes.c_int64,   # ny
+        ctypes.c_int64,   # has_walls
+        ctypes.c_int64,   # exact
+        ctypes.c_void_p,  # params: 20 (exact) or 30 (fast) host floats
+        ctypes.c_void_p,  # cudaStream_t
+    ]
+    fn = lib.lbm_stream_collide_ds_ext_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [
+        ctypes.c_void_p,  # src_hi: the shard's (9, nx, ny) blocks
+        ctypes.c_void_p,  # src_lo
+        ctypes.c_void_p,  # dst_hi
+        ctypes.c_void_p,  # dst_lo
+        ctypes.c_void_p,  # top_hi: halo rows (9, ny), or null
+        ctypes.c_void_p,  # top_lo
+        ctypes.c_void_p,  # bot_hi
+        ctypes.c_void_p,  # bot_lo
+        ctypes.c_void_p,  # solid (may be null for the wall-free variant)
+        ctypes.c_void_p,  # top halo class row (ny), or null
+        ctypes.c_void_p,  # bot halo class row (ny), or null
+        ctypes.c_int64,   # nx: the shard's rows
+        ctypes.c_int64,   # ny
+        ctypes.c_int64,   # row0: first row written
+        ctypes.c_int64,   # rows written
         ctypes.c_int64,   # has_walls
         ctypes.c_int64,   # exact
         ctypes.c_void_p,  # params: 20 (exact) or 30 (fast) host floats

@@ -11,15 +11,24 @@ the default, as on 'pallas-ds64'). The `step` wrapper launches the kernel
 for CUDA tensors and takes `step_reference`, its plain PyTorch version,
 for CPU tensors; anything else raises.
 
+The ext-halo form (`ext_launcher`; plain version
+`step_reference_ext`) is the same step on one shard of the row-sharded
+path (parallel/sharded.py), the counterpart of the JAX kernel's
+ext_halo=True form (ops/fused_ds_kernel.py:242-254 there): a launch
+writes a range of the shard's local rows, and the rows beyond the shard
+come from two halo rows of each pair component, all 9 speed planes of a
+ring neighbour's boundary row. Its launches are counted in EXT_LAUNCHES.
+
 State is the unpadded DS pair of (9, NX, NY) float32 planes. The TPU
-kernel's mirror-pad lanes, pad re-mirroring, row blocks, halo rows and
-temporal blocking have no counterpart here (ROADMAP, "Not to port").
+kernel's mirror-pad lanes, pad re-mirroring, row blocks and temporal
+blocking have no counterpart here (ROADMAP, "Not to port").
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Callable
 
 import numpy as np
 import torch
@@ -28,11 +37,13 @@ from ..core.spec import NSPEEDS, LatticeConfig
 from ..utils.interop import storage_dtype
 from . import cuda_build, df64, ds_engine
 from .df64 import DS
-from .fused_kernel import check_device, check_solid_plane
+from .fused_kernel import ShardPlane, check_device, check_solid_plane
 
-# kernel launches made by `step`, for callers that must show a run went
-# through the kernel (chip_smoke.py resets and reads it)
+# kernel launches made by `step` and by the ext-halo form, for callers
+# that must show a run went through the kernel (chip_smoke.py resets and
+# reads both)
 LAUNCHES = 0
+EXT_LAUNCHES = 0
 
 # the JAX kernel's default temporal-blocking depth; its results are
 # bitwise independent of it, and here it has no effect at all
@@ -149,6 +160,124 @@ def step(
         raise RuntimeError(f"lbm_stream_collide_ds launch failed: cudaError {rc}")
     LAUNCHES += 1
     return dst
+
+
+def step_reference_ext(
+    hi: torch.Tensor, lo: torch.Tensor, halo: tuple[DS, DS], solid: ShardPlane | None,
+    cfg: LatticeConfig, exact: bool,
+) -> DS:
+    """Plain PyTorch version of the ext-halo form on a whole shard:
+    step_reference on the halo-extended pair (top, block, bot) with its
+    class rows, then the shard's L rows. halo: (top, bot), pairs of
+    (9, NY) rows above and below the shard; solid: a ShardPlane of codes
+    0/1, or None for the wall-free variant. Returns a new pair."""
+    top, bot = halo
+    hi_ext = torch.cat([top.hi[:, None], hi, bot.hi[:, None]], dim=1)
+    lo_ext = torch.cat([top.lo[:, None], lo, bot.lo[:, None]], dim=1)
+    walls = None if solid is None else torch.cat([solid.top[None], solid.plane, solid.bot[None]])
+    out = step_reference(hi_ext, lo_ext, walls, cfg, exact)
+    return DS(out.hi[:, 1:-1], out.lo[:, 1:-1])
+
+
+def _check_ext(src: DS, dst: DS, halo, solid, cfg: LatticeConfig, has_walls: bool,
+               row0: int, rows: int) -> None:
+    """The checks of _check for a shard, its row range and its halos."""
+    _require_float64(cfg)
+    dev = src.hi.device
+    check_device(src.hi)
+    n_rows = src.hi.shape[1] if src.hi.dim() == 3 else -1
+    shape = (NSPEEDS, n_rows, cfg.ny)
+    named = (("src.hi", src.hi), ("src.lo", src.lo), ("dst.hi", dst.hi), ("dst.lo", dst.lo))
+    for name, t in named:
+        if t.dtype != torch.float32 or tuple(t.shape) != shape or n_rows < 1:
+            raise ValueError(f"{name} must be float32 {shape}, got {t.dtype} {tuple(t.shape)}")
+        if not t.is_contiguous() or t.device != dev:
+            raise ValueError(f"{name} must be contiguous and on src.hi's device")
+    ptrs = [t.untyped_storage().data_ptr() for _, t in named]
+    if len(set(ptrs)) != 4:
+        raise ValueError("step is out of place: src.hi, src.lo, dst.hi and dst.lo "
+                         "must be four distinct buffers")
+    if not (0 <= row0 and rows >= 1 and row0 + rows <= n_rows):
+        raise ValueError(f"rows [{row0}, {row0 + rows}) outside the shard's {n_rows} rows")
+    if row0 == 0 or row0 + rows == n_rows:
+        if halo is None or len(halo) != 2:
+            raise ValueError("a launch that writes an edge row needs the (top, bot) halo pairs")
+        for t in (c for h in halo for c in (h.hi, h.lo)):
+            if (t.dtype != torch.float32 or tuple(t.shape) != (NSPEEDS, cfg.ny)
+                    or not t.is_contiguous() or t.device != dev):
+                raise ValueError(f"halo rows must be contiguous float32 {(NSPEEDS, cfg.ny)} "
+                                 f"on src's device, got {t.dtype} {tuple(t.shape)}")
+    if has_walls:
+        if not isinstance(solid, ShardPlane):
+            raise ValueError("the masked variant needs a ShardPlane")
+        check_solid_plane(solid.plane, shape[1:], dev, max_code=1)
+        for t in (solid.top, solid.bot):
+            check_solid_plane(t[None], (1, cfg.ny), dev, max_code=1)
+
+
+def ext_launcher(
+    src: DS,
+    dst: DS,
+    halo,
+    solid: ShardPlane | None,
+    cfg: LatticeConfig,
+    *,
+    has_walls: bool,
+    exact: bool = False,
+    row0: int = 0,
+    rows: int | None = None,
+) -> Callable[[], None]:
+    """Validate one ext-halo launch and return it as a call with no
+    arguments, to be made any number of times: it steps the local rows
+    [row0, row0 + rows) (default: all) of the shard pair src -> dst from
+    the buffers' contents at that time.
+
+    src, dst: the shard's pairs of (9, L, NY) float32 blocks; halo:
+    (top, bot), pairs of (9, NY) rows above and below the shard, needed
+    only when the range touches row 0 or L - 1 (else None); solid: a
+    ShardPlane of codes 0/1 (read when has_walls). On CUDA tensors the
+    call launches the kernel on the current stream and counts it in
+    EXT_LAUNCHES; on CPU tensors it writes step_reference_ext's rows."""
+    rows = src.hi.shape[1] - row0 if rows is None else rows
+    _check_ext(src, dst, halo, solid, cfg, has_walls, row0, rows)
+    if src.hi.device.type == "cpu":
+        def reference():
+            if halo is None:
+                zero = torch.zeros_like(src.hi[:, 0])
+                h = (DS(zero, zero), DS(zero, zero))
+            else:
+                h = halo
+            out = step_reference_ext(src.hi, src.lo, h, solid if has_walls else None,
+                                     cfg, exact)
+            dst.hi[:, row0:row0 + rows].copy_(out.hi[:, row0:row0 + rows])
+            dst.lo[:, row0:row0 + rows].copy_(out.lo[:, row0:row0 + rows])
+
+        return reference
+
+    consts = kernel_constants_ds(cfg, exact)
+    params = (ctypes.c_float * len(consts))(*consts)
+    fn = cuda_build.load_library().lbm_stream_collide_ds_ext_launch
+    top, bot = halo if halo is not None else (DS(None, None), DS(None, None))
+    plane = solid if has_walls else ShardPlane(None, None, None)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    args = (ptr(src.hi), ptr(src.lo), ptr(dst.hi), ptr(dst.lo), ptr(top.hi), ptr(top.lo),
+            ptr(bot.hi), ptr(bot.lo), ptr(plane.plane), ptr(plane.top), ptr(plane.bot),
+            src.hi.shape[1], cfg.ny, row0, rows, int(has_walls), int(exact),
+            ctypes.addressof(params))
+    device = src.hi.device
+
+    def launch():
+        global EXT_LAUNCHES
+        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"lbm_stream_collide_ds ext-halo launch failed: cudaError {rc}")
+        EXT_LAUNCHES += 1
+
+    launch.host_args = params  # alive as long as the call
+    return launch
 
 
 class Session:

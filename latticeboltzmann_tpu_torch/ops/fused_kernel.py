@@ -8,12 +8,19 @@ fused-kernel arithmetic order. The `step` wrapper launches it for CUDA
 tensors and takes `step_reference`, its plain PyTorch version, for CPU
 tensors; anything else raises.
 
-Variants, all single-chip (the JAX kernel at T=1):
+Variants (the JAX kernel at T=1):
 - storage: float32, or bfloat16 with float32 arithmetic;
 - geometry: none (wall-free), a uint8 class plane (0 fluid, 1
   bounce-back, 2 slip_x, 3 slip_y; `class_plane`), or a closed-form wall
   spec evaluated in the kernel (no plane read; geometry.infer_spec);
 - fast_math: an approximate 1/rho.
+
+The ext-halo form (`ext_launcher`; plain version
+`step_reference_ext`) is the same step on one shard of the row-sharded
+path (parallel/sharded.py): a launch writes a range of the shard's local
+rows, and the rows beyond the shard come from two halo rows, each with
+all 9 speed planes of a ring neighbour's boundary row. Its launches are
+counted apart, in EXT_LAUNCHES and EXT_VARIANT_LAUNCHES.
 
 State is the unpadded (9, NX, NY) layout: the TPU kernel's mirror-pad
 lanes, VMEM staging and temporal blocking have no counterpart here
@@ -25,6 +32,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -40,6 +48,9 @@ from . import cuda_build, stream_collide
 # kernel (chip_smoke.py resets and reads both)
 LAUNCHES = 0
 VARIANT_LAUNCHES: collections.Counter = collections.Counter()
+# the same for the ext-halo form's launches (`ext_launcher`)
+EXT_LAUNCHES = 0
+EXT_VARIANT_LAUNCHES: collections.Counter = collections.Counter()
 
 # the storage and geometry codes of the launcher in csrc/lbm_step.cu
 _STORAGE = {torch.float32: 0, torch.bfloat16: 1}
@@ -336,8 +347,189 @@ def step(
     return dst
 
 
+class ShardPlane(NamedTuple):
+    """The class-plane geometry of one shard for the ext-halo form: its
+    (L, NY) uint8 class plane and the (NY,) class rows of its two halo
+    rows, the neighbours' boundary rows."""
+
+    plane: torch.Tensor
+    top: torch.Tensor
+    bot: torch.Tensor
+
+
+def _ptr(t: torch.Tensor | None) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def _spec_rows(spec, cfg: LatticeConfig, row_offset: int, n: int,
+               device: torch.device) -> torch.Tensor:
+    """Rows row_offset .. row_offset + n - 1 of a wall spec's mask, as
+    uint8, periodic in the global row count cfg.nx."""
+    rows = torch.arange(row_offset, row_offset + n) % cfg.nx
+    return _spec_plane(tuple(map(tuple, spec)), cfg.nx, cfg.ny, device)[rows.to(device)]
+
+
+def step_reference_ext(
+    src: torch.Tensor,
+    halo: tuple[torch.Tensor, torch.Tensor],
+    geom,
+    cfg: LatticeConfig,
+    *,
+    row_offset: int = 0,
+    fast_math: bool = False,
+) -> torch.Tensor:
+    """Plain PyTorch version of the ext-halo form on a whole shard:
+    step_reference on the halo-extended block (top, src, bot) with its
+    class rows, then the shard's L rows. Returns a (9, L, NY) tensor of
+    src's dtype.
+
+    src: the shard's (9, L, NY) block, local row 0 at global row
+    row_offset of a cfg.nx-row lattice; halo: (top, bot), the (9, NY)
+    rows above and below it. geom: None, a ShardPlane, or a wall spec,
+    evaluated at the global rows row_offset - 1 .. row_offset + L,
+    periodic in cfg.nx. fast_math is taken for the kernel's signature and
+    computes IEEE 1/rho, as step_reference."""
+    del fast_math
+    top, bot = halo
+    n = src.shape[1] + 2
+    block = torch.cat([top[:, None], src, bot[:, None]], dim=1)
+    if geom is None:
+        solid = None
+    elif isinstance(geom, ShardPlane):
+        solid = torch.cat([geom.top[None], geom.plane, geom.bot[None]])
+    else:
+        solid = _spec_rows(geom, cfg, row_offset - 1, n, src.device)
+    return step_reference(block, solid, cfg)[:, 1:-1]
+
+
+def _check_ext(src, dst, halo, geom, cfg: LatticeConfig, row0: int, rows: int,
+               row_offset: int) -> tuple[str, object]:
+    """Validate an ext-halo launch; return the geometry kind and what the
+    launch needs of it (the largest class code, or the spec fields)."""
+    st = _storage(cfg)
+    check_device(src)
+    n_rows = src.shape[1] if src.dim() == 3 else -1
+    shape = (NSPEEDS, n_rows, cfg.ny)
+    if src is dst or src.data_ptr() == dst.data_ptr():
+        raise ValueError("step is out of place: src and dst must be distinct buffers")
+    for name, t in (("src", src), ("dst", dst)):
+        if t.dtype != st:
+            raise TypeError(f"{name} must be {st} (the config's storage), got {t.dtype}")
+        if tuple(t.shape) != shape or n_rows < 1:
+            raise ValueError(f"{name} shape {tuple(t.shape)} != {shape}")
+        if not t.is_contiguous() or t.device != src.device:
+            raise ValueError(f"{name} must be contiguous and on src's device")
+    if not (0 <= row0 and rows >= 1 and row0 + rows <= n_rows):
+        raise ValueError(f"rows [{row0}, {row0 + rows}) outside the shard's {n_rows} rows")
+    if not 0 <= row_offset <= cfg.nx - n_rows:
+        raise ValueError(f"a {n_rows}-row shard at global row {row_offset} lies outside "
+                         f"the {cfg.nx}-row lattice")
+    if row0 == 0 or row0 + rows == n_rows:
+        if halo is None or len(halo) != 2:
+            raise ValueError("a launch that writes an edge row needs the (top, bot) halo rows")
+        for t in halo:
+            if (t.dtype != st or tuple(t.shape) != (NSPEEDS, cfg.ny) or not t.is_contiguous()
+                    or t.device != src.device):
+                raise ValueError(f"halo rows must be contiguous {st} {(NSPEEDS, cfg.ny)} on "
+                                 f"src's device, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if geom is None:
+        return "none", None
+    if isinstance(geom, ShardPlane):
+        code = check_solid_plane(geom.plane, shape[1:], src.device)
+        for t in (geom.top, geom.bot):
+            code = max(code, check_solid_plane(t[None], (1, cfg.ny), src.device))
+        return "plane", code
+    if isinstance(geom, tuple):
+        return "spec", kernel_spec(geom, cfg.nx, cfg.ny)
+    raise ValueError(f"the ext-halo form takes None, a ShardPlane or a wall spec, got {type(geom)}")
+
+
+def ext_launcher(
+    src: torch.Tensor,
+    dst: torch.Tensor,
+    halo,
+    geom,
+    cfg: LatticeConfig,
+    *,
+    row0: int = 0,
+    rows: int | None = None,
+    row_offset: int = 0,
+    fast_math: bool = False,
+) -> Callable[[], None]:
+    """Validate one ext-halo launch and return it as a call with no
+    arguments, to be made any number of times: it steps the local rows
+    [row0, row0 + rows) (default: all) of the shard src -> dst from the
+    buffers' contents at that time.
+
+    src, dst: the shard's (9, L, NY) blocks of the storage dtype, local
+    row 0 at global row row_offset of the cfg.nx-row lattice. halo: (top,
+    bot), the (9, NY) rows above and below the shard, all 9 speed planes
+    of each; needed only when the range touches row 0 or L - 1 (else
+    None). geom: None, a ShardPlane (class plane and halo class rows), or
+    a wall spec (evaluated at global rows). On CUDA tensors the call
+    launches the kernel on the current stream and counts it in
+    EXT_LAUNCHES and EXT_VARIANT_LAUNCHES; on CPU tensors it writes
+    step_reference_ext's rows. Raises on anything the kernel does not
+    take."""
+    rows = src.shape[1] - row0 if rows is None else rows
+    kind, info = _check_ext(src, dst, halo, geom, cfg, row0, rows, row_offset)
+    if src.device.type == "cpu":
+        def reference():
+            h = halo if halo is not None else (torch.zeros_like(src[:, 0]),) * 2
+            out = step_reference_ext(src, h, geom, cfg, row_offset=row_offset)
+            dst[:, row0:row0 + rows].copy_(out[:, row0:row0 + rows])
+
+        return reference
+
+    # host arrays the launch reads: kept alive by the closure
+    params = (ctypes.c_float * 9)(*kernel_constants(cfg))
+    spec = (ctypes.c_int64 * SPEC_FIELDS)(*info) if kind == "spec" else None
+    fn = cuda_build.load_library().lbm_stream_collide_ext_launch
+    top, bot = halo if halo is not None else (None, None)
+    plane = geom if kind == "plane" else ShardPlane(None, None, None)
+    args = (_ptr(src), _ptr(dst), _ptr(top), _ptr(bot), _ptr(plane.plane), _ptr(plane.top),
+            _ptr(plane.bot), ctypes.addressof(spec) if spec is not None else None,
+            src.shape[1], cfg.ny, row0, rows, row_offset, cfg.nx, _STORAGE[src.dtype],
+            _GEOMETRY[kind], int(fast_math), ctypes.addressof(params))
+    variant = variant_name(src.dtype, kind, kind == "plane" and info > 1, fast_math)
+    device = src.device
+
+    def launch():
+        global EXT_LAUNCHES
+        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"lbm_stream_collide ext-halo launch failed: cudaError {rc}")
+        EXT_LAUNCHES += 1
+        EXT_VARIANT_LAUNCHES[variant] += 1
+
+    launch.host_args = (params, spec)  # alive as long as the call
+    return launch
+
+
 def _host_mask(x):
     return x.cpu().numpy() if torch.is_tensor(x) else x
+
+
+def host_geometry(cfg: LatticeConfig, walls, wall_spec=None, slip_x=None, slip_y=None):
+    """The geometry a session runs, on the host: with slip masks the
+    uint8 class plane (slip masks are arbitrary, so they force the plane,
+    as the JAX Session does at ops/fused_kernel.py:2778-2780); else None
+    when the mask has no solid site; else wall_spec when one is given
+    (the caller vouches that it reproduces `walls`; geometry.infer_spec's
+    result does); else the walls as a uint8 plane. Raises on a spec the
+    kernel does not take."""
+    walls_np = np.asarray(_host_mask(walls), dtype=bool)
+    if walls_np.shape != (cfg.nx, cfg.ny):
+        raise ValueError(f"walls shape {walls_np.shape} != {(cfg.nx, cfg.ny)}")
+    if slip_x is not None or slip_y is not None:
+        return class_plane(walls_np, _host_mask(slip_x), _host_mask(slip_y))
+    if not walls_np.any():
+        return None
+    if wall_spec is not None:
+        spec = tuple(wall_spec)
+        kernel_spec(spec, cfg.nx, cfg.ny)  # refuse what the kernel does not take
+        return spec
+    return walls_np.astype(np.uint8)
 
 
 class Session:
@@ -346,12 +538,9 @@ class Session:
     dtype that swap roles every step (the analog of the JAX kernel's
     aliased donor buffer).
 
-    The geometry: with slip masks, the class plane (slip masks are
-    arbitrary, so they force the plane, as the JAX Session does at
-    ops/fused_kernel.py:2778-2780); else none when the mask has no solid
-    site; else wall_spec when one is given (the caller vouches that it
-    reproduces `walls`; geometry.infer_spec's result does); else the
-    walls as a uint8 plane.
+    The geometry is host_geometry's: the class plane with slip masks,
+    else none for a wall-free mask, else the wall spec when one is given,
+    else the walls as a uint8 plane.
 
     Usage:
         sess = Session(cfg, walls, device="cuda", wall_spec=spec)
@@ -373,22 +562,13 @@ class Session:
         fast_math: bool = False,
     ):
         self.dtype = _storage(cfg)
-        walls_np = np.asarray(_host_mask(walls), dtype=bool)
-        if walls_np.shape != (cfg.nx, cfg.ny):
-            raise ValueError(f"walls shape {walls_np.shape} != {(cfg.nx, cfg.ny)}")
         self.cfg = cfg
         self.device = torch.device(device)
         self.fast_math = fast_math
-        if slip_x is not None or slip_y is not None:
-            cls = class_plane(walls_np, _host_mask(slip_x), _host_mask(slip_y))
-            self.geom = torch.as_tensor(cls, device=self.device)
-        elif not walls_np.any():
-            self.geom = None
-        elif wall_spec is not None:
-            self.geom = tuple(wall_spec)
-            kernel_spec(self.geom, cfg.nx, cfg.ny)  # refuse what the kernel does not take
-        else:
-            self.geom = torch.as_tensor(walls_np.astype(np.uint8), device=self.device)
+        geom = host_geometry(cfg, walls, wall_spec, slip_x, slip_y)
+        if isinstance(geom, np.ndarray):
+            geom = torch.as_tensor(geom, device=self.device)
+        self.geom = geom
         self.has_walls = self.geom is not None
         self._a = self._b = None
 

@@ -18,7 +18,10 @@ associate the collision differently; in bf16 the JAX package's bf16 bar
 (rtol 0.05, atol 2e-3, tests/test_pallas.py:142-157), since the XLA twin
 also rounds the forced column before the pull. The cuda-ds64 backend
 against the float64 torch backend uses the JAX package's pair-DP bar,
-1e-11 relative (tests/test_ds.py:213-229).
+1e-11 relative (tests/test_ds.py:213-229). The ext-halo forms of both
+kernels (the row-sharded path) are held bitwise against their plain
+versions (step_reference_ext) on meshes of virtual shards of the card,
+and the sharded-cuda backend bitwise against the cuda backend.
 """
 
 import numpy as np
@@ -30,6 +33,7 @@ from latticeboltzmann_tpu_torch.models.engine import initial_state
 from latticeboltzmann_tpu_torch.ops import df64
 from latticeboltzmann_tpu_torch.ops import fused_ds_kernel as fdk
 from latticeboltzmann_tpu_torch.ops import fused_kernel as fk
+from latticeboltzmann_tpu_torch.parallel import sharded
 from latticeboltzmann_tpu_torch.utils.interop import state_tensor
 
 torch.set_num_threads(1)
@@ -229,3 +233,153 @@ def test_cuda_ds64_backend_counts_launches_and_tracks_torch(cuda_device):
     assert err.max() < 1e-11
     with pytest.raises(ValueError, match="float64"):
         Simulation(LatticeConfig(nx=24, ny=40, dtype=np.float32), walls, backend="cuda-ds64")
+
+
+def _shard_planes(plane, n, device):
+    """A host class plane as each shard's ShardPlane (class plane and
+    halo class rows) on `device`."""
+    t = torch.as_tensor(plane, device=device)
+    L = t.shape[0] // n
+    return [fk.ShardPlane(t[k * L:(k + 1) * L].contiguous(), t[(k * L - 1) % t.shape[0]].contiguous(),
+                          t[(k * L + L) % t.shape[0]].contiguous()) for k in range(n)]
+
+
+def _ext_steps(cfg, geom, n, device, steps=5, fast_math=False):
+    """`steps` steps of the ext-halo kernel over n virtual shards (interior
+    and edge launches), each shard held bitwise against
+    step_reference_ext from the same input; returns the joined state."""
+    f = _perturbed(cfg, device)
+    L = cfg.nx // n
+    geoms = _shard_planes(geom, n, device) if isinstance(geom, np.ndarray) else [geom] * n
+    before = fk.EXT_LAUNCHES
+    for _ in range(steps):
+        shards = [f[:, k * L:(k + 1) * L].contiguous() for k in range(n)]
+        outs = []
+        for k in range(n):
+            halo = (shards[(k - 1) % n][:, -1].contiguous(), shards[(k + 1) % n][:, 0].contiguous())
+            dst = torch.empty_like(shards[k])
+            kw = dict(row_offset=k * L, fast_math=fast_math)
+            fk.ext_launcher(shards[k], dst, None, geoms[k], cfg, row0=1, rows=L - 2, **kw)()
+            for r in (0, L - 1):
+                fk.ext_launcher(shards[k], dst, halo, geoms[k], cfg, row0=r, rows=1, **kw)()
+            ref = fk.step_reference_ext(shards[k], halo, geoms[k], cfg, row_offset=k * L)
+            torch.cuda.synchronize()
+            if not fast_math:
+                assert torch.equal(dst, ref)
+            outs.append(dst)
+        f = torch.cat(outs, dim=1)
+    assert fk.EXT_LAUNCHES == before + steps * 3 * n
+    return f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("geom", ["none", "plane", "spec", "slip", "bf16-spec"])
+def test_ext_kernel_equals_step_reference_ext(geom, n, cuda_device):
+    cfg, walls = _scene("column0", "bfloat16" if geom == "bf16-spec" else np.float32)
+    if geom == "none":
+        g = None
+    elif geom == "plane":
+        g = walls.astype(np.uint8)
+    elif geom == "slip":
+        w, sx, sy = _slip_scene(cfg.nx, cfg.ny)
+        g = fk.class_plane(w, sx, sy)
+    else:
+        g = geometry.infer_spec(walls)
+    _ext_steps(cfg, g, n, cuda_device)
+
+
+@pytest.mark.cuda
+def test_ext_kernel_fast_math_within_its_tolerance(cuda_device):
+    cfg = LatticeConfig(nx=48, ny=96, dtype=np.float32)
+    spec = geometry.infer_spec(_plate_48x96())
+    got = _ext_steps(cfg, spec, 4, cuda_device, steps=fk.FAST_MATH_STEPS, fast_math=True)
+    ref = _perturbed(cfg, cuda_device)
+    for _ in range(fk.FAST_MATH_STEPS):
+        ref = fk.step_reference(ref, None, cfg, wall_spec=spec)
+    assert float(((got - ref).abs() / ref.abs()).max()) <= fk.FAST_MATH_RTOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exact", [False, True])
+def test_ds_ext_kernel_equals_step_reference_ext(exact, cuda_device):
+    cfg, walls = _scene("column0", np.float64)
+    n, L = 4, cfg.nx // 4
+    a = _perturbed_pair(cfg, cuda_device)
+    planes = _shard_planes(walls.astype(np.uint8), n, cuda_device)
+    before = fdk.EXT_LAUNCHES
+    for _ in range(5):
+        sh = [df64.DS(a.hi[:, k * L:(k + 1) * L].contiguous(), a.lo[:, k * L:(k + 1) * L].contiguous())
+              for k in range(n)]
+        outs = []
+        for k in range(n):
+            p, q = sh[(k - 1) % n], sh[(k + 1) % n]
+            halo = (df64.DS(p.hi[:, -1].contiguous(), p.lo[:, -1].contiguous()),
+                    df64.DS(q.hi[:, 0].contiguous(), q.lo[:, 0].contiguous()))
+            dst = df64.DS(torch.empty_like(sh[k].hi), torch.empty_like(sh[k].lo))
+            fdk.ext_launcher(sh[k], dst, None, planes[k], cfg, has_walls=True, exact=exact,
+                             row0=1, rows=L - 2)()
+            for r in (0, L - 1):
+                fdk.ext_launcher(sh[k], dst, halo, planes[k], cfg, has_walls=True, exact=exact,
+                                 row0=r, rows=1)()
+            ref = fdk.step_reference_ext(sh[k].hi, sh[k].lo, halo, planes[k], cfg, exact)
+            torch.cuda.synchronize()
+            assert torch.equal(dst.hi, ref.hi) and torch.equal(dst.lo, ref.lo)
+            outs.append(dst)
+        a = df64.DS(torch.cat([o.hi for o in outs], 1), torch.cat([o.lo for o in outs], 1))
+    assert fdk.EXT_LAUNCHES == before + 5 * 3 * n
+
+
+@pytest.mark.cuda
+def test_sharded_cuda_equals_cuda_bitwise(cuda_device, monkeypatch):
+    """sharded-cuda over 4 virtual shards of the card, 20 steps, against
+    the cuda backend; the same for sharded-cuda-ds64 against cuda-ds64."""
+    from latticeboltzmann_tpu_torch.models import engine
+
+    mesh = sharded.make_mesh(devices=[cuda_device] * 4)
+    monkeypatch.setitem(engine._BACKENDS, "sharded-cuda", sharded.make_cuda_backend(mesh))
+    monkeypatch.setitem(engine._BACKENDS, "sharded-cuda-ds64", sharded.make_cuda_ds_backend(mesh))
+    cfg, walls = _scene("column0")
+    before = fk.EXT_VARIANT_LAUNCHES["f32-spec"]
+    out = Simulation(cfg, walls, backend="sharded-cuda").run(20).state()
+    assert fk.EXT_VARIANT_LAUNCHES["f32-spec"] == before + 20 * 3 * 4
+    np.testing.assert_array_equal(out, Simulation(cfg, walls, backend="cuda").run(20).state())
+    cfg, walls = _scene("column0", np.float64)
+    before = fdk.EXT_LAUNCHES
+    out = Simulation(cfg, walls, backend="sharded-cuda-ds64").run(20).state()
+    assert fdk.EXT_LAUNCHES == before + 20 * 3 * 4
+    np.testing.assert_array_equal(out, Simulation(cfg, walls, backend="cuda-ds64").run(20).state())
+
+
+@pytest.mark.cuda
+def test_sharded_paths_across_cards_equal_single_chip(cuda_device, monkeypatch):
+    """Over a mesh of the cards, and of the cards each twice (shards of
+    one card interleaved with another's), the halo rows cross cards on
+    each card's copy stream: sharded-cuda (both schedules),
+    sharded-cuda-ds64 and the eager sharded backend equal the single-chip
+    backends after 20 steps, bitwise."""
+    from latticeboltzmann_tpu_torch.models import engine
+
+    n = max((k for k in range(2, torch.cuda.device_count() + 1) if 24 % k == 0), default=0)
+    if not n:
+        pytest.skip("needs two or more CUDA cards")
+    cards = [torch.device("cuda", i) for i in range(n)]
+    for devices in (cards, cards * 2 if 24 % (2 * n) == 0 else cards):
+        mesh = sharded.make_mesh(devices=devices)
+        cfg, walls = _scene("column0")
+        want = Simulation(cfg, walls, backend="cuda").run(20).state()
+        for overlap in (True, False):
+            monkeypatch.setitem(engine._BACKENDS, "sharded-cuda",
+                                sharded.make_cuda_backend(mesh, overlap=overlap))
+            out = Simulation(cfg, walls, backend="sharded-cuda").run(20).state()
+            np.testing.assert_array_equal(out, want)
+        monkeypatch.setitem(engine._BACKENDS, "sharded", sharded.make_backend(mesh))
+        ref = Simulation(cfg, walls, backend="torch", device=cuda_device).run(20).state()
+        np.testing.assert_array_equal(
+            Simulation(cfg, walls, backend="sharded", device=cuda_device).run(20).state(), ref)
+        cfg, walls = _scene("column0", np.float64)
+        monkeypatch.setitem(engine._BACKENDS, "sharded-cuda-ds64",
+                            sharded.make_cuda_ds_backend(mesh))
+        out = Simulation(cfg, walls, backend="sharded-cuda-ds64").run(20).state()
+        np.testing.assert_array_equal(
+            out, Simulation(cfg, walls, backend="cuda-ds64").run(20).state())

@@ -216,9 +216,14 @@ def test_fast_math_step_reference_is_ieee():
 
 
 def test_capability_sets_match_the_jax_facade():
-    assert engine._SLIP_BACKENDS == {"torch", "cuda"}
-    assert engine._FASTMATH_BACKENDS == {"cuda"}
-    assert engine._WALL_SPEC_BACKENDS == {"cuda"}
+    """The JAX facade's sets (engine.py:73-118 there), by counterpart:
+    xla -> torch, pallas -> cuda, sharded(-sync) -> the same names,
+    sharded-pallas(-fused) -> sharded-cuda(-fused)."""
+    assert engine._SLIP_BACKENDS == {"torch", "cuda", "sharded", "sharded-sync",
+                                     "sharded-cuda", "sharded-cuda-fused"}
+    assert engine._FASTMATH_BACKENDS == {"cuda", "sharded-cuda", "sharded-cuda-fused"}
+    assert engine._WALL_SPEC_BACKENDS == {"cuda", "sharded-cuda", "sharded-cuda-fused"}
+    assert engine._DS_BACKENDS == {"torch-ds64", "cuda-ds64", "sharded-cuda-ds64"}
 
 
 @pytest.mark.parametrize("backend", ["torch-ds64", "cuda-ds64"])

@@ -117,7 +117,9 @@ def test_cli_end_to_end():
 def test_auto_backend_and_cuda_refusal_without_card():
     from latticeboltzmann_tpu_torch.cli import resolve_backend
 
-    assert available_backends() == ["cuda", "cuda-ds64", "torch", "torch-ds64"]
+    assert available_backends() == ["cuda", "cuda-ds64", "sharded", "sharded-cuda",
+                                    "sharded-cuda-ds64", "sharded-cuda-fused", "sharded-sync",
+                                    "torch", "torch-ds64"]
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA card")
     assert resolve_backend("auto") == "torch"
