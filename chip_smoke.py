@@ -1036,8 +1036,13 @@ def sharded_phases(f32_main):
     ds_key = f"sharded-cuda-ds64, {VIRTUAL_SHARDS} virtual shards"
     paths_in_turns(rates64, {"cuda-ds64": Simulation(cfg64, walls, backend="cuda-ds64"),
                              ds_key: sims[ds_key]}, 1000)
+    def exchange_only(sess):
+        """One step's halo copies from the session's plan, no launches."""
+        copies = sess._plans[sess._parity][0]
+        return lambda: (sess.exchange.start(copies), sess.exchange.finish())
+
     for label in (f"sharded-cuda, {VIRTUAL_SHARDS} virtual shards", ds_key):
-        ms = event_ms(sims[label]._session.copy_halos, 500)
+        ms = event_ms(exchange_only(sims[label]._session), 500)
         print(f"halo exchange alone, {label}: {ms * 1e3!r} us/step (CUDA events, 500 exchanges)")
     del sims, f32_paths
 

@@ -37,7 +37,7 @@ from ..core.spec import NSPEEDS, LatticeConfig
 from ..utils.interop import storage_dtype
 from . import cuda_build, df64, ds_engine
 from .df64 import DS
-from .fused_kernel import ShardPlane, check_device, check_solid_plane
+from .fused_kernel import ShardPlane, check_device, check_ext_launch, check_solid_plane
 
 # kernel launches made by `step` and by the ext-halo form, for callers
 # that must show a run went through the kernel (chip_smoke.py resets and
@@ -183,36 +183,17 @@ def _check_ext(src: DS, dst: DS, halo, solid, cfg: LatticeConfig, has_walls: boo
                row0: int, rows: int) -> None:
     """The checks of _check for a shard, its row range and its halos."""
     _require_float64(cfg)
-    dev = src.hi.device
-    check_device(src.hi)
-    n_rows = src.hi.shape[1] if src.hi.dim() == 3 else -1
-    shape = (NSPEEDS, n_rows, cfg.ny)
     named = (("src.hi", src.hi), ("src.lo", src.lo), ("dst.hi", dst.hi), ("dst.lo", dst.lo))
-    for name, t in named:
-        if t.dtype != torch.float32 or tuple(t.shape) != shape or n_rows < 1:
-            raise ValueError(f"{name} must be float32 {shape}, got {t.dtype} {tuple(t.shape)}")
-        if not t.is_contiguous() or t.device != dev:
-            raise ValueError(f"{name} must be contiguous and on src.hi's device")
-    ptrs = [t.untyped_storage().data_ptr() for _, t in named]
-    if len(set(ptrs)) != 4:
+    n_rows = check_ext_launch(named, halo, torch.float32, cfg, row0, rows)
+    if len({t.untyped_storage().data_ptr() for _, t in named}) != 4:
         raise ValueError("step is out of place: src.hi, src.lo, dst.hi and dst.lo "
                          "must be four distinct buffers")
-    if not (0 <= row0 and rows >= 1 and row0 + rows <= n_rows):
-        raise ValueError(f"rows [{row0}, {row0 + rows}) outside the shard's {n_rows} rows")
-    if row0 == 0 or row0 + rows == n_rows:
-        if halo is None or len(halo) != 2:
-            raise ValueError("a launch that writes an edge row needs the (top, bot) halo pairs")
-        for t in (c for h in halo for c in (h.hi, h.lo)):
-            if (t.dtype != torch.float32 or tuple(t.shape) != (NSPEEDS, cfg.ny)
-                    or not t.is_contiguous() or t.device != dev):
-                raise ValueError(f"halo rows must be contiguous float32 {(NSPEEDS, cfg.ny)} "
-                                 f"on src's device, got {t.dtype} {tuple(t.shape)}")
     if has_walls:
         if not isinstance(solid, ShardPlane):
             raise ValueError("the masked variant needs a ShardPlane")
-        check_solid_plane(solid.plane, shape[1:], dev, max_code=1)
+        check_solid_plane(solid.plane, (n_rows, cfg.ny), src.hi.device, max_code=1)
         for t in (solid.top, solid.bot):
-            check_solid_plane(t[None], (1, cfg.ny), dev, max_code=1)
+            check_solid_plane(t[None], (1, cfg.ny), src.hi.device, max_code=1)
 
 
 def ext_launcher(

@@ -376,7 +376,6 @@ def step_reference_ext(
     cfg: LatticeConfig,
     *,
     row_offset: int = 0,
-    fast_math: bool = False,
 ) -> torch.Tensor:
     """Plain PyTorch version of the ext-halo form on a whole shard:
     step_reference on the halo-extended block (top, src, bot) with its
@@ -387,9 +386,8 @@ def step_reference_ext(
     row_offset of a cfg.nx-row lattice; halo: (top, bot), the (9, NY)
     rows above and below it. geom: None, a ShardPlane, or a wall spec,
     evaluated at the global rows row_offset - 1 .. row_offset + L,
-    periodic in cfg.nx. fast_math is taken for the kernel's signature and
-    computes IEEE 1/rho, as step_reference."""
-    del fast_math
+    periodic in cfg.nx. It computes IEEE 1/rho: the kernel's fast-math
+    variant is held to it within FAST_MATH_RTOL."""
     top, bot = halo
     n = src.shape[1] + 2
     block = torch.cat([top[:, None], src, bot[:, None]], dim=1)
@@ -402,40 +400,51 @@ def step_reference_ext(
     return step_reference(block, solid, cfg)[:, 1:-1]
 
 
+def check_ext_launch(blocks, halo, dtype: torch.dtype, cfg: LatticeConfig, row0: int,
+                     rows: int) -> int:
+    """The checks of an ext-halo launch that do not depend on its kernel.
+    blocks: (name, tensor) pairs, the first a source: contiguous (9, L,
+    NY) blocks of `dtype` on the first one's device, a CPU tensor or the
+    current card. The row range [row0, row0 + rows) lies in the shard. A
+    range that writes row 0 or L - 1 needs halo = (top, bot), each side a
+    (9, NY) row or a tuple of them (a pair's components), contiguous, of
+    `dtype`, on that device. Returns L."""
+    name0, src = blocks[0]
+    check_device(src)
+    n_rows = src.shape[1] if src.dim() == 3 else -1
+    shape = (NSPEEDS, n_rows, cfg.ny)
+    for name, t in blocks:
+        if t.dtype != dtype or tuple(t.shape) != shape or n_rows < 1:
+            raise ValueError(f"{name} must be {dtype} {shape}, got {t.dtype} {tuple(t.shape)}")
+        if not t.is_contiguous() or t.device != src.device:
+            raise ValueError(f"{name} must be contiguous and on {name0}'s device")
+    if not (0 <= row0 and rows >= 1 and row0 + rows <= n_rows):
+        raise ValueError(f"rows [{row0}, {row0 + rows}) outside the shard's {n_rows} rows")
+    if row0 == 0 or row0 + rows == n_rows:
+        if halo is None or len(halo) != 2:
+            raise ValueError("a launch that writes an edge row needs the (top, bot) halo rows")
+        for t in (t for side in halo for t in ((side,) if torch.is_tensor(side) else side)):
+            if (t.dtype != dtype or tuple(t.shape) != (NSPEEDS, cfg.ny) or not t.is_contiguous()
+                    or t.device != src.device):
+                raise ValueError(f"halo rows must be contiguous {dtype} {(NSPEEDS, cfg.ny)} on "
+                                 f"{name0}'s device, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    return n_rows
+
+
 def _check_ext(src, dst, halo, geom, cfg: LatticeConfig, row0: int, rows: int,
                row_offset: int) -> tuple[str, object]:
     """Validate an ext-halo launch; return the geometry kind and what the
     launch needs of it (the largest class code, or the spec fields)."""
-    st = _storage(cfg)
-    check_device(src)
-    n_rows = src.shape[1] if src.dim() == 3 else -1
-    shape = (NSPEEDS, n_rows, cfg.ny)
-    if src is dst or src.data_ptr() == dst.data_ptr():
+    n_rows = check_ext_launch((("src", src), ("dst", dst)), halo, _storage(cfg), cfg, row0, rows)
+    if src.data_ptr() == dst.data_ptr():
         raise ValueError("step is out of place: src and dst must be distinct buffers")
-    for name, t in (("src", src), ("dst", dst)):
-        if t.dtype != st:
-            raise TypeError(f"{name} must be {st} (the config's storage), got {t.dtype}")
-        if tuple(t.shape) != shape or n_rows < 1:
-            raise ValueError(f"{name} shape {tuple(t.shape)} != {shape}")
-        if not t.is_contiguous() or t.device != src.device:
-            raise ValueError(f"{name} must be contiguous and on src's device")
-    if not (0 <= row0 and rows >= 1 and row0 + rows <= n_rows):
-        raise ValueError(f"rows [{row0}, {row0 + rows}) outside the shard's {n_rows} rows")
     if not 0 <= row_offset <= cfg.nx - n_rows:
         raise ValueError(f"a {n_rows}-row shard at global row {row_offset} lies outside "
                          f"the {cfg.nx}-row lattice")
-    if row0 == 0 or row0 + rows == n_rows:
-        if halo is None or len(halo) != 2:
-            raise ValueError("a launch that writes an edge row needs the (top, bot) halo rows")
-        for t in halo:
-            if (t.dtype != st or tuple(t.shape) != (NSPEEDS, cfg.ny) or not t.is_contiguous()
-                    or t.device != src.device):
-                raise ValueError(f"halo rows must be contiguous {st} {(NSPEEDS, cfg.ny)} on "
-                                 f"src's device, got {t.dtype} {tuple(t.shape)} on {t.device}")
     if geom is None:
         return "none", None
     if isinstance(geom, ShardPlane):
-        code = check_solid_plane(geom.plane, shape[1:], src.device)
+        code = check_solid_plane(geom.plane, (n_rows, cfg.ny), src.device)
         for t in (geom.top, geom.bot):
             code = max(code, check_solid_plane(t[None], (1, cfg.ny), src.device))
         return "plane", code

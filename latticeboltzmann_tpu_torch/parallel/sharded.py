@@ -31,13 +31,15 @@ and L-1: _trio (:312-376 there) at one-row granularity. A shard of fewer
 than 3 rows takes one launch. overlap=False exchanges, then launches each
 shard once. Both are bitwise equal to the single-chip paths.
 
-On a mesh of one card every copy and launch runs on the current stream,
-in order. Across cards (HaloExchange) each card has a copy stream: the
+Every runner moves its halo rows through HaloExchange. On a mesh of one
+card every copy and launch runs on the current stream, in order. Across
+cards each card has a copy stream: the
 copies wait on an event recorded on each card's current stream (the
 rows they read are written, the halo rows they overwrite are read), and
 each card's edge launches wait on every card's copy event, so no copy
 reads a row that a pending launch still writes. The step loop makes no
-host sync. A multi-process transport (torch.distributed) is ROADMAP
+host sync. The kernel sessions refuse a mesh of another device type than
+the state's. A multi-process transport (torch.distributed) is ROADMAP
 work; the union-mask launch partition of the JAX path is TPU launch
 economy (ROADMAP, "Not to port").
 """
@@ -58,7 +60,6 @@ from ..ops.df64 import DS
 from ..ops.fused_kernel import ShardPlane
 from ..utils.interop import compute_dtype
 
-AXIS = "x"
 # speeds that pull from the row above (e_x = +1) / below (e_x = -1)
 UP_SPEEDS = (2, 5, 6)
 DOWN_SPEEDS = (4, 7, 8)
@@ -138,127 +139,10 @@ def gather_state(shards: list[torch.Tensor], device=None) -> torch.Tensor:
     return torch.cat([s.to(device) for s in shards], dim=1)
 
 
-def exchange_halos(shards: list[torch.Tensor], up=UP_SPEEDS, down=DOWN_SPEEDS):
-    """Each shard's (top, bot) halo rows, copied onto its device from its
-    ring neighbours: top = the `up` speed planes of the upper neighbour's
-    last row (global row r0 - 1), bot = the `down` planes of the lower
-    neighbour's first row (global row r0 + L); each (len(speeds), 1, NY).
-    The eager runner's exchange (sharded.py:58-74 there): the copies are
-    PyTorch's, which order themselves against both devices' current
-    streams."""
-    n = len(shards)
-    out = []
-    for k, f in enumerate(shards):
-        top = shards[(k - 1) % n][list(up), -1:, :].to(f.device)
-        bot = shards[(k + 1) % n][list(down), :1, :].to(f.device)
-        out.append((top, bot))
-    return out
-
-
-# --- the eager runner ("sharded", "sharded-sync") ---------------------------
-
-
-def _pull_padded(f_local: torch.Tensor, top: torch.Tensor, bot: torch.Tensor) -> torch.Tensor:
-    """Pull gather on a local block given its halo rows: y wraps locally
-    (y is unsharded); x takes the halo rows instead of a wrap."""
-    pulled = []
-    for s in range(NSPEEDS):
-        ex, ey = int(E[s, 0]), int(E[s, 1])
-        plane = torch.roll(f_local[s], ey, dims=1) if ey else f_local[s]
-        if ex == 0:
-            pulled.append(plane)
-            continue
-        halo = top[UP_SPEEDS.index(s)] if ex == 1 else bot[DOWN_SPEEDS.index(s)]
-        halo = torch.roll(halo, ey, dims=1) if ey else halo
-        pieces = [halo, plane[:-1]] if ex == 1 else [plane[1:], halo]
-        pulled.append(torch.cat(pieces, dim=0))
-    return torch.stack(pulled)
-
-
-def _finish(pulled: torch.Tensor, walls_l, cfg: LatticeConfig, slip_x_l=None,
-            slip_y_l=None) -> torch.Tensor:
-    """Collide and the solid classes on pulled distributions, precedence
-    walls > slip_x > slip_y, as ops.stream_collide: with bf16 storage the
-    arithmetic runs in float32 and rounds once on return."""
-    storage = pulled.dtype
-    pulled = pulled.to(compute_dtype(cfg.dtype))
-    relaxed = ops.collide(pulled, cfg)
-    if slip_y_l is not None:
-        relaxed = torch.where(slip_y_l[None], pulled[list(REFLECT_Y)], relaxed)
-    if slip_x_l is not None:
-        relaxed = torch.where(slip_x_l[None], pulled[list(REFLECT_X)], relaxed)
-    return torch.where(walls_l[None], pulled[list(ops.OPPOSITE)], relaxed).to(storage)
-
-
-def _step(shards, walls, cfg: LatticeConfig, overlap: bool, slip_x=None, slip_y=None):
-    """One step of every shard: forcing, halo exchange, stream and
-    collide. With overlap the interior rows [1, L-1) are computed from the
-    local block alone before the edge rows take the halos
-    (sharded.py:116-152 there)."""
-    n = len(shards)
-    solid = list(walls)
-    for masks in (slip_x, slip_y):
-        if masks is not None:
-            solid = [s | m for s, m in zip(solid, masks)]
-    forced = [ops.apply_source(f, s, cfg) for f, s in zip(shards, solid)]
-    halos = exchange_halos(forced)
-
-    def finish(k, pulled, rows):
-        return _finish(pulled, walls[k][rows], cfg,
-                       None if slip_x is None else slip_x[k][rows],
-                       None if slip_y is None else slip_y[k][rows])
-
-    everything = slice(None)
-    if not overlap or shards[0].shape[1] < 3:
-        return [finish(k, _pull_padded(forced[k], *halos[k]), everything) for k in range(n)]
-    # the local pull wraps x inside the block; rows 1..L-2 never read a
-    # wrapped row, so its interior equals the true pull
-    interior = [finish(k, ops.pull(forced[k])[:, 1:-1], slice(1, -1)) for k in range(n)]
-    out = []
-    for k in range(n):
-        pulled = _pull_padded(forced[k], *halos[k])
-        top = finish(k, pulled[:, :1], slice(None, 1))
-        bot = finish(k, pulled[:, -1:], slice(-1, None))
-        out.append(torch.cat([top, interior[k], bot], dim=1))
-    return out
-
-
-def make_run_steps(mesh: Mesh, cfg: LatticeConfig, *, overlap: bool = True):
-    """(f, walls, n_steps, slip_x=None, slip_y=None) -> f over the mesh:
-    the global state and masks are split on rows, stepped shard by shard
-    and joined again on f's device. Raises unless NX divides evenly."""
-    shard_rows(cfg.nx, mesh.size)
-
-    def run_steps(f, walls, n_steps: int, slip_x=None, slip_y=None):
-        fs, ws = shard_state(mesh, f, torch.as_tensor(walls))
-        sx = None if slip_x is None else _blocks(mesh, torch.as_tensor(slip_x), 0)
-        sy = None if slip_y is None else _blocks(mesh, torch.as_tensor(slip_y), 0)
-        for _ in range(n_steps):
-            fs = _step(fs, ws, cfg, overlap, sx, sy)
-        return gather_state(fs, f.device)
-
-    return run_steps
-
-
-def make_backend(mesh: Mesh | None = None, *, overlap: bool = True):
-    """The eager runner as a Simulation backend, run(f, walls, cfg,
-    n_steps, slip_x=None, slip_y=None), over `mesh` (default: make_mesh()
-    at the call)."""
-
-    def run(f, walls, cfg, n_steps, slip_x=None, slip_y=None):
-        m = make_mesh() if mesh is None else mesh
-        return make_run_steps(m, cfg, overlap=overlap)(f, walls, n_steps, slip_x, slip_y)
-
-    return run
-
-
-# --- the kernel runners ("sharded-cuda", "-fused", "-ds64") -----------------
-
-
 class HaloExchange:
-    """Copies of halo rows between the shards of a mesh: start(copies)
-    issues (dst, src) row copies, finish() makes the current streams wait
-    for them. On one device (or the CPU) the copies run on the current
+    """Copies of halo rows between the shards of a mesh, for every runner
+    here: start(copies) issues (dst, src) row copies, finish() makes the
+    current streams wait for them. On one device (or the CPU) the copies run on the current
     stream and finish() does nothing. Across cards the copies run on one
     copy stream per card, each after an event recorded on its card's
     current stream, and finish() makes every card's current stream wait
@@ -298,6 +182,130 @@ class HaloExchange:
                     stream.wait_event(ev)
 
 
+def exchange_halos(shards: list[torch.Tensor], exchange: HaloExchange | None = None,
+                   up=UP_SPEEDS, down=DOWN_SPEEDS):
+    """Each shard's (top, bot) halo rows, copied onto its device from its
+    ring neighbours through `exchange` (default: a HaloExchange over the
+    shards' devices): top = the `up` speed planes of the upper neighbour's
+    last row (global row r0 - 1), bot = the `down` planes of the lower
+    neighbour's first row (global row r0 + L); each (len(speeds), 1, NY).
+    The eager runner's exchange (sharded.py:58-74 there)."""
+    if exchange is None:
+        exchange = HaloExchange(Mesh(tuple(f.device for f in shards)))
+    n, ny = len(shards), shards[0].shape[-1]
+    out = [(f.new_empty(len(up), 1, ny), f.new_empty(len(down), 1, ny)) for f in shards]
+    copies = []
+    for k, (top, bot) in enumerate(out):
+        above, below = shards[(k - 1) % n], shards[(k + 1) % n]
+        copies += [(top[i], above[s, -1:]) for i, s in enumerate(up)]
+        copies += [(bot[i], below[s, :1]) for i, s in enumerate(down)]
+    exchange.start(copies)
+    exchange.finish()
+    return out
+
+
+# --- the eager runner ("sharded", "sharded-sync") ---------------------------
+
+
+def _pull_padded(f_local: torch.Tensor, top: torch.Tensor, bot: torch.Tensor) -> torch.Tensor:
+    """Pull gather on a local block given its halo rows: y wraps locally
+    (y is unsharded); x takes the halo rows instead of a wrap."""
+    pulled = []
+    for s in range(NSPEEDS):
+        ex, ey = int(E[s, 0]), int(E[s, 1])
+        plane = torch.roll(f_local[s], ey, dims=1) if ey else f_local[s]
+        if ex == 0:
+            pulled.append(plane)
+            continue
+        halo = top[UP_SPEEDS.index(s)] if ex == 1 else bot[DOWN_SPEEDS.index(s)]
+        halo = torch.roll(halo, ey, dims=1) if ey else halo
+        pieces = [halo, plane[:-1]] if ex == 1 else [plane[1:], halo]
+        pulled.append(torch.cat(pieces, dim=0))
+    return torch.stack(pulled)
+
+
+def _finish(pulled: torch.Tensor, walls_l, cfg: LatticeConfig, slip_x_l=None,
+            slip_y_l=None) -> torch.Tensor:
+    """Collide and the solid classes on pulled distributions, precedence
+    walls > slip_x > slip_y, as ops.stream_collide: with bf16 storage the
+    arithmetic runs in float32 and rounds once on return."""
+    storage = pulled.dtype
+    pulled = pulled.to(compute_dtype(cfg.dtype))
+    relaxed = ops.collide(pulled, cfg)
+    if slip_y_l is not None:
+        relaxed = torch.where(slip_y_l[None], pulled[list(REFLECT_Y)], relaxed)
+    if slip_x_l is not None:
+        relaxed = torch.where(slip_x_l[None], pulled[list(REFLECT_X)], relaxed)
+    return torch.where(walls_l[None], pulled[list(ops.OPPOSITE)], relaxed).to(storage)
+
+
+def _step(shards, walls, cfg: LatticeConfig, overlap: bool, exchange: HaloExchange,
+          slip_x=None, slip_y=None):
+    """One step of every shard: forcing, halo exchange, stream and
+    collide. With overlap the interior rows [1, L-1) are computed from the
+    local block alone before the edge rows take the halos
+    (sharded.py:116-152 there)."""
+    n = len(shards)
+    solid = list(walls)
+    for masks in (slip_x, slip_y):
+        if masks is not None:
+            solid = [s | m for s, m in zip(solid, masks)]
+    forced = [ops.apply_source(f, s, cfg) for f, s in zip(shards, solid)]
+    halos = exchange_halos(forced, exchange)
+
+    def finish(k, pulled, rows):
+        return _finish(pulled, walls[k][rows], cfg,
+                       None if slip_x is None else slip_x[k][rows],
+                       None if slip_y is None else slip_y[k][rows])
+
+    everything = slice(None)
+    if not overlap or shards[0].shape[1] < 3:
+        return [finish(k, _pull_padded(forced[k], *halos[k]), everything) for k in range(n)]
+    # the local pull wraps x inside the block; rows 1..L-2 never read a
+    # wrapped row, so its interior equals the true pull
+    interior = [finish(k, ops.pull(forced[k])[:, 1:-1], slice(1, -1)) for k in range(n)]
+    out = []
+    for k in range(n):
+        pulled = _pull_padded(forced[k], *halos[k])
+        top = finish(k, pulled[:, :1], slice(None, 1))
+        bot = finish(k, pulled[:, -1:], slice(-1, None))
+        out.append(torch.cat([top, interior[k], bot], dim=1))
+    return out
+
+
+def make_run_steps(mesh: Mesh, cfg: LatticeConfig, *, overlap: bool = True):
+    """(f, walls, n_steps, slip_x=None, slip_y=None) -> f over the mesh:
+    the global state and masks are split on rows, stepped shard by shard
+    and joined again on f's device. Raises unless NX divides evenly."""
+    shard_rows(cfg.nx, mesh.size)
+
+    def run_steps(f, walls, n_steps: int, slip_x=None, slip_y=None):
+        fs, ws = shard_state(mesh, f, torch.as_tensor(walls))
+        sx = None if slip_x is None else _blocks(mesh, torch.as_tensor(slip_x), 0)
+        sy = None if slip_y is None else _blocks(mesh, torch.as_tensor(slip_y), 0)
+        exchange = HaloExchange(mesh)
+        for _ in range(n_steps):
+            fs = _step(fs, ws, cfg, overlap, exchange, sx, sy)
+        return gather_state(fs, f.device)
+
+    return run_steps
+
+
+def make_backend(mesh: Mesh | None = None, *, overlap: bool = True):
+    """The eager runner as a Simulation backend, run(f, walls, cfg,
+    n_steps, slip_x=None, slip_y=None), over `mesh` (default: make_mesh()
+    at the call)."""
+
+    def run(f, walls, cfg, n_steps, slip_x=None, slip_y=None):
+        m = make_mesh() if mesh is None else mesh
+        return make_run_steps(m, cfg, overlap=overlap)(f, walls, n_steps, slip_x, slip_y)
+
+    return run
+
+
+# --- the kernel runners ("sharded-cuda", "-fused", "-ds64") -----------------
+
+
 def _on(device: torch.device):
     """A context that makes `device` current (kernels launch on the
     current device's stream)."""
@@ -318,6 +326,11 @@ class _ShardedKernelSession:
         self.overlap = overlap
         self.L = shard_rows(cfg.nx, mesh.size)
         self.device = torch.device(mesh.devices[0] if device is None else device)
+        if any(d.type != self.device.type for d in mesh.devices):
+            # the kernel runs where the shards lie: a CPU mesh behind a
+            # card's state would run the plain version on the CPU
+            raise ValueError(f"the mesh's devices {list(mesh.devices)} are not of the "
+                             f"state's device type {self.device.type!r}")
         self.exchange = HaloExchange(mesh)
         shape = (NSPEEDS, self.L, cfg.ny)
         self._bufs = [[[torch.empty(shape, dtype=dtype, device=d) for d in mesh.devices]
@@ -398,12 +411,6 @@ class _ShardedKernelSession:
                         call()
             self._parity ^= 1
 
-    def copy_halos(self) -> None:
-        """The next step's halo copies alone, without its launches: the
-        share of advance() that is exchange (chip_smoke.py times it)."""
-        self.exchange.start(self._plans[self._parity][0])
-        self.exchange.finish()
-
     def block(self) -> None:
         """Completion barrier for the launches so far."""
         for d in self.mesh.unique_devices():
@@ -468,12 +475,10 @@ class ShardedDSSession(_ShardedKernelSession):
                  overlap: bool = True, device=None):
         fused_ds_kernel._require_float64(cfg)
         super().__init__(cfg, mesh, 2, torch.float32, overlap, device)
-        walls_np = np.asarray(fused_kernel._host_mask(walls), dtype=bool)
-        if walls_np.shape != (cfg.nx, cfg.ny):
-            raise ValueError(f"walls shape {walls_np.shape} != {(cfg.nx, cfg.ny)}")
+        plane = fused_kernel.host_geometry(cfg, walls)  # None without a solid site
         self.exact = exact
-        self.has_walls = bool(walls_np.any())
-        self._geoms = self._shard_geometry(walls_np.astype(np.uint8))
+        self.has_walls = plane is not None
+        self._geoms = self._shard_geometry(plane) if self.has_walls else [None] * mesh.size
 
     def _pack(self, comps):
         return DS(*comps)
@@ -574,7 +579,7 @@ def make_cuda_ds_backend(mesh: Mesh | None = None, *, exact: bool = False):
 
 
 __all__ = [
-    "AXIS", "UP_SPEEDS", "DOWN_SPEEDS", "Mesh", "make_mesh", "shard_rows", "shard_state",
+    "UP_SPEEDS", "DOWN_SPEEDS", "Mesh", "make_mesh", "shard_rows", "shard_state",
     "gather_state", "exchange_halos", "make_run_steps", "make_backend", "HaloExchange",
     "ShardedSession", "ShardedDSSession", "make_cuda_run_steps", "make_cuda_backend",
     "make_cuda_ds_run_steps", "make_cuda_ds_backend",

@@ -255,6 +255,36 @@ def test_uneven_rows_raise():
             build()
 
 
+def test_exchange_halos_copies_the_ring_neighbours_rows():
+    """exchange_halos (through a HaloExchange over the shards' devices):
+    shard k's top rows are the UP_SPEEDS planes of shard k-1's last row,
+    its bottom rows the DOWN_SPEEDS planes of shard k+1's first row."""
+    rng = np.random.default_rng(3)
+    shards = [torch.as_tensor(rng.uniform(size=(9, 3, 5))) for _ in range(4)]
+    halos = sharded.exchange_halos(shards)
+    for k, (top, bot) in enumerate(halos):
+        assert torch.equal(top, shards[k - 1][list(sharded.UP_SPEEDS), -1:])
+        assert torch.equal(bot, shards[(k + 1) % 4][list(sharded.DOWN_SPEEDS), :1])
+
+
+@pytest.mark.parametrize("device", ["cuda", "cuda:0"])
+def test_kernel_sessions_refuse_a_mesh_of_another_device_type(device):
+    """A card's state over a CPU mesh raises: the kernel runs where the
+    shards lie, and the plain version never stands in on the CPU behind
+    a card's tensors."""
+    cfg, walls, _ = _scene_24x40(np.float32)
+    cfg64 = LatticeConfig(nx=24, ny=40, dtype=np.float64)
+    for build in (lambda: sharded.ShardedSession(cfg, walls, mesh=cpu_mesh(2), device=device),
+                  lambda: sharded.make_cuda_backend(cpu_mesh(4)).session(cfg, walls,
+                                                                         device=device),
+                  lambda: sharded.ShardedDSSession(cfg64, walls, mesh=cpu_mesh(2),
+                                                   device=device),
+                  lambda: sharded.make_cuda_ds_backend(cpu_mesh(4)).session(cfg64, walls,
+                                                                            device=device)):
+        with pytest.raises(ValueError, match="not of the state's device type"):
+            build()
+
+
 @pytest.mark.parametrize("backend", ["sharded-cuda", "sharded-cuda-fused", "sharded-cuda-ds64"])
 def test_kernel_backends_raise_without_a_card(backend):
     """As "cuda": the kernel backends run on a card or raise."""
