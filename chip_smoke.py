@@ -7,9 +7,10 @@ Run from the repository root:
 Phases, each of which raises on failure:
 1. device: a CUDA card must be present; prints nvidia-smi's name and
    power limit;
-2. build: compiles csrc/lbm_step.cu and csrc/lbm_ds_step.cu with nvcc
-   (timed) and prints ptxas's registers and spills for every kernel
-   instantiation;
+2. build: compiles the sources of csrc/ (lbm_step.cu, lbm_ds_step.cu,
+   lbm_flat_step.cu, lbm_probes.cu) with nvcc, one process each, all
+   started together (timed), and prints ptxas's registers and spills for
+   every kernel instantiation;
 3. the float32 stream-collide kernel against its plain PyTorch version
    (fused_kernel.step_reference) on the card, one step at a time from
    identical inputs, at four scenes, plane and wall-free variants; they
@@ -20,8 +21,9 @@ Phases, each of which raises on failure:
    finite and non-negative and Re finite, and a 20-step run must match
    the "torch" backend on the same card;
 5. times at 800x4000 of the kernel's plane and spec variants (in turns),
-   its plain version, the plain "torch" engine and a device copy of the
-   state (the bandwidth bound);
+   its plain version, the plain "torch" engine, and the roofline's
+   denominator: the port's copy kernel on one state buffer (its best
+   form), with Tensor.copy_, the library's copy, beside it;
 6. the pair-DP (ds) kernel against its plain version
    (fused_ds_kernel.step_reference) on the card, both tiers (fast and
    exact) and both variants, 10 single steps each at the four scenes of
@@ -52,8 +54,9 @@ Phases, each of which raises on failure:
    after the same steps; a 20-step run within that bar of the bf16
    "torch" backend;
 14. times: the bf16 spec and plane variants at 800x4000, the bf16 spec
-   variant and a bf16 state copy at 4000x16000, the bf16 plain version,
-   the slip and fast-math variants beside theirs;
+   variant at 4000x16000, each as a share of the copy kernel's rate on a
+   bf16 state of that size, the bf16 plain version, the slip and
+   fast-math variants beside theirs;
 15. the ext-halo forms of both kernels (the row-sharded path) against
    their plain versions (step_reference_ext) on meshes of 2 and 4
    virtual shards of the card, 10 single steps at the four scenes of
@@ -72,12 +75,37 @@ Phases, each of which raises on failure:
    turns, with the host's enqueue time; the halo exchange per step; the
    ext-halo kernels' launches of one step (interior + edges, or one per
    shard) beside the single-chip launch, as the host launches them and
-   queued behind a spin (the card's own time), and their plain versions.
+   queued behind a spin (the card's own time), and their plain versions;
+18. the four anatomy probes (ops/probes.py) against their plain versions,
+   bitwise, from seeded random inputs: the copy kernel (direct and
+   staged forms, float32 and bf16, at 800x4000, 24x40 and 24x37, an odd
+   NY), the y-roll kernel (shared memory and shuffles; shifts 1, NY-1, 96
+   and NY), the alignment kernel (offsets 0, 1, 2 along rows and along
+   columns) and the x-roll kernel (shared memory and global re-reads;
+   shifts 1 and 39); launches counted;
+19. the flat multi-step kernel against flat_reference, bitwise, on the
+   wall-free scenes of phase 3 (float32 and bf16; 2 and 8 steps in one
+   launch); then at full width: 800x4000 wall-free float32, 1,008 steps
+   in 63 counted launches of 16 through make_flat_step, bitwise equal to
+   Simulation(backend="cuda") on geometry.empty after the same steps;
+20. the anatomy path itself, scripts.anatomy.main(--section all) with a
+   small --steps at 800x4000, every kernel's launches counted; then
+   times: the copy kernel's forms beside Tensor.copy_ in turns, ns per
+   roll and per add of the probes (slopes between two counts), and the
+   flat kernel's us/step beside the step kernel's, in turns, at 800x4000
+   float32 and bf16 and at 400x2000 bf16 (both parities in L2);
+21. one float32 step at 4000x16000 (the shape the TPU kernel needed lane
+   panels for), spec and wall-free variants, bitwise against
+   step_reference.
 
 The kernels line gives every kernel's bound: the larger of its bytes
 (each input read once, each output written once) over the card's
 published memory rate and its f32 operations over the published f32
-rate (PEAK_BYTES_PER_S, PEAK_F32_OPS_PER_S). The line before the last is
+rate (PEAK_BYTES_PER_S, PEAK_F32_OPS_PER_S). For the three on-chip probes
+that bound (the block in and out) is a fraction of a microsecond, so
+their entries also carry the shared-memory (or L1) bound per roll or add
+over the SMs the launch occupies (smem_bound_ns_per_roll,
+l1_bound_ns_per_add). The line before the last is
 the card's name and power limit; the last is {"ok": true, "device":
 {...}}. Without a CUDA card it exits non-zero and prints no result.
 """
@@ -91,6 +119,8 @@ import time
 
 import numpy as np
 import torch
+
+from latticeboltzmann_tpu_torch.utils.timing import event_ms, queued_ms, timed_slope
 
 MAIN_STEPS = 10_000
 WARMUP = 96
@@ -153,19 +183,22 @@ def perturbed_state(cfg, rng):
 
 def reset_counts():
     """Every kernel launch count to 0."""
-    from latticeboltzmann_tpu_torch.ops import fused_ds_kernel, fused_kernel
+    from latticeboltzmann_tpu_torch.ops import fused_ds_kernel, fused_kernel, probes
 
     fused_kernel.LAUNCHES = fused_ds_kernel.LAUNCHES = 0
     fused_kernel.EXT_LAUNCHES = fused_ds_kernel.EXT_LAUNCHES = 0
+    fused_kernel.FLAT_LAUNCHES = 0
     fused_kernel.VARIANT_LAUNCHES.clear()
     fused_kernel.EXT_VARIANT_LAUNCHES.clear()
+    probes.LAUNCHES.clear()
 
 
 def read_counts():
     """{variant: launches} of the stream-collide kernel, its ext-halo
-    form's as "ext-<variant>", and the ds kernel's under "ds" and
-    "ds-ext"."""
-    from latticeboltzmann_tpu_torch.ops import fused_ds_kernel, fused_kernel
+    form's as "ext-<variant>", the ds kernel's under "ds" and "ds-ext",
+    the flat kernel's under "flat" and the probes' under their own keys
+    ("copy-direct", "roll_y-shuffle", ...)."""
+    from latticeboltzmann_tpu_torch.ops import fused_ds_kernel, fused_kernel, probes
 
     counts = dict(fused_kernel.VARIANT_LAUNCHES)
     if sum(counts.values()) != fused_kernel.LAUNCHES:
@@ -178,6 +211,9 @@ def read_counts():
         counts["ds"] = fused_ds_kernel.LAUNCHES
     if fused_ds_kernel.EXT_LAUNCHES:
         counts["ds-ext"] = fused_ds_kernel.EXT_LAUNCHES
+    if fused_kernel.FLAT_LAUNCHES:
+        counts["flat"] = fused_kernel.FLAT_LAUNCHES
+    counts.update({k: n for k, n in probes.LAUNCHES.items() if n})
     return counts
 
 
@@ -273,39 +309,6 @@ def compare_ds_kernel(name, cfg, walls, f0, exact, steps=10):
     return err
 
 
-def event_ms(fn, n):
-    """Milliseconds per call of fn over n calls, by CUDA events."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(n):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / n
-
-
-def queued_ms(fn, n, sleep_cycles=60_000_000):
-    """Device milliseconds per call of fn over n calls: the card first
-    spins for sleep_cycles (about 30 ms), long enough for the host to
-    queue all n calls behind it, so the events time the launches back to
-    back and not the host's launch rate (the sharded step's 12 small
-    launches are host-bound, and event_ms would time the host)."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(sleep_cycles)
-    t0.record()
-    for _ in range(n):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / n
-
-
 def rates_printer(cfg, bps):
     """A printer of one time per step at cfg's size, with MLUPS and the
     effective GB/s at bps bytes per site."""
@@ -347,6 +350,50 @@ def in_turns(rates, prefix, fns, n, timer=event_ms):
         rates(f"{prefix}, {label} (CUDA events, {n} calls, {how})", ms * 1e-3)
         best[label] = min(best.get(label, ms), ms)
     return best
+
+
+# (rows, stages) of the staged copy kernel that chip_smoke times beside the
+# direct form; a pair the lattice's rows do not fit is skipped
+COPY_STAGING = ((2, 4), (1, 4))
+
+
+def copy_rate(rates, a, b, label, n=500):
+    """The roofline's denominator: the port's copy kernel (ops/probes.py,
+    csrc/lbm_probes.cu) moving the state a -> b, its direct form and one
+    staged form, beside Tensor.copy_ (the library's copy), in turns. The
+    copy moves the same bytes per site as a step of that storage. Raises
+    unless every form leaves b == a. Returns {"ms": the best form's,
+    "form": its name, "library_ms": Tensor.copy_'s, "forms": {name: ms}}."""
+    from latticeboltzmann_tpu_torch.ops import probes
+
+    fns = {"Tensor.copy_ (the library's copy)": lambda: b.copy_(a),
+           "copy kernel, direct": lambda: probes.copy_state(a, b)}
+    for rows, stages in COPY_STAGING:
+        try:
+            probes.copy_state(a, b, rows=rows, stages=stages)
+        except ValueError:
+            continue
+        fns[f"copy kernel, staged rows={rows} stages={stages}"] = (
+            lambda r=rows, st=stages: probes.copy_state(a, b, rows=r, stages=st))
+        break
+    for name, fn in fns.items():
+        b.zero_()
+        fn()
+        if not torch.equal(a, b):
+            raise AssertionError(f"{label}: {name} left dst != src")
+    t = in_turns(rates, f"device copy of {label}", fns, n)
+    library_ms = t.pop("Tensor.copy_ (the library's copy)")
+    form = min(t, key=t.get)
+    print(f"copy rate of {label}: the copy kernel's best form ({form}) {t[form] * 1e3!r} us, "
+          f"the roofline's denominator; Tensor.copy_ {library_ms * 1e3!r} us beside it")
+    return {"ms": t[form], "form": form, "library_ms": library_ms, "forms": t}
+
+
+def share(label, kernel_ms, copy):
+    """Print a kernel's share of the copy rate: the copy kernel's best time
+    over the kernel's, with the library copy's beside it."""
+    print(f"{label}: {copy['ms'] / kernel_ms!r} of the copy kernel's rate "
+          f"({copy['library_ms'] / kernel_ms!r} of Tensor.copy_'s)")
 
 
 def main() -> int:
@@ -413,16 +460,16 @@ def main() -> int:
     b = torch.empty_like(a)
     solid = torch.as_tensor(walls.astype(np.uint8), device=dev)
     spec = sim.wall_spec
-    # the roofline's denominator: a device-to-device copy of one state
+    # the roofline's denominator: the port's copy kernel on one state
     # buffer moves the same 72 B per site as a step
-    copy_ms = event_ms(lambda: b.copy_(a), 500)
-    rates("device copy of the state, the bandwidth bound (CUDA events, 500 copies)",
-          copy_ms * 1e-3)
+    copy = copy_rate(rates, a, b, "an 800x4000 float32 state")
     t = in_turns(rates, "kernel launch", {
         "plane variant": lambda: fused_kernel.step(a, b, solid, cfg),
         "spec variant": lambda: fused_kernel.step(a, b, spec, cfg),
     }, 500)
     plane_ms, kernel_ms = t["plane variant"], t["spec variant"]
+    share("f32 kernel, spec variant", kernel_ms, copy)
+    share("f32 kernel, plane variant", plane_ms, copy)
     plain_ms = event_ms(lambda: fused_kernel.step_reference(a, solid, cfg), 20)
     rates("step_reference, its plain version (CUDA events, 20 steps)", plain_ms * 1e-3)
     eng = Simulation(cfg, walls, backend="torch", device="cuda")
@@ -445,11 +492,13 @@ def main() -> int:
     }
     del sim, eng, a, b
 
-    ds = ds_phases()
+    ds = ds_phases(copy)
     options = option_phases(f32_main)
     ext = sharded_phases(f32_main)
+    anatomy = anatomy_phases()
+    panels_phase()
 
-    print(json.dumps({"kernels": [f32_entry, *options, ds, *ext]}))
+    print(json.dumps({"kernels": [f32_entry, *options, ds, *ext, *anatomy]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
@@ -479,8 +528,9 @@ def scenes(dtype):
     return out
 
 
-def ds_phases():
-    """Phases 6-8: the pair-DP kernel and path. Returns the ds kernel's
+def ds_phases(copy):
+    """Phases 6-8: the pair-DP kernel and path. copy: copy_rate's result
+    for one float32 state (a ds step moves two). Returns the ds kernel's
     entry of the kernels line."""
     from latticeboltzmann_tpu_torch import LatticeConfig, Simulation, geometry
     from latticeboltzmann_tpu_torch.models.engine import initial_state
@@ -539,6 +589,10 @@ def ds_phases():
         rates(f"ds kernel launch, {tier} tier (CUDA events, 200 launches)", ms[exact] * 1e-3)
         rates(f"ds step_reference, {tier} tier, its plain version (CUDA events, 3 steps)",
               plain[exact] * 1e-3)
+    for exact in (False, True):
+        # a ds step reads and writes both pair components: two float32 copies
+        share(f"ds kernel, {'exact' if exact else 'fast'} tier", ms[exact],
+              {k: 2 * copy[k] for k in ("ms", "library_ms")})
     eng = Simulation(cfg, walls, backend="torch-ds64", device="cuda")
     eng.run(1)
     eng.elapsed, eng.steps_done = 0.0, 0
@@ -713,13 +767,13 @@ def option_phases(f32_main):
     a = state_tensor(perturbed_state(cfg16, rng), bf16, dev)
     b = torch.empty_like(a)
     plane = torch.as_tensor(walls.astype(np.uint8), device=dev)
-    copy16_ms = event_ms(lambda: b.copy_(a), 500)
-    rates16("device copy of a bf16 state (CUDA events, 500 copies)", copy16_ms * 1e-3)
+    copy16 = copy_rate(rates16, a, b, "an 800x4000 bf16 state")
     t = in_turns(rates16, "bf16 kernel", {
         "plane variant": lambda: fused_kernel.step(a, b, plane, cfg16),
         "spec variant": lambda: fused_kernel.step(a, b, spec, cfg16),
     }, 500)
     bf16_plane_ms, bf16_ms = t["plane variant"], t["spec variant"]
+    share("bf16 kernel, spec variant", bf16_ms, copy16)
     bf16_plain_ms = event_ms(lambda: fused_kernel.step_reference(a, None, cfg16,
                                                                  wall_spec=spec), 20)
     rates16("bf16 step_reference, its plain version (CUDA events, 20 steps)",
@@ -733,11 +787,10 @@ def option_phases(f32_main):
     a = state_tensor(initial_state(big), bf16, dev)
     b = torch.empty_like(a)
     big_ms = event_ms(lambda: fused_kernel.step(a, b, big_spec, big), 50)
-    big_copy_ms = event_ms(lambda: b.copy_(a), 50)
     rates_big = rates_printer(big, bytes_per_site(bf16))
     rates_big("bf16 kernel, spec variant, 4000x16000 (CUDA events, 50 launches)", big_ms * 1e-3)
-    rates_big("device copy of a bf16 state, 4000x16000 (CUDA events, 50 copies)",
-              big_copy_ms * 1e-3)
+    share("bf16 kernel, spec variant, 4000x16000", big_ms,
+          copy_rate(rates_big, a, b, "a 4000x16000 bf16 state", n=50))
     del a, b
 
     rates = rates_printer(cfg, bytes_per_site(np.float32))
@@ -1126,6 +1179,360 @@ def sharded_phases(f32_main):
          "launches": ds_launches, "max_abs_err": ds_ext_err,
          "ms": ds_ext_ms, "plain_ms": ds_ext_plain_ms, **ds_bound},
     ]
+
+
+# the anatomy path's small run: --steps of anatomy.main in phase 20
+ANATOMY_STEPS = 48
+# the flat kernel's full-width check: FLAT_STEPS steps in chunks of FLAT_CHUNK
+FLAT_CHUNK = 16
+FLAT_STEPS = 1008
+# on-chip rate for the probes' second bound: an SM's shared memory (and L1)
+# moves 128 B per clock (32 banks of 4 B; the Hopper architecture white
+# paper), at the H100 SXM's 1.98 GHz boost clock
+SMEM_BYTES_PER_S_PER_SM = 128 * 1.98e9
+
+
+def onchip_bound_ms(n_bytes, ctas):
+    """The least time for n_bytes of shared-memory (or L1) traffic spread
+    over the SMs that `ctas` CTAs occupy."""
+    sms = min(ctas, torch.cuda.get_device_properties(0).multi_processor_count)
+    return n_bytes / (SMEM_BYTES_PER_S_PER_SM * sms) * 1e3
+
+
+def bitwise(label, got, want):
+    """Raise unless got == want bitwise; returns max |got - want| (0.0)."""
+    torch.cuda.synchronize()
+    if got.shape != want.shape or not torch.equal(got, want):
+        d = (got.float() - want.float()).abs()
+        raise AssertionError(f"{label}: kernel != its plain version, max |diff| "
+                             f"{float(d.max())!r} at {int((got != want).sum())} values")
+    return float((got.float() - want.float()).abs().max())
+
+
+def anatomy_phases():
+    """Phases 18-20: the four probe kernels and the flat kernel against
+    their plain versions, the flat kernel at full width against the cuda
+    backend, the anatomy path itself (its launches counted), and times.
+    Returns the five kernels' entries of the kernels line."""
+    from latticeboltzmann_tpu_torch import LatticeConfig, Simulation, geometry
+    from latticeboltzmann_tpu_torch.ops import fused_kernel, probes
+    from latticeboltzmann_tpu_torch.scripts import anatomy
+    from latticeboltzmann_tpu_torch.utils.interop import bytes_per_site, state_tensor
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    rng = np.random.default_rng(SEED + 3)
+
+    def rand(shape, dtype=torch.float32):
+        return torch.rand(shape, generator=gen, device=dev).sub_(0.5).to(dtype)
+
+    # 18. the probes against their plain versions, bitwise
+    reset_counts()
+    err = {"copy": 0.0, "roll_y": 0.0, "align": 0.0, "roll_x": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        for nx, ny in ((800, 4000), (24, 40), (24, 37)):
+            a = rand((9, nx, ny), dtype)
+            want = probes.copy_reference(a)
+            forms = [{}, {"ctas_per_sm": 8}] + [{"rows": r, "stages": st}
+                                                for r, st in ((1, 2), (2, 4), (4, 3), (8, 2))]
+            taken = 0
+            for kw in forms:
+                b = torch.zeros_like(a)
+                try:
+                    probes.copy_state(a, b, **kw)
+                except ValueError:  # a tile of no whole 16-byte vectors, or too large
+                    continue
+                err["copy"] = max(err["copy"], bitwise(f"copy {kw} {dtype} {nx}x{ny}", b, want))
+                taken += 1
+            if taken < 3:
+                raise AssertionError(f"copy {dtype} {nx}x{ny}: no staged form was taken")
+            print(f"copy kernel vs src.clone() ({dtype}, {nx}x{ny}): direct (covering and "
+                  f"persistent grid) and {taken - 2} staged forms bitwise")
+    for rows, ny in ((32, 4000), (32, 40), (32, 37)):
+        x = rand((rows, ny))
+        for shift in (1, ny - 1, 96, ny):
+            for mechanism in ("shared", "shuffle"):
+                for n in (0, 6, 7):
+                    try:
+                        got = probes.roll_y(x, shift, n, mechanism=mechanism)
+                    except ValueError:  # shuffles take |shift| < 32 only
+                        continue
+                    err["roll_y"] = max(err["roll_y"], bitwise(
+                        f"roll_y {rows}x{ny} shift {shift} {mechanism} n {n}", got,
+                        probes.roll_y_reference(x, shift, n)))
+                    bitwise("roll_y vs one torch.roll", got, torch.roll(x, n * shift % ny, 1))
+    print("y-roll kernel vs chained torch.roll: shifts 1, NY-1, 96, NY; shared memory and "
+          "shuffles; (32, 4000), (32, 40), (32, 37): bitwise")
+    for rows, ny in ((40, 4000), (40, 37)):
+        x = rand((rows, ny))
+        for axis in (0, 1):
+            for offset in (0, 1, 2):
+                for n in (0, 8):
+                    err["align"] = max(err["align"], bitwise(
+                        f"align {rows}x{ny} axis {axis} offset {offset} n {n}",
+                        probes.align(x, offset, n, axis=axis),
+                        probes.align_reference(x, offset, n, axis)))
+        for shift in (1, rows - 1):
+            for mechanism in ("shared", "global"):
+                for n in (0, 1, 8, 9):
+                    err["roll_x"] = max(err["roll_x"], bitwise(
+                        f"roll_x {rows}x{ny} shift {shift} {mechanism} n {n}",
+                        probes.roll_x(x, shift, n, mechanism=mechanism),
+                        probes.roll_x_reference(x, shift, n)))
+    print("alignment kernel (offsets 0, 1, 2; rows and columns) and x-roll kernel (shifts 1, 39; "
+          "shared memory and global re-reads) vs their plain versions at (40, 4000), (40, 37): "
+          "bitwise")
+    counts18 = read_counts()
+    missing = {"copy-direct", "copy-staged", "roll_y-shared", "roll_y-shuffle", "align-axis0",
+               "align-axis1", "roll_x-shared", "roll_x-global"} - set(counts18)
+    if missing:
+        raise AssertionError(f"phase 18 launched no {sorted(missing)}: {counts18}")
+    print(f"phase 18 probe launches: {counts18}")
+
+    # 19. the flat kernel against flat_reference on the wall-free scenes
+    flat_err = 0.0
+    for dtype in (np.float32, "bfloat16"):
+        for name, cfg, _ in scenes(dtype):
+            f0 = perturbed_state(cfg, rng)
+            f0[6, cfg.nx // 2, 0] = 1e-6  # the forcing guard fails at one column-0 site
+            t = state_tensor(f0, cfg.dtype, dev)
+            for n in (2, 8):
+                f2 = torch.stack([t, torch.full_like(t, float("nan"))])
+                want = fused_kernel.flat_reference(f2, cfg, n)
+                flat_err = max(flat_err, bitwise(f"flat {name} wall-free {dtype} n {n}",
+                                                 fused_kernel.flat_step(f2, cfg, n), want))
+            print(f"flat kernel vs flat_reference, {name} wall-free ({t.dtype}), 2 and 8 steps "
+                  f"in one launch: bitwise")
+    # at full width: fast math within its bar, then FLAT_STEPS steps through
+    # make_flat_step against the cuda backend
+    cfg = LatticeConfig(nx=800, ny=4000, dtype=np.float32)
+    t = state_tensor(perturbed_state(cfg, rng), cfg.dtype, dev)
+    steps, bar = fused_kernel.FAST_MATH_STEPS, fused_kernel.FAST_MATH_RTOL
+    want = fused_kernel.flat_reference(torch.stack([t, t]), cfg, steps)[0]
+    got = fused_kernel.make_flat_step(cfg, steps, fast_math=True)(torch.stack([t, t]))[0]
+    flat_fast_rel = float(((got - want).abs() / want.abs()).max())
+    if not flat_fast_rel <= bar:
+        raise AssertionError(f"flat fast math after {steps} steps: max rel {flat_fast_rel!r} > {bar}")
+    print(f"flat kernel, fast math, vs flat_reference (IEEE 1/rho) after {steps} steps in one "
+          f"launch: max rel {flat_fast_rel!r} (bar {bar})")
+    del want, got
+    walls = geometry.empty(cfg.nx, cfg.ny)
+    reset_counts()
+    sim = Simulation(cfg, walls, backend="cuda")
+    t = state_tensor(sim.state(), cfg.dtype, dev)
+    want = sim.run(FLAT_STEPS).state()
+    expect_counts("cuda backend on the empty lattice", {"f32-none": FLAT_STEPS})
+    reset_counts()
+    step = fused_kernel.make_flat_step(cfg, FLAT_CHUNK, walls=walls)
+    f2 = torch.stack([t, t])
+    for _ in range(FLAT_STEPS // FLAT_CHUNK):
+        step(f2)
+    torch.cuda.synchronize()
+    flat_launches = expect_counts("flat path", {"flat": FLAT_STEPS // FLAT_CHUNK})["flat"]
+    got = f2[0].cpu().numpy()
+    if not (np.isfinite(got).all() and (got >= 0).all() and np.array_equal(got, want)):
+        raise AssertionError(f"flat path after {FLAT_STEPS} steps != the cuda backend's state, "
+                             f"max |diff| {float(np.abs(got - want).max())!r}")
+    print(f"flat path: 800x4000 wall-free float32, {FLAT_STEPS} steps in {flat_launches} counted "
+          f"launches of {FLAT_CHUNK} through make_flat_step, bitwise equal to "
+          f"Simulation(backend=cuda) on geometry.empty after the same steps")
+    del sim, f2, want, got
+
+    # 20. the anatomy path itself, every launch counted, then times
+    reset_counts()
+    rc = anatomy.main(["--section", "all", "--steps", str(ANATOMY_STEPS)])
+    if rc != 0:
+        raise AssertionError(f"anatomy.main returned {rc}")
+    counts = read_counts()
+    wanted = {"copy-direct", "copy-staged", "roll_y-shared", "roll_y-shuffle", "align-axis0",
+              "align-axis1", "roll_x-shared", "roll_x-global", "flat"}
+    if wanted - set(counts):
+        raise AssertionError(f"the anatomy path launched no {sorted(wanted - set(counts))}: "
+                             f"{counts}")
+    print(f"anatomy path: --section all --steps {ANATOMY_STEPS} at 800x4000, launches {counts}")
+
+    rates = rates_printer(cfg, bytes_per_site(np.float32))
+    a = rand((9, cfg.nx, cfg.ny))
+    b = torch.empty_like(a)
+    copy = copy_rate(rates, a, b, "an 800x4000 float32 state (phase 20)")
+    copy_plain_ms = event_ms(lambda: probes.copy_reference(a), 100)
+    n_bytes = 2 * a.numel() * a.element_size()
+    del a, b
+
+    # the on-chip probes: one launch at the JAX probe's counts (a few
+    # microseconds, so queued behind a spin: the host's launch rate would
+    # set the pace), and the slope per roll or add between two counts
+    n1 = 2000
+    x = rand((anatomy.ROLL_ROWS, cfg.ny))
+    out = torch.empty_like(x)
+    roll = {}
+    for mechanism in ("shared", "shuffle", "shuffle", "shared"):
+        dt = timed_slope(lambda n: probes.roll_y(x, 1, n, mechanism=mechanism, out=out), n1, 2 * n1)
+        print(f"y-roll, shift 1, {mechanism}: {dt * 1e9!r} ns/roll (slope {n1}/{2 * n1}, in turns)")
+        roll[mechanism] = min(roll.get(mechanism, dt), dt)
+    best = min(roll, key=roll.get)
+    roll_ms = queued_ms(lambda: probes.roll_y(x, 1, 6, mechanism=best, out=out), 200)
+    roll_plain_ms = queued_ms(lambda: probes.roll_y_reference(x, 1, 6), 50)
+    roll_lib_ms = queued_ms(lambda: torch.roll(x, 6, 1), 200)
+    roll_lib_each = queued_ms(lambda: torch.roll(x, 1, 1), 200)
+    print(f"y-roll, 6 rolls of (32, 4000): kernel ({best}) {roll_ms * 1e3!r} us, 6 chained "
+          f"torch.roll {roll_plain_ms * 1e3!r} us, one torch.roll by 6 {roll_lib_ms * 1e3!r} us, "
+          f"one torch.roll by 1 {roll_lib_each * 1e3!r} us")
+    roll_entry = {
+        "ms": roll_ms, "plain_ms": roll_plain_ms, **bound(2 * x.numel() * 4, 0),
+        "library_ms": roll_lib_ms, "mechanism": best,
+        "ns_per_roll": {m: v * 1e9 for m, v in roll.items()},
+        "library_ns_per_roll": roll_lib_each * 1e6,
+        "smem_bound_ns_per_roll": onchip_bound_ms(2 * x.numel() * 4, x.shape[0]) * 1e6,
+    }
+
+    x = rand((anatomy.ALIGN_ROWS, cfg.ny))
+    align_ns = {}
+    for axis in (0, 1):
+        for offset in (0, 1, 2, 2, 1, 0):
+            out = probes.align(x, offset, 0, axis=axis)
+            dt = timed_slope(lambda n: probes.align(x, offset, n, axis=axis, out=out), n1, 2 * n1)
+            key = f"axis{axis}-offset{offset}"
+            print(f"alignment, {key}: {dt * 1e9!r} ns/add (slope {n1}/{2 * n1}, in turns)")
+            align_ns[key] = min(align_ns.get(key, dt * 1e9), dt * 1e9)
+    out = probes.align(x, 1, 0, axis=1)
+    align_ms = queued_ms(lambda: probes.align(x, 1, 8, axis=1, out=out), 200)
+    align_plain_ms = queued_ms(lambda: probes.align_reference(x, 1, 8, 1), 50)
+    print(f"alignment, 8 adds at column offset 1 of (40, 4000): kernel {align_ms * 1e3!r} us, "
+          f"plain version {align_plain_ms * 1e3!r} us")
+    align_entry = {
+        "ms": align_ms, "plain_ms": align_plain_ms,
+        # the block read once, the output written once; 8 adds per element
+        **bound((x.numel() + out.numel()) * 4, 8 * out.numel()),
+        "ns_per_add": align_ns,
+        # one 4-byte operand per element and add through L1, over the grid's CTAs
+        "l1_bound_ns_per_add": onchip_bound_ms(out.numel() * 4, 10**6) * 1e6,
+    }
+
+    out = torch.empty_like(x)
+    rollx = {}
+    for shift in (1, anatomy.ALIGN_ROWS - 1):
+        for mechanism in ("shared", "global", "global", "shared"):
+            dt = timed_slope(lambda n: probes.roll_x(x, shift, n, mechanism=mechanism, out=out),
+                             n1, 2 * n1)
+            key = f"{mechanism}-shift{shift}"
+            print(f"x-roll, {key}: {dt * 1e9!r} ns/roll (slope {n1}/{2 * n1}, in turns)")
+            rollx[key] = min(rollx.get(key, dt * 1e9), dt * 1e9)
+    rollx_ms = queued_ms(lambda: probes.roll_x(x, 1, 8, mechanism="shared", out=out), 200)
+    rollx_plain_ms = queued_ms(lambda: probes.roll_x_reference(x, 1, 8), 50)
+    rollx_lib_ms = queued_ms(lambda: torch.roll(x, 8, 0), 200)
+    rollx_lib_each = queued_ms(lambda: torch.roll(x, 1, 0), 200)
+    print(f"x-roll, 8 rolls of (40, 4000): kernel (shared) {rollx_ms * 1e3!r} us, 8 chained "
+          f"torch.roll {rollx_plain_ms * 1e3!r} us, one torch.roll by 8 {rollx_lib_ms * 1e3!r} us, "
+          f"one torch.roll by 1 {rollx_lib_each * 1e3!r} us")
+    tiles = -(-cfg.ny // 128)
+    rollx_entry = {
+        "ms": rollx_ms, "plain_ms": rollx_plain_ms, **bound(2 * x.numel() * 4, 0),
+        "library_ms": rollx_lib_ms, "ns_per_roll": rollx,
+        "library_ns_per_roll": rollx_lib_each * 1e6,
+        "smem_bound_ns_per_roll": onchip_bound_ms(2 * x.numel() * 4, tiles) * 1e6,
+    }
+    del x, out
+
+    # the flat kernel beside the step kernel, in turns, per step
+    def flat_and_step(cfg_):
+        t_ = state_tensor(perturbed_state(cfg_, rng), cfg_.dtype, dev)
+        f2_ = torch.stack([t_, t_])
+        u_ = torch.empty_like(t_)
+        flat_ = fused_kernel.make_flat_step(cfg_, FLAT_CHUNK)
+
+        def two_steps():
+            fused_kernel.step(t_, u_, None, cfg_)
+            fused_kernel.step(u_, t_, None, cfg_)
+
+        r = rates_printer(cfg_, bytes_per_site(cfg_.dtype))
+        label = f"{cfg_.nx}x{cfg_.ny} {t_.dtype}"
+        best_ = {}
+        names = {"step": "step kernel, wall-free, one launch per step",
+                 "flat": f"flat kernel, {FLAT_CHUNK} steps per launch"}
+        for which in ("step", "flat", "flat", "step"):
+            # queued behind a spin: on a small lattice the host's launch rate,
+            # not the card, would set the step kernel's pace
+            ms = (queued_ms(two_steps, 200) / 2 if which == "step"
+                  else queued_ms(lambda: flat_(f2_), 20) / FLAT_CHUNK)
+            r(f"{label}, {names[which]} (CUDA events, queued behind a spin, in turns)", ms * 1e-3)
+            best_[which] = min(best_.get(which, ms), ms)
+        return best_, f2_
+
+    per_step, f2 = flat_and_step(cfg)
+    flat_ms = event_ms(lambda: fused_kernel.flat_step(f2, cfg, FLAT_CHUNK), 20)
+    flat_plain_ms = event_ms(lambda: fused_kernel.flat_reference(f2, cfg, FLAT_CHUNK), 2)
+    print(f"flat_reference, {FLAT_CHUNK} steps, its plain version: {flat_plain_ms!r} ms")
+    state_bytes = f2[0].numel() * 4
+    del f2
+    small, _ = flat_and_step(LatticeConfig(nx=400, ny=2000, dtype="bfloat16"))
+    per_step16, _ = flat_and_step(LatticeConfig(nx=800, ny=4000, dtype="bfloat16"))
+
+    source = "latticeboltzmann_tpu_torch/csrc/lbm_probes.cu"
+    return [
+        {"name": f"lbm_copy_direct / lbm_copy_staged (best form: {copy['form']})",
+         "route": "cuda", "source": source, "replaces": "scripts/anatomy.py:140",
+         "launches": counts["copy-direct"] + counts["copy-staged"], "max_abs_err": err["copy"],
+         "ms": copy["ms"], "plain_ms": copy_plain_ms, **bound(n_bytes, 0),
+         "library_ms": copy["library_ms"], "forms_ms": copy["forms"]},
+        {"name": "lbm_roll_y_shared / lbm_roll_y_shuffle (6 rolls by 1 of (32, 4000))",
+         "route": "cuda", "source": source, "replaces": "scripts/anatomy.py:192",
+         "launches": counts["roll_y-shared"] + counts["roll_y-shuffle"],
+         "max_abs_err": err["roll_y"], **roll_entry},
+        {"name": "lbm_align (8 adds at column offset 1 of (40, 4000))",
+         "route": "cuda", "source": source, "replaces": "scripts/anatomy.py:224",
+         "launches": counts["align-axis0"] + counts["align-axis1"],
+         "max_abs_err": err["align"], **align_entry},
+        {"name": "lbm_roll_x_shared / lbm_roll_x_global (8 rolls by 1 of (40, 4000))",
+         "route": "cuda", "source": source, "replaces": "scripts/anatomy.py:252",
+         "launches": counts["roll_x-shared"] + counts["roll_x-global"],
+         "max_abs_err": err["roll_x"], **rollx_entry},
+        {"name": f"lbm_flat_steps<float> ({FLAT_CHUNK} wall-free steps per launch, 800x4000)",
+         "route": "cuda", "source": "latticeboltzmann_tpu_torch/csrc/lbm_flat_step.cu",
+         "replaces": "latticeboltzmann_tpu/ops/fused_kernel.py:1845",
+         "launches": counts["flat"], "launches_full_width_check": flat_launches,
+         "max_abs_err": flat_err, "max_rel_err_fast_math": flat_fast_rel,
+         "ms": flat_ms, "plain_ms": flat_plain_ms,
+         # the function: parity 0 read once, both parities written once; every
+         # step's operations
+         **bound(3 * state_bytes, FLAT_CHUNK * F32_OPS_PER_SITE * cfg.sites),
+         # and what FLAT_CHUNK steps move when each goes through device memory
+         "per_step_traffic_bound_ms": FLAT_CHUNK * 2 * state_bytes / PEAK_BYTES_PER_S * 1e3,
+         "us_per_step": per_step["flat"] * 1e3, "step_kernel_us_per_step": per_step["step"] * 1e3,
+         "bf16_us_per_step": per_step16["flat"] * 1e3,
+         "bf16_step_kernel_us_per_step": per_step16["step"] * 1e3,
+         "bf16_400x2000_us_per_step": small["flat"] * 1e3,
+         "bf16_400x2000_step_kernel_us_per_step": small["step"] * 1e3},
+    ]
+
+
+def panels_phase():
+    """Phase 21: one float32 step at 4000x16000, the shape the TPU kernel
+    needed lane panels for, spec and wall-free variants, bitwise against
+    step_reference."""
+    from latticeboltzmann_tpu_torch import LatticeConfig, geometry, initial_state
+    from latticeboltzmann_tpu_torch.ops import fused_kernel
+
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    cfg = LatticeConfig(nx=4000, ny=16000, dtype=np.float32)
+    spec = geometry.infer_spec(geometry.reference_barrier(cfg.nx, cfg.ny))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    a = torch.as_tensor(initial_state(cfg), device=dev)
+    for s in range(9):  # rest equilibrium times (1 + 5% noise), plane by plane
+        a[s].mul_(torch.rand(a[s].shape, generator=gen, device=dev).mul_(0.1).add_(0.95))
+    a[6, cfg.nx // 2, 0] = 1e-6  # the forcing guard fails at one column-0 site
+    b = torch.empty_like(a)
+    for kind, geom in (("spec", spec), ("wall-free", None)):
+        before = fused_kernel.LAUNCHES
+        fused_kernel.step(a, b, geom, cfg)
+        want = reference(a, geom, cfg)
+        bitwise(f"4000x16000 float32 {kind}", b, want)
+        del want
+        print(f"kernel vs step_reference 4000x16000 (float32, {kind}), 1 step, "
+              f"{fused_kernel.LAUNCHES - before} launch: bitwise")
+    del a, b
+    torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

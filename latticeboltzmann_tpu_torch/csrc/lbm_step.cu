@@ -24,10 +24,11 @@
 //   indices (:1220-1269), which reads no plane at all.
 // fast_math (an approximate 1/rho, :1028-1036) is a uniform run-time flag.
 // The two forms are two kernels (lbm_stream_collide, lbm_stream_collide_ext)
-// that share what follows the pull (collide_store). The single-chip kernel
-// keeps its own row indexing: routing both forms through one kernel, with
-// per-row pointers, strides and global rows, cost the single-chip bf16
-// step 20% on an H100 (82 against 68 us at 800x4000).
+// that share what follows the pull (collide_store, in lbm_collide.cuh,
+// which the flat multi-step kernel of lbm_flat_step.cu shares too). The
+// single-chip kernel keeps its own row indexing: routing both forms
+// through one kernel, with per-row pointers, strides and global rows, cost
+// the single-chip bf16 step 20% on an H100 (82 against 68 us at 800x4000).
 //
 // Bound: device-memory bytes. A site update reads 9 f values and writes 9:
 // 72 B in float32, 36 B in bf16, plus 1 B of class plane in the plane
@@ -90,21 +91,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+#include "lbm_collide.cuh"
 
-// Launch constants, float32, rounded on the host in this order by
-// fused_kernel.kernel_constants.
-struct Params {
-  float c1;    // 1 - 1/tau
-  float iw0;   // w0/tau
-  float iw14;  // w1/tau
-  float iw58;  // w5/tau
-  float k3;    // 3/c^2
-  float k6;    // c^2/6
-  float half;  // 0.5
-  float a14;   // accel * w1
-  float a58;   // accel * w5
-};
+namespace {
 
 // A closed-form wall spec (core/geometry.py): at most one of each
 // primitive, in fused_kernel.kernel_spec's order. Solid where any
@@ -130,18 +119,7 @@ struct Ext {
   int64_t gnx;               // global row count
 };
 
-enum Geometry : int { kNone = 0, kPlane = 1, kSpec = 2 };
-
 constexpr int kBlock = 256;
-
-__device__ __forceinline__ float load(const float* p) { return *p; }
-__device__ __forceinline__ float load(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
 
 // geometry.spec_mask at one site, in 64-bit integers (the wrapper refuses
 // a circle whose test could overflow them)
@@ -205,78 +183,6 @@ __device__ __forceinline__ bool forced_row(const T* __restrict__ row, int64_t st
   return (load(row + 6 * stride) - k.a58 > 0.0f) &&
          (load(row + 3 * stride) - k.a14 > 0.0f) &&
          (load(row + 7 * stride) - k.a58 > 0.0f);
-}
-
-__device__ __forceinline__ float approx_reciprocal(float x) {
-  float r;
-  asm("rcp.approx.f32 %0, %1;" : "=f"(r) : "f"(x));
-  return r;
-}
-
-// What follows the pull in both forms: moments, BGK relaxation and the
-// site's solid class, from its pulled values p, stored at offset `site` of
-// each of dst's planes. site_class() gives the class; it is called after
-// the relaxation, where the single-chip kernel always evaluated it: an
-// evaluation before the pull's guard branches kept the spec variant's
-// 64-bit class arithmetic live across them (40 and 46 registers against
-// 32 and 30, the bf16 step 28% slower on an H100).
-template <typename T, int GEOM, typename SiteClass>
-__device__ __forceinline__ void collide_store(const float (&p)[9], SiteClass site_class,
-                                              T* __restrict__ dst, int64_t plane,
-                                              int64_t site, const Params& k,
-                                              int fast_math) {
-  // the opposite and the two mirrored speeds, as in core/spec.py
-  constexpr int OPP[9] = {0, 3, 4, 1, 2, 7, 8, 5, 6};
-  constexpr int REFLECT_X[9] = {0, 1, 4, 3, 2, 8, 7, 6, 5};
-  constexpr int REFLECT_Y[9] = {0, 3, 2, 1, 4, 6, 5, 8, 7};
-
-  // moments from shared partial sums
-  const float d56 = p[5] + p[6];
-  const float d78 = p[7] + p[8];
-  const float d58 = p[5] + p[8];
-  const float d67 = p[6] + p[7];
-  const float density = (p[0] + (p[1] + p[3])) + ((p[2] + p[4]) + (d56 + d78));
-  const float inv_rho = fast_math ? approx_reciprocal(density) : 1.0f / density;
-  const float u_x = ((p[2] - p[4]) + (d56 - d78)) * inv_rho;
-  const float u_y = ((p[1] - p[3]) + (d58 - d67)) * inv_rho;
-  const float ux3 = k.k3 * u_x;
-  const float uy3 = k.k3 * u_y;
-  const float base = 1.0f - k.k6 * (ux3 * ux3 + uy3 * uy3);
-
-  // relaxation folded into the weights, quadratic part shared per pair
-  const float r0 = k.iw0 * density;
-  const float r14 = k.iw14 * density;
-  const float r58 = k.iw58 * density;
-  float out[9];
-  out[0] = k.c1 * p[0] + r0 * base;
-  const int SP[4] = {1, 2, 5, 6};
-  const int SN[4] = {3, 4, 7, 8};
-  const float EU[4] = {uy3, ux3, ux3 + uy3, ux3 - uy3};
-  const float R[4] = {r14, r14, r58, r58};
-#pragma unroll
-  for (int q_i = 0; q_i < 4; ++q_i) {
-    const float eu = EU[q_i];
-    const float q = base + k.half * eu * eu;
-    out[SP[q_i]] = k.c1 * p[SP[q_i]] + R[q_i] * (q + eu);
-    out[SN[q_i]] = k.c1 * p[SN[q_i]] + R[q_i] * (q - eu);
-  }
-
-  // solid classes: bounce-back (OPP[0] == 0 passes the site's own f0
-  // through) and the specular reflections of free-slip walls
-  const int cls = site_class();
-  if (cls == 1) {
-#pragma unroll
-    for (int s = 0; s < 9; ++s) out[s] = p[OPP[s]];
-  } else if (GEOM == kPlane && cls == 2) {
-#pragma unroll
-    for (int s = 0; s < 9; ++s) out[s] = p[REFLECT_X[s]];
-  } else if (GEOM == kPlane && cls == 3) {
-#pragma unroll
-    for (int s = 0; s < 9; ++s) out[s] = p[REFLECT_Y[s]];
-  }
-
-#pragma unroll
-  for (int s = 0; s < 9; ++s) store(dst + s * plane + site, out[s]);
 }
 
 // The single-chip form: every row of the lattice, periodic in both axes.
@@ -427,12 +333,6 @@ bool refused(const void* solid, const void* spec, int64_t nx, int64_t ny, int64_
          geometry < kNone || geometry > kSpec ||
          (geometry == kPlane && solid == nullptr) ||
          (geometry == kSpec && spec == nullptr);
-}
-
-// The launch constants from their 9 host floats.
-Params params_from(const void* params) {
-  const float* h = static_cast<const float*>(params);
-  return Params{h[0], h[1], h[2], h[3], h[4], h[5], h[6], h[7], h[8]};
 }
 
 // The wall spec from its 10 host int64 (geometry 2), else an empty one.

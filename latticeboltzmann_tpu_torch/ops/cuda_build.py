@@ -21,7 +21,9 @@ import subprocess
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-SOURCES = ("lbm_step.cu", "lbm_ds_step.cu")
+SOURCES = ("lbm_step.cu", "lbm_ds_step.cu", "lbm_flat_step.cu", "lbm_probes.cu")
+# included by the sources (each from its own directory); hashed with them
+HEADERS = ("lbm_collide.cuh",)
 LIB_NAME = "liblbm_kernels.so"
 GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
 # sm_90a keeps Hopper-only instructions available; -fmad=false and no
@@ -54,9 +56,9 @@ def find_nvcc() -> str:
 
 
 def build_dir() -> pathlib.Path:
-    """build/lbm_torch_kernels/<hash of the sources and flags>/."""
+    """build/lbm_torch_kernels/<hash of the sources, headers and flags>/."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return _PKG.parent / "build" / "lbm_torch_kernels" / h.hexdigest()[:16]
@@ -184,6 +186,68 @@ def load_library() -> ctypes.CDLL:
         ctypes.c_int64,   # has_walls
         ctypes.c_int64,   # exact
         ctypes.c_void_p,  # params: 20 (exact) or 30 (fast) host floats
+        ctypes.c_void_p,  # cudaStream_t
+    ]
+    fn = lib.lbm_flat_steps_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [
+        ctypes.c_void_p,  # f2: the stacked (2, 9, nx, ny) pair, in place
+        ctypes.c_int64,   # nx
+        ctypes.c_int64,   # ny
+        ctypes.c_int64,   # storage: 0 float32, 1 bfloat16
+        ctypes.c_int64,   # fast_math
+        ctypes.c_int64,   # n_steps (even)
+        ctypes.c_int64,   # blocks: 0 for the co-resident grid
+        ctypes.c_void_p,  # params: 9 host floats
+        ctypes.c_void_p,  # cudaStream_t
+    ]
+    fn = lib.lbm_copy_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [
+        ctypes.c_void_p,  # src
+        ctypes.c_void_p,  # dst
+        ctypes.c_int64,   # n_bytes
+        ctypes.c_int64,   # tile_bytes: 0 for the direct form
+        ctypes.c_int64,   # stages (staged form)
+        ctypes.c_int64,   # ctas_per_sm (direct form): 0 covers the buffer
+        ctypes.c_void_p,  # cudaStream_t
+    ]
+    fn = lib.lbm_roll_y_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [
+        ctypes.c_void_p,  # x: (rows, ny) float32
+        ctypes.c_void_p,  # out
+        ctypes.c_int64,   # rows
+        ctypes.c_int64,   # ny
+        ctypes.c_int64,   # shift in [0, ny)
+        ctypes.c_int64,   # n_rolls
+        ctypes.c_int64,   # mechanism: 0 shared memory, 1 warp shuffles
+        ctypes.c_void_p,  # cudaStream_t
+    ]
+    fn = lib.lbm_align_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [
+        ctypes.c_void_p,  # x: (rows, ny) float32
+        ctypes.c_void_p,  # out: (rows - 2, ny) or (rows, ny - 2)
+        ctypes.c_int64,   # rows
+        ctypes.c_int64,   # ny
+        ctypes.c_int64,   # offset: 0, 1, 2
+        ctypes.c_int64,   # n_ops
+        ctypes.c_int64,   # axis: 0 rows, 1 columns
+        ctypes.c_void_p,  # cudaStream_t
+    ]
+    fn = lib.lbm_roll_x_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [
+        ctypes.c_void_p,  # x: (rows, ny) float32
+        ctypes.c_void_p,  # out
+        ctypes.c_void_p,  # scratch0 (mechanism 1), or null
+        ctypes.c_void_p,  # scratch1 (mechanism 1), or null
+        ctypes.c_int64,   # rows
+        ctypes.c_int64,   # ny
+        ctypes.c_int64,   # shift in [0, rows)
+        ctypes.c_int64,   # n_rolls
+        ctypes.c_int64,   # mechanism: 0 shared memory, 1 global re-reads
         ctypes.c_void_p,  # cudaStream_t
     ]
     return lib

@@ -22,6 +22,12 @@ rows, and the rows beyond the shard come from two halo rows, each with
 all 9 speed planes of a ring neighbour's boundary row. Its launches are
 counted apart, in EXT_LAUNCHES and EXT_VARIANT_LAUNCHES.
 
+The flat form (`make_flat_step`, `flat_step`; plain version
+`flat_reference`; csrc/lbm_flat_step.cu) runs an even number of
+wall-free steps in ONE cooperative launch over a stacked (2, 9, NX, NY)
+ping-pong pair, in place: the twin of the JAX package's make_flat_step.
+Its launches are counted in FLAT_LAUNCHES.
+
 State is the unpadded (9, NX, NY) layout: the TPU kernel's mirror-pad
 lanes, VMEM staging and temporal blocking have no counterpart here
 (ROADMAP, "Not to port").
@@ -51,6 +57,9 @@ VARIANT_LAUNCHES: collections.Counter = collections.Counter()
 # the same for the ext-halo form's launches (`ext_launcher`)
 EXT_LAUNCHES = 0
 EXT_VARIANT_LAUNCHES: collections.Counter = collections.Counter()
+# launches of the flat multi-step kernel (`flat_step`), each of which runs
+# many steps
+FLAT_LAUNCHES = 0
 
 # the storage and geometry codes of the launcher in csrc/lbm_step.cu
 _STORAGE = {torch.float32: 0, torch.bfloat16: 1}
@@ -513,6 +522,100 @@ def ext_launcher(
 
     launch.host_args = (params, spec)  # alive as long as the call
     return launch
+
+
+def flat_reference(f2: torch.Tensor, cfg: LatticeConfig, n_steps: int) -> torch.Tensor:
+    """Plain PyTorch version of the flat kernel: n_steps chained
+    step_reference(src, None, cfg) from f2[0]. Returns a new stacked (2,
+    9, NX, NY) tensor as the kernel leaves its buffer: the state after
+    n_steps steps at parity 0, the state one step earlier at parity 1.
+    bfloat16 rounds to storage after every step."""
+    cur = prev = f2[0]
+    for _ in range(n_steps):
+        prev, cur = cur, step_reference(cur, None, cfg)
+    return torch.stack([cur, prev])
+
+
+def _check_flat(f2: torch.Tensor, cfg: LatticeConfig, n_steps: int) -> None:
+    st = _storage(cfg)
+    check_device(f2)
+    shape = (2, NSPEEDS, cfg.nx, cfg.ny)
+    if f2.dtype != st:
+        raise TypeError(f"f2 must be {st} (the config's storage), got {f2.dtype}")
+    if tuple(f2.shape) != shape:
+        raise ValueError(f"f2 must be the stacked ping-pong pair {shape}, got {tuple(f2.shape)}")
+    if not f2.is_contiguous():
+        raise ValueError("f2 must be contiguous")
+    _check_flat_count(n_steps)
+
+
+def _check_flat_count(n_steps: int) -> None:
+    if not isinstance(n_steps, int) or n_steps < 2 or n_steps % 2:
+        raise ValueError(f"the flat kernel's step count must be even and at least 2 (the "
+                         f"result returns to parity 0), got {n_steps!r}")
+
+
+def flat_step(f2: torch.Tensor, cfg: LatticeConfig, n_steps: int, *, fast_math: bool = False,
+              blocks: int | None = None) -> torch.Tensor:
+    """n_steps wall-free steps in one launch, in place; returns f2.
+
+    f2: the stacked (2, 9, NX, NY) ping-pong pair of the config's storage
+    dtype (float32 or bfloat16) with the live state at parity 0; step s
+    reads parity s % 2 and writes the other, so the result is back at
+    parity 0 and n_steps must be even. On a CUDA tensor it makes one
+    cooperative launch on the current stream (a grid sized to what the
+    card holds at once, or `blocks` CTAs; a refused launch raises
+    RuntimeError) and counts it in FLAT_LAUNCHES; on a CPU tensor it
+    writes flat_reference's result."""
+    global FLAT_LAUNCHES
+    _check_flat(f2, cfg, n_steps)
+    if blocks is not None and (not isinstance(blocks, int) or blocks < 1):
+        raise ValueError(f"blocks must be a positive integer or None, got {blocks!r}")
+    if f2.device.type == "cpu":
+        f2.copy_(flat_reference(f2, cfg, n_steps))
+        return f2
+    params = (ctypes.c_float * 9)(*kernel_constants(cfg))
+    rc = cuda_build.load_library().lbm_flat_steps_launch(
+        f2.data_ptr(), cfg.nx, cfg.ny, _STORAGE[f2.dtype], int(fast_math), n_steps,
+        blocks or 0, ctypes.addressof(params),
+        torch.cuda.current_stream(f2.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"lbm_flat_steps cooperative launch failed: cudaError {rc}")
+    FLAT_LAUNCHES += 1
+    return f2
+
+
+def make_flat_step(
+    cfg: LatticeConfig,
+    n_steps: int,
+    *,
+    walls=None,
+    wall_spec=None,
+    slip_x=None,
+    slip_y=None,
+    fast_math: bool = False,
+) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The flat step of n_steps steps as a call f2 -> f2 (in place), the
+    twin of the JAX package's make_flat_step (ops/fused_kernel.py:1799
+    there), whose passes x steps per pass are one count here. The flat
+    kernel is wall-free: a mask with a solid site, a non-empty wall spec,
+    slip masks or an odd count raise ValueError, as the JAX guards do
+    (:387-404 there)."""
+    if walls is not None and np.asarray(_host_mask(walls), dtype=bool).any():
+        raise ValueError("the flat kernel is wall-free only: the mask has solid sites "
+                         "(walls keep one launch per step)")
+    if wall_spec:
+        raise ValueError(f"the flat kernel is wall-free only: got the wall spec {wall_spec!r}")
+    if slip_x is not None or slip_y is not None:
+        raise ValueError("the flat kernel is wall-free only: it takes no slip masks")
+    _storage(cfg)
+    _check_flat_count(n_steps)
+
+    def step(f2: torch.Tensor) -> torch.Tensor:
+        return flat_step(f2, cfg, n_steps, fast_math=fast_math)
+
+    return step
 
 
 def _host_mask(x):

@@ -21,7 +21,10 @@ against the float64 torch backend uses the JAX package's pair-DP bar,
 1e-11 relative (tests/test_ds.py:213-229). The ext-halo forms of both
 kernels (the row-sharded path) are held bitwise against their plain
 versions (step_reference_ext) on meshes of virtual shards of the card,
-and the sharded-cuda backend bitwise against the cuda backend.
+and the sharded-cuda backend bitwise against the cuda backend. The four
+anatomy probes (ops/probes.py) and the flat multi-step kernel are held
+bitwise against their plain versions: they move float32 values, add them
+in one order, or repeat the step kernel's arithmetic.
 """
 
 import numpy as np
@@ -33,6 +36,7 @@ from latticeboltzmann_tpu_torch.models.engine import initial_state
 from latticeboltzmann_tpu_torch.ops import df64
 from latticeboltzmann_tpu_torch.ops import fused_ds_kernel as fdk
 from latticeboltzmann_tpu_torch.ops import fused_kernel as fk
+from latticeboltzmann_tpu_torch.ops import probes
 from latticeboltzmann_tpu_torch.parallel import sharded
 from latticeboltzmann_tpu_torch.utils.interop import state_tensor
 
@@ -383,3 +387,142 @@ def test_sharded_paths_across_cards_equal_single_chip(cuda_device, monkeypatch):
         out = Simulation(cfg, walls, backend="sharded-cuda-ds64").run(20).state()
         np.testing.assert_array_equal(
             out, Simulation(cfg, walls, backend="cuda-ds64").run(20).state())
+
+
+def _rand(shape, device, dtype=torch.float32, seed=0):
+    x = np.random.default_rng(seed).uniform(-1.0, 1.0, shape).astype(np.float32)
+    return torch.as_tensor(x, device=device).to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ny", [40, 37, 4000])
+def test_copy_kernel_equals_its_source(ny, dtype, cuda_device):
+    """Both forms, bitwise; NY = 37 leaves the direct form a bytewise tail
+    and the staged form only the tiles that are whole 16-byte vectors."""
+    src = _rand((9, 24, ny), cuda_device, dtype)
+    before = probes.LAUNCHES["copy-direct"], probes.LAUNCHES["copy-staged"]
+    for kw in ({}, {"ctas_per_sm": 1}):  # a covering grid, a persistent one
+        dst = torch.zeros_like(src)
+        probes.copy_state(src, dst, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(dst, probes.copy_reference(src))
+    staged = 0
+    for rows, stages in ((8, 2), (4, 3), (1, 4), (24, 2)):
+        dst = torch.zeros_like(src)
+        try:
+            probes.copy_state(src, dst, rows=rows, stages=stages)
+        except ValueError:
+            assert (rows * ny * src.element_size()) % 16 or \
+                stages * rows * ny * src.element_size() > probes.MAX_SHARED_BYTES
+            continue
+        torch.cuda.synchronize()
+        assert torch.equal(dst, src)
+        staged += 1
+    assert staged >= 1
+    assert probes.LAUNCHES["copy-direct"] == before[0] + 2
+    assert probes.LAUNCHES["copy-staged"] == before[1] + staged
+    # a misaligned view takes the direct form's bytewise path
+    flat = _rand((src.numel() + 1,), cuda_device, dtype)
+    view = flat[1:].view_as(src)
+    dst = torch.zeros_like(flat)[1:].view_as(src)
+    probes.copy_state(view, dst)
+    torch.cuda.synchronize()
+    assert torch.equal(dst, view)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mechanism", ["shared", "shuffle"])
+@pytest.mark.parametrize("ny", [40, 37, 4000])
+def test_roll_y_kernel_equals_chained_rolls(ny, mechanism, cuda_device):
+    x = _rand((32, ny), cuda_device)
+    before = probes.LAUNCHES[f"roll_y-{mechanism}"]
+    launched = 0
+    for shift in (1, ny - 1, 96, ny, 31, -31):
+        for n in (0, 1, 6):
+            try:
+                got = probes.roll_y(x, shift, n, mechanism=mechanism)
+            except ValueError:
+                assert mechanism == "shuffle"
+                continue
+            launched += 1
+            torch.cuda.synchronize()
+            assert torch.equal(got, probes.roll_y_reference(x, shift, n))
+    assert launched and probes.LAUNCHES[f"roll_y-{mechanism}"] == before + launched
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("axis", [0, 1])
+@pytest.mark.parametrize("ny", [37, 4000])
+def test_align_kernel_equals_chained_adds(ny, axis, cuda_device):
+    x = _rand((40, ny), cuda_device)
+    before = probes.LAUNCHES[f"align-axis{axis}"]
+    for offset in (0, 1, 2):
+        for n in (0, 8):
+            got = probes.align(x, offset, n, axis=axis)
+            torch.cuda.synchronize()
+            assert torch.equal(got, probes.align_reference(x, offset, n, axis))
+    assert probes.LAUNCHES[f"align-axis{axis}"] == before + 6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mechanism", ["shared", "global"])
+@pytest.mark.parametrize("ny", [37, 4000])
+def test_roll_x_kernel_equals_chained_rolls(ny, mechanism, cuda_device):
+    x = _rand((40, ny), cuda_device)
+    before = probes.LAUNCHES[f"roll_x-{mechanism}"]
+    for shift in (1, 39):
+        for n in (0, 1, 8, 9):
+            got = probes.roll_x(x, shift, n, mechanism=mechanism)
+            torch.cuda.synchronize()
+            assert torch.equal(got, probes.roll_x_reference(x, shift, n))
+    assert probes.LAUNCHES[f"roll_x-{mechanism}"] == before + 8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+@pytest.mark.parametrize("name", ["column0", "empty"])
+def test_flat_kernel_equals_flat_reference(name, dtype, cuda_device):
+    """2, 8 and 16 steps in one cooperative launch, the whole stacked pair
+    bitwise; the forcing guard fails at one column-0 site."""
+    cfg, _ = _scene(name, dtype)
+    f = _perturbed(cfg, cuda_device)
+    f[6, cfg.nx // 2, 0] = 1e-6
+    before = fk.FLAT_LAUNCHES
+    for n in (2, 8, 16):
+        f2 = torch.stack([f, torch.full_like(f, float("nan"))])
+        want = fk.flat_reference(f2, cfg, n)
+        got = fk.make_flat_step(cfg, n)(f2)
+        torch.cuda.synchronize()
+        assert got is f2 and torch.equal(got, want)
+    assert fk.FLAT_LAUNCHES == before + 3
+    # the one-launch-per-step kernel gives the same state
+    assert torch.equal(want[0], fk.run_steps(f, geometry.empty(cfg.nx, cfg.ny), cfg, 16))
+
+
+@pytest.mark.cuda
+def test_flat_kernel_fast_math_within_its_tolerance(cuda_device):
+    cfg = LatticeConfig(nx=48, ny=96, dtype=np.float32)
+    f = _perturbed(cfg, cuda_device)
+    f2 = torch.stack([f, f])
+    want = fk.flat_reference(f2, cfg, fk.FAST_MATH_STEPS)[0]
+    got = fk.make_flat_step(cfg, fk.FAST_MATH_STEPS, fast_math=True)(f2)[0]
+    assert float(((got - want).abs() / want.abs()).max()) <= fk.FAST_MATH_RTOL
+
+
+@pytest.mark.cuda
+def test_failed_cooperative_launch_raises(cuda_device):
+    """A grid the card cannot hold at once is refused by the cooperative
+    launch: the wrapper raises, counts nothing, leaves the state as it was,
+    and the next launch works."""
+    cfg, _ = _scene("empty")
+    f = _perturbed(cfg, cuda_device)
+    f2 = torch.stack([f, f])
+    before = fk.FLAT_LAUNCHES
+    with pytest.raises(RuntimeError, match="cooperative launch failed"):
+        fk.flat_step(f2, cfg, 2, blocks=10**6)
+    torch.cuda.synchronize()
+    assert fk.FLAT_LAUNCHES == before and torch.equal(f2[0], f)
+    fk.flat_step(f2, cfg, 2)
+    torch.cuda.synchronize()
+    assert torch.equal(f2, fk.flat_reference(torch.stack([f, f]), cfg, 2))
