@@ -98,6 +98,26 @@ Phases, each of which raises on failure:
    panels for), spec and wall-free variants, bitwise against
    step_reference.
 
+22. the rdma form of the stream-collide kernel (the halo exchange inside
+   the kernel: one launch per shard and step, each shard on a stream of
+   its own, no copy from the host) against step_reference_rdma on 2 and 4
+   virtual shards, 10 steps at the four scenes of phase 3, the comm rows
+   each shard received included: float32 wall-free, plane, spec and slip,
+   bf16 spec, bitwise; fast math on 4 shards within FAST_MATH_RTOL; then a
+   withheld send (one shard of two launched) must end in a raised timeout
+   and not in a hang;
+23. the rdma path, inside phase 16: Simulation(backend=
+   "sharded-cuda-rdma", allow_experimental=True) over 4 virtual shards on
+   the 800x4000 reference scene for WARMUP + MAIN_STEPS steps, 4 counted
+   launches and 0 halo copies per step, bitwise equal to phase 4's cuda
+   state (and so to sharded-cuda's); with two or more cards also over a
+   mesh of the cards (peer pointers), else a line says that it was not
+   run;
+24. its times, inside phase 17: us/step and host enqueue us/step in turns
+   with cuda, sharded-cuda and sharded-cuda-fused, and one step's 4 rdma
+   launches queued behind a spin beside -fused's 4 ext-halo launches.
+Phases 22-24 run with phases 15-17 (sharded_phases).
+
 The kernels line gives every kernel's bound: the larger of its bytes
 (each input read once, each output written once) over the card's
 published memory rate and its f32 operations over the published f32
@@ -147,6 +167,8 @@ FUSED_STEPS = 1000
 DS_SHARDED_STEPS = 2000
 # virtual shards of one card on the sharded main paths (200-row shards)
 VIRTUAL_SHARDS = 4
+# steps per timed run of the rdma launches (phase 24)
+RDMA_TIMED_STEPS = 50
 # the bound's denominators: one H100 SXM's published rates (NVIDIA's data
 # sheet): HBM bytes per second and float32 operations per second outside
 # the tensor cores
@@ -187,15 +209,17 @@ def reset_counts():
 
     fused_kernel.LAUNCHES = fused_ds_kernel.LAUNCHES = 0
     fused_kernel.EXT_LAUNCHES = fused_ds_kernel.EXT_LAUNCHES = 0
-    fused_kernel.FLAT_LAUNCHES = 0
+    fused_kernel.FLAT_LAUNCHES = fused_kernel.RDMA_LAUNCHES = 0
     fused_kernel.VARIANT_LAUNCHES.clear()
     fused_kernel.EXT_VARIANT_LAUNCHES.clear()
+    fused_kernel.RDMA_VARIANT_LAUNCHES.clear()
     probes.LAUNCHES.clear()
 
 
 def read_counts():
     """{variant: launches} of the stream-collide kernel, its ext-halo
-    form's as "ext-<variant>", the ds kernel's under "ds" and "ds-ext",
+    form's as "ext-<variant>", its rdma form's as "rdma-<variant>", the ds
+    kernel's under "ds" and "ds-ext",
     the flat kernel's under "flat" and the probes' under their own keys
     ("copy-direct", "roll_y-shuffle", ...)."""
     from latticeboltzmann_tpu_torch.ops import fused_ds_kernel, fused_kernel, probes
@@ -207,6 +231,10 @@ def read_counts():
     if sum(ext.values()) != fused_kernel.EXT_LAUNCHES:
         raise AssertionError(f"ext variant counts {ext} != {fused_kernel.EXT_LAUNCHES} launches")
     counts.update({f"ext-{v}": n for v, n in ext.items()})
+    rdma = dict(fused_kernel.RDMA_VARIANT_LAUNCHES)
+    if sum(rdma.values()) != fused_kernel.RDMA_LAUNCHES:
+        raise AssertionError(f"rdma variant counts {rdma} != {fused_kernel.RDMA_LAUNCHES} launches")
+    counts.update({f"rdma-{v}": n for v, n in rdma.items()})
     if fused_ds_kernel.LAUNCHES:
         counts["ds"] = fused_ds_kernel.LAUNCHES
     if fused_ds_kernel.EXT_LAUNCHES:
@@ -954,6 +982,135 @@ def compare_ds_ext(name, cfg, walls, f0, n, exact, steps=10):
     return err
 
 
+# bound of an edge row's wait in the checks below, seconds: far above a
+# step's time, far below the run's
+RDMA_CHECK_TIMEOUT_S = 1.0
+
+
+class RdmaRing:
+    """n virtual shards of the card wired for the rdma kernel as the
+    sharded session wires them: two buffers per shard that swap roles, an
+    RdmaEnd and a stream per shard, one launch per shard and buffer
+    parity. step() launches the next step of every shard (or of `only`)."""
+
+    def __init__(self, cfg, geom, f0, n, fast_math=False, timeout_s=RDMA_CHECK_TIMEOUT_S):
+        from latticeboltzmann_tpu_torch.ops import fused_kernel
+        from latticeboltzmann_tpu_torch.utils.interop import state_tensor
+
+        dev = torch.device("cuda", torch.cuda.current_device())
+        self.n, self.L = n, cfg.nx // n
+        plane = isinstance(geom, np.ndarray)
+        self.geoms = shard_planes(torch.as_tensor(geom, device=dev), n) if plane else [geom] * n
+        f = state_tensor(f0, cfg.dtype, dev)
+        self.bufs = [[f[:, k * self.L:(k + 1) * self.L].contiguous() for k in range(n)]]
+        self.bufs.append([torch.full_like(b, float("nan")) for b in self.bufs[0]])
+        self.ends = [fused_kernel.rdma_end(cfg, dev) for _ in range(n)]
+        self.streams = [torch.cuda.Stream(dev) for _ in range(n)]
+        self.launches = [[fused_kernel.rdma_launcher(
+            self.bufs[p][k], self.bufs[1 - p][k], self.ends[k], self.ends[(k - 1) % n],
+            self.ends[(k + 1) % n], self.geoms[k], cfg, row_offset=k * self.L,
+            fast_math=fast_math, timeout_s=timeout_s, stream=self.streams[k])
+            for k in range(n)] for p in range(2)]
+        self.parity, self.steps_done = 0, 0
+        torch.cuda.synchronize()
+
+    def step(self, only=None):
+        self.steps_done += 1
+        for k, launch in enumerate(self.launches[self.parity]):
+            if only is None or k in only:
+                launch(self.steps_done)
+        self.parity ^= 1
+
+    def timed_run(self, steps):
+        """A call that runs `steps` steps: the shards' streams are forked
+        from the current stream, and joined to it again, once per call, so
+        that events on the current stream bracket the whole run."""
+        cur = torch.cuda.current_stream()
+
+        def run():
+            for st in self.streams:
+                st.wait_stream(cur)
+            for _ in range(steps):
+                self.step()
+            for st in self.streams:
+                cur.wait_stream(st)
+
+        return run
+
+    def timed_out(self):
+        from latticeboltzmann_tpu_torch.ops import fused_kernel
+
+        torch.cuda.synchronize()
+        return [fused_kernel.rdma_timed_out(e) for e in self.ends]
+
+
+def compare_rdma(name, cfg, geom, f0, n, steps=10, fast_math=False):
+    """`steps` steps of the rdma kernel over n virtual shards of the card,
+    each shard on a stream of its own, no copy from the host. After every
+    step each shard's block and the comm rows it received are held against
+    step_reference_rdma from the same inputs (bitwise, unless fast_math).
+    Returns (joined state, max |diff|)."""
+    from latticeboltzmann_tpu_torch.ops import fused_kernel
+
+    ring = RdmaRing(cfg, geom, f0, n, fast_math=fast_math)
+    ref_ends = [fused_kernel.rdma_end(cfg, e.top.device) for e in ring.ends]
+    err = 0.0
+    for step in range(1, steps + 1):
+        srcs, dsts = ring.bufs[ring.parity], ring.bufs[1 - ring.parity]
+        ring.step()
+        if any(ring.timed_out()):
+            raise AssertionError(f"{name}: rdma launches of step {step} gave up waiting for their "
+                                 f"neighbours' rows (error words {ring.timed_out()})")
+        refs = fused_kernel.step_reference_rdma(srcs, ref_ends, ring.geoms, cfg, step)
+        for k in range(n):
+            for side in ("top", "bot", "flags"):
+                got, want = getattr(ring.ends[k], side), getattr(ref_ends[k], side)
+                if not torch.equal(got, want):
+                    raise AssertionError(f"{name}: shard {k} of {n}, step {step}: comm {side} != "
+                                         "step_reference_rdma's")
+            e = float((dsts[k].float() - refs[k].float()).abs().max())
+            if not fast_math and not (torch.equal(dsts[k], refs[k]) and e <= KERNEL_ATOL):
+                bad = torch.nonzero(dsts[k] != refs[k])
+                raise AssertionError(
+                    f"{name}: rdma kernel != step_reference_rdma on shard {k} of {n}, step {step}, "
+                    f"max |diff| {e!r} at {bad.shape[0]} values (first {bad[:5].tolist()})")
+            err = max(err, e)
+    f = torch.cat(ring.bufs[ring.parity], dim=1)
+    geom_kind = ("wall-free" if geom is None else
+                 ("plane" if isinstance(geom, np.ndarray) else "spec"))
+    print(f"rdma kernel vs step_reference_rdma {name} ({f.dtype}, {geom_kind}, fast math "
+          f"{fast_math}), {n} virtual shards, {steps} steps, comm rows and flags equal: "
+          f"max |diff| = {err!r}")
+    return f, err
+
+
+def withheld_send(cfg, f0):
+    """One shard of a ring of two launched alone: its edge rows wait for
+    rows that never come, and must give up within the timeout, leaving the
+    step in the shard's error word. Returns the seconds the launch took."""
+    timeout_s = 0.25
+    ring = RdmaRing(cfg, None, f0, 2, timeout_s=timeout_s)
+    t0 = time.perf_counter()
+    ring.step(only={0})
+    words = ring.timed_out()
+    took = time.perf_counter() - t0
+    if words != [1, 0] or not timeout_s <= took < timeout_s + 2.0:
+        raise AssertionError(f"withheld send: error words {words} (want [1, 0]) after {took!r} s "
+                             f"(timeout {timeout_s} s)")
+    # later launches of the failed shard skip their waits at once
+    t0 = time.perf_counter()
+    for _ in range(20):
+        ring.step(only={0})
+    ring.timed_out()
+    later = time.perf_counter() - t0
+    if not later < timeout_s:
+        raise AssertionError(f"withheld send: 20 later launches took {later!r} s")
+    print(f"rdma withheld send: shard 0 of 2 launched alone gave up after {took!r} s (timeout "
+          f"{timeout_s} s), error words {words}; 20 later launches skipped their waits in "
+          f"{later!r} s")
+    return took
+
+
 def card_mesh_size(nx):
     """The most cards, at least 2, over which nx rows split evenly; 0 on a
     machine with one card."""
@@ -961,9 +1118,10 @@ def card_mesh_size(nx):
 
 
 def sharded_phases(f32_main):
-    """Phases 15-17: the ext-halo kernels and the row-sharded paths.
-    f32_main: phase 4's float32 state after WARMUP + MAIN_STEPS steps.
-    Returns the kernels line's entries of the two ext-halo kernels."""
+    """Phases 15-17 and 22-24: the ext-halo and rdma kernels and the
+    row-sharded paths. f32_main: phase 4's float32 state after WARMUP +
+    MAIN_STEPS steps. Returns the kernels line's entries of the two
+    ext-halo kernels and the rdma kernel."""
     from latticeboltzmann_tpu_torch import LatticeConfig, Simulation, geometry, initial_state
     from latticeboltzmann_tpu_torch.models import engine
     from latticeboltzmann_tpu_torch.ops import df64, fused_ds_kernel, fused_kernel
@@ -1010,6 +1168,30 @@ def sharded_phases(f32_main):
             for exact in (False, True):
                 ds_ext_err = max(ds_ext_err, compare_ds_ext(name, cfg64, w, f64, n, exact))
 
+    # 22. the rdma kernel against its plain version, and a withheld send
+    rdma_err = 0.0
+    for name, cfg_s, w in scenes(np.float32):
+        f0_s = guard_off_at_boundaries(perturbed_state(cfg_s, rng), cfg_s.nx)
+        slip_w, slip_x, slip_y = slip_scene(cfg_s.nx, cfg_s.ny)
+        spec_s = geometry.infer_spec(w)
+        geoms = {"wall-free": None, "plane": w.astype(np.uint8), "spec": spec_s,
+                 "slip": fused_kernel.class_plane(slip_w, slip_x, slip_y)}
+        cfg16 = dataclasses.replace(cfg_s, dtype="bfloat16")
+        for n in (2, 4):
+            for kind, g in geoms.items():
+                rdma_err = max(rdma_err, compare_rdma(f"{name}, {kind}", cfg_s, g, f0_s, n)[1])
+            rdma_err = max(rdma_err, compare_rdma(f"{name}, spec", cfg16, spec_s, f0_s, n)[1])
+    got, _ = compare_rdma("800x4000 reference_barrier", cfg, spec, f0, VIRTUAL_SHARDS,
+                          steps=steps, fast_math=True)
+    rdma_fast_rel = float(((got - ref).abs() / ref.abs()).max())
+    if not rdma_fast_rel <= bar:
+        raise AssertionError(f"rdma fast math after {steps} steps: max rel {rdma_fast_rel!r} > {bar}")
+    print(f"rdma fast-math kernel, {VIRTUAL_SHARDS} virtual shards, vs the single-chip "
+          f"step_reference (IEEE 1/rho) after {steps} chained steps: max rel {rdma_fast_rel!r} "
+          f"(bar {bar})")
+    del got, ref
+    withheld_send(cfg, f0)
+
     # 16. the sharded main paths, every launch counted
     meshes = {"1 shard": sharded.make_mesh(devices=[dev]),
               f"{VIRTUAL_SHARDS} virtual shards": sharded.make_mesh(
@@ -1024,25 +1206,32 @@ def sharded_phases(f32_main):
         L = cfg.nx // mesh.size
         return mesh.size * (3 if overlap and L >= 3 else 1)
 
-    def sharded_path(label, backend, make, mesh, cfg_, n_steps, key, per_step, want, warmup=0):
+    def sharded_path(label, backend, make, mesh, cfg_, n_steps, key, per_step, want, warmup=0,
+                     copies_per_step=None, **options):
         """Register `backend` over `mesh`, drive it through Simulation for
         warmup + n_steps counted steps and hold its state bitwise to
-        `want`."""
+        `want`; with copies_per_step also the halo copies the host started."""
         engine.register_backend(backend, make(mesh))
         reset_counts()
-        sim = Simulation(cfg_, walls, backend=backend)
+        sharded.HALO_COPIES = 0
+        sim = Simulation(cfg_, walls, backend=backend, **options)
         sim.run(warmup)
         sim.elapsed, sim.steps_done = 0.0, 0
         sim.run(n_steps)
         n = expect_counts(f"{backend} over {label}",
                           {key: (warmup + n_steps) * per_step})[key]
+        copies = sharded.HALO_COPIES
+        if copies_per_step is not None and copies != (warmup + n_steps) * copies_per_step:
+            raise AssertionError(f"{backend} over {label}: {copies} halo copies from the host, "
+                                 f"expected {copies_per_step} per step")
         got = sim.state()
         if not np.array_equal(got, want):
             raise AssertionError(f"{backend} over {label}: state != the single-chip path's after "
                                  f"{warmup + n_steps} steps, max |diff| "
                                  f"{float(np.abs(got - want).max())!r}")
-        print(f"{backend} over {label}: {warmup + n_steps} steps, {n} counted ext-halo launches "
-              f"({per_step} per step), bitwise equal to the single-chip path, Re "
+        print(f"{backend} over {label}: {warmup + n_steps} steps, {n} counted {key} launches "
+              f"({per_step} per step), {copies} halo copies from the host, bitwise equal to the "
+              f"single-chip path, Re "
               f"{sim.reynolds()!r}, {sim.mlups!r} MLUPS ({sim.elapsed!r} s)")
         sims[f"{backend}, {label}"] = sim
         return n
@@ -1053,6 +1242,19 @@ def sharded_phases(f32_main):
         launches[label] = sharded_path(
             label, "sharded-cuda", lambda m: sharded.make_cuda_backend(m, overlap=True), mesh,
             cfg, MAIN_STEPS, key, launches_per_step(mesh), f32_main, warmup=WARMUP)
+    # 23. the rdma path: one launch per shard and step, no copy from the host
+    rdma_key = f"rdma-{fused_kernel.variant_name(torch.float32, 'spec', False, False)}"
+    rdma_launches = {}
+    for label, mesh in meshes.items():
+        if mesh.size == 1:
+            continue
+        rdma_launches[label] = sharded_path(
+            label, "sharded-cuda-rdma", lambda m: sharded.make_cuda_backend(m, rdma=True), mesh,
+            cfg, MAIN_STEPS, rdma_key, mesh.size, f32_main, warmup=WARMUP, copies_per_step=0,
+            allow_experimental=True)
+    if not n_cards:
+        print("one card visible: the rdma path over a mesh of cards (peer pointers between "
+              "cards) was not run")
     want = Simulation(cfg, walls, backend="cuda").run(FUSED_STEPS).state()
     mesh4 = meshes[f"{VIRTUAL_SHARDS} virtual shards"]
     sharded_path(f"{VIRTUAL_SHARDS} virtual shards", "sharded-cuda-fused",
@@ -1129,6 +1331,49 @@ def sharded_phases(f32_main):
           ext_plain_ms * 1e-3)
     halo_bytes = sum(h.numel() * h.element_size() for pair in halos for h in pair)
     f32_bound = bound(2 * full.numel() * 4 + halo_bytes, F32_OPS_PER_SITE * cfg.sites)
+
+    # 24. one step's rdma launches, one per shard on its own stream: the
+    # card's own time over RDMA_TIMED_STEPS steps queued behind a spin,
+    # streams forked from and joined to the timed stream once per run
+    f_host = full.cpu().numpy()
+    ring = RdmaRing(cfg, spec, f_host, n)
+    rdma_steps = ring.timed_run(RDMA_TIMED_STEPS)
+
+    def fused_steps():
+        for _ in range(RDMA_TIMED_STEPS):
+            for c in fused_calls:
+                c()
+
+    t = in_turns(lambda label, sec: rates(label, sec / RDMA_TIMED_STEPS),
+                 f"f32 spec, {RDMA_TIMED_STEPS} steps' launches",
+                 {f"rdma, {n} shards, one launch per shard ({n}), no host copies": rdma_steps,
+                  f"ext-halo, {n} shards, one launch per shard ({n}), halos in place": fused_steps},
+                 3, timer=queued_ms)
+    if any(ring.timed_out()):
+        raise AssertionError(f"rdma timing run: error words {ring.timed_out()}")
+    rdma_ms, fused4_ms = (v / RDMA_TIMED_STEPS for v in t.values())
+    # rings of other sizes (1: the ring of one, its own neighbour), and bf16
+    cfg16 = dataclasses.replace(cfg, dtype="bfloat16")
+    for cfg_r, n_r in ((cfg, 1), (cfg, 2), (cfg, 8), (cfg16, n)):
+        ring_r = RdmaRing(cfg_r, spec, f_host, n_r)
+        ms = queued_ms(ring_r.timed_run(RDMA_TIMED_STEPS), 3) / RDMA_TIMED_STEPS
+        if any(ring_r.timed_out()):
+            raise AssertionError(f"rdma timing run, {n_r} shards: error words {ring_r.timed_out()}")
+        rates_printer(cfg_r, bytes_per_site(cfg_r.dtype))(
+            f"{'bf16' if cfg_r is cfg16 else 'f32'} spec, {RDMA_TIMED_STEPS} steps' launches, "
+            f"rdma, {n_r} shards, one launch per shard (CUDA events, 3 calls, queued behind a "
+            f"spin)", ms * 1e-3)
+        del ring_r
+    rdma_ends = [fused_kernel.rdma_end(cfg, dev) for _ in range(n)]
+    plain_step = iter(range(1, 1000))
+    rdma_plain_ms = event_ms(lambda: fused_kernel.step_reference_rdma(
+        srcs, rdma_ends, [spec] * n, cfg, next(plain_step)), 20)
+    rates(f"step_reference_rdma over {n} shards, its plain version (CUDA events, 20 steps)",
+          rdma_plain_ms * 1e-3)
+    # the ext-halo form's bytes, and per shard 2 rows sent and 2 received
+    rdma_bound = bound(2 * full.numel() * 4 + n * 4 * 9 * cfg.ny * 4,
+                       F32_OPS_PER_SITE * cfg.sites)
+    del ring, rdma_ends
     del full, out, srcs, dsts, halos, overlap_calls, fused_calls
 
     f = initial_state(cfg64)
@@ -1172,6 +1417,13 @@ def sharded_phases(f32_main):
          "replaces": "latticeboltzmann_tpu/ops/fused_kernel.py:1757",
          "launches": launches[label4], "max_abs_err": ext_err, "max_rel_err_fast_math": fast_rel,
          "ms": ext_ms, "plain_ms": ext_plain_ms, **f32_bound},
+        {"name": "lbm_stream_collide_rdma<float, spec> (row-sharded, the halo exchange "
+                 f"inside the kernel; {VIRTUAL_SHARDS} virtual shards, one launch per shard)",
+         "route": "cuda", "source": "latticeboltzmann_tpu_torch/csrc/lbm_step.cu",
+         "replaces": "latticeboltzmann_tpu/ops/fused_kernel.py:1757 (rdma=True)",
+         "launches": rdma_launches[label4], "max_abs_err": rdma_err,
+         "max_rel_err_fast_math": rdma_fast_rel, "ms": rdma_ms, "plain_ms": rdma_plain_ms,
+         "ext_halo_one_launch_per_shard_ms": fused4_ms, **rdma_bound},
         {"name": "lbm_stream_collide_ds ext-halo form (row-sharded; "
                  f"{VIRTUAL_SHARDS} virtual shards, fast tier, masked)",
          "route": "cuda", "source": "latticeboltzmann_tpu_torch/csrc/lbm_ds_step.cu",

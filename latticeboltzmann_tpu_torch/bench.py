@@ -77,7 +77,9 @@ def main(argv=None) -> int:
         bytes_per_site = storage_bytes_per_site(dtype)
     cfg = LatticeConfig(nx=args.nx, ny=args.ny, dtype=dtype)
     walls = geometry.reference_barrier(cfg.nx, cfg.ny)
-    sim = Simulation(cfg, walls, backend=backend, device="cuda")
+    # an experimental backend named outright is opted in to, as in the CLI
+    sim = Simulation(cfg, walls, backend=backend, device="cuda",
+                     allow_experimental=backend == args.backend)
     sim.run(args.warmup)  # kernel build and first launches, excluded
 
     def timed(n: int) -> float:

@@ -1,7 +1,7 @@
 """Command-line runner: `python -m latticeboltzmann_tpu_torch`, the
 main-path flags of latticeboltzmann_tpu/cli.py.
 
-Snapshots, checkpoints, probes, the movie, profiling and skew are
+Snapshots, checkpoints, probes, the movie, profiling and --debug-nans are
 ROADMAP A6/A7.
 
 Usage:
@@ -35,7 +35,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="bf16 is bf16 storage with float32 arithmetic")
     p.add_argument("--backend", default="auto",
                    help="auto|torch|cuda|torch-ds64|cuda-ds64|sharded|sharded-sync"
-                        "|sharded-cuda|sharded-cuda-fused|sharded-cuda-ds64 "
+                        "|sharded-cuda|sharded-cuda-fused|sharded-cuda-ds64"
+                        "|sharded-cuda-rdma (experimental: the halo exchange inside "
+                        "the kernel; naming it here is the opt-in, see models/engine.py) "
                         "(the ds64 backends are pair-DP; use with --precision f64; the "
                         "sharded ones split the rows over every visible card)")
     p.add_argument("--geometry", default="barrier",
@@ -44,6 +46,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--fast-math", action="store_true",
                    help="approximate 1/rho in the cuda kernel (the reference's "
                         "-Ofast analog, Makefile:2); other backends ignore it")
+    p.add_argument("--skew", dest="skew", action="store_true", default=None,
+                   help="the JAX package's wavefront time-skewing knob, accepted for "
+                        "its command lines: the port's kernels run one step per "
+                        "launch, and the schedules it selects there are bitwise "
+                        "equal, so it changes nothing here; --no-skew likewise")
+    p.add_argument("--no-skew", dest="skew", action="store_false")
     p.add_argument("--warmup", type=int, default=8,
                    help="steps run once before timing starts to absorb the "
                         "kernel build and first-launch costs (state is reset "
@@ -84,8 +92,10 @@ def main(argv=None) -> int:
         dtype=PRECISIONS[args.precision],
     )
     walls = geometry.build(args.geometry, cfg.nx, cfg.ny)
-    sim = Simulation(cfg, walls, backend=resolve_backend(args.backend, cfg.dtype),
-                     fast_math=args.fast_math)
+    backend = resolve_backend(args.backend, cfg.dtype)
+    # an experimental backend typed out on the command line is opted in to
+    sim = Simulation(cfg, walls, backend=backend, fast_math=args.fast_math, skew=args.skew,
+                     allow_experimental=backend == args.backend)
 
     mb = cfg.nx * cfg.ny * 9 * storage_dtype(cfg.dtype).itemsize / 1024 / 1024
     print(f"Lattice Size: {cfg.nx}x{cfg.ny} ({mb:.2f} MB) "

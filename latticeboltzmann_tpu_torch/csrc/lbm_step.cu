@@ -4,7 +4,7 @@
 //
 // Replaces latticeboltzmann_tpu/ops/fused_kernel.py::_make_kernel as
 // launched by make_step's pl.pallas_call (ops/fused_kernel.py:1757), one
-// time step per launch (T=1), in two forms:
+// time step per launch (T=1), in three forms:
 // - the single-chip form (lbm_stream_collide_launch): the whole lattice,
 //   periodic in both axes;
 // - the ext-halo form (lbm_stream_collide_ext_launch), the pallas_call's
@@ -13,7 +13,11 @@
 //   block of L rows, of which one launch writes the row range [row0,
 //   row0 + rows), so the interior and the two edge rows launch apart; the
 //   rows above and below the block come from two halo rows instead of the
-//   x wrap.
+//   x wrap;
+// - the rdma form (lbm_stream_collide_rdma_launch), the pallas_call's
+//   rdma=True variant (:309-318, :577-653): the ext-halo step of a whole
+//   shard with the halo exchange inside the kernel, one launch per shard
+//   and step and no copy started by the host (see "The rdma form" below).
 // Two template axes select the variant at compile time:
 // - the storage type T: float, or __nv_bfloat16 with float arithmetic
 //   (the TPU kernel's bf16 storage, :277-280, :420-422, window cast to f32
@@ -23,12 +27,14 @@
 //   class_plane :1879), or a closed-form wall spec evaluated from the site
 //   indices (:1220-1269), which reads no plane at all.
 // fast_math (an approximate 1/rho, :1028-1036) is a uniform run-time flag.
-// The two forms are two kernels (lbm_stream_collide, lbm_stream_collide_ext)
-// that share what follows the pull (collide_store, in lbm_collide.cuh,
-// which the flat multi-step kernel of lbm_flat_step.cu shares too). The
-// single-chip kernel keeps its own row indexing: routing both forms
-// through one kernel, with per-row pointers, strides and global rows, cost
-// the single-chip bf16 step 20% on an H100 (82 against 68 us at 800x4000).
+// The forms are kernels of their own (lbm_stream_collide,
+// lbm_stream_collide_ext, lbm_stream_collide_rdma) that share what follows
+// the pull (collide_store, in lbm_collide.cuh, which the flat multi-step
+// kernel of lbm_flat_step.cu shares too); the ext-halo and rdma forms also
+// share one site's pull from rows that may be halo rows (ext_site). The
+// single-chip kernel keeps its own row indexing: routing it through the
+// ext-halo body, with per-row pointers, strides and global rows, cost the
+// single-chip bf16 step 20% on an H100 (82 against 68 us at 800x4000).
 //
 // Bound: device-memory bytes. A site update reads 9 f values and writes 9:
 // 72 B in float32, 36 B in bf16, plus 1 B of class plane in the plane
@@ -68,6 +74,41 @@
 // the site's global row, offset + i, periodic in the global row count
 // gnx, in 64-bit integers: the channel walls are rows 0 and gnx - 1 of the
 // whole lattice, and the row above shard 0 is global row gnx - 1.
+//
+// The rdma form. The TPU kernel sends its edge rows to the ring neighbours
+// by remote DMA at its first grid step, computes the interior blocks, waits
+// on the DMA semaphores and computes the two edge blocks last
+// (rdma_schedule, :137-179). What carries over is that protocol; its 8-row
+// slabs, VMEM send buffers, re-mirroring and block rotation are TPU staging.
+// Here every shard owns two (2, 9, ny) comm buffers (the row above its row
+// 0 and the row below its last row, one per step parity), two flag words
+// and a ticket counter, and its neighbours hold raw pointers to them (peer
+// access between cards). The CTAs of a launch take their roles by arrival
+// (an atomicAdd ticket), so the order below is a fact and not a habit of
+// the block scheduler:
+// - the first kSendCtas CTAs copy this shard's row 0 into the upper
+//   neighbour's bot[p] and its last row into the lower neighbour's top[p]
+//   (p = step mod 2; all 9 planes, raw: the receiver evaluates the forcing
+//   guard on the halo itself, as the ext-halo form does), fence at system
+//   scope and release-store the step number into that neighbour's flag;
+// - the next (nx - 2) x tiles CTAs compute the interior rows, which read
+//   no halo;
+// - the last 2 x tiles CTAs acquire-spin on this shard's OWN flag words
+//   (local memory) until they hold at least the step number, then compute
+//   rows 0 and nx - 1 from top[p] and bot[p] with plain loads.
+// A spinning CTA therefore never holds a send CTA of its own launch off
+// the card, and at most 2 x tiles CTAs per launch spin while another
+// shard's launch (on a stream of its own) arrives. Reuse of the comm
+// buffers needs no further barrier: flags hold monotonic step numbers, and
+// a neighbour can be at most one step ahead. Its step t + 1 edges wait for
+// this shard's step t + 1 send, which is stream-ordered after this shard's
+// whole step t, so when a neighbour overwrites parity p at step t + 2 this
+// shard has finished reading it at step t; and the flag this shard waits
+// on at step t can already hold t + 1, never t + 2. Every spin is bounded
+// by %globaltimer: on expiry the CTA writes the step into the shard's error
+// word and returns, later launches skip their waits, and the session raises
+// when it next blocks. Bound: as the ext-halo form, plus 4 x 9 x ny values
+// of halo traffic per shard and step.
 //
 // Arithmetic keeps the TPU kernel's association order (moments from the
 // d56/d78/d58/d67 partial sums, the base/q +- eu pairs,
@@ -229,26 +270,26 @@ lbm_stream_collide(const T* __restrict__ src, T* __restrict__ dst,
       static_cast<int64_t>(i) * ny + j, k, fast_math);
 }
 
-// The ext-halo form: local rows [e.row0, e.row0 + gridDim.x) of a shard's
-// (9, nx, ny) block, periodic in y; the source rows past the block are
-// the halo rows. Each source row is read through its column-0 address,
-// the stride between its speed planes, its class row and its global row.
+// One site (i, j) of a shard's (9, nx, ny) block, periodic in y, for the
+// ext-halo and rdma forms: the source rows past the block are the halo
+// rows e.top and e.bot. Each source row is read through its column-0
+// address, the stride between its speed planes, its class row and its
+// global row. The halo pointers are neither const __restrict__ nor read
+// through the non-coherent path: in the rdma form another kernel wrote them
+// while this one ran.
 template <typename T, int GEOM>
-__global__ void __launch_bounds__(kBlock)
-lbm_stream_collide_ext(const T* __restrict__ src, T* __restrict__ dst,
-                       const uint8_t* __restrict__ solid, Spec g, Ext<T> e,
-                       int64_t nx, int64_t ny, Params k, int fast_math) {
+__device__ __forceinline__ void ext_site(const T* __restrict__ src, T* __restrict__ dst,
+                                         const uint8_t* __restrict__ solid, const Spec& g,
+                                         const Ext<T>& e, int64_t nx, int64_t ny,
+                                         const Params& k, int fast_math, int i, int j) {
   // e_s = (e_x, e_y) and the forcing increment sign (+1 speeds gain, -1
   // speeds lose), as in core/spec.py
   constexpr int EX[9] = {0, 0, 1, 0, -1, 1, 1, -1, -1};
   constexpr int EY[9] = {0, 1, 0, -1, 0, 1, -1, -1, 1};
   constexpr int FORCE[9] = {0, 1, 0, -1, 0, 1, -1, -1, 1};
 
-  const int i = static_cast<int>(e.row0) + static_cast<int>(blockIdx.x);
-  const int j = blockIdx.y * kBlock + threadIdx.x;
   const int nxi = static_cast<int>(nx);
   const int nyi = static_cast<int>(ny);
-  if (j >= nyi) return;
   const int64_t plane = nx * ny;
   const int cols[3] = {(j + 1) % nyi, j, (j - 1 + nyi) % nyi};
 
@@ -293,6 +334,155 @@ lbm_stream_collide_ext(const T* __restrict__ src, T* __restrict__ dst,
       static_cast<int64_t>(i) * ny + j, k, fast_math);
 }
 
+// The ext-halo form: local rows [e.row0, e.row0 + gridDim.x) of a shard's
+// (9, nx, ny) block.
+template <typename T, int GEOM>
+__global__ void __launch_bounds__(kBlock)
+lbm_stream_collide_ext(const T* __restrict__ src, T* __restrict__ dst,
+                       const uint8_t* __restrict__ solid, Spec g, Ext<T> e,
+                       int64_t nx, int64_t ny, Params k, int fast_math) {
+  const int i = static_cast<int>(e.row0) + static_cast<int>(blockIdx.x);
+  const int j = blockIdx.y * kBlock + threadIdx.x;
+  if (j >= static_cast<int>(ny)) return;
+  ext_site<T, GEOM>(src, dst, solid, g, e, nx, ny, k, fast_math, i, j);
+}
+
+// What the rdma form adds to Ext: where this step's rows go, and the words
+// the launches of a ring signal through. The comm pointers are this step's
+// parity already.
+template <typename T>
+struct Rdma {
+  T* up_bot;                      // the upper neighbour's bot rows (9, ny): row 0 goes there
+  T* down_top;                    // the lower neighbour's top rows (9, ny): row nx - 1
+  unsigned long long* up_flag;    // the upper neighbour's bot flag word
+  unsigned long long* down_flag;  // the lower neighbour's top flag word
+  unsigned long long* flags;      // this shard's own [top, bot] flag words
+  unsigned long long* work;       // this shard's [ticket counter, error word]
+  unsigned long long step;        // 1, 2, ... since the flags were reset
+  unsigned long long timeout_ns;  // bound of an edge CTA's spin
+};
+
+// CTAs of the rdma form that send: one per direction
+constexpr int kSendCtas = 2;
+
+__device__ __forceinline__ unsigned long long load_acquire_sys(const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.acquire.sys.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_release_sys(unsigned long long* p, unsigned long long v) {
+  asm volatile("st.release.sys.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
+}
+
+__device__ __forceinline__ unsigned long long global_timer_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// Copy one row of src (all 9 planes, as bits) into a neighbour's (9, ny)
+// comm rows: 16-byte vectors where the addresses and the row length allow.
+template <typename T>
+__device__ __forceinline__ void send_row(const T* __restrict__ row, int64_t plane, T* out,
+                                         int64_t ny) {
+  const int64_t bytes = ny * static_cast<int64_t>(sizeof(T));
+  const bool vec = bytes % 16 == 0 && (plane * static_cast<int64_t>(sizeof(T))) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(row) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  for (int s = 0; s < 9; ++s) {
+    const T* a = row + s * plane;
+    T* b = out + s * ny;
+    if (vec) {
+      const uint4* a4 = reinterpret_cast<const uint4*>(a);
+      uint4* b4 = reinterpret_cast<uint4*>(b);
+      for (int64_t v = threadIdx.x; v < bytes / 16; v += kBlock) b4[v] = a4[v];
+    } else {
+      for (int64_t j = threadIdx.x; j < ny; j += kBlock) b[j] = a[j];
+    }
+  }
+}
+
+// Thread 0 of an edge CTA: wait until *flag holds at least `step`. False
+// when the shard's error word is set, or is set here because the wait
+// outlasted the bound.
+__device__ __forceinline__ bool wait_for_rows(const unsigned long long* flag,
+                                              unsigned long long* error,
+                                              unsigned long long step,
+                                              unsigned long long timeout_ns) {
+  if (*reinterpret_cast<volatile unsigned long long*>(error) != 0) return false;
+  const unsigned long long start = global_timer_ns();
+  unsigned backoff = 32;
+  while (load_acquire_sys(flag) < step) {
+    if (*reinterpret_cast<volatile unsigned long long*>(error) != 0) return false;
+    if (global_timer_ns() - start > timeout_ns) {
+      atomicCAS(error, 0ULL, step);
+      return false;
+    }
+    __nanosleep(backoff);
+    if (backoff < 1024) backoff *= 2;
+  }
+  return true;
+}
+
+// The rdma form: every row of a shard's (9, nx, ny) block, nx >= 3, on a
+// 1-D grid of kSendCtas + nx * tiles CTAs whose roles follow their arrival.
+template <typename T, int GEOM>
+__global__ void __launch_bounds__(kBlock)
+lbm_stream_collide_rdma(const T* __restrict__ src, T* __restrict__ dst,
+                        const uint8_t* __restrict__ solid, Spec g, Ext<T> e, Rdma<T> r,
+                        int64_t nx, int64_t ny, Params k, int fast_math) {
+  __shared__ unsigned ticket;
+  __shared__ int rows_arrived;
+  // role arithmetic in 32 bits: the launcher bounds the grid by 2^31 - 1
+  const unsigned rows = static_cast<unsigned>(nx);
+  const unsigned tiles = (static_cast<unsigned>(ny) + kBlock - 1) / kBlock;
+  // every CTA of every launch takes one ticket, the launches of a shard
+  // are stream-ordered and the counter was zeroed before step 1, so this
+  // launch's tickets start at (step - 1) * gridDim.x
+  if (threadIdx.x == 0) {
+    ticket = static_cast<unsigned>(atomicAdd(r.work, 1ULL) - (r.step - 1) * gridDim.x);
+  }
+  __syncthreads();
+  const unsigned u = ticket;
+
+  if (u < kSendCtas) {
+    const int64_t plane = nx * ny;
+    if (u == 0) {
+      send_row<T>(src, plane, r.up_bot, ny);
+    } else {
+      send_row<T>(src + (nx - 1) * ny, plane, r.down_top, ny);
+    }
+    // every thread's rows are visible system-wide before the flag is
+    __threadfence_system();
+    __syncthreads();
+    if (threadIdx.x == 0) store_release_sys(u == 0 ? r.up_flag : r.down_flag, r.step);
+    return;
+  }
+
+  const unsigned v = u - kSendCtas;
+  const unsigned interior = (rows - 2) * tiles;
+  int i, tile;
+  if (v < interior) {
+    // consecutive tickets take consecutive rows of one column tile, as the
+    // (rows, tiles) grids of the other forms do
+    i = 1 + static_cast<int>(v % (rows - 2));
+    tile = static_cast<int>(v / (rows - 2));
+  } else {
+    const unsigned w = v - interior;
+    i = w < tiles ? 0 : static_cast<int>(rows) - 1;
+    tile = static_cast<int>(w % tiles);
+    if (threadIdx.x == 0) {
+      rows_arrived = wait_for_rows(r.flags + (i == 0 ? 0 : 1), r.work + 1, r.step, r.timeout_ns);
+    }
+    __syncthreads();  // orders every thread's halo loads after thread 0's acquire
+    if (!rows_arrived) return;
+  }
+  const int j = tile * kBlock + threadIdx.x;
+  if (j >= static_cast<int>(ny)) return;
+  ext_site<T, GEOM>(src, dst, solid, g, e, nx, ny, k, fast_math, i, j);
+}
+
 template <typename T>
 void launch(const dim3& grid, cudaStream_t st, const void* src, void* dst,
             const uint8_t* solid, const Spec& g, int64_t nx, int64_t ny,
@@ -321,6 +511,40 @@ void launch_ext(const dim3& grid, cudaStream_t st, const void* src, void* dst,
   } else {
     lbm_stream_collide_ext<T, kNone><<<grid, kBlock, 0, st>>>(s, d, solid, g, e, nx, ny, k, fast_math);
   }
+}
+
+template <typename T>
+void launch_rdma(unsigned grid, cudaStream_t st, const void* src, void* dst,
+                 const uint8_t* solid, const Spec& g, const Ext<T>& e, const Rdma<T>& r,
+                 int64_t nx, int64_t ny, const Params& k, int fast_math, int64_t geometry) {
+  const T* s = static_cast<const T*>(src);
+  T* d = static_cast<T*>(dst);
+  if (geometry == kPlane) {
+    lbm_stream_collide_rdma<T, kPlane><<<grid, kBlock, 0, st>>>(s, d, solid, g, e, r, nx, ny, k, fast_math);
+  } else if (geometry == kSpec) {
+    lbm_stream_collide_rdma<T, kSpec><<<grid, kBlock, 0, st>>>(s, d, solid, g, e, r, nx, ny, k, fast_math);
+  } else {
+    lbm_stream_collide_rdma<T, kNone><<<grid, kBlock, 0, st>>>(s, d, solid, g, e, r, nx, ny, k, fast_math);
+  }
+}
+
+// Ext and Rdma of one rdma launch from the entry point's untyped pointers;
+// the comm buffers are (2, 9, ny) and this step takes parity step mod 2.
+template <typename T>
+void launch_rdma_typed(unsigned grid, cudaStream_t st, const void* src, void* dst, void* top,
+                       void* bot, void* up_bot, void* down_top, void* flags, void* up_flag,
+                       void* down_flag, void* work, const uint8_t* solid,
+                       const uint8_t* solid_top, const uint8_t* solid_bot, const Spec& g,
+                       int64_t nx, int64_t ny, int64_t offset, int64_t gnx, const Params& k,
+                       int fast_math, int64_t geometry, int64_t step, int64_t timeout_ns) {
+  using U = unsigned long long;
+  const int64_t p = (step % 2) * 9 * ny;
+  const Ext<T> e{static_cast<const T*>(top) + p, static_cast<const T*>(bot) + p, solid_top,
+                 solid_bot, 0, offset, gnx};
+  const Rdma<T> r{static_cast<T*>(up_bot) + p, static_cast<T*>(down_top) + p,
+                  static_cast<U*>(up_flag), static_cast<U*>(down_flag), static_cast<U*>(flags),
+                  static_cast<U*>(work), static_cast<U>(step), static_cast<U>(timeout_ns)};
+  launch_rdma<T>(grid, st, src, dst, solid, g, e, r, nx, ny, k, fast_math, geometry);
 }
 
 // The checks both entry points share; true when the launch is refused.
@@ -416,4 +640,78 @@ extern "C" int lbm_stream_collide_ext_launch(
     launch_ext<float>(grid, st, src, dst, w, g, e, nx, ny, k, fast, geometry);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The rdma form: one step of a whole shard src -> dst on `stream`, halo
+// exchange included. top, bot: this shard's (2, 9, ny) comm buffers of
+// src's storage (by step parity: the row above local row 0, the row below
+// local row nx - 1), written by the neighbours' launches of the same step.
+// up_bot, down_top: the (2, 9, ny) buffers this launch writes, the upper
+// neighbour's bot and the lower neighbour's top; up_flag, down_flag: the
+// flag words it then sets to `step` (the upper neighbour's bot flag, the
+// lower neighbour's top flag). flags: this shard's own [top, bot] flag
+// words; work: its [ticket counter, error word]; all uint64, zeroed
+// together before step 1 (a launch reads its roles off the counter), on memory that this device can address (its own,
+// or a peer's after lbm_enable_peer_access). step counts 1, 2, ... since
+// that reset; every shard of the ring must launch the same step, each on a
+// stream of its own, or the edge rows wait timeout_ns and give up, leaving
+// `step` in work[1]. nx >= 3. The other arguments are the ext-halo form's.
+// Returns cudaGetLastError() after the launch.
+extern "C" int lbm_stream_collide_rdma_launch(
+    const void* src, void* dst, void* top, void* bot, void* up_bot, void* down_top,
+    void* flags, void* up_flag, void* down_flag, void* work, const void* solid,
+    const void* solid_top, const void* solid_bot, const void* spec, int64_t nx, int64_t ny,
+    int64_t offset, int64_t gnx, int64_t storage, int64_t geometry, int64_t fast_math,
+    const void* params, int64_t step, int64_t timeout_ns, void* stream) {
+  const bool plane = geometry == kPlane;
+  const int64_t tiles = (ny + kBlock - 1) / kBlock;
+  if (refused(solid, spec, nx, ny, storage, geometry) || nx < 3 || offset < 0 ||
+      gnx >= (1LL << 62) || offset + nx > gnx || step < 1 || timeout_ns < 0 ||
+      kSendCtas + nx * tiles > 0x7fffffffLL || top == nullptr || bot == nullptr ||
+      up_bot == nullptr || down_top == nullptr || flags == nullptr || up_flag == nullptr ||
+      down_flag == nullptr || work == nullptr ||
+      (plane && (solid_top == nullptr || solid_bot == nullptr))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Params k = params_from(params);
+  const Spec g = spec_from(spec, geometry);
+  const unsigned grid = static_cast<unsigned>(kSendCtas + nx * tiles);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const uint8_t* w = static_cast<const uint8_t*>(solid);
+  const uint8_t* wt = static_cast<const uint8_t*>(solid_top);
+  const uint8_t* wb = static_cast<const uint8_t*>(solid_bot);
+  const int fast = fast_math != 0;
+  if (storage == 1) {
+    launch_rdma_typed<__nv_bfloat16>(grid, st, src, dst, top, bot, up_bot, down_top, flags,
+                                     up_flag, down_flag, work, w, wt, wb, g, nx, ny, offset,
+                                     gnx, k, fast, geometry, step, timeout_ns);
+  } else {
+    launch_rdma_typed<float>(grid, st, src, dst, top, bot, up_bot, down_top, flags, up_flag,
+                             down_flag, work, w, wt, wb, g, nx, ny, offset, gnx, k, fast,
+                             geometry, step, timeout_ns);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Let kernels on `device` address the memory of `peer` (the rdma form's
+// comm buffers and flags on a neighbour card). Returns 0 when the access is
+// (or already was) enabled, cudaErrorPeerAccessUnsupported when the cards
+// cannot reach each other, else the error.
+extern "C" int lbm_enable_peer_access(int64_t device, int64_t peer) {
+  if (device == peer) return 0;
+  int can = 0;
+  cudaError_t err = cudaDeviceCanAccessPeer(&can, static_cast<int>(device),
+                                            static_cast<int>(peer));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!can) return static_cast<int>(cudaErrorPeerAccessUnsupported);
+  int before = 0;
+  cudaGetDevice(&before);
+  cudaSetDevice(static_cast<int>(device));
+  err = cudaDeviceEnablePeerAccess(static_cast<int>(peer), 0);
+  if (err == cudaErrorPeerAccessAlreadyEnabled) {
+    cudaGetLastError();  // not an error: PyTorch enables it at its first peer copy
+    err = cudaSuccess;
+  }
+  cudaSetDevice(before);
+  return static_cast<int>(err);
 }

@@ -24,6 +24,12 @@ the port's backends.
 - "sharded-cuda-ds64": a persistent ShardedDSSession around the ext-halo
   form of the ds kernel at the fast tier, the counterpart of
   "sharded-pallas-ds64".
+- "sharded-cuda-rdma": a persistent ShardedRdmaSession around the rdma
+  form of the CUDA kernel, which exchanges its own halo rows: one launch
+  per shard and step and no copy from the host, the counterpart of
+  "sharded-pallas-rdma". Like that one it is experimental and needs
+  allow_experimental=True: its shards wait for each other inside their
+  kernels, so a ring that is not launched whole ends in a timeout error.
 The sharded backends run over make_mesh(), every visible card; a caller
 registers one over another mesh (devices may repeat) with
 register_backend(name, sharded.make_backend(mesh, overlap=...)) or
@@ -33,7 +39,10 @@ backends raise without a card.
 A backend function with a `session` attribute (session(cfg, walls, *,
 device, **options) -> a session with load, advance, state) runs through
 a persistent session that the facade keeps; any other runs as
-run_steps(f, walls, cfg, n_steps, **options).
+run_steps(f, walls, cfg, n_steps, **options). A blocking run() ends with
+the session's block(), or the backend function's own `block` attribute
+where it has one (the eager sharded runners wait for every card of their
+mesh), else with a synchronize of the simulation's device.
 
 The ds backends carry a df64.DS pair and need a float64 LatticeConfig
 (the host-side precision of state() and f0); state(), macroscopic(),
@@ -93,18 +102,21 @@ register_backend("sharded-sync", sharded.make_backend(overlap=False))
 register_backend("sharded-cuda", sharded.make_cuda_backend(overlap=True))
 register_backend("sharded-cuda-fused", sharded.make_cuda_backend(overlap=False))
 register_backend("sharded-cuda-ds64", sharded.make_cuda_ds_backend())
+register_backend("sharded-cuda-rdma", sharded.make_cuda_backend(rdma=True))
 
 # backends whose state is a df64.DS pair, and backends that run a
 # hand-written kernel through a persistent session (CUDA only)
 _DS_BACKENDS = {"torch-ds64", "cuda-ds64", "sharded-cuda-ds64"}
 _KERNEL_BACKENDS = {"cuda", "cuda-ds64", "sharded-cuda", "sharded-cuda-fused",
-                    "sharded-cuda-ds64"}
+                    "sharded-cuda-ds64", "sharded-cuda-rdma"}
 # backends that take free-slip masks, the approximate 1/rho, and the
 # closed-form wall spec (no mask plane read)
 _SLIP_BACKENDS = {"torch", "cuda", "sharded", "sharded-sync", "sharded-cuda",
-                  "sharded-cuda-fused"}
-_FASTMATH_BACKENDS = {"cuda", "sharded-cuda", "sharded-cuda-fused"}
-_WALL_SPEC_BACKENDS = {"cuda", "sharded-cuda", "sharded-cuda-fused"}
+                  "sharded-cuda-fused", "sharded-cuda-rdma"}
+_FASTMATH_BACKENDS = {"cuda", "sharded-cuda", "sharded-cuda-fused", "sharded-cuda-rdma"}
+_WALL_SPEC_BACKENDS = {"cuda", "sharded-cuda", "sharded-cuda-fused", "sharded-cuda-rdma"}
+# backends that run only behind Simulation(allow_experimental=True)
+_EXPERIMENTAL_BACKENDS = {"sharded-cuda-rdma"}
 
 
 def available_backends() -> list[str]:
@@ -137,6 +149,25 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _reynolds_sequential(f: np.ndarray, walls: np.ndarray, cfg: LatticeConfig) -> float:
+    """Reynolds number over the central column from a host float64 state
+    (src/latticeboltzmann.c:522-547): mean u_y of the non-wall sites at
+    j = NY/2, times the characteristic length 10, over nu. The port's copy
+    of the JAX package's golden.reynolds: numpy's elementwise float64
+    arithmetic, then a strict sequential sum over i, like the C loop."""
+    j = int(cfg.ny / 2.0)
+    col = f[:, :, j]  # (9, NX)
+    fluid = ~walls[:, j]
+    density = col[0]
+    for s in range(1, NSPEEDS):
+        density = density + col[s]
+    u_y = ((col[5] + col[1]) + col[8] - ((col[6] + col[3]) + col[7])) / density
+    total = 0.0
+    for v in u_y[fluid]:
+        total += float(v)
+    return total / int(fluid.sum()) * 10.0 / cfg.viscosity
+
+
 def default_device(backend: str) -> str:
     """The device a backend runs on when none is given: "cuda" for the
     kernel backends; for the others "cuda" when a card is available,
@@ -149,7 +180,17 @@ def default_device(backend: str) -> str:
 
 class Simulation:
     """A running lattice. `backend` selects the compute path (see the
-    module docstring); `device` defaults to default_device(backend)."""
+    module docstring); `device` defaults to default_device(backend).
+
+    skew and temporal are the JAX facade's schedule knobs (wavefront
+    time-skewing and the temporal-blocking depth of the TPU kernels). They
+    are kept as given and select nothing: every kernel of the port runs one
+    step per launch, and the JAX package's own tests hold its schedules
+    bitwise equal to one another (tests/test_pallas.py:706-816 for skew,
+    tests/test_ds.py:191-210 for the ds temporal depth), so one schedule
+    gives every result they can select. allow_experimental opts in to the
+    backends of _EXPERIMENTAL_BACKENDS, which raise RuntimeError without
+    it."""
 
     def __init__(
         self,
@@ -162,8 +203,13 @@ class Simulation:
         slip_x: np.ndarray | None = None,
         slip_y: np.ndarray | None = None,
         fast_math: bool = False,
+        skew: bool | None = None,
+        temporal: int | None = None,
+        allow_experimental: bool = False,
     ):
         self.cfg = cfg
+        self.skew = skew
+        self.temporal = temporal
         storage_dtype(cfg.dtype)  # raises on what the port does not take
         if walls is None:
             walls = geometry.channel_with_barrier(cfg.nx, cfg.ny)
@@ -171,6 +217,12 @@ class Simulation:
             raise ValueError(f"walls shape {walls.shape} != lattice {(cfg.nx, cfg.ny)}")
         if backend not in _BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; have {available_backends()}")
+        if backend in _EXPERIMENTAL_BACKENDS and not allow_experimental:
+            raise RuntimeError(
+                f"{backend} is EXPERIMENTAL: its shards exchange halo rows inside their "
+                "kernels and wait for each other there. Pass allow_experimental=True to "
+                "Simulation to opt in; prefer 'sharded-cuda' otherwise."
+            )
         if backend in _DS_BACKENDS and storage_dtype(cfg.dtype) != torch.float64:
             raise ValueError(
                 "ds backends carry DP-class state; construct the LatticeConfig "
@@ -264,10 +316,22 @@ class Simulation:
         else:
             self._f = self._run_steps(self._f, self.walls, self.cfg, n_steps, **self._options)
         if block:
-            _sync(self.device)
+            self._block()
         self.elapsed += time.perf_counter() - t0
         self.steps_done += n_steps
         return self
+
+    def _block(self) -> None:
+        """Wait for the work run() enqueued: the session's own barrier,
+        else the backend function's, else this simulation's device."""
+        if self._session is not None:
+            self._session.block()
+            return
+        block = getattr(self._run_steps, "block", None)
+        if block is not None:
+            block()
+        else:
+            _sync(self.device)
 
     def probe_values(self, probes) -> np.ndarray:
         """(rho, u_x, u_y) at (P, 2) probe sites from the current state."""
@@ -303,7 +367,13 @@ class Simulation:
 
     def reynolds(self, col: int | None = None) -> float:
         """Reynolds number at a column (default ny/2, the reference's
-        regression scalar, src/latticeboltzmann.c:522-547)."""
+        regression scalar, src/latticeboltzmann.c:522-547). On the ds
+        backends the default column is summed on the host, one site after
+        the other in float64, as the JAX facade does through its golden
+        model (models/engine.py:511-516, models/golden.py:204-220 there):
+        a device sum adds in another order."""
+        if self.backend in _DS_BACKENDS and col is None:
+            return _reynolds_sequential(self.state(), self.walls_np, self.cfg)
         return float(torch_ops.reynolds(self._f64(), self.walls, self.cfg, col))
 
     @property

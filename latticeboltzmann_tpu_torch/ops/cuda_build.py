@@ -150,6 +150,41 @@ def load_library() -> ctypes.CDLL:
         ctypes.c_void_p,  # params: 9 host floats
         ctypes.c_void_p,  # cudaStream_t
     ]
+    fn = lib.lbm_stream_collide_rdma_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [
+        ctypes.c_void_p,  # src: the shard's (9, nx, ny) block
+        ctypes.c_void_p,  # dst
+        ctypes.c_void_p,  # top: this shard's (2, 9, ny) comm rows, by step parity
+        ctypes.c_void_p,  # bot
+        ctypes.c_void_p,  # up_bot: the upper neighbour's bot rows (2, 9, ny)
+        ctypes.c_void_p,  # down_top: the lower neighbour's top rows (2, 9, ny)
+        ctypes.c_void_p,  # flags: this shard's [top, bot] flag words (uint64)
+        ctypes.c_void_p,  # up_flag: the upper neighbour's bot flag word
+        ctypes.c_void_p,  # down_flag: the lower neighbour's top flag word
+        ctypes.c_void_p,  # work: this shard's [ticket counter, error word] (uint64)
+        ctypes.c_void_p,  # solid class plane (null unless geometry 1)
+        ctypes.c_void_p,  # top halo class row (ny), or null
+        ctypes.c_void_p,  # bot halo class row (ny), or null
+        ctypes.c_void_p,  # spec: 10 host int64 (null unless geometry 2)
+        ctypes.c_int64,   # nx: the shard's rows (at least 3)
+        ctypes.c_int64,   # ny
+        ctypes.c_int64,   # offset: global row of local row 0
+        ctypes.c_int64,   # gnx: global rows
+        ctypes.c_int64,   # storage: 0 float32, 1 bfloat16
+        ctypes.c_int64,   # geometry: 0 none, 1 plane, 2 spec
+        ctypes.c_int64,   # fast_math
+        ctypes.c_void_p,  # params: 9 host floats
+        ctypes.c_int64,   # step: 1, 2, ... since the flags were zeroed
+        ctypes.c_int64,   # timeout_ns: bound of an edge row's wait
+        ctypes.c_void_p,  # cudaStream_t
+    ]
+    fn = lib.lbm_enable_peer_access
+    fn.restype = ctypes.c_int
+    fn.argtypes = [
+        ctypes.c_int64,  # device whose kernels reach out
+        ctypes.c_int64,  # peer whose memory they address
+    ]
     fn = lib.lbm_stream_collide_ds_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [

@@ -22,6 +22,14 @@ rows, and the rows beyond the shard come from two halo rows, each with
 all 9 speed planes of a ring neighbour's boundary row. Its launches are
 counted apart, in EXT_LAUNCHES and EXT_VARIANT_LAUNCHES.
 
+The rdma form (`rdma_launcher`; plain version `step_reference_rdma`) is
+the ext-halo step of a whole shard with the halo exchange inside the
+kernel: one launch per shard and step sends the shard's two boundary rows
+into its ring neighbours' comm buffers (`RdmaEnd`), computes the interior
+rows, waits for the neighbours' rows and computes the edge rows; the host
+makes no copy. `rdma_schedule` holds the protocol as plain constants. Its
+launches are counted in RDMA_LAUNCHES and RDMA_VARIANT_LAUNCHES.
+
 The flat form (`make_flat_step`, `flat_step`; plain version
 `flat_reference`; csrc/lbm_flat_step.cu) runs an even number of
 wall-free steps in ONE cooperative launch over a stacked (2, 9, NX, NY)
@@ -57,6 +65,9 @@ VARIANT_LAUNCHES: collections.Counter = collections.Counter()
 # the same for the ext-halo form's launches (`ext_launcher`)
 EXT_LAUNCHES = 0
 EXT_VARIANT_LAUNCHES: collections.Counter = collections.Counter()
+# the same for the rdma form's launches (`rdma_launcher`)
+RDMA_LAUNCHES = 0
+RDMA_VARIANT_LAUNCHES: collections.Counter = collections.Counter()
 # launches of the flat multi-step kernel (`flat_step`), each of which runs
 # many steps
 FLAT_LAUNCHES = 0
@@ -75,6 +86,10 @@ SPEC_FIELDS = 10
 # each side; an H100 measured 1.18e-6 at 800x4000 (PERF.md).
 FAST_MATH_RTOL = 1e-5
 FAST_MATH_STEPS = 10
+
+# the rdma form: how long an edge row waits for a neighbour's rows before
+# its launch gives up (seconds)
+RDMA_TIMEOUT_S = 2.0
 
 # solid planes whose codes were checked, by tensor: (version counter at
 # the check, largest code). The check syncs with the device, so it runs
@@ -522,6 +537,222 @@ def ext_launcher(
 
     launch.host_args = (params, spec)  # alive as long as the call
     return launch
+
+
+def rdma_schedule(rows: int, step: int) -> dict:
+    """The schedule of the in-kernel halo exchange (the rdma form) as plain
+    Python constants, the twin of the JAX package's rdma_schedule
+    (ops/fused_kernel.py:137-179 there): which of a `rows`-row shard's rows
+    go to whom, into which comm-buffer parity, which flag value the edge
+    rows of step `step` (1, 2, ... since the flags were zeroed) wait for.
+    Shard k's ring neighbours are shards (k + up) % n and (k + down) % n.
+    A launch sends first, computes the interior rows [1, rows - 1), which
+    read no comm row and wait for nothing, and last the edge rows 0 and
+    rows - 1, once its top / bot flag holds at least `flag`. The kernel
+    (csrc/lbm_step.cu) restates this; its plain version and the host replay
+    of the tests read it from here.
+
+    Two parities and monotonic flag values are all the reuse discipline the
+    comm buffers need (the JAX kernel's pass-start barrier): a neighbour is
+    at most one step ahead, because its step t + 1 edge rows wait for this
+    shard's step t + 1 send, which comes after this shard's whole step t.
+    So parity t % 2 is overwritten (at step t + 2) only after this shard
+    read it at step t, and a flag read at step t holds t or t + 1."""
+    return dict(
+        parity=step % 2,
+        flag=step,
+        up=-1,
+        down=+1,
+        send_up_row=0,            # -> the upper neighbour's bot[parity], then its bot flag
+        send_down_row=rows - 1,   # -> the lower neighbour's top[parity], then its top flag
+        top_flag=0,               # index of the flag word that guards top[parity]
+        bot_flag=1,
+    )
+
+
+class RdmaEnd(NamedTuple):
+    """One shard's receiving end of the in-kernel halo exchange, on the
+    shard's device: the comm rows its neighbours write (by step parity, all
+    9 speed planes of a boundary row each), the flag words they then set,
+    and the shard's own launch words."""
+
+    top: torch.Tensor    # (2, 9, NY) storage dtype: the row above local row 0
+    bot: torch.Tensor    # (2, 9, NY): the row below the last local row
+    flags: torch.Tensor  # (2,) int64, [top, bot]: the step whose rows they hold
+    work: torch.Tensor   # (2,) int64, [ticket counter, error word]
+
+
+def rdma_end(cfg: LatticeConfig, device) -> RdmaEnd:
+    """A zeroed RdmaEnd for a shard of a cfg.ny-column lattice on `device`."""
+    rows = torch.zeros((2, NSPEEDS, cfg.ny), dtype=_storage(cfg), device=device)
+    words = torch.zeros(2, dtype=torch.int64, device=device)
+    return RdmaEnd(rows, torch.zeros_like(rows), words, torch.zeros_like(words))
+
+
+def rdma_reset(end: RdmaEnd) -> None:
+    """Zero an end's flags and launch words: the next step is step 1."""
+    end.flags.zero_()
+    end.work.zero_()
+
+
+def rdma_timed_out(end: RdmaEnd) -> int:
+    """The step at which an edge row of this end's shard gave up waiting
+    for a neighbour's rows, or 0. Syncs with the device."""
+    return int(end.work[1])
+
+
+def rdma_send_reference(src: torch.Tensor, up: RdmaEnd, down: RdmaEnd, step: int) -> None:
+    """Plain PyTorch version of a launch's send role: the shard's boundary
+    rows into its neighbours' comm buffers, then their flags, by
+    rdma_schedule."""
+    s = rdma_schedule(src.shape[1], step)
+    up.bot[s["parity"]].copy_(src[:, s["send_up_row"]])
+    up.flags[s["bot_flag"]] = s["flag"]
+    down.top[s["parity"]].copy_(src[:, s["send_down_row"]])
+    down.flags[s["top_flag"]] = s["flag"]
+
+
+def rdma_compute_reference(src: torch.Tensor, end: RdmaEnd, geom, cfg: LatticeConfig,
+                           step: int, *, row_offset: int = 0) -> torch.Tensor:
+    """Plain PyTorch version of a launch's interior and edge roles:
+    step_reference_ext from the comm rows of this step's parity. Raises
+    RuntimeError where the kernel's edge rows would wait in vain: a flag
+    below this step's value."""
+    s = rdma_schedule(src.shape[1], step)
+    if int(end.flags.min()) < s["flag"]:
+        raise RuntimeError(f"step {step}: a neighbour's rows have not arrived "
+                           f"(flags {end.flags.tolist()})")
+    halo = (end.top[s["parity"]], end.bot[s["parity"]])
+    return step_reference_ext(src, halo, geom, cfg, row_offset=row_offset)
+
+
+def step_reference_rdma(srcs, ends, geoms, cfg: LatticeConfig, step: int) -> list[torch.Tensor]:
+    """Plain PyTorch version of one step of the rdma form over a whole
+    ring: every shard sends (rdma_send_reference), then every shard steps
+    from what it received (rdma_compute_reference). srcs: the shards' (9,
+    L, NY) blocks in row order; ends: their RdmaEnds, which this writes;
+    geoms: each shard's None, ShardPlane or wall spec. Returns the shards'
+    new blocks."""
+    n, L = len(srcs), srcs[0].shape[1]
+    s = rdma_schedule(L, step)
+    for k, src in enumerate(srcs):
+        rdma_send_reference(src, ends[(k + s["up"]) % n], ends[(k + s["down"]) % n], step)
+    return [rdma_compute_reference(src, ends[k], geoms[k], cfg, step, row_offset=k * L)
+            for k, src in enumerate(srcs)]
+
+
+def _check_rdma_end(name: str, end: RdmaEnd, dtype: torch.dtype, ny: int,
+                    device_type: str) -> None:
+    for rows in (end.top, end.bot):
+        if (rows.dtype != dtype or tuple(rows.shape) != (2, NSPEEDS, ny)
+                or not rows.is_contiguous() or rows.device != end.top.device):
+            raise ValueError(f"{name}: comm rows must be contiguous {dtype} {(2, NSPEEDS, ny)} "
+                             f"on one device, got {rows.dtype} {tuple(rows.shape)}")
+    for words in (end.flags, end.work):
+        if (words.dtype != torch.int64 or tuple(words.shape) != (2,)
+                or not words.is_contiguous() or words.device != end.top.device):
+            raise ValueError(f"{name}: flags and work must be int64 (2,) on the comm rows' device")
+    if end.top.device.type != device_type:
+        raise ValueError(f"{name} lies on {end.top.device}, the shard on a {device_type} device")
+
+
+def rdma_launcher(
+    src: torch.Tensor,
+    dst: torch.Tensor,
+    end: RdmaEnd,
+    up: RdmaEnd,
+    down: RdmaEnd,
+    geom,
+    cfg: LatticeConfig,
+    *,
+    row_offset: int = 0,
+    fast_math: bool = False,
+    timeout_s: float = RDMA_TIMEOUT_S,
+    stream=None,
+) -> Callable[[int], None]:
+    """Validate one shard's rdma launch and return it as a call launch(step),
+    to be made once per step with step = 1, 2, ... since rdma_reset: it
+    sends the shard's boundary rows to its neighbours' ends, steps the whole
+    shard src -> dst from the buffers' contents at that time, its edge rows
+    after the neighbours' rows of the same step arrived in `end`.
+
+    src, dst: the shard's (9, L, NY) blocks, L >= 3, local row 0 at global
+    row row_offset. end: the shard's own RdmaEnd; up, down: its ring
+    neighbours' (the shard itself on a ring of one), which may lie on other
+    cards that this card can address (lbm_enable_peer_access). geom: None, a
+    ShardPlane or a wall spec, as ext_launcher's. Every shard of the ring
+    must make the same call, on CUDA each on a stream of its own (`stream`,
+    default: the current one at the call), or the edge rows give up after
+    timeout_s and leave the step in end.work[1] (rdma_timed_out).
+
+    On CUDA tensors the call launches the kernel and counts it in
+    RDMA_LAUNCHES and RDMA_VARIANT_LAUNCHES. On CPU tensors it is the plain
+    version in two halves, launch.send(step) and launch.compute(step): a
+    ring calls every shard's send before any compute (launch(step) runs
+    both, which suffices on a ring of one). Raises on anything the kernel
+    does not take."""
+    L = src.shape[1] if src.dim() == 3 else -1
+    kind, info = _check_ext(src, dst, (end.top[0], end.bot[0]), geom, cfg, 0, L, row_offset)
+    if L < 3:
+        raise ValueError(f"the rdma form needs a shard of at least 3 rows, got {L}")
+    for name, e in (("end", end), ("up", up), ("down", down)):
+        _check_rdma_end(name, e, src.dtype, cfg.ny, src.device.type)
+    if end.top.device != src.device:
+        raise ValueError(f"end lies on {end.top.device}, the shard on {src.device}")
+    if src.device.type == "cpu":
+        def send(step: int) -> None:
+            rdma_send_reference(src, up, down, step)
+
+        def compute(step: int) -> None:
+            dst.copy_(rdma_compute_reference(src, end, geom, cfg, step, row_offset=row_offset))
+
+        def reference(step: int) -> None:
+            send(step)
+            compute(step)
+
+        reference.send, reference.compute = send, compute
+        return reference
+
+    # host arrays the launch reads: kept alive by the closure
+    params = (ctypes.c_float * 9)(*kernel_constants(cfg))
+    spec = (ctypes.c_int64 * SPEC_FIELDS)(*info) if kind == "spec" else None
+    fn = cuda_build.load_library().lbm_stream_collide_rdma_launch
+    plane = geom if kind == "plane" else ShardPlane(None, None, None)
+    flag = rdma_schedule(L, 1)
+    args = (_ptr(src), _ptr(dst), _ptr(end.top), _ptr(end.bot), _ptr(up.bot), _ptr(down.top),
+            _ptr(end.flags), _ptr(up.flags[flag["bot_flag"]:]), _ptr(down.flags[flag["top_flag"]:]),
+            _ptr(end.work), _ptr(plane.plane), _ptr(plane.top), _ptr(plane.bot),
+            ctypes.addressof(spec) if spec is not None else None,
+            L, cfg.ny, row_offset, cfg.nx, _STORAGE[src.dtype], _GEOMETRY[kind], int(fast_math),
+            ctypes.addressof(params))
+    variant = variant_name(src.dtype, kind, kind == "plane" and info > 1, fast_math)
+    device, timeout_ns = src.device, int(timeout_s * 1e9)
+    handle = None if stream is None else stream.cuda_stream
+
+    def launch(step: int) -> None:
+        global RDMA_LAUNCHES
+        st = torch.cuda.current_stream(device).cuda_stream if handle is None else handle
+        rc = fn(*args, step, timeout_ns, st)
+        if rc != 0:
+            raise RuntimeError(f"lbm_stream_collide rdma launch failed: cudaError {rc}")
+        RDMA_LAUNCHES += 1
+        RDMA_VARIANT_LAUNCHES[variant] += 1
+
+    # what the launch addresses, alive as long as the call
+    launch.host_args = (params, spec, src, dst, end, up, down, geom)
+    return launch
+
+
+def enable_peer_access(device: torch.device, peer: torch.device) -> None:
+    """Let kernels on the card `device` address the memory of the card
+    `peer` (an rdma launch writes its neighbours' RdmaEnds); raises
+    RuntimeError where the cards cannot reach each other."""
+    if device == peer:
+        return
+    rc = cuda_build.load_library().lbm_enable_peer_access(device.index, peer.index)
+    if rc != 0:
+        raise RuntimeError(f"{device} cannot address the memory of {peer} (cudaError {rc}): "
+                           "the rdma form needs peer access between neighbouring shards' cards")
 
 
 def flat_reference(f2: torch.Tensor, cfg: LatticeConfig, n_steps: int) -> torch.Tensor:

@@ -25,6 +25,16 @@ Three runners, each with the JAX package's overlap and sync schedules:
   ("sharded-cuda-ds64"): the ext-halo form of the pair-DP kernel, the
   twin of fused_ds_kernel._get_sharded_runner (:385-500 there).
 
+- ShardedRdmaSession, make_cuda_run_steps(rdma=True) /
+  make_cuda_backend(rdma=True) ("sharded-cuda-rdma"): the rdma form of the
+  stream-collide kernel (ops/fused_kernel.rdma_launcher), the twin of
+  make_pallas_run_steps(rdma=True) (:221, :351-352 there). One launch per
+  shard and step exchanges its own halo rows through the neighbours' comm
+  buffers; the host makes no copy and no event in the step loop. Each
+  shard launches on a stream of its own, virtual shards of one card too: a
+  shard's edge rows wait inside its kernel for the neighbours' kernels of
+  the same step, which must not queue behind it.
+
 overlap=True starts the halo copies, launches the interior rows [1,
 L-1), which take no halo, then waits for the copies and launches rows 0
 and L-1: _trio (:312-376 there) at one-row granularity. A shard of fewer
@@ -63,6 +73,10 @@ from ..utils.interop import compute_dtype
 # speeds that pull from the row above (e_x = +1) / below (e_x = -1)
 UP_SPEEDS = (2, 5, 6)
 DOWN_SPEEDS = (4, 7, 8)
+
+# row copies started by HaloExchange.start, for callers that must show a
+# path started none (the rdma form exchanges inside its kernel)
+HALO_COPIES = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -157,6 +171,8 @@ class HaloExchange:
             self.done = [torch.cuda.Event() for _ in self.devices]
 
     def start(self, copies) -> None:
+        global HALO_COPIES
+        HALO_COPIES += len(copies)
         if not self.multi:
             for dst, src in copies:
                 dst.copy_(src)
@@ -291,15 +307,26 @@ def make_run_steps(mesh: Mesh, cfg: LatticeConfig, *, overlap: bool = True):
     return run_steps
 
 
+def _synchronize(mesh: Mesh) -> None:
+    """Wait for every card of the mesh (all its streams)."""
+    for d in mesh.unique_devices():
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
+
+
 def make_backend(mesh: Mesh | None = None, *, overlap: bool = True):
     """The eager runner as a Simulation backend, run(f, walls, cfg,
     n_steps, slip_x=None, slip_y=None), over `mesh` (default: make_mesh()
-    at the call)."""
+    at the call); run.block() waits for every card of the mesh."""
 
     def run(f, walls, cfg, n_steps, slip_x=None, slip_y=None):
         m = make_mesh() if mesh is None else mesh
         return make_run_steps(m, cfg, overlap=overlap)(f, walls, n_steps, slip_x, slip_y)
 
+    def block():
+        _synchronize(make_mesh() if mesh is None else mesh)
+
+    run.block = block
     return run
 
 
@@ -413,9 +440,7 @@ class _ShardedKernelSession:
 
     def block(self) -> None:
         """Completion barrier for the launches so far."""
-        for d in self.mesh.unique_devices():
-            if d.type == "cuda":
-                torch.cuda.synchronize(d)
+        _synchronize(self.mesh)
 
     def state(self):
         """The current global state on the session's device, joined from
@@ -464,6 +489,131 @@ class ShardedSession(_ShardedKernelSession):
             row_offset=k * self.L, fast_math=self.fast_math)
 
 
+class ShardedRdmaSession(ShardedSession):
+    """ShardedSession on the rdma form of the kernel: one launch per shard
+    and step that exchanges its own halo rows (fused_kernel.rdma_launcher),
+    so advance() makes no copy and no event. Per shard an RdmaEnd (comm
+    rows for both step parities, flag and launch words) and, on cards, a
+    stream of its own; neighbouring shards on different cards need peer
+    access, and the session raises where a card refuses it. load() zeroes
+    the flags and orders the shards' streams after the current streams;
+    state(), unload() and block() wait for them, and raise RuntimeError when
+    an edge row gave up waiting for a neighbour's rows (`timeout_s`). A shard
+    of fewer than 3 rows has no interior to hide the exchange behind and
+    keeps ShardedSession's exchange-then-launch (sharded.py:335-336 there).
+    On a CPU mesh the plain version stands in: every shard's send, then
+    every shard's step."""
+
+    def __init__(self, cfg: LatticeConfig, walls, *, mesh: Mesh, wall_spec=None, slip_x=None,
+                 slip_y=None, fast_math: bool = False, device=None,
+                 timeout_s: float = fused_kernel.RDMA_TIMEOUT_S):
+        super().__init__(cfg, walls, mesh=mesh, overlap=False, wall_spec=wall_spec,
+                         slip_x=slip_x, slip_y=slip_y, fast_math=fast_math, device=device)
+        self.rdma = self.L >= 3
+        self.timeout_s = timeout_s
+        self.step = 0
+        self._ends = self._streams = None
+        if not self.rdma:
+            return
+        self._ends = [fused_kernel.rdma_end(cfg, d) for d in mesh.devices]
+        if self.device.type == "cuda":
+            self._streams = [torch.cuda.Stream(d) for d in mesh.devices]
+            n = mesh.size
+            for k, d in enumerate(mesh.devices):
+                for peer in (mesh.devices[(k - 1) % n], mesh.devices[(k + 1) % n]):
+                    fused_kernel.enable_peer_access(d, peer)
+
+    def _plan(self, parity: int):
+        """The rdma launches of a step that reads buffer `parity`: one per
+        shard, grouped by device."""
+        if not self.rdma:
+            return super()._plan(parity)
+        n, L = self.mesh.size, self.L
+        src, dst = self._bufs[parity][0], self._bufs[1 - parity][0]
+        plan = {}
+        for k, dev in enumerate(self.mesh.devices):
+            with _on(dev):
+                plan.setdefault(dev, []).append(fused_kernel.rdma_launcher(
+                    src[k], dst[k], self._ends[k], self._ends[(k - 1) % n],
+                    self._ends[(k + 1) % n], self._geoms[k], self.cfg, row_offset=k * L,
+                    fast_math=self.fast_math, timeout_s=self.timeout_s,
+                    stream=None if self._streams is None else self._streams[k]))
+        return list(plan.items())
+
+    def _current_streams(self):
+        return [torch.cuda.current_stream(d) for d in self.mesh.unique_devices()]
+
+    def _join(self) -> None:
+        """The current streams wait for the shards' streams."""
+        if self._streams is not None:
+            for cur in self._current_streams():
+                for s in self._streams:
+                    cur.wait_stream(s)
+
+    def _fork(self) -> None:
+        """The shards' streams wait for every card's current stream: a
+        launch also writes its neighbours' ends."""
+        if self._streams is not None:
+            for cur in self._current_streams():
+                for s in self._streams:
+                    s.wait_stream(cur)
+
+    def _raise_on_timeout(self) -> None:
+        if self._ends is None:
+            return
+        for k, end in enumerate(self._ends):
+            step = fused_kernel.rdma_timed_out(end)
+            if step:
+                raise RuntimeError(
+                    f"shard {k}: an edge row of step {step} waited {self.timeout_s} s for a "
+                    "neighbour's halo rows and gave up; the state is not valid (did every "
+                    "shard of the ring launch that step?)")
+
+    def load(self, f) -> None:
+        self._join()
+        super().load(f)
+        if self.rdma:
+            for end in self._ends:
+                fused_kernel.rdma_reset(end)
+            self.step = 0
+            self._fork()
+
+    def advance(self, n_steps: int) -> None:
+        if not self.rdma:
+            return super().advance(n_steps)
+        for _ in range(n_steps):
+            self.step += 1
+            plan = self._plans[self._parity]
+            if self._streams is None:
+                calls = [call for _, calls in plan for call in calls]
+                for call in calls:
+                    call.send(self.step)
+                for call in calls:
+                    call.compute(self.step)
+            else:
+                for dev, calls in plan:
+                    with _on(dev):
+                        for call in calls:
+                            call(self.step)
+            self._parity ^= 1
+
+    def block(self) -> None:
+        super().block()
+        self._raise_on_timeout()
+
+    def state(self):
+        self._join()
+        out = super().state()
+        self._fork()  # the next launches overwrite what the gather reads
+        self._raise_on_timeout()
+        return out
+
+    def unload(self):
+        out = super().unload()
+        self._ends = None
+        return out
+
+
 class ShardedDSSession(_ShardedKernelSession):
     """Persistent sharded pair state of the ds kernel's ext-halo form over
     a mesh, the twin of fused_ds_kernel.Session for the row-sharded path:
@@ -495,14 +645,24 @@ def _class_masks(plane):
     return plane == 1, plane == 2, plane == 3
 
 
+def _kernel_session(cfg, walls, *, mesh: Mesh, overlap: bool, rdma: bool, **options):
+    """A ShardedRdmaSession (rdma; it overlaps inside its kernel, so
+    `overlap` does not apply) or a ShardedSession."""
+    if rdma:
+        return ShardedRdmaSession(cfg, walls, mesh=mesh, **options)
+    return ShardedSession(cfg, walls, mesh=mesh, overlap=overlap, **options)
+
+
 def make_cuda_run_steps(mesh: Mesh, cfg: LatticeConfig, *, overlap: bool = True,
-                        wall_spec=None, has_slip: bool = False, fast_math: bool = False):
+                        wall_spec=None, has_slip: bool = False, fast_math: bool = False,
+                        rdma: bool = False):
     """(f, walls, n_steps) -> f through a ShardedSession over the mesh
-    (twin of make_pallas_run_steps): walls is the bool mask, or with
-    has_slip the uint8 class plane (fused_kernel.class_plane). On CUDA
-    meshes the kernel runs; on a CPU mesh its plain version
-    (fused_kernel.step_reference_ext) stands in, as fused_kernel.Session
-    does on the CPU."""
+    (twin of make_pallas_run_steps), with rdma=True a ShardedRdmaSession:
+    walls is the bool mask, or with has_slip the uint8 class plane
+    (fused_kernel.class_plane). On CUDA meshes the kernel runs; on a CPU
+    mesh its plain version (fused_kernel.step_reference_ext, or
+    step_reference_rdma's halves) stands in, as fused_kernel.Session does
+    on the CPU."""
     shard_rows(cfg.nx, mesh.size)
 
     def run_steps(f, walls, n_steps: int):
@@ -510,8 +670,8 @@ def make_cuda_run_steps(mesh: Mesh, cfg: LatticeConfig, *, overlap: bool = True,
         if has_slip:
             walls, sx, sy = _class_masks(walls)
             slips = {"slip_x": sx, "slip_y": sy}
-        sess = ShardedSession(cfg, walls, mesh=mesh, overlap=overlap, wall_spec=wall_spec,
-                              fast_math=fast_math, device=f.device, **slips)
+        sess = _kernel_session(cfg, walls, mesh=mesh, overlap=overlap, rdma=rdma,
+                               wall_spec=wall_spec, fast_math=fast_math, device=f.device, **slips)
         sess.load(f)
         sess.advance(n_steps)
         return sess.unload()
@@ -519,17 +679,18 @@ def make_cuda_run_steps(mesh: Mesh, cfg: LatticeConfig, *, overlap: bool = True,
     return run_steps
 
 
-def make_cuda_backend(mesh: Mesh | None = None, *, overlap: bool = True):
+def make_cuda_backend(mesh: Mesh | None = None, *, overlap: bool = True, rdma: bool = False):
     """The sharded kernel path as a Simulation backend (twin of
     make_pallas_backend): run(f, walls, cfg, n_steps, wall_spec=None,
     slip_x=None, slip_y=None, fast_math=False) for one-shot callers, and
     run.session(cfg, walls, *, device, **options), the persistent
-    ShardedSession the facade keeps. `mesh` defaults to make_mesh() at
-    the call."""
+    ShardedSession (rdma=True: ShardedRdmaSession) the facade keeps. `mesh`
+    defaults to make_mesh() at the call."""
 
     def session(cfg, walls, *, device=None, **options):
         m = make_mesh() if mesh is None else mesh
-        return ShardedSession(cfg, walls, mesh=m, overlap=overlap, device=device, **options)
+        return _kernel_session(cfg, walls, mesh=m, overlap=overlap, rdma=rdma, device=device,
+                               **options)
 
     def run(f, walls, cfg, n_steps, **options):
         sess = session(cfg, walls, device=f.device, **options)
@@ -581,6 +742,6 @@ def make_cuda_ds_backend(mesh: Mesh | None = None, *, exact: bool = False):
 __all__ = [
     "UP_SPEEDS", "DOWN_SPEEDS", "Mesh", "make_mesh", "shard_rows", "shard_state",
     "gather_state", "exchange_halos", "make_run_steps", "make_backend", "HaloExchange",
-    "ShardedSession", "ShardedDSSession", "make_cuda_run_steps", "make_cuda_backend",
+    "ShardedSession", "ShardedRdmaSession", "ShardedDSSession", "make_cuda_run_steps", "make_cuda_backend",
     "make_cuda_ds_run_steps", "make_cuda_ds_backend",
 ]

@@ -21,7 +21,11 @@ against the float64 torch backend uses the JAX package's pair-DP bar,
 1e-11 relative (tests/test_ds.py:213-229). The ext-halo forms of both
 kernels (the row-sharded path) are held bitwise against their plain
 versions (step_reference_ext) on meshes of virtual shards of the card,
-and the sharded-cuda backend bitwise against the cuda backend. The four
+and the sharded-cuda backend bitwise against the cuda backend. The rdma
+form (the halo exchange inside the kernel, one launch per shard on a
+stream of its own) is held bitwise against step_reference_rdma, comm rows
+and flags included, and sharded-cuda-rdma against cuda; a withheld send
+must end in a raised timeout. The four
 anatomy probes (ops/probes.py) and the flat multi-step kernel are held
 bitwise against their plain versions: they move float32 values, add them
 in one order, or repeat the step kernel's arithmetic.
@@ -387,6 +391,165 @@ def test_sharded_paths_across_cards_equal_single_chip(cuda_device, monkeypatch):
         out = Simulation(cfg, walls, backend="sharded-cuda-ds64").run(20).state()
         np.testing.assert_array_equal(
             out, Simulation(cfg, walls, backend="cuda-ds64").run(20).state())
+
+
+class _RdmaRing:
+    """n virtual shards of the card wired for the rdma kernel: two buffers
+    per shard, an RdmaEnd and a stream each, a launch per shard and buffer
+    parity."""
+
+    def __init__(self, cfg, geom, n, device, fast_math=False, timeout_s=1.0):
+        f = _perturbed(cfg, device)
+        L = cfg.nx // n
+        self.n = n
+        self.geoms = _shard_planes(geom, n, device) if isinstance(geom, np.ndarray) else [geom] * n
+        self.bufs = [[f[:, k * L:(k + 1) * L].contiguous() for k in range(n)]]
+        self.bufs.append([torch.empty_like(b) for b in self.bufs[0]])
+        self.ends = [fk.rdma_end(cfg, device) for _ in range(n)]
+        self.streams = [torch.cuda.Stream(device) for _ in range(n)]
+        self.launches = [[fk.rdma_launcher(
+            self.bufs[p][k], self.bufs[1 - p][k], self.ends[k], self.ends[(k - 1) % n],
+            self.ends[(k + 1) % n], self.geoms[k], cfg, row_offset=k * L, fast_math=fast_math,
+            timeout_s=timeout_s, stream=self.streams[k]) for k in range(n)] for p in range(2)]
+        self.parity = self.step = 0
+        torch.cuda.synchronize()
+
+    def advance(self, only=None):
+        self.step += 1
+        for k, launch in enumerate(self.launches[self.parity]):
+            if only is None or k in only:
+                launch(self.step)
+        self.parity ^= 1
+        torch.cuda.synchronize()
+        return [fk.rdma_timed_out(e) for e in self.ends]
+
+
+def _rdma_steps(cfg, geom, n, device, steps=5, fast_math=False):
+    """`steps` steps of the rdma kernel over n virtual shards, one launch per
+    shard and step, each shard's block, comm rows and flags held bitwise
+    against step_reference_rdma from the same inputs; returns the joined
+    state."""
+    ring = _RdmaRing(cfg, geom, n, device, fast_math=fast_math)
+    ref_ends = [fk.rdma_end(cfg, device) for _ in range(n)]
+    before = fk.RDMA_LAUNCHES
+    for step in range(1, steps + 1):
+        srcs, dsts = ring.bufs[ring.parity], ring.bufs[1 - ring.parity]
+        assert ring.advance() == [0] * n
+        refs = fk.step_reference_rdma(srcs, ref_ends, ring.geoms, cfg, step)
+        for k in range(n):
+            for got, want in zip(ring.ends[k][:3], ref_ends[k][:3]):  # top, bot, flags
+                assert torch.equal(got, want)
+            if not fast_math:
+                assert torch.equal(dsts[k], refs[k])
+    assert fk.RDMA_LAUNCHES == before + steps * n
+    return torch.cat(ring.bufs[ring.parity], dim=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("geom", ["none", "plane", "spec", "slip", "bf16-spec"])
+def test_rdma_kernel_equals_step_reference_rdma(geom, n, cuda_device):
+    cfg, walls = _scene("column0", "bfloat16" if geom == "bf16-spec" else np.float32)
+    if geom == "none":
+        g = None
+    elif geom == "plane":
+        g = walls.astype(np.uint8)
+    elif geom == "slip":
+        w, sx, sy = _slip_scene(cfg.nx, cfg.ny)
+        g = fk.class_plane(w, sx, sy)
+    else:
+        g = geometry.infer_spec(walls)
+    _rdma_steps(cfg, g, n, cuda_device)
+
+
+@pytest.mark.cuda
+def test_rdma_kernel_fast_math_within_its_tolerance(cuda_device):
+    cfg = LatticeConfig(nx=48, ny=96, dtype=np.float32)
+    spec = geometry.infer_spec(_plate_48x96())
+    got = _rdma_steps(cfg, spec, 4, cuda_device, steps=fk.FAST_MATH_STEPS, fast_math=True)
+    ref = _perturbed(cfg, cuda_device)
+    for _ in range(fk.FAST_MATH_STEPS):
+        ref = fk.step_reference(ref, None, cfg, wall_spec=spec)
+    assert float(((got - ref).abs() / ref.abs()).max()) <= fk.FAST_MATH_RTOL
+
+
+@pytest.mark.cuda
+def test_rdma_withheld_send_raises_and_does_not_hang(cuda_device):
+    """One shard of a ring of two launched alone: its edge rows wait for
+    rows that never come, give up after the timeout and leave the step in
+    the shard's error word; later launches of that shard skip their waits.
+    Through the session the same ends in a raised RuntimeError."""
+    import time
+
+    cfg, walls = _scene("empty")
+    ring = _RdmaRing(cfg, None, 2, cuda_device, timeout_s=0.2)
+    t0 = time.perf_counter()
+    assert ring.advance(only={0}) == [1, 0]
+    assert 0.2 <= time.perf_counter() - t0 < 3.0
+    t0 = time.perf_counter()
+    for _ in range(10):
+        assert ring.advance(only={0}) == [1, 0]
+    assert time.perf_counter() - t0 < 0.2
+
+    sess = sharded.ShardedRdmaSession(cfg, walls, mesh=sharded.make_mesh(devices=[cuda_device] * 2),
+                                      timeout_s=0.2)
+    sess.load(_perturbed(cfg, cuda_device))
+    (_, calls), = sess._plans[sess._parity]
+    calls[0](1)  # shard 0 only
+    with pytest.raises(RuntimeError, match="gave up"):
+        sess.block()
+    with pytest.raises(RuntimeError, match="gave up"):
+        sess.state()
+    sess.load(_perturbed(cfg, cuda_device))  # a load clears the error
+    sess.advance(3)
+    sess.block()
+
+
+@pytest.mark.cuda
+def test_sharded_cuda_rdma_equals_cuda_bitwise(cuda_device, monkeypatch):
+    """sharded-cuda-rdma over 2 and 4 virtual shards of the card, 20 steps,
+    against the cuda backend: one counted launch per shard and step, no halo
+    copy from the host; a session that loads twice starts its flags again."""
+    from latticeboltzmann_tpu_torch.models import engine
+
+    cfg, walls = _scene("column0")
+    want = Simulation(cfg, walls, backend="cuda").run(20).state()
+    for n in (2, 4):
+        mesh = sharded.make_mesh(devices=[cuda_device] * n)
+        monkeypatch.setitem(engine._BACKENDS, "sharded-cuda-rdma",
+                            sharded.make_cuda_backend(mesh, rdma=True))
+        with pytest.raises(RuntimeError, match="allow_experimental=True"):
+            Simulation(cfg, walls, backend="sharded-cuda-rdma")
+        before, copies = fk.RDMA_VARIANT_LAUNCHES["f32-spec"], sharded.HALO_COPIES
+        sim = Simulation(cfg, walls, backend="sharded-cuda-rdma", allow_experimental=True)
+        np.testing.assert_array_equal(sim.run(20).state(), want)
+        assert fk.RDMA_VARIANT_LAUNCHES["f32-spec"] == before + 20 * n
+        assert sharded.HALO_COPIES == copies
+        sess = sim._session
+        assert sess.step == 20 and all(e.flags.tolist() == [20, 20] for e in sess._ends)
+        sim.f = torch.as_tensor(initial_state(cfg), device=cuda_device)  # a second load
+        assert sess.step == 0 and all(e.flags.tolist() == [0, 0] for e in sess._ends)
+        np.testing.assert_array_equal(sim.run(20).state(), want)
+
+
+@pytest.mark.cuda
+def test_rdma_path_across_cards_equals_single_chip(cuda_device, monkeypatch):
+    """Over a mesh of the cards, and of the cards each twice, the kernels
+    write their neighbours' comm rows and flags through peer pointers:
+    equal to the cuda backend after 20 steps, bitwise."""
+    from latticeboltzmann_tpu_torch.models import engine
+
+    n = max((k for k in range(2, torch.cuda.device_count() + 1) if 24 % k == 0), default=0)
+    if not n:
+        pytest.skip("needs two or more CUDA cards")
+    cards = [torch.device("cuda", i) for i in range(n)]
+    cfg, walls = _scene("column0")
+    want = Simulation(cfg, walls, backend="cuda").run(20).state()
+    for devices in (cards, cards * 2 if 24 % (2 * n) == 0 else cards):
+        monkeypatch.setitem(engine._BACKENDS, "sharded-cuda-rdma",
+                            sharded.make_cuda_backend(sharded.make_mesh(devices=devices), rdma=True))
+        sim = Simulation(cfg, walls, backend="sharded-cuda-rdma", allow_experimental=True)
+        np.testing.assert_array_equal(sim.run(20).state(), want)
 
 
 def _rand(shape, device, dtype=torch.float32, seed=0):

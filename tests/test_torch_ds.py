@@ -197,14 +197,15 @@ def test_wrapper_refuses(case):
 
 def test_facade_torch_ds64_vs_jax_xla_ds64():
     """torch-ds64 through the facade: float64 state() bitwise the JAX
-    xla-ds64 facade's, Re within 1e-12 relative, finite moments."""
+    xla-ds64 facade's, Re equal (both sum the column on the host, one site
+    after the other), finite moments."""
     cfg, jcfg, walls = _scene()
     sim = Simulation(cfg, walls, backend="torch-ds64").run(60)
     jsim = JaxSimulation(jcfg, walls, backend="xla-ds64").run(60)
     st = sim.state()
     assert st.dtype == np.float64 and sim.device.type == "cpu"
     np.testing.assert_array_equal(st, jsim.state())
-    assert sim.reynolds() == pytest.approx(jsim.reynolds(), rel=1e-12)
+    assert sim.reynolds() == jsim.reynolds()
     for a, b in zip(sim.macroscopic(), jsim.macroscopic()):
         assert a.dtype == np.float64
         np.testing.assert_allclose(a, b, rtol=1e-12, atol=1e-15)
@@ -212,6 +213,36 @@ def test_facade_torch_ds64_vs_jax_xla_ds64():
     np.testing.assert_allclose(sim.probe_values(probes), jsim.probe_values(probes),
                                rtol=1e-12, atol=1e-15)
     assert sim.steps_done == 60 and sim.mlups > 0
+
+
+def test_facade_ds_reynolds_is_the_sequential_host_sum(monkeypatch):
+    """reynolds() on a ds backend with the default column is the JAX
+    facade's (models/engine.py:511-516 there): golden.reynolds on the host
+    float64 state, a strict sequential sum, == to it on a lattice tall
+    enough (64 rows) that a device reduction adds in another order; no
+    device reduction runs. Another column goes through the engine's
+    reducer, as there."""
+    from latticeboltzmann_tpu_torch.models import engine
+    from latticeboltzmann_tpu_torch.ops import stream_collide
+
+    cfg, jcfg, walls = _scene(nx=64, ny=40)
+    f0 = _perturbed(jcfg, seed=5)
+    sim = Simulation(cfg, walls, backend="torch-ds64", f0=f0).run(12)
+    jsim = JaxSimulation(jcfg, walls, backend="xla-ds64", f0=f0).run(12)
+    np.testing.assert_array_equal(sim.state(), jsim.state())
+    device_sum = stream_collide.reynolds
+    monkeypatch.setattr(stream_collide, "reynolds",
+                        lambda *a, **k: pytest.fail("a device sum ran for the default column"))
+    re = sim.reynolds()
+    assert re == jsim.reynolds()
+    assert re == golden.reynolds(sim.state(), walls, jcfg)
+    assert re == engine._reynolds_sequential(sim.state(), walls, cfg)
+    monkeypatch.setattr(stream_collide, "reynolds", device_sum)
+    assert sim.reynolds(col=7) == pytest.approx(jsim.reynolds(col=7), rel=1e-12)
+    # the float64 "torch" backend keeps the engine's reducer, as JAX "xla" does
+    plain = Simulation(cfg, walls, backend="torch", f0=f0).run(3)
+    jplain = JaxSimulation(jcfg, walls, backend="xla", f0=f0).run(3)
+    assert plain.reynolds() == pytest.approx(jplain.reynolds(), rel=1e-12)
 
 
 def test_facade_ds_refusals():

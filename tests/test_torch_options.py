@@ -218,11 +218,11 @@ def test_fast_math_step_reference_is_ieee():
 def test_capability_sets_match_the_jax_facade():
     """The JAX facade's sets (engine.py:73-118 there), by counterpart:
     xla -> torch, pallas -> cuda, sharded(-sync) -> the same names,
-    sharded-pallas(-fused) -> sharded-cuda(-fused)."""
-    assert engine._SLIP_BACKENDS == {"torch", "cuda", "sharded", "sharded-sync",
-                                     "sharded-cuda", "sharded-cuda-fused"}
-    assert engine._FASTMATH_BACKENDS == {"cuda", "sharded-cuda", "sharded-cuda-fused"}
-    assert engine._WALL_SPEC_BACKENDS == {"cuda", "sharded-cuda", "sharded-cuda-fused"}
+    sharded-pallas(-fused, -rdma) -> sharded-cuda(-fused, -rdma)."""
+    kernels = {"cuda", "sharded-cuda", "sharded-cuda-fused", "sharded-cuda-rdma"}
+    assert engine._SLIP_BACKENDS == {"torch", "sharded", "sharded-sync"} | kernels
+    assert engine._FASTMATH_BACKENDS == kernels
+    assert engine._WALL_SPEC_BACKENDS == kernels
     assert engine._DS_BACKENDS == {"torch-ds64", "cuda-ds64", "sharded-cuda-ds64"}
 
 

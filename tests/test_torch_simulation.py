@@ -118,7 +118,8 @@ def test_auto_backend_and_cuda_refusal_without_card():
     from latticeboltzmann_tpu_torch.cli import resolve_backend
 
     assert available_backends() == ["cuda", "cuda-ds64", "sharded", "sharded-cuda",
-                                    "sharded-cuda-ds64", "sharded-cuda-fused", "sharded-sync",
+                                    "sharded-cuda-ds64", "sharded-cuda-fused", "sharded-cuda-rdma",
+                                    "sharded-sync",
                                     "torch", "torch-ds64"]
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA card")
@@ -128,3 +129,83 @@ def test_auto_backend_and_cuda_refusal_without_card():
         Simulation(cfg, backend="cuda")
     with pytest.raises(ValueError, match="unknown backend"):
         Simulation(cfg, backend="pallas")
+
+
+def test_blocking_run_ends_with_the_backends_barrier():
+    """run(block=True) ends with the session's block(), as the JAX facade
+    does (models/engine.py:367-369 there), once per blocking run and never
+    with block=False; a backend without a session is asked for its own
+    `block` (the eager sharded runners wait for every card of their mesh)."""
+    from latticeboltzmann_tpu_torch.models import engine
+    from latticeboltzmann_tpu_torch.parallel import sharded
+
+    calls = {"session": 0, "eager": 0}
+
+    class CountingSession(fk.Session):
+        def block(self):
+            calls["session"] += 1
+            super().block()
+
+    def run_steps(*args, **kwargs):
+        return fk.run_steps(*args, **kwargs)
+
+    run_steps.session = CountingSession
+    eager = sharded.make_backend(sharded.make_mesh(devices=["cpu"] * 2))
+    assert callable(eager.block)
+
+    def counted_eager(*args, **kwargs):
+        return eager(*args, **kwargs)
+
+    counted_eager.block = lambda: calls.__setitem__("eager", calls["eager"] + 1)
+    cfg = LatticeConfig(nx=16, ny=40, dtype=np.float32)
+    walls = geometry.channel(16, 40)
+    try:
+        engine.register_backend("_counting", run_steps)
+        engine.register_backend("_counting_eager", counted_eager)
+        for backend, key in (("_counting", "session"), ("_counting_eager", "eager")):
+            sim = Simulation(cfg, walls, backend=backend, device="cpu")
+            assert calls[key] == 0
+            sim.run(3)
+            assert calls[key] == 1
+            sim.run(3, block=False)
+            assert calls[key] == 1
+            sim.run(2)
+            assert calls[key] == 2 and sim.steps_done == 8
+        # the registered kernel sessions all have the barrier
+        for name in ("cuda", "cuda-ds64", "sharded-cuda", "sharded-cuda-ds64",
+                     "sharded-cuda-rdma"):
+            assert hasattr(engine._BACKENDS[name], "session")
+        for name in ("sharded", "sharded-sync"):
+            assert callable(engine._BACKENDS[name].block)
+    finally:
+        engine._BACKENDS.pop("_counting", None)
+        engine._BACKENDS.pop("_counting_eager", None)
+
+
+@pytest.mark.parametrize("backend", ["torch", "kernel-session"])
+def test_schedule_keywords_construct_and_select_nothing(backend, monkeypatch):
+    """Simulation(skew=, temporal=, allow_experimental=) as the JAX facade
+    (models/engine.py:195-197 there): kept as given, and the state is the
+    same whatever they say, on the plain engine and on a session backend
+    (the kernel's session, on the CPU through its plain version)."""
+    from latticeboltzmann_tpu_torch.models import engine
+
+    cfg = LatticeConfig(nx=16, ny=40, dtype=np.float32)
+    walls = geometry.channel(16, 40)
+    walls[5:9, 10:13] = True
+    if backend == "kernel-session":
+        backend = "cuda"
+        monkeypatch.setattr(engine, "_KERNEL_BACKENDS", set())  # on the CPU, for the test
+    states = []
+    for kw in ({}, {"skew": True}, {"skew": False}, {"temporal": 4},
+               {"skew": True, "temporal": 1, "allow_experimental": True}):
+        sim = Simulation(cfg, walls, backend=backend, device="cpu", **kw)
+        assert sim.skew is kw.get("skew") and sim.temporal == kw.get("temporal")
+        states.append(sim.run(6).state())
+    for st in states[1:]:
+        np.testing.assert_array_equal(st, states[0])
+    # the JAX facade takes the same three keywords
+    jcfg, jwalls = _jax_scene(np.float32)
+    jsim = JaxSimulation(jcfg, jwalls, backend="xla", skew=False, temporal=None,
+                         allow_experimental=False)
+    assert jsim.skew is False and jsim.temporal is None
