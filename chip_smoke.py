@@ -7,21 +7,30 @@ Run from the repository root:
 Phases, each of which raises on failure:
 1. device: a CUDA card must be present; prints nvidia-smi's name and
    power limit;
-2. build: compiles the sources of csrc/ (lbm_step.cu, lbm_ds_step.cu,
-   lbm_flat_step.cu, lbm_probes.cu) with nvcc, one process each, all
-   started together (timed), and prints ptxas's registers and spills for
-   every kernel instantiation;
+2. build: compiles the sources of csrc/ (lbm_step.cu, lbm_wide_step.cu,
+   lbm_ds_step.cu, lbm_flat_step.cu, lbm_probes.cu) with nvcc, one process
+   each, all started together (timed), and prints ptxas's registers and
+   spills for every kernel instantiation;
 3. the float32 stream-collide kernel against its plain PyTorch version
    (fused_kernel.step_reference) on the card, one step at a time from
    identical inputs, at four scenes, plane and wall-free variants; they
-   must agree bitwise;
+   must agree bitwise. Here and in phases 9-12 and 21 both forms of the
+   single-chip kernel are held against step_reference and against each
+   other: the wide form (lbm_wide_step.cu: several columns per thread,
+   16-byte accesses) and the narrow form (lbm_step.cu: one site per
+   thread); also at a scene one thread wide (NY == the wide form's column
+   count) and at 24x37, which only the narrow form takes (the wide form
+   must refuse it);
 4. the main path: Simulation(backend="cuda") on the 800x4000 reference
    scene (the wall spec variant, as the JAX main path) for 10,000 steps
-   after a warmup, every step a counted kernel launch; the state must be
-   finite and non-negative and Re finite, and a 20-step run must match
-   the "torch" backend on the same card;
-5. times at 800x4000 of the kernel's plane and spec variants (in turns),
-   its plain version, the plain "torch" engine, and the roofline's
+   after a warmup, every step a counted kernel launch of the form
+   fused_kernel.kernel_form names; the state must be finite and
+   non-negative and Re finite, and a 20-step run must match the "torch"
+   backend on the same card. Then the same path at 800x4002, an NY the
+   wide form does not take, NARROW_STEPS counted launches of the narrow
+   form, held the same way;
+5. times at 800x4000 of both forms' plane and spec variants (in turns),
+   their plain versions, the plain "torch" engine, and the roofline's
    denominator: the port's copy kernel on one state buffer (its best
    form), with Tensor.copy_, the library's copy, beside it;
 6. the pair-DP (ds) kernel against its plain version
@@ -49,14 +58,15 @@ Phases, each of which raises on failure:
    Simulation(fast_math=True) path, counted;
 13. the bf16 main path: Simulation(LatticeConfig(800, 4000,
    dtype="bfloat16"), backend="cuda") for 10,000 steps after a warmup,
-   every step a counted launch; finite and non-negative, Re finite, and
-   within the JAX package's bf16 bar of the float32 main path of phase 4
-   after the same steps; a 20-step run within that bar of the bf16
-   "torch" backend;
-14. times: the bf16 spec and plane variants at 800x4000, the bf16 spec
-   variant at 4000x16000, each as a share of the copy kernel's rate on a
-   bf16 state of that size, the bf16 plain version, the slip and
-   fast-math variants beside theirs;
+   every step a counted launch of the form kernel_form names; finite and
+   non-negative, Re finite, and within the JAX package's bf16 bar of the
+   float32 main path of phase 4 after the same steps; a 20-step run
+   within that bar of the bf16 "torch" backend; then the narrow form's
+   path at 800x4002 as in phase 4;
+14. times, both forms in turns: the bf16 spec and plane variants at
+   800x4000, the bf16 spec variant at 4000x16000, each as a share of the
+   copy kernel's rate on a bf16 state of that size, the bf16 plain
+   versions, the slip and fast-math variants beside theirs;
 15. the ext-halo forms of both kernels (the row-sharded path) against
    their plain versions (step_reference_ext) on meshes of 2 and 4
    virtual shards of the card, 10 single steps at the four scenes of
@@ -74,8 +84,9 @@ Phases, each of which raises on failure:
 17. times: us/step of each sharded path beside cuda and cuda-ds64, in
    turns, with the host's enqueue time; the halo exchange per step; the
    ext-halo kernels' launches of one step (interior + edges, or one per
-   shard) beside the single-chip launch, as the host launches them and
-   queued behind a spin (the card's own time), and their plain versions;
+   shard, for the ds kernel too) beside the single-chip launch, as the
+   host launches them and queued behind a spin (the card's own time), and
+   their plain versions;
 18. the four anatomy probes (ops/probes.py) against their plain versions,
    bitwise, from seeded random inputs: the copy kernel (direct and
    staged forms, float32 and bf16, at 800x4000, 24x40 and 24x37, an odd
@@ -95,7 +106,7 @@ Phases, each of which raises on failure:
    flat kernel's us/step beside the step kernel's, in turns, at 800x4000
    float32 and bf16 and at 400x2000 bf16 (both parities in L2);
 21. one float32 step at 4000x16000 (the shape the TPU kernel needed lane
-   panels for), spec and wall-free variants, bitwise against
+   panels for), spec and wall-free variants, both forms, bitwise against
    step_reference.
 
 22. the rdma form of the stream-collide kernel (the halo exchange inside
@@ -162,6 +173,10 @@ BF16_RTOL, BF16_ATOL = 0.05, 2e-3
 # after fused_kernel.FAST_MATH_STEPS chained steps
 # steps of the slip and fast-math paths through the facade
 OPTION_STEPS = 1000
+# the narrow form's path: an NY that is no multiple of the wide form's
+# column counts, and its steps
+NARROW_NY = 4002
+NARROW_STEPS = 1000
 # the sharded paths held against a single-chip path other than phase 4's
 FUSED_STEPS = 1000
 DS_SHARDED_STEPS = 2000
@@ -211,6 +226,7 @@ def reset_counts():
     fused_kernel.EXT_LAUNCHES = fused_ds_kernel.EXT_LAUNCHES = 0
     fused_kernel.FLAT_LAUNCHES = fused_kernel.RDMA_LAUNCHES = 0
     fused_kernel.VARIANT_LAUNCHES.clear()
+    fused_kernel.FORM_LAUNCHES.clear()
     fused_kernel.EXT_VARIANT_LAUNCHES.clear()
     fused_kernel.RDMA_VARIANT_LAUNCHES.clear()
     probes.LAUNCHES.clear()
@@ -245,10 +261,18 @@ def read_counts():
     return counts
 
 
-def expect_counts(label, want):
+def expect_counts(label, want, form=None):
+    """Raise unless the launch counts are `want`; with `form`, also unless
+    every launch of the single-chip stream-collide kernel took that form."""
+    from latticeboltzmann_tpu_torch.ops import fused_kernel
+
     got = read_counts()
     if got != want:
         raise AssertionError(f"{label}: kernel launches {got}, expected {want}")
+    forms = dict(fused_kernel.FORM_LAUNCHES)
+    if form is not None and forms != {form: fused_kernel.LAUNCHES}:
+        raise AssertionError(f"{label}: launches by form {forms}, expected "
+                             f"{fused_kernel.LAUNCHES} of the {form} form")
     return got
 
 
@@ -267,38 +291,76 @@ def reference(src, geom, cfg):
     return fused_kernel.step_reference(src, geom, cfg)
 
 
+def kernel_forms(a, geom, cfg):
+    """The forms of the single-chip kernel that take this launch: the
+    narrow form always, the wide form where fused_kernel.kernel_form names
+    it; elsewhere asking for the wide form must raise."""
+    from latticeboltzmann_tpu_torch.ops import fused_kernel
+
+    pointers = [a.data_ptr()] + ([geom.data_ptr()] if torch.is_tensor(geom) else [])
+    if fused_kernel.kernel_form(a.dtype, cfg.ny, pointers) == "wide":
+        return ["wide", "narrow"]
+    before = fused_kernel.LAUNCHES
+    try:
+        fused_kernel.step(a, torch.empty_like(a), geom, cfg, form="wide")
+    except ValueError:
+        if fused_kernel.LAUNCHES == before:
+            return ["narrow"]
+    raise AssertionError(f"{cfg.nx}x{cfg.ny} {a.dtype}: the wide form does not apply, and "
+                         "step(form='wide') did not refuse it")
+
+
+def worst(errs, new):
+    """errs[form] = max(errs[form], new[form]) for compare_kernel's results."""
+    for form, e in new.items():
+        errs[form] = max(errs.get(form, 0.0), e)
+    return errs
+
+
 def compare_kernel(name, cfg, geom, f0, steps=10):
-    """Max |kernel - step_reference| over `steps` single steps, each
-    from the same input (the kernel's previous output). geom: None (the
-    wall-free variant), an (NX, NY) uint8 class plane, or a wall spec.
-    Raises unless every step agrees bitwise."""
+    """{form: max |kernel - step_reference|} over `steps` single steps,
+    each form of the single-chip kernel that takes the scene launched from
+    the same input. geom: None (the wall-free variant), an (NX, NY) uint8
+    class plane, or a wall spec. Raises unless every form agrees bitwise
+    with step_reference at every step, and so with the other form, and
+    unless the wide form's plain version (step_reference_wide) does too."""
     from latticeboltzmann_tpu_torch.ops import fused_kernel
     from latticeboltzmann_tpu_torch.utils.interop import state_tensor
 
     dev = torch.device("cuda")
     g = on_card(geom, dev)
     a = state_tensor(f0, cfg.dtype, dev)
-    b = torch.empty_like(a)
-    err = 0.0
+    forms = kernel_forms(a, g, cfg)
+    err = dict.fromkeys(forms, 0.0)
+    spec = {"wall_spec": g} if isinstance(g, tuple) else {}
     for _ in range(steps):
-        fused_kernel.step(a, b, g, cfg)
         ref = reference(a, g, cfg)
-        d = (b.float() - ref.float()).abs()
-        e = float(d.max())
-        if not (torch.equal(b, ref) and e <= KERNEL_ATOL):
-            bad = torch.nonzero(b != ref)
-            per_speed = [float(d[s].max()) for s in range(9)]
-            raise AssertionError(
-                f"{name}: kernel != step_reference, max |diff| {e!r} at "
-                f"{bad.shape[0]} values (first {bad[:5].tolist()}), per speed "
-                f"{per_speed}"
-            )
-        err = max(err, e)
-        a, b = b, a
+        if "wide" in forms and not torch.equal(fused_kernel.step_reference_wide(
+                a, None if spec else g, cfg, fused_kernel.WIDE_COLUMNS[a.dtype], **spec), ref):
+            raise AssertionError(f"{name}: step_reference_wide != step_reference")
+        outs = {}
+        for form in forms:
+            b = outs[form] = torch.full_like(a, float("nan"))
+            fused_kernel.step(a, b, g, cfg, form=form)
+            d = (b.float() - ref.float()).abs()
+            e = float(d.max())
+            if not (torch.equal(b, ref) and e <= KERNEL_ATOL):
+                bad = torch.nonzero(b != ref)
+                per_speed = [float(d[s].max()) for s in range(9)]
+                raise AssertionError(
+                    f"{name}: {form} kernel != step_reference, max |diff| {e!r} at "
+                    f"{bad.shape[0]} values (first {bad[:5].tolist()}), per speed "
+                    f"{per_speed}"
+                )
+            err[form] = max(err[form], e)
+        if len(forms) == 2 and not torch.equal(outs["wide"], outs["narrow"]):
+            raise AssertionError(f"{name}: the wide form's output != the narrow form's")
+        a = ref
     torch.cuda.synchronize()
     kind = "wall-free" if g is None else ("spec" if isinstance(g, tuple) else "plane")
-    print(f"kernel vs step_reference {name} ({a.dtype}, {kind}), {steps} steps: "
-          f"max |diff| = {err!r}")
+    print(f"kernel vs step_reference {name} ({a.dtype}, {kind}), {steps} steps, forms "
+          f"{' == '.join(forms)}{' == step_reference_wide' if 'wide' in forms else ''}: "
+          f"max |diff| = {max(err.values())!r}")
     return err
 
 
@@ -450,28 +512,30 @@ def main() -> int:
 
     # 3. kernel vs its plain version
     rng = np.random.default_rng(SEED)
-    max_err = 0.0
-    for name, cfg, w in scenes(np.float32):
+    max_err = {}
+    for name, cfg, w in scenes(np.float32) + form_scenes(np.float32):
         f0 = perturbed_state(cfg, rng)
-        max_err = max(max_err, compare_kernel(name, cfg, w.astype(np.uint8), f0))
-        max_err = max(max_err, compare_kernel(name, cfg, None, f0))
+        worst(max_err, compare_kernel(name, cfg, w.astype(np.uint8), f0))
+        worst(max_err, compare_kernel(name, cfg, None, f0))
 
-    # 4. the main path, every launch counted
+    # 4. the main path, every launch counted, by variant and by form
     cfg = LatticeConfig(nx=800, ny=4000, dtype=np.float32)
     walls = geometry.reference_barrier(cfg.nx, cfg.ny)
+    # a Session's buffers are whole allocations: aligned
+    form = fused_kernel.kernel_form(torch.float32, cfg.ny, ())
     reset_counts()
     sim = Simulation(cfg, walls, backend="cuda")
     sim.run(WARMUP)
     sim.elapsed, sim.steps_done = 0.0, 0
     sim.run(MAIN_STEPS)
-    launches = expect_counts("main path", {"f32-spec": WARMUP + MAIN_STEPS})["f32-spec"]
+    launches = expect_counts("main path", {"f32-spec": WARMUP + MAIN_STEPS}, form)["f32-spec"]
     f32_main = sim.state()
     re = sim.reynolds()
     if not (np.isfinite(f32_main).all() and (f32_main >= 0).all() and np.isfinite(re)):
         raise AssertionError(f"main path state not finite/non-negative, or Re {re!r}")
     print(f"main path: {MAIN_STEPS} steps (+{WARMUP} warmup) through backend=cuda, "
-          f"wall spec {sim.wall_spec}, {launches} kernel launches, Re {re!r}, "
-          f"{sim.mlups!r} MLUPS ({sim.elapsed!r} s)")
+          f"wall spec {sim.wall_spec}, {launches} kernel launches of the {form} form, "
+          f"Re {re!r}, {sim.mlups!r} MLUPS ({sim.elapsed!r} s)")
     runs = {}
     for backend in ("cuda", "torch"):
         runs[backend] = Simulation(cfg, walls, backend=backend, device="cuda").run(20).state()
@@ -479,6 +543,8 @@ def main() -> int:
     np.testing.assert_allclose(runs["cuda"], runs["torch"], rtol=ENGINE_RTOL, atol=ENGINE_ATOL)
     print(f"cuda vs torch backend after 20 steps: max |diff| {float(diff.max())!r} "
           f"(rtol {ENGINE_RTOL}, atol {ENGINE_ATOL})")
+    narrow_launches, e = narrow_path(np.float32, "f32-spec", ENGINE_RTOL, ENGINE_ATOL, rng)
+    worst(max_err, {"narrow": e})
 
     # 5. times at 800x4000
     rates = rates_printer(cfg, bytes_per_site(cfg.dtype))
@@ -491,33 +557,47 @@ def main() -> int:
     # the roofline's denominator: the port's copy kernel on one state
     # buffer moves the same 72 B per site as a step
     copy = copy_rate(rates, a, b, "an 800x4000 float32 state")
-    t = in_turns(rates, "kernel launch", {
-        "plane variant": lambda: fused_kernel.step(a, b, solid, cfg),
-        "spec variant": lambda: fused_kernel.step(a, b, spec, cfg),
-    }, 500)
-    plane_ms, kernel_ms = t["plane variant"], t["spec variant"]
-    share("f32 kernel, spec variant", kernel_ms, copy)
-    share("f32 kernel, plane variant", plane_ms, copy)
+    t = forms_in_turns(rates, "kernel launch", a, b, {"plane": solid, "spec": spec}, cfg, 500)
+    for key, ms in t.items():
+        share(f"f32 kernel, {key}", ms, copy)
     plain_ms = event_ms(lambda: fused_kernel.step_reference(a, solid, cfg), 20)
     rates("step_reference, its plain version (CUDA events, 20 steps)", plain_ms * 1e-3)
+    wide_plain_ms = event_ms(lambda: fused_kernel.step_reference_wide(
+        a, solid, cfg, fused_kernel.WIDE_COLUMNS[a.dtype]), 20)
+    rates("step_reference_wide, the wide form's plain version (CUDA events, 20 steps)",
+          wide_plain_ms * 1e-3)
     eng = Simulation(cfg, walls, backend="torch", device="cuda")
     eng.run(5)
     eng.elapsed, eng.steps_done = 0.0, 0
     eng.run(200)
     rates("plain torch engine (200 steps)", eng.elapsed / 200)
-    f32_entry = {
-        "name": "lbm_stream_collide<float> (plane, wall-free, spec)",
+    # the spec variant: 9 f32 values read and 9 written per site
+    f32_bound = bound(2 * a.numel() * a.element_size(), F32_OPS_PER_SITE * cfg.sites)
+    f32_entries = [{
+        "name": "lbm_stream_collide_wide<float, GEOM, 4> (plane, wall-free, spec): the wide "
+                f"form, dispatched at 800x4000: {form == 'wide'}",
+        "route": "cuda",
+        "source": "latticeboltzmann_tpu_torch/csrc/lbm_wide_step.cu",
+        "replaces": "latticeboltzmann_tpu/ops/fused_kernel.py:1757",
+        "launches": launches if form == "wide" else 0,
+        "max_abs_err": max_err["wide"],
+        "ms": t["wide form, spec"],
+        "plain_ms": wide_plain_ms,
+        "plane_ms": t["wide form, plane"],
+        **f32_bound,
+    }, {
+        "name": "lbm_stream_collide<float> (plane, wall-free, spec): the narrow form "
+                f"(launches: the 800x{NARROW_NY} path; ms at 800x4000)",
         "route": "cuda",
         "source": "latticeboltzmann_tpu_torch/csrc/lbm_step.cu",
         "replaces": "latticeboltzmann_tpu/ops/fused_kernel.py:1757",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": kernel_ms,
+        "launches": narrow_launches + (launches if form == "narrow" else 0),
+        "max_abs_err": max_err["narrow"],
+        "ms": t["narrow form, spec"],
         "plain_ms": plain_ms,
-        "plane_ms": plane_ms,
-        # the spec variant: 9 f32 values read and 9 written per site
-        **bound(2 * a.numel() * a.element_size(), F32_OPS_PER_SITE * cfg.sites),
-    }
+        "plane_ms": t["narrow form, plane"],
+        **f32_bound,
+    }]
     del sim, eng, a, b
 
     ds = ds_phases(copy)
@@ -526,7 +606,7 @@ def main() -> int:
     anatomy = anatomy_phases()
     panels_phase()
 
-    print(json.dumps({"kernels": [f32_entry, *options, ds, *ext, *anatomy]}))
+    print(json.dumps({"kernels": [*f32_entries, *options, ds, *ext, *anatomy]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
@@ -554,6 +634,70 @@ def scenes(dtype):
     out.append(("800x4000 reference_barrier", LatticeConfig(nx=800, ny=4000, dtype=dtype),
                 geometry.reference_barrier(800, 4000)))
     return out
+
+
+def form_scenes(dtype):
+    """Two more scenes for the two forms of the single-chip kernel: one a
+    single thread of the wide form wide (NY == its column count for this
+    storage type, so the thread is its own left and right neighbour and
+    forces both ways), and 24x37, which only the narrow form takes."""
+    from latticeboltzmann_tpu_torch import LatticeConfig, geometry
+    from latticeboltzmann_tpu_torch.ops import fused_kernel
+    from latticeboltzmann_tpu_torch.utils.interop import storage_dtype
+
+    v = fused_kernel.WIDE_COLUMNS[storage_dtype(dtype)]
+    w = geometry.channel(24, 37)
+    w[8:14, 0:3] = True
+    return [(f"8x{v} channel (NY == V)", LatticeConfig(nx=8, ny=v, dtype=dtype, accel=0.005),
+             geometry.channel(8, v)),
+            ("24x37 walls on columns 0-2 (NY % V != 0)",
+             LatticeConfig(nx=24, ny=37, dtype=dtype, accel=0.005), w)]
+
+
+def narrow_path(dtype, variant, rtol, atol, rng):
+    """The narrow form's path on the reference scene at 800 x NARROW_NY, an
+    NY the wide form does not take (full tiles, then a partial one, in
+    every row): the kernel bitwise against step_reference at that shape,
+    spec and plane variants, then Simulation(backend="cuda") for
+    NARROW_STEPS counted launches of the narrow form; finite, non-negative,
+    and a 20-step run within (rtol, atol) of the "torch" backend. Returns
+    the launches and the kernel's max |diff| at that shape."""
+    from latticeboltzmann_tpu_torch import LatticeConfig, Simulation, geometry
+
+    cfg = LatticeConfig(nx=800, ny=NARROW_NY, dtype=dtype)
+    walls = geometry.reference_barrier(cfg.nx, cfg.ny)
+    f0 = perturbed_state(cfg, rng)
+    err = {}
+    for geom in (geometry.infer_spec(walls), walls.astype(np.uint8)):
+        worst(err, compare_kernel(f"800x{NARROW_NY} reference_barrier", cfg, geom, f0))
+    if set(err) != {"narrow"}:
+        raise AssertionError(f"800x{NARROW_NY}: forms {sorted(err)} ran, expected the narrow only")
+    reset_counts()
+    sim = Simulation(cfg, walls, backend="cuda")
+    sim.run(NARROW_STEPS)
+    n = expect_counts(f"narrow path ({variant})", {variant: NARROW_STEPS}, "narrow")[variant]
+    f = sim.state()
+    re = sim.reynolds()
+    if not (np.isfinite(f).all() and (f >= 0).all() and np.isfinite(re)):
+        raise AssertionError(f"narrow path ({variant}) state not finite/non-negative, or Re {re!r}")
+    runs = [Simulation(cfg, walls, backend=b, device="cuda").run(20).state()
+            for b in ("cuda", "torch")]
+    np.testing.assert_allclose(runs[0], runs[1], rtol=rtol, atol=atol)
+    print(f"narrow path: {NARROW_STEPS} steps through backend=cuda at 800x{NARROW_NY}, {n} "
+          f"{variant} launches of the narrow form, Re {re!r}, {sim.mlups!r} MLUPS; vs the "
+          f"torch backend after 20 steps: max |diff| {float(np.abs(runs[0] - runs[1]).max())!r}")
+    return n, err["narrow"]
+
+
+def forms_in_turns(rates, prefix, a, b, geoms, cfg, n, **kw):
+    """Time one launch a -> b of both forms of the single-chip kernel for
+    each labelled geometry, in turns; {"<form> form, <label>": best ms}."""
+    from latticeboltzmann_tpu_torch.ops import fused_kernel
+
+    return in_turns(rates, prefix, {
+        f"{form} form, {label}": (lambda form=form, g=g: fused_kernel.step(a, b, g, cfg,
+                                                                           form=form, **kw))
+        for label, g in geoms.items() for form in fused_kernel.FORMS}, n)
 
 
 def ds_phases(copy):
@@ -671,13 +815,14 @@ def option_phases(f32_main):
     bf16 = "bfloat16"
 
     # 9. bf16 storage against its plain version, plane and wall-free
-    bf16_err = 0.0
-    for name, cfg, w in scenes(bf16):
+    bf16_err = {}
+    for name, cfg, w in scenes(bf16) + form_scenes(bf16):
         f0 = perturbed_state(cfg, rng)
-        bf16_err = max(bf16_err, compare_kernel(name, cfg, w.astype(np.uint8), f0))
-        bf16_err = max(bf16_err, compare_kernel(name, cfg, None, f0))
+        worst(bf16_err, compare_kernel(name, cfg, w.astype(np.uint8), f0))
+        worst(bf16_err, compare_kernel(name, cfg, None, f0))
 
     # 10. the spec variant against the plane variant and step_reference
+    spec_err = {}
     for dtype in (np.float32, bf16):
         cfg = LatticeConfig(nx=800, ny=4000, dtype=dtype)
         for name, w in (("reference_barrier", geometry.reference_barrier(800, 4000)),
@@ -688,35 +833,39 @@ def option_phases(f32_main):
                 raise AssertionError(f"{name}: infer_spec found no closed form")
             f0 = perturbed_state(cfg, rng)
             err = compare_kernel(f"800x4000 {name} {spec}", cfg, spec, f0)
-            if dtype == bf16:
-                bf16_err = max(bf16_err, err)
+            worst(bf16_err if dtype == bf16 else spec_err, err)
             a = state_tensor(f0, cfg.dtype, dev)
             b, c = torch.empty_like(a), torch.empty_like(a)
             plane = torch.as_tensor(w.astype(np.uint8), device=dev)
             for _ in range(10):
-                fused_kernel.step(a, b, spec, cfg)
-                fused_kernel.step(a, c, plane, cfg)
-                if not torch.equal(b, c):
-                    raise AssertionError(f"{name} ({a.dtype}): spec variant != plane variant")
+                for form in fused_kernel.FORMS:
+                    fused_kernel.step(a, b, spec, cfg, form=form)
+                    fused_kernel.step(a, c, plane, cfg, form=form)
+                    if not torch.equal(b, c):
+                        raise AssertionError(f"{name} ({a.dtype}), {form} form: spec variant "
+                                             "!= plane variant")
                 a, b = b, a
-            print(f"spec variant == plane variant, 800x4000 {name} ({a.dtype}), 10 steps")
+            print(f"spec variant == plane variant in both forms, 800x4000 {name} ({a.dtype}), "
+                  f"10 steps")
 
     # 11. slip codes, bitwise, then the slip path through the facade
-    slip_err = 0.0
-    for nx, ny in ((24, 40), (800, 4000)):
+    slip_err = {}
+    for nx, ny in ((24, 40), (24, 37), (800, 4000)):
         walls, slip_x, slip_y = slip_scene(nx, ny)
         cls = fused_kernel.class_plane(walls, slip_x, slip_y)
         for dtype in (np.float32, bf16):
             cfg = LatticeConfig(nx=nx, ny=ny, dtype=dtype)
-            slip_err = max(slip_err, compare_kernel(
+            worst(slip_err, compare_kernel(
                 f"{nx}x{ny} slip_x top row + slip_y block", cfg, cls,
                 perturbed_state(cfg, rng)))
     cfg = LatticeConfig(nx=800, ny=4000, dtype=np.float32)
+    form = fused_kernel.kernel_form(torch.float32, cfg.ny, ())
     walls, slip_x, slip_y = slip_scene(800, 4000)
     reset_counts()
     sim = Simulation(cfg, walls, backend="cuda", slip_x=slip_x, slip_y=slip_y)
     sim.run(OPTION_STEPS)
-    slip_launches = expect_counts("slip path", {"f32-plane-slip": OPTION_STEPS})["f32-plane-slip"]
+    slip_launches = expect_counts("slip path", {"f32-plane-slip": OPTION_STEPS},
+                                  form)["f32-plane-slip"]
     f = sim.state()
     if not (np.isfinite(f).all() and (f >= 0).all() and np.isfinite(sim.reynolds())):
         raise AssertionError("slip path state not finite/non-negative")
@@ -733,26 +882,37 @@ def option_phases(f32_main):
     # 12. fast math within its stated tolerance, then its facade path
     walls = geometry.reference_barrier(800, 4000)
     spec = geometry.infer_spec(walls)
-    a = torch.as_tensor(perturbed_state(cfg, rng), device=dev)
-    ref = a.clone()
-    b = torch.empty_like(a)
+    start = torch.as_tensor(perturbed_state(cfg, rng), device=dev)
     steps, bar = fused_kernel.FAST_MATH_STEPS, fused_kernel.FAST_MATH_RTOL
+    ref = start
     for _ in range(steps):
-        fused_kernel.step(a, b, spec, cfg, fast_math=True)
-        a, b = b, a
         ref = fused_kernel.step_reference(ref, None, cfg, wall_spec=spec, fast_math=True)
-    fast_abs = float((a - ref).abs().max())
-    fast_rel = float(((a - ref).abs() / ref.abs()).max())
-    if not fast_rel <= bar:
-        raise AssertionError(f"fast math after {steps} steps: max rel {fast_rel!r} > {bar}")
-    print(f"fast-math kernel vs step_reference (IEEE 1/rho) after {steps} chained steps: "
-          f"max rel {fast_rel!r} (bar {bar}), max |diff| {fast_abs!r}, "
-          f"{int((a != ref).sum())} of {a.numel()} values differ")
+    fast_abs = fast_rel = 0.0
+    ends = {}
+    for fast_form in fused_kernel.FORMS:
+        a, b = start.clone(), torch.empty_like(start)
+        for _ in range(steps):
+            fused_kernel.step(a, b, spec, cfg, fast_math=True, form=fast_form)
+            a, b = b, a
+        ends[fast_form] = a
+        abs_, rel = float((a - ref).abs().max()), float(((a - ref).abs() / ref.abs()).max())
+        if not rel <= bar:
+            raise AssertionError(f"fast math, {fast_form} form, after {steps} steps: max rel "
+                                 f"{rel!r} > {bar}")
+        print(f"fast-math kernel, {fast_form} form, vs step_reference (IEEE 1/rho) after {steps} "
+              f"chained steps: max rel {rel!r} (bar {bar}), max |diff| {abs_!r}, "
+              f"{int((a != ref).sum())} of {a.numel()} values differ")
+        fast_abs, fast_rel = max(fast_abs, abs_), max(fast_rel, rel)
+    if not torch.equal(ends["wide"], ends["narrow"]):
+        raise AssertionError(f"fast math: the wide form's state != the narrow form's after "
+                             f"{steps} steps")
+    print(f"fast math: the wide form's state == the narrow form's after {steps} steps")
+    del ends, start
     reset_counts()
     sim = Simulation(cfg, walls, backend="cuda", fast_math=True)
     sim.run(OPTION_STEPS)
-    fast_launches = expect_counts("fast-math path",
-                                  {"f32-spec-fast": OPTION_STEPS})["f32-spec-fast"]
+    fast_launches = expect_counts("fast-math path", {"f32-spec-fast": OPTION_STEPS},
+                                  form)["f32-spec-fast"]
     f = sim.state()
     if not (np.isfinite(f).all() and (f >= 0).all()):
         raise AssertionError("fast-math path state not finite/non-negative")
@@ -761,13 +921,14 @@ def option_phases(f32_main):
 
     # 13. the bf16 main path, every launch counted
     cfg16 = LatticeConfig(nx=800, ny=4000, dtype=bf16)
+    form16 = fused_kernel.kernel_form(torch.bfloat16, cfg16.ny, ())
     reset_counts()
     sim = Simulation(cfg16, walls, backend="cuda")
     sim.run(WARMUP)
     sim.elapsed, sim.steps_done = 0.0, 0
     sim.run(MAIN_STEPS)
-    bf16_launches = expect_counts("bf16 main path",
-                                  {"bf16-spec": WARMUP + MAIN_STEPS})["bf16-spec"]
+    bf16_launches = expect_counts("bf16 main path", {"bf16-spec": WARMUP + MAIN_STEPS},
+                                  form16)["bf16-spec"]
     f = sim.state()
     re = sim.reynolds()
     if not (f.dtype == np.float32 and np.isfinite(f).all() and (f >= 0).all()
@@ -775,7 +936,7 @@ def option_phases(f32_main):
         raise AssertionError(f"bf16 main path state not finite/non-negative, or Re {re!r}")
     excess = np.abs(f - f32_main) - (BF16_ATOL + BF16_RTOL * np.abs(f32_main))
     print(f"bf16 main path: {MAIN_STEPS} steps (+{WARMUP} warmup) through backend=cuda, "
-          f"{bf16_launches} kernel launches, Re {re!r}, {sim.mlups!r} MLUPS "
+          f"{bf16_launches} kernel launches of the {form16} form, Re {re!r}, {sim.mlups!r} MLUPS "
           f"({sim.elapsed!r} s); vs the float32 main path: max |diff| "
           f"{float(np.abs(f - f32_main).max())!r}, worst margin to the bar "
           f"{float(excess.max())!r} (rtol {BF16_RTOL}, atol {BF16_ATOL})")
@@ -787,6 +948,8 @@ def option_phases(f32_main):
     print(f"bf16 cuda vs bf16 torch backend after 20 steps: max |diff| "
           f"{float(np.abs(runs['cuda'] - runs['torch']).max())!r}, "
           f"{int((runs['cuda'] != runs['torch']).sum())} values differ")
+    bf16_narrow_launches, e = narrow_path(bf16, "bf16-spec", BF16_RTOL, BF16_ATOL, rng)
+    worst(bf16_err, {"narrow": e})
 
     # 14. times
     rates16 = rates_printer(cfg16, bytes_per_site(bf16))
@@ -796,16 +959,17 @@ def option_phases(f32_main):
     b = torch.empty_like(a)
     plane = torch.as_tensor(walls.astype(np.uint8), device=dev)
     copy16 = copy_rate(rates16, a, b, "an 800x4000 bf16 state")
-    t = in_turns(rates16, "bf16 kernel", {
-        "plane variant": lambda: fused_kernel.step(a, b, plane, cfg16),
-        "spec variant": lambda: fused_kernel.step(a, b, spec, cfg16),
-    }, 500)
-    bf16_plane_ms, bf16_ms = t["plane variant"], t["spec variant"]
-    share("bf16 kernel, spec variant", bf16_ms, copy16)
+    t16 = forms_in_turns(rates16, "bf16 kernel", a, b, {"plane": plane, "spec": spec}, cfg16, 500)
+    for key, ms in t16.items():
+        share(f"bf16 kernel, {key}", ms, copy16)
     bf16_plain_ms = event_ms(lambda: fused_kernel.step_reference(a, None, cfg16,
                                                                  wall_spec=spec), 20)
     rates16("bf16 step_reference, its plain version (CUDA events, 20 steps)",
             bf16_plain_ms * 1e-3)
+    bf16_wide_plain_ms = event_ms(lambda: fused_kernel.step_reference_wide(
+        a, None, cfg16, fused_kernel.WIDE_COLUMNS[a.dtype], wall_spec=spec), 20)
+    rates16("bf16 step_reference_wide, the wide form's plain version (CUDA events, 20 steps)",
+            bf16_wide_plain_ms * 1e-3)
     del a, b
 
     big = LatticeConfig(nx=4000, ny=16000, dtype=bf16)
@@ -814,11 +978,11 @@ def option_phases(f32_main):
     # depend on the values), made without 9 GB of host noise
     a = state_tensor(initial_state(big), bf16, dev)
     b = torch.empty_like(a)
-    big_ms = event_ms(lambda: fused_kernel.step(a, b, big_spec, big), 50)
     rates_big = rates_printer(big, bytes_per_site(bf16))
-    rates_big("bf16 kernel, spec variant, 4000x16000 (CUDA events, 50 launches)", big_ms * 1e-3)
-    share("bf16 kernel, spec variant, 4000x16000", big_ms,
-          copy_rate(rates_big, a, b, "a 4000x16000 bf16 state", n=50))
+    big_ms = forms_in_turns(rates_big, "bf16 kernel, 4000x16000", a, b, {"spec": big_spec}, big, 50)
+    copy_big = copy_rate(rates_big, a, b, "a 4000x16000 bf16 state", n=50)
+    for key, ms in big_ms.items():
+        share(f"bf16 kernel, 4000x16000, {key}", ms, copy_big)
     del a, b
 
     rates = rates_printer(cfg, bytes_per_site(np.float32))
@@ -826,36 +990,51 @@ def option_phases(f32_main):
     b = torch.empty_like(a)
     walls_s, slip_x, slip_y = slip_scene(800, 4000)
     cls = torch.as_tensor(fused_kernel.class_plane(walls_s, slip_x, slip_y), device=dev)
-    t = in_turns(rates, "f32 kernel", {
-        "spec": lambda: fused_kernel.step(a, b, spec, cfg),
-        "spec, fast math": lambda: fused_kernel.step(a, b, spec, cfg, fast_math=True),
-        "plane with slip codes": lambda: fused_kernel.step(a, b, cls, cfg),
-    }, 500)
+    t = forms_in_turns(rates, "f32 kernel", a, b, {"spec": spec, "plane with slip codes": cls},
+                       cfg, 500)
+    t.update(forms_in_turns(rates, "f32 kernel, fast math", a, b, {"spec, fast math": spec}, cfg,
+                            500, fast_math=True))
     slip_plain_ms = event_ms(lambda: fused_kernel.step_reference(a, cls, cfg), 20)
     fast_plain_ms = event_ms(lambda: fused_kernel.step_reference(
         a, None, cfg, wall_spec=spec, fast_math=True), 20)
     rates("step_reference with slip codes (CUDA events, 20 steps)", slip_plain_ms * 1e-3)
     rates("step_reference, spec, IEEE 1/rho (CUDA events, 20 steps)", fast_plain_ms * 1e-3)
 
-    source = "latticeboltzmann_tpu_torch/csrc/lbm_step.cu"
+    sources = {"wide": "latticeboltzmann_tpu_torch/csrc/lbm_wide_step.cu",
+               "narrow": "latticeboltzmann_tpu_torch/csrc/lbm_step.cu"}
     replaces = "latticeboltzmann_tpu/ops/fused_kernel.py:1757"
     n_f = 9 * cfg.sites  # f values of one state at 800x4000
     ops = F32_OPS_PER_SITE * cfg.sites
+    other = {"wide": "narrow", "narrow": "wide"}
     return [
-        {"name": "lbm_stream_collide<__nv_bfloat16> (plane, wall-free, spec)",
-         "route": "cuda", "source": source, "replaces": replaces,
-         "launches": bf16_launches, "max_abs_err": bf16_err, "ms": bf16_ms,
-         "plain_ms": bf16_plain_ms, "plane_ms": bf16_plane_ms,
-         "ms_4000x16000": big_ms, **bound(2 * n_f * 2, ops)},
-        {"name": "lbm_stream_collide<float, plane> with slip codes 2/3",
-         "route": "cuda", "source": source, "replaces": replaces,
-         "launches": slip_launches, "max_abs_err": slip_err,
-         "ms": t["plane with slip codes"], "plain_ms": slip_plain_ms,
+        {"name": "lbm_stream_collide_wide<__nv_bfloat16, GEOM, 8> (plane, wall-free, spec): the "
+                 f"wide form, dispatched at 800x4000: {form16 == 'wide'}",
+         "route": "cuda", "source": sources["wide"], "replaces": replaces,
+         "launches": bf16_launches if form16 == "wide" else 0,
+         "max_abs_err": bf16_err["wide"], "ms": t16["wide form, spec"],
+         "plain_ms": bf16_wide_plain_ms, "plane_ms": t16["wide form, plane"],
+         "ms_4000x16000": big_ms["wide form, spec"], **bound(2 * n_f * 2, ops)},
+        {"name": "lbm_stream_collide<__nv_bfloat16> (plane, wall-free, spec): the narrow form "
+                 f"(launches: the 800x{NARROW_NY} path; ms at 800x4000)",
+         "route": "cuda", "source": sources["narrow"], "replaces": replaces,
+         "launches": bf16_narrow_launches + (bf16_launches if form16 == "narrow" else 0),
+         "max_abs_err": bf16_err["narrow"], "ms": t16["narrow form, spec"],
+         "plain_ms": bf16_plain_ms, "plane_ms": t16["narrow form, plane"],
+         "ms_4000x16000": big_ms["narrow form, spec"], **bound(2 * n_f * 2, ops)},
+        {"name": f"the {form} form of the float32 plane variant with slip codes 2/3 "
+                 "(lbm_stream_collide_wide<float, plane, 4> or lbm_stream_collide<float, plane>)",
+         "route": "cuda", "source": sources[form], "replaces": replaces,
+         "launches": slip_launches, "max_abs_err": max(slip_err.values()),
+         "ms": t[f"{form} form, plane with slip codes"], "plain_ms": slip_plain_ms,
+         f"{other[form]}_form_ms": t[f"{other[form]} form, plane with slip codes"],
          **bound(2 * n_f * 4 + cls.numel(), ops)},
-        {"name": "lbm_stream_collide<float, spec> fast math (rcp.approx.f32)",
-         "route": "cuda", "source": source, "replaces": replaces,
+        {"name": f"the {form} form of the float32 spec variant with fast math (rcp.approx.f32; "
+                 "lbm_stream_collide_wide<float, spec, 4> or lbm_stream_collide<float, spec>)",
+         "route": "cuda", "source": sources[form], "replaces": replaces,
          "launches": fast_launches, "max_abs_err": fast_abs, "max_rel_err": fast_rel,
-         "ms": t["spec, fast math"], "plain_ms": fast_plain_ms, **bound(2 * n_f * 4, ops)},
+         "ms": t[f"{form} form, spec, fast math"], "plain_ms": fast_plain_ms,
+         f"{other[form]}_form_ms": t[f"{other[form]} form, spec, fast math"],
+         "spec_variant_max_abs_err": max(spec_err.values()), **bound(2 * n_f * 4, ops)},
     ]
 
 
@@ -1386,19 +1565,24 @@ def sharded_phases(f32_main):
     dsts = [df64.DS(torch.empty_like(s.hi), torch.empty_like(s.lo)) for s in srcs]
     his, los = ring_halos([s.hi for s in srcs]), ring_halos([s.lo for s in srcs])
     halos = [tuple(df64.DS(h, lo) for h, lo in zip(his[k], los[k])) for k in range(n)]
-    ds_calls = []
+    ds_calls, ds_fused_calls = [], []
     for k in range(n):
         ds_calls += ext_calls(fused_ds_kernel.ext_launcher, L, srcs[k], dsts[k], halos[k],
                               planes[k], cfg=cfg64, has_walls=True)
+        # ShardedDSSession(overlap=False)'s schedule: one launch per shard
+        ds_fused_calls.append(fused_ds_kernel.ext_launcher(srcs[k], dsts[k], halos[k], planes[k],
+                                                           cfg64, has_walls=True))
     overlap = f"ext-halo, {n} shards, interior + edges ({len(ds_calls)} launches)"
+    fused = f"ext-halo, {n} shards, one launch per shard ({n})"
     group = {
         "single-chip kernel (1 launch)": lambda: fused_ds_kernel.step(a, b, solid, cfg64,
                                                                       has_walls=True),
         overlap: lambda: [c() for c in ds_calls],
+        fused: lambda: [c() for c in ds_fused_calls],
     }
     in_turns(rates64, "ds fast tier, one step's launches", group, 200)
-    ds_ext_ms = in_turns(rates64, "ds fast tier, one step's launches", group, 50,
-                         timer=queued_ms)[overlap]
+    t = in_turns(rates64, "ds fast tier, one step's launches", group, 50, timer=queued_ms)
+    ds_ext_ms, ds_fused_ms = t[overlap], t[fused]
     ds_ext_plain_ms = event_ms(lambda: [fused_ds_kernel.step_reference_ext(
         srcs[k].hi, srcs[k].lo, halos[k], planes[k], cfg64, False) for k in range(n)], 3)
     rates64(f"ds step_reference_ext over {n} shards, its plain version (CUDA events, 3 steps)",
@@ -1429,7 +1613,8 @@ def sharded_phases(f32_main):
          "route": "cuda", "source": "latticeboltzmann_tpu_torch/csrc/lbm_ds_step.cu",
          "replaces": "latticeboltzmann_tpu/ops/fused_ds_kernel.py:272",
          "launches": ds_launches, "max_abs_err": ds_ext_err,
-         "ms": ds_ext_ms, "plain_ms": ds_ext_plain_ms, **ds_bound},
+         "ms": ds_ext_ms, "one_launch_per_shard_ms": ds_fused_ms,
+         "plain_ms": ds_ext_plain_ms, **ds_bound},
     ]
 
 
@@ -1776,13 +1961,15 @@ def panels_phase():
     a[6, cfg.nx // 2, 0] = 1e-6  # the forcing guard fails at one column-0 site
     b = torch.empty_like(a)
     for kind, geom in (("spec", spec), ("wall-free", None)):
-        before = fused_kernel.LAUNCHES
-        fused_kernel.step(a, b, geom, cfg)
         want = reference(a, geom, cfg)
-        bitwise(f"4000x16000 float32 {kind}", b, want)
+        for form in fused_kernel.FORMS:
+            before = fused_kernel.FORM_LAUNCHES[form]
+            b.fill_(float("nan"))
+            fused_kernel.step(a, b, geom, cfg, form=form)
+            bitwise(f"4000x16000 float32 {kind}, {form} form", b, want)
+            print(f"kernel vs step_reference 4000x16000 (float32, {kind}), {form} form, 1 step, "
+                  f"{fused_kernel.FORM_LAUNCHES[form] - before} launch: bitwise")
         del want
-        print(f"kernel vs step_reference 4000x16000 (float32, {kind}), 1 step, "
-              f"{fused_kernel.LAUNCHES - before} launch: bitwise")
     del a, b
     torch.cuda.empty_cache()
 

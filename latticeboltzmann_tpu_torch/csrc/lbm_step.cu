@@ -6,7 +6,10 @@
 // launched by make_step's pl.pallas_call (ops/fused_kernel.py:1757), one
 // time step per launch (T=1), in three forms:
 // - the single-chip form (lbm_stream_collide_launch): the whole lattice,
-//   periodic in both axes;
+//   periodic in both axes. This file holds its narrow form, one site per
+//   thread, which takes every shape; where NY is a multiple of the wide
+//   form's columns per thread and the buffers are 16-byte aligned, the host
+//   launches the wide form of lbm_wide_step.cu instead (same result);
 // - the ext-halo form (lbm_stream_collide_ext_launch), the pallas_call's
 //   external_halo=True variant (:1676-1696) as the row-sharded path
 //   launches it per shard (parallel/sharded.py:312-376 there): a local
@@ -136,17 +139,6 @@
 
 namespace {
 
-// A closed-form wall spec (core/geometry.py): at most one of each
-// primitive, in fused_kernel.kernel_spec's order. Solid where any
-// present primitive holds.
-struct Spec {
-  int64_t channel;  // rows 0 and nx - 1
-  int64_t rect;     // rows [r0, r1) x columns [c0, c1)
-  int64_t r0, r1, c0, c1;
-  int64_t circle;   // (2i - ci2)^2 + (2j - cj2)^2 <= r2q
-  int64_t ci2, cj2, r2q;
-};
-
 // Where a shard's local block sits and what lies beyond it (ext-halo
 // form).
 template <typename T>
@@ -161,46 +153,6 @@ struct Ext {
 };
 
 constexpr int kBlock = 256;
-
-// geometry.spec_mask at one site, in 64-bit integers (the wrapper refuses
-// a circle whose test could overflow them)
-__device__ __forceinline__ bool spec_solid(const Spec& g, int64_t i, int64_t j,
-                                           int64_t nx) {
-  bool w = false;
-  if (g.channel) w = w || i == 0 || i == nx - 1;
-  if (g.rect) w = w || (i >= g.r0 && i < g.r1 && j >= g.c0 && j < g.c1);
-  if (g.circle) {
-    const int64_t di = 2 * i - g.ci2;
-    const int64_t dj = 2 * j - g.cj2;
-    w = w || di * di + dj * dj <= g.r2q;
-  }
-  return w;
-}
-
-// solid class of site (i, j): 0 fluid, 1 bounce-back, 2 slip_x, 3 slip_y
-template <int GEOM>
-__device__ __forceinline__ int solid_class(const uint8_t* __restrict__ solid,
-                                           const Spec& g, int64_t i, int64_t j,
-                                           int64_t nx, int64_t ny) {
-  if (GEOM == kPlane) return solid[i * ny + j];
-  if (GEOM == kSpec) return spec_solid(g, i, j, nx) ? 1 : 0;
-  return 0;
-}
-
-// Forcing guard of the column-0 site in row `row`: fluid, and f6, f3, f7
-// all stay above their decrements (src/latticeboltzmann.c:500-513).
-template <typename T, int GEOM>
-__device__ __forceinline__ bool forced_at(const T* __restrict__ src,
-                                          const uint8_t* __restrict__ solid,
-                                          const Spec& g, int64_t row,
-                                          int64_t nx, int64_t ny,
-                                          int64_t plane, const Params& k) {
-  if (solid_class<GEOM>(solid, g, row, 0, nx, ny) != 0) return false;
-  const int64_t site = row * ny;  // column 0
-  return (load(src + 6 * plane + site) - k.a58 > 0.0f) &&
-         (load(src + 3 * plane + site) - k.a14 > 0.0f) &&
-         (load(src + 7 * plane + site) - k.a58 > 0.0f);
-}
 
 // The ext-halo form's solid_class and forced_at, for a row that may be a
 // halo row: the row's class row (plane variant) or its global row gi of a
@@ -557,13 +509,6 @@ bool refused(const void* solid, const void* spec, int64_t nx, int64_t ny, int64_
          geometry < kNone || geometry > kSpec ||
          (geometry == kPlane && solid == nullptr) ||
          (geometry == kSpec && spec == nullptr);
-}
-
-// The wall spec from its 10 host int64 (geometry 2), else an empty one.
-Spec spec_from(const void* spec, int64_t geometry) {
-  if (geometry != kSpec) return Spec{};
-  const int64_t* v = static_cast<const int64_t*>(spec);
-  return Spec{v[0], v[1], v[2], v[3], v[4], v[5], v[6], v[7], v[8], v[9]};
 }
 
 }  // namespace

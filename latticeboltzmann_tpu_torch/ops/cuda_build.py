@@ -21,7 +21,8 @@ import subprocess
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-SOURCES = ("lbm_step.cu", "lbm_ds_step.cu", "lbm_flat_step.cu", "lbm_probes.cu")
+SOURCES = ("lbm_step.cu", "lbm_wide_step.cu", "lbm_ds_step.cu", "lbm_flat_step.cu",
+           "lbm_probes.cu")
 # included by the sources (each from its own directory); hashed with them
 HEADERS = ("lbm_collide.cuh",)
 LIB_NAME = "liblbm_kernels.so"
@@ -127,6 +128,11 @@ def load_library() -> ctypes.CDLL:
         ctypes.c_void_p,  # params: 9 host floats
         ctypes.c_void_p,  # cudaStream_t
     ]
+    # the wide form takes the same arguments
+    lib.lbm_stream_collide_wide_launch.restype = ctypes.c_int
+    lib.lbm_stream_collide_wide_launch.argtypes = fn.argtypes
+    lib.lbm_wide_columns.restype = ctypes.c_int64
+    lib.lbm_wide_columns.argtypes = [ctypes.c_int64]  # storage: 0 float32, 1 bfloat16
     fn = lib.lbm_stream_collide_ext_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [

@@ -28,7 +28,10 @@ and flags included, and sharded-cuda-rdma against cuda; a withheld send
 must end in a raised timeout. The four
 anatomy probes (ops/probes.py) and the flat multi-step kernel are held
 bitwise against their plain versions: they move float32 values, add them
-in one order, or repeat the step kernel's arithmetic.
+in one order, or repeat the step kernel's arithmetic. The single-chip
+kernel's two forms (wide: several columns per thread, 16-byte accesses;
+narrow: one site per thread) are each held bitwise against step_reference
+and against each other.
 """
 
 import numpy as np
@@ -140,17 +143,108 @@ def test_spec_and_slip_variants_equal_step_reference(dtype, cuda_device):
     _bitwise_steps(cfg, cls, cuda_device)
 
 
+def _offset_view(t, elements):
+    """A contiguous copy of t that starts `elements` elements into a
+    larger buffer: contiguous, and not aligned to 16 bytes."""
+    buf = torch.zeros(t.numel() + elements, dtype=t.dtype, device=t.device)
+    return buf[elements:].view(t.shape).copy_(t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+@pytest.mark.parametrize("shape", [(16, 40), (24, 40), (8, 0), (8, -2), (24, 37), (48, 96)])
+def test_wide_form_equals_step_reference_and_narrow_form(shape, dtype, cuda_device):
+    """Both forms of the single-chip kernel against step_reference and
+    each other, bitwise, for every geometry source: at the comparison
+    scenes, at NY == V and NY == 2V (given as 0 and -2), and at 24x37,
+    which the wide form must refuse. The library's column counts are the
+    host's."""
+    st = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    v = fk.WIDE_COLUMNS[st]
+    lib = fk.cuda_build.load_library()
+    assert lib.lbm_wide_columns(fk._STORAGE[st]) == v
+    nx, ny = shape[0], (v if shape[1] == 0 else 2 * v if shape[1] == -2 else shape[1])
+    cfg = LatticeConfig(nx=nx, ny=ny, dtype=dtype, accel=0.005)
+    walls = geometry.channel(nx, ny)
+    walls[nx // 3: nx // 2, 0:3] = True
+    slip_walls, slip_x, slip_y = _slip_scene(nx, ny)
+    spec = geometry.infer_spec(walls)
+    assert spec is not None
+    geoms = [None, torch.as_tensor(walls.astype(np.uint8), device=cuda_device), spec,
+             torch.as_tensor(fk.class_plane(slip_walls, slip_x, slip_y), device=cuda_device)]
+    for geom in geoms:
+        a = _perturbed(cfg, cuda_device)
+        a[6, nx // 2, 0] = 1e-6  # the forcing guard fails at one column-0 site
+        for _ in range(5):
+            ref = _reference(a, geom, cfg)
+            narrow = fk.step(a, torch.empty_like(a), geom, cfg, form="narrow")
+            torch.cuda.synchronize()
+            assert torch.equal(narrow, ref)
+            if ny % v:
+                before = fk.LAUNCHES
+                with pytest.raises(ValueError, match="wide form"):
+                    fk.step(a, torch.empty_like(a), geom, cfg, form="wide")
+                assert fk.LAUNCHES == before
+            else:
+                before = fk.FORM_LAUNCHES["wide"]
+                wide = fk.step(a, torch.full_like(a, float("nan")), geom, cfg, form="wide")
+                torch.cuda.synchronize()
+                assert fk.FORM_LAUNCHES["wide"] == before + 1
+                assert torch.equal(wide, ref) and torch.equal(wide, narrow)
+            a = ref
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+def test_form_follows_the_pointers_on_the_card(dtype, cuda_device):
+    """A state that is a contiguous view at an odd element offset takes the
+    narrow form, an aligned one the wide form, with one result; asking for
+    the wide form on the view raises and launches nothing."""
+    cfg, walls = _scene("column0", dtype)
+    plane = torch.as_tensor(walls.astype(np.uint8), device=cuda_device)
+    a = _perturbed(cfg, cuda_device)
+    ref = fk.step_reference(a, plane, cfg)
+    for src, dst, solid, form in (
+            (a, torch.empty_like(a), plane, "wide"),
+            (_offset_view(a, 1), torch.empty_like(a), plane, "narrow"),
+            (a, _offset_view(a, 3), plane, "narrow"),
+            (a, torch.empty_like(a), _offset_view(plane, 5), "narrow")):
+        before = dict(fk.FORM_LAUNCHES)
+        out = fk.step(src, dst, solid, cfg)
+        torch.cuda.synchronize()
+        assert fk.FORM_LAUNCHES[form] == before.get(form, 0) + 1
+        assert torch.equal(out, ref)
+        if form == "narrow":
+            before = fk.LAUNCHES
+            with pytest.raises(ValueError, match="wide form"):
+                fk.step(src, dst, solid, cfg, form="wide")
+            assert fk.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_cuda_backend_runs_the_form_kernel_form_names(cuda_device):
+    """Session's buffers are aligned: 24x40 runs the wide form, 24x37 the
+    narrow one, each counted by form."""
+    for ny, form in ((40, "wide"), (37, "narrow")):
+        cfg = LatticeConfig(nx=24, ny=ny, dtype=np.float32)
+        assert fk.kernel_form(torch.float32, ny, ()) == form
+        before = fk.FORM_LAUNCHES[form]
+        Simulation(cfg, geometry.channel(24, ny), backend="cuda").run(7)
+        assert fk.FORM_LAUNCHES[form] == before + 7
+
+
 @pytest.mark.cuda
 def test_fast_math_within_its_tolerance(cuda_device):
     cfg = LatticeConfig(nx=48, ny=96, dtype=np.float32)
     spec = geometry.infer_spec(_plate_48x96())
-    a = _perturbed(cfg, cuda_device)
-    ref, b = a.clone(), torch.empty_like(a)
-    for _ in range(fk.FAST_MATH_STEPS):
-        fk.step(a, b, spec, cfg, fast_math=True)
-        a, b = b, a
-        ref = fk.step_reference(ref, None, cfg, wall_spec=spec, fast_math=True)
-    assert float(((a - ref).abs() / ref.abs()).max()) <= fk.FAST_MATH_RTOL
+    for form in fk.FORMS:
+        a = _perturbed(cfg, cuda_device)
+        ref, b = a.clone(), torch.empty_like(a)
+        for _ in range(fk.FAST_MATH_STEPS):
+            fk.step(a, b, spec, cfg, fast_math=True, form=form)
+            a, b = b, a
+            ref = fk.step_reference(ref, None, cfg, wall_spec=spec, fast_math=True)
+        assert float(((a - ref).abs() / ref.abs()).max()) <= fk.FAST_MATH_RTOL
 
 
 @pytest.mark.cuda
