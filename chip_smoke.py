@@ -37,13 +37,23 @@ Phases, each of which raises on failure:
    (fused_ds_kernel.step_reference) on the card, both tiers (fast and
    exact) and both variants, 10 single steps each at the four scenes of
    phase 3 from a perturbed float64 state split into pairs; bitwise;
+   then chains from rest at 800x4000, 100 fast and 50 exact steps, on the
+   reference scene, on a symmetric channel without an obstacle (the
+   cross-channel velocity stays near zero, where the kernel's one-FMA
+   products meet Dekker's at the edge of their common domain) and on an
+   empty box (the wall-free variant): the kernel's chain bitwise equal to
+   step_reference's at the end;
 7. the ds main path: Simulation(backend="cuda-ds64") on the 800x4000
    reference scene for 10,000 steps after a warmup, every step a counted
    launch; the state must be finite and non-negative and Re finite, and
    a 200-step run from rest must match the float64 "torch" backend on the
    same card within 1e-11 relative;
 8. times at 800x4000 of the ds kernel at each tier, its plain versions,
-   the eager "torch-ds64" engine, and the ds main path's slope;
+   the eager "torch-ds64" engine, and the ds main path's slope; the ds
+   kernels' instructions per site, counted in their SASS (cuobjdump) along
+   the path of an ordinary site (utils/sass.py: past the forcing branches
+   and the division's slow path), the bound they give and their issue
+   floor at the SM clock read under load;
 9. the bf16-storage kernel against step_reference, bitwise, at the four
    scenes of phase 3, plane and wall-free variants;
 10. the spec variant against the plane variant and step_reference,
@@ -132,8 +142,11 @@ Phases 22-24 run with phases 15-17 (sharded_phases).
 The kernels line gives every kernel's bound: the larger of its bytes
 (each input read once, each output written once) over the card's
 published memory rate and its f32 operations over the published f32
-rate (PEAK_BYTES_PER_S, PEAK_F32_OPS_PER_S). For the three on-chip probes
-that bound (the block in and out) is a fraction of a microsecond, so
+rate (PEAK_BYTES_PER_S, PEAK_F32_OPS_PER_S; the ds kernels' operations
+are counted in their SASS, an FFMA as two, and their entries also carry
+the issue floor: the FP32 instructions over one a lane and clock). For
+the three on-chip probes that bound (the block in and out) is a fraction
+of a microsecond, so
 their entries also carry the shared-memory (or L1) bound per roll or add
 over the SMs the launch occupies (smem_bound_ns_per_roll,
 l1_bound_ns_per_add). The line before the last is
@@ -189,11 +202,13 @@ RDMA_TIMED_STEPS = 50
 # the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
-# float32 operations per site update: the reference's 124 FLOP for the
-# stream-collide kernel; about 1.1k (fast tier) and 2.6k (exact) for the
-# pair-DP kernel (csrc/lbm_ds_step.cu's header)
+# float32 operations per site update of the stream-collide kernel: the
+# reference's 124 FLOP (the ds kernels' are counted in their SASS)
 F32_OPS_PER_SITE = 124
-DS_OPS_PER_SITE = {False: 1100, True: 2600}
+# float32 lanes of one Hopper SM: the issue floor's instructions per clock
+FP32_LANES_PER_SM = 128
+# steps of the ds kernel's chains from rest (phase 6), by tier (exact?)
+DS_LONG_STEPS = {False: 100, True: 50}
 
 
 def bound(n_bytes, n_ops):
@@ -206,6 +221,64 @@ def bound(n_bytes, n_ops):
     return {"bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None}
+
+
+def ds_site_counts():
+    """{(kernel, has_walls, exact): opcode counts along an ordinary site's
+    path} for the ds kernels (kernel "ds" or "ds_ext") of the built
+    library, read from its SASS; prints a line for each."""
+    import re
+
+    from latticeboltzmann_tpu_torch.ops import cuda_build
+    from latticeboltzmann_tpu_torch.utils import sass
+
+    out = {}
+    for name, instrs in sass.functions(sass.disassemble(cuda_build.build())).items():
+        m = re.search(r"lbm_stream_collide_(ds|ds_ext)ILb([01])ELb([01])E", name)
+        if not m:
+            continue
+        key = (m.group(1), m.group(2) == "1", m.group(3) == "1")
+        path = sass.site_path(instrs)
+        if not path["MUFU"]:
+            raise AssertionError(f"{name}: no division on the site path: {dict(path)}")
+        out[key] = path
+        print(f"ds SASS, {key[0]} {'masked' if key[1] else 'wall-free'} "
+              f"{'exact' if key[2] else 'fast'}: per site FADD {path['FADD']}, FMUL "
+              f"{path['FMUL']}, FFMA {path['FFMA']}, MUFU {path['MUFU']} (FP32 "
+              f"{sum(path[k] for k in sass.FP32)}), all instructions {sum(path.values())}; "
+              f"the whole kernel {len(instrs)}")
+    if len(out) != 8:
+        raise AssertionError(f"found {sorted(out)} of the 8 ds kernels in the SASS")
+    return out
+
+
+def sm_clock_mhz(fn, n):
+    """The SM clock (MHz) nvidia-smi reads while n calls of fn run."""
+    import subprocess
+
+    for _ in range(n):
+        fn()
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True).stdout
+    torch.cuda.synchronize()
+    return float(out.split()[0])
+
+
+def counted_bound(n_bytes, path, sites, clock_mhz):
+    """bound() for work that moves n_bytes and runs `path` (opcode counts
+    per site, ds_site_counts) at `sites` sites: an FFMA is two operations,
+    FADD, FMUL and MUFU one; with the issue floor, the FP32 instructions
+    at one a lane and clock of the card's SMs at clock_mhz."""
+    from latticeboltzmann_tpu_torch.utils import sass
+
+    fp32 = sum(path[k] for k in sass.FP32)
+    ops = fp32 + path["FFMA"]
+    lanes = torch.cuda.get_device_properties(0).multi_processor_count * FP32_LANES_PER_SM
+    return {**bound(n_bytes, ops * sites),
+            "ops_per_site": ops, "fp32_instructions_per_site": fp32,
+            "instructions_per_site": sum(path.values()),
+            "issue_floor_ms": fp32 * sites / (lanes * clock_mhz * 1e6) * 1e3,
+            "sm_clock_mhz": clock_mhz}
 
 
 def perturbed_state(cfg, rng):
@@ -397,6 +470,44 @@ def compare_ds_kernel(name, cfg, walls, f0, exact, steps=10):
           f"{'masked' if has_walls else 'wall-free'}), {steps} steps, {launches} launches: "
           f"max |diff| = {err!r}")
     return err
+
+
+def long_ds_check(name, cfg, walls, exact):
+    """The ds kernel's chain of DS_LONG_STEPS[exact] steps from rest
+    against step_reference's chain from the same state: bitwise at the
+    end, every step a counted launch."""
+    from latticeboltzmann_tpu_torch.models.engine import initial_state
+    from latticeboltzmann_tpu_torch.ops import df64, fused_ds_kernel
+
+    dev = torch.device("cuda")
+    solid = torch.as_tensor(walls.astype(np.uint8), device=dev)
+    has_walls = bool(walls.any())
+    ref = df64.from_f64(initial_state(cfg), dev)
+    a = df64.DS(ref.hi.clone(), ref.lo.clone())
+    b = df64.DS(torch.empty_like(a.hi), torch.empty_like(a.lo))
+    steps = DS_LONG_STEPS[exact]
+    before = fused_ds_kernel.LAUNCHES
+    for _ in range(steps):
+        fused_ds_kernel.step(a, b, solid, cfg, has_walls=has_walls, exact=exact)
+        a, b = b, a
+        ref = fused_ds_kernel.step_reference(ref.hi, ref.lo, solid if has_walls else None, cfg,
+                                             exact)
+    torch.cuda.synchronize()
+    launches = fused_ds_kernel.LAUNCHES - before
+    tier = "exact" if exact else "fast"
+    if launches != steps:
+        raise AssertionError(f"{name}: {launches} ds kernel launches for {steps} steps")
+    for part in ("hi", "lo"):
+        got, want = getattr(a, part), getattr(ref, part)
+        if not torch.equal(got, want):
+            bad = torch.nonzero(got != want)
+            raise AssertionError(
+                f"{name}: ds kernel chain ({tier}) != step_reference chain after {steps} steps "
+                f"from rest, {part} differs at {bad.shape[0]} values (first {bad[:5].tolist()})")
+    u_x = float((a.hi[2] - a.hi[4] + a.hi[5] + a.hi[6] - a.hi[7] - a.hi[8]).abs().max())
+    print(f"ds kernel chain vs step_reference chain {name} ({tier} tier, "
+          f"{'masked' if has_walls else 'wall-free'}), {steps} steps from rest, {launches} "
+          f"launches: bitwise equal (max |x-momentum|, the cross-channel component, {u_x!r})")
 
 
 def rates_printer(cfg, bps):
@@ -600,9 +711,9 @@ def main() -> int:
     }]
     del sim, eng, a, b
 
-    ds = ds_phases(copy)
+    ds, ds_counts, clock = ds_phases(copy)
     options = option_phases(f32_main)
-    ext = sharded_phases(f32_main)
+    ext = sharded_phases(f32_main, ds_counts, clock)
     anatomy = anatomy_phases()
     panels_phase()
 
@@ -703,7 +814,8 @@ def forms_in_turns(rates, prefix, a, b, geoms, cfg, n, **kw):
 def ds_phases(copy):
     """Phases 6-8: the pair-DP kernel and path. copy: copy_rate's result
     for one float32 state (a ds step moves two). Returns the ds kernel's
-    entry of the kernels line."""
+    entry of the kernels line, ds_site_counts() and the SM clock (MHz)
+    read under load."""
     from latticeboltzmann_tpu_torch import LatticeConfig, Simulation, geometry
     from latticeboltzmann_tpu_torch.models.engine import initial_state
     from latticeboltzmann_tpu_torch.ops import df64, fused_ds_kernel
@@ -716,6 +828,12 @@ def ds_phases(copy):
         f0 = f * (1.0 + 0.05 * rng.uniform(-1.0, 1.0, f.shape))
         for exact in (False, True):
             max_err[exact] = max(max_err[exact], compare_ds_kernel(name, cfg, w, f0, exact))
+    big = LatticeConfig(nx=800, ny=4000, dtype=np.float64)
+    for name, w in (("800x4000 reference_barrier", geometry.reference_barrier(big.nx, big.ny)),
+                    ("800x4000 symmetric channel", geometry.channel(big.nx, big.ny)),
+                    ("800x4000 empty box", geometry.empty(big.nx, big.ny))):
+        for exact in (False, True):
+            long_ds_check(name, big, w, exact)
 
     # 7. the ds main path, every launch counted
     cfg = LatticeConfig(nx=800, ny=4000, dtype=np.float64)
@@ -770,6 +888,19 @@ def ds_phases(copy):
     eng.elapsed, eng.steps_done = 0.0, 0
     eng.run(3)
     rates("eager torch-ds64 engine, exact tier (3 steps)", eng.elapsed / 3)
+    counts = ds_site_counts()
+    clock = sm_clock_mhz(lambda: fused_ds_kernel.step(a, b, solid, cfg, has_walls=True), 2000)
+    # both pair components read and written, and the mask byte
+    n_bytes = 4 * a.hi.numel() * 4 + solid.numel()
+    bounds = {exact: counted_bound(n_bytes, counts[("ds", True, exact)], cfg.sites, clock)
+              for exact in (False, True)}
+    for exact, bd in bounds.items():
+        print(f"ds kernel, {'exact' if exact else 'fast'} tier, masked: bound "
+              f"{bd['bound_ms'] * 1e3!r} us by {bd['bound_by']} ({bd['ops_per_site']} ops a site "
+              f"at {PEAK_F32_OPS_PER_S:.3g}/s, {n_bytes} B at {PEAK_BYTES_PER_S:.3g} B/s); issue "
+              f"floor {bd['issue_floor_ms'] * 1e3!r} us ({bd['fp32_instructions_per_site']} FP32 "
+              f"instructions a site at {clock!r} MHz); kernel {ms[exact] * 1e3!r} us")
+    exact_keys = {f"exact_tier_{k}": v for k, v in bounds[True].items() if k != "library_ms"}
     return {
         "name": "lbm_stream_collide_ds",
         "route": "cuda",
@@ -781,10 +912,10 @@ def ds_phases(copy):
         "plain_ms": plain[False],
         "exact_tier_ms": ms[True],
         "exact_tier_plain_ms": plain[True],
-        # the fast tier, masked: both pair components read and written,
-        # and the mask byte
-        **bound(4 * a.hi.numel() * 4 + solid.numel(), DS_OPS_PER_SITE[False] * cfg.sites),
-    }
+        # the fast tier, masked; the exact tier's beside it
+        **bounds[False],
+        **exact_keys,
+    }, counts, clock
 
 
 def slip_scene(nx, ny):
@@ -1296,11 +1427,12 @@ def card_mesh_size(nx):
     return max((n for n in range(2, torch.cuda.device_count() + 1) if nx % n == 0), default=0)
 
 
-def sharded_phases(f32_main):
+def sharded_phases(f32_main, ds_counts, clock):
     """Phases 15-17 and 22-24: the ext-halo and rdma kernels and the
     row-sharded paths. f32_main: phase 4's float32 state after WARMUP +
-    MAIN_STEPS steps. Returns the kernels line's entries of the two
-    ext-halo kernels and the rdma kernel."""
+    MAIN_STEPS steps; ds_counts, clock: ds_phases' SASS counts and SM
+    clock, for the ds ext-halo kernel's bound. Returns the kernels line's
+    entries of the two ext-halo kernels and the rdma kernel."""
     from latticeboltzmann_tpu_torch import LatticeConfig, Simulation, geometry, initial_state
     from latticeboltzmann_tpu_torch.models import engine
     from latticeboltzmann_tpu_torch.ops import df64, fused_ds_kernel, fused_kernel
@@ -1590,8 +1722,8 @@ def sharded_phases(f32_main):
     # halo rows: both components of each, and their class rows
     halo_bytes = sum(c.numel() * 4 for h in halos for pair in h for c in pair)
     halo_bytes += sum(p.top.numel() + p.bot.numel() for p in planes)
-    ds_bound = bound(4 * a.hi.numel() * 4 + solid.numel() + halo_bytes,
-                     DS_OPS_PER_SITE[False] * cfg64.sites)
+    ds_bound = counted_bound(4 * a.hi.numel() * 4 + solid.numel() + halo_bytes,
+                             ds_counts[("ds_ext", True, False)], cfg64.sites, clock)
 
     label4 = f"{VIRTUAL_SHARDS} virtual shards"
     return [

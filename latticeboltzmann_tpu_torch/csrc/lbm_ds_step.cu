@@ -12,34 +12,64 @@
 // range, with the rows beyond the block taken from two halo rows of each
 // pair component instead of the x wrap. Template parameters: HAS_WALLS
 // selects the masked or wall-free variant, EXACT the collision tier:
-// ds_engine.collide_planes (exact, ~2.6k f32 ops per site) or
-// ds_engine.collide_planes_fast (fast, ~1.1k ops, the default). The two
+// ds_engine.collide_planes (exact) or ds_engine.collide_planes_fast (fast,
+// the default). The two
 // forms are two kernels that share what follows the pull (collide_store);
 // the local kernel keeps its own row indexing, as in the stream-collide
 // kernel (csrc/lbm_step.cu).
 //
 // Bound: a site update moves 145 B (9 hi and 9 lo floats read and written,
-// plus the mask byte) against ~1.1k (fast) or ~2.6k (exact) f32 ops, about
-// 8 or 18 ops per byte. With FMA unavailable by construction (below), the
-// card's non-FMA f32 rate and its memory bandwidth are about balanced for
-// the fast tier, and the exact tier leans to compute (on an H100 80GB
-// HBM3 at 700 W, 800x4000: fast ~211 us/step, exact ~275 us/step, against
-// a ~160 us byte bound; see PERF.md). The design is therefore the plain
-// one of lbm_step.cu: one thread per site, threads
-// along y (the contiguous axis), so each plane's loads and stores of a
-// warp coalesce; hi and lo are two separate (9, NX, NY) planes (the JAX
-// DS layout), so both components' loads coalesce too. The step is out of
-// place: the pull never reads the buffers it writes.
+// plus the mask byte): 36 streams, twice the 18 of a float32 step. Its f32
+// instructions are mostly pair adds, which no FMA can fuse, so they issue
+// at one a lane and clock. Along an ordinary site's path in the SASS
+// (chip_smoke.py counts them) the fast tier has about 640 FP32
+// instructions (1,000 in all) and the exact tier about 1,600 (2,000): on an
+// H100 at 1.98 GHz and 800x4000, 61 and 154 us of issue against 139 us of
+// bytes at the published 3.35 TB/s (158 at the copy kernel's rate). The
+// fast tier is bound by bytes, the exact one by issue. The design keeps
+// what the card rewards and drops what the TPU needed:
+// - one thread per site, threads along y (the contiguous axis), so each
+//   plane's loads and stores of a warp coalesce; hi and lo are two
+//   separate (9, NX, NY) planes (the JAX DS layout), so both components'
+//   loads coalesce too. The step is out of place: the pull never reads the
+//   buffers it writes;
+// - a CTA is 128 lanes of one row, and consecutive CTAs take consecutive
+//   column tiles of one row (a 1-D grid, as in lbm_wide_step.cu), so the
+//   CTAs in flight sweep each of the 36 planes front to back, as a copy
+//   does; rows first, they walked down one tile's column of every plane.
+//   At 56 registers a thread, 128-lane CTAs keep 36 warps on an SM where
+//   256-lane ones keep 32;
+// - the error of a product is one FMA (two_prod, mul_c, below) where the
+//   TPU kernel, on a VPU without f32 FMA, split both operands (Dekker's
+//   TwoProd, 17 ops).
 //
 // One rounding per op is the whole contract. Every error-free transform
-// (two_sum, quick_two_sum, split, two_prod) silently collapses to f32
-// accuracy if a mul+add is contracted to an FMA or an expression is
-// reassociated. So every f32 op of the pair arithmetic is an _rn
-// intrinsic (__fadd_rn, __fsub_rn, __fmul_rn, __fdiv_rn), which the
-// compiler never fuses or reorders, whatever -fmad says; and the build
-// never uses --use_fast_math. The op order is ops/df64.py's, op for op, so
-// the kernel equals the plain PyTorch version (fused_ds_kernel
-// .step_reference in the port) bit for bit.
+// (two_sum, quick_two_sum, two_prod) silently collapses to f32 accuracy if
+// a mul+add is contracted to an FMA or an expression is reassociated. So
+// every f32 op of the pair arithmetic is an _rn intrinsic (__fadd_rn,
+// __fsub_rn, __fmul_rn, __fdiv_rn, and the one explicit __fmaf_rn of a
+// product's error), which the compiler never fuses or reorders, whatever
+// -fmad says; and the build never uses --use_fast_math. The op order is
+// ops/df64.py's, op for op, so the kernel equals the plain PyTorch version
+// (fused_ds_kernel.step_reference in the port) bit for bit.
+//
+// The product's error. df64.two_prod (the plain version) splits a and b
+// into 12-bit halves and sums the four partial products; here
+// e = fma(a, b, -p), p = fl(a * b). Both are the exact error a * b - p,
+// so the same float, wherever it is representable: the exponents ea, eb
+// of the operands' leading bits sum to at least -103 (the error's last
+// bit, 2^(ea + eb - 46), is then at or above 2^-149), and neither operand
+// reaches 2^115 (Dekker's split multiplies by 4097 and would overflow).
+// Down to a sum of -113 they still agree: there only Dekker's last
+// partial products round, onto the 2^-149 grid on which the rest of its
+// sum lies at even multiples, so they round as the FMA's one rounding
+// does, ties included. The first sums at which the two differ are -114
+// (a subnormal operand) and -115 (normal operands); tests/test_torch_
+// df64.py shows all of this on random operands and on the kernel's
+// constants. In the kernel only products of velocities near rest come
+// near the edge; chip_smoke.py holds 100 fast and 50 exact steps from rest
+// at 800x4000, on the barrier, a symmetric channel and an empty box,
+// bitwise against step_reference.
 //
 // Not carried over from the TPU kernel: the mirror-pad lanes (the y wrap
 // is an index wrap here), row blocks and their halo rows, pad re-mirroring
@@ -68,25 +98,20 @@
 
 namespace {
 
-constexpr int kBlock = 256;
-constexpr int kMaxParams = 30;
+// A CTA: kTile lanes along y in one row
+constexpr int kTile = 128;
+constexpr int kMaxParams = 20;
 
 // Launch constants, float32, split on the host from float64 by
-// fused_ds_kernel.kernel_constants_ds. Fast tier (30 floats): the
-// split_const quads (hi, lo, hh, hl) of c1, iw0, iw14, iw58, c3, csixth,
-// then the pairs one, a14, a58. Exact tier (20 floats): the pairs one,
-// itau, c3, c45, c15, w0, w14, w58, a14, a58.
+// fused_ds_kernel.kernel_constants_ds. Fast tier (18 floats): the pairs
+// c1, iw0, iw14, iw58, c3, csixth, one, a14, a58. Exact tier (20 floats):
+// the pairs one, itau, c3, c45, c15, w0, w14, w58, a14, a58.
 struct Params {
   float v[kMaxParams];
 };
 
 struct ds {
   float hi, lo;
-};
-
-// A constant presplit for mul_c: (hi, lo, hh, hl).
-struct quad {
-  float hi, lo, hh, hl;
 };
 
 __device__ __forceinline__ float fadd(float a, float b) { return __fadd_rn(a, b); }
@@ -109,22 +134,11 @@ __device__ __forceinline__ ds quick_two_sum(float a, float b) {
   return {s, fsub(b, fsub(s, a))};
 }
 
-// Dekker split by 2^12 + 1 into two 12-bit halves.
-__device__ __forceinline__ ds split(float a) {
-  const float t = fmul(a, 4097.0f);
-  const float hi = fsub(t, fsub(t, a));
-  return {hi, fsub(a, hi)};
-}
-
-// Dekker TwoProd: p + e == a * b exactly, without FMA.
+// TwoProd: p + e == a * b exactly, the error by one FMA; Dekker's
+// TwoProd (df64.two_prod) to the bit in the domain of the header.
 __device__ __forceinline__ ds two_prod(float a, float b) {
   const float p = fmul(a, b);
-  const ds as = split(a);
-  const ds bs = split(b);
-  const float e = fadd(
-      fadd(fadd(fsub(fmul(as.hi, bs.hi), p), fmul(as.hi, bs.lo)), fmul(as.lo, bs.hi)),
-      fmul(as.lo, bs.lo));
-  return {p, e};
+  return {p, __fmaf_rn(a, b, -p)};
 }
 
 // --- pair arithmetic ------------------------------------------------------
@@ -190,13 +204,13 @@ __device__ __forceinline__ ds mul_nr(ds a, ds b) {
   return {p.hi, fadd(p.lo, fadd(fmul(a.hi, b.lo), fmul(a.lo, b.hi)))};
 }
 
-__device__ __forceinline__ ds mul_c(ds a, const quad& c) {
-  const float p = fmul(a.hi, c.hi);
-  const ds as = split(a.hi);
-  const float e = fadd(
-      fadd(fadd(fsub(fmul(as.hi, c.hh), p), fmul(as.hi, c.hl)), fmul(as.lo, c.hh)),
-      fmul(as.lo, c.hl));
-  return {p, fadd(e, fadd(fmul(a.hi, c.lo), fmul(a.lo, c.hi)))};
+// df64.mul_c: a times a constant. The plain version splits a.hi at run
+// time and takes the constant's halves from the host (split_const's hh,
+// hl: Veltkamp's halves of c.hi), which is Dekker's TwoProd of a.hi and
+// c.hi; here that product's error is one FMA against c.hi whole.
+__device__ __forceinline__ ds mul_c(ds a, ds c) {
+  const ds p = two_prod(a.hi, c.hi);
+  return {p.hi, fadd(p.lo, fadd(fmul(a.hi, c.lo), fmul(a.lo, c.hi)))};
 }
 
 __device__ __forceinline__ ds scale_pow2(ds a, float s) {
@@ -217,15 +231,10 @@ __device__ __forceinline__ bool gt_zero(ds a) {
 
 __device__ __forceinline__ ds pair(const Params& k, int i) { return {k.v[i], k.v[i + 1]}; }
 
-__device__ __forceinline__ quad quad_at(const Params& k, int i) {
-  return {k.v[i], k.v[i + 1], k.v[i + 2], k.v[i + 3]};
-}
-
 // ds_engine.collide_planes_fast
 __device__ __forceinline__ void collide_fast(const ds (&p)[9], ds (&out)[9], const Params& k) {
-  const quad c1 = quad_at(k, 0), iw0 = quad_at(k, 4), iw14 = quad_at(k, 8),
-             iw58 = quad_at(k, 12), c3 = quad_at(k, 16), csixth = quad_at(k, 20);
-  const ds one = pair(k, 24);
+  const ds c1 = pair(k, 0), iw0 = pair(k, 2), iw14 = pair(k, 4), iw58 = pair(k, 6),
+           c3 = pair(k, 8), csixth = pair(k, 10), one = pair(k, 12);
 
   const ds d56 = add_s(p[5], p[6]);
   const ds d78 = add_s(p[7], p[8]);
@@ -312,6 +321,7 @@ struct Ext {
   const uint8_t* solid_top;  // (ny): the halo rows' class rows (masked variant)
   const uint8_t* solid_bot;
   int64_t row0;              // first local row this launch writes
+  int64_t rows;              // rows it writes
 };
 
 // Forcing guard of the column-0 site in row `row`, at pair precision:
@@ -360,9 +370,21 @@ __device__ __forceinline__ void collide_store(const ds (&p)[9], SolidSite solid_
   }
 }
 
+// A thread's site: row i of the rows the launch writes, column j. The 1-D
+// grid holds each row's column tiles of kTile in turn.
+struct Site {
+  int i, j;
+};
+
+__device__ __forceinline__ Site site_of(int nyi) {
+  const unsigned tiles = (static_cast<unsigned>(nyi) + kTile - 1) / kTile;
+  return {static_cast<int>(blockIdx.x / tiles),
+          static_cast<int>((blockIdx.x % tiles) * kTile + threadIdx.x)};
+}
+
 // The local form: every row of the lattice, periodic in both axes.
 template <bool HAS_WALLS, bool EXACT>
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(kTile)
 lbm_stream_collide_ds(const float* __restrict__ src_hi, const float* __restrict__ src_lo,
                       float* __restrict__ dst_hi, float* __restrict__ dst_lo,
                       const uint8_t* __restrict__ solid, int64_t nx, int64_t ny,
@@ -373,16 +395,17 @@ lbm_stream_collide_ds(const float* __restrict__ src_hi, const float* __restrict_
   constexpr int EY[9] = {0, 1, 0, -1, 0, 1, -1, -1, 1};
   constexpr int FORCE[9] = {0, 1, 0, -1, 0, 1, -1, -1, 1};
   // the pairs a14 and a58 sit after the other constants of each tier
-  constexpr int A14 = EXACT ? 16 : 26;
-  constexpr int A58 = EXACT ? 18 : 28;
+  constexpr int A14 = EXACT ? 16 : 14;
+  constexpr int A58 = EXACT ? 18 : 16;
 
   // index arithmetic in 32 bits (the launcher bounds nx and ny), plane
   // offsets in 64
-  const int i = blockIdx.x;
-  const int j = blockIdx.y * kBlock + threadIdx.x;
   const int nxi = static_cast<int>(nx);
   const int nyi = static_cast<int>(ny);
-  if (j >= nyi) return;
+  const Site c = site_of(nyi);
+  const int i = c.i;
+  const int j = c.j;
+  if (i >= nxi || j >= nyi) return;
   const int64_t plane = nx * ny;
   const int rows[3] = {(i + 1) % nxi, i, (i - 1 + nxi) % nxi};
   const int cols[3] = {(j + 1) % nyi, j, (j - 1 + nyi) % nyi};
@@ -426,12 +449,12 @@ __device__ __forceinline__ bool forced_row(const float* __restrict__ hi,
   return gt_zero(sub(f6, a58)) && gt_zero(sub(f3, a14)) && gt_zero(sub(f7, a58));
 }
 
-// The ext-halo form: local rows [e.row0, e.row0 + gridDim.x) of a shard's
+// The ext-halo form: local rows [e.row0, e.row0 + e.rows) of a shard's
 // (9, nx, ny) pair of blocks, periodic in y; the source rows past the
 // block are the halo rows, each read through its column-0 addresses, the
 // stride between its speed planes and its class row.
 template <bool HAS_WALLS, bool EXACT>
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(kTile)
 lbm_stream_collide_ds_ext(const float* __restrict__ src_hi, const float* __restrict__ src_lo,
                           float* __restrict__ dst_hi, float* __restrict__ dst_lo,
                           const uint8_t* __restrict__ solid, Ext e, int64_t nx, int64_t ny,
@@ -440,14 +463,15 @@ lbm_stream_collide_ds_ext(const float* __restrict__ src_hi, const float* __restr
   constexpr int EX[9] = {0, 0, 1, 0, -1, 1, 1, -1, -1};
   constexpr int EY[9] = {0, 1, 0, -1, 0, 1, -1, -1, 1};
   constexpr int FORCE[9] = {0, 1, 0, -1, 0, 1, -1, -1, 1};
-  constexpr int A14 = EXACT ? 16 : 26;
-  constexpr int A58 = EXACT ? 18 : 28;
+  constexpr int A14 = EXACT ? 16 : 14;
+  constexpr int A58 = EXACT ? 18 : 16;
 
-  const int i = static_cast<int>(e.row0) + static_cast<int>(blockIdx.x);
-  const int j = blockIdx.y * kBlock + threadIdx.x;
   const int nxi = static_cast<int>(nx);
   const int nyi = static_cast<int>(ny);
-  if (j >= nyi) return;
+  const Site c = site_of(nyi);
+  const int i = static_cast<int>(e.row0) + c.i;
+  const int j = c.j;
+  if (c.i >= static_cast<int>(e.rows) || j >= nyi) return;
   const int64_t plane = nx * ny;
   const int cols[3] = {(j + 1) % nyi, j, (j - 1 + nyi) % nyi};
   const ds a14 = pair(k, A14);
@@ -496,33 +520,33 @@ lbm_stream_collide_ds_ext(const float* __restrict__ src_hi, const float* __restr
                        plane, static_cast<int64_t>(i) * ny + j, k);
 }
 
+// One CTA per row and column tile of the rows a launch writes.
+int64_t ctas(int64_t rows, int64_t ny) { return rows * ((ny + kTile - 1) / kTile); }
+
 // The checks both entry points share; true when the launch is refused.
-// grid.x = rows (at most 2^31 - 1), grid.y = column tiles (at most
-// 65535); the kernel's 32-bit index arithmetic needs nx, ny < 2^30
+// The 1-D grid holds at most 2^31 - 1 CTAs; the kernel's 32-bit index
+// arithmetic needs nx, ny < 2^30
 bool refused(int64_t nx, int64_t ny) {
   return nx < 1 || ny < 1 || nx >= (1LL << 30) || ny >= (1LL << 30) ||
-         (ny + kBlock - 1) / kBlock > 65535LL;
+         ctas(nx, ny) > 0x7fffffffLL;
 }
 
-// The launch constants from their host floats: 20 (exact) or 30 (fast).
+// The launch constants from their host floats: 20 (exact) or 18 (fast).
 Params params_from(const void* params, int64_t exact) {
   Params k{};
   const float* h = static_cast<const float*>(params);
-  const int n = exact ? 20 : kMaxParams;
+  const int n = exact ? 20 : 18;
   for (int q = 0; q < n; ++q) k.v[q] = h[q];
   return k;
 }
 
-dim3 grid_of(int64_t rows, int64_t ny) {
-  return dim3(static_cast<unsigned>(rows), static_cast<unsigned>((ny + kBlock - 1) / kBlock));
-}
 
 }  // namespace
 
 // One pair step (src_hi, src_lo) -> (dst_hi, dst_lo) on `stream`. All four:
 // (9, nx, ny) float32, device, contiguous, distinct. solid: (nx, ny) uint8
 // codes 0 fluid / 1 bounce-back (read only when has_walls != 0). exact
-// selects the collision tier. params: 20 (exact) or 30 (fast) host floats
+// selects the collision tier. params: 20 (exact) or 18 (fast) host floats
 // in Params order. Returns cudaGetLastError() after the launch.
 extern "C" int lbm_stream_collide_ds_launch(const void* src_hi, const void* src_lo,
                                             void* dst_hi, void* dst_lo,
@@ -531,7 +555,7 @@ extern "C" int lbm_stream_collide_ds_launch(const void* src_hi, const void* src_
                                             const void* params, void* stream) {
   if (refused(nx, ny)) return static_cast<int>(cudaErrorInvalidValue);
   const Params k = params_from(params, exact);
-  const dim3 grid = grid_of(nx, ny);
+  const dim3 grid(static_cast<unsigned>(ctas(nx, ny)));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* sh = static_cast<const float*>(src_hi);
   const float* sl = static_cast<const float*>(src_lo);
@@ -540,15 +564,15 @@ extern "C" int lbm_stream_collide_ds_launch(const void* src_hi, const void* src_
   const uint8_t* w = static_cast<const uint8_t*>(solid);
   if (has_walls) {
     if (exact) {
-      lbm_stream_collide_ds<true, true><<<grid, kBlock, 0, st>>>(sh, sl, dh, dl, w, nx, ny, k);
+      lbm_stream_collide_ds<true, true><<<grid, kTile, 0, st>>>(sh, sl, dh, dl, w, nx, ny, k);
     } else {
-      lbm_stream_collide_ds<true, false><<<grid, kBlock, 0, st>>>(sh, sl, dh, dl, w, nx, ny, k);
+      lbm_stream_collide_ds<true, false><<<grid, kTile, 0, st>>>(sh, sl, dh, dl, w, nx, ny, k);
     }
   } else {
     if (exact) {
-      lbm_stream_collide_ds<false, true><<<grid, kBlock, 0, st>>>(sh, sl, dh, dl, w, nx, ny, k);
+      lbm_stream_collide_ds<false, true><<<grid, kTile, 0, st>>>(sh, sl, dh, dl, w, nx, ny, k);
     } else {
-      lbm_stream_collide_ds<false, false><<<grid, kBlock, 0, st>>>(sh, sl, dh, dl, w, nx, ny, k);
+      lbm_stream_collide_ds<false, false><<<grid, kTile, 0, st>>>(sh, sl, dh, dl, w, nx, ny, k);
     }
   }
   return static_cast<int>(cudaGetLastError());
@@ -576,12 +600,12 @@ extern "C" int lbm_stream_collide_ds_ext_launch(
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Params k = params_from(params, exact);
-  const dim3 grid = grid_of(rows, ny);
+  const dim3 grid(static_cast<unsigned>(ctas(rows, ny)));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Ext e{static_cast<const float*>(top_hi), static_cast<const float*>(top_lo),
               static_cast<const float*>(bot_hi), static_cast<const float*>(bot_lo),
               static_cast<const uint8_t*>(solid_top), static_cast<const uint8_t*>(solid_bot),
-              row0};
+              row0, rows};
   const float* sh = static_cast<const float*>(src_hi);
   const float* sl = static_cast<const float*>(src_lo);
   float* dh = static_cast<float*>(dst_hi);
@@ -589,15 +613,15 @@ extern "C" int lbm_stream_collide_ds_ext_launch(
   const uint8_t* w = static_cast<const uint8_t*>(solid);
   if (has_walls) {
     if (exact) {
-      lbm_stream_collide_ds_ext<true, true><<<grid, kBlock, 0, st>>>(sh, sl, dh, dl, w, e, nx, ny, k);
+      lbm_stream_collide_ds_ext<true, true><<<grid, kTile, 0, st>>>(sh, sl, dh, dl, w, e, nx, ny, k);
     } else {
-      lbm_stream_collide_ds_ext<true, false><<<grid, kBlock, 0, st>>>(sh, sl, dh, dl, w, e, nx, ny, k);
+      lbm_stream_collide_ds_ext<true, false><<<grid, kTile, 0, st>>>(sh, sl, dh, dl, w, e, nx, ny, k);
     }
   } else {
     if (exact) {
-      lbm_stream_collide_ds_ext<false, true><<<grid, kBlock, 0, st>>>(sh, sl, dh, dl, w, e, nx, ny, k);
+      lbm_stream_collide_ds_ext<false, true><<<grid, kTile, 0, st>>>(sh, sl, dh, dl, w, e, nx, ny, k);
     } else {
-      lbm_stream_collide_ds_ext<false, false><<<grid, kBlock, 0, st>>>(sh, sl, dh, dl, w, e, nx, ny, k);
+      lbm_stream_collide_ds_ext<false, false><<<grid, kTile, 0, st>>>(sh, sl, dh, dl, w, e, nx, ny, k);
     }
   }
   return static_cast<int>(cudaGetLastError());

@@ -203,7 +203,7 @@ def load_library() -> ctypes.CDLL:
         ctypes.c_int64,   # ny
         ctypes.c_int64,   # has_walls
         ctypes.c_int64,   # exact
-        ctypes.c_void_p,  # params: 20 (exact) or 30 (fast) host floats
+        ctypes.c_void_p,  # params: 20 (exact) or 18 (fast) host floats
         ctypes.c_void_p,  # cudaStream_t
     ]
     fn = lib.lbm_stream_collide_ds_ext_launch
@@ -226,7 +226,7 @@ def load_library() -> ctypes.CDLL:
         ctypes.c_int64,   # rows written
         ctypes.c_int64,   # has_walls
         ctypes.c_int64,   # exact
-        ctypes.c_void_p,  # params: 20 (exact) or 30 (fast) host floats
+        ctypes.c_void_p,  # params: 20 (exact) or 18 (fast) host floats
         ctypes.c_void_p,  # cudaStream_t
     ]
     fn = lib.lbm_flat_steps_launch

@@ -60,16 +60,16 @@ def kernel_constants_ds(cfg: LatticeConfig, exact: bool) -> tuple[float, ...]:
     exactly as ds_engine splits them, in the order of Params in
     csrc/lbm_ds_step.cu.
 
-    exact=False (the fast tier, 30 floats): the split_const quads
-    (hi, lo, hh, hl) of c1, iw0, iw14, iw58, c3, csixth, then the pairs
-    one, a14, a58. exact=True (20 floats): the pairs one, itau, c3, c45,
-    c15, w0, w14, w58, a14, a58. Cached: `step` reads them at every
-    launch."""
+    exact=False (the fast tier, 18 floats): the pairs c1, iw0, iw14,
+    iw58, c3, csixth (the (hi, lo) of their split_const quads: the kernel
+    forms a product's error by one FMA and needs no presplit halves), one,
+    a14, a58. exact=True (20 floats): the pairs one, itau, c3, c45, c15,
+    w0, w14, w58, a14, a58. Cached: `step` reads them at every launch."""
     if exact:
         vals = [x for v in ds_engine._const_values(cfg).values()
                 for x in df64.const_literal(v)]
     else:
-        vals = [x for v in ds_engine._fast_const_values(cfg).values() for x in v]
+        vals = [x for v in ds_engine._fast_const_values(cfg).values() for x in v[:2]]
     return tuple(float(x) for x in vals)
 
 

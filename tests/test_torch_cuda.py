@@ -305,6 +305,35 @@ def test_ds_kernel_equals_step_reference(name, exact, cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("exact", [False, True])
+@pytest.mark.parametrize("name", ["symmetric channel", "plate", "empty"])
+def test_ds_kernel_chain_from_rest_equals_step_reference(name, exact, cuda_device):
+    """300 fast or 150 exact steps from rest at 48x96, the kernel's chain
+    against step_reference's, bitwise at the end: the kernel forms a
+    product's error by one FMA where the plain version splits, and the
+    near-zero velocities of a flow starting from rest (on a symmetric
+    channel the cross-channel one stays near zero) are where its products
+    come closest to the edge of the domain in which the two agree."""
+    walls = {"symmetric channel": geometry.channel(48, 96), "plate": _plate_48x96(),
+             "empty": geometry.empty(48, 96)}[name]
+    cfg = LatticeConfig(nx=48, ny=96, dtype=np.float64)
+    solid = torch.as_tensor(walls.astype(np.uint8), device=cuda_device)
+    has_walls = bool(walls.any())
+    ref = df64.from_f64(initial_state(cfg), cuda_device)
+    a = df64.DS(ref.hi.clone(), ref.lo.clone())
+    b = df64.DS(torch.empty_like(a.hi), torch.empty_like(a.lo))
+    steps = 150 if exact else 300
+    before = fdk.LAUNCHES
+    for _ in range(steps):
+        fdk.step(a, b, solid, cfg, has_walls=has_walls, exact=exact)
+        a, b = b, a
+        ref = fdk.step_reference(ref.hi, ref.lo, solid if has_walls else None, cfg, exact)
+    torch.cuda.synchronize()
+    assert fdk.LAUNCHES == before + steps
+    assert torch.equal(a.hi, ref.hi) and torch.equal(a.lo, ref.lo)
+
+
+@pytest.mark.cuda
 def test_ds_wrapper_refuses_aliased_buffers(cuda_device):
     cfg, walls = _scene("barrier", np.float64)
     a = _perturbed_pair(cfg, cuda_device)

@@ -182,3 +182,133 @@ def test_host_splits_equal_jax():
         assert tuple(float(c) for c in df64.const(v)) == tuple(
             float(c) for c in jdf.const_literal(v))
         assert df64.split_const(v) == jdf.split_const(v)
+
+
+# --- the CUDA ds kernel's one-FMA products against Dekker's TwoProd ----------
+#
+# csrc/lbm_ds_step.cu forms the error of a product as fma(a, b, -p), p =
+# fl(a * b), where df64.two_prod (the plain version) splits both operands.
+# Both are the exact error a * b - p when it is representable, so they are
+# the same float wherever that holds; these cases show where.
+
+# Leading-bit exponents (a = +-1.m * 2^ea) of the domain: ea + eb >= EDGE,
+# and at most TOP each (Dekker's split multiplies by 4097 and overflows
+# above it). From -103 up both errors are exact; from EDGE to -104 only
+# Dekker's last partial products round, onto the 2^-149 grid on which the
+# rest of its sum lies at even multiples, so they round as the FMA's one
+# rounding does, ties included. FIRST_MISS: the first exponent sum under
+# the edge at which the two differ, by the kind of operand a.
+EDGE, TOP = -113, 114
+FIRST_MISS = {"normal": -115, "subnormal": -114}
+
+
+def _fma_error(a, b):
+    """(p, fma(a, b, -p)) for float32 arrays, emulated exactly: the
+    float64 product of two float32 values is exact, and so is its
+    difference from the float32 product p; one rounding to float32 then
+    gives the FMA's result, signed zeros included."""
+    p = a * b
+    e = (a.astype(np.float64) * b.astype(np.float64) - p.astype(np.float64)).astype(np.float32)
+    return p, e
+
+
+def _bits(x):
+    return np.asarray(x, np.float32).view(np.uint32)
+
+
+def _draw(rng, e):
+    """float32 values of random signs and 24-bit mantissas at leading-bit
+    exponents e (rounded to the subnormal grid below -126)."""
+    m = (2**23 + rng.integers(0, 2**23, size=len(e))) / 2.0**23
+    return (np.ldexp(m, e) * rng.choice([-1.0, 1.0], size=len(e))).astype(np.float32)
+
+
+def _operands(rng, n, exp_sum, kind="normal"):
+    """n float32 pairs (a, b) whose leading-bit exponents add up to
+    exp_sum, b normal and at most TOP; a normal, or subnormal."""
+    if kind == "normal":
+        ea = rng.integers(max(-126, exp_sum - TOP), min(TOP, exp_sum + 126) + 1, size=n)
+    else:
+        ea = rng.integers(-149, -126, size=n)
+    a = _draw(rng, ea)
+    eb = exp_sum - (np.frexp(a.astype(np.float64))[1] - 1)
+    keep = eb <= TOP
+    return a[keep], _draw(rng, eb[keep])
+
+
+def _differs(a, b):
+    """Where df64.two_prod's error differs from the one-FMA error, bitwise."""
+    p, e = df64.two_prod(_t(a), _t(b))
+    want_p, want_e = _fma_error(a, b)
+    assert np.array_equal(_bits(_np(p)), _bits(want_p))
+    return _bits(_np(e)) != _bits(want_e)
+
+
+@pytest.mark.parametrize("kind,sums,n", [
+    ("normal", (EDGE, -90), 4096), ("normal", (-89, 0), 256), ("normal", (1, 125), 256),
+    ("subnormal", (EDGE, -60), 4096),
+])
+def test_fma_error_equals_two_prod_in_the_domain(kind, sums, n):
+    """Every exponent sum of the domain, n random pairs each: the one-FMA
+    error is Dekker's, bit for bit."""
+    rng = np.random.default_rng(sums[0] & 0xFFFF)
+    for s in range(sums[0], sums[1] + 1):
+        a, b = _operands(rng, n, s, kind)
+        assert not _differs(a, b).any(), f"exponent sum {s}"
+
+
+@pytest.mark.parametrize("kind", sorted(FIRST_MISS))
+def test_fma_error_first_differs_just_under_the_edge(kind):
+    """Under the edge the last partial products of Dekker's sum round at
+    odd multiples of 2^-149, or below it, before the sum; the FMA rounds
+    once. The first exponent sum under EDGE at which the two differ, over
+    4096 random pairs a sum, is FIRST_MISS[kind]: the domain in the
+    kernel's source comment is shown, not claimed."""
+    rng = np.random.default_rng(7)
+    first = None
+    for s in range(EDGE - 1, -150, -1):
+        a, b = _operands(rng, 4096, s, kind)
+        if _differs(a, b).any():
+            first = s
+            break
+    assert first == FIRST_MISS[kind]
+
+
+def test_fma_error_equals_two_prod_at_zeros():
+    """Zeros of both signs against zeros, normal and subnormal operands:
+    both errors are +0."""
+    z = np.array([0.0, -0.0], np.float32)
+    others = np.array([0.0, -0.0, 1.0, -1.0, 3.5e-3, -7.0e20, 1.0e-40, -1.0e-45], np.float32)
+    a, b = np.meshgrid(z, others)
+    a, b = a.ravel(), b.ravel()
+    for x, y in ((a, b), (b, a)):
+        assert not _differs(x, y).any()
+        p, e = df64.two_prod(_t(x), _t(y))
+        assert (_bits(_np(e)) == 0).all()
+
+
+def _kernel_constants(cfg):
+    """The fast tier's split_const quads for cfg (ds_engine's order)."""
+    return [v for v in ds_engine._fast_const_values(cfg).values() if len(v) == 4]
+
+
+@pytest.mark.parametrize("knobs", [{}, {"tau": 0.6, "csq": 0.8, "accel": 0.01}])
+def test_mul_c_with_the_whole_constant_equals_the_presplit_one(knobs):
+    """mul_c with the product's error by one FMA against c.hi (the
+    kernel's form) equals df64.mul_c with split_const's presplit halves,
+    bit for bit, for every fast-tier constant; hh and hl are Veltkamp's
+    halves of hi, so the presplit product is Dekker's TwoProd."""
+    cfg = LatticeConfig(nx=16, ny=40, dtype=np.float64, **knobs)
+    rng = np.random.default_rng(8)
+    x = rng.normal(size=8192) * np.exp(rng.uniform(-40, 4, size=8192))
+    a = df64.from_f64(np.concatenate([x, [0.0, -0.0]]))
+    for c in _kernel_constants(cfg):
+        hi, lo, hh, hl = c
+        vh, vl = df64._split(_t(np.array([hi])))
+        assert _bits(_np(vh)) == _bits(hh) and _bits(_np(vl)) == _bits(hl)
+        got = df64.mul_c(a, tuple(torch.tensor(v) for v in c))
+        ah, al = _np(a.hi), _np(a.lo)
+        p, e = _fma_error(ah, np.full_like(ah, hi))
+        want_lo = e + (ah * lo + al * hi)
+        assert np.array_equal(_bits(_np(got.hi)), _bits(p))
+        assert np.array_equal(_bits(_np(got.lo)), _bits(want_lo))
