@@ -8,9 +8,9 @@ Phases, each of which raises on failure:
 1. device: a CUDA card must be present; prints nvidia-smi's name and
    power limit;
 2. build: compiles the sources of csrc/ (lbm_step.cu, lbm_wide_step.cu,
-   lbm_ds_step.cu, lbm_flat_step.cu, lbm_probes.cu) with nvcc, one process
-   each, all started together (timed), and prints ptxas's registers and
-   spills for every kernel instantiation;
+   lbm_wide_ext_step.cu, lbm_ds_step.cu, lbm_flat_step.cu, lbm_probes.cu)
+   with nvcc, one process each, all started together (timed), and prints
+   ptxas's registers and spills for every kernel instantiation;
 3. the float32 stream-collide kernel against its plain PyTorch version
    (fused_kernel.step_reference) on the card, one step at a time from
    identical inputs, at four scenes, plane and wall-free variants; they
@@ -81,20 +81,31 @@ Phases, each of which raises on failure:
    their plain versions (step_reference_ext) on meshes of 2 and 4
    virtual shards of the card, 10 single steps at the four scenes of
    phase 3, with the forcing guard off at column 0 on both sides of a
-   shard boundary: float32 wall-free, plane, spec and slip, bf16 spec,
-   ds fast and exact tiers, bitwise; fast math on 4 shards within
-   FAST_MATH_RTOL of the IEEE single-chip plain version;
+   shard boundary: float32 wall-free, plane, spec and slip, bf16 plane and
+   spec, ds fast and exact tiers, bitwise. Both forms of the
+   stream-collide kernel's (wide: lbm_wide_ext_step.cu, several columns
+   per thread, 16-byte accesses; narrow: lbm_step.cu, one site per
+   thread) from the same input each step, each against step_reference_ext
+   and the other, the wide one also against step_reference_ext_wide; fast
+   math on 4 shards within FAST_MATH_RTOL of the IEEE single-chip plain
+   version;
 16. the sharded main paths on the 800x4000 reference scene, every launch
-   counted: sharded-cuda over 1 and 4 virtual shards for WARMUP +
-   MAIN_STEPS steps, bitwise equal to phase 4's cuda state;
-   sharded-cuda-fused over 4 shards, FUSED_STEPS steps, and
-   sharded-cuda-ds64 over 4 shards, DS_SHARDED_STEPS steps, bitwise
-   equal to cuda and cuda-ds64; with two or more cards also a mesh of
-   the cards;
+   counted by variant and by form: sharded-cuda over 1 and 4 virtual
+   shards for WARMUP + MAIN_STEPS steps, each shard's interior launch of
+   the wide form and its two one-row launches of the narrow form (the
+   launcher's default), bitwise equal to phase 4's cuda state; sharded-cuda-fused over 4
+   shards, FUSED_STEPS steps, and sharded-cuda-ds64 over 4 shards,
+   DS_SHARDED_STEPS steps, bitwise equal to cuda and cuda-ds64; with two
+   or more cards also a mesh of the cards. Then sharded-cuda and
+   sharded-cuda-rdma over 4 virtual shards at 800x4002, an NY the wide
+   forms do not take, NARROW_SHARDED_STEPS steps, every launch of the
+   narrow form, bitwise equal to cuda there;
 17. times: us/step of each sharded path beside cuda and cuda-ds64, in
    turns, with the host's enqueue time; the halo exchange per step; the
    ext-halo kernels' launches of one step (interior + edges, or one per
-   shard, for the ds kernel too) beside the single-chip launch, as the
+   shard; both forms of the stream-collide kernel's, and the default mix,
+   in float32 and bf16, in turns; the ds kernel's too) beside the
+   single-chip launch, as the
    host launches them and queued behind a spin (the card's own time), and
    their plain versions;
 18. the four anatomy probes (ops/probes.py) against their plain versions,
@@ -121,22 +132,25 @@ Phases, each of which raises on failure:
 
 22. the rdma form of the stream-collide kernel (the halo exchange inside
    the kernel: one launch per shard and step, each shard on a stream of
-   its own, no copy from the host) against step_reference_rdma on 2 and 4
-   virtual shards, 10 steps at the four scenes of phase 3, the comm rows
-   each shard received included: float32 wall-free, plane, spec and slip,
-   bf16 spec, bitwise; fast math on 4 shards within FAST_MATH_RTOL; then a
-   withheld send (one shard of two launched) must end in a raised timeout
-   and not in a hang;
+   its own, no copy from the host), both forms (wide and narrow, as in
+   phase 15), against step_reference_rdma on 2 and 4 virtual shards, 10
+   steps at the four scenes of phase 3, the comm rows each shard received
+   included: float32 wall-free, plane, spec and slip, bf16 plane and spec,
+   bitwise, the wide form also against its plain version and the two
+   forms' states against each other; fast math on 4 shards within
+   FAST_MATH_RTOL; then a withheld send (one shard of two launched) must
+   end in a raised timeout and not in a hang;
 23. the rdma path, inside phase 16: Simulation(backend=
    "sharded-cuda-rdma", allow_experimental=True) over 4 virtual shards on
    the 800x4000 reference scene for WARMUP + MAIN_STEPS steps, 4 counted
-   launches and 0 halo copies per step, bitwise equal to phase 4's cuda
-   state (and so to sharded-cuda's); with two or more cards also over a
-   mesh of the cards (peer pointers), else a line says that it was not
-   run;
+   launches of the wide form and 0 halo copies per step, bitwise equal to
+   phase 4's cuda state (and so to sharded-cuda's); with two or more cards
+   also over a mesh of the cards (peer pointers), else a line says that it
+   was not run; and at 800x4002 in the narrow form, as phase 16;
 24. its times, inside phase 17: us/step and host enqueue us/step in turns
    with cuda, sharded-cuda and sharded-cuda-fused, and one step's 4 rdma
-   launches queued behind a spin beside -fused's 4 ext-halo launches.
+   launches of each form queued behind a spin, in turns, beside the
+   ext-halo form's 4 launches, in float32 and bf16.
 Phases 22-24 run with phases 15-17 (sharded_phases).
 
 The kernels line gives every kernel's bound: the larger of its bytes
@@ -187,9 +201,10 @@ BF16_RTOL, BF16_ATOL = 0.05, 2e-3
 # steps of the slip and fast-math paths through the facade
 OPTION_STEPS = 1000
 # the narrow form's path: an NY that is no multiple of the wide form's
-# column counts, and its steps
+# column counts, and its steps; the sharded paths' steps there
 NARROW_NY = 4002
 NARROW_STEPS = 1000
+NARROW_SHARDED_STEPS = 500
 # the sharded paths held against a single-chip path other than phase 4's
 FUSED_STEPS = 1000
 DS_SHARDED_STEPS = 2000
@@ -301,7 +316,9 @@ def reset_counts():
     fused_kernel.VARIANT_LAUNCHES.clear()
     fused_kernel.FORM_LAUNCHES.clear()
     fused_kernel.EXT_VARIANT_LAUNCHES.clear()
+    fused_kernel.EXT_FORM_LAUNCHES.clear()
     fused_kernel.RDMA_VARIANT_LAUNCHES.clear()
+    fused_kernel.RDMA_FORM_LAUNCHES.clear()
     probes.LAUNCHES.clear()
 
 
@@ -336,16 +353,22 @@ def read_counts():
 
 def expect_counts(label, want, form=None):
     """Raise unless the launch counts are `want`; with `form`, also unless
-    every launch of the single-chip stream-collide kernel took that form."""
-    from latticeboltzmann_tpu_torch.ops import fused_kernel
+    the launches of the stream-collide kernel (single-chip, ext-halo and
+    rdma forms) took that form: every launch, or for a dict {form:
+    launches} of the kind that launched, those counts."""
+    from latticeboltzmann_tpu_torch.ops import fused_kernel as fk
 
     got = read_counts()
     if got != want:
         raise AssertionError(f"{label}: kernel launches {got}, expected {want}")
-    forms = dict(fused_kernel.FORM_LAUNCHES)
-    if form is not None and forms != {form: fused_kernel.LAUNCHES}:
-        raise AssertionError(f"{label}: launches by form {forms}, expected "
-                             f"{fused_kernel.LAUNCHES} of the {form} form")
+    for kind, total, counts in (("single-chip", fk.LAUNCHES, fk.FORM_LAUNCHES),
+                                ("ext-halo", fk.EXT_LAUNCHES, fk.EXT_FORM_LAUNCHES),
+                                ("rdma", fk.RDMA_LAUNCHES, fk.RDMA_FORM_LAUNCHES)):
+        forms = {f: n for f, n in counts.items() if n}
+        expected = form if isinstance(form, dict) else {form: total}
+        if form is not None and total and forms != expected:
+            raise AssertionError(f"{label}: {kind} launches by form {forms}, expected "
+                                 f"{expected}")
     return got
 
 
@@ -1210,9 +1233,12 @@ def ext_calls(launcher, L, src, dst, halo, geom, **kw):
 
 def compare_ext(name, cfg, geom, f0, n, steps=10, fast_math=False):
     """`steps` steps of the ext-halo stream-collide kernel over n virtual
-    shards of the card, each shard held against step_reference_ext from
-    the same input (bitwise, unless fast_math). geom: None, a host class
-    plane, or a wall spec. Returns (joined state, max |diff|)."""
+    shards of the card, both forms (wide, narrow) launched from the same
+    input each step, each shard held against step_reference_ext
+    (bitwise, unless fast_math), and so each form against the other; the
+    wide form also against its plain version step_reference_ext_wide.
+    geom: None, a host class plane, or a wall spec. Returns (joined state,
+    {form: max |diff|})."""
     from latticeboltzmann_tpu_torch.ops import fused_kernel
     from latticeboltzmann_tpu_torch.utils.interop import state_tensor
 
@@ -1221,32 +1247,47 @@ def compare_ext(name, cfg, geom, f0, n, steps=10, fast_math=False):
     plane = isinstance(geom, np.ndarray)
     geoms = shard_planes(torch.as_tensor(geom, device=dev), n) if plane else [geom] * n
     f = state_tensor(f0, cfg.dtype, dev)
-    err = 0.0
+    err = dict.fromkeys(fused_kernel.FORMS, 0.0)
     for _ in range(steps):
         shards = [f[:, k * L:(k + 1) * L].contiguous() for k in range(n)]
         halos = ring_halos(shards)
-        outs = []
+        outs = {form: [] for form in fused_kernel.FORMS}
         for k in range(n):
-            dst = torch.full_like(shards[k], float("nan"))
-            for call in ext_calls(fused_kernel.ext_launcher, L, shards[k], dst, halos[k],
-                                  geoms[k], cfg=cfg, row_offset=k * L, fast_math=fast_math):
-                call()
             ref = fused_kernel.step_reference_ext(shards[k], halos[k], geoms[k], cfg,
                                                   row_offset=k * L)
-            d = (dst.float() - ref.float()).abs()
-            e = float(d.max())
-            if not fast_math and not (torch.equal(dst, ref) and e <= KERNEL_ATOL):
-                bad = torch.nonzero(dst != ref)
-                raise AssertionError(
-                    f"{name}: ext-halo kernel != step_reference_ext on shard {k} of {n}, "
-                    f"max |diff| {e!r} at {bad.shape[0]} values (first {bad[:5].tolist()})")
-            err = max(err, e)
-            outs.append(dst)
-        f = torch.cat(outs, dim=1)
+            if not fast_math:
+                wide_ref = fused_kernel.step_reference_ext_wide(
+                    shards[k], halos[k], geoms[k], cfg, fused_kernel.WIDE_COLUMNS[ref.dtype],
+                    row_offset=k * L)
+                if not torch.equal(wide_ref, ref):
+                    raise AssertionError(f"{name}: step_reference_ext_wide != step_reference_ext "
+                                         f"on shard {k} of {n}")
+            for form in fused_kernel.FORMS:
+                dst = torch.full_like(shards[k], float("nan"))
+                for call in ext_calls(fused_kernel.ext_launcher, L, shards[k], dst, halos[k],
+                                      geoms[k], cfg=cfg, row_offset=k * L, fast_math=fast_math,
+                                      form=form):
+                    call()
+                d = (dst.float() - ref.float()).abs()
+                e = float(d.max())
+                if not fast_math and not (torch.equal(dst, ref) and e <= KERNEL_ATOL):
+                    bad = torch.nonzero(dst != ref)
+                    raise AssertionError(
+                        f"{name}: ext-halo kernel ({form} form) != step_reference_ext on shard "
+                        f"{k} of {n}, max |diff| {e!r} at {bad.shape[0]} values (first "
+                        f"{bad[:5].tolist()})")
+                err[form] = max(err[form], e)
+                outs[form].append(dst)
+            if not torch.equal(outs["wide"][k], outs["narrow"][k]):
+                raise AssertionError(f"{name}: the ext-halo kernel's wide form != its narrow "
+                                     f"form on shard {k} of {n}")
+        f = torch.cat(outs["wide"], dim=1)
     torch.cuda.synchronize()
     kind = "wall-free" if geom is None else ("plane" if plane else "spec")
     print(f"ext-halo kernel vs step_reference_ext {name} ({f.dtype}, {kind}, "
-          f"fast math {fast_math}), {n} virtual shards, {steps} steps: max |diff| = {err!r}")
+          f"fast math {fast_math}), {n} virtual shards, {steps} steps, forms wide == narrow"
+          f"{'' if fast_math else ' == step_reference_ext_wide'}: max |diff| = "
+          f"{max(err.values())!r}")
     return f, err
 
 
@@ -1303,7 +1344,8 @@ class RdmaRing:
     RdmaEnd and a stream per shard, one launch per shard and buffer
     parity. step() launches the next step of every shard (or of `only`)."""
 
-    def __init__(self, cfg, geom, f0, n, fast_math=False, timeout_s=RDMA_CHECK_TIMEOUT_S):
+    def __init__(self, cfg, geom, f0, n, fast_math=False, timeout_s=RDMA_CHECK_TIMEOUT_S,
+                 form=None):
         from latticeboltzmann_tpu_torch.ops import fused_kernel
         from latticeboltzmann_tpu_torch.utils.interop import state_tensor
 
@@ -1319,7 +1361,7 @@ class RdmaRing:
         self.launches = [[fused_kernel.rdma_launcher(
             self.bufs[p][k], self.bufs[1 - p][k], self.ends[k], self.ends[(k - 1) % n],
             self.ends[(k + 1) % n], self.geoms[k], cfg, row_offset=k * self.L,
-            fast_math=fast_math, timeout_s=timeout_s, stream=self.streams[k])
+            fast_math=fast_math, timeout_s=timeout_s, stream=self.streams[k], form=form)
             for k in range(n)] for p in range(2)]
         self.parity, self.steps_done = 0, 0
         torch.cuda.synchronize()
@@ -1356,42 +1398,60 @@ class RdmaRing:
 
 def compare_rdma(name, cfg, geom, f0, n, steps=10, fast_math=False):
     """`steps` steps of the rdma kernel over n virtual shards of the card,
-    each shard on a stream of its own, no copy from the host. After every
-    step each shard's block and the comm rows it received are held against
-    step_reference_rdma from the same inputs (bitwise, unless fast_math).
-    Returns (joined state, max |diff|)."""
+    each shard on a stream of its own, no copy from the host, in each form
+    (wide, narrow) from the same start. After every step each shard's
+    block and the comm rows it received are held against
+    step_reference_rdma from the same inputs (bitwise, unless fast_math),
+    the wide form's blocks also against its plain version, and the two
+    forms' states against each other. Returns (joined state, {form: max
+    |diff|})."""
     from latticeboltzmann_tpu_torch.ops import fused_kernel
 
-    ring = RdmaRing(cfg, geom, f0, n, fast_math=fast_math)
-    ref_ends = [fused_kernel.rdma_end(cfg, e.top.device) for e in ring.ends]
-    err = 0.0
-    for step in range(1, steps + 1):
-        srcs, dsts = ring.bufs[ring.parity], ring.bufs[1 - ring.parity]
-        ring.step()
-        if any(ring.timed_out()):
-            raise AssertionError(f"{name}: rdma launches of step {step} gave up waiting for their "
-                                 f"neighbours' rows (error words {ring.timed_out()})")
-        refs = fused_kernel.step_reference_rdma(srcs, ref_ends, ring.geoms, cfg, step)
-        for k in range(n):
-            for side in ("top", "bot", "flags"):
-                got, want = getattr(ring.ends[k], side), getattr(ref_ends[k], side)
-                if not torch.equal(got, want):
-                    raise AssertionError(f"{name}: shard {k} of {n}, step {step}: comm {side} != "
-                                         "step_reference_rdma's")
-            e = float((dsts[k].float() - refs[k].float()).abs().max())
-            if not fast_math and not (torch.equal(dsts[k], refs[k]) and e <= KERNEL_ATOL):
-                bad = torch.nonzero(dsts[k] != refs[k])
-                raise AssertionError(
-                    f"{name}: rdma kernel != step_reference_rdma on shard {k} of {n}, step {step}, "
-                    f"max |diff| {e!r} at {bad.shape[0]} values (first {bad[:5].tolist()})")
-            err = max(err, e)
-    f = torch.cat(ring.bufs[ring.parity], dim=1)
+    err = dict.fromkeys(fused_kernel.FORMS, 0.0)
+    states = {}
+    for form in fused_kernel.FORMS:
+        ring = RdmaRing(cfg, geom, f0, n, fast_math=fast_math, form=form)
+        if {launch.form for p in ring.launches for launch in p} != {form}:
+            raise AssertionError(f"{name}: the rdma launches did not take the {form} form")
+        ref_ends = [fused_kernel.rdma_end(cfg, e.top.device) for e in ring.ends]
+        for step in range(1, steps + 1):
+            srcs, dsts = ring.bufs[ring.parity], ring.bufs[1 - ring.parity]
+            ring.step()
+            if any(ring.timed_out()):
+                raise AssertionError(f"{name}: rdma launches ({form} form) of step {step} gave up "
+                                     f"waiting for their neighbours' rows (error words "
+                                     f"{ring.timed_out()})")
+            refs = fused_kernel.step_reference_rdma(srcs, ref_ends, ring.geoms, cfg, step)
+            for k in range(n):
+                for side in ("top", "bot", "flags"):
+                    got, want = getattr(ring.ends[k], side), getattr(ref_ends[k], side)
+                    if not torch.equal(got, want):
+                        raise AssertionError(f"{name}: shard {k} of {n}, step {step}: comm {side} "
+                                             f"({form} form) != step_reference_rdma's")
+                e = float((dsts[k].float() - refs[k].float()).abs().max())
+                if not fast_math and not (torch.equal(dsts[k], refs[k]) and e <= KERNEL_ATOL):
+                    bad = torch.nonzero(dsts[k] != refs[k])
+                    raise AssertionError(
+                        f"{name}: rdma kernel ({form} form) != step_reference_rdma on shard {k} "
+                        f"of {n}, step {step}, max |diff| {e!r} at {bad.shape[0]} values (first "
+                        f"{bad[:5].tolist()})")
+                if (form == "wide" and not fast_math
+                        and not torch.equal(dsts[k], fused_kernel.rdma_compute_reference(
+                            srcs[k], ref_ends[k], ring.geoms[k], cfg, step, row_offset=k * ring.L,
+                            form="wide"))):
+                    raise AssertionError(f"{name}: the wide rdma kernel != its plain version on "
+                                         f"shard {k} of {n}, step {step}")
+                err[form] = max(err[form], e)
+        states[form] = torch.cat(ring.bufs[ring.parity], dim=1)
+        del ring
+    if not torch.equal(states["wide"], states["narrow"]):
+        raise AssertionError(f"{name}: the rdma kernel's wide form != its narrow form")
     geom_kind = ("wall-free" if geom is None else
                  ("plane" if isinstance(geom, np.ndarray) else "spec"))
-    print(f"rdma kernel vs step_reference_rdma {name} ({f.dtype}, {geom_kind}, fast math "
-          f"{fast_math}), {n} virtual shards, {steps} steps, comm rows and flags equal: "
-          f"max |diff| = {err!r}")
-    return f, err
+    print(f"rdma kernel vs step_reference_rdma {name} ({states['wide'].dtype}, {geom_kind}, fast "
+          f"math {fast_math}), {n} virtual shards, {steps} steps, forms wide == narrow, comm rows "
+          f"and flags equal: max |diff| = {max(err.values())!r}")
+    return states["wide"], err
 
 
 def withheld_send(cfg, f0):
@@ -1437,13 +1497,14 @@ def sharded_phases(f32_main, ds_counts, clock):
     from latticeboltzmann_tpu_torch.models import engine
     from latticeboltzmann_tpu_torch.ops import df64, fused_ds_kernel, fused_kernel
     from latticeboltzmann_tpu_torch.parallel import sharded
-    from latticeboltzmann_tpu_torch.utils.interop import bytes_per_site, state_tensor
+    from latticeboltzmann_tpu_torch.utils.interop import bytes_per_site, state_tensor, storage_dtype
 
     dev = torch.device("cuda", torch.cuda.current_device())
     rng = np.random.default_rng(SEED + 2)
 
-    # 15. the ext-halo kernels against their plain versions
-    ext_err = ds_ext_err = 0.0
+    # 15. the ext-halo kernels against their plain versions, both forms of
+    # the stream-collide kernel's
+    ext_err, ds_ext_err = {}, 0.0
     for name, cfg, w in scenes(np.float32):
         f0 = guard_off_at_boundaries(perturbed_state(cfg, rng), cfg.nx)
         slip_w, slip_x, slip_y = slip_scene(cfg.nx, cfg.ny)
@@ -1453,8 +1514,9 @@ def sharded_phases(f32_main, ds_counts, clock):
         cfg16 = dataclasses.replace(cfg, dtype="bfloat16")
         for n in (2, 4):
             for kind, g in geoms.items():
-                ext_err = max(ext_err, compare_ext(f"{name}, {kind}", cfg, g, f0, n)[1])
-            ext_err = max(ext_err, compare_ext(f"{name}, spec", cfg16, spec, f0, n)[1])
+                worst(ext_err, compare_ext(f"{name}, {kind}", cfg, g, f0, n)[1])
+            for kind in ("plane", "spec"):
+                worst(ext_err, compare_ext(f"{name}, {kind}", cfg16, geoms[kind], f0, n)[1])
     cfg = LatticeConfig(nx=800, ny=4000, dtype=np.float32)
     walls = geometry.reference_barrier(cfg.nx, cfg.ny)
     spec = geometry.infer_spec(walls)
@@ -1479,8 +1541,9 @@ def sharded_phases(f32_main, ds_counts, clock):
             for exact in (False, True):
                 ds_ext_err = max(ds_ext_err, compare_ds_ext(name, cfg64, w, f64, n, exact))
 
-    # 22. the rdma kernel against its plain version, and a withheld send
-    rdma_err = 0.0
+    # 22. the rdma kernel against its plain version, both forms, and a
+    # withheld send
+    rdma_err = {}
     for name, cfg_s, w in scenes(np.float32):
         f0_s = guard_off_at_boundaries(perturbed_state(cfg_s, rng), cfg_s.nx)
         slip_w, slip_x, slip_y = slip_scene(cfg_s.nx, cfg_s.ny)
@@ -1490,8 +1553,9 @@ def sharded_phases(f32_main, ds_counts, clock):
         cfg16 = dataclasses.replace(cfg_s, dtype="bfloat16")
         for n in (2, 4):
             for kind, g in geoms.items():
-                rdma_err = max(rdma_err, compare_rdma(f"{name}, {kind}", cfg_s, g, f0_s, n)[1])
-            rdma_err = max(rdma_err, compare_rdma(f"{name}, spec", cfg16, spec_s, f0_s, n)[1])
+                worst(rdma_err, compare_rdma(f"{name}, {kind}", cfg_s, g, f0_s, n)[1])
+            for kind in ("plane", "spec"):
+                worst(rdma_err, compare_rdma(f"{name}, {kind}", cfg16, geoms[kind], f0_s, n)[1])
     got, _ = compare_rdma("800x4000 reference_barrier", cfg, spec, f0, VIRTUAL_SHARDS,
                           steps=steps, fast_math=True)
     rdma_fast_rel = float(((got - ref).abs() / ref.abs()).max())
@@ -1512,25 +1576,37 @@ def sharded_phases(f32_main, ds_counts, clock):
         meshes[f"{n_cards} cards"] = sharded.make_mesh(n_cards)
     print(f"sharded meshes: {', '.join(f'{k} {[str(d) for d in m.devices]}' for k, m in meshes.items())}")
     sims = {}
+    by_form = {}  # (backend, mesh label, NY): the path's launches by form
 
     def launches_per_step(mesh, overlap=True):
         L = cfg.nx // mesh.size
         return mesh.size * (3 if overlap and L >= 3 else 1)
 
+    def default_forms(mesh, steps):
+        """The ext-halo launches by form of `steps` steps of the overlap
+        schedule where the wide form applies: each shard's interior wide,
+        its two one-row launches narrow (fused_kernel.ext_launcher's
+        default)."""
+        return {"wide": steps * mesh.size, "narrow": steps * 2 * mesh.size}
+
     def sharded_path(label, backend, make, mesh, cfg_, n_steps, key, per_step, want, warmup=0,
-                     copies_per_step=None, **options):
+                     copies_per_step=None, form="wide", scene=None, **options):
         """Register `backend` over `mesh`, drive it through Simulation for
-        warmup + n_steps counted steps and hold its state bitwise to
-        `want`; with copies_per_step also the halo copies the host started."""
+        warmup + n_steps counted steps, the stream-collide launches of
+        `form` (expect_counts), on `scene` (default: the reference scene's
+        walls) and hold its state bitwise to `want`; with copies_per_step
+        also the halo copies the host started."""
         engine.register_backend(backend, make(mesh))
         reset_counts()
         sharded.HALO_COPIES = 0
-        sim = Simulation(cfg_, walls, backend=backend, **options)
+        sim = Simulation(cfg_, walls if scene is None else scene, backend=backend, **options)
         sim.run(warmup)
         sim.elapsed, sim.steps_done = 0.0, 0
         sim.run(n_steps)
         n = expect_counts(f"{backend} over {label}",
-                          {key: (warmup + n_steps) * per_step})[key]
+                          {key: (warmup + n_steps) * per_step}, form)[key]
+        by_form[backend, label, cfg_.ny] = dict(fused_kernel.EXT_FORM_LAUNCHES
+                                                + fused_kernel.RDMA_FORM_LAUNCHES)
         copies = sharded.HALO_COPIES
         if copies_per_step is not None and copies != (warmup + n_steps) * copies_per_step:
             raise AssertionError(f"{backend} over {label}: {copies} halo copies from the host, "
@@ -1540,19 +1616,20 @@ def sharded_phases(f32_main, ds_counts, clock):
             raise AssertionError(f"{backend} over {label}: state != the single-chip path's after "
                                  f"{warmup + n_steps} steps, max |diff| "
                                  f"{float(np.abs(got - want).max())!r}")
-        print(f"{backend} over {label}: {warmup + n_steps} steps, {n} counted {key} launches "
-              f"({per_step} per step), {copies} halo copies from the host, bitwise equal to the "
-              f"single-chip path, Re "
+        print(f"{backend} over {label}: {warmup + n_steps} steps at {cfg_.nx}x{cfg_.ny}, {n} "
+              f"counted {key} launches ({per_step} per step; by form {form}), {copies} halo "
+              f"copies from the host, bitwise equal to the single-chip path, Re "
               f"{sim.reynolds()!r}, {sim.mlups!r} MLUPS ({sim.elapsed!r} s)")
-        sims[f"{backend}, {label}"] = sim
+        if scene is None:
+            sims[f"{backend}, {label}"] = sim
         return n
 
     key = f"ext-{fused_kernel.variant_name(torch.float32, 'spec', False, False)}"
-    launches = {}
     for label, mesh in meshes.items():
-        launches[label] = sharded_path(
+        sharded_path(
             label, "sharded-cuda", lambda m: sharded.make_cuda_backend(m, overlap=True), mesh,
-            cfg, MAIN_STEPS, key, launches_per_step(mesh), f32_main, warmup=WARMUP)
+            cfg, MAIN_STEPS, key, launches_per_step(mesh), f32_main, warmup=WARMUP,
+            form=default_forms(mesh, WARMUP + MAIN_STEPS))
     # 23. the rdma path: one launch per shard and step, no copy from the host
     rdma_key = f"rdma-{fused_kernel.variant_name(torch.float32, 'spec', False, False)}"
     rdma_launches = {}
@@ -1566,8 +1643,22 @@ def sharded_phases(f32_main, ds_counts, clock):
     if not n_cards:
         print("one card visible: the rdma path over a mesh of cards (peer pointers between "
               "cards) was not run")
-    want = Simulation(cfg, walls, backend="cuda").run(FUSED_STEPS).state()
     mesh4 = meshes[f"{VIRTUAL_SHARDS} virtual shards"]
+    # the narrow forms' sharded paths: an NY the wide forms do not take
+    cfg_n = LatticeConfig(nx=800, ny=NARROW_NY, dtype=np.float32)
+    walls_n = geometry.reference_barrier(cfg_n.nx, cfg_n.ny)
+    want = Simulation(cfg_n, walls_n, backend="cuda").run(NARROW_SHARDED_STEPS).state()
+    label4 = f"{VIRTUAL_SHARDS} virtual shards"
+    narrow_launches = {
+        "ext": sharded_path(f"{VIRTUAL_SHARDS} virtual shards", "sharded-cuda",
+                            lambda m: sharded.make_cuda_backend(m, overlap=True), mesh4, cfg_n,
+                            NARROW_SHARDED_STEPS, key, launches_per_step(mesh4), want,
+                            form="narrow", scene=walls_n),
+        "rdma": sharded_path(f"{VIRTUAL_SHARDS} virtual shards", "sharded-cuda-rdma",
+                             lambda m: sharded.make_cuda_backend(m, rdma=True), mesh4, cfg_n,
+                             NARROW_SHARDED_STEPS, rdma_key, mesh4.size, want, copies_per_step=0,
+                             form="narrow", scene=walls_n, allow_experimental=True)}
+    want = Simulation(cfg, walls, backend="cuda").run(FUSED_STEPS).state()
     sharded_path(f"{VIRTUAL_SHARDS} virtual shards", "sharded-cuda-fused",
                  lambda m: sharded.make_cuda_backend(m, overlap=False), mesh4, cfg, FUSED_STEPS,
                  key, launches_per_step(mesh4, overlap=False), want)
@@ -1613,79 +1704,107 @@ def sharded_phases(f32_main, ds_counts, clock):
     del sims, f32_paths
 
     # the ext-halo kernels' launches of one step at the main path's
-    # shapes, halos in place, beside the single-chip launch
+    # shapes, halos in place, beside the single-chip launch: both forms, in
+    # float32 and bf16, as the host launches them (event_ms), then the
+    # card's own time (queued_ms), which the kernels line reports
     n, L = VIRTUAL_SHARDS, cfg.nx // VIRTUAL_SHARDS
+    cfg16 = dataclasses.replace(cfg, dtype="bfloat16")
     full = torch.as_tensor(perturbed_state(cfg, rng), device=dev)
-    out = torch.empty_like(full)
-    srcs = [full[:, k * L:(k + 1) * L].contiguous() for k in range(n)]
-    dsts = [torch.empty_like(s) for s in srcs]
-    halos = ring_halos(srcs)
-    overlap_calls, fused_calls = [], []
-    for k in range(n):
-        overlap_calls += ext_calls(fused_kernel.ext_launcher, L, srcs[k], dsts[k], halos[k],
-                                   spec, cfg=cfg, row_offset=k * L)
-        fused_calls.append(fused_kernel.ext_launcher(srcs[k], dsts[k], halos[k], spec, cfg,
-                                                     row_offset=k * L))
-    # as the host launches them (event_ms), then the card's own time
-    # (queued_ms), which the kernels line reports
-    overlap = f"ext-halo, {n} shards, interior + edges ({len(overlap_calls)} launches)"
-    group = {
-        "single-chip kernel (1 launch)": lambda: fused_kernel.step(full, out, spec, cfg),
-        overlap: lambda: [c() for c in overlap_calls],
-        f"ext-halo, {n} shards, one launch per shard ({n})": lambda: [c() for c in fused_calls],
-    }
-    in_turns(rates, "f32 spec, one step's launches", group, 500)
-    ext_ms = in_turns(rates, "f32 spec, one step's launches", group, 50, timer=queued_ms)[overlap]
-    ext_plain_ms = event_ms(lambda: [fused_kernel.step_reference_ext(
-        srcs[k], halos[k], spec, cfg, row_offset=k * L) for k in range(n)], 20)
-    rates(f"step_reference_ext over {n} shards, its plain version (CUDA events, 20 steps)",
-          ext_plain_ms * 1e-3)
-    halo_bytes = sum(h.numel() * h.element_size() for pair in halos for h in pair)
-    f32_bound = bound(2 * full.numel() * 4 + halo_bytes, F32_OPS_PER_SITE * cfg.sites)
+    ext_t, ext_bound, fused_calls = {}, {}, {}
+    for c in (cfg, cfg16):
+        st = "bf16" if c is cfg16 else "f32"
+        a = full.to(storage_dtype(c.dtype))
+        out = torch.empty_like(a)
+        srcs = [a[:, k * L:(k + 1) * L].contiguous() for k in range(n)]
+        dsts = [torch.empty_like(x) for x in srcs]
+        halos = ring_halos(srcs)
+        group = {"single-chip kernel (1 launch)": lambda a=a, out=out, c=c: fused_kernel.step(
+            a, out, spec, c)}
+        for form in (None, *fused_kernel.FORMS):
+            calls = [call for k in range(n) for call in ext_calls(
+                fused_kernel.ext_launcher, L, srcs[k], dsts[k], halos[k], spec, cfg=c,
+                row_offset=k * L, form=form)]
+            name = (f"{form} form" if form else
+                    "default forms (interiors wide, one-row launches narrow)")
+            group[f"ext-halo, {name}, {n} shards, interior + edges ({len(calls)} launches)"] = (
+                lambda calls=calls: [call() for call in calls])
+            if form:
+                fused_calls[st, form] = [fused_kernel.ext_launcher(
+                    srcs[k], dsts[k], halos[k], spec, c, row_offset=k * L, form=form)
+                    for k in range(n)]
+                group[f"ext-halo, {form} form, {n} shards, one launch per shard ({n})"] = (
+                    lambda calls=fused_calls[st, form]: [call() for call in calls])
+        rates_c = rates_printer(c, bytes_per_site(c.dtype))
+        in_turns(rates_c, f"{st} spec, one step's launches", group, 500)
+        ext_t[st] = in_turns(rates_c, f"{st} spec, one step's launches", group, 50,
+                             timer=queued_ms)
+        halo_bytes = sum(h.numel() * h.element_size() for pair in halos for h in pair)
+        ext_bound[st] = bound(2 * a.numel() * a.element_size() + halo_bytes,
+                              F32_OPS_PER_SITE * cfg.sites)
+        if c is cfg:
+            ext_plain_ms = event_ms(lambda: [fused_kernel.step_reference_ext(
+                srcs[k], halos[k], spec, cfg, row_offset=k * L) for k in range(n)], 20)
+            rates(f"step_reference_ext over {n} shards, its plain version (CUDA events, 20 steps)",
+                  ext_plain_ms * 1e-3)
+
+    def ext_ms(st, form, what):
+        """The best queued time of `st`'s ext-halo launches of `form`
+        ("wide", "narrow", "default") and schedule ("interior" + edges, or
+        "one launch" per shard)."""
+        return next(ms for label, ms in ext_t[st].items() if f"{form} form" in label and what in label)
 
     # 24. one step's rdma launches, one per shard on its own stream: the
     # card's own time over RDMA_TIMED_STEPS steps queued behind a spin,
-    # streams forked from and joined to the timed stream once per run
+    # streams forked from and joined to the timed stream once per run; both
+    # forms in turns, in float32 and bf16, beside the ext-halo form's one
+    # launch per shard
     f_host = full.cpu().numpy()
-    ring = RdmaRing(cfg, spec, f_host, n)
-    rdma_steps = ring.timed_run(RDMA_TIMED_STEPS)
+    rdma_t, rdma_bound = {}, {}
+    for c in (cfg, cfg16):
+        st = "bf16" if c is cfg16 else "f32"
+        rings = {form: RdmaRing(c, spec, f_host, n, form=form) for form in fused_kernel.FORMS}
+        fns = {f"rdma, {form} form, {n} shards, one launch per shard ({n}), no host copies":
+               rings[form].timed_run(RDMA_TIMED_STEPS) for form in fused_kernel.FORMS}
 
-    def fused_steps():
-        for _ in range(RDMA_TIMED_STEPS):
-            for c in fused_calls:
-                c()
+        def fused_steps(calls=fused_calls[st, "wide"]):
+            for _ in range(RDMA_TIMED_STEPS):
+                for call in calls:
+                    call()
 
-    t = in_turns(lambda label, sec: rates(label, sec / RDMA_TIMED_STEPS),
-                 f"f32 spec, {RDMA_TIMED_STEPS} steps' launches",
-                 {f"rdma, {n} shards, one launch per shard ({n}), no host copies": rdma_steps,
-                  f"ext-halo, {n} shards, one launch per shard ({n}), halos in place": fused_steps},
-                 3, timer=queued_ms)
-    if any(ring.timed_out()):
-        raise AssertionError(f"rdma timing run: error words {ring.timed_out()}")
-    rdma_ms, fused4_ms = (v / RDMA_TIMED_STEPS for v in t.values())
-    # rings of other sizes (1: the ring of one, its own neighbour), and bf16
-    cfg16 = dataclasses.replace(cfg, dtype="bfloat16")
-    for cfg_r, n_r in ((cfg, 1), (cfg, 2), (cfg, 8), (cfg16, n)):
-        ring_r = RdmaRing(cfg_r, spec, f_host, n_r)
+        fns[f"ext-halo, wide form, {n} shards, one launch per shard ({n}), halos in place"] = (
+            fused_steps)
+        rates_c = rates_printer(c, bytes_per_site(c.dtype))
+        t = in_turns(lambda label, sec, rates_c=rates_c: rates_c(label, sec / RDMA_TIMED_STEPS),
+                     f"{st} spec, {RDMA_TIMED_STEPS} steps' launches", fns, 3, timer=queued_ms)
+        for form, ring in rings.items():
+            if any(ring.timed_out()):
+                raise AssertionError(f"rdma timing run ({form} form): error words "
+                                     f"{ring.timed_out()}")
+        rdma_t[st] = {form: next(ms for label, ms in t.items() if label.startswith(
+            f"rdma, {form} form")) / RDMA_TIMED_STEPS for form in fused_kernel.FORMS}
+        # the ext-halo form's bytes, and per shard 2 rows sent and 2 received
+        elem = torch.empty((), dtype=storage_dtype(c.dtype)).element_size()
+        rdma_bound[st] = bound(2 * full.numel() * elem + n * 4 * 9 * c.ny * elem,
+                               F32_OPS_PER_SITE * cfg.sites)
+        del rings
+    # rings of other sizes (1: the ring of one, its own neighbour)
+    for n_r in (1, 2, 8):
+        ring_r = RdmaRing(cfg, spec, f_host, n_r)
         ms = queued_ms(ring_r.timed_run(RDMA_TIMED_STEPS), 3) / RDMA_TIMED_STEPS
         if any(ring_r.timed_out()):
             raise AssertionError(f"rdma timing run, {n_r} shards: error words {ring_r.timed_out()}")
-        rates_printer(cfg_r, bytes_per_site(cfg_r.dtype))(
-            f"{'bf16' if cfg_r is cfg16 else 'f32'} spec, {RDMA_TIMED_STEPS} steps' launches, "
-            f"rdma, {n_r} shards, one launch per shard (CUDA events, 3 calls, queued behind a "
-            f"spin)", ms * 1e-3)
+        rates(f"f32 spec, {RDMA_TIMED_STEPS} steps' launches, rdma ({ring_r.launches[0][0].form} "
+              f"form), {n_r} shards, one launch per shard (CUDA events, 3 calls, queued behind a "
+              f"spin)", ms * 1e-3)
         del ring_r
+    srcs = [full[:, k * L:(k + 1) * L].contiguous() for k in range(n)]
     rdma_ends = [fused_kernel.rdma_end(cfg, dev) for _ in range(n)]
     plain_step = iter(range(1, 1000))
     rdma_plain_ms = event_ms(lambda: fused_kernel.step_reference_rdma(
         srcs, rdma_ends, [spec] * n, cfg, next(plain_step)), 20)
     rates(f"step_reference_rdma over {n} shards, its plain version (CUDA events, 20 steps)",
           rdma_plain_ms * 1e-3)
-    # the ext-halo form's bytes, and per shard 2 rows sent and 2 received
-    rdma_bound = bound(2 * full.numel() * 4 + n * 4 * 9 * cfg.ny * 4,
-                       F32_OPS_PER_SITE * cfg.sites)
-    del ring, rdma_ends
-    del full, out, srcs, dsts, halos, overlap_calls, fused_calls
+    del rdma_ends, full, srcs, fused_calls
 
     f = initial_state(cfg64)
     a = df64.from_f64(f * (1.0 + 0.05 * rng.uniform(-1.0, 1.0, f.shape)), dev)
@@ -1725,21 +1844,44 @@ def sharded_phases(f32_main, ds_counts, clock):
     ds_bound = counted_bound(4 * a.hi.numel() * 4 + solid.numel() + halo_bytes,
                              ds_counts[("ds_ext", True, False)], cfg64.sites, clock)
 
-    label4 = f"{VIRTUAL_SHARDS} virtual shards"
+    ext_main = by_form["sharded-cuda", label4, cfg.ny]
     return [
-        {"name": "lbm_stream_collide<float, spec> ext-halo form (row-sharded; "
-                 f"{VIRTUAL_SHARDS} virtual shards, interior + edge launches)",
-         "route": "cuda", "source": "latticeboltzmann_tpu_torch/csrc/lbm_step.cu",
-         "replaces": "latticeboltzmann_tpu/ops/fused_kernel.py:1757",
-         "launches": launches[label4], "max_abs_err": ext_err, "max_rel_err_fast_math": fast_rel,
-         "ms": ext_ms, "plain_ms": ext_plain_ms, **f32_bound},
-        {"name": "lbm_stream_collide_rdma<float, spec> (row-sharded, the halo exchange "
-                 f"inside the kernel; {VIRTUAL_SHARDS} virtual shards, one launch per shard)",
-         "route": "cuda", "source": "latticeboltzmann_tpu_torch/csrc/lbm_step.cu",
+        {"name": "lbm_stream_collide_ext_wide<float, spec, 4> (row-sharded ext-halo form, "
+                 f"wide; {VIRTUAL_SHARDS} virtual shards, interior + edge launches, the one-row "
+                 "edge launches in the narrow form lbm_stream_collide_ext<float, spec> of "
+                 "lbm_step.cu by default; beside it each form alone, and bf16)",
+         "route": "cuda", "source": "latticeboltzmann_tpu_torch/csrc/lbm_wide_ext_step.cu",
+         "narrow_form_source": "latticeboltzmann_tpu_torch/csrc/lbm_step.cu",
+         "replaces": "latticeboltzmann_tpu/ops/fused_kernel.py:1757 (external_halo=True)",
+         "launches": ext_main["wide"],
+         "narrow_form_launches": ext_main["narrow"] + narrow_launches["ext"],
+         "max_abs_err": max(ext_err.values()), "max_rel_err_fast_math": fast_rel,
+         "ms": ext_ms("f32", "default", "interior"),
+         "wide_form_ms": ext_ms("f32", "wide", "interior"),
+         "narrow_form_ms": ext_ms("f32", "narrow", "interior"),
+         "one_launch_per_shard_ms": ext_ms("f32", "wide", "one launch"),
+         "one_launch_per_shard_narrow_form_ms": ext_ms("f32", "narrow", "one launch"),
+         "bf16_ms": ext_ms("bf16", "default", "interior"),
+         "bf16_wide_form_ms": ext_ms("bf16", "wide", "interior"),
+         "bf16_narrow_form_ms": ext_ms("bf16", "narrow", "interior"),
+         "bf16_one_launch_per_shard_ms": ext_ms("bf16", "wide", "one launch"),
+         "bf16_one_launch_per_shard_narrow_form_ms": ext_ms("bf16", "narrow", "one launch"),
+         "bf16_bound_ms": ext_bound["bf16"]["bound_ms"], "plain_ms": ext_plain_ms,
+         **ext_bound["f32"]},
+        {"name": "lbm_stream_collide_rdma_wide<float, spec, 4> (row-sharded, the halo exchange "
+                 f"inside the kernel, wide; {VIRTUAL_SHARDS} virtual shards, one launch per shard; "
+                 "beside it the narrow form lbm_stream_collide_rdma<float, spec> of lbm_step.cu, "
+                 "and bf16)",
+         "route": "cuda", "source": "latticeboltzmann_tpu_torch/csrc/lbm_wide_ext_step.cu",
+         "narrow_form_source": "latticeboltzmann_tpu_torch/csrc/lbm_step.cu",
          "replaces": "latticeboltzmann_tpu/ops/fused_kernel.py:1757 (rdma=True)",
-         "launches": rdma_launches[label4], "max_abs_err": rdma_err,
-         "max_rel_err_fast_math": rdma_fast_rel, "ms": rdma_ms, "plain_ms": rdma_plain_ms,
-         "ext_halo_one_launch_per_shard_ms": fused4_ms, **rdma_bound},
+         "launches": rdma_launches[label4], "narrow_form_launches": narrow_launches["rdma"],
+         "max_abs_err": max(rdma_err.values()), "max_rel_err_fast_math": rdma_fast_rel,
+         "ms": rdma_t["f32"]["wide"], "narrow_form_ms": rdma_t["f32"]["narrow"],
+         "bf16_ms": rdma_t["bf16"]["wide"], "bf16_narrow_form_ms": rdma_t["bf16"]["narrow"],
+         "bf16_bound_ms": rdma_bound["bf16"]["bound_ms"], "plain_ms": rdma_plain_ms,
+         "ext_halo_one_launch_per_shard_ms": ext_ms("f32", "wide", "one launch"),
+         **rdma_bound["f32"]},
         {"name": "lbm_stream_collide_ds ext-halo form (row-sharded; "
                  f"{VIRTUAL_SHARDS} virtual shards, fast tier, masked)",
          "route": "cuda", "source": "latticeboltzmann_tpu_torch/csrc/lbm_ds_step.cu",

@@ -21,6 +21,10 @@
 //   rdma=True variant (:309-318, :577-653): the ext-halo step of a whole
 //   shard with the halo exchange inside the kernel, one launch per shard
 //   and step and no copy started by the host (see "The rdma form" below).
+// The ext-halo and rdma forms here are narrow too, and serve every shape
+// that their wide forms (lbm_wide_ext_step.cu, same results) do not take;
+// what the two share (Ext, Rdma, the flag words and the bounded wait, the
+// guard of a row that may be a halo row) is in lbm_ext.cuh.
 // Two template axes select the variant at compile time:
 // - the storage type T: float, or __nv_bfloat16 with float arithmetic
 //   (the TPU kernel's bf16 storage, :277-280, :420-422, window cast to f32
@@ -136,47 +140,11 @@
 #include <stdint.h>
 
 #include "lbm_collide.cuh"
+#include "lbm_ext.cuh"
 
 namespace {
 
-// Where a shard's local block sits and what lies beyond it (ext-halo
-// form).
-template <typename T>
-struct Ext {
-  const T* top;              // (9, ny): the row above local row 0
-  const T* bot;              // (9, ny): the row below local row nx - 1
-  const uint8_t* solid_top;  // (ny): top's class row (plane variant)
-  const uint8_t* solid_bot;  // (ny): bot's class row (plane variant)
-  int64_t row0;              // first local row this launch writes
-  int64_t offset;            // global row of local row 0
-  int64_t gnx;               // global row count
-};
-
 constexpr int kBlock = 256;
-
-// The ext-halo form's solid_class and forced_at, for a row that may be a
-// halo row: the row's class row (plane variant) or its global row gi of a
-// gnx-row lattice (spec variant); for the guard also the row's column-0
-// value of speed 0 and the stride between its speed planes.
-template <int GEOM>
-__device__ __forceinline__ int row_class(const uint8_t* __restrict__ cls_row,
-                                         const Spec& g, int64_t gi, int64_t j,
-                                         int64_t gnx) {
-  if (GEOM == kPlane) return cls_row[j];
-  if (GEOM == kSpec) return spec_solid(g, gi, j, gnx) ? 1 : 0;
-  return 0;
-}
-
-template <typename T, int GEOM>
-__device__ __forceinline__ bool forced_row(const T* __restrict__ row, int64_t stride,
-                                           const uint8_t* __restrict__ cls_row,
-                                           const Spec& g, int64_t gi, int64_t gnx,
-                                           const Params& k) {
-  if (row_class<GEOM>(cls_row, g, gi, 0, gnx) != 0) return false;
-  return (load(row + 6 * stride) - k.a58 > 0.0f) &&
-         (load(row + 3 * stride) - k.a14 > 0.0f) &&
-         (load(row + 7 * stride) - k.a58 > 0.0f);
-}
 
 // The single-chip form: every row of the lattice, periodic in both axes.
 template <typename T, int GEOM>
@@ -299,40 +267,6 @@ lbm_stream_collide_ext(const T* __restrict__ src, T* __restrict__ dst,
   ext_site<T, GEOM>(src, dst, solid, g, e, nx, ny, k, fast_math, i, j);
 }
 
-// What the rdma form adds to Ext: where this step's rows go, and the words
-// the launches of a ring signal through. The comm pointers are this step's
-// parity already.
-template <typename T>
-struct Rdma {
-  T* up_bot;                      // the upper neighbour's bot rows (9, ny): row 0 goes there
-  T* down_top;                    // the lower neighbour's top rows (9, ny): row nx - 1
-  unsigned long long* up_flag;    // the upper neighbour's bot flag word
-  unsigned long long* down_flag;  // the lower neighbour's top flag word
-  unsigned long long* flags;      // this shard's own [top, bot] flag words
-  unsigned long long* work;       // this shard's [ticket counter, error word]
-  unsigned long long step;        // 1, 2, ... since the flags were reset
-  unsigned long long timeout_ns;  // bound of an edge CTA's spin
-};
-
-// CTAs of the rdma form that send: one per direction
-constexpr int kSendCtas = 2;
-
-__device__ __forceinline__ unsigned long long load_acquire_sys(const unsigned long long* p) {
-  unsigned long long v;
-  asm volatile("ld.acquire.sys.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void store_release_sys(unsigned long long* p, unsigned long long v) {
-  asm volatile("st.release.sys.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
-}
-
-__device__ __forceinline__ unsigned long long global_timer_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
 // Copy one row of src (all 9 planes, as bits) into a neighbour's (9, ny)
 // comm rows: 16-byte vectors where the addresses and the row length allow.
 template <typename T>
@@ -353,28 +287,6 @@ __device__ __forceinline__ void send_row(const T* __restrict__ row, int64_t plan
       for (int64_t j = threadIdx.x; j < ny; j += kBlock) b[j] = a[j];
     }
   }
-}
-
-// Thread 0 of an edge CTA: wait until *flag holds at least `step`. False
-// when the shard's error word is set, or is set here because the wait
-// outlasted the bound.
-__device__ __forceinline__ bool wait_for_rows(const unsigned long long* flag,
-                                              unsigned long long* error,
-                                              unsigned long long step,
-                                              unsigned long long timeout_ns) {
-  if (*reinterpret_cast<volatile unsigned long long*>(error) != 0) return false;
-  const unsigned long long start = global_timer_ns();
-  unsigned backoff = 32;
-  while (load_acquire_sys(flag) < step) {
-    if (*reinterpret_cast<volatile unsigned long long*>(error) != 0) return false;
-    if (global_timer_ns() - start > timeout_ns) {
-      atomicCAS(error, 0ULL, step);
-      return false;
-    }
-    __nanosleep(backoff);
-    if (backoff < 1024) backoff *= 2;
-  }
-  return true;
 }
 
 // The rdma form: every row of a shard's (9, nx, ny) block, nx >= 3, on a
@@ -480,8 +392,7 @@ void launch_rdma(unsigned grid, cudaStream_t st, const void* src, void* dst,
   }
 }
 
-// Ext and Rdma of one rdma launch from the entry point's untyped pointers;
-// the comm buffers are (2, 9, ny) and this step takes parity step mod 2.
+// One rdma launch from the entry point's untyped pointers.
 template <typename T>
 void launch_rdma_typed(unsigned grid, cudaStream_t st, const void* src, void* dst, void* top,
                        void* bot, void* up_bot, void* down_top, void* flags, void* up_flag,
@@ -489,13 +400,10 @@ void launch_rdma_typed(unsigned grid, cudaStream_t st, const void* src, void* ds
                        const uint8_t* solid_top, const uint8_t* solid_bot, const Spec& g,
                        int64_t nx, int64_t ny, int64_t offset, int64_t gnx, const Params& k,
                        int fast_math, int64_t geometry, int64_t step, int64_t timeout_ns) {
-  using U = unsigned long long;
-  const int64_t p = (step % 2) * 9 * ny;
-  const Ext<T> e{static_cast<const T*>(top) + p, static_cast<const T*>(bot) + p, solid_top,
-                 solid_bot, 0, offset, gnx};
-  const Rdma<T> r{static_cast<T*>(up_bot) + p, static_cast<T*>(down_top) + p,
-                  static_cast<U*>(up_flag), static_cast<U*>(down_flag), static_cast<U*>(flags),
-                  static_cast<U*>(work), static_cast<U>(step), static_cast<U>(timeout_ns)};
+  Ext<T> e;
+  Rdma<T> r;
+  rdma_args<T>(top, bot, up_bot, down_top, flags, up_flag, down_flag, work, solid_top, solid_bot,
+               ny, offset, gnx, step, timeout_ns, &e, &r);
   launch_rdma<T>(grid, st, src, dst, solid, g, e, r, nx, ny, k, fast_math, geometry);
 }
 

@@ -21,10 +21,10 @@ import subprocess
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-SOURCES = ("lbm_step.cu", "lbm_wide_step.cu", "lbm_ds_step.cu", "lbm_flat_step.cu",
-           "lbm_probes.cu")
+SOURCES = ("lbm_step.cu", "lbm_wide_step.cu", "lbm_wide_ext_step.cu", "lbm_ds_step.cu",
+           "lbm_flat_step.cu", "lbm_probes.cu")
 # included by the sources (each from its own directory); hashed with them
-HEADERS = ("lbm_collide.cuh",)
+HEADERS = ("lbm_collide.cuh", "lbm_ext.cuh", "lbm_wide.cuh")
 LIB_NAME = "liblbm_kernels.so"
 GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
 # sm_90a keeps Hopper-only instructions available; -fmad=false and no
@@ -156,6 +156,9 @@ def load_library() -> ctypes.CDLL:
         ctypes.c_void_p,  # params: 9 host floats
         ctypes.c_void_p,  # cudaStream_t
     ]
+    # the ext-halo form's wide kernel takes the same arguments
+    lib.lbm_stream_collide_ext_wide_launch.restype = ctypes.c_int
+    lib.lbm_stream_collide_ext_wide_launch.argtypes = fn.argtypes
     fn = lib.lbm_stream_collide_rdma_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [
@@ -185,6 +188,9 @@ def load_library() -> ctypes.CDLL:
         ctypes.c_int64,   # timeout_ns: bound of an edge row's wait
         ctypes.c_void_p,  # cudaStream_t
     ]
+    # the rdma form's wide kernel takes the same arguments
+    lib.lbm_stream_collide_rdma_wide_launch.restype = ctypes.c_int
+    lib.lbm_stream_collide_rdma_wide_launch.argtypes = fn.argtypes
     fn = lib.lbm_enable_peer_access
     fn.restype = ctypes.c_int
     fn.argtypes = [

@@ -29,7 +29,8 @@ The ext-halo form (`ext_launcher`; plain version
 path (parallel/sharded.py): a launch writes a range of the shard's local
 rows, and the rows beyond the shard come from two halo rows, each with
 all 9 speed planes of a ring neighbour's boundary row. Its launches are
-counted apart, in EXT_LAUNCHES and EXT_VARIANT_LAUNCHES.
+counted apart, in EXT_LAUNCHES, EXT_VARIANT_LAUNCHES and, by form,
+EXT_FORM_LAUNCHES.
 
 The rdma form (`rdma_launcher`; plain version `step_reference_rdma`) is
 the ext-halo step of a whole shard with the halo exchange inside the
@@ -37,7 +38,13 @@ kernel: one launch per shard and step sends the shard's two boundary rows
 into its ring neighbours' comm buffers (`RdmaEnd`), computes the interior
 rows, waits for the neighbours' rows and computes the edge rows; the host
 makes no copy. `rdma_schedule` holds the protocol as plain constants. Its
-launches are counted in RDMA_LAUNCHES and RDMA_VARIANT_LAUNCHES.
+launches are counted in RDMA_LAUNCHES, RDMA_VARIANT_LAUNCHES and, by
+form, RDMA_FORM_LAUNCHES.
+
+The ext-halo and rdma forms have a wide and a narrow form each too, picked
+by the same rule over every buffer the kernel reads or writes by vectors:
+the wide ones (csrc/lbm_wide_ext_step.cu; plain version
+`step_reference_ext_wide`) and the narrow ones of csrc/lbm_step.cu.
 
 The flat form (`make_flat_step`, `flat_step`; plain version
 `flat_reference`; csrc/lbm_flat_step.cu) runs an even number of
@@ -76,9 +83,11 @@ FORM_LAUNCHES: collections.Counter = collections.Counter()
 # the same for the ext-halo form's launches (`ext_launcher`)
 EXT_LAUNCHES = 0
 EXT_VARIANT_LAUNCHES: collections.Counter = collections.Counter()
+EXT_FORM_LAUNCHES: collections.Counter = collections.Counter()
 # the same for the rdma form's launches (`rdma_launcher`)
 RDMA_LAUNCHES = 0
 RDMA_VARIANT_LAUNCHES: collections.Counter = collections.Counter()
+RDMA_FORM_LAUNCHES: collections.Counter = collections.Counter()
 # launches of the flat multi-step kernel (`flat_step`), each of which runs
 # many steps
 FLAT_LAUNCHES = 0
@@ -296,14 +305,16 @@ def step_reference_wide(
     column 1; the last through the wrap, into column NY - 1) evaluate the
     guard of the source row and add the increment to the pulled value,
     which stays float32 under bf16 storage. geom: a uint8 class plane or
-    None; or wall_spec. Must equal step_reference bit for bit."""
-    nx, ny = cfg.nx, cfg.ny
+    None; or wall_spec. src may hold any number of rows (a shard's
+    halo-extended block; the wall spec then does not apply). Must equal
+    step_reference bit for bit."""
+    nx, ny = src.shape[1], cfg.ny
     if not isinstance(v, int) or v < 2 or ny % v:
         raise ValueError(f"the wide form needs NY a multiple of v >= 2, got NY {ny}, v {v!r}")
     if wall_spec is not None:
         if geom is not None:
             raise ValueError("give a solid plane or a wall spec, not both")
-        geom = _spec_plane(tuple(map(tuple, wall_spec)), nx, ny, src.device)
+        geom = _spec_plane(tuple(map(tuple, wall_spec)), cfg.nx, ny, src.device)
     f = src.float() if src.dtype == torch.bfloat16 else src
     solid = geom if geom is not None else torch.zeros((nx, ny), dtype=torch.uint8,
                                                       device=src.device)
@@ -426,6 +437,22 @@ def kernel_form(dtype: torch.dtype, ny: int, pointers) -> str:
     return "wide" if wide else "narrow"
 
 
+def _choose_form(form: str | None, dtype: torch.dtype, ny: int, pointers) -> str:
+    """The form a launch takes: `form` as asked ("wide" or "narrow"), or
+    for None kernel_form's choice. Raises ValueError for any other form,
+    and for "wide" where kernel_form's rule does not hold: nothing else
+    runs in its place."""
+    if form is not None and form not in FORMS:
+        raise ValueError(f"form must be one of {FORMS} or None, got {form!r}")
+    rule = kernel_form(dtype, ny, pointers)
+    if form == "wide" and rule != "wide":
+        raise ValueError(
+            f"the wide form needs NY a multiple of {WIDE_COLUMNS.get(dtype)} columns "
+            f"({dtype}) and buffers aligned to {WIDE_ALIGN} bytes; got NY {ny}, "
+            f"pointers mod {WIDE_ALIGN}: {[p % WIDE_ALIGN for p in pointers]}")
+    return form or rule
+
+
 def step(
     src: torch.Tensor,
     dst: torch.Tensor,
@@ -448,14 +475,8 @@ def step(
     take, and on any other device."""
     global LAUNCHES
     kind, info = _check(src, dst, geom, cfg)
-    if form is not None and form not in FORMS:
-        raise ValueError(f"form must be one of {FORMS} or None, got {form!r}")
     pointers = [src.data_ptr(), dst.data_ptr()] + ([geom.data_ptr()] if kind == "plane" else [])
-    if form == "wide" and kernel_form(src.dtype, cfg.ny, pointers) != "wide":
-        raise ValueError(
-            f"the wide form needs NY a multiple of {WIDE_COLUMNS[src.dtype]} columns "
-            f"({src.dtype}) and buffers aligned to {WIDE_ALIGN} bytes; got NY {cfg.ny}, "
-            f"pointers mod {WIDE_ALIGN}: {[p % WIDE_ALIGN for p in pointers]}")
+    chosen = _choose_form(form, src.dtype, cfg.ny, pointers)
     if src.device.type == "cpu":
         plane, spec = (None, geom) if kind == "spec" else (geom, None)
         if form == "wide":
@@ -464,7 +485,7 @@ def step(
         else:
             dst.copy_(step_reference(src, plane, cfg, wall_spec=spec))
         return dst
-    form = form or kernel_form(src.dtype, cfg.ny, pointers)
+    form = chosen
     params = (ctypes.c_float * 9)(*kernel_constants(cfg))
     spec = (ctypes.c_int64 * SPEC_FIELDS)(*info) if kind == "spec" else None
     lib = cuda_build.load_library()
@@ -526,6 +547,15 @@ def step_reference_ext(
     evaluated at the global rows row_offset - 1 .. row_offset + L,
     periodic in cfg.nx. It computes IEEE 1/rho: the kernel's fast-math
     variant is held to it within FAST_MATH_RTOL."""
+    block, solid = _ext_block(src, halo, geom, cfg, row_offset)
+    return step_reference(block, solid, cfg)[:, 1:-1]
+
+
+def _ext_block(src, halo, geom, cfg: LatticeConfig, row_offset: int):
+    """The halo-extended (9, L + 2, NY) block (top, src, bot) and its
+    uint8 class rows (None for the wall-free variant; a wall spec taken at
+    the global rows row_offset - 1 .. row_offset + L, periodic in
+    cfg.nx)."""
     top, bot = halo
     n = src.shape[1] + 2
     block = torch.cat([top[:, None], src, bot[:, None]], dim=1)
@@ -535,7 +565,28 @@ def step_reference_ext(
         solid = torch.cat([geom.top[None], geom.plane, geom.bot[None]])
     else:
         solid = _spec_rows(geom, cfg, row_offset - 1, n, src.device)
-    return step_reference(block, solid, cfg)[:, 1:-1]
+    return block, solid
+
+
+def step_reference_ext_wide(
+    src: torch.Tensor,
+    halo: tuple[torch.Tensor, torch.Tensor],
+    geom,
+    cfg: LatticeConfig,
+    v: int,
+    *,
+    row_offset: int = 0,
+) -> torch.Tensor:
+    """Plain PyTorch version of the wide ext-halo and rdma forms
+    (csrc/lbm_wide_ext_step.cu): step_reference_wide, the pull assembled
+    from v-column vectors, neighbour elements and wrap loads with the
+    forcing guard in the two owners that pull from column 0, on the
+    halo-extended block with its class rows (the halo rows' own guards
+    and classes; the wall spec at global rows), then the shard's L rows.
+    The arguments of step_reference_ext, and v, the columns per thread.
+    Must equal step_reference_ext bit for bit."""
+    block, solid = _ext_block(src, halo, geom, cfg, row_offset)
+    return step_reference_wide(block, solid, cfg, v)[:, 1:-1]
 
 
 def check_ext_launch(blocks, halo, dtype: torch.dtype, cfg: LatticeConfig, row0: int,
@@ -602,6 +653,7 @@ def ext_launcher(
     rows: int | None = None,
     row_offset: int = 0,
     fast_math: bool = False,
+    form: str | None = None,
 ) -> Callable[[], None]:
     """Validate one ext-halo launch and return it as a call with no
     arguments, to be made any number of times: it steps the local rows
@@ -614,26 +666,46 @@ def ext_launcher(
     of each; needed only when the range touches row 0 or L - 1 (else
     None). geom: None, a ShardPlane (class plane and halo class rows), or
     a wall spec (evaluated at global rows). On CUDA tensors the call
-    launches the kernel on the current stream and counts it in
-    EXT_LAUNCHES and EXT_VARIANT_LAUNCHES; on CPU tensors it writes
-    step_reference_ext's rows. Raises on anything the kernel does not
-    take."""
+    launches the kernel on the current stream, in the form kernel_form
+    names for every buffer the wide form reads or writes by vectors (src,
+    dst, the halo rows, the class plane; the halo class rows are read a
+    byte at a time, in the forcing guard), or for a launch of one row the
+    narrow form, and
+    counts it in EXT_LAUNCHES, EXT_VARIANT_LAUNCHES and EXT_FORM_LAUNCHES;
+    on CPU tensors it writes step_reference_ext's rows. form="wide" or
+    "narrow" asks for one form (on CPU tensors, for its plain version:
+    step_reference_ext_wide or step_reference_ext); "wide" raises
+    ValueError where the wide form does not apply, and never runs anything
+    else in its place. Raises on anything the kernel does not take. The
+    call's `form` attribute names the form it launches (on CPU tensors:
+    the form a card would launch)."""
     rows = src.shape[1] - row0 if rows is None else rows
     kind, info = _check_ext(src, dst, halo, geom, cfg, row0, rows, row_offset)
+    plane = geom if kind == "plane" else ShardPlane(None, None, None)
+    top, bot = halo if halo is not None else (None, None)
+    # a launch of one row is latency-bound, and the narrow form spreads it
+    # over a thread per site: the wide form's 4 or 8 sites per thread ran
+    # the overlap schedule's one-row launches slower on an H100 (PERF.md)
+    chosen = _choose_form(form or ("narrow" if rows == 1 else None), src.dtype, cfg.ny, [
+        t.data_ptr() for t in (src, dst, top, bot, plane.plane) if t is not None])
     if src.device.type == "cpu":
         def reference():
             h = halo if halo is not None else (torch.zeros_like(src[:, 0]),) * 2
-            out = step_reference_ext(src, h, geom, cfg, row_offset=row_offset)
+            out = (step_reference_ext_wide(src, h, geom, cfg, WIDE_COLUMNS[src.dtype],
+                                           row_offset=row_offset) if form == "wide" else
+                   step_reference_ext(src, h, geom, cfg, row_offset=row_offset))
             dst[:, row0:row0 + rows].copy_(out[:, row0:row0 + rows])
 
+        reference.form = chosen
         return reference
 
     # host arrays the launch reads: kept alive by the closure
     params = (ctypes.c_float * 9)(*kernel_constants(cfg))
     spec = (ctypes.c_int64 * SPEC_FIELDS)(*info) if kind == "spec" else None
-    fn = cuda_build.load_library().lbm_stream_collide_ext_launch
-    top, bot = halo if halo is not None else (None, None)
-    plane = geom if kind == "plane" else ShardPlane(None, None, None)
+    form = chosen
+    lib = cuda_build.load_library()
+    fn = (lib.lbm_stream_collide_ext_wide_launch if form == "wide"
+          else lib.lbm_stream_collide_ext_launch)
     args = (_ptr(src), _ptr(dst), _ptr(top), _ptr(bot), _ptr(plane.plane), _ptr(plane.top),
             _ptr(plane.bot), ctypes.addressof(spec) if spec is not None else None,
             src.shape[1], cfg.ny, row0, rows, row_offset, cfg.nx, _STORAGE[src.dtype],
@@ -645,11 +717,14 @@ def ext_launcher(
         global EXT_LAUNCHES
         rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
         if rc != 0:
-            raise RuntimeError(f"lbm_stream_collide ext-halo launch failed: cudaError {rc}")
+            raise RuntimeError(f"lbm_stream_collide ext-halo launch ({form} form) failed: "
+                               f"cudaError {rc}")
         EXT_LAUNCHES += 1
         EXT_VARIANT_LAUNCHES[variant] += 1
+        EXT_FORM_LAUNCHES[form] += 1
 
     launch.host_args = (params, spec)  # alive as long as the call
+    launch.form = form
     return launch
 
 
@@ -727,9 +802,11 @@ def rdma_send_reference(src: torch.Tensor, up: RdmaEnd, down: RdmaEnd, step: int
 
 
 def rdma_compute_reference(src: torch.Tensor, end: RdmaEnd, geom, cfg: LatticeConfig,
-                           step: int, *, row_offset: int = 0) -> torch.Tensor:
+                           step: int, *, row_offset: int = 0,
+                           form: str | None = None) -> torch.Tensor:
     """Plain PyTorch version of a launch's interior and edge roles:
-    step_reference_ext from the comm rows of this step's parity. Raises
+    step_reference_ext (form="wide": step_reference_ext_wide, the wide
+    kernel's) from the comm rows of this step's parity. Raises
     RuntimeError where the kernel's edge rows would wait in vain: a flag
     below this step's value."""
     s = rdma_schedule(src.shape[1], step)
@@ -737,6 +814,9 @@ def rdma_compute_reference(src: torch.Tensor, end: RdmaEnd, geom, cfg: LatticeCo
         raise RuntimeError(f"step {step}: a neighbour's rows have not arrived "
                            f"(flags {end.flags.tolist()})")
     halo = (end.top[s["parity"]], end.bot[s["parity"]])
+    if form == "wide":
+        return step_reference_ext_wide(src, halo, geom, cfg, WIDE_COLUMNS[src.dtype],
+                                       row_offset=row_offset)
     return step_reference_ext(src, halo, geom, cfg, row_offset=row_offset)
 
 
@@ -783,6 +863,7 @@ def rdma_launcher(
     fast_math: bool = False,
     timeout_s: float = RDMA_TIMEOUT_S,
     stream=None,
+    form: str | None = None,
 ) -> Callable[[int], None]:
     """Validate one shard's rdma launch and return it as a call launch(step),
     to be made once per step with step = 1, 2, ... since rdma_reset: it
@@ -799,12 +880,15 @@ def rdma_launcher(
     default: the current one at the call), or the edge rows give up after
     timeout_s and leave the step in end.work[1] (rdma_timed_out).
 
-    On CUDA tensors the call launches the kernel and counts it in
-    RDMA_LAUNCHES and RDMA_VARIANT_LAUNCHES. On CPU tensors it is the plain
-    version in two halves, launch.send(step) and launch.compute(step): a
-    ring calls every shard's send before any compute (launch(step) runs
-    both, which suffices on a ring of one). Raises on anything the kernel
-    does not take."""
+    On CUDA tensors the call launches the kernel, in the form kernel_form
+    names for every buffer the wide form reads or writes by vectors (src,
+    dst, end's comm rows, up.bot, down.top, the class plane), and counts
+    it in RDMA_LAUNCHES, RDMA_VARIANT_LAUNCHES and
+    RDMA_FORM_LAUNCHES. On CPU tensors it is the plain version in two
+    halves, launch.send(step) and launch.compute(step): a ring calls every
+    shard's send before any compute (launch(step) runs both, which
+    suffices on a ring of one). form, and the call's `form` attribute, as
+    ext_launcher's. Raises on anything the kernel does not take."""
     L = src.shape[1] if src.dim() == 3 else -1
     kind, info = _check_ext(src, dst, (end.top[0], end.bot[0]), geom, cfg, 0, L, row_offset)
     if L < 3:
@@ -813,25 +897,33 @@ def rdma_launcher(
         _check_rdma_end(name, e, src.dtype, cfg.ny, src.device.type)
     if end.top.device != src.device:
         raise ValueError(f"end lies on {end.top.device}, the shard on {src.device}")
+    plane = geom if kind == "plane" else ShardPlane(None, None, None)
+    chosen = _choose_form(form, src.dtype, cfg.ny, [
+        t.data_ptr() for t in (src, dst, end.top, end.bot, up.bot, down.top, plane.plane)
+        if t is not None])
     if src.device.type == "cpu":
         def send(step: int) -> None:
             rdma_send_reference(src, up, down, step)
 
         def compute(step: int) -> None:
-            dst.copy_(rdma_compute_reference(src, end, geom, cfg, step, row_offset=row_offset))
+            dst.copy_(rdma_compute_reference(src, end, geom, cfg, step, row_offset=row_offset,
+                                             form=form))
 
         def reference(step: int) -> None:
             send(step)
             compute(step)
 
         reference.send, reference.compute = send, compute
+        reference.form = chosen
         return reference
 
     # host arrays the launch reads: kept alive by the closure
     params = (ctypes.c_float * 9)(*kernel_constants(cfg))
     spec = (ctypes.c_int64 * SPEC_FIELDS)(*info) if kind == "spec" else None
-    fn = cuda_build.load_library().lbm_stream_collide_rdma_launch
-    plane = geom if kind == "plane" else ShardPlane(None, None, None)
+    form = chosen
+    lib = cuda_build.load_library()
+    fn = (lib.lbm_stream_collide_rdma_wide_launch if form == "wide"
+          else lib.lbm_stream_collide_rdma_launch)
     flag = rdma_schedule(L, 1)
     args = (_ptr(src), _ptr(dst), _ptr(end.top), _ptr(end.bot), _ptr(up.bot), _ptr(down.top),
             _ptr(end.flags), _ptr(up.flags[flag["bot_flag"]:]), _ptr(down.flags[flag["top_flag"]:]),
@@ -848,12 +940,15 @@ def rdma_launcher(
         st = torch.cuda.current_stream(device).cuda_stream if handle is None else handle
         rc = fn(*args, step, timeout_ns, st)
         if rc != 0:
-            raise RuntimeError(f"lbm_stream_collide rdma launch failed: cudaError {rc}")
+            raise RuntimeError(f"lbm_stream_collide rdma launch ({form} form) failed: "
+                               f"cudaError {rc}")
         RDMA_LAUNCHES += 1
         RDMA_VARIANT_LAUNCHES[variant] += 1
+        RDMA_FORM_LAUNCHES[form] += 1
 
     # what the launch addresses, alive as long as the call
     launch.host_args = (params, spec, src, dst, end, up, down, geom)
+    launch.form = form
     return launch
 
 

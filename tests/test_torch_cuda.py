@@ -31,7 +31,9 @@ bitwise against their plain versions: they move float32 values, add them
 in one order, or repeat the step kernel's arithmetic. The single-chip
 kernel's two forms (wide: several columns per thread, 16-byte accesses;
 narrow: one site per thread) are each held bitwise against step_reference
-and against each other.
+and against each other; so are the two forms of the ext-halo and rdma
+kernels, against step_reference_ext / step_reference_rdma, the wide plain
+version step_reference_ext_wide and each other.
 """
 
 import numpy as np
@@ -375,31 +377,56 @@ def _shard_planes(plane, n, device):
                           t[(k * L + L) % t.shape[0]].contiguous()) for k in range(n)]
 
 
-def _ext_steps(cfg, geom, n, device, steps=5, fast_math=False):
+def _geometry_source(kind, cfg, walls):
+    """None, a host class plane (walls or slip codes) or a wall spec."""
+    if kind == "none":
+        return None
+    if kind == "plane":
+        return walls.astype(np.uint8)
+    if kind == "slip":
+        w, sx, sy = _slip_scene(cfg.nx, cfg.ny)
+        return fk.class_plane(w, sx, sy)
+    return geometry.infer_spec(walls)
+
+
+def _ext_steps(cfg, geom, n, device, steps=5, fast_math=False, form=None, fused=False):
     """`steps` steps of the ext-halo kernel over n virtual shards (interior
-    and edge launches), each shard held bitwise against
-    step_reference_ext from the same input; returns the joined state."""
+    and edge launches, or with fused one launch per shard) in `form`
+    (default: the one kernel_form names), each shard held bitwise against
+    step_reference_ext from the same input, and the wide form also against
+    step_reference_ext_wide; returns the joined state."""
     f = _perturbed(cfg, device)
     L = cfg.nx // n
     geoms = _shard_planes(geom, n, device) if isinstance(geom, np.ndarray) else [geom] * n
     before = fk.EXT_LAUNCHES
+    forms = dict(fk.EXT_FORM_LAUNCHES)
     for _ in range(steps):
         shards = [f[:, k * L:(k + 1) * L].contiguous() for k in range(n)]
         outs = []
         for k in range(n):
             halo = (shards[(k - 1) % n][:, -1].contiguous(), shards[(k + 1) % n][:, 0].contiguous())
-            dst = torch.empty_like(shards[k])
-            kw = dict(row_offset=k * L, fast_math=fast_math)
-            fk.ext_launcher(shards[k], dst, None, geoms[k], cfg, row0=1, rows=L - 2, **kw)()
-            for r in (0, L - 1):
-                fk.ext_launcher(shards[k], dst, halo, geoms[k], cfg, row0=r, rows=1, **kw)()
+            dst = torch.full_like(shards[k], float("nan"))
+            kw = dict(row_offset=k * L, fast_math=fast_math, form=form)
+            if fused:
+                fk.ext_launcher(shards[k], dst, halo, geoms[k], cfg, **kw)()
+            else:
+                fk.ext_launcher(shards[k], dst, None, geoms[k], cfg, row0=1, rows=L - 2, **kw)()
+                for r in (0, L - 1):
+                    fk.ext_launcher(shards[k], dst, halo, geoms[k], cfg, row0=r, rows=1, **kw)()
             ref = fk.step_reference_ext(shards[k], halo, geoms[k], cfg, row_offset=k * L)
             torch.cuda.synchronize()
             if not fast_math:
                 assert torch.equal(dst, ref)
+                if form == "wide":
+                    assert torch.equal(dst, fk.step_reference_ext_wide(
+                        shards[k], halo, geoms[k], cfg, fk.WIDE_COLUMNS[dst.dtype],
+                        row_offset=k * L))
             outs.append(dst)
         f = torch.cat(outs, dim=1)
-    assert fk.EXT_LAUNCHES == before + steps * 3 * n
+    launches = steps * (1 if fused else 3) * n
+    assert fk.EXT_LAUNCHES == before + launches
+    if form is not None:
+        assert fk.EXT_FORM_LAUNCHES[form] == forms.get(form, 0) + launches
     return f
 
 
@@ -408,16 +435,79 @@ def _ext_steps(cfg, geom, n, device, steps=5, fast_math=False):
 @pytest.mark.parametrize("geom", ["none", "plane", "spec", "slip", "bf16-spec"])
 def test_ext_kernel_equals_step_reference_ext(geom, n, cuda_device):
     cfg, walls = _scene("column0", "bfloat16" if geom == "bf16-spec" else np.float32)
-    if geom == "none":
-        g = None
-    elif geom == "plane":
-        g = walls.astype(np.uint8)
-    elif geom == "slip":
-        w, sx, sy = _slip_scene(cfg.nx, cfg.ny)
-        g = fk.class_plane(w, sx, sy)
-    else:
-        g = geometry.infer_spec(walls)
-    _ext_steps(cfg, g, n, cuda_device)
+    _ext_steps(cfg, _geometry_source(geom.removeprefix("bf16-"), cfg, walls), n, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("geom", ["none", "plane", "spec", "slip", "bf16-spec", "bf16-plane"])
+def test_ext_kernel_forms_equal_their_plain_versions_and_each_other(geom, n, cuda_device):
+    """Both forms of the ext-halo kernel at the three small scenes, both
+    schedules (interior + edges, one launch per shard): each bitwise
+    against step_reference_ext (the wide one also against
+    step_reference_ext_wide), and so against the other."""
+    dtype = "bfloat16" if geom.startswith("bf16") else np.float32
+    for name in ("barrier", "column0", "empty"):
+        cfg, walls = _scene(name, dtype)
+        g = _geometry_source(geom.removeprefix("bf16-"), cfg, walls)
+        for fused in (False, True):
+            outs = [_ext_steps(cfg, g, n, cuda_device, steps=3, form=form, fused=fused)
+                    for form in fk.FORMS]
+            assert torch.equal(*outs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", fk.FORMS)
+def test_ext_and_rdma_forms_fast_math_within_tolerance(form, cuda_device):
+    cfg = LatticeConfig(nx=48, ny=96, dtype=np.float32)
+    spec = geometry.infer_spec(_plate_48x96())
+    ref = _perturbed(cfg, cuda_device)
+    for _ in range(fk.FAST_MATH_STEPS):
+        ref = fk.step_reference(ref, None, cfg, wall_spec=spec)
+    for got in (_ext_steps(cfg, spec, 4, cuda_device, steps=fk.FAST_MATH_STEPS, fast_math=True,
+                           form=form),
+                _rdma_steps(cfg, spec, 4, cuda_device, steps=fk.FAST_MATH_STEPS, fast_math=True,
+                            form=form)):
+        assert float(((got - ref).abs() / ref.abs()).max()) <= fk.FAST_MATH_RTOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+def test_ext_and_rdma_forms_follow_the_pointers_on_the_card(dtype, cuda_device):
+    """The form a sharded launch takes, by shape and pointer: wide for
+    aligned buffers whose NY the storage's column count divides, narrow
+    for a halo row at an odd offset, for unaligned comm rows and for an NY
+    it does not divide; the counts follow, and form="wide" raises where
+    the rule does not hold."""
+    cfg, walls = _scene("column0", dtype)
+    f = _perturbed(cfg, cuda_device)
+    src, dst = f[:, :12].contiguous(), torch.empty_like(f[:, :12])
+    halo = (f[:, -1].contiguous(), f[:, 12].contiguous())
+    assert fk.ext_launcher(src, dst, halo, None, cfg).form == "wide"
+    odd = torch.empty(halo[0].numel() + 1, dtype=src.dtype, device=cuda_device)[1:].view(9, cfg.ny)
+    odd.copy_(halo[0])
+    call = fk.ext_launcher(src, dst, (odd, halo[1]), None, cfg)
+    before = dict(fk.EXT_FORM_LAUNCHES)
+    call()
+    assert call.form == "narrow" and fk.EXT_FORM_LAUNCHES["narrow"] == before.get("narrow", 0) + 1
+    torch.cuda.synchronize()
+    assert torch.equal(dst, fk.step_reference_ext(src, (odd, halo[1]), None, cfg))
+    with pytest.raises(ValueError, match="form"):
+        fk.ext_launcher(src, dst, (odd, halo[1]), None, cfg, form="wide")
+    end = fk.rdma_end(cfg, cuda_device)
+    assert fk.rdma_launcher(src, dst, end, end, end, None, cfg).form == "wide"
+    rows = torch.empty(end.top.numel() + 1, dtype=src.dtype, device=cuda_device)[1:]
+    bad = end._replace(top=rows.view(end.top.shape))
+    assert fk.rdma_launcher(src, dst, bad, end, end, None, cfg).form == "narrow"
+    with pytest.raises(ValueError, match="form"):
+        fk.rdma_launcher(src, dst, bad, end, end, None, cfg, form="wide")
+    cfg6 = LatticeConfig(nx=24, ny=36, dtype=dtype)  # 36 % 8 != 0: narrow in bf16 only
+    g = _perturbed(cfg6, cuda_device)
+    s6 = g[:, :12].contiguous()
+    want = "wide" if dtype == np.float32 else "narrow"
+    assert fk.ext_launcher(s6, torch.empty_like(s6), None, None, cfg6, row0=1, rows=10).form == want
+    e6 = fk.rdma_end(cfg6, cuda_device)
+    assert fk.rdma_launcher(s6, torch.empty_like(s6), e6, e6, e6, None, cfg6).form == want
 
 
 @pytest.mark.cuda
@@ -521,7 +611,7 @@ class _RdmaRing:
     per shard, an RdmaEnd and a stream each, a launch per shard and buffer
     parity."""
 
-    def __init__(self, cfg, geom, n, device, fast_math=False, timeout_s=1.0):
+    def __init__(self, cfg, geom, n, device, fast_math=False, timeout_s=1.0, form=None):
         f = _perturbed(cfg, device)
         L = cfg.nx // n
         self.n = n
@@ -533,7 +623,8 @@ class _RdmaRing:
         self.launches = [[fk.rdma_launcher(
             self.bufs[p][k], self.bufs[1 - p][k], self.ends[k], self.ends[(k - 1) % n],
             self.ends[(k + 1) % n], self.geoms[k], cfg, row_offset=k * L, fast_math=fast_math,
-            timeout_s=timeout_s, stream=self.streams[k]) for k in range(n)] for p in range(2)]
+            timeout_s=timeout_s, stream=self.streams[k], form=form) for k in range(n)]
+            for p in range(2)]
         self.parity = self.step = 0
         torch.cuda.synchronize()
 
@@ -547,14 +638,16 @@ class _RdmaRing:
         return [fk.rdma_timed_out(e) for e in self.ends]
 
 
-def _rdma_steps(cfg, geom, n, device, steps=5, fast_math=False):
-    """`steps` steps of the rdma kernel over n virtual shards, one launch per
-    shard and step, each shard's block, comm rows and flags held bitwise
-    against step_reference_rdma from the same inputs; returns the joined
-    state."""
-    ring = _RdmaRing(cfg, geom, n, device, fast_math=fast_math)
+def _rdma_steps(cfg, geom, n, device, steps=5, fast_math=False, form=None):
+    """`steps` steps of the rdma kernel over n virtual shards in `form`
+    (default: the one kernel_form names), one launch per shard and step,
+    each shard's block, comm rows and flags held bitwise against
+    step_reference_rdma from the same inputs, and the wide form's blocks
+    also against its plain version; returns the joined state."""
+    ring = _RdmaRing(cfg, geom, n, device, fast_math=fast_math, form=form)
     ref_ends = [fk.rdma_end(cfg, device) for _ in range(n)]
     before = fk.RDMA_LAUNCHES
+    forms = dict(fk.RDMA_FORM_LAUNCHES)
     for step in range(1, steps + 1):
         srcs, dsts = ring.bufs[ring.parity], ring.bufs[1 - ring.parity]
         assert ring.advance() == [0] * n
@@ -564,7 +657,13 @@ def _rdma_steps(cfg, geom, n, device, steps=5, fast_math=False):
                 assert torch.equal(got, want)
             if not fast_math:
                 assert torch.equal(dsts[k], refs[k])
+                if form == "wide":
+                    assert torch.equal(dsts[k], fk.rdma_compute_reference(
+                        srcs[k], ref_ends[k], ring.geoms[k], cfg, step,
+                        row_offset=k * (cfg.nx // n), form="wide"))
     assert fk.RDMA_LAUNCHES == before + steps * n
+    if form is not None:
+        assert fk.RDMA_FORM_LAUNCHES[form] == forms.get(form, 0) + steps * n
     return torch.cat(ring.bufs[ring.parity], dim=1)
 
 
@@ -573,16 +672,50 @@ def _rdma_steps(cfg, geom, n, device, steps=5, fast_math=False):
 @pytest.mark.parametrize("geom", ["none", "plane", "spec", "slip", "bf16-spec"])
 def test_rdma_kernel_equals_step_reference_rdma(geom, n, cuda_device):
     cfg, walls = _scene("column0", "bfloat16" if geom == "bf16-spec" else np.float32)
-    if geom == "none":
-        g = None
-    elif geom == "plane":
-        g = walls.astype(np.uint8)
-    elif geom == "slip":
-        w, sx, sy = _slip_scene(cfg.nx, cfg.ny)
-        g = fk.class_plane(w, sx, sy)
-    else:
-        g = geometry.infer_spec(walls)
-    _rdma_steps(cfg, g, n, cuda_device)
+    _rdma_steps(cfg, _geometry_source(geom.removeprefix("bf16-"), cfg, walls), n, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("geom", ["none", "plane", "spec", "slip", "bf16-spec", "bf16-plane"])
+def test_rdma_kernel_forms_equal_their_plain_versions_and_each_other(geom, n, cuda_device):
+    """Both forms of the rdma kernel at the three small scenes: each
+    bitwise against step_reference_rdma, comm rows and flags included (the
+    wide one also against its plain version), and so against the other."""
+    dtype = "bfloat16" if geom.startswith("bf16") else np.float32
+    for name in ("barrier", "column0", "empty"):
+        cfg, walls = _scene(name, dtype)
+        g = _geometry_source(geom.removeprefix("bf16-"), cfg, walls)
+        outs = [_rdma_steps(cfg, g, n, cuda_device, steps=3, form=form) for form in fk.FORMS]
+        assert torch.equal(*outs)
+
+
+@pytest.mark.cuda
+def test_sharded_paths_count_their_launches_by_form(cuda_device, monkeypatch):
+    """sharded-cuda and sharded-cuda-rdma over 4 virtual shards at 24x40:
+    the rdma launches and sharded-cuda's interior launches take the wide
+    form, sharded-cuda's one-row launches the narrow one (the launcher's
+    default); at 24x38 (38 % 4 != 0) every launch is narrow. Every launch
+    counted by form, bitwise equal to the cuda backend."""
+    from latticeboltzmann_tpu_torch.models import engine
+
+    mesh = sharded.make_mesh(devices=[cuda_device] * 4)
+    for ny, wide in ((40, True), (38, False)):
+        cfg = LatticeConfig(nx=24, ny=ny, dtype=np.float32, accel=0.005)
+        walls = geometry.channel(24, ny)
+        walls[8:14, 0:3] = True
+        want = Simulation(cfg, walls, backend="cuda").run(20).state()
+        for backend, rdma, counts, expected in (
+                ("sharded-cuda", False, fk.EXT_FORM_LAUNCHES,
+                 {"wide": 4, "narrow": 8} if wide else {"narrow": 12}),
+                ("sharded-cuda-rdma", True, fk.RDMA_FORM_LAUNCHES,
+                 {"wide" if wide else "narrow": 4})):
+            monkeypatch.setitem(engine._BACKENDS, backend, sharded.make_cuda_backend(mesh, rdma=rdma))
+            before = dict(counts)
+            sim = Simulation(cfg, walls, backend=backend, allow_experimental=True)
+            np.testing.assert_array_equal(sim.run(20).state(), want)
+            assert {k: v - before.get(k, 0) for k, v in counts.items() if v != before.get(k, 0)} \
+                == {form: 20 * n for form, n in expected.items()}
 
 
 @pytest.mark.cuda
