@@ -115,17 +115,24 @@ Phases, each of which raises on failure:
    and NY), the alignment kernel (offsets 0, 1, 2 along rows and along
    columns) and the x-roll kernel (shared memory and global re-reads;
    shifts 1 and 39); launches counted;
-19. the flat multi-step kernel against flat_reference, bitwise, on the
-   wall-free scenes of phase 3 (float32 and bf16; 2 and 8 steps in one
-   launch); then at full width: 800x4000 wall-free float32, 1,008 steps
-   in 63 counted launches of 16 through make_flat_step, bitwise equal to
-   Simulation(backend="cuda") on geometry.empty after the same steps;
+19. the flat multi-step kernel (T steps a pass in shared memory) against
+   flat_reference, bitwise, the whole stacked pair, on the wall-free
+   scenes of phase 3, a lattice smaller than one tile (5x3) and a ragged
+   one (37x1001), float32 and bf16, 2 and 8 steps in one launch, at T in
+   1, 2, 3, 4, 8 and each storage type's default (FLAT_TEMPORAL), and
+   against flat_reference_blocked (the kernel's tiling in plain PyTorch,
+   at the kernel's tile) on all but the 800x4000 scene; then at full
+   width: 800x4000 wall-free
+   float32, 1,008 steps in 63 counted launches of 16 through
+   make_flat_step, bitwise equal to Simulation(backend="cuda") on
+   geometry.empty after the same steps;
 20. the anatomy path itself, scripts.anatomy.main(--section all) with a
    small --steps at 800x4000, every kernel's launches counted; then
    times: the copy kernel's forms beside Tensor.copy_ in turns, ns per
    roll and per add of the probes (slopes between two counts), and the
    flat kernel's us/step beside the step kernel's, in turns, at 800x4000
-   float32 and bf16 and at 400x2000 bf16 (both parities in L2);
+   float32 and bf16 and at 400x2000 bf16 (both parities in L2), with its
+   temporal depth, tile, CTAs per SM, shared bytes and registers;
 21. one float32 step at 4000x16000 (the shape the TPU kernel needed lane
    panels for), spec and wall-free variants, both forms, bitwise against
    step_reference.
@@ -2000,20 +2007,34 @@ def anatomy_phases():
         raise AssertionError(f"phase 18 launched no {sorted(missing)}: {counts18}")
     print(f"phase 18 probe launches: {counts18}")
 
-    # 19. the flat kernel against flat_reference on the wall-free scenes
+    # 19. the flat kernel against flat_reference on the wall-free scenes, at
+    # a sweep of temporal depths and each storage type's default; against
+    # flat_reference_blocked where its many tiles of plain PyTorch take
+    # seconds, not minutes
     flat_err = 0.0
+    flat_temporals = tuple(sorted({1, 2, 3, 4, 8, *fused_kernel.FLAT_TEMPORAL.values()}))
     for dtype in (np.float32, "bfloat16"):
-        for name, cfg, _ in scenes(dtype):
+        extra = [("5x3, smaller than one tile", LatticeConfig(nx=5, ny=3, dtype=dtype, accel=0.005)),
+                 ("37x1001, ragged tiles", LatticeConfig(nx=37, ny=1001, dtype=dtype))]
+        for name, cfg in [(name, cfg) for name, cfg, _ in scenes(dtype)] + extra:
             f0 = perturbed_state(cfg, rng)
             f0[6, cfg.nx // 2, 0] = 1e-6  # the forcing guard fails at one column-0 site
             t = state_tensor(f0, cfg.dtype, dev)
+            blocked = cfg.sites < 100_000
             for n in (2, 8):
-                f2 = torch.stack([t, torch.full_like(t, float("nan"))])
-                want = fused_kernel.flat_reference(f2, cfg, n)
-                flat_err = max(flat_err, bitwise(f"flat {name} wall-free {dtype} n {n}",
-                                                 fused_kernel.flat_step(f2, cfg, n), want))
-            print(f"flat kernel vs flat_reference, {name} wall-free ({t.dtype}), 2 and 8 steps "
-                  f"in one launch: bitwise")
+                want = fused_kernel.flat_reference(torch.stack([t, t]), cfg, n)
+                for temporal in flat_temporals:
+                    f2 = torch.stack([t, torch.full_like(t, float("nan"))])
+                    label = f"flat {name} {dtype} n {n} T {temporal}"
+                    flat_err = max(flat_err, bitwise(label, fused_kernel.flat_step(
+                        f2, cfg, n, temporal=temporal), want))
+                    if blocked:
+                        bitwise(f"{label}: flat_reference_blocked", fused_kernel.flat_reference_blocked(
+                            torch.stack([t, t]), cfg, n, temporal,
+                            fused_kernel.flat_tile(t.dtype)), want)
+            print(f"flat kernel vs flat_reference{', flat_reference_blocked' if blocked else ''}, "
+                  f"{name} wall-free ({t.dtype}), 2 and 8 steps in one launch at T in "
+                  f"{flat_temporals}: bitwise")
     # at full width: fast math within its bar, then FLAT_STEPS steps through
     # make_flat_step against the cuda backend
     cfg = LatticeConfig(nx=800, ny=4000, dtype=np.float32)
@@ -2151,6 +2172,15 @@ def anatomy_phases():
         f2_ = torch.stack([t_, t_])
         u_ = torch.empty_like(t_)
         flat_ = fused_kernel.make_flat_step(cfg_, FLAT_CHUNK)
+        temporal = fused_kernel.FLAT_TEMPORAL[t_.dtype]
+        info = fused_kernel.flat_info(t_.dtype)
+        out_r, out_c = fused_kernel.flat_output(fused_kernel.flat_tile(t_.dtype), t_.dtype,
+                                                temporal)
+        print(f"flat kernel {cfg_.nx}x{cfg_.ny} {t_.dtype}: T {temporal}, tile {info['rows']}x"
+              f"{info['width']} (output {out_r}x{out_c} at T steps), "
+              f"{info['ctas_per_sm']} CTAs/SM, {info['registers']} "
+              f"registers, {info['shared_bytes_per_cta']} shared B/CTA, {info['local_bytes']} B "
+              f"local memory; passes {fused_kernel.flat_schedule(FLAT_CHUNK, temporal)}")
 
         def two_steps():
             fused_kernel.step(t_, u_, None, cfg_)
@@ -2168,6 +2198,7 @@ def anatomy_phases():
                   else queued_ms(lambda: flat_(f2_), 20) / FLAT_CHUNK)
             r(f"{label}, {names[which]} (CUDA events, queued behind a spin, in turns)", ms * 1e-3)
             best_[which] = min(best_.get(which, ms), ms)
+        best_["info"] = {"temporal": temporal, **info}
         return best_, f2_
 
     per_step, f2 = flat_and_step(cfg)
@@ -2198,7 +2229,8 @@ def anatomy_phases():
          "route": "cuda", "source": source, "replaces": "scripts/anatomy.py:252",
          "launches": counts["roll_x-shared"] + counts["roll_x-global"],
          "max_abs_err": err["roll_x"], **rollx_entry},
-        {"name": f"lbm_flat_steps<float> ({FLAT_CHUNK} wall-free steps per launch, 800x4000)",
+        {"name": f"lbm_flat_steps<float> ({FLAT_CHUNK} wall-free steps per launch, "
+                 f"T={per_step['info']['temporal']}, 800x4000)",
          "route": "cuda", "source": "latticeboltzmann_tpu_torch/csrc/lbm_flat_step.cu",
          "replaces": "latticeboltzmann_tpu/ops/fused_kernel.py:1845",
          "launches": counts["flat"], "launches_full_width_check": flat_launches,
@@ -2209,6 +2241,7 @@ def anatomy_phases():
          **bound(3 * state_bytes, FLAT_CHUNK * F32_OPS_PER_SITE * cfg.sites),
          # and what FLAT_CHUNK steps move when each goes through device memory
          "per_step_traffic_bound_ms": FLAT_CHUNK * 2 * state_bytes / PEAK_BYTES_PER_S * 1e3,
+         **per_step["info"], "bf16_info": per_step16["info"],
          "us_per_step": per_step["flat"] * 1e3, "step_kernel_us_per_step": per_step["step"] * 1e3,
          "bf16_us_per_step": per_step16["flat"] * 1e3,
          "bf16_step_kernel_us_per_step": per_step16["step"] * 1e3,

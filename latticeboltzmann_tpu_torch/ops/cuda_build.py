@@ -243,10 +243,18 @@ def load_library() -> ctypes.CDLL:
         ctypes.c_int64,   # ny
         ctypes.c_int64,   # storage: 0 float32, 1 bfloat16
         ctypes.c_int64,   # fast_math
-        ctypes.c_int64,   # n_steps (even)
+        ctypes.c_void_p,  # plan: 8 host int64, steps and count of each run of passes
+        ctypes.c_int64,   # vec: 16-byte loads and stores
         ctypes.c_int64,   # blocks: 0 for the co-resident grid
         ctypes.c_void_p,  # params: 9 host floats
         ctypes.c_void_p,  # cudaStream_t
+    ]
+    fn = lib.lbm_flat_steps_info
+    fn.restype = ctypes.c_int
+    fn.argtypes = [
+        ctypes.c_int64,   # storage: 0 float32, 1 bfloat16
+        ctypes.c_void_p,  # out: 6 int64 (registers, CTAs per SM, shared bytes, local bytes,
+                          # the tile's rows and columns)
     ]
     fn = lib.lbm_copy_launch
     fn.restype = ctypes.c_int

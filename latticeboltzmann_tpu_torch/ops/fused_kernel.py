@@ -46,15 +46,19 @@ by the same rule over every buffer the kernel reads or writes by vectors:
 the wide ones (csrc/lbm_wide_ext_step.cu; plain version
 `step_reference_ext_wide`) and the narrow ones of csrc/lbm_step.cu.
 
-The flat form (`make_flat_step`, `flat_step`; plain version
-`flat_reference`; csrc/lbm_flat_step.cu) runs an even number of
-wall-free steps in ONE cooperative launch over a stacked (2, 9, NX, NY)
-ping-pong pair, in place: the twin of the JAX package's make_flat_step.
-Its launches are counted in FLAT_LAUNCHES.
+The flat form (`make_flat_step`, `flat_step`; plain versions
+`flat_reference` and, tile by tile, `flat_reference_blocked`;
+csrc/lbm_flat_step.cu) runs an even number of wall-free steps in ONE
+cooperative launch over a stacked (2, 9, NX, NY) ping-pong pair, in
+place, up to `temporal` steps per pass through device memory, the steps
+of a pass kept in shared memory (`flat_schedule` plans the passes;
+`flat_tile` reads the tile the card's shared memory gives the kernel):
+the twin of the JAX package's make_flat_step. Its launches are counted
+in FLAT_LAUNCHES.
 
 State is the unpadded (9, NX, NY) layout: the TPU kernel's mirror-pad
-lanes, VMEM staging and temporal blocking have no counterpart here
-(ROADMAP, "Not to port").
+lanes and VMEM staging have no counterpart here, and the one-step kernels
+run no temporal blocking (ROADMAP, "Not to port").
 """
 
 from __future__ import annotations
@@ -62,6 +66,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
+import itertools
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -91,6 +96,14 @@ RDMA_FORM_LAUNCHES: collections.Counter = collections.Counter()
 # launches of the flat multi-step kernel (`flat_step`), each of which runs
 # many steps
 FLAT_LAUNCHES = 0
+# the flat kernel: steps a pass keeps in shared memory by storage type
+# (the temporal of the JAX make_flat_step), chosen by measurement
+# (PERF.md); the most runs of equal passes a launch takes; the largest
+# temporal the wrapper takes (on a card, a depth whose pass leaves no
+# output tile in the card's tile is refused too)
+FLAT_TEMPORAL = {torch.float32: 6, torch.bfloat16: 8}
+FLAT_RUNS = 4
+FLAT_MAX_TEMPORAL = 32
 
 # the storage and geometry codes of the launcher in csrc/lbm_step.cu
 _STORAGE = {torch.float32: 0, torch.bfloat16: 1}
@@ -976,6 +989,133 @@ def flat_reference(f2: torch.Tensor, cfg: LatticeConfig, n_steps: int) -> torch.
     return torch.stack([cur, prev])
 
 
+class FlatTile(NamedTuple):
+    """A tile of the flat kernel in shared memory: `rows` x `width` sites,
+    from which a pass of L steps writes output tiles of flat_output(tile,
+    dtype, L) sites (its halos, L rows and L columns rounded up to a
+    16-byte vector, around them)."""
+
+    rows: int
+    width: int
+
+
+def flat_output(tile: FlatTile, dtype: torch.dtype, steps: int) -> tuple[int, int]:
+    """Rows and columns of the output tiles of a pass of `steps` steps."""
+    v = WIDE_COLUMNS[dtype]
+    return tile.rows - 2 * steps, tile.width - 2 * (-(-steps // v) * v)
+
+
+def flat_info(dtype: torch.dtype, device=None) -> dict:
+    """What a card gives the flat kernel for storage `dtype`, as
+    csrc/lbm_flat_step.cu decides it from the card's shared memory: the
+    tile's `rows` and `width`, `registers` and `local_bytes` (stack and
+    spills) per thread, `ctas_per_sm` and `shared_bytes_per_cta`. Needs
+    a CUDA card (default: the current one); read once per card."""
+    index = None if device is None else torch.device(device).index
+    return _flat_info(_STORAGE[dtype], torch.cuda.current_device() if index is None else index)
+
+
+@functools.cache
+def _flat_info(storage: int, index: int) -> dict:
+    out = (ctypes.c_int64 * 6)()
+    with torch.cuda.device(index):
+        rc = cuda_build.load_library().lbm_flat_steps_info(storage, out)
+    if rc != 0:
+        raise RuntimeError(f"lbm_flat_steps_info failed: cudaError {rc}")
+    return {"registers": out[0], "ctas_per_sm": out[1], "shared_bytes_per_cta": out[2],
+            "local_bytes": out[3], "rows": out[4], "width": out[5]}
+
+
+def flat_tile(dtype: torch.dtype, device=None) -> FlatTile:
+    """The flat kernel's tile for storage `dtype` on a card (flat_info)."""
+    info = flat_info(dtype, device)
+    return FlatTile(info["rows"], info["width"])
+
+
+def flat_schedule(n_steps: int, temporal: int) -> tuple[int, ...]:
+    """The flat kernel's passes: the steps of each, in order. Passes of at
+    most `temporal` steps, odd in number and as even as they go, cover
+    the first n_steps - 1 steps, so that they end at parity 1 (one step
+    earlier); a last pass of one step writes parity 0. A pass cannot also
+    write its own source parity: other CTAs still read halos from it."""
+    _check_flat_count(n_steps)
+    _check_temporal(temporal)
+    m = n_steps - 1
+    k = -(-m // temporal)
+    k += 1 - k % 2
+    q, r = divmod(m, k)
+    return (q + 1,) * r + (q,) * (k - r) + (1,)
+
+
+def _flat_runs(plan: tuple[int, ...]) -> tuple[int, ...]:
+    """A pass plan as the kernel takes it: the steps of each run of equal
+    passes, then each run's count, FLAT_RUNS runs (zeros after the
+    last)."""
+    runs = [[n, len(list(g))] for n, g in itertools.groupby(plan)]
+    if len(runs) > FLAT_RUNS:
+        raise ValueError(f"a pass plan of more than {FLAT_RUNS} runs: {plan}")
+    runs += [[0, 0]] * (FLAT_RUNS - len(runs))
+    return tuple(n for n, _ in runs) + tuple(c for _, c in runs)
+
+
+def flat_reference_blocked(f2: torch.Tensor, cfg: LatticeConfig, n_steps: int, temporal: int,
+                           tile: FlatTile) -> torch.Tensor:
+    """Plain PyTorch version of the flat kernel's tiling: flat_reference's
+    result, computed the way csrc/lbm_flat_step.cu computes it. The pass
+    plan is flat_schedule(n_steps, temporal); a pass of L steps reads one
+    parity and writes the other, tile by tile: output tiles of
+    flat_output(tile, dtype, L) sites (ragged at the last row and column),
+    each from its source grown by L on each side with periodic wrap by
+    modulo indices (a site may appear more than once), L levels each one
+    site smaller on each side, the forcing at sources of GLOBAL column 0
+    with the guard read at the level being read, and bfloat16 rounded to
+    storage after every level. tile: any rows and width that leave an
+    output tile (flat_tile gives the kernel's on a card). Returns a new
+    stacked tensor."""
+    _check_flat_count(n_steps)
+    _check_temporal(temporal)
+    tile = FlatTile(*tile)
+    if min(flat_output(tile, f2.dtype, temporal)) < 1:
+        raise ValueError(f"tile {tile} leaves no output tile at temporal={temporal}")
+    nx, ny = cfg.nx, cfg.ny
+    out = f2.clone()
+    parity = 0
+    for L in flat_schedule(n_steps, temporal):
+        R, C = flat_output(tile, f2.dtype, L)
+        src, dst = out[parity], out[parity ^ 1]
+        for r0 in range(0, nx, R):
+            for c0 in range(0, ny, C):
+                re, ce = min(R, nx - r0), min(C, ny - c0)
+                dst[:, r0:r0 + re, c0:c0 + ce] = _flat_tile_pass(src, cfg, r0, c0, re, ce, L)
+        parity ^= 1
+    return out
+
+
+def _flat_tile_pass(src: torch.Tensor, cfg: LatticeConfig, r0: int, c0: int, re: int, ce: int,
+                    L: int) -> torch.Tensor:
+    """L levels of one tile: the re x ce output sites at (r0, c0) after L
+    steps from src, through a source window grown by L on each side."""
+    _, _, _, _, _, _, _, a14, a58 = kernel_constants(cfg)
+    delta = torch.zeros(NSPEEDS, dtype=torch.float32)
+    delta[[1, 5, 8]] = torch.tensor([a14, a58, a58])
+    delta[[3, 6, 7]] = torch.tensor([-a14, -a58, -a58])
+    delta = delta.to(src.device)[:, None, None]
+    rows = torch.arange(r0 - L, r0 + re + L, device=src.device) % cfg.nx
+    cols = torch.arange(c0 - L, c0 + ce + L, device=src.device) % cfg.ny
+    cur = src[:, rows][:, :, cols].float()
+    for _ in range(L):
+        h, w = cur.shape[1], cur.shape[2]
+        ok = ((cur[6] - a58 > 0) & (cur[3] - a14 > 0) & (cur[7] - a58 > 0)
+              & (cols == 0)[None, :])
+        forced = torch.where(ok[None], cur + delta, cur)
+        pulled = torch.stack([
+            forced[s, 1 - int(E[s, 0]):h - 1 - int(E[s, 0]), 1 - int(E[s, 1]):w - 1 - int(E[s, 1])]
+            for s in range(NSPEEDS)])
+        cur = collide_reference(pulled, cfg).to(src.dtype).float()
+        cols = cols[1:-1]
+    return cur.to(src.dtype)
+
+
 def _check_flat(f2: torch.Tensor, cfg: LatticeConfig, n_steps: int) -> None:
     st = _storage(cfg)
     check_device(f2)
@@ -995,29 +1135,47 @@ def _check_flat_count(n_steps: int) -> None:
                          f"result returns to parity 0), got {n_steps!r}")
 
 
-def flat_step(f2: torch.Tensor, cfg: LatticeConfig, n_steps: int, *, fast_math: bool = False,
-              blocks: int | None = None) -> torch.Tensor:
+def _check_temporal(temporal: int) -> None:
+    if not isinstance(temporal, int) or not 1 <= temporal <= FLAT_MAX_TEMPORAL:
+        raise ValueError(f"temporal must be an integer in [1, {FLAT_MAX_TEMPORAL}], "
+                         f"got {temporal!r}")
+
+
+def flat_step(f2: torch.Tensor, cfg: LatticeConfig, n_steps: int, *, temporal: int | None = None,
+              fast_math: bool = False, blocks: int | None = None) -> torch.Tensor:
     """n_steps wall-free steps in one launch, in place; returns f2.
 
     f2: the stacked (2, 9, NX, NY) ping-pong pair of the config's storage
-    dtype (float32 or bfloat16) with the live state at parity 0; step s
-    reads parity s % 2 and writes the other, so the result is back at
-    parity 0 and n_steps must be even. On a CUDA tensor it makes one
-    cooperative launch on the current stream (a grid sized to what the
-    card holds at once, or `blocks` CTAs; a refused launch raises
-    RuntimeError) and counts it in FLAT_LAUNCHES; on a CPU tensor it
+    dtype (float32 or bfloat16) with the live state at parity 0; the
+    result is back at parity 0 and parity 1 holds the state one step
+    earlier, so n_steps must be even. temporal: the most steps a pass
+    keeps in shared memory (default FLAT_TEMPORAL by storage; the pass
+    plan is flat_schedule's); it does not change the result, bit for
+    bit. On a CUDA tensor it makes one cooperative launch on the current
+    stream (a grid sized to what the card holds at once, or `blocks`
+    CTAs; a refused launch raises RuntimeError) and counts it in
+    FLAT_LAUNCHES; a temporal whose pass leaves no output tile in the
+    card's tile (flat_tile) raises ValueError there. On a CPU tensor it
     writes flat_reference's result."""
     global FLAT_LAUNCHES
     _check_flat(f2, cfg, n_steps)
+    temporal = FLAT_TEMPORAL[f2.dtype] if temporal is None else temporal
+    plan = _flat_runs(flat_schedule(n_steps, temporal))
     if blocks is not None and (not isinstance(blocks, int) or blocks < 1):
         raise ValueError(f"blocks must be a positive integer or None, got {blocks!r}")
     if f2.device.type == "cpu":
         f2.copy_(flat_reference(f2, cfg, n_steps))
         return f2
+    tile = flat_tile(f2.dtype, f2.device)
+    if min(flat_output(tile, f2.dtype, temporal)) < 1:
+        raise ValueError(f"the flat kernel's tile {tile} leaves no output at "
+                         f"temporal={temporal} ({f2.dtype})")
+    vec = cfg.ny % WIDE_COLUMNS[f2.dtype] == 0 and f2.data_ptr() % WIDE_ALIGN == 0
     params = (ctypes.c_float * 9)(*kernel_constants(cfg))
+    runs = (ctypes.c_int64 * len(plan))(*plan)
     rc = cuda_build.load_library().lbm_flat_steps_launch(
-        f2.data_ptr(), cfg.nx, cfg.ny, _STORAGE[f2.dtype], int(fast_math), n_steps,
-        blocks or 0, ctypes.addressof(params),
+        f2.data_ptr(), cfg.nx, cfg.ny, _STORAGE[f2.dtype], int(fast_math), ctypes.addressof(runs),
+        int(vec), blocks or 0, ctypes.addressof(params),
         torch.cuda.current_stream(f2.device).cuda_stream,
     )
     if rc != 0:
@@ -1030,6 +1188,7 @@ def make_flat_step(
     cfg: LatticeConfig,
     n_steps: int,
     *,
+    temporal: int | None = None,
     walls=None,
     wall_spec=None,
     slip_x=None,
@@ -1038,10 +1197,11 @@ def make_flat_step(
 ) -> Callable[[torch.Tensor], torch.Tensor]:
     """The flat step of n_steps steps as a call f2 -> f2 (in place), the
     twin of the JAX package's make_flat_step (ops/fused_kernel.py:1799
-    there), whose passes x steps per pass are one count here. The flat
-    kernel is wall-free: a mask with a solid site, a non-empty wall spec,
-    slip masks or an odd count raise ValueError, as the JAX guards do
-    (:387-404 there)."""
+    there), whose passes x steps per pass are one count here; temporal,
+    the JAX make_flat_step's own parameter, is the most steps a pass runs
+    (default FLAT_TEMPORAL by storage). The flat kernel is wall-free: a
+    mask with a solid site, a non-empty wall spec, slip masks or an odd
+    count raise ValueError, as the JAX guards do (:387-404 there)."""
     if walls is not None and np.asarray(_host_mask(walls), dtype=bool).any():
         raise ValueError("the flat kernel is wall-free only: the mask has solid sites "
                          "(walls keep one launch per step)")
@@ -1049,11 +1209,13 @@ def make_flat_step(
         raise ValueError(f"the flat kernel is wall-free only: got the wall spec {wall_spec!r}")
     if slip_x is not None or slip_y is not None:
         raise ValueError("the flat kernel is wall-free only: it takes no slip masks")
-    _storage(cfg)
+    st = _storage(cfg)
     _check_flat_count(n_steps)
+    temporal = FLAT_TEMPORAL[st] if temporal is None else temporal
+    _check_temporal(temporal)
 
     def step(f2: torch.Tensor) -> torch.Tensor:
-        return flat_step(f2, cfg, n_steps, fast_math=fast_math)
+        return flat_step(f2, cfg, n_steps, temporal=temporal, fast_math=fast_math)
 
     return step
 

@@ -17,10 +17,11 @@ csrc/lbm_probes.cu) and its flat multi-step kernel
   align   ns per add on row-offset and column-offset windows of a
           resident (40, NY) block; ns per x-shift (rows) of the block held
           in shared memory and re-read from global memory
-  flat    the flat kernel's us/step (16 and 64 steps per launch, float32
-          and bf16, at fewer CTAs per SM than its full grid, and on a
-          lattice whose two parities fit the L2 cache) between two
-          anchors of the one-launch-per-step kernel
+  flat    the flat kernel's us/step (16 and 64 steps per launch at its
+          default temporal depth T, the JAX script's (T, steps) pairs, T
+          = 1..5 at 16 steps and T = 4..16 at 64 steps, float32 and bf16,
+          and on a lattice whose two parities fit the L2 cache) between
+          two anchors of the one-launch-per-step kernel
   prod    the cuda backend's session (one launch per step) on the scaled
           and the reference scene
   bf16    float32 against bf16 storage on the reference scene
@@ -66,11 +67,16 @@ TPU_LABS = {
 COPY_STAGING = ((1, 2), (1, 4), (1, 8), (2, 2), (2, 4), (4, 3))
 # CTAs per SM of the direct copy's persistent-grid variant
 COPY_PERSISTENT = (8, 32)
-# CTAs per SM the flat kernel is also run at (its full grid is 5 per SM)
-FLAT_PER_SM = (1, 2, 4)
 ROLL_ROWS = 32
 ALIGN_ROWS = 40
+# steps per launch of the flat kernel at its default temporal depth
 FLAT_CHUNKS = (16, 64)
+# (temporal, steps per launch) pairs of the JAX script's flat section
+FLAT_PAIRS = ((3, 48), (3, 96), (4, 64), (2, 32))
+# temporal depths of the sweep at FLAT_CHUNKS[0] steps per launch (from 5
+# on, 16 steps run as passes of 5, 5, 5, 1) and at FLAT_CHUNKS[1]
+FLAT_SWEEP = (1, 2, 3, 4, 5)
+FLAT_DEPTHS = (4, 6, 8, 12, 16)
 
 
 def report(label, dt, traffic_bytes=None, sites_steps=None):
@@ -209,27 +215,33 @@ def production(steps, nx, ny, dtype="float32", scene="reference", tag=""):
     return dt
 
 
-def flat(steps, nx, ny, chunk, dtype="float32", tag="", per_sm=None):
-    """The flat kernel: `chunk` wall-free steps per launch, on its full
-    co-resident grid or on per_sm CTAs per SM."""
+def flat(steps, nx, ny, chunk, dtype="float32", tag="", temporal=None):
+    """The flat kernel: `chunk` wall-free steps per launch, at passes of up
+    to `temporal` steps (default: the kernel's for the storage)."""
     from ..core.spec import LatticeConfig
     from ..models.engine import initial_state
     from ..ops import fused_kernel as fk
-    from ..utils.interop import state_tensor
+    from ..utils.interop import state_tensor, storage_dtype
     from ..utils.timing import timed_slope
 
     cfg = LatticeConfig(nx=nx, ny=ny, dtype=dtype)
-    fk.make_flat_step(cfg, chunk)  # the guards
-    blocks = None
-    if per_sm is not None:
-        blocks = per_sm * torch.cuda.get_device_properties(0).multi_processor_count
-        tag = f"{tag} {per_sm} CTAs/SM".strip()
+    st = storage_dtype(cfg.dtype)
+    temporal = fk.FLAT_TEMPORAL[st] if temporal is None else temporal
+    fk.make_flat_step(cfg, chunk, temporal=temporal)  # the guards
     f = state_tensor(initial_state(cfg), cfg.dtype, "cuda")
     f2 = torch.stack([f, f])
     n1 = max(steps // chunk, 2)
-    dt = timed_slope(lambda n: [fk.flat_step(f2, cfg, chunk, blocks=blocks) for _ in range(n)],
-                     n1, 3 * n1, steps_per_n=chunk)
-    report(f"flat {chunk} steps/launch {dtype} ({nx}x{ny}) {tag}", dt, sites_steps=nx * ny)
+    dt = timed_slope(lambda n: [fk.flat_step(f2, cfg, chunk, temporal=temporal)
+                                for _ in range(n)], n1, 3 * n1, steps_per_n=chunk)
+    info = fk.flat_info(st)
+    tile = fk.flat_tile(st)
+    report(f"flat {chunk} steps/launch T={temporal} {dtype} ({nx}x{ny}) {tag}".strip(), dt,
+           sites_steps=nx * ny)
+    out_r, out_c = fk.flat_output(tile, st, temporal)
+    print(f"    tile {tile.rows}x{tile.width} (output {out_r}x{out_c} at T steps), "
+          f"{info['ctas_per_sm']} CTAs/SM, "
+          f"{info['registers']} registers, {info['shared_bytes_per_cta']} shared B/CTA, "
+          f"{info['local_bytes']} B local memory", flush=True)
     return dt
 
 
@@ -238,8 +250,12 @@ def flat_section(steps, nx, ny):
     for dtype in ("float32", "bfloat16"):
         for chunk in FLAT_CHUNKS:
             flat(steps, nx, ny, chunk, dtype)
-    for per_sm in FLAT_PER_SM:
-        flat(steps, nx, ny, FLAT_CHUNKS[0], per_sm=per_sm)
+        for temporal, chunk in FLAT_PAIRS:
+            flat(steps, nx, ny, chunk, dtype, temporal=temporal)
+        for temporal in FLAT_SWEEP:
+            flat(steps, nx, ny, FLAT_CHUNKS[0], dtype, temporal=temporal)
+        for temporal in FLAT_DEPTHS:
+            flat(steps, nx, ny, FLAT_CHUNKS[1], dtype, temporal=temporal)
     production(steps, nx, ny, dtype="bfloat16", scene="empty")
     # a lattice whose two bf16 parities fit the L2 cache together
     sx, sy = max(nx // 2, 2), max(ny // 2, 2)

@@ -898,25 +898,88 @@ def test_roll_x_kernel_equals_chained_rolls(ny, mechanism, cuda_device):
     assert probes.LAUNCHES[f"roll_x-{mechanism}"] == before + 8
 
 
+# the flat kernel's temporal depths held against its plain versions: a
+# sweep and each storage type's default
+FLAT_TEMPORALS = tuple(sorted({1, 2, 3, 4, 8, *fk.FLAT_TEMPORAL.values()}))
+
+
+def _flat_scene(name, dtype):
+    """column0, empty: the step scenes, wall-free; small: a lattice
+    smaller than one tile; ragged: tiles ragged in both axes and an NY no
+    16-byte vector divides (the element-by-element loads and stores)."""
+    if name == "small":
+        return LatticeConfig(nx=5, ny=3, dtype=dtype, accel=0.005)
+    if name == "ragged":
+        return LatticeConfig(nx=37, ny=1001, dtype=dtype)
+    return _scene(name, dtype)[0]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
-@pytest.mark.parametrize("name", ["column0", "empty"])
+@pytest.mark.parametrize("name", ["column0", "empty", "small", "ragged"])
 def test_flat_kernel_equals_flat_reference(name, dtype, cuda_device):
-    """2, 8 and 16 steps in one cooperative launch, the whole stacked pair
-    bitwise; the forcing guard fails at one column-0 site."""
-    cfg, _ = _scene(name, dtype)
+    """2, 8, 16 and 10 steps in one cooperative launch at every temporal
+    depth of FLAT_TEMPORALS, the whole stacked pair bitwise against
+    flat_reference and against flat_reference_blocked at the kernel's own
+    tile; the forcing guard fails at one column-0 site."""
+    cfg = _flat_scene(name, dtype)
     f = _perturbed(cfg, cuda_device)
     f[6, cfg.nx // 2, 0] = 1e-6
     before = fk.FLAT_LAUNCHES
-    for n in (2, 8, 16):
+    counts = (2, 16) if name == "ragged" else (2, 8, 16, 10)
+    for n in counts:
         f2 = torch.stack([f, torch.full_like(f, float("nan"))])
         want = fk.flat_reference(f2, cfg, n)
-        got = fk.make_flat_step(cfg, n)(f2)
-        torch.cuda.synchronize()
-        assert got is f2 and torch.equal(got, want)
-    assert fk.FLAT_LAUNCHES == before + 3
+        for temporal in FLAT_TEMPORALS:
+            f2 = torch.stack([f, torch.full_like(f, float("nan"))])
+            got = fk.make_flat_step(cfg, n, temporal=temporal)(f2)
+            blocked = fk.flat_reference_blocked(torch.stack([f, f]), cfg, n, temporal,
+                                                fk.flat_tile(f.dtype))
+            torch.cuda.synchronize()
+            assert got is f2 and torch.equal(got, want), (n, temporal)
+            assert torch.equal(blocked, want), (n, temporal)
+    assert fk.FLAT_LAUNCHES == before + len(counts) * len(FLAT_TEMPORALS)
     # the one-launch-per-step kernel gives the same state
-    assert torch.equal(want[0], fk.run_steps(f, geometry.empty(cfg.nx, cfg.ny), cfg, 16))
+    assert torch.equal(want[0], fk.run_steps(f, geometry.empty(cfg.nx, cfg.ny), cfg, counts[-1]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+def test_flat_kernel_tile_and_grids_equal_flat_reference(dtype, cuda_device):
+    """The tile the card gives: two CTAs per SM by the card's own
+    occupancy count, an output left at the default depth. Depths 1 and 4,
+    16 steps at 100x200 (ragged row tiles), and the default depth on the
+    full grid and on a grid of 3 CTAs that walk many tiles each:
+    bitwise."""
+    cfg = LatticeConfig(nx=100, ny=200, dtype=dtype, accel=0.005)
+    f = _perturbed(cfg, cuda_device)
+    info = fk.flat_info(f.dtype)
+    assert info["ctas_per_sm"] == 2
+    tile = fk.flat_tile(f.dtype)
+    assert min(fk.flat_output(tile, f.dtype, fk.FLAT_TEMPORAL[f.dtype])) >= 1
+    want = fk.flat_reference(torch.stack([f, f]), cfg, 16)
+    for temporal in (1, 4, None):
+        got = fk.flat_step(torch.stack([f, f]), cfg, 16, temporal=temporal)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), temporal
+    got = fk.flat_step(torch.stack([f, f]), cfg, 16, blocks=3)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_flat_step_refuses_a_depth_its_tile_cannot_take(cuda_device):
+    """A temporal whose pass leaves no output row in the card's float32
+    tile raises ValueError before any launch and leaves the state."""
+    cfg = LatticeConfig(nx=16, ny=40, dtype=np.float32)
+    f = _perturbed(cfg, cuda_device)
+    f2 = torch.stack([f, f])
+    deep = (fk.flat_tile(torch.float32).rows + 1) // 2
+    assert deep <= fk.FLAT_MAX_TEMPORAL
+    before = fk.FLAT_LAUNCHES
+    with pytest.raises(ValueError, match="leaves no output"):
+        fk.flat_step(f2, cfg, 4, temporal=deep)
+    assert fk.FLAT_LAUNCHES == before and torch.equal(f2[0], f)
 
 
 @pytest.mark.cuda
