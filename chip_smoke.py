@@ -111,10 +111,22 @@ Phases, each of which raises on failure:
 18. the four anatomy probes (ops/probes.py) against their plain versions,
    bitwise, from seeded random inputs: the copy kernel (direct and
    staged forms, float32 and bf16, at 800x4000, 24x40 and 24x37, an odd
-   NY), the y-roll kernel (shared memory and shuffles; shifts 1, NY-1, 96
-   and NY), the alignment kernel (offsets 0, 1, 2 along rows and along
-   columns) and the x-roll kernel (shared memory and global re-reads;
-   shifts 1 and 39); launches counted;
+   NY), the alignment kernel (offsets 0, 1, 2 along rows and along
+   columns), the y-roll kernel at (32, 4000), (32, 40) and (32, 37) and
+   the x-roll kernel at (40, 4000), (40, 40) and (40, 37): both forms of
+   the shared-memory mechanism (wide: 16-byte vectors, the y-roll's rows
+   across a thread-block cluster; narrow: a row or a 128-column tile per
+   CTA, 4-byte accesses), and the
+   shuffle and global mechanisms, at shifts of every residue mod 4 (1, 2,
+   3, 4, 5, 96, NY-1, NY-2, NY; the x-roll also 1 and R-1) and 0, 1, 6, 7
+   rolls (the x-roll also 8, 9), each also against one torch.roll by the
+   summed shift; at 4000 columns every variant of the wide forms (the
+   cluster sizes and remote designs, the widths and warps per
+   CTA); launches counted by form: the wide forms must run at 4000
+   columns, the narrow ones at 37, where form="wide" must refuse; the
+   wide y-roll's cudaOccupancyMaxActiveClusters at each cluster size,
+   and its barriers alone; the SASS of the wide kernels: each one's loop
+   over rolls holds its shared or cluster stores and its barrier;
 19. the flat multi-step kernel (T steps a pass in shared memory) against
    flat_reference, bitwise, the whole stacked pair, on the wall-free
    scenes of phase 3, a lattice smaller than one tile (5x3) and a ragged
@@ -129,7 +141,11 @@ Phases, each of which raises on failure:
 20. the anatomy path itself, scripts.anatomy.main(--section all) with a
    small --steps at 800x4000, every kernel's launches counted; then
    times: the copy kernel's forms beside Tensor.copy_ in turns, ns per
-   roll and per add of the probes (slopes between two counts), and the
+   roll and per add of the probes (slopes between two counts; both
+   forms of each roll in turns, and the cluster barrier alone), one
+   launch of each roll at the JAX probe's count (6 y-rolls, 8 x-rolls)
+   of each form queued behind a spin in turns beside one torch.roll by
+   the summed shift, and the
    flat kernel's us/step beside the step kernel's, in turns, at 800x4000
    float32 and bf16 and at 400x2000 bf16 (both parities in L2), with its
    temporal depth, tile, CTAs per SM, shared bytes and registers;
@@ -169,8 +185,10 @@ the issue floor: the FP32 instructions over one a lane and clock). For
 the three on-chip probes that bound (the block in and out) is a fraction
 of a microsecond, so
 their entries also carry the shared-memory (or L1) bound per roll or add
-over the SMs the launch occupies (smem_bound_ns_per_roll,
-l1_bound_ns_per_add). The line before the last is
+over all of the card's SMs (smem_bound_ns_per_roll, l1_bound_ns_per_add;
+the figure over the SMs of the narrow roll's launch beside it), and
+the roll entries each form's time per launch and per roll, the library
+call's, and the wide form's shape (cluster size, or vectors and warps). The line before the last is
 the card's name and power limit; the last is {"ok": true, "device":
 {...}}. Without a CUDA card it exits non-zero and prints no result.
 """
@@ -327,6 +345,7 @@ def reset_counts():
     fused_kernel.RDMA_VARIANT_LAUNCHES.clear()
     fused_kernel.RDMA_FORM_LAUNCHES.clear()
     probes.LAUNCHES.clear()
+    probes.ROLL_FORM_LAUNCHES.clear()
 
 
 def read_counts():
@@ -1904,17 +1923,147 @@ ANATOMY_STEPS = 48
 # the flat kernel's full-width check: FLAT_STEPS steps in chunks of FLAT_CHUNK
 FLAT_CHUNK = 16
 FLAT_STEPS = 1008
-# on-chip rate for the probes' second bound: an SM's shared memory (and L1)
-# moves 128 B per clock (32 banks of 4 B; the Hopper architecture white
-# paper), at the H100 SXM's 1.98 GHz boost clock
-SMEM_BYTES_PER_S_PER_SM = 128 * 1.98e9
+# the mechanism of each roll that is not the shared-memory one
+ROLL_MECHANISM = {"roll_y": {"mechanism": "shuffle"}, "roll_x": {"mechanism": "global"}}
 
 
-def onchip_bound_ms(n_bytes, ctas):
-    """The least time for n_bytes of shared-memory (or L1) traffic spread
-    over the SMs that `ctas` CTAs occupy."""
-    sms = min(ctas, torch.cuda.get_device_properties(0).multi_processor_count)
-    return n_bytes / (SMEM_BYTES_PER_S_PER_SM * sms) * 1e3
+def roll_shifts(n):
+    """Phase 18's shifts of a roll along an axis of n: every residue mod 4,
+    one that crosses segments, and the axis's end."""
+    return (1, 2, 3, 4, 5, 96, n - 1, n - 2, n)
+
+
+def wide_variants(kind):
+    """Every variant of a roll's wide form: the y-roll's cluster sizes and
+    remote accesses, the x-roll's widths and warps per CTA."""
+    from latticeboltzmann_tpu_torch.ops import probes
+
+    if kind == "roll_y":
+        return [{"cluster": c, "remote": m} for c in probes.ROLL_Y_CLUSTERS
+                for m in probes.ROLL_Y_REMOTES]
+    return [{"vectors": v, "warps": w} for v in probes.ROLL_X_VECTORS for w in probes.ROLL_X_WARPS]
+
+
+# the wide y-roll kernels' MODE template argument (csrc/lbm_probes.cu)
+Y_MODES = ("store", "load", "async", "barriers", "barriers, relaxed")
+# what a roll's loop must hold, by kernel: one opcode of each group (as
+# cuobjdump prints them, without modifiers). Stores: STS into this CTA's
+# shared memory, ST through the cluster's window (st.shared::cluster),
+# STAS (st.async); barriers: NOP (where a converged
+# warp's __syncwarp stands), BAR (a block barrier), UCGABAR_ARV and
+# UCGABAR_WAIT (a cluster barrier), SYNCS (an mbarrier's arrive or wait)
+ROLL_SASS_NEEDS = {
+    "x_wide, 1 warp": (("STS",), ("NOP", "WARPSYNC")),
+    "x_wide, warps": (("STS",), ("BAR",)),
+    "store": (("ST",), ("STS",), ("UCGABAR_ARV",), ("UCGABAR_WAIT",)),
+    "load": (("LD",), ("STS",), ("UCGABAR_ARV",), ("UCGABAR_WAIT",)),
+    "async": (("STAS",), ("SYNCS",)),
+    "barriers": (("UCGABAR_ARV",), ("UCGABAR_WAIT",)),
+}
+
+
+def roll_sass():
+    """The SASS of the wide roll kernels (cuobjdump of the built library,
+    read by utils/sass.py): in every instantiation some loop, the loop
+    over rolls, holds the roll's stores and its barrier (ROLL_SASS_NEEDS);
+    prints that loop's moves and barriers for each. Raises otherwise."""
+    import re
+
+    from latticeboltzmann_tpu_torch.ops import cuda_build
+    from latticeboltzmann_tpu_torch.utils import sass
+
+    shown = ("LDS", "STS", "LD", "ST", "STAS", "BAR", "NOP", "WARPSYNC", "UCGABAR_ARV",
+             "UCGABAR_WAIT", "SYNCS", "MEMBAR", "CCTL")
+    checked = 0
+    for name, instrs in sass.functions(sass.disassemble(cuda_build.build())).items():
+        m = re.search(r"lbm_roll_(x_wide|y_cluster)ILi(\d+)ELi(\d+)E", name)
+        if not m:
+            continue
+        a, b = int(m.group(2)), int(m.group(3))
+        if m.group(1) == "x_wide":
+            label = f"lbm_roll_x_wide<{a}, {b}>"
+            need = "x_wide, 1 warp" if b == 1 else "x_wide, warps"
+        else:
+            label, need = f"lbm_roll_y_cluster<{Y_MODES[a]}, {b}>", Y_MODES[a].split(",")[0]
+        holding = [(lo, hi, body) for lo, hi, body in sass.loops(instrs)
+                   if all(any(op in body for op in group) for group in ROLL_SASS_NEEDS[need])]
+        if not holding:
+            loops = [(hex(lo), hex(hi), dict(body)) for lo, hi, body in sass.loops(instrs)]
+            raise AssertionError(f"{label}: no loop holds {ROLL_SASS_NEEDS[need]}: {loops}")
+        lo, hi, body = holding[-1]
+        print(f"SASS {label}: the loop {lo:#06x}-{hi:#06x} holds "
+              f"{ {op: body[op] for op in shown if body[op]} }")
+        checked += 1
+    if checked != 12 + 3 * 4 + 2:
+        raise AssertionError(f"found {checked} of the 26 wide roll kernels in the SASS")
+
+
+def roll_times(kind, x, n_rolls, n1):
+    """Phase 20's times of a roll probe on the block x: ns per roll of each
+    form (and of the other mechanism) as the slope between n1 and 2 * n1
+    rolls by 1, in turns; one launch of n_rolls rolls by 1 (the JAX
+    probe's count) and one of no roll of each form queued behind a spin,
+    in turns, beside one torch.roll by n_rolls (the library call) and by
+    1, and n_rolls chained torch.roll (the plain version). Returns the
+    kernels line's keys."""
+    from latticeboltzmann_tpu_torch.ops import probes
+    from latticeboltzmann_tpu_torch.scripts import anatomy
+
+    roll, reference = ((probes.roll_y, probes.roll_y_reference) if kind == "roll_y"
+                       else (probes.roll_x, probes.roll_x_reference))
+    axis = 1 if kind == "roll_y" else 0
+    out = torch.empty_like(x)
+    other = ROLL_MECHANISM[kind]["mechanism"]
+    kws = {"wide": {"form": "wide"}, "narrow": {"form": "narrow"}, other: ROLL_MECHANISM[kind]}
+    per_roll = {}
+    for label in ("wide", "narrow", other, other, "narrow", "wide"):
+        dt = timed_slope(lambda n: roll(x, 1, n, out=out, **kws[label]), n1, 2 * n1) * 1e9
+        print(f"{kind} {tuple(x.shape)}, shift 1, {label}: {dt!r} ns/roll (slope {n1}/{2 * n1}, "
+              "in turns)")
+        per_roll[label] = min(per_roll.get(label, dt), dt)
+    fns = {"wide": lambda: roll(x, 1, n_rolls, out=out, form="wide"),
+           "narrow": lambda: roll(x, 1, n_rolls, out=out, form="narrow"),
+           # a launch's fixed part: the block in and out, no roll
+           "wide, no roll": lambda: roll(x, 1, 0, out=out, form="wide"),
+           "narrow, no roll": lambda: roll(x, 1, 0, out=out, form="narrow"),
+           f"one torch.roll by {n_rolls}": lambda: torch.roll(x, n_rolls, axis),
+           "one torch.roll by 1": lambda: torch.roll(x, 1, axis)}
+    per_launch = {}
+    for label in (*fns, *reversed(fns)):
+        ms = queued_ms(fns[label], 200)
+        print(f"{kind} {tuple(x.shape)}, {label}: {ms * 1e3!r} us per launch (queued behind a "
+              "spin, in turns)")
+        per_launch[label] = min(per_launch.get(label, ms), ms)
+    plain_ms = queued_ms(lambda: reference(x, 1, n_rolls), 50)
+    lib_ms = per_launch[f"one torch.roll by {n_rolls}"]
+    onchip = 2 * x.numel() * 4
+    # the bound over the SMs the narrow form's launch occupies
+    narrow_ctas = x.shape[0] if kind == "roll_y" else -(-x.shape[1] // 128)
+    sms = min(narrow_ctas, torch.cuda.get_device_properties(0).multi_processor_count)
+    entry = {
+        "form": "wide", "ms": per_launch["wide"], "narrow_form_ms": per_launch["narrow"],
+        "no_roll_ms": {"wide": per_launch["wide, no roll"],
+                       "narrow": per_launch["narrow, no roll"]},
+        "plain_ms": plain_ms, **bound(onchip, 0), "library_ms": lib_ms,
+        "wide_over_library": per_launch["wide"] / lib_ms,
+        "ns_per_roll": per_roll, "library_ns_per_roll": per_launch["one torch.roll by 1"] * 1e6,
+        "smem_bound_ns_per_roll": anatomy.onchip_bound_s(onchip) * 1e9,
+        "smem_bound_ns_per_roll_over_narrow_launch_sms":
+            onchip / (anatomy.SMEM_BYTES_PER_CLOCK * anatomy.SM_CLOCK_HZ * sms) * 1e9,
+    }
+    if kind == "roll_y":
+        entry.update(cluster=probes.roll_y_cluster(x.shape[1]), remote=probes.ROLL_Y_REMOTE,
+                     max_active_clusters=probes.roll_y_clusters(*x.shape))
+    else:
+        vectors = probes.ROLL_X_DEFAULT["vectors"]
+        entry.update(probes.ROLL_X_DEFAULT, ctas=-(-x.shape[1] // (4 * vectors)))
+    print(f"{kind}, {n_rolls} rolls of {tuple(x.shape)}: wide {per_launch['wide'] * 1e3!r} us, "
+          f"narrow {per_launch['narrow'] * 1e3!r} us, {n_rolls} chained torch.roll "
+          f"{plain_ms * 1e3!r} us, one torch.roll by {n_rolls} {lib_ms * 1e3!r} us: the wide form "
+          f"takes {entry['wide_over_library']!r} of the library call's time; per roll "
+          f"{per_roll['wide']!r} ns wide, {per_roll['narrow']!r} narrow, card-wide bound "
+          f"{entry['smem_bound_ns_per_roll']!r}")
+    return entry
 
 
 def bitwise(label, got, want):
@@ -1966,21 +2115,6 @@ def anatomy_phases():
                 raise AssertionError(f"copy {dtype} {nx}x{ny}: no staged form was taken")
             print(f"copy kernel vs src.clone() ({dtype}, {nx}x{ny}): direct (covering and "
                   f"persistent grid) and {taken - 2} staged forms bitwise")
-    for rows, ny in ((32, 4000), (32, 40), (32, 37)):
-        x = rand((rows, ny))
-        for shift in (1, ny - 1, 96, ny):
-            for mechanism in ("shared", "shuffle"):
-                for n in (0, 6, 7):
-                    try:
-                        got = probes.roll_y(x, shift, n, mechanism=mechanism)
-                    except ValueError:  # shuffles take |shift| < 32 only
-                        continue
-                    err["roll_y"] = max(err["roll_y"], bitwise(
-                        f"roll_y {rows}x{ny} shift {shift} {mechanism} n {n}", got,
-                        probes.roll_y_reference(x, shift, n)))
-                    bitwise("roll_y vs one torch.roll", got, torch.roll(x, n * shift % ny, 1))
-    print("y-roll kernel vs chained torch.roll: shifts 1, NY-1, 96, NY; shared memory and "
-          "shuffles; (32, 4000), (32, 40), (32, 37): bitwise")
     for rows, ny in ((40, 4000), (40, 37)):
         x = rand((rows, ny))
         for axis in (0, 1):
@@ -1990,16 +2124,63 @@ def anatomy_phases():
                         f"align {rows}x{ny} axis {axis} offset {offset} n {n}",
                         probes.align(x, offset, n, axis=axis),
                         probes.align_reference(x, offset, n, axis)))
-        for shift in (1, rows - 1):
-            for mechanism in ("shared", "global"):
-                for n in (0, 1, 8, 9):
-                    err["roll_x"] = max(err["roll_x"], bitwise(
-                        f"roll_x {rows}x{ny} shift {shift} {mechanism} n {n}",
-                        probes.roll_x(x, shift, n, mechanism=mechanism),
-                        probes.roll_x_reference(x, shift, n)))
-    print("alignment kernel (offsets 0, 1, 2; rows and columns) and x-roll kernel (shifts 1, 39; "
-          "shared memory and global re-reads) vs their plain versions at (40, 4000), (40, 37): "
-          "bitwise")
+    print("alignment kernel (offsets 0, 1, 2; rows and columns) vs its plain version at "
+          "(40, 4000), (40, 37): bitwise")
+    # the rolls: both forms of the shared-memory mechanism (the wide one
+    # wherever NY is a multiple of 4, and there at every variant), the
+    # shuffle and global mechanisms, each against its plain version and one
+    # torch.roll by the summed shift; the wide form must run at 4000 columns
+    # and refuse 37, where the narrow form runs
+    for kind, roll, reference, rows, counts_n, axis in (
+            ("roll_y", probes.roll_y, probes.roll_y_reference, 32, (0, 1, 6, 7), 1),
+            ("roll_x", probes.roll_x, probes.roll_x_reference, 40, (0, 1, 6, 7, 8, 9), 0)):
+        for ny in (4000, 40, 37):
+            x = rand((rows, ny))
+            before = dict(probes.ROLL_FORM_LAUNCHES)
+            variants = [{"form": "narrow"}, ROLL_MECHANISM[kind]]
+            if ny % 4 == 0:
+                variants.append({"form": "wide"})
+            if ny == 4000:
+                variants += wide_variants(kind)
+            shifts = sorted({*roll_shifts(ny), *((1, rows - 1) if kind == "roll_x" else ())})
+            for shift in shifts:
+                for n in counts_n:
+                    for kw in variants:
+                        try:
+                            got = roll(x, shift, n, **kw)
+                        except ValueError:  # shuffles take |shift| < 32 only
+                            if kw != {"mechanism": "shuffle"}:
+                                raise
+                            continue
+                        label = f"{kind} {rows}x{ny} shift {shift} n {n} {kw}"
+                        err[kind] = max(err[kind], bitwise(label, got, reference(x, shift, n)))
+                        bitwise(f"{label} vs one torch.roll", got,
+                                torch.roll(x, n * shift % x.shape[axis], axis))
+            if ny % 4:
+                try:
+                    roll(x, 1, 6, form="wide")
+                except ValueError:
+                    pass
+                else:
+                    raise AssertionError(f"{kind} {rows}x{ny}: form='wide' did not refuse")
+            forms = {k: probes.ROLL_FORM_LAUNCHES[k] - before.get(k, 0)
+                     for k in (f"{kind}-wide", f"{kind}-narrow")}
+            if (ny == 4000 and not forms[f"{kind}-wide"]) or \
+                    (ny == 37 and (forms[f"{kind}-wide"] or not forms[f"{kind}-narrow"])):
+                raise AssertionError(f"{kind} {rows}x{ny}: launches by form {forms}")
+            print(f"{kind} kernels vs their plain versions and one torch.roll, ({rows}, {ny}), "
+                  f"shifts {shifts}, n {counts_n}, {len(variants)} forms and variants: bitwise; "
+                  f"launches by form {forms}")
+    x = rand((32, 4000))
+    for cluster in probes.ROLL_Y_CLUSTERS:
+        active = probes.roll_y_clusters(32, 4000, cluster)
+        if active < 1:
+            raise AssertionError(f"no cluster of {cluster} CTAs of the wide y-roll fits the card")
+        bitwise(f"cluster barriers alone, C={cluster}",
+                probes.cluster_barrier(x, 9, cluster=cluster), x)
+        print(f"wide y-roll at (32, 4000), cluster {cluster}: cudaOccupancyMaxActiveClusters "
+              f"{active}; its barriers alone leave the block as it was")
+    roll_sass()
     counts18 = read_counts()
     missing = {"copy-direct", "copy-staged", "roll_y-shared", "roll_y-shuffle", "align-axis0",
                "align-axis1", "roll_x-shared", "roll_x-global"} - set(counts18)
@@ -2076,12 +2257,16 @@ def anatomy_phases():
     if rc != 0:
         raise AssertionError(f"anatomy.main returned {rc}")
     counts = read_counts()
+    roll_forms = {k: n for k, n in probes.ROLL_FORM_LAUNCHES.items() if n}
     wanted = {"copy-direct", "copy-staged", "roll_y-shared", "roll_y-shuffle", "align-axis0",
-              "align-axis1", "roll_x-shared", "roll_x-global", "flat"}
-    if wanted - set(counts):
-        raise AssertionError(f"the anatomy path launched no {sorted(wanted - set(counts))}: "
-                             f"{counts}")
-    print(f"anatomy path: --section all --steps {ANATOMY_STEPS} at 800x4000, launches {counts}")
+              "align-axis1", "roll_x-shared", "roll_x-global", "flat", "cluster_barrier"}
+    forms_wanted = {f"{kind}-{form}" for kind in ("roll_y", "roll_x") for form in probes.FORMS}
+    if wanted - set(counts) or forms_wanted - set(roll_forms):
+        raise AssertionError(f"the anatomy path launched no "
+                             f"{sorted(wanted - set(counts) | forms_wanted - set(roll_forms))}: "
+                             f"{counts}, by form {roll_forms}")
+    print(f"anatomy path: --section all --steps {ANATOMY_STEPS} at 800x4000, launches {counts}, "
+          f"the rolls' by form {roll_forms}")
 
     rates = rates_printer(cfg, bytes_per_site(np.float32))
     a = rand((9, cfg.nx, cfg.ny))
@@ -2096,27 +2281,12 @@ def anatomy_phases():
     # set the pace), and the slope per roll or add between two counts
     n1 = 2000
     x = rand((anatomy.ROLL_ROWS, cfg.ny))
-    out = torch.empty_like(x)
-    roll = {}
-    for mechanism in ("shared", "shuffle", "shuffle", "shared"):
-        dt = timed_slope(lambda n: probes.roll_y(x, 1, n, mechanism=mechanism, out=out), n1, 2 * n1)
-        print(f"y-roll, shift 1, {mechanism}: {dt * 1e9!r} ns/roll (slope {n1}/{2 * n1}, in turns)")
-        roll[mechanism] = min(roll.get(mechanism, dt), dt)
-    best = min(roll, key=roll.get)
-    roll_ms = queued_ms(lambda: probes.roll_y(x, 1, 6, mechanism=best, out=out), 200)
-    roll_plain_ms = queued_ms(lambda: probes.roll_y_reference(x, 1, 6), 50)
-    roll_lib_ms = queued_ms(lambda: torch.roll(x, 6, 1), 200)
-    roll_lib_each = queued_ms(lambda: torch.roll(x, 1, 1), 200)
-    print(f"y-roll, 6 rolls of (32, 4000): kernel ({best}) {roll_ms * 1e3!r} us, 6 chained "
-          f"torch.roll {roll_plain_ms * 1e3!r} us, one torch.roll by 6 {roll_lib_ms * 1e3!r} us, "
-          f"one torch.roll by 1 {roll_lib_each * 1e3!r} us")
-    roll_entry = {
-        "ms": roll_ms, "plain_ms": roll_plain_ms, **bound(2 * x.numel() * 4, 0),
-        "library_ms": roll_lib_ms, "mechanism": best,
-        "ns_per_roll": {m: v * 1e9 for m, v in roll.items()},
-        "library_ns_per_roll": roll_lib_each * 1e6,
-        "smem_bound_ns_per_roll": onchip_bound_ms(2 * x.numel() * 4, x.shape[0]) * 1e6,
-    }
+    roll_entry = roll_times("roll_y", x, 6, n1)
+    roll_entry["cluster_barrier_ns"] = {
+        c: timed_slope(lambda n: probes.cluster_barrier(x, n, cluster=c, out=torch.empty_like(x)),
+                       n1, 2 * n1) * 1e9 for c in probes.ROLL_Y_CLUSTERS}
+    print(f"cluster barrier alone, ns per barrier by cluster size: "
+          f"{roll_entry['cluster_barrier_ns']}")
 
     x = rand((anatomy.ALIGN_ROWS, cfg.ny))
     align_ns = {}
@@ -2137,33 +2307,11 @@ def anatomy_phases():
         # the block read once, the output written once; 8 adds per element
         **bound((x.numel() + out.numel()) * 4, 8 * out.numel()),
         "ns_per_add": align_ns,
-        # one 4-byte operand per element and add through L1, over the grid's CTAs
-        "l1_bound_ns_per_add": onchip_bound_ms(out.numel() * 4, 10**6) * 1e6,
+        # one 4-byte operand per element and add through L1, over the card's SMs
+        "l1_bound_ns_per_add": anatomy.onchip_bound_s(out.numel() * 4) * 1e9,
     }
 
-    out = torch.empty_like(x)
-    rollx = {}
-    for shift in (1, anatomy.ALIGN_ROWS - 1):
-        for mechanism in ("shared", "global", "global", "shared"):
-            dt = timed_slope(lambda n: probes.roll_x(x, shift, n, mechanism=mechanism, out=out),
-                             n1, 2 * n1)
-            key = f"{mechanism}-shift{shift}"
-            print(f"x-roll, {key}: {dt * 1e9!r} ns/roll (slope {n1}/{2 * n1}, in turns)")
-            rollx[key] = min(rollx.get(key, dt * 1e9), dt * 1e9)
-    rollx_ms = queued_ms(lambda: probes.roll_x(x, 1, 8, mechanism="shared", out=out), 200)
-    rollx_plain_ms = queued_ms(lambda: probes.roll_x_reference(x, 1, 8), 50)
-    rollx_lib_ms = queued_ms(lambda: torch.roll(x, 8, 0), 200)
-    rollx_lib_each = queued_ms(lambda: torch.roll(x, 1, 0), 200)
-    print(f"x-roll, 8 rolls of (40, 4000): kernel (shared) {rollx_ms * 1e3!r} us, 8 chained "
-          f"torch.roll {rollx_plain_ms * 1e3!r} us, one torch.roll by 8 {rollx_lib_ms * 1e3!r} us, "
-          f"one torch.roll by 1 {rollx_lib_each * 1e3!r} us")
-    tiles = -(-cfg.ny // 128)
-    rollx_entry = {
-        "ms": rollx_ms, "plain_ms": rollx_plain_ms, **bound(2 * x.numel() * 4, 0),
-        "library_ms": rollx_lib_ms, "ns_per_roll": rollx,
-        "library_ns_per_roll": rollx_lib_each * 1e6,
-        "smem_bound_ns_per_roll": onchip_bound_ms(2 * x.numel() * 4, tiles) * 1e6,
-    }
+    rollx_entry = roll_times("roll_x", x, 8, n1)
     del x, out
 
     # the flat kernel beside the step kernel, in turns, per step
@@ -2217,17 +2365,22 @@ def anatomy_phases():
          "launches": counts["copy-direct"] + counts["copy-staged"], "max_abs_err": err["copy"],
          "ms": copy["ms"], "plain_ms": copy_plain_ms, **bound(n_bytes, 0),
          "library_ms": copy["library_ms"], "forms_ms": copy["forms"]},
-        {"name": "lbm_roll_y_shared / lbm_roll_y_shuffle (6 rolls by 1 of (32, 4000))",
+        {"name": "lbm_roll_y_cluster (wide: each row across a thread-block cluster) / "
+                 "lbm_roll_y_shared (narrow) / lbm_roll_y_shuffle (6 rolls by 1 of (32, 4000))",
          "route": "cuda", "source": source, "replaces": "scripts/anatomy.py:192",
          "launches": counts["roll_y-shared"] + counts["roll_y-shuffle"],
+         "launches_by_form": {f: roll_forms.get(f"roll_y-{f}", 0) for f in probes.FORMS},
+         "cluster_barrier_launches": counts["cluster_barrier"],
          "max_abs_err": err["roll_y"], **roll_entry},
         {"name": "lbm_align (8 adds at column offset 1 of (40, 4000))",
          "route": "cuda", "source": source, "replaces": "scripts/anatomy.py:224",
          "launches": counts["align-axis0"] + counts["align-axis1"],
          "max_abs_err": err["align"], **align_entry},
-        {"name": "lbm_roll_x_shared / lbm_roll_x_global (8 rolls by 1 of (40, 4000))",
+        {"name": "lbm_roll_x_wide (16-byte vectors) / lbm_roll_x_shared (narrow) / "
+                 "lbm_roll_x_global (8 rolls by 1 of (40, 4000))",
          "route": "cuda", "source": source, "replaces": "scripts/anatomy.py:252",
          "launches": counts["roll_x-shared"] + counts["roll_x-global"],
+         "launches_by_form": {f: roll_forms.get(f"roll_x-{f}", 0) for f in probes.FORMS},
          "max_abs_err": err["roll_x"], **rollx_entry},
         {"name": f"lbm_flat_steps<float> ({FLAT_CHUNK} wall-free steps per launch, "
                  f"T={per_step['info']['temporal']}, 800x4000)",

@@ -305,4 +305,39 @@ def load_library() -> ctypes.CDLL:
         ctypes.c_int64,   # mechanism: 0 shared memory, 1 global re-reads
         ctypes.c_void_p,  # cudaStream_t
     ]
+    fn = lib.lbm_roll_x_wide_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [
+        ctypes.c_void_p,  # x: (rows, ny) float32, 16-byte aligned
+        ctypes.c_void_p,  # out
+        ctypes.c_int64,   # rows
+        ctypes.c_int64,   # ny: a multiple of 4
+        ctypes.c_int64,   # shift in [0, rows)
+        ctypes.c_int64,   # n_rolls
+        ctypes.c_int64,   # vectors: 16-byte vectors per CTA (1, 2, 4, 8)
+        ctypes.c_int64,   # warps per CTA (1, 2, 4)
+        ctypes.c_void_p,  # cudaStream_t
+    ]
+    fn = lib.lbm_roll_y_wide_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [
+        ctypes.c_void_p,  # x: (rows, ny) float32, 16-byte aligned
+        ctypes.c_void_p,  # out
+        ctypes.c_int64,   # rows
+        ctypes.c_int64,   # ny: a multiple of 4 * cluster
+        ctypes.c_int64,   # shift in [0, ny)
+        ctypes.c_int64,   # n_rolls
+        ctypes.c_int64,   # cluster: CTAs per row (1, 2, 4, 8)
+        ctypes.c_int64,   # mode: 0 store, 1 load, 2 async, 3-4 the barriers alone (two kinds)
+        ctypes.c_void_p,  # cudaStream_t
+    ]
+    fn = lib.lbm_roll_y_wide_clusters
+    fn.restype = ctypes.c_int
+    fn.argtypes = [
+        ctypes.c_int64,   # rows
+        ctypes.c_int64,   # ny
+        ctypes.c_int64,   # cluster
+        ctypes.c_int64,   # mode
+        ctypes.c_void_p,  # out: one int64, cudaOccupancyMaxActiveClusters
+    ]
     return lib

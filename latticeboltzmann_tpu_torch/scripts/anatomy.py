@@ -13,10 +13,14 @@ csrc/lbm_probes.cu) and its flat multi-step kernel
           (the library's copy) and an elementwise x.add_(1.0) loop: the
           bandwidth ceiling every step kernel is judged against
   roll    ns per periodic y-shift of a resident (32, NY) block, through
-          shared memory and through warp shuffles, beside torch.roll
+          shared memory (both forms: the wide one across a thread-block
+          cluster, at each cluster size and by remote stores and loads;
+          the cluster barriers alone) and through warp shuffles, beside
+          torch.roll
   align   ns per add on row-offset and column-offset windows of a
           resident (40, NY) block; ns per x-shift (rows) of the block held
-          in shared memory and re-read from global memory
+          in shared memory (both forms; the wide one at each width and
+          warps per CTA) and re-read from global memory, beside torch.roll
   flat    the flat kernel's us/step (16 and 64 steps per launch at its
           default temporal depth T, the JAX script's (T, steps) pairs, T
           = 1..5 at 16 steps and T = 4..16 at 64 steps, float32 and bf16,
@@ -30,7 +34,10 @@ csrc/lbm_probes.cu) and its flat multi-step kernel
 Every time is taken by CUDA events: a slope between two counts, which
 cancels the launch and a block's load and store, or, for the
 launch-per-step session, launches queued behind a spin so that the card
-and not the host sets the pace. The first line printed is the
+and not the host sets the pace. Beside each on-chip reading stands its
+share of the card's shared-memory bound: the bytes a roll or add moves
+through shared memory (or L1) at 128 B per clock on every SM at the
+H100's 1.98 GHz boost clock. The first line printed is the
 card's name and power limit. Without a CUDA card the script exits
 non-zero: no section runs on the CPU.
 
@@ -77,6 +84,18 @@ FLAT_PAIRS = ((3, 48), (3, 96), (4, 64), (2, 32))
 # on, 16 steps run as passes of 5, 5, 5, 1) and at FLAT_CHUNKS[1]
 FLAT_SWEEP = (1, 2, 3, 4, 5)
 FLAT_DEPTHS = (4, 6, 8, 12, 16)
+# the on-chip bound: an SM's shared memory (and L1) moves 128 B per clock
+# (32 banks of 4 B; the Hopper architecture white paper), at the H100
+# SXM's 1.98 GHz boost clock
+SMEM_BYTES_PER_CLOCK = 128
+SM_CLOCK_HZ = 1.98e9
+
+
+def onchip_bound_s(n_bytes):
+    """The least time for n_bytes of shared-memory (or L1) traffic spread
+    over every SM of the card."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return n_bytes / (SMEM_BYTES_PER_CLOCK * SM_CLOCK_HZ * sms)
 
 
 def report(label, dt, traffic_bytes=None, sites_steps=None):
@@ -89,10 +108,11 @@ def report(label, dt, traffic_bytes=None, sites_steps=None):
 
 
 def report_ns(label, dt, onchip_bytes):
-    """One on-chip operation: ns per roll or add over the whole block, and
-    the on-chip bytes it moves per second."""
-    print(f"{label:54s} {dt * 1e9:9.1f} ns/op    {onchip_bytes / dt / 1e9:8.1f} GB/s on chip",
-          flush=True)
+    """One on-chip operation: ns per roll or add over the whole block, the
+    on-chip bytes it moves per second, and the card's shared-memory bound
+    (onchip_bound_s) over the time."""
+    print(f"{label:54s} {dt * 1e9:9.1f} ns/op    {onchip_bytes / dt / 1e9:8.1f} GB/s on chip"
+          f"  {onchip_bound_s(onchip_bytes) / dt:6.3f} of the bound", flush=True)
 
 
 def _state(nx, ny, dtype, seed=0):
@@ -153,16 +173,39 @@ def roll_section(steps, ny):
     out = torch.empty_like(x)
     n1 = max(steps, 2000)
     onchip = 2 * x.numel() * 4  # 4 B read and 4 B written per element and roll
-    for shift in (1, ny - 1, 96, ny):
-        for mechanism in ("shared", "shuffle"):
+    print(f"shared-memory bound of a y-roll ({ROLL_ROWS}x{ny}) over the card's SMs: "
+          f"{onchip_bound_s(onchip) * 1e9:.1f} ns", flush=True)
+
+    def slope(fn):
+        return timed_slope(lambda n: fn(n), n1, 2 * n1)
+
+    for shift in (1, 2, ny - 1, 96, ny):
+        for label, kw in (("narrow", {"form": "narrow"}), ("wide", {"form": "wide"}),
+                          ("shuffle", {"mechanism": "shuffle"})):
             try:
-                dt = timed_slope(lambda n: probes.roll_y(x, shift, n, mechanism=mechanism, out=out),
-                                 n1, 2 * n1)
-            except ValueError:  # a shift the shuffle mechanism does not take
+                probes.roll_y(x, shift, 0, out=out, **kw)
+            except ValueError:  # a shift or NY the form or mechanism does not take
                 continue
-            report_ns(f"roll_y shift={shift:5d} {mechanism:7s} ({ROLL_ROWS}x{ny})", dt, onchip)
+            dt = slope(lambda n: probes.roll_y(x, shift, n, out=out, **kw))
+            report_ns(f"roll_y shift={shift:5d} {label:7s} ({ROLL_ROWS}x{ny})", dt, onchip)
         lib = queued_ms(lambda: torch.roll(x, shift, 1), 200) * 1e-3
         report_ns(f"torch.roll shift={shift:5d}, one call per roll", lib, onchip)
+    # the wide form's cluster sizes and remote accesses, and its barriers alone
+    for cluster in probes.ROLL_Y_CLUSTERS:
+        if probes.roll_y_cluster(ny, cluster) is None:
+            continue
+        active = probes.roll_y_clusters(ROLL_ROWS, ny, cluster)
+        print(f"roll_y wide, cluster {cluster}: {ROLL_ROWS * cluster} CTAs, at most {active} "
+              "clusters active at once (cudaOccupancyMaxActiveClusters)", flush=True)
+        for shift in (1, 4):
+            for remote in probes.ROLL_Y_REMOTES:
+                dt = slope(lambda n: probes.roll_y(x, shift, n, cluster=cluster, remote=remote,
+                                                   out=out))
+                report_ns(f"roll_y shift={shift} wide C={cluster} {remote:5s}", dt, onchip)
+        for kind in probes.CLUSTER_BARRIERS:
+            dt = slope(lambda n: probes.cluster_barrier(x, n, cluster=cluster, kind=kind, out=out))
+            print(f"{f'cluster barrier alone, C={cluster}, {kind}':54s} {dt * 1e9:9.1f} ns/op",
+                  flush=True)
 
 
 def align_section(steps, ny):
@@ -179,13 +222,28 @@ def align_section(steps, ny):
             report_ns(f"add offset={offset} axis={axis} ({ALIGN_ROWS}x{ny})", dt, out.numel() * 4)
     out = torch.empty_like(x)
     onchip = 2 * x.numel() * 4
+    print(f"shared-memory bound of an x-roll ({ALIGN_ROWS}x{ny}) over the card's SMs: "
+          f"{onchip_bound_s(onchip) * 1e9:.1f} ns", flush=True)
     for shift in (1, ALIGN_ROWS - 1):
-        for mechanism in ("shared", "global"):
-            dt = timed_slope(lambda n: probes.roll_x(x, shift, n, mechanism=mechanism, out=out),
-                             n1, 2 * n1)
-            report_ns(f"roll_x shift={shift:2d} {mechanism:6s} ({ALIGN_ROWS}x{ny})", dt, onchip)
+        for label, kw in (("narrow", {"form": "narrow"}), ("wide", {"form": "wide"}),
+                          ("global", {"mechanism": "global"})):
+            try:
+                probes.roll_x(x, shift, 0, out=out, **kw)
+            except ValueError:  # an NY the wide form does not take
+                continue
+            dt = timed_slope(lambda n: probes.roll_x(x, shift, n, out=out, **kw), n1, 2 * n1)
+            report_ns(f"roll_x shift={shift:2d} {label:6s} ({ALIGN_ROWS}x{ny})", dt, onchip)
         lib = queued_ms(lambda: torch.roll(x, shift, 0), 200) * 1e-3
         report_ns(f"torch.roll axis 0 shift={shift:2d}, one call per roll", lib, onchip)
+    # the wide form's widths and warps per CTA
+    if ny % 4 == 0:
+        for vectors in probes.ROLL_X_VECTORS:
+            for warps in probes.ROLL_X_WARPS:
+                dt = timed_slope(lambda n: probes.roll_x(x, 1, n, vectors=vectors, warps=warps,
+                                                         out=out), n1, 2 * n1)
+                ctas = -(-ny // (4 * vectors))
+                report_ns(f"roll_x shift=1 wide {vectors:2d} vectors {warps} warps ({ctas} CTAs)",
+                          dt, onchip)
 
 
 # ------------------------------------------------------- the step kernels

@@ -8,7 +8,9 @@ arithmetic instructions, which is the path of an ordinary site: it skips
 the branches that only some sites take (the forcing guard of the columns
 next to the y wrap, the slow path of an IEEE division) and the early exit
 of threads past the lattice's end. Its counts are a site's instructions,
-where the whole listing would count every branch once.
+where the whole listing would count every branch once. `loops` gives the
+opcodes inside each loop of a kernel, so that a probe's roll can be seen
+to keep its stores and its barrier in the loop over rolls.
 """
 
 from __future__ import annotations
@@ -103,3 +105,21 @@ def site_path(instrs: list[tuple[int, bool, str, str]]) -> collections.Counter:
                 prev[s] = k
                 heapq.heappush(heap, (ds, s))
     raise ValueError("no unguarded EXIT is reachable from the entry")
+
+
+def loops(instrs: list[tuple[int, bool, str, str]]) -> list[tuple[int, int, collections.Counter]]:
+    """[(first address, branch address, opcode counts without modifiers)]
+    for every backward branch of a kernel: the instructions from the
+    branch's target to the branch itself, a loop's body (an outer loop's
+    holds its inner loops). A branch to itself (the padding after the
+    last EXIT) is not a loop."""
+    index = {addr: k for k, (addr, *_rest) in enumerate(instrs)}
+    out = []
+    for k, (addr, _, op, operands) in enumerate(instrs):
+        if op.split(".")[0] != "BRA":
+            continue
+        target = int(_TARGET.search(operands).group(1), 16)
+        if target < addr:
+            body = collections.Counter(i[2].split(".")[0] for i in instrs[index[target]: k + 1])
+            out.append((target, addr, body))
+    return out

@@ -33,8 +33,14 @@ kernel's two forms (wide: several columns per thread, 16-byte accesses;
 narrow: one site per thread) are each held bitwise against step_reference
 and against each other; so are the two forms of the ext-halo and rdma
 kernels, against step_reference_ext / step_reference_rdma, the wide plain
-version step_reference_ext_wide and each other.
+version step_reference_ext_wide and each other. Both forms of the
+shared-memory rolls (wide: 16-byte vectors, the y-roll's rows across a
+thread-block cluster; narrow: a row or a 128-column tile per CTA) are
+held bitwise against
+their plain versions and one torch.roll, their launches counted by form.
 """
+
+import collections
 
 import numpy as np
 import pytest
@@ -896,6 +902,103 @@ def test_roll_x_kernel_equals_chained_rolls(ny, mechanism, cuda_device):
             torch.cuda.synchronize()
             assert torch.equal(got, probes.roll_x_reference(x, shift, n))
     assert probes.LAUNCHES[f"roll_x-{mechanism}"] == before + 8
+
+
+def _roll_shifts(n):
+    """Every residue mod 4, and the wrap: chip_smoke.py's phase 18."""
+    return (1, 2, 3, 4, 5, 96, n - 1, n - 2, n)
+
+
+def _form_counts():
+    return {k: n for k, n in probes.ROLL_FORM_LAUNCHES.items() if n}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ny", [4000, 40, 37])
+def test_roll_y_forms_equal_chained_rolls_and_one_roll(ny, cuda_device):
+    """Both forms of the shared-memory y-roll bitwise against roll_y_reference
+    and one torch.roll by the summed shift; the wide form runs wherever NY
+    is a multiple of 4 (a cluster of 2 at 40), the narrow one at 37, where
+    form="wide" raises; launches counted by form."""
+    x = _rand((32, ny), cuda_device, seed=1)
+    forms = ("wide", "narrow") if ny % 4 == 0 else ("narrow",)
+    before = collections.Counter(_form_counts())
+    for shift in _roll_shifts(ny):
+        for n in (0, 1, 6, 7):
+            for form in forms:
+                got = probes.roll_y(x, shift, n, form=form)
+                torch.cuda.synchronize()
+                assert torch.equal(got, probes.roll_y_reference(x, shift, n)), (shift, n, form)
+                assert torch.equal(got, torch.roll(x, n * shift % ny, 1))
+    if ny % 4:
+        with pytest.raises(ValueError):
+            probes.roll_y(x, 1, 6, form="wide")
+    want = before + collections.Counter({f"roll_y-{f}": 36 for f in forms})
+    assert _form_counts() == dict(want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remote", ["store", "load", "async"])
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+def test_roll_y_wide_form_at_every_cluster_size(cluster, remote, cuda_device):
+    """The wide y-roll at (32, 4000), each cluster size and remote access,
+    bitwise; the cluster barriers alone leave the block as it was; the
+    launch's cluster shape fits the card."""
+    x = _rand((32, 4000), cuda_device, seed=2)
+    assert probes.roll_y_clusters(32, 4000, cluster, remote) >= 1
+    for shift in _roll_shifts(4000):
+        for n in (1, 7):
+            got = probes.roll_y(x, shift, n, cluster=cluster, remote=remote)
+            torch.cuda.synchronize()
+            assert torch.equal(got, probes.roll_y_reference(x, shift, n)), (shift, n)
+    for kind in probes.CLUSTER_BARRIERS:
+        assert torch.equal(probes.cluster_barrier(x, 9, cluster=cluster, kind=kind), x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ny", [4000, 40, 37])
+def test_roll_x_forms_equal_chained_rolls_and_one_roll(ny, cuda_device):
+    """Both forms of the shared-memory x-roll bitwise against
+    roll_x_reference and one torch.roll; the wide form at every width and
+    warps per CTA where NY is a multiple of 4; launches counted by form."""
+    x = _rand((40, ny), cuda_device, seed=3)
+    before = collections.Counter(_form_counts())
+    launched = collections.Counter()
+    variants = [{"form": "narrow"}]
+    if ny % 4 == 0:
+        variants += [{"form": "wide"}] + [{"vectors": v, "warps": w} for v in probes.ROLL_X_VECTORS
+                                          for w in probes.ROLL_X_WARPS]
+    for shift in (*_roll_shifts(ny), 39):
+        for n in (0, 1, 6, 7, 8, 9):
+            for kw in variants:
+                got = probes.roll_x(x, shift, n, **kw)
+                torch.cuda.synchronize()
+                assert torch.equal(got, probes.roll_x_reference(x, shift, n)), (shift, n, kw)
+                assert torch.equal(got, torch.roll(x, n * shift % 40, 0))
+                launched[f"roll_x-{kw.get('form', 'wide')}"] += 1
+    if ny % 4:
+        with pytest.raises(ValueError):
+            probes.roll_x(x, 1, 8, form="wide")
+    assert _form_counts() == dict(before + launched)
+
+
+@pytest.mark.cuda
+def test_roll_forms_follow_the_pointers_on_the_card(cuda_device):
+    """A block that is not 16-byte aligned takes the narrow forms; form="wide"
+    refuses it and launches nothing."""
+    flat = _rand((32 * 4000 + 1,), cuda_device, seed=4)
+    x = flat[1:].view(32, 4000)
+    before = _form_counts()
+    assert torch.equal(probes.roll_y(x, 3, 6), torch.roll(x, 18, 1))
+    assert torch.equal(probes.roll_x(x, 3, 6), torch.roll(x, 18, 0))
+    for roll in (probes.roll_y, probes.roll_x):
+        with pytest.raises(ValueError):
+            roll(x, 1, 6, form="wide")
+    with pytest.raises(ValueError):
+        probes.cluster_barrier(x, 4)
+    want = collections.Counter(before) + collections.Counter({"roll_y-narrow": 1,
+                                                              "roll_x-narrow": 1})
+    assert _form_counts() == dict(want)
 
 
 # the flat kernel's temporal depths held against its plain versions: a

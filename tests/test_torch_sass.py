@@ -79,3 +79,29 @@ def test_site_path_needs_an_exit():
     no_exit = [i for i in instrs if not (i[2] == "EXIT" and not i[1])]
     with pytest.raises(ValueError, match="no unguarded EXIT"):
         sass.site_path(no_exit)
+
+
+# a kernel shaped like a probe's: a load loop, then a loop over rolls that
+# holds an inner loop of shared-memory moves and a barrier, then the stores
+_LOOPS = """
+\t\tFunction : _Z4rollPf
+        /*0000*/                   LDG.E.128 R4, [R2.64] ;                    /* 0x0000000402047981 */
+        /*0010*/                   STS.128 [R0], R4 ;                         /* 0x0000000400007388 */
+        /*0020*/               @P0 BRA 0x0000 ;                               /* 0x0000000000000947 */
+        /*0030*/                   LDS.128 R8, [R0] ;                         /* 0x0000000000087984 */
+        /*0040*/                   STS.128 [R1], R8 ;                         /* 0x0000000801007388 */
+        /*0050*/               @P1 BRA 0x0030 ;                               /* 0x0000000000041947 */
+        /*0060*/                   WARPSYNC.ALL ;                             /* 0x0000000000007948 */
+        /*0070*/               @P2 BRA 0x0030 ;                               /* 0x0000000000042947 */
+        /*0080*/                   STG.E.128 [R2.64], R8 ;                    /* 0x0000000802007986 */
+        /*0090*/                   EXIT ;                                     /* 0x000000000000794d */
+        /*00a0*/                   BRA 0x00a0;                                /* 0xfffffffc00fc7947 */
+"""
+
+
+def test_loops_gives_each_backward_branch_its_body():
+    found = sass.loops(sass.functions(_LOOPS)["_Z4rollPf"])
+    assert [(a, b) for a, b, _ in found] == [(0x00, 0x20), (0x30, 0x50), (0x30, 0x70)]
+    assert found[0][2] == collections.Counter({"LDG": 1, "STS": 1, "BRA": 1})
+    # the loop over rolls holds the inner loop's moves and the barrier
+    assert found[2][2] == collections.Counter({"LDS": 1, "STS": 1, "BRA": 2, "WARPSYNC": 1})
