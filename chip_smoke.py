@@ -115,18 +115,18 @@ Phases, each of which raises on failure:
    columns), the y-roll kernel at (32, 4000), (32, 40) and (32, 37) and
    the x-roll kernel at (40, 4000), (40, 40) and (40, 37): both forms of
    the shared-memory mechanism (wide: 16-byte vectors, the y-roll's rows
-   across a thread-block cluster; narrow: a row or a 128-column tile per
-   CTA, 4-byte accesses), and the
+   across a thread-block cluster of 4 CTAs; narrow: a row or a 128-column
+   tile per CTA, 4-byte accesses) and form=None (the y-roll's narrow
+   form, the x-roll's wide one: the faster on an H100), and the
    shuffle and global mechanisms, at shifts of every residue mod 4 (1, 2,
    3, 4, 5, 96, NY-1, NY-2, NY; the x-roll also 1 and R-1) and 0, 1, 6, 7
    rolls (the x-roll also 8, 9), each also against one torch.roll by the
-   summed shift; at 4000 columns every variant of the wide forms (the
-   cluster sizes and remote designs, the widths and warps per
-   CTA); launches counted by form: the wide forms must run at 4000
-   columns, the narrow ones at 37, where form="wide" must refuse; the
-   wide y-roll's cudaOccupancyMaxActiveClusters at each cluster size,
-   and its barriers alone; the SASS of the wide kernels: each one's loop
-   over rolls holds its shared or cluster stores and its barrier;
+   summed shift; launches counted by form: the wide forms must run at
+   4000 columns, the narrow ones at 37, where form="wide" must refuse
+   (the wide y-roll also at 40, no multiple of 16); the wide y-roll's
+   cudaOccupancyMaxActiveClusters; the SASS of the wide kernels: each
+   one's loop over rolls holds its shared loads and its shared (or
+   cluster) stores, and the y-roll's also its mbarrier waits;
 19. the flat multi-step kernel (T steps a pass in shared memory) against
    flat_reference, bitwise, the whole stacked pair, on the wall-free
    scenes of phase 3, a lattice smaller than one tile (5x3) and a ragged
@@ -142,7 +142,7 @@ Phases, each of which raises on failure:
    small --steps at 800x4000, every kernel's launches counted; then
    times: the copy kernel's forms beside Tensor.copy_ in turns, ns per
    roll and per add of the probes (slopes between two counts; both
-   forms of each roll in turns, and the cluster barrier alone), one
+   forms of each roll in turns), one
    launch of each roll at the JAX probe's count (6 y-rolls, 8 x-rolls)
    of each form queued behind a spin in turns beside one torch.roll by
    the summed shift, and the
@@ -187,8 +187,9 @@ of a microsecond, so
 their entries also carry the shared-memory (or L1) bound per roll or add
 over all of the card's SMs (smem_bound_ns_per_roll, l1_bound_ns_per_add;
 the figure over the SMs of the narrow roll's launch beside it), and
-the roll entries each form's time per launch and per roll, the library
-call's, and the wide form's shape (cluster size, or vectors and warps). The line before the last is
+the roll entries the default form, each form's time per launch and per
+roll, the library call's, and the wide form's shape (cluster size, or
+vectors and warps per CTA). The line before the last is
 the card's name and power limit; the last is {"ok": true, "device":
 {...}}. Without a CUDA card it exits non-zero and prints no result.
 """
@@ -1933,69 +1934,54 @@ def roll_shifts(n):
     return (1, 2, 3, 4, 5, 96, n - 1, n - 2, n)
 
 
-def wide_variants(kind):
-    """Every variant of a roll's wide form: the y-roll's cluster sizes and
-    remote accesses, the x-roll's widths and warps per CTA."""
-    from latticeboltzmann_tpu_torch.ops import probes
-
-    if kind == "roll_y":
-        return [{"cluster": c, "remote": m} for c in probes.ROLL_Y_CLUSTERS
-                for m in probes.ROLL_Y_REMOTES]
-    return [{"vectors": v, "warps": w} for v in probes.ROLL_X_VECTORS for w in probes.ROLL_X_WARPS]
-
-
-# the wide y-roll kernels' MODE template argument (csrc/lbm_probes.cu)
-Y_MODES = ("store", "load", "async", "barriers", "barriers, relaxed")
-# what a roll's loop must hold, by kernel: one opcode of each group (as
-# cuobjdump prints them, without modifiers). Stores: STS into this CTA's
-# shared memory, ST through the cluster's window (st.shared::cluster),
-# STAS (st.async); barriers: NOP (where a converged
-# warp's __syncwarp stands), BAR (a block barrier), UCGABAR_ARV and
-# UCGABAR_WAIT (a cluster barrier), SYNCS (an mbarrier's arrive or wait)
+# what the loop over rolls of each wide roll kernel holds, and only it
+# (opcodes as cuobjdump prints them, without modifiers): the x-roll's
+# shared loads and stores (LDS, STS) and no global access, which tells it
+# from the loops that load the block in and store it out; the y-roll's
+# shared loads, its asynchronous stores into the cluster's CTAs (STAS)
+# and its mbarrier waits and arrivals (SYNCS). The one-warp x-roll keeps
+# no barrier instruction there: its __syncwarp orders one warp's shared
+# accesses, which the SM issues in order, and compiles to nothing.
 ROLL_SASS_NEEDS = {
-    "x_wide, 1 warp": (("STS",), ("NOP", "WARPSYNC")),
-    "x_wide, warps": (("STS",), ("BAR",)),
-    "store": (("ST",), ("STS",), ("UCGABAR_ARV",), ("UCGABAR_WAIT",)),
-    "load": (("LD",), ("STS",), ("UCGABAR_ARV",), ("UCGABAR_WAIT",)),
-    "async": (("STAS",), ("SYNCS",)),
-    "barriers": (("UCGABAR_ARV",), ("UCGABAR_WAIT",)),
+    "x": (("LDS",), ("STS",)),
+    "y": (("LDS",), ("STAS",), ("SYNCS",)),
 }
+ROLL_SASS_GLOBAL = ("LDG", "STG")
 
 
 def roll_sass():
     """The SASS of the wide roll kernels (cuobjdump of the built library,
-    read by utils/sass.py): in every instantiation some loop, the loop
-    over rolls, holds the roll's stores and its barrier (ROLL_SASS_NEEDS);
-    prints that loop's moves and barriers for each. Raises otherwise."""
+    read by utils/sass.py): in lbm_roll_x_wide and each of the four
+    lbm_roll_y_cluster<R> some loop, the loop over rolls, holds what
+    ROLL_SASS_NEEDS says and no global load or store; prints that loop's
+    moves and barriers for each. Raises otherwise."""
     import re
 
     from latticeboltzmann_tpu_torch.ops import cuda_build
     from latticeboltzmann_tpu_torch.utils import sass
 
-    shown = ("LDS", "STS", "LD", "ST", "STAS", "BAR", "NOP", "WARPSYNC", "UCGABAR_ARV",
-             "UCGABAR_WAIT", "SYNCS", "MEMBAR", "CCTL")
+    shown = ("LDS", "STS", "STAS", "BAR", "NOP", "WARPSYNC", "SYNCS", "UCGABAR_ARV",
+             "UCGABAR_WAIT", "MEMBAR", "CCTL")
     checked = 0
     for name, instrs in sass.functions(sass.disassemble(cuda_build.build())).items():
-        m = re.search(r"lbm_roll_(x_wide|y_cluster)ILi(\d+)ELi(\d+)E", name)
+        m = re.search(r"lbm_roll_(x_wide|y_clusterILi(\d)E)", name)
         if not m:
             continue
-        a, b = int(m.group(2)), int(m.group(3))
-        if m.group(1) == "x_wide":
-            label = f"lbm_roll_x_wide<{a}, {b}>"
-            need = "x_wide, 1 warp" if b == 1 else "x_wide, warps"
-        else:
-            label, need = f"lbm_roll_y_cluster<{Y_MODES[a]}, {b}>", Y_MODES[a].split(",")[0]
+        kind = "x" if m.group(1) == "x_wide" else "y"
+        label = "lbm_roll_x_wide" if kind == "x" else f"lbm_roll_y_cluster<{m.group(2)}>"
         holding = [(lo, hi, body) for lo, hi, body in sass.loops(instrs)
-                   if all(any(op in body for op in group) for group in ROLL_SASS_NEEDS[need])]
+                   if all(any(op in body for op in group) for group in ROLL_SASS_NEEDS[kind])
+                   and not any(body[op] for op in ROLL_SASS_GLOBAL)]
         if not holding:
             loops = [(hex(lo), hex(hi), dict(body)) for lo, hi, body in sass.loops(instrs)]
-            raise AssertionError(f"{label}: no loop holds {ROLL_SASS_NEEDS[need]}: {loops}")
+            raise AssertionError(f"{label}: no loop holds {ROLL_SASS_NEEDS[kind]} without a "
+                                 f"global access: {loops}")
         lo, hi, body = holding[-1]
-        print(f"SASS {label}: the loop {lo:#06x}-{hi:#06x} holds "
+        print(f"SASS {label}: the loop over rolls {lo:#06x}-{hi:#06x} holds "
               f"{ {op: body[op] for op in shown if body[op]} }")
         checked += 1
-    if checked != 12 + 3 * 4 + 2:
-        raise AssertionError(f"found {checked} of the 26 wide roll kernels in the SASS")
+    if checked != 5:
+        raise AssertionError(f"found {checked} of the 5 wide roll kernels in the SASS")
 
 
 def roll_times(kind, x, n_rolls, n1):
@@ -2040,29 +2026,33 @@ def roll_times(kind, x, n_rolls, n1):
     # the bound over the SMs the narrow form's launch occupies
     narrow_ctas = x.shape[0] if kind == "roll_y" else -(-x.shape[1] // 128)
     sms = min(narrow_ctas, torch.cuda.get_device_properties(0).multi_processor_count)
+    form = probes.DEFAULT_FORM[kind]
     entry = {
-        "form": "wide", "ms": per_launch["wide"], "narrow_form_ms": per_launch["narrow"],
+        "form": form, "ms": per_launch[form], "wide_form_ms": per_launch["wide"],
+        "narrow_form_ms": per_launch["narrow"],
         "no_roll_ms": {"wide": per_launch["wide, no roll"],
                        "narrow": per_launch["narrow, no roll"]},
         "plain_ms": plain_ms, **bound(onchip, 0), "library_ms": lib_ms,
         "wide_over_library": per_launch["wide"] / lib_ms,
+        "narrow_over_library": per_launch["narrow"] / lib_ms,
         "ns_per_roll": per_roll, "library_ns_per_roll": per_launch["one torch.roll by 1"] * 1e6,
         "smem_bound_ns_per_roll": anatomy.onchip_bound_s(onchip) * 1e9,
         "smem_bound_ns_per_roll_over_narrow_launch_sms":
             onchip / (anatomy.SMEM_BYTES_PER_CLOCK * anatomy.SM_CLOCK_HZ * sms) * 1e9,
     }
     if kind == "roll_y":
-        entry.update(cluster=probes.roll_y_cluster(x.shape[1]), remote=probes.ROLL_Y_REMOTE,
+        entry.update(cluster=probes.ROLL_Y_CLUSTER,
                      max_active_clusters=probes.roll_y_clusters(*x.shape))
     else:
-        vectors = probes.ROLL_X_DEFAULT["vectors"]
-        entry.update(probes.ROLL_X_DEFAULT, ctas=-(-x.shape[1] // (4 * vectors)))
+        entry.update(vectors=probes.ROLL_X_VECTORS, warps=1,
+                     ctas=-(-x.shape[1] // (4 * probes.ROLL_X_VECTORS)))
     print(f"{kind}, {n_rolls} rolls of {tuple(x.shape)}: wide {per_launch['wide'] * 1e3!r} us, "
           f"narrow {per_launch['narrow'] * 1e3!r} us, {n_rolls} chained torch.roll "
           f"{plain_ms * 1e3!r} us, one torch.roll by {n_rolls} {lib_ms * 1e3!r} us: the wide form "
-          f"takes {entry['wide_over_library']!r} of the library call's time; per roll "
-          f"{per_roll['wide']!r} ns wide, {per_roll['narrow']!r} narrow, card-wide bound "
-          f"{entry['smem_bound_ns_per_roll']!r}")
+          f"takes {entry['wide_over_library']!r} of the library call's time, the narrow "
+          f"{entry['narrow_over_library']!r}; per roll {per_roll['wide']!r} ns wide, "
+          f"{per_roll['narrow']!r} narrow, card-wide bound {entry['smem_bound_ns_per_roll']!r}; "
+          f"the default form: {form}")
     return entry
 
 
@@ -2127,21 +2117,21 @@ def anatomy_phases():
     print("alignment kernel (offsets 0, 1, 2; rows and columns) vs its plain version at "
           "(40, 4000), (40, 37): bitwise")
     # the rolls: both forms of the shared-memory mechanism (the wide one
-    # wherever NY is a multiple of 4, and there at every variant), the
-    # shuffle and global mechanisms, each against its plain version and one
-    # torch.roll by the summed shift; the wide form must run at 4000 columns
-    # and refuse 37, where the narrow form runs
-    for kind, roll, reference, rows, counts_n, axis in (
-            ("roll_y", probes.roll_y, probes.roll_y_reference, 32, (0, 1, 6, 7), 1),
-            ("roll_x", probes.roll_x, probes.roll_x_reference, 40, (0, 1, 6, 7, 8, 9), 0)):
+    # wherever it takes NY) and form=None, the shuffle and global
+    # mechanisms, each against its plain version and one torch.roll by the
+    # summed shift; the wide form must run at 4000 columns and refuse 37,
+    # where the narrow form runs
+    for kind, roll, reference, rows, counts_n, axis, wide_takes in (
+            ("roll_y", probes.roll_y, probes.roll_y_reference, 32, (0, 1, 6, 7), 1,
+             lambda ny: ny % (4 * probes.ROLL_Y_CLUSTER) == 0),
+            ("roll_x", probes.roll_x, probes.roll_x_reference, 40, (0, 1, 6, 7, 8, 9), 0,
+             lambda ny: ny % 4 == 0)):
         for ny in (4000, 40, 37):
             x = rand((rows, ny))
             before = dict(probes.ROLL_FORM_LAUNCHES)
-            variants = [{"form": "narrow"}, ROLL_MECHANISM[kind]]
-            if ny % 4 == 0:
+            variants = [{"form": "narrow"}, {}, ROLL_MECHANISM[kind]]
+            if wide_takes(ny):
                 variants.append({"form": "wide"})
-            if ny == 4000:
-                variants += wide_variants(kind)
             shifts = sorted({*roll_shifts(ny), *((1, rows - 1) if kind == "roll_x" else ())})
             for shift in shifts:
                 for n in counts_n:
@@ -2156,7 +2146,7 @@ def anatomy_phases():
                         err[kind] = max(err[kind], bitwise(label, got, reference(x, shift, n)))
                         bitwise(f"{label} vs one torch.roll", got,
                                 torch.roll(x, n * shift % x.shape[axis], axis))
-            if ny % 4:
+            if not wide_takes(ny):
                 try:
                     roll(x, 1, 6, form="wide")
                 except ValueError:
@@ -2169,17 +2159,13 @@ def anatomy_phases():
                     (ny == 37 and (forms[f"{kind}-wide"] or not forms[f"{kind}-narrow"])):
                 raise AssertionError(f"{kind} {rows}x{ny}: launches by form {forms}")
             print(f"{kind} kernels vs their plain versions and one torch.roll, ({rows}, {ny}), "
-                  f"shifts {shifts}, n {counts_n}, {len(variants)} forms and variants: bitwise; "
+                  f"shifts {shifts}, n {counts_n}, forms and mechanisms {variants}: bitwise; "
                   f"launches by form {forms}")
-    x = rand((32, 4000))
-    for cluster in probes.ROLL_Y_CLUSTERS:
-        active = probes.roll_y_clusters(32, 4000, cluster)
-        if active < 1:
-            raise AssertionError(f"no cluster of {cluster} CTAs of the wide y-roll fits the card")
-        bitwise(f"cluster barriers alone, C={cluster}",
-                probes.cluster_barrier(x, 9, cluster=cluster), x)
-        print(f"wide y-roll at (32, 4000), cluster {cluster}: cudaOccupancyMaxActiveClusters "
-              f"{active}; its barriers alone leave the block as it was")
+    active = probes.roll_y_clusters(32, 4000)
+    if active < 1:
+        raise AssertionError("no cluster of the wide y-roll fits the card")
+    print(f"wide y-roll at (32, 4000): {32 * probes.ROLL_Y_CLUSTER} CTAs in clusters of "
+          f"{probes.ROLL_Y_CLUSTER}, cudaOccupancyMaxActiveClusters {active}")
     roll_sass()
     counts18 = read_counts()
     missing = {"copy-direct", "copy-staged", "roll_y-shared", "roll_y-shuffle", "align-axis0",
@@ -2259,7 +2245,7 @@ def anatomy_phases():
     counts = read_counts()
     roll_forms = {k: n for k, n in probes.ROLL_FORM_LAUNCHES.items() if n}
     wanted = {"copy-direct", "copy-staged", "roll_y-shared", "roll_y-shuffle", "align-axis0",
-              "align-axis1", "roll_x-shared", "roll_x-global", "flat", "cluster_barrier"}
+              "align-axis1", "roll_x-shared", "roll_x-global", "flat"}
     forms_wanted = {f"{kind}-{form}" for kind in ("roll_y", "roll_x") for form in probes.FORMS}
     if wanted - set(counts) or forms_wanted - set(roll_forms):
         raise AssertionError(f"the anatomy path launched no "
@@ -2282,11 +2268,6 @@ def anatomy_phases():
     n1 = 2000
     x = rand((anatomy.ROLL_ROWS, cfg.ny))
     roll_entry = roll_times("roll_y", x, 6, n1)
-    roll_entry["cluster_barrier_ns"] = {
-        c: timed_slope(lambda n: probes.cluster_barrier(x, n, cluster=c, out=torch.empty_like(x)),
-                       n1, 2 * n1) * 1e9 for c in probes.ROLL_Y_CLUSTERS}
-    print(f"cluster barrier alone, ns per barrier by cluster size: "
-          f"{roll_entry['cluster_barrier_ns']}")
 
     x = rand((anatomy.ALIGN_ROWS, cfg.ny))
     align_ns = {}
@@ -2365,18 +2346,18 @@ def anatomy_phases():
          "launches": counts["copy-direct"] + counts["copy-staged"], "max_abs_err": err["copy"],
          "ms": copy["ms"], "plain_ms": copy_plain_ms, **bound(n_bytes, 0),
          "library_ms": copy["library_ms"], "forms_ms": copy["forms"]},
-        {"name": "lbm_roll_y_cluster (wide: each row across a thread-block cluster) / "
-                 "lbm_roll_y_shared (narrow) / lbm_roll_y_shuffle (6 rolls by 1 of (32, 4000))",
+        {"name": "lbm_roll_y_shared (narrow, the default) / lbm_roll_y_cluster (wide: each "
+                 "row across a thread-block cluster) / lbm_roll_y_shuffle (6 rolls by 1 of "
+                 "(32, 4000))",
          "route": "cuda", "source": source, "replaces": "scripts/anatomy.py:192",
          "launches": counts["roll_y-shared"] + counts["roll_y-shuffle"],
          "launches_by_form": {f: roll_forms.get(f"roll_y-{f}", 0) for f in probes.FORMS},
-         "cluster_barrier_launches": counts["cluster_barrier"],
          "max_abs_err": err["roll_y"], **roll_entry},
         {"name": "lbm_align (8 adds at column offset 1 of (40, 4000))",
          "route": "cuda", "source": source, "replaces": "scripts/anatomy.py:224",
          "launches": counts["align-axis0"] + counts["align-axis1"],
          "max_abs_err": err["align"], **align_entry},
-        {"name": "lbm_roll_x_wide (16-byte vectors) / lbm_roll_x_shared (narrow) / "
+        {"name": "lbm_roll_x_wide (16-byte vectors, the default) / lbm_roll_x_shared (narrow) / "
                  "lbm_roll_x_global (8 rolls by 1 of (40, 4000))",
          "route": "cuda", "source": source, "replaces": "scripts/anatomy.py:252",
          "launches": counts["roll_x-shared"] + counts["roll_x-global"],

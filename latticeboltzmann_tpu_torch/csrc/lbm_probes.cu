@@ -37,32 +37,20 @@
 //    written per element), issue slots for the second.
 //    The shared-memory mechanism has two forms. The narrow one above
 //    (lbm_roll_y_shared) takes one SM per row: 32 of the card's 132. The
-//    wide one (lbm_roll_y_cluster<MODE, R>) splits each row across a
-//    thread-block cluster of C CTAs (C = 1, 2, 4, 8), so that rows * C
-//    CTAs cover the card, each CTA holding NY / C columns as 16-byte
+//    wide one (lbm_roll_y_cluster<R>) splits each row across a
+//    thread-block cluster of kRollYCluster = 4 CTAs, so that rows * 4
+//    CTAs cover the card, each CTA holding NY / 4 columns as 16-byte
 //    vectors in two ping-pong buffers. A roll by s = 4q + r builds each
 //    output vector from two neighbouring source vectors (r is uniform over
-//    the launch: each r has a kernel of its own) and reaches the other
-//    CTAs in one of three designs (MODE):
-//    - store: writes every vector into the buffer of the CTA that owns
-//      its destination, by one 16-byte st.shared::cluster, then one
-//      cluster barrier (arrive.release, wait.acquire): roll k reads one
-//      buffer and writes the other, roll k + 1 the other way round;
-//    - load: reads every vector from the CTA that holds its source
-//      (ld.shared::cluster, a round trip each), the same barrier;
-//    - async: writes as "store" does, by st.async, which completes its
-//      16 bytes on the owner's mbarrier; each CTA waits on its own
-//      mbarriers for its next roll's vectors and for every CTA's word that
-//      it has read the buffer about to be written, and no cluster barrier
-//      is needed.
-//    A cluster of one moves the row through its own shared memory with a
-//    block barrier in the store and load designs. Two more kernels run the
-//    barriers alone, with and without release / acquire. On an H100 the
-//    release / acquire cluster barrier costs 0.4-0.7 us (a GPU-wide fence
-//    and an L1 invalidation; relaxed, 50 ns), so the cross-SM designs are
-//    bound by their synchronisation, not their bytes. The wide form takes
-//    NY a multiple of 4 * C and 16-byte aligned pointers; every other
-//    shape takes the narrow one.
+//    the launch: each r has a kernel of its own) and writes it where it
+//    lands by st.async, which completes its 16 bytes on the owning CTA's
+//    mbarrier; each CTA waits on its own mbarriers for its next roll's
+//    vectors and for every CTA's word that it has read the buffer about
+//    to be written, so no cluster barrier stands in a roll. It takes NY a
+//    multiple of 16 and 16-byte aligned pointers; every other shape takes
+//    the narrow one. On an H100 it is slower than the narrow form (about
+//    270 ns of handoff latency a roll; PERF.md §6), so the wrapper runs it
+//    only when asked.
 // 3. lbm_align (align_cost, :211, pallas_call :224): v = a, then n_ops
 //    times v = v + b, on the two windows a = x[o : R-2+o], b = x[2-o : R-o]
 //    of a resident (R, NY) float32 block, offsets o = 0, 1, 2. On the TPU
@@ -86,14 +74,12 @@
 //    The shared-memory mechanism has two forms. The narrow one
 //    (lbm_roll_x_shared: 32 CTAs of 128 columns, 4-byte accesses, a
 //    block barrier per roll) takes every shape. The wide one
-//    (lbm_roll_x_wide<VECS, WARPS>) moves 16-byte vectors (a row shift
-//    never splits one) on CTAs of VECS vectors, so that NY = 4000 fills
-//    the card (2 vectors: 500 CTAs, about four per SM), laid out
-//    [buffer][row][vector]: a quarter warp touches 128 contiguous bytes.
-//    With one warp per CTA the warp owns its column strips through all R
-//    rows and a roll needs only a __syncwarp; with more, the rows are
-//    split across the warps and a roll ends in a block barrier. It takes
-//    NY a multiple of 4 and 16-byte aligned pointers.
+//    (lbm_roll_x_wide) moves 16-byte vectors (a row shift never splits
+//    one) on one-warp CTAs of kRollXVecs = 2 vectors, so that NY = 4000
+//    fills the card (500 CTAs, about four per SM), laid out
+//    [buffer][row][vector]. The warp owns its column strips through all R
+//    rows, so a roll needs only a __syncwarp. It takes NY a multiple of 4
+//    and 16-byte aligned pointers.
 //
 // n_rolls and n_ops are run-time arguments: the cost per roll or per op is
 // the slope between two counts, which cancels the launch and the block's
@@ -115,16 +101,11 @@ constexpr int kTileCols = 128;    // x-roll: columns per CTA
 constexpr int kRollXBlock = 256;
 constexpr int kMaxStages = 8;
 constexpr int kRollYWideBlock = 256;  // y-roll, wide form: threads per CTA
+constexpr int kRollYCluster = 4;      // wide y-roll: CTAs per row
 constexpr int kInFlight = 4;          // wide y-roll: 16-byte loads in flight per thread
-// the wide y-roll's kernels: a roll writes where each vector lands, or
-// reads where it comes from, each roll ending in a cluster barrier; or
-// writes where each vector lands by asynchronous 16-byte stores that
-// signal the owner's mbarrier, no cluster barrier per roll; or the
-// barriers alone, of two kinds: the rolls' own (arrive.release,
-// wait.acquire) and a relaxed arrive (no release: no roll could use it)
-constexpr int kPush = 0, kPull = 1, kAsync = 2, kBarriers = 3, kBarriersRelaxed = 4;
-// an mbarrier wait of the asynchronous y-roll gives up (and traps) after
-// this many nanoseconds: a lost signal ends the launch instead of hanging
+constexpr int kRollXVecs = 2;         // wide x-roll: 16-byte vectors per one-warp CTA
+// an mbarrier wait of the wide y-roll gives up (and traps) after this
+// many nanoseconds: a lost signal ends the launch instead of hanging
 constexpr uint64_t kWaitNs = 1000000000ull;
 // dynamic shared memory a block may ask for on sm_90
 constexpr int64_t kMaxShared = 232448;
@@ -290,22 +271,6 @@ __device__ __forceinline__ uint32_t map_rank(uint32_t local, uint32_t rank) {
   return out;
 }
 
-__device__ __forceinline__ void st_cluster(uint32_t addr, float4 v) {
-  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};"
-               :
-               : "r"(addr), "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
-               : "memory");
-}
-
-__device__ __forceinline__ float4 ld_cluster(uint32_t addr) {
-  float4 v;
-  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];"
-               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
-               : "r"(addr)
-               : "memory");
-  return v;
-}
-
 // a 16-byte store into the shared memory of a cluster CTA (addr, from
 // map_rank) that completes its 16 bytes on that CTA's mbarrier mbar
 __device__ __forceinline__ void st_async(uint32_t addr, float4 v, uint32_t mbar) {
@@ -371,33 +336,10 @@ __device__ __forceinline__ void cluster_start() {
       "barrier.cluster.wait.aligned;" ::: "memory");
 }
 
-// every thread of every CTA of the cluster, all of a warp's lanes
-// together: the stores before it (to any CTA's shared memory) are visible
-// to the loads after it. MODE kBarriersRelaxed gives the other kind the
-// barrier probe times.
-template <int MODE = kPush>
-__device__ __forceinline__ void cluster_barrier() {
-  if constexpr (MODE == kBarriersRelaxed) {
-    asm volatile(
-        "barrier.cluster.arrive.relaxed.aligned;\n\t"
-        "barrier.cluster.wait.aligned;" ::: "memory");
-  } else {
-    asm volatile(
-        "barrier.cluster.arrive.release.aligned;\n\t"
-        "barrier.cluster.wait.acquire.aligned;" ::: "memory");
-  }
-}
-
 __device__ __forceinline__ uint32_t cluster_rank() {
   uint32_t r;
   asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
   return r;
-}
-
-__device__ __forceinline__ uint32_t cluster_size() {
-  uint32_t n;
-  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(n));
-  return n;
 }
 
 __device__ __forceinline__ uint32_t cluster_id() {
@@ -416,23 +358,22 @@ __device__ __forceinline__ float4 compose(float4 prev, float4 cur) {
   return cur;
 }
 
-// One cluster of C CTAs per row (cluster i takes row i); CTA `rank` holds
-// the row's 16-byte vectors rank * seg .. + seg - 1 in two ping-pong
-// buffers of seg + 1 slots, slot 0 a halo: the vector before the
-// segment, which a roll by a shift of residue R != 0 reads (the store
-// designs; the load design reads it from its owner). The shift is 4q + R
-// columns, q = qc * seg + ql vectors (0 <= ql < seg, 0 <= qc < C).
-// After the buffers, the asynchronous design's four mbarriers: full[2]
-// (buffer b has received a roll's seg vectors, and its halo for R != 0:
-// one arrival, the bytes counted) and empty[2] (every CTA of the cluster
-// has read its buffer b: C arrivals).
-template <int MODE, int R>
+// One cluster of C = kRollYCluster CTAs per row (cluster i takes row i);
+// CTA `rank` holds the row's 16-byte vectors rank * seg .. + seg - 1 in
+// two ping-pong buffers of seg + 1 slots, slot 0 a halo: the vector
+// before the segment, which a roll by a shift of residue R != 0 reads.
+// The shift is 4q + R columns, q = qc * seg + ql vectors (0 <= ql < seg,
+// 0 <= qc < C). After the buffers, four mbarriers: full[2] (buffer b has
+// received a roll's seg vectors, and its halo for R != 0: one arrival,
+// the bytes counted) and empty[2] (every CTA of the cluster has read its
+// buffer b: C arrivals).
+template <int R>
 __global__ void __launch_bounds__(kRollYWideBlock)
 lbm_roll_y_cluster(const float4* __restrict__ x, float4* __restrict__ out, int nyv, int seg,
                    int qc, int ql, int n_rolls) {
+  constexpr uint32_t c = kRollYCluster;
   extern __shared__ float4 ring[];  // (2, seg + 1), then full[2], empty[2]
   const uint32_t rank = cluster_rank();
-  const uint32_t c = cluster_size();
   const int64_t row = static_cast<int64_t>(cluster_id()) * nyv;
   const int first = static_cast<int>(rank) * seg;
   const float4* src = x + row + first;
@@ -451,123 +392,59 @@ lbm_roll_y_cluster(const float4* __restrict__ x, float4* __restrict__ out, int n
     }
   }
   if (threadIdx.x == 0) ring[0] = x[row + (first == 0 ? nyv - 1 : first - 1)];
-  if constexpr (MODE == kAsync) {
-    if (threadIdx.x == 0) {
-      mbar_init(full0, 1);
-      mbar_init(full0 + 8, 1);
-      mbar_init(empty0, c);
-      mbar_init(empty0 + 8, c);
-    }
-    __syncthreads();  // the segment loaded
-    cluster_start();
-  } else {
-    // every CTA of the cluster has started and loaded before any reaches
-    // into another's shared memory
-    cluster_barrier();
+  if (threadIdx.x == 0) {
+    mbar_init(full0, 1);
+    mbar_init(full0 + 8, 1);
+    mbar_init(empty0, c);
+    mbar_init(empty0 + 8, c);
   }
+  __syncthreads();  // the segment loaded
+  cluster_start();
   // bytes a CTA receives per roll: its segment, and a halo for R != 0
   const uint32_t bytes = 16u * (seg + (R != 0 ? 1 : 0));
   int cur = 0;
   for (int r = 0; r < n_rolls; ++r) {
     const float4* a = ring + cur * (seg + 1);
-    float4* b = ring + (cur ^ 1) * (seg + 1);
-    const uint32_t b0 = smem_u32(b);
-    if constexpr (MODE == kAsync) {
-      // this roll's source has arrived (roll r - 1 filled it), the next
-      // fill of the destination is announced, and every CTA has read its
-      // destination buffer (roll r - 1 read it): the mbarriers' phases
-      // alternate every second roll
-      const uint32_t parity = ((r - 1) >> 1) & 1;
-      if (r > 0) mbar_wait(full0 + 8 * cur, parity);
-      if (threadIdx.x == 0) mbar_expect_tx(full0 + 8 * (cur ^ 1), bytes);
-      if (r > 0) mbar_wait(empty0 + 8 * (cur ^ 1), parity);
-    }
-    if constexpr (MODE == kPush || MODE == kAsync) {
-      // source vector `lv` of this CTA lands at vector lv + ql (carrying
-      // into the next CTA) of CTA rank + qc
-      for (int lv = threadIdx.x; lv < seg; lv += kRollYWideBlock) {
-        float4 v = a[1 + lv];
-        if constexpr (R != 0) v = compose<R>(a[lv], v);
-        int dl = lv + ql;
-        uint32_t dr = rank + qc;
-        if (dl >= seg) {
-          dl -= seg;
-          ++dr;
-        }
-        if (dr >= c) dr -= c;
-        // the last vector of a segment is also the next CTA's halo
-        const bool halo = R != 0 && dl == seg - 1;
+    const uint32_t b0 = smem_u32(ring + (cur ^ 1) * (seg + 1));
+    // this roll's source has arrived (roll r - 1 filled it), the next fill
+    // of the destination is announced, and every CTA has read its
+    // destination buffer (roll r - 1 read it): the mbarriers' phases
+    // alternate every second roll
+    const uint32_t parity = ((r - 1) >> 1) & 1;
+    if (r > 0) mbar_wait(full0 + 8 * cur, parity);
+    if (threadIdx.x == 0) mbar_expect_tx(full0 + 8 * (cur ^ 1), bytes);
+    if (r > 0) mbar_wait(empty0 + 8 * (cur ^ 1), parity);
+    // source vector `lv` of this CTA lands at vector lv + ql (carrying
+    // into the next CTA) of CTA rank + qc
+    const uint32_t full = full0 + 8 * (cur ^ 1);
+    for (int lv = threadIdx.x; lv < seg; lv += kRollYWideBlock) {
+      float4 v = a[1 + lv];
+      if constexpr (R != 0) v = compose<R>(a[lv], v);
+      int dl = lv + ql;
+      uint32_t dr = rank + qc;
+      if (dl >= seg) {
+        dl -= seg;
+        ++dr;
+      }
+      if (dr >= c) dr -= c;
+      st_async(map_rank(b0 + 16u * (1 + dl), dr), v, map_rank(full, dr));
+      // the last vector of a segment is also the next CTA's halo
+      if (R != 0 && dl == seg - 1) {
         const uint32_t hr = dr + 1 == c ? 0 : dr + 1;
-        if constexpr (MODE == kPush) {
-          if (c == 1) {  // a cluster of one: this CTA's own shared memory
-            b[1 + dl] = v;
-            if (halo) b[0] = v;
-          } else {
-            st_cluster(map_rank(b0 + 16u * (1 + dl), dr), v);
-            if (halo) st_cluster(map_rank(b0, hr), v);
-          }
-        } else {
-          const uint32_t full = full0 + 8 * (cur ^ 1);
-          st_async(map_rank(b0 + 16u * (1 + dl), dr), v, map_rank(full, dr));
-          if (halo) st_async(map_rank(b0, hr), v, map_rank(full, hr));
-        }
-      }
-    } else if constexpr (MODE == kPull) {
-      // output vector `lv` of this CTA comes from vector lv - ql
-      // (borrowing from the CTA before) of CTA rank - qc, and for R != 0
-      // the vector before that
-      const uint32_t a0 = smem_u32(a);
-      for (int lv = threadIdx.x; lv < seg; lv += kRollYWideBlock) {
-        int ul = lv - ql;
-        int ur = static_cast<int>(rank) - qc;
-        if (ul < 0) {
-          ul += seg;
-          --ur;
-        }
-        if (ur < 0) ur += c;
-        int pl = ul - 1, pr = ur;
-        if (pl < 0) {
-          pl += seg;
-          pr = pr == 0 ? c - 1 : pr - 1;
-        }
-        float4 v;
-        if (c == 1) {  // a cluster of one: this CTA's own shared memory
-          v = a[1 + ul];
-          if constexpr (R != 0) v = compose<R>(a[1 + pl], v);
-        } else {
-          v = ld_cluster(map_rank(a0 + 16u * (1 + ul), ur));
-          if constexpr (R != 0) v = compose<R>(ld_cluster(map_rank(a0 + 16u * (1 + pl), pr)), v);
-        }
-        b[1 + lv] = v;
+        st_async(map_rank(b0, hr), v, map_rank(full, hr));
       }
     }
-    if constexpr (MODE == kAsync) {
-      // this CTA has read its source: tell every CTA, which may then write
-      // it in roll r + 1 (no CTA writes after the last roll, and none
-      // signals then, so no signal reaches a CTA that has exited)
-      if (r + 1 < n_rolls) {
-        __syncthreads();
-        if (threadIdx.x < c) mbar_arrive_remote(map_rank(empty0 + 8 * cur, threadIdx.x));
-      }
-    } else {
-      // one barrier per roll: the next roll reads what this one wrote, and
-      // writes what this one read. After the last, no CTA touches another's
-      // shared memory, so none exits while a peer may still write to it.
-      // A cluster of one moves its row through its own shared memory and
-      // needs only a block barrier (not for the barrier kinds: they time
-      // the cluster barrier itself).
-      if ((MODE == kPush || MODE == kPull) && c == 1) {
-        __syncthreads();
-      } else {
-        cluster_barrier<MODE>();
-      }
+    // this CTA has read its source: tell every CTA, which may then write
+    // it in roll r + 1 (no CTA writes after the last roll, and none
+    // signals then, so no signal reaches a CTA that has exited)
+    if (r + 1 < n_rolls) {
+      __syncthreads();
+      if (threadIdx.x < c) mbar_arrive_remote(map_rank(empty0 + 8 * cur, threadIdx.x));
     }
-    if constexpr (MODE < kBarriers) cur ^= 1;
+    cur ^= 1;
   }
-  if constexpr (MODE == kAsync) {
-    // the last roll's vectors (and every store into this CTA) have landed
-    if (n_rolls > 0) mbar_wait(full0 + 8 * cur, ((n_rolls - 1) >> 1) & 1);
-  }
+  // the last roll's vectors (and every store into this CTA) have landed
+  if (n_rolls > 0) mbar_wait(full0 + 8 * cur, ((n_rolls - 1) >> 1) & 1);
   float4* dst = out + row + first;
   const float4* fin = ring + cur * (seg + 1) + 1;
   for (int lv = threadIdx.x; lv < seg; lv += kRollYWideBlock) dst[lv] = fin[lv];
@@ -674,36 +551,26 @@ lbm_roll_x_global(const float* x, float* out, float* scratch0, float* scratch1, 
   }
 }
 
-// the end of a wide x-roll: a warp that owns its strips syncs its lanes,
-// more warps sync the block
-template <int WARPS>
-__device__ __forceinline__ void roll_x_sync() {
-  if constexpr (WARPS == 1) {
-    __syncwarp();
-  } else {
-    __syncthreads();
-  }
-}
-
-// One CTA of WARPS warps per VECS 16-byte vectors (4 * VECS columns);
-// thread t owns vector t % VECS of rows g, g + G, g + 2G, ... (g = t /
-// VECS, G = 32 * WARPS / VECS row groups), in chunks of kChunk rows whose
-// loads are all in flight before the chunk's first store. The tile's rows
-// ping-pong between two shared buffers laid out [buffer][row][vector].
-// Vectors past NY's end move through shared memory like the others (the
-// warps stay whole for the barrier) but are neither loaded nor stored.
-template <int VECS, int WARPS>
-__global__ void __launch_bounds__(32 * WARPS)
+// One warp per kRollXVecs 16-byte vectors (4 * kRollXVecs columns); lane
+// t owns vector t % kRollXVecs of rows g, g + G, g + 2G, ... (g = t /
+// kRollXVecs, G = 32 / kRollXVecs row groups), in chunks of kChunk rows
+// whose loads are all in flight before the chunk's first store. The
+// tile's rows ping-pong between two shared buffers laid out
+// [buffer][row][vector]. Every slot a lane reads was written by its own
+// warp, so a roll ends in a __syncwarp, not a block barrier. Vectors past
+// NY's end move through shared memory like the others but are neither
+// loaded nor stored.
+__global__ void __launch_bounds__(32)
 lbm_roll_x_wide(const float4* __restrict__ x, float4* __restrict__ out, int rows, int nyv,
                 int shift, int n_rolls) {
-  constexpr int kGroups = 32 * WARPS / VECS;
-  constexpr int kChunk = 64 / kGroups < 2 ? 2 : (64 / kGroups > 16 ? 16 : 64 / kGroups);
-  extern __shared__ float4 strips[];  // (2, rows, VECS)
-  const int vec = threadIdx.x % VECS;
-  const int g = threadIdx.x / VECS;
-  const int v = blockIdx.x * VECS + vec;
+  constexpr int kGroups = 32 / kRollXVecs;
+  constexpr int kChunk = 64 / kGroups;
+  extern __shared__ float4 strips[];  // (2, rows, kRollXVecs)
+  const int vec = threadIdx.x % kRollXVecs;
+  const int g = threadIdx.x / kRollXVecs;
+  const int v = blockIdx.x * kRollXVecs + vec;
   const bool live = v < nyv;
-  const int half = rows * VECS;
+  const int half = rows * kRollXVecs;
   for (int i0 = g; i0 < rows; i0 += kGroups * kChunk) {
     float4 t[kChunk];
 #pragma unroll
@@ -714,10 +581,10 @@ lbm_roll_x_wide(const float4* __restrict__ x, float4* __restrict__ out, int rows
 #pragma unroll
     for (int k = 0; k < kChunk; ++k) {
       const int i = i0 + k * kGroups;
-      if (live && i < rows) strips[i * VECS + vec] = t[k];
+      if (live && i < rows) strips[i * kRollXVecs + vec] = t[k];
     }
   }
-  roll_x_sync<WARPS>();
+  __syncwarp();
   int cur = 0;
   for (int r = 0; r < n_rolls; ++r) {
     const float4* a = strips + cur * half;
@@ -727,7 +594,7 @@ lbm_roll_x_wide(const float4* __restrict__ x, float4* __restrict__ out, int rows
 #pragma unroll
       for (int k = 0; k < kChunk; ++k) {
         const int i = i0 + k * kGroups;
-        if (i < rows) t[k] = a[i * VECS + vec];
+        if (i < rows) t[k] = a[i * kRollXVecs + vec];
       }
 #pragma unroll
       for (int k = 0; k < kChunk; ++k) {
@@ -735,11 +602,11 @@ lbm_roll_x_wide(const float4* __restrict__ x, float4* __restrict__ out, int rows
         if (i < rows) {
           int d = i + shift;  // 0 <= shift < rows
           if (d >= rows) d -= rows;
-          b[d * VECS + vec] = t[k];
+          b[d * kRollXVecs + vec] = t[k];
         }
       }
     }
-    roll_x_sync<WARPS>();
+    __syncwarp();
     cur ^= 1;
   }
   const float4* fin = strips + cur * half;
@@ -748,7 +615,7 @@ lbm_roll_x_wide(const float4* __restrict__ x, float4* __restrict__ out, int rows
 #pragma unroll
     for (int k = 0; k < kChunk; ++k) {
       const int i = i0 + k * kGroups;
-      if (live && i < rows) t[k] = fin[i * VECS + vec];
+      if (live && i < rows) t[k] = fin[i * kRollXVecs + vec];
     }
 #pragma unroll
     for (int k = 0; k < kChunk; ++k) {
@@ -882,40 +749,30 @@ using RollYClusterKernel = void (*)(const float4*, float4*, int, int, int, int, 
 // buffers of seg + 1, four mbarriers
 int64_t roll_y_cluster_shared(int64_t seg) { return 2 * (seg + 1) * 16 + 32; }
 
-// the wide y-roll's kernel for a mode and a shift's residue mod 4
-RollYClusterKernel roll_y_cluster_kernel(int64_t mode, int64_t residue) {
-  if (mode == kBarriers) return lbm_roll_y_cluster<kBarriers, 0>;
-  if (mode == kAsync) {
-    const RollYClusterKernel async[4] = {
-        lbm_roll_y_cluster<kAsync, 0>, lbm_roll_y_cluster<kAsync, 1>,
-        lbm_roll_y_cluster<kAsync, 2>, lbm_roll_y_cluster<kAsync, 3>};
-    return async[residue];
-  }
-  if (mode == kBarriersRelaxed) return lbm_roll_y_cluster<kBarriersRelaxed, 0>;
-  const RollYClusterKernel push[4] = {lbm_roll_y_cluster<kPush, 0>, lbm_roll_y_cluster<kPush, 1>,
-                                      lbm_roll_y_cluster<kPush, 2>, lbm_roll_y_cluster<kPush, 3>};
-  const RollYClusterKernel pull[4] = {lbm_roll_y_cluster<kPull, 0>, lbm_roll_y_cluster<kPull, 1>,
-                                      lbm_roll_y_cluster<kPull, 2>, lbm_roll_y_cluster<kPull, 3>};
-  return mode == kPush ? push[residue] : pull[residue];
+// the wide y-roll's kernel for a shift's residue mod 4
+RollYClusterKernel roll_y_cluster_kernel(int64_t residue) {
+  const RollYClusterKernel by_residue[4] = {lbm_roll_y_cluster<0>, lbm_roll_y_cluster<1>,
+                                            lbm_roll_y_cluster<2>, lbm_roll_y_cluster<3>};
+  return by_residue[residue];
 }
 
 // A launch configuration of the wide y-roll: `rows` clusters of
-// `cluster` CTAs, each with the shared memory of two buffers of a
+// kRollYCluster CTAs, each with the shared memory of two buffers of a
 // segment; *active receives cudaOccupancyMaxActiveClusters for it.
 cudaError_t roll_y_cluster_config(RollYClusterKernel fn, int64_t rows, int64_t ny,
-                                  int64_t cluster, cudaStream_t st, cudaLaunchConfig_t* cfg,
+                                  cudaStream_t st, cudaLaunchConfig_t* cfg,
                                   cudaLaunchAttribute* attr, int* active) {
-  const size_t shared = static_cast<size_t>(roll_y_cluster_shared(ny / 4 / cluster));
+  const size_t shared = static_cast<size_t>(roll_y_cluster_shared(ny / 4 / kRollYCluster));
   cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(shared));
   if (err != cudaSuccess) return err;
   *cfg = cudaLaunchConfig_t{};
-  cfg->gridDim = dim3(static_cast<unsigned>(rows * cluster));
+  cfg->gridDim = dim3(static_cast<unsigned>(rows * kRollYCluster));
   cfg->blockDim = dim3(kRollYWideBlock);
   cfg->dynamicSmemBytes = shared;
   cfg->stream = st;
   attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = static_cast<unsigned>(cluster);
+  attr->val.clusterDim.x = kRollYCluster;
   attr->val.clusterDim.y = 1;
   attr->val.clusterDim.z = 1;
   cfg->attrs = attr;
@@ -923,44 +780,36 @@ cudaError_t roll_y_cluster_config(RollYClusterKernel fn, int64_t rows, int64_t n
   return cudaOccupancyMaxActiveClusters(active, fn, cfg);
 }
 
-bool roll_y_cluster_takes(int64_t ny, int64_t cluster) {
-  return (cluster == 1 || cluster == 2 || cluster == 4 || cluster == 8) &&
-         ny % (4 * cluster) == 0 && roll_y_cluster_shared(ny / 4 / cluster) <= kMaxShared;
+bool roll_y_cluster_takes(int64_t rows, int64_t ny) {
+  return rows >= 1 && rows * kRollYCluster < (1LL << 31) && ny < (1LL << 31) &&
+         ny % (4 * kRollYCluster) == 0 && ny > 0 &&
+         roll_y_cluster_shared(ny / 4 / kRollYCluster) <= kMaxShared;
 }
 
 }  // namespace
 
 // The wide (cluster) form of the shared-memory y-roll: out = x rolled
 // n_rolls times by `shift` along y, each row split across a cluster of
-// `cluster` CTAs (1, 2, 4 or 8; NY a multiple of 4 * cluster; x and out
-// 16-byte aligned). mode 0: each roll stores every vector into the CTA
-// that owns its destination; 1: each CTA loads its vectors from their
-// sources (both with a cluster barrier per roll); 2: asynchronous stores
-// into the owner, each CTA waiting on its own mbarriers; 3: n_rolls
-// cluster barriers and no roll (out = x); 4: the same with a relaxed
-// arrive. Returns the
-// error of the occupancy query, cudaErrorInvalidConfiguration if no
-// cluster of this shape fits the card, the launch's error, or
-// cudaGetLastError() after it; cudaErrorInvalidValue for what the form
-// does not take.
+// kRollYCluster CTAs (NY a multiple of 4 * kRollYCluster; x and out
+// 16-byte aligned). Returns the error of the occupancy query,
+// cudaErrorInvalidConfiguration if no cluster of this shape fits the
+// card, the launch's error, or cudaGetLastError() after it;
+// cudaErrorInvalidValue for what the form does not take.
 extern "C" int lbm_roll_y_wide_launch(const void* x, void* out, int64_t rows, int64_t ny,
-                                      int64_t shift, int64_t n_rolls, int64_t cluster,
-                                      int64_t mode, void* stream) {
-  if (x == nullptr || out == nullptr || rows < 1 || ny < 4 || shift < 0 || shift >= ny ||
-      n_rolls < 0 || n_rolls >= (1LL << 31) || mode < kPush || mode > kBarriersRelaxed ||
-      !roll_y_cluster_takes(ny, cluster) || rows * cluster >= (1LL << 31) ||
-      ny >= (1LL << 31) || !aligned16(x) || !aligned16(out)) {
+                                      int64_t shift, int64_t n_rolls, void* stream) {
+  if (x == nullptr || out == nullptr || !roll_y_cluster_takes(rows, ny) || shift < 0 ||
+      shift >= ny || n_rolls < 0 || n_rolls >= (1LL << 31) || !aligned16(x) || !aligned16(out)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const RollYClusterKernel fn = roll_y_cluster_kernel(mode, shift % 4);
+  const RollYClusterKernel fn = roll_y_cluster_kernel(shift % 4);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   int active = 0;
-  cudaError_t err = roll_y_cluster_config(fn, rows, ny, cluster, static_cast<cudaStream_t>(stream),
-                                          &cfg, &attr, &active);
+  cudaError_t err = roll_y_cluster_config(fn, rows, ny, static_cast<cudaStream_t>(stream), &cfg,
+                                          &attr, &active);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (active < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const int64_t seg = ny / 4 / cluster, q = shift / 4;
+  const int64_t seg = ny / 4 / kRollYCluster, q = shift / 4;
   err = cudaLaunchKernelEx(&cfg, fn, static_cast<const float4*>(x), static_cast<float4*>(out),
                            static_cast<int>(ny / 4), static_cast<int>(seg),
                            static_cast<int>(q / seg), static_cast<int>(q % seg),
@@ -970,20 +819,17 @@ extern "C" int lbm_roll_y_wide_launch(const void* x, void* out, int64_t rows, in
 }
 
 // cudaOccupancyMaxActiveClusters of the wide y-roll's launch at (rows,
-// ny) with clusters of `cluster` CTAs and `mode` (as the launcher), into
-// *active; returns the query's error, or cudaErrorInvalidValue for a
-// shape the form does not take.
-extern "C" int lbm_roll_y_wide_clusters(int64_t rows, int64_t ny, int64_t cluster, int64_t mode,
-                                        int64_t* active) {
-  if (active == nullptr || rows < 1 || mode < kPush || mode > kBarriersRelaxed ||
-      !roll_y_cluster_takes(ny, cluster) || rows * cluster >= (1LL << 31)) {
+// ny), into *active; returns the query's error, or cudaErrorInvalidValue
+// for a shape the form does not take.
+extern "C" int lbm_roll_y_wide_clusters(int64_t rows, int64_t ny, int64_t* active) {
+  if (active == nullptr || !roll_y_cluster_takes(rows, ny)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   int n = 0;
-  const cudaError_t err = roll_y_cluster_config(roll_y_cluster_kernel(mode, 1), rows, ny, cluster,
-                                                nullptr, &cfg, &attr, &n);
+  const cudaError_t err =
+      roll_y_cluster_config(roll_y_cluster_kernel(1), rows, ny, nullptr, &cfg, &attr, &n);
   *active = n;
   return static_cast<int>(err);
 }
@@ -1051,45 +897,25 @@ extern "C" int lbm_roll_x_launch(const void* x, void* out, void* scratch0, void*
 }
 
 // The wide form of the shared-memory x-roll: out = x rolled n_rolls times
-// by `shift` along x (rows), on CTAs of `warps` warps (1, 2 or 4) over
-// `vectors` 16-byte vectors (1, 2, 4 or 8). x, out: (rows, ny) float32,
-// device, contiguous, distinct, 16-byte aligned, ny a multiple of 4.
-// shift in [0, rows). Returns cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue for what the form does not take.
+// by `shift` along x (rows), on one-warp CTAs of kRollXVecs 16-byte
+// vectors. x, out: (rows, ny) float32, device, contiguous, distinct,
+// 16-byte aligned, ny a multiple of 4. shift in [0, rows). Returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue for what
+// the form does not take.
 extern "C" int lbm_roll_x_wide_launch(const void* x, void* out, int64_t rows, int64_t ny,
-                                      int64_t shift, int64_t n_rolls, int64_t vectors,
-                                      int64_t warps, void* stream) {
-  const int64_t shared = 2 * rows * vectors * 16;
+                                      int64_t shift, int64_t n_rolls, void* stream) {
+  const int64_t shared = 2 * rows * kRollXVecs * 16;
   if (x == nullptr || out == nullptr || rows < 1 || ny < 4 || ny % 4 != 0 || rows >= (1LL << 20) ||
       ny >= (1LL << 31) || shift < 0 || shift >= rows || n_rolls < 0 || n_rolls >= (1LL << 31) ||
       !aligned16(x) || !aligned16(out) || shared > kMaxShared) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  using Kernel = void (*)(const float4*, float4*, int, int, int, int);
-  Kernel fn = nullptr;
-#define LBM_ROLL_X_WIDE(V, W) \
-  if (vectors == V && warps == W) fn = lbm_roll_x_wide<V, W>
-  LBM_ROLL_X_WIDE(1, 1);
-  LBM_ROLL_X_WIDE(1, 2);
-  LBM_ROLL_X_WIDE(1, 4);
-  LBM_ROLL_X_WIDE(2, 1);
-  LBM_ROLL_X_WIDE(2, 2);
-  LBM_ROLL_X_WIDE(2, 4);
-  LBM_ROLL_X_WIDE(4, 1);
-  LBM_ROLL_X_WIDE(4, 2);
-  LBM_ROLL_X_WIDE(4, 4);
-  LBM_ROLL_X_WIDE(8, 1);
-  LBM_ROLL_X_WIDE(8, 2);
-  LBM_ROLL_X_WIDE(8, 4);
-#undef LBM_ROLL_X_WIDE
-  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaError_t err = cudaFuncSetAttribute(lbm_roll_x_wide, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(shared));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t nyv = ny / 4;
-  const unsigned grid = static_cast<unsigned>((nyv + vectors - 1) / vectors);
-  const dim3 block(static_cast<unsigned>(32 * warps));
-  fn<<<grid, block, static_cast<size_t>(shared), static_cast<cudaStream_t>(stream)>>>(
+  const unsigned grid = static_cast<unsigned>((nyv + kRollXVecs - 1) / kRollXVecs);
+  lbm_roll_x_wide<<<grid, 32, static_cast<size_t>(shared), static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(x), static_cast<float4*>(out), static_cast<int>(rows),
       static_cast<int>(nyv), static_cast<int>(shift), static_cast<int>(n_rolls));
   return static_cast<int>(cudaGetLastError());

@@ -314,8 +314,6 @@ def load_library() -> ctypes.CDLL:
         ctypes.c_int64,   # ny: a multiple of 4
         ctypes.c_int64,   # shift in [0, rows)
         ctypes.c_int64,   # n_rolls
-        ctypes.c_int64,   # vectors: 16-byte vectors per CTA (1, 2, 4, 8)
-        ctypes.c_int64,   # warps per CTA (1, 2, 4)
         ctypes.c_void_p,  # cudaStream_t
     ]
     fn = lib.lbm_roll_y_wide_launch
@@ -324,11 +322,9 @@ def load_library() -> ctypes.CDLL:
         ctypes.c_void_p,  # x: (rows, ny) float32, 16-byte aligned
         ctypes.c_void_p,  # out
         ctypes.c_int64,   # rows
-        ctypes.c_int64,   # ny: a multiple of 4 * cluster
+        ctypes.c_int64,   # ny: a multiple of 16 (4 CTAs per row)
         ctypes.c_int64,   # shift in [0, ny)
         ctypes.c_int64,   # n_rolls
-        ctypes.c_int64,   # cluster: CTAs per row (1, 2, 4, 8)
-        ctypes.c_int64,   # mode: 0 store, 1 load, 2 async, 3-4 the barriers alone (two kinds)
         ctypes.c_void_p,  # cudaStream_t
     ]
     fn = lib.lbm_roll_y_wide_clusters
@@ -336,8 +332,6 @@ def load_library() -> ctypes.CDLL:
     fn.argtypes = [
         ctypes.c_int64,   # rows
         ctypes.c_int64,   # ny
-        ctypes.c_int64,   # cluster
-        ctypes.c_int64,   # mode
         ctypes.c_void_p,  # out: one int64, cudaOccupancyMaxActiveClusters
     ]
     return lib

@@ -10,18 +10,20 @@ probe kernels of the JAX package's scripts/anatomy.py (copy_pipeline
 - `roll_y`: n_rolls chained periodic shifts along y of a (rows, NY)
   float32 block held on chip, through shared memory or warp shuffles.
   Shared memory has two forms: "wide" splits each row across a cluster
-  of CTAs and moves 16-byte vectors through distributed shared memory,
-  wherever NY is a multiple of 4 * C and the blocks are 16-byte aligned;
-  "narrow" takes a row per CTA and any shape. `cluster_barrier` runs the
-  wide form's cluster barriers alone.
+  of ROLL_Y_CLUSTER CTAs and moves 16-byte vectors through distributed
+  shared memory, where NY is a multiple of 4 * ROLL_Y_CLUSTER and the
+  blocks are 16-byte aligned; "narrow" takes a row per CTA and any shape.
 - `align`: v = a, then n_ops times v = v + b on two offset windows of a
   (R, NY) float32 block, along rows (the TPU probe as written) or along
   columns (the misalignment that matters on this card).
 - `roll_x`: n_rolls chained periodic shifts along x (rows) of an (R, NY)
   float32 block, the rows held in shared memory or re-read from global
   memory each roll. Shared memory has two forms: "wide" (16-byte
-  vectors, narrow column tiles that fill the card) wherever NY is a
+  vectors, narrow column tiles that fill the card) where NY is a
   multiple of 4 and the blocks are 16-byte aligned, "narrow" anywhere.
+
+form=None picks, for each roll, the form measured faster on an H100
+(PERF.md §6) where it takes the shape: DEFAULT_FORM.
 
 Each wrapper launches its kernel for a CUDA tensor, counting the launch
 in LAUNCHES (and a roll's form in ROLL_FORM_LAUNCHES), and takes its
@@ -43,12 +45,16 @@ from .fused_kernel import check_device
 
 # kernel launches by probe and mechanism: "copy-direct", "copy-staged",
 # "roll_y-shared", "roll_y-shuffle", "align-axis0", "align-axis1",
-# "roll_x-shared", "roll_x-global", and "cluster_barrier"
+# "roll_x-shared", "roll_x-global"
 LAUNCHES: collections.Counter = collections.Counter()
 # the shared-memory rolls' launches by form: "roll_y-wide", "roll_y-narrow",
 # "roll_x-wide", "roll_x-narrow" (each also counts under "<roll>-shared")
 ROLL_FORM_LAUNCHES: collections.Counter = collections.Counter()
 FORMS = ("wide", "narrow")
+# the form form=None picks where it takes the shape: the faster on an H100
+# (PERF.md §6). The wide y-roll loses to the narrow one: the handoff
+# between a cluster's CTAs costs more a roll than one SM moving its row.
+DEFAULT_FORM = {"roll_y": "narrow", "roll_x": "wide"}
 
 # the staged copy's limits (csrc/lbm_probes.cu): 2..8 stages, and
 # stages * rows * NY * itemsize bytes of shared memory in one block
@@ -58,25 +64,11 @@ MAX_SHARED_BYTES = 232448
 # way, rows of at most 32 * 16 * 16 columns
 SHUFFLE_MAX_SHIFT = 31
 SHUFFLE_MAX_NY = 8192
-# the wide y-roll: the cluster sizes it takes (CTAs per row), and the
-# largest that cluster=None picks; how a roll reaches the other CTAs
-# ("store": each vector is written where it lands, "load": read from
-# where it comes from, both with a cluster barrier per roll; "async":
-# written where it lands by asynchronous 16-byte stores that signal the
-# owner's mbarrier, no cluster barrier), and the one None picks, the
-# fastest on an H100 (PERF.md §6)
-ROLL_Y_CLUSTERS = (1, 2, 4, 8)
+# the wide forms' shapes, fixed in csrc/lbm_probes.cu: CTAs per row of
+# the y-roll (kRollYCluster), 16-byte vectors per one-warp CTA of the
+# x-roll (kRollXVecs)
 ROLL_Y_CLUSTER = 4
-ROLL_Y_REMOTES = {"store": 0, "load": 1, "async": 2}
-ROLL_Y_REMOTE = "async"
-# cluster_barrier's kinds: the rolls' own (arrive.release, wait.acquire)
-# and a relaxed arrive, which orders no memory
-CLUSTER_BARRIERS = {"release": 3, "relaxed": 4}
-# the wide x-roll: 16-byte vectors and warps per CTA it is built for, and
-# its defaults
-ROLL_X_VECTORS = (1, 2, 4, 8)
-ROLL_X_WARPS = (1, 2, 4)
-ROLL_X_DEFAULT = {"vectors": 2, "warps": 1}
+ROLL_X_VECTORS = 2
 
 _ROLL_Y = {"shared": 0, "shuffle": 1}
 _ROLL_X = {"shared": 0, "global": 1}
@@ -205,66 +197,50 @@ def _aligned(*tensors: torch.Tensor) -> bool:
     return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
-def _cluster_takes(ny: int, c: int) -> bool:
-    """NY splits into C segments of whole 16-byte vectors, and a CTA's two
-    buffers and four mbarriers fit its shared memory (csrc/lbm_probes.cu:
-    roll_y_cluster_shared)."""
+def _cluster_takes(ny: int) -> bool:
+    """NY splits into ROLL_Y_CLUSTER segments of whole 16-byte vectors, and
+    a CTA's two buffers and four mbarriers fit its shared memory
+    (csrc/lbm_probes.cu: roll_y_cluster_shared)."""
+    c = ROLL_Y_CLUSTER
     return ny % (4 * c) == 0 and 2 * (ny // 4 // c + 1) * 16 + 32 <= MAX_SHARED_BYTES
 
 
-def roll_y_cluster(ny: int, cluster: int | None = None) -> int | None:
-    """The cluster size C of the wide y-roll at NY, or None where it does
-    not take NY: `cluster` (one of ROLL_Y_CLUSTERS) if NY is a multiple of
-    4 * cluster (and a segment fits a CTA's shared memory); for None the
-    largest such C of ROLL_Y_CLUSTERS up to ROLL_Y_CLUSTER."""
-    if cluster is not None:
-        if cluster not in ROLL_Y_CLUSTERS:
-            raise ValueError(f"cluster must be one of {ROLL_Y_CLUSTERS}, got {cluster!r}")
-        return cluster if _cluster_takes(ny, cluster) else None
-    taken = [c for c in ROLL_Y_CLUSTERS if c <= ROLL_Y_CLUSTER and _cluster_takes(ny, c)]
-    return max(taken) if taken else None
-
-
 def _roll_form(kind: str, form: str | None, takes: bool, why: str) -> str:
-    """The form of a shared-memory roll: `form`, or "wide" where it takes
-    the shape (takes) and "narrow" elsewhere for None; "wide" where it
-    does not take the shape raises ValueError (why: what it needs)."""
+    """The form of a shared-memory roll: `form`, or for None
+    DEFAULT_FORM[kind] where the wide form takes the shape (takes) and
+    "narrow" elsewhere; "wide" where it does not take the shape raises
+    ValueError (why: what it needs)."""
     if form not in (None, *FORMS):
         raise ValueError(f"form must be None or one of {FORMS}, got {form!r}")
     if form == "wide" and not takes:
         raise ValueError(f"the wide {kind} takes {why}")
-    return form or ("wide" if takes else "narrow")
+    return form or (DEFAULT_FORM[kind] if takes else "narrow")
 
 
 def roll_y(x: torch.Tensor, shift: int, n_rolls: int, *, mechanism: str = "shared",
-           form: str | None = None, cluster: int | None = None, remote: str | None = None,
-           out: torch.Tensor | None = None) -> torch.Tensor:
+           form: str | None = None, out: torch.Tensor | None = None) -> torch.Tensor:
     """n_rolls chained periodic shifts of x by `shift` along y; returns a
     new (rows, NY) block (or `out`). mechanism "shared" moves each row
     through shared memory, in one of two forms: "wide" splits it across a
-    cluster of `cluster` CTAs (roll_y_cluster picks C for None) and moves
-    16-byte vectors, each roll reaching the other CTAs by `remote`
-    (ROLL_Y_REMOTES; None is ROLL_Y_REMOTE); it takes NY a multiple of 4 * C and 16-byte
-    aligned x and out, else ValueError. "narrow" takes a row per CTA and
-    any NY; form=None picks "wide" wherever it applies (and where cluster
-    or remote is given). "shuffle" keeps each row in registers and shifts
-    by warp shuffles, and takes only a shift within 31 columns of 0 either
-    way (and not 0) on rows of at most 8192 columns, and no form, else
-    ValueError. On a CUDA tensor it
-    launches the kernel and counts it in LAUNCHES (and its form in
+    cluster of ROLL_Y_CLUSTER CTAs and moves 16-byte vectors, and takes NY
+    a multiple of 4 * ROLL_Y_CLUSTER and 16-byte aligned x and out, else
+    ValueError; "narrow" takes a row per CTA and any NY; form=None is
+    DEFAULT_FORM["roll_y"], the narrow one. "shuffle" keeps each row in
+    registers and shifts by warp shuffles, and takes only a shift within
+    31 columns of 0 either way (and not 0) on rows of at most 8192
+    columns, and no form, else ValueError. On a CUDA tensor it launches
+    the kernel and counts it in LAUNCHES (and its form in
     ROLL_FORM_LAUNCHES); on a CPU tensor it returns roll_y_reference's
     result."""
     _check_block(x)
     if mechanism not in _ROLL_Y:
         raise ValueError(f"mechanism must be one of {sorted(_ROLL_Y)}, got {mechanism!r}")
-    if remote is not None and remote not in ROLL_Y_REMOTES:
-        raise ValueError(f"remote must be one of {sorted(ROLL_Y_REMOTES)}, got {remote!r}")
     n_rolls = _count(n_rolls, "n_rolls")
     rows, ny = x.shape
     s = int(shift) % ny
     if mechanism == "shuffle":
-        if form is not None or cluster is not None or remote is not None:
-            raise ValueError("form, cluster and remote belong to the shared-memory mechanism")
+        if form is not None:
+            raise ValueError("form belongs to the shared-memory mechanism")
         if min(s, ny - s) > SHUFFLE_MAX_SHIFT or s == 0 or ny > SHUFFLE_MAX_NY:
             raise ValueError(
                 f"the shuffle mechanism takes a non-zero shift within {SHUFFLE_MAX_SHIFT} "
@@ -274,21 +250,16 @@ def roll_y(x: torch.Tensor, shift: int, n_rolls: int, *, mechanism: str = "share
         raise ValueError(f"a row of {ny} columns does not fit a block's shared memory twice")
     out = _out_like(x, out, x.shape)
     if mechanism == "shared":
-        if cluster is not None or remote is not None:
-            if form == "narrow":
-                raise ValueError("cluster and remote belong to the wide form")
-            form = "wide"
-        c = roll_y_cluster(ny, cluster)
-        form = _roll_form("y-roll", form, c is not None and _aligned(x, out),
-                          f"NY a multiple of 4 * {cluster or 'C'} and 16-byte aligned blocks; "
+        form = _roll_form("roll_y", form, _cluster_takes(ny) and _aligned(x, out),
+                          f"NY a multiple of {4 * ROLL_Y_CLUSTER} and 16-byte aligned blocks; "
                           f"got NY = {ny}")
     if x.device.type == "cpu":
         out.copy_(roll_y_reference(x, shift, n_rolls))
         return out
     lib = cuda_build.load_library()
     if form == "wide":
-        rc = lib.lbm_roll_y_wide_launch(x.data_ptr(), out.data_ptr(), rows, ny, s, n_rolls, c,
-                                        ROLL_Y_REMOTES[remote or ROLL_Y_REMOTE], _stream(x))
+        rc = lib.lbm_roll_y_wide_launch(x.data_ptr(), out.data_ptr(), rows, ny, s, n_rolls,
+                                        _stream(x))
     else:
         rc = lib.lbm_roll_y_launch(x.data_ptr(), out.data_ptr(), rows, ny, s, n_rolls,
                                    _ROLL_Y[mechanism], _stream(x))
@@ -299,46 +270,14 @@ def roll_y(x: torch.Tensor, shift: int, n_rolls: int, *, mechanism: str = "share
     return out
 
 
-def cluster_barrier(x: torch.Tensor, n: int, *, cluster: int | None = None,
-                    kind: str = "release", out: torch.Tensor | None = None) -> torch.Tensor:
-    """The wide y-roll's launch without its rolls: each row loaded into a
-    cluster of `cluster` CTAs (as roll_y's wide form picks it), n cluster
-    barriers of `kind` (CLUSTER_BARRIERS: "release" is the rolls' own),
-    the row stored; returns out, equal to x. The floor under a roll of the
-    wide form. Takes what the wide form takes, else ValueError. On a CUDA
-    tensor it launches the kernel and counts it in
-    LAUNCHES["cluster_barrier"]; on a CPU tensor it copies x."""
-    _check_block(x)
-    n = _count(n, "n")
-    if kind not in CLUSTER_BARRIERS:
-        raise ValueError(f"kind must be one of {sorted(CLUSTER_BARRIERS)}, got {kind!r}")
-    rows, ny = x.shape
-    out = _out_like(x, out, x.shape)
-    c = roll_y_cluster(ny, cluster)
-    if c is None or 2 * ny * 4 > MAX_SHARED_BYTES or not _aligned(x, out):
-        raise ValueError(f"the wide y-roll takes NY a multiple of 4 * {cluster or 'C'} and "
-                         f"16-byte aligned blocks; got NY = {ny}")
-    if x.device.type == "cpu":
-        out.copy_(x)
-        return out
-    rc = cuda_build.load_library().lbm_roll_y_wide_launch(
-        x.data_ptr(), out.data_ptr(), rows, ny, 0, n, c, CLUSTER_BARRIERS[kind], _stream(x))
-    _raise_on(rc, "lbm_roll_y_wide (barriers)")
-    LAUNCHES["cluster_barrier"] += 1
-    return out
-
-
-def roll_y_clusters(rows: int, ny: int, cluster: int | None = None,
-                    remote: str | None = None) -> int:
+def roll_y_clusters(rows: int, ny: int) -> int:
     """cudaOccupancyMaxActiveClusters of the wide y-roll's launch at (rows,
-    NY) with its cluster size (roll_y_cluster); raises ValueError where the
-    form does not take NY and RuntimeError if the query fails. Card only."""
-    c = roll_y_cluster(ny, cluster)
-    if c is None:
-        raise ValueError(f"the wide y-roll does not take NY = {ny} with cluster {cluster!r}")
+    NY); raises ValueError where the form does not take NY and
+    RuntimeError if the query fails. Card only."""
+    if not _cluster_takes(ny):
+        raise ValueError(f"the wide y-roll does not take NY = {ny}")
     active = ctypes.c_int64(0)
-    rc = cuda_build.load_library().lbm_roll_y_wide_clusters(
-        rows, ny, c, ROLL_Y_REMOTES[remote or ROLL_Y_REMOTE], ctypes.byref(active))
+    rc = cuda_build.load_library().lbm_roll_y_wide_clusters(rows, ny, ctypes.byref(active))
     _raise_on(rc, "cudaOccupancyMaxActiveClusters")
     return active.value
 
@@ -400,18 +339,16 @@ def roll_x_reference(x: torch.Tensor, shift: int, n_rolls: int) -> torch.Tensor:
 
 
 def roll_x(x: torch.Tensor, shift: int, n_rolls: int, *, mechanism: str = "shared",
-           form: str | None = None, vectors: int | None = None, warps: int | None = None,
-           out: torch.Tensor | None = None) -> torch.Tensor:
+           form: str | None = None, out: torch.Tensor | None = None) -> torch.Tensor:
     """n_rolls chained periodic shifts of x by `shift` along x (rows);
     returns a new (R, NY) block (or `out`). mechanism "shared" holds each
     column tile's rows in shared memory, in one of two forms: "wide"
-    moves 16-byte vectors on CTAs of `warps` warps (ROLL_X_WARPS) over
-    `vectors` vectors (ROLL_X_VECTORS; defaults ROLL_X_DEFAULT), and takes
-    NY a multiple of 4 and 16-byte aligned x and out, else ValueError;
-    "narrow" takes 128-column tiles and any NY; form=None picks "wide"
-    wherever it applies (and where vectors or warps is given). "global"
-    re-reads the rows from global memory each roll (through two scratch
-    blocks it allocates) and takes no form.
+    moves 16-byte vectors on one-warp CTAs of ROLL_X_VECTORS vectors, and
+    takes NY a multiple of 4 and 16-byte aligned x and out, else
+    ValueError; "narrow" takes 128-column tiles and any NY; form=None
+    picks DEFAULT_FORM["roll_x"], the wide one, wherever it applies.
+    "global" re-reads the rows from global memory each roll (through two
+    scratch blocks it allocates) and takes no form.
     On a CUDA tensor it launches the kernel and counts it in LAUNCHES (and
     its form in ROLL_FORM_LAUNCHES); on a CPU tensor it returns
     roll_x_reference's result."""
@@ -423,29 +360,20 @@ def roll_x(x: torch.Tensor, shift: int, n_rolls: int, *, mechanism: str = "share
     if mechanism == "shared" and 2 * rows * 128 * 4 > MAX_SHARED_BYTES:
         raise ValueError(f"{rows} rows of a 128-column tile do not fit a block's shared "
                          "memory twice")
-    if (vectors is not None and vectors not in ROLL_X_VECTORS) or \
-            (warps is not None and warps not in ROLL_X_WARPS):
-        raise ValueError(f"vectors must be one of {ROLL_X_VECTORS} and warps one of "
-                         f"{ROLL_X_WARPS}; got {vectors!r}, {warps!r}")
     out = _out_like(x, out, x.shape)
     if mechanism == "global":
-        if form is not None or vectors is not None or warps is not None:
-            raise ValueError("form, vectors and warps belong to the shared-memory mechanism")
+        if form is not None:
+            raise ValueError("form belongs to the shared-memory mechanism")
     else:
-        if vectors is not None or warps is not None:
-            if form == "narrow":
-                raise ValueError("vectors and warps belong to the wide form")
-            form = "wide"
-        form = _roll_form("x-roll", form, ny % 4 == 0 and _aligned(x, out),
+        form = _roll_form("roll_x", form, ny % 4 == 0 and _aligned(x, out),
                           f"NY a multiple of 4 and 16-byte aligned blocks; got NY = {ny}")
     if x.device.type == "cpu":
         out.copy_(roll_x_reference(x, shift, n_rolls))
         return out
     lib = cuda_build.load_library()
     if form == "wide":
-        rc = lib.lbm_roll_x_wide_launch(
-            x.data_ptr(), out.data_ptr(), rows, ny, int(shift) % rows, n_rolls,
-            vectors or ROLL_X_DEFAULT["vectors"], warps or ROLL_X_DEFAULT["warps"], _stream(x))
+        rc = lib.lbm_roll_x_wide_launch(x.data_ptr(), out.data_ptr(), rows, ny,
+                                        int(shift) % rows, n_rolls, _stream(x))
     else:
         scratch = ([torch.empty_like(x), torch.empty_like(x)] if mechanism == "global"
                    else [None] * 2)

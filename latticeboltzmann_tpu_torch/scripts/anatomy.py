@@ -13,14 +13,13 @@ csrc/lbm_probes.cu) and its flat multi-step kernel
           (the library's copy) and an elementwise x.add_(1.0) loop: the
           bandwidth ceiling every step kernel is judged against
   roll    ns per periodic y-shift of a resident (32, NY) block, through
-          shared memory (both forms: the wide one across a thread-block
-          cluster, at each cluster size and by remote stores and loads;
-          the cluster barriers alone) and through warp shuffles, beside
-          torch.roll
+          shared memory (both forms: the narrow one a row per CTA, the
+          wide one across a thread-block cluster) and through warp
+          shuffles, beside torch.roll
   align   ns per add on row-offset and column-offset windows of a
           resident (40, NY) block; ns per x-shift (rows) of the block held
-          in shared memory (both forms; the wide one at each width and
-          warps per CTA) and re-read from global memory, beside torch.roll
+          in shared memory (both forms) and re-read from global memory,
+          beside torch.roll
   flat    the flat kernel's us/step (16 and 64 steps per launch at its
           default temporal depth T, the JAX script's (T, steps) pairs, T
           = 1..5 at 16 steps and T = 4..16 at 64 steps, float32 and bf16,
@@ -190,22 +189,10 @@ def roll_section(steps, ny):
             report_ns(f"roll_y shift={shift:5d} {label:7s} ({ROLL_ROWS}x{ny})", dt, onchip)
         lib = queued_ms(lambda: torch.roll(x, shift, 1), 200) * 1e-3
         report_ns(f"torch.roll shift={shift:5d}, one call per roll", lib, onchip)
-    # the wide form's cluster sizes and remote accesses, and its barriers alone
-    for cluster in probes.ROLL_Y_CLUSTERS:
-        if probes.roll_y_cluster(ny, cluster) is None:
-            continue
-        active = probes.roll_y_clusters(ROLL_ROWS, ny, cluster)
-        print(f"roll_y wide, cluster {cluster}: {ROLL_ROWS * cluster} CTAs, at most {active} "
-              "clusters active at once (cudaOccupancyMaxActiveClusters)", flush=True)
-        for shift in (1, 4):
-            for remote in probes.ROLL_Y_REMOTES:
-                dt = slope(lambda n: probes.roll_y(x, shift, n, cluster=cluster, remote=remote,
-                                                   out=out))
-                report_ns(f"roll_y shift={shift} wide C={cluster} {remote:5s}", dt, onchip)
-        for kind in probes.CLUSTER_BARRIERS:
-            dt = slope(lambda n: probes.cluster_barrier(x, n, cluster=cluster, kind=kind, out=out))
-            print(f"{f'cluster barrier alone, C={cluster}, {kind}':54s} {dt * 1e9:9.1f} ns/op",
-                  flush=True)
+    if ny % (4 * probes.ROLL_Y_CLUSTER) == 0:  # the wide form's launch shape
+        print(f"roll_y wide: {ROLL_ROWS * probes.ROLL_Y_CLUSTER} CTAs in clusters of "
+              f"{probes.ROLL_Y_CLUSTER}, at most {probes.roll_y_clusters(ROLL_ROWS, ny)} clusters "
+              "active at once (cudaOccupancyMaxActiveClusters)", flush=True)
 
 
 def align_section(steps, ny):
@@ -235,15 +222,6 @@ def align_section(steps, ny):
             report_ns(f"roll_x shift={shift:2d} {label:6s} ({ALIGN_ROWS}x{ny})", dt, onchip)
         lib = queued_ms(lambda: torch.roll(x, shift, 0), 200) * 1e-3
         report_ns(f"torch.roll axis 0 shift={shift:2d}, one call per roll", lib, onchip)
-    # the wide form's widths and warps per CTA
-    if ny % 4 == 0:
-        for vectors in probes.ROLL_X_VECTORS:
-            for warps in probes.ROLL_X_WARPS:
-                dt = timed_slope(lambda n: probes.roll_x(x, 1, n, vectors=vectors, warps=warps,
-                                                         out=out), n1, 2 * n1)
-                ctas = -(-ny // (4 * vectors))
-                report_ns(f"roll_x shift=1 wide {vectors:2d} vectors {warps} warps ({ctas} CTAs)",
-                          dt, onchip)
 
 
 # ------------------------------------------------------- the step kernels

@@ -35,8 +35,8 @@ and against each other; so are the two forms of the ext-halo and rdma
 kernels, against step_reference_ext / step_reference_rdma, the wide plain
 version step_reference_ext_wide and each other. Both forms of the
 shared-memory rolls (wide: 16-byte vectors, the y-roll's rows across a
-thread-block cluster; narrow: a row or a 128-column tile per CTA) are
-held bitwise against
+thread-block cluster of 4 CTAs; narrow: a row or a 128-column tile per
+CTA) are held bitwise against
 their plain versions and one torch.roll, their launches counted by form.
 """
 
@@ -918,10 +918,11 @@ def _form_counts():
 def test_roll_y_forms_equal_chained_rolls_and_one_roll(ny, cuda_device):
     """Both forms of the shared-memory y-roll bitwise against roll_y_reference
     and one torch.roll by the summed shift; the wide form runs wherever NY
-    is a multiple of 4 (a cluster of 2 at 40), the narrow one at 37, where
-    form="wide" raises; launches counted by form."""
+    is a multiple of 16 (4000), the narrow one everywhere, and form="wide"
+    raises at 40 and 37; form=None is the narrow form; launches counted
+    by form."""
     x = _rand((32, ny), cuda_device, seed=1)
-    forms = ("wide", "narrow") if ny % 4 == 0 else ("narrow",)
+    forms = ("wide", "narrow") if ny % 16 == 0 else ("narrow",)
     before = collections.Counter(_form_counts())
     for shift in _roll_shifts(ny):
         for n in (0, 1, 6, 7):
@@ -930,52 +931,46 @@ def test_roll_y_forms_equal_chained_rolls_and_one_roll(ny, cuda_device):
                 torch.cuda.synchronize()
                 assert torch.equal(got, probes.roll_y_reference(x, shift, n)), (shift, n, form)
                 assert torch.equal(got, torch.roll(x, n * shift % ny, 1))
-    if ny % 4:
+    if ny % 16:
         with pytest.raises(ValueError):
             probes.roll_y(x, 1, 6, form="wide")
+    assert torch.equal(probes.roll_y(x, 3, 6), torch.roll(x, 18 % ny, 1))
     want = before + collections.Counter({f"roll_y-{f}": 36 for f in forms})
+    want["roll_y-narrow"] += 1
     assert _form_counts() == dict(want)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("remote", ["store", "load", "async"])
-@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
-def test_roll_y_wide_form_at_every_cluster_size(cluster, remote, cuda_device):
-    """The wide y-roll at (32, 4000), each cluster size and remote access,
-    bitwise; the cluster barriers alone leave the block as it was; the
-    launch's cluster shape fits the card."""
+def test_roll_y_wide_form_fits_the_card(cuda_device):
+    """The wide y-roll's cluster launch at (32, 4000) fits the card
+    (cudaOccupancyMaxActiveClusters), and the form takes the shift's four
+    residues through one launch each of 9 rolls, bitwise."""
     x = _rand((32, 4000), cuda_device, seed=2)
-    assert probes.roll_y_clusters(32, 4000, cluster, remote) >= 1
-    for shift in _roll_shifts(4000):
-        for n in (1, 7):
-            got = probes.roll_y(x, shift, n, cluster=cluster, remote=remote)
-            torch.cuda.synchronize()
-            assert torch.equal(got, probes.roll_y_reference(x, shift, n)), (shift, n)
-    for kind in probes.CLUSTER_BARRIERS:
-        assert torch.equal(probes.cluster_barrier(x, 9, cluster=cluster, kind=kind), x)
+    assert probes.roll_y_clusters(32, 4000) >= 1
+    for shift in (1, 2, 3, 4, 1001, 3999):
+        got = probes.roll_y(x, shift, 9, form="wide")
+        torch.cuda.synchronize()
+        assert torch.equal(got, probes.roll_y_reference(x, shift, 9)), shift
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("ny", [4000, 40, 37])
 def test_roll_x_forms_equal_chained_rolls_and_one_roll(ny, cuda_device):
     """Both forms of the shared-memory x-roll bitwise against
-    roll_x_reference and one torch.roll; the wide form at every width and
-    warps per CTA where NY is a multiple of 4; launches counted by form."""
+    roll_x_reference and one torch.roll; the wide form (the default) where
+    NY is a multiple of 4; launches counted by form."""
     x = _rand((40, ny), cuda_device, seed=3)
     before = collections.Counter(_form_counts())
     launched = collections.Counter()
-    variants = [{"form": "narrow"}]
-    if ny % 4 == 0:
-        variants += [{"form": "wide"}] + [{"vectors": v, "warps": w} for v in probes.ROLL_X_VECTORS
-                                          for w in probes.ROLL_X_WARPS]
+    forms = [None, "narrow", "wide"] if ny % 4 == 0 else [None, "narrow"]
     for shift in (*_roll_shifts(ny), 39):
         for n in (0, 1, 6, 7, 8, 9):
-            for kw in variants:
-                got = probes.roll_x(x, shift, n, **kw)
+            for form in forms:
+                got = probes.roll_x(x, shift, n, form=form)
                 torch.cuda.synchronize()
-                assert torch.equal(got, probes.roll_x_reference(x, shift, n)), (shift, n, kw)
+                assert torch.equal(got, probes.roll_x_reference(x, shift, n)), (shift, n, form)
                 assert torch.equal(got, torch.roll(x, n * shift % 40, 0))
-                launched[f"roll_x-{kw.get('form', 'wide')}"] += 1
+                launched[f"roll_x-{form or ('wide' if ny % 4 == 0 else 'narrow')}"] += 1
     if ny % 4:
         with pytest.raises(ValueError):
             probes.roll_x(x, 1, 8, form="wide")
@@ -994,8 +989,6 @@ def test_roll_forms_follow_the_pointers_on_the_card(cuda_device):
     for roll in (probes.roll_y, probes.roll_x):
         with pytest.raises(ValueError):
             roll(x, 1, 6, form="wide")
-    with pytest.raises(ValueError):
-        probes.cluster_barrier(x, 4)
     want = collections.Counter(before) + collections.Counter({"roll_y-narrow": 1,
                                                               "roll_x-narrow": 1})
     assert _form_counts() == dict(want)

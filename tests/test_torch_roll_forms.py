@@ -6,10 +6,9 @@ against the plain versions on a CUDA card.
 
 The models restate, line for line, the index arithmetic of
 csrc/lbm_probes.cu's wide kernels (lbm_roll_y_cluster: which CTA of a
-cluster and which slot of its buffers each output vector goes to, the
-halo slot, and the source vectors and ranks the load design reads;
-lbm_roll_x_wide: which thread moves which vector of which row), so that
-an index error shows here before a card runs the kernel. Rolls move
+cluster and which slot of its buffers each output vector goes to, and
+the halo slot; lbm_roll_x_wide: which lane moves which vector of which
+row), so that an index error shows here before a card runs the kernel. Rolls move
 float32 values: every comparison is bitwise.
 """
 
@@ -75,7 +74,7 @@ def _compose(r, prev, cur):
     return np.concatenate([prev[4 - r:], cur[:4 - r]]) if r else cur.copy()
 
 
-def _model_roll_y(row, shift, n_rolls, c, remote):
+def _model_roll_y(row, shift, n_rolls, c):
     """lbm_roll_y_cluster on one row: c CTAs of seg vectors, each with two
     buffers of seg + 1 slots (slot 0 the halo); returns the row and, per
     roll, how often each (rank, slot) of the written buffers was
@@ -97,79 +96,62 @@ def _model_roll_y(row, shift, n_rolls, c, remote):
         for rank in range(c):
             a = ring[rank, cur]
             for lv in range(seg):
-                if remote != "load":
-                    v = _compose(r, a[lv], a[1 + lv])
-                    dl, dr = lv + ql, rank + qc
-                    if dl >= seg:
-                        dl, dr = dl - seg, dr + 1
-                    if dr >= c:
-                        dr -= c
-                    new[dr, 1 + dl] = v
-                    hits[dr, 1 + dl] += 1
-                    if r and dl == seg - 1:
-                        hr = 0 if dr + 1 == c else dr + 1
-                        new[hr, 0] = v
-                        hits[hr, 0] += 1
-                else:
-                    ul, ur = lv - ql, rank - qc
-                    if ul < 0:
-                        ul, ur = ul + seg, ur - 1
-                    if ur < 0:
-                        ur += c
-                    v = ring[ur, cur, 1 + ul]
-                    if r:
-                        pl, pr = ul - 1, ur
-                        if pl < 0:
-                            pl, pr = pl + seg, (c - 1 if pr == 0 else pr - 1)
-                        v = _compose(r, ring[pr, cur, 1 + pl], v)
-                    new[rank, 1 + lv] = v
-                    hits[rank, 1 + lv] += 1
+                v = _compose(r, a[lv], a[1 + lv])
+                dl, dr = lv + ql, rank + qc
+                if dl >= seg:
+                    dl, dr = dl - seg, dr + 1
+                if dr >= c:
+                    dr -= c
+                new[dr, 1 + dl] = v
+                hits[dr, 1 + dl] += 1
+                if r and dl == seg - 1:
+                    hr = 0 if dr + 1 == c else dr + 1
+                    new[hr, 0] = v
+                    hits[hr, 0] += 1
         ring[:, cur ^ 1] = new
         writes.append(hits)
         cur ^= 1
     return ring[:, cur, 1:].reshape(-1), writes
 
 
-@pytest.mark.parametrize("remote", ["store", "load", "async"])
-@pytest.mark.parametrize("ny, c", [(16, 1), (32, 2), (64, 4), (64, 8), (96, 4), (40, 2), (160, 8)])
-def test_wide_roll_y_index_map_equals_torch_roll(ny, c, remote):
-    """Every shift (each residue, across segments and the row's wrap), 0
-    to 3 rolls: the model's row equals torch.roll, and each roll writes
-    every slot of every CTA's segment once; the store designs (the async
-    one writes as "store" does) also write each halo once when the
-    residue is not 0 (the load design never reads it): the bytes each
+@pytest.mark.parametrize("ny", [16, 32, 48, 64, 80, 96, 112, 160, 208, 272])
+def test_wide_roll_y_index_map_equals_torch_roll(ny):
+    """A cluster of ROLL_Y_CLUSTER CTAs, every shift (each residue, across
+    segments and the row's wrap), 0 to 3 rolls: the model's row equals
+    torch.roll, and each roll writes every slot of every CTA's segment
+    once and each halo once when the residue is not 0: the bytes each
     CTA's mbarrier expects per roll."""
-    row = _block((ny,), seed=ny + c)
+    c = probes.ROLL_Y_CLUSTER
+    row = _block((ny,), seed=ny)
     seg = ny // 4 // c
+    assert seg * c * 4 == ny
     for shift in range(ny):
         for n_rolls in range(4):
-            got, writes = _model_roll_y(row, shift, n_rolls, c, remote)
+            got, writes = _model_roll_y(row, shift, n_rolls, c)
             want = torch.roll(torch.as_tensor(row), n_rolls * shift % ny, 0).numpy()
             np.testing.assert_array_equal(got, want, err_msg=f"shift {shift}, {n_rolls} rolls")
             for hits in writes:
                 assert (hits[:, 1:] == 1).all()
-                halo = 1 if remote != "load" and shift % 4 else 0
-                assert (hits[:, 0] == halo).all(), (shift, hits[:, 0])
-            assert seg * c * 4 == ny
+                assert (hits[:, 0] == (1 if shift % 4 else 0)).all(), (shift, hits[:, 0])
 
 
 # ---- the wide x-roll's index map ----
 
-def _model_roll_x(block, shift, n_rolls, vectors, warps):
-    """lbm_roll_x_wide on a block: CTAs of `vectors` vectors and `warps`
-    warps, thread t moving vector t % vectors of rows g, g + G, ... (g = t
-    // vectors). Returns the block and, for each roll after the first, the
-    (reader warp, writer warp) pairs of the slots a thread read: the warps
-    whose stores the roll's barrier must order."""
+def _model_roll_x(block, shift, n_rolls, vectors):
+    """lbm_roll_x_wide on a block: one-warp CTAs of `vectors` vectors,
+    lane t moving vector t % vectors of rows g, g + G, ... (g = t //
+    vectors). Returns the block and, for each roll after the first, the
+    (reader lane's CTA, writer's CTA) pairs of the slots a lane read:
+    whose stores the roll's __syncwarp must order."""
     rows, ny = block.shape
     nyv = ny // 4
-    groups = 32 * warps // vectors
+    groups = 32 // vectors
     out = np.full_like(block, np.nan)
     pairs = set()
     for cta in range(-(-nyv // vectors)):
         strips = np.full((2, rows, vectors, 4), np.nan, np.float32)
         writer = np.full((2, rows, vectors), -1)
-        for t in range(32 * warps):
+        for t in range(32):
             vec, g = t % vectors, t // vectors
             v = cta * vectors + vec
             for i in range(g, rows, groups):
@@ -177,16 +159,16 @@ def _model_roll_x(block, shift, n_rolls, vectors, warps):
                     strips[0, i, vec] = block[i, 4 * v: 4 * v + 4]
         cur = 0
         for k in range(n_rolls):
-            for t in range(32 * warps):
+            for t in range(32):
                 vec, g = t % vectors, t // vectors
                 for i in range(g, rows, groups):
                     d = i + shift
                     if d >= rows:
                         d -= rows
                     if k:
-                        pairs.add((t // 32, writer[cur, i, vec]))
+                        pairs.add((cta, writer[cur, i, vec]))
                     strips[cur ^ 1, d, vec] = strips[cur, i, vec]
-                    writer[cur ^ 1, d, vec] = t // 32
+                    writer[cur ^ 1, d, vec] = cta
             cur ^= 1
         for vec in range(vectors):
             v = cta * vectors + vec
@@ -195,64 +177,56 @@ def _model_roll_x(block, shift, n_rolls, vectors, warps):
     return out, pairs
 
 
-@pytest.mark.parametrize("warps", [1, 2, 4])
-@pytest.mark.parametrize("vectors", [1, 2, 4, 8])
-def test_wide_roll_x_index_map_equals_torch_roll(vectors, warps):
-    """Rows 40, 7 and 3 (fewer rows than row groups), columns that leave
-    the last CTA partly past NY's end, every shift, 0 to 3 rolls: the
-    model equals torch.roll. With one warp per CTA every slot a roll reads
-    was written by its own warp (a __syncwarp orders it); with more, warps
-    read each other's stores (a block barrier)."""
-    for rows, ny in ((40, 4 * (vectors + 3)), (7, 36), (3, 8)):
-        x = _block((rows, ny), seed=rows * vectors + warps)
-        for shift in range(rows):
-            for n_rolls in range(4):
-                got, pairs = _model_roll_x(x, shift, n_rolls, vectors, warps)
-                np.testing.assert_array_equal(
-                    got, torch.roll(torch.as_tensor(x), n_rolls * shift % rows, 0).numpy())
-                if warps == 1:
-                    assert pairs <= {(0, 0)}
-        if warps > 1:
-            _, pairs = _model_roll_x(_block((40, 4 * vectors)), 1, 2, vectors, warps)
-            assert any(a != b for a, b in pairs)
+@pytest.mark.parametrize("rows, ny", [(40, 20), (40, 8), (40, 4), (7, 36), (3, 8), (17, 44),
+                                      (64, 12), (33, 16)])
+def test_wide_roll_x_index_map_equals_torch_roll(rows, ny):
+    """Columns that leave the last CTA partly past NY's end (and rows
+    fewer than a warp's row groups), every shift, 0 to 3 rolls: the model
+    equals torch.roll, and every slot a roll reads was written by its own
+    CTA's one warp (a __syncwarp orders it)."""
+    x = _block((rows, ny), seed=rows * ny)
+    for shift in range(rows):
+        for n_rolls in range(4):
+            got, pairs = _model_roll_x(x, shift, n_rolls, probes.ROLL_X_VECTORS)
+            np.testing.assert_array_equal(
+                got, torch.roll(torch.as_tensor(x), n_rolls * shift % rows, 0).numpy())
+            assert all(a == b for a, b in pairs)
 
 
 # ---- the wrappers: forms, refusals, the CPU path ----
 
-def test_roll_y_cluster_picks_the_largest_size_that_divides_ny():
-    assert probes.ROLL_Y_CLUSTER in probes.ROLL_Y_CLUSTERS
-    assert probes.roll_y_cluster(4000) == probes.ROLL_Y_CLUSTER == 4
-    assert probes.roll_y_cluster(40) == 2
-    assert probes.roll_y_cluster(36) == 1
-    assert probes.roll_y_cluster(37) is None
-    assert probes.roll_y_cluster(4000, 8) == 8
-    assert probes.roll_y_cluster(40, 8) is None
-    with pytest.raises(ValueError):
-        probes.roll_y_cluster(4000, 3)
+def test_form_none_picks_the_faster_form_where_the_wide_one_applies():
+    """DEFAULT_FORM: the narrow y-roll and the wide x-roll, the faster
+    forms on an H100; form=None never picks a form that does not take the
+    shape."""
+    assert probes.DEFAULT_FORM == {"roll_y": "narrow", "roll_x": "wide"}
+    assert probes._roll_form("roll_y", None, True, "") == "narrow"
+    assert probes._roll_form("roll_y", None, False, "") == "narrow"
+    assert probes._roll_form("roll_x", None, True, "") == "wide"
+    assert probes._roll_form("roll_x", None, False, "") == "narrow"
+    assert probes._roll_form("roll_y", "wide", True, "") == "wide"
+    assert probes._cluster_takes(4000) and probes._cluster_takes(16)
+    assert not any(probes._cluster_takes(ny) for ny in (40, 36, 37, 8))
 
 
 @pytest.mark.parametrize("ny", [128, 40, 36, 37])
 def test_every_form_on_the_cpu_gives_the_plain_result(ny):
-    """On the CPU every form and variant the shape takes returns the plain
-    version's result and counts no launch."""
+    """On the CPU every form the shape takes returns the plain version's
+    result and counts no launch."""
     x = torch.as_tensor(_block((32, ny), seed=5))
     xx = torch.as_tensor(_block((40, ny), seed=6))
     before = dict(probes.LAUNCHES), dict(probes.ROLL_FORM_LAUNCHES)
     y_kws = [{}, {"form": "narrow"}, {"mechanism": "shuffle"}]
     x_kws = [{}, {"form": "narrow"}, {"mechanism": "global"}]
+    if ny % (4 * probes.ROLL_Y_CLUSTER) == 0:
+        y_kws.append({"form": "wide"})
     if ny % 4 == 0:
-        y_kws += [{"form": "wide"}] + [{"cluster": c, "remote": m}
-                                       for c in probes.ROLL_Y_CLUSTERS if ny % (4 * c) == 0
-                                       for m in probes.ROLL_Y_REMOTES]
-        x_kws += [{"form": "wide"}] + [{"vectors": v, "warps": w} for v in probes.ROLL_X_VECTORS
-                                       for w in probes.ROLL_X_WARPS]
+        x_kws.append({"form": "wide"})
     for shift in (1, 2, 3, 4, -1):
         for kw in y_kws:
             assert torch.equal(probes.roll_y(x, shift, 6, **kw), torch.roll(x, 6 * shift % ny, 1))
         for kw in x_kws:
             assert torch.equal(probes.roll_x(xx, shift, 8, **kw), torch.roll(xx, 8 * shift % 40, 0))
-    if ny % 4 == 0:
-        assert torch.equal(probes.cluster_barrier(x, 5), x)
     assert (dict(probes.LAUNCHES), dict(probes.ROLL_FORM_LAUNCHES)) == before
 
 
@@ -260,26 +234,17 @@ def _form_refusal(case):
     y37 = torch.as_tensor(_block((32, 37)))
     y40 = torch.as_tensor(_block((32, 40)))
     x37 = torch.as_tensor(_block((40, 37)))
-    flat = torch.zeros(32 * 40 + 1)
-    unaligned = flat[1:].view(32, 40)
+    flat = torch.zeros(32 * 48 + 1)
+    unaligned = flat[1:].view(32, 48)
     calls = {
         "y_wide_odd_ny": lambda: probes.roll_y(y37, 1, 6, form="wide"),
-        "y_cluster_odd_ny": lambda: probes.roll_y(y37, 1, 6, cluster=1),
-        "y_cluster_not_dividing": lambda: probes.roll_y(y40, 1, 6, cluster=4),
-        "y_cluster_size": lambda: probes.roll_y(y40, 1, 6, cluster=3),
-        "y_remote": lambda: probes.roll_y(y40, 1, 6, remote="rdma"),
-        "y_narrow_with_cluster": lambda: probes.roll_y(y40, 1, 6, form="narrow", cluster=2),
-        "y_narrow_with_remote": lambda: probes.roll_y(y40, 1, 6, form="narrow", remote="load"),
+        "y_wide_ny_not_a_multiple_of_16": lambda: probes.roll_y(y40, 1, 6, form="wide"),
         "y_shuffle_with_form": lambda: probes.roll_y(y40, 1, 6, mechanism="shuffle", form="narrow"),
         "y_form_name": lambda: probes.roll_y(y40, 1, 6, form="vector"),
         "y_wide_unaligned": lambda: probes.roll_y(unaligned, 1, 6, form="wide"),
-        "barrier_odd_ny": lambda: probes.cluster_barrier(y37, 4),
-        "barrier_unaligned": lambda: probes.cluster_barrier(unaligned, 4),
+        "y_clusters_odd_ny": lambda: probes.roll_y_clusters(32, 37),
         "x_wide_odd_ny": lambda: probes.roll_x(x37, 1, 8, form="wide"),
-        "x_vectors_odd_ny": lambda: probes.roll_x(x37, 1, 8, vectors=8),
-        "x_vectors": lambda: probes.roll_x(y40, 1, 8, vectors=32),
-        "x_warps": lambda: probes.roll_x(y40, 1, 8, warps=3),
-        "x_narrow_with_warps": lambda: probes.roll_x(y40, 1, 8, form="narrow", warps=2),
+        "x_form_name": lambda: probes.roll_x(y40, 1, 8, form="vector"),
         "x_global_with_form": lambda: probes.roll_x(y40, 1, 8, mechanism="global", form="narrow"),
         "x_wide_unaligned": lambda: probes.roll_x(unaligned, 1, 8, form="wide"),
     }
@@ -287,15 +252,13 @@ def _form_refusal(case):
 
 
 @pytest.mark.parametrize("case", [
-    "y_wide_odd_ny", "y_cluster_odd_ny", "y_cluster_not_dividing", "y_cluster_size", "y_remote",
-    "y_narrow_with_cluster", "y_narrow_with_remote", "y_shuffle_with_form", "y_form_name",
-    "y_wide_unaligned", "barrier_odd_ny", "barrier_unaligned", "x_wide_odd_ny",
-    "x_vectors_odd_ny", "x_vectors", "x_warps", "x_narrow_with_warps", "x_global_with_form",
-    "x_wide_unaligned"])
+    "y_wide_odd_ny", "y_wide_ny_not_a_multiple_of_16", "y_shuffle_with_form", "y_form_name",
+    "y_wide_unaligned", "y_clusters_odd_ny", "x_wide_odd_ny", "x_form_name",
+    "x_global_with_form", "x_wide_unaligned"])
 def test_wide_form_refusals(case):
-    """form="wide" (or a wide form's knob) on a shape or pointer the wide
-    form does not take raises ValueError, as does a knob of another form
-    or mechanism; nothing is counted."""
+    """form="wide" on a shape or pointer the wide form does not take
+    raises ValueError, as does a form for another mechanism or an unknown
+    form; nothing is counted."""
     before = dict(probes.LAUNCHES), dict(probes.ROLL_FORM_LAUNCHES)
     with pytest.raises(ValueError):
         _form_refusal(case)()
