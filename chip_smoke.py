@@ -175,6 +175,27 @@ Phases, each of which raises on failure:
    launches of each form queued behind a spin, in turns, beside the
    ext-halo form's 4 launches, in float32 and bf16.
 Phases 22-24 run with phases 15-17 (sharded_phases).
+25. the probed main path: Simulation(backend="cuda").run_probed on the
+   800x4000 reference scene at the three wake probes of
+   scripts/numerics_tiers.py, PROBED_STEPS steps at every = 1, 8 and 3;
+   the series bitwise equal to the same launches run by run() with
+   probe_values between chunks, the final state bitwise equal to an
+   unprobed run's, exactly PROBED_STEPS launches counted, all from
+   phase 4's state after its 10,096 steps (the wake has reached the
+   probes); the same on
+   "cuda" with bf16 storage, on "cuda-ds64" (series in float64 from the
+   pair's probe columns), on "sharded-cuda-rdma" over VIRTUAL_SHARDS
+   virtual shards (series also bitwise equal to "cuda"'s, 4 launches per
+   step) and on "sharded-cuda-ds64" over VIRTUAL_SHARDS virtual shards
+   (series also bitwise equal to "cuda-ds64"'s, 12 launches per step);
+   then us/step of run_probed and of run() in turns, at every = 1
+   and 8, and the gather's cost per sample;
+26. every row of latticeboltzmann_tpu_torch/bench_suite.py once at its
+   --quick length (bench_suite.QUICK_STEPS steps, the float64 rows too), every row
+   sane, each row's line and the phase's wall time printed, the launches
+   of every kernel route the rows take counted;
+27. scripts/validate_ds.py at 400x2000 for 2,000 steps: cuda-ds64 against
+   the float64 torch engine, Re within 1e-9 relative.
 
 The kernels line gives every kernel's bound: the larger of its bytes
 (each input read once, each output written once) over the card's
@@ -250,6 +271,11 @@ F32_OPS_PER_SITE = 124
 FP32_LANES_PER_SM = 128
 # steps of the ds kernel's chains from rest (phase 6), by tier (exact?)
 DS_LONG_STEPS = {False: 100, True: 50}
+# the probed main path (phase 25): steps (a multiple of every value of
+# PROBED_EVERY), the sampling intervals, and the timed runs' steps
+PROBED_STEPS = 240
+PROBED_EVERY = (1, 8, 3)
+PROBED_TIMED_STEPS = 2000
 
 
 def bound(n_bytes, n_ops):
@@ -659,6 +685,10 @@ def main() -> int:
 
     card = card_info()
     print(f"card: {card}")
+    # the sharded phases register their backends over meshes of their own;
+    # the suite (phase 26) runs the registered defaults
+    from latticeboltzmann_tpu_torch.models import engine
+    default_backends = dict(engine._BACKENDS)
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"cuda {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
 
@@ -766,6 +796,10 @@ def main() -> int:
     ext = sharded_phases(f32_main, ds_counts, clock)
     anatomy = anatomy_phases()
     panels_phase()
+    probed_phases(f32_main)
+    engine._BACKENDS.update(default_backends)
+    suite_phase(card)
+    validate_ds_phase()
 
     print(json.dumps({"kernels": [*f32_entries, *options, ds, *ext, *anatomy]}))
     print(card)
@@ -2413,6 +2447,136 @@ def panels_phase():
         del want
     del a, b
     torch.cuda.empty_cache()
+
+
+def probed_series(sim, every, probes):
+    """run() of `every` steps, then probe_values, PROBED_STEPS // every
+    times: the series run_probed must equal."""
+    return np.stack([sim.run(every).probe_values(probes) for _ in range(PROBED_STEPS // every)])
+
+
+def probed_phases(f32_main):
+    """Phase 25: run_probed on the kernel backends from phase 4's
+    developed state (f32_main; rounded to bf16, or widened to float64,
+    as the backend stores it), bitwise against run() with probe_values
+    between chunks and against an unprobed run, its launches counted;
+    then its cost per step beside run()'s."""
+    from latticeboltzmann_tpu_torch import LatticeConfig, Simulation, geometry
+    from latticeboltzmann_tpu_torch.models import engine
+    from latticeboltzmann_tpu_torch.parallel import sharded
+    from latticeboltzmann_tpu_torch.scripts.numerics_tiers import PROBES
+
+    torch.cuda.empty_cache()
+    walls = geometry.reference_barrier(800, 4000)
+    # the two sharded cases over virtual shards of the one card; main()
+    # restores the registered defaults after this phase
+    mesh = sharded.make_mesh(devices=["cuda"] * VIRTUAL_SHARDS)
+    engine.register_backend("sharded-cuda-rdma", sharded.make_cuda_backend(mesh, rdma=True))
+    engine.register_backend("sharded-cuda-ds64", sharded.make_cuda_ds_backend(mesh))
+    form = {"wide": PROBED_STEPS * VIRTUAL_SHARDS}
+    cases = (
+        # (label, backend, dtype, launches of one run, form, the series it must also equal)
+        ("cuda f32", "cuda", np.float32, {"f32-spec": PROBED_STEPS}, "wide", None),
+        ("cuda bf16", "cuda", "bfloat16", {"bf16-spec": PROBED_STEPS}, "wide", None),
+        ("cuda-ds64", "cuda-ds64", np.float64, {"ds": PROBED_STEPS}, None, None),
+        (f"sharded-cuda-rdma over {VIRTUAL_SHARDS} virtual shards", "sharded-cuda-rdma",
+         np.float32, {"rdma-f32-spec": PROBED_STEPS * VIRTUAL_SHARDS}, form, "cuda f32"),
+        # overlap schedule: each shard's interior and its two edge rows
+        (f"sharded-cuda-ds64 over {VIRTUAL_SHARDS} virtual shards", "sharded-cuda-ds64",
+         np.float64, {"ds-ext": PROBED_STEPS * VIRTUAL_SHARDS * 3}, None, "cuda-ds64"),
+    )
+    series_of = {}
+    for label, backend, dtype, want, form_want, also in cases:
+        cfg = LatticeConfig(nx=800, ny=4000, dtype=dtype)
+        f0 = f32_main.astype(np.float64) if dtype == np.float64 else f32_main
+
+        def fresh():
+            return Simulation(cfg, walls, backend=backend, f0=f0, allow_experimental=True)
+
+        final = fresh().run(PROBED_STEPS).state()
+        for every in PROBED_EVERY:
+            sim = fresh()
+            reset_counts()
+            got = sim.run_probed(PROBED_STEPS, PROBES, every=every)
+            counts = expect_counts(f"run_probed, {label}, every {every}", want, form_want)
+            if got.shape != (PROBED_STEPS // every, len(PROBES), 3) or not np.isfinite(got).all():
+                raise AssertionError(f"{label}, every {every}: series {got.shape}, finite "
+                                     f"{np.isfinite(got).all()}")
+            if sim.steps_done != PROBED_STEPS:
+                raise AssertionError(f"{label}: steps_done {sim.steps_done}")
+            want_series = probed_series(fresh(), every, PROBES)
+            np.testing.assert_array_equal(got, want_series,
+                                          err_msg=f"{label}, every {every}: run_probed "
+                                                  "!= run() + probe_values")
+            np.testing.assert_array_equal(sim.state(), final,
+                                          err_msg=f"{label}, every {every}: probed state "
+                                                  "!= unprobed state")
+            if also is not None:
+                np.testing.assert_array_equal(got, series_of[(also, every)],
+                                              err_msg=f"{label} != {also}, every {every}")
+            series_of[(label, every)] = got
+            print(f"run_probed {label}, every {every}: {PROBED_STEPS} steps, series "
+                  f"{got.shape} {got.dtype} bitwise equal to run() + probe_values between "
+                  f"chunks{f' and to {also}' if also else ''}; final state bitwise equal "
+                  f"to an unprobed run's; launches {counts}; last sample {got[-1].tolist()}")
+
+    # the gather's cost: host clock around run_probed and run() (each ends
+    # in a synchronize), in turns
+    cfg = LatticeConfig(nx=800, ny=4000, dtype=np.float32)
+    sim = Simulation(cfg, walls, backend="cuda")
+    sim.run(WARMUP)
+    n = PROBED_TIMED_STEPS
+    for every in (1, 8):
+        fns = {"run()": lambda: sim.run(n),
+               f"run_probed(every={every})": lambda e=every: sim.run_probed(n, PROBES, every=e)}
+        best = {}
+        for label in list(fns) + list(reversed(fns)):
+            t0 = time.perf_counter()
+            fns[label]()
+            us = (time.perf_counter() - t0) / n * 1e6
+            best[label] = min(best.get(label, us), us)
+            print(f"probed path timing, 800x4000 f32 cuda, {label}: {us!r} us/step over {n} "
+                  f"steps (host clock, in turns)")
+        extra = best[f"run_probed(every={every})"] - best["run()"]
+        print(f"run_probed(every={every}) costs {extra!r} us/step over run() (best of two): "
+              f"{extra * every!r} us per sample of {len(PROBES)} probes")
+
+
+def suite_phase(card):
+    """Phase 26: every bench_suite row at its quick length, each sane,
+    the launches of the kernel routes the rows take counted."""
+    from latticeboltzmann_tpu_torch import bench_suite
+
+    torch.cuda.empty_cache()
+    reset_counts()
+    t0 = time.perf_counter()
+    rows = bench_suite.run_rows(bench_suite.CONFIGS, bench_suite.QUICK_STEPS, card,
+                                emit=lambda line: print(f"bench_suite row: {line}", flush=True))
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    print(f"bench_suite: {len(rows)} rows at {bench_suite.QUICK_STEPS} steps in {wall!r} s; launches {counts}")
+    insane = [r["config"] for r in rows if not r["sane"]]
+    if len(rows) != len(bench_suite.CONFIGS) or insane:
+        raise AssertionError(f"bench_suite rows not sane: {insane}")
+    # the rows' kernel routes: f32 and bf16 single-chip, the ext-halo form
+    # (sharded-cuda), the ds kernel and its ext-halo form
+    for route, prefix in (("f32", "f32-"), ("bf16", "bf16-"), ("ext-halo", "ext-f32-"),
+                          ("ds", "ds"), ("ds ext-halo", "ds-ext")):
+        if not any(k.startswith(prefix) and n for k, n in counts.items()):
+            raise AssertionError(f"bench_suite launched no {route} kernel: {counts}")
+    torch.cuda.empty_cache()
+
+
+def validate_ds_phase():
+    """Phase 27: scripts/validate_ds.py at its default size on the card."""
+    from latticeboltzmann_tpu_torch.scripts import validate_ds
+
+    reset_counts()
+    out = validate_ds.validate(400, 2000, 2000, "cuda-ds64", "cuda")
+    counts = read_counts()
+    print(f"validate_ds: {json.dumps(out)}; launches {counts}")
+    if not out["reynolds_pass"] or counts.get("ds") != 2000:
+        raise AssertionError(f"validate_ds failed: {out}, launches {counts}")
 
 
 if __name__ == "__main__":

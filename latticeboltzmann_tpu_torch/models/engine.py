@@ -46,7 +46,14 @@ mesh), else with a synchronize of the simulation's device.
 
 The ds backends carry a df64.DS pair and need a float64 LatticeConfig
 (the host-side precision of state() and f0); state(), macroscopic(),
-reynolds() and probe_values() use the pair recombined to float64.
+reynolds(), probe_values() and run_probed() use the pair recombined to
+float64.
+
+run_probed(n_steps, probes, every=) samples (rho, u_x, u_y) at probe
+sites every `every` steps into a series on the device, one loop for every
+backend (stream_collide.sample_every): `every` steps, then a gather. On
+the session backends the gather reads the live buffers (the session's
+probe_values), never a copy of the state; probe_values gathers so too.
 
 Options, as the JAX facade's capability sets (engine.py:73-118 there):
 slip_x/slip_y on _SLIP_BACKENDS, else NotImplementedError; fast_math on
@@ -311,15 +318,18 @@ class Simulation:
         call returns after the device finished, so `elapsed` times the
         work and not its enqueueing."""
         t0 = time.perf_counter()
-        if self._session is not None:
-            self._session.advance(n_steps)
-        else:
-            self._f = self._run_steps(self._f, self.walls, self.cfg, n_steps, **self._options)
+        self._advance(n_steps)
         if block:
             self._block()
         self.elapsed += time.perf_counter() - t0
         self.steps_done += n_steps
         return self
+
+    def _advance(self, n_steps: int) -> None:
+        if self._session is not None:
+            self._session.advance(n_steps)
+        else:
+            self._f = self._run_steps(self._f, self.walls, self.cfg, n_steps, **self._options)
 
     def _block(self) -> None:
         """Wait for the work run() enqueued: the session's own barrier,
@@ -333,12 +343,52 @@ class Simulation:
         else:
             _sync(self.device)
 
+    def run_probed(self, n_steps: int, probes, *, every: int = 1,
+                   block: bool = True) -> np.ndarray:
+        """Advance n_steps while recording (rho, u_x, u_y) at the (P, 2)
+        probe sites (i, j) every `every` steps; returns the series as a
+        numpy (n_steps // every, P, 3) array (float64 on the ds backends
+        and for float64 storage, float32 otherwise). On every backend:
+        `every` steps, then a gather (_probe) into a series preallocated
+        on the device and fetched once at the end; `elapsed` and
+        `steps_done` advance as in run().
+
+        Raises ValueError, before any step, unless `every` divides
+        n_steps and the probes are (P, 2) sites inside the lattice."""
+        sites = self._probe_sites(probes)
+        dtype = (torch.float64 if self.backend in _DS_BACKENDS
+                 else torch_ops.moment_dtype(storage_dtype(self.cfg.dtype)))
+        t0 = time.perf_counter()
+        series = torch_ops.sample_every(n_steps, every, len(sites), dtype, self.device,
+                                        self._advance, lambda: self._probe(sites))
+        if block:
+            self._block()
+        self.elapsed += time.perf_counter() - t0
+        self.steps_done += n_steps
+        return to_numpy(series)
+
     def probe_values(self, probes) -> np.ndarray:
-        """(rho, u_x, u_y) at (P, 2) probe sites from the current state."""
-        probes_np = np.asarray(probes)
-        if probes_np.ndim != 2 or probes_np.shape[1] != 2:
-            raise ValueError(f"probes must be (P, 2) (i, j) sites, got {probes_np.shape}")
-        return to_numpy(torch_ops.probe_values(self._f64(), probes_np))
+        """(rho, u_x, u_y) at (P, 2) probe sites from the current state;
+        on the session backends gathered from the live buffers, with no
+        copy of the state. Raises ValueError as run_probed."""
+        values = self._probe(self._probe_sites(probes))
+        self._block()  # a session's own checks, as state() makes them
+        return to_numpy(values)
+
+    def _probe_sites(self, probes):
+        if self._session is not None:
+            return self._session.probe_sites(probes)
+        return torch_ops.probe_sites(probes, self.cfg, self.device)
+
+    def _probe(self, sites) -> torch.Tensor:
+        """The moments at _probe_sites' sites: from the session's live
+        buffers, else from the state; on the ds backends from the pair
+        recombined in float64."""
+        if self._session is not None:
+            return self._session.probe_values(sites)
+        if self.backend in _DS_BACKENDS:
+            return ds_engine.probe_values(self._f, sites)
+        return torch_ops.probe_values(self._f, sites)
 
     def _f64(self) -> torch.Tensor:
         """The state on the device; on the ds backends the pair

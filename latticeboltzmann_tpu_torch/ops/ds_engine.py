@@ -273,6 +273,15 @@ def recombine(f: DS) -> torch.Tensor:
     return f.hi.double() + f.lo.double()
 
 
+def probe_values(f: DS, sites: torch.Tensor) -> torch.Tensor:
+    """(rho, u_x, u_y) in float64 at (P, 2) sites (an int64 tensor on
+    the pair's device): the probe columns recombined, then the moments,
+    equal to probe_values of the whole recombined state (the recombination
+    is per site) without recombining the rest of it."""
+    i, j = sites[:, 0], sites[:, 1]
+    return torch_ops.probe_moments(f.hi[:, i, j].double() + f.lo[:, i, j].double())
+
+
 def state_f64(f: DS) -> np.ndarray:
     return df64.to_f64(f)
 

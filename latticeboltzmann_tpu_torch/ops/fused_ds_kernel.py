@@ -35,7 +35,7 @@ import torch
 
 from ..core.spec import NSPEEDS, LatticeConfig
 from ..utils.interop import storage_dtype
-from . import cuda_build, df64, ds_engine
+from . import cuda_build, df64, ds_engine, stream_collide
 from .df64 import DS
 from .fused_kernel import ShardPlane, check_device, check_ext_launch, check_solid_plane
 
@@ -318,6 +318,17 @@ class Session:
     def state(self) -> DS:
         """The current pair, copied (the session keeps its buffers)."""
         return DS(self._a.hi.clone(), self._a.lo.clone())
+
+    def probe_sites(self, probes) -> torch.Tensor:
+        """(P, 2) probe sites (i, j) as int64 on the session's device;
+        raises as stream_collide.probe_sites."""
+        return stream_collide.probe_sites(probes, self.cfg, self.device)
+
+    def probe_values(self, sites: torch.Tensor) -> torch.Tensor:
+        """(rho, u_x, u_y) in float64 at (P, 2) sites (probe_sites) of the live pair
+        (ds_engine.probe_values): (P, 3). Copies nothing else of the
+        state."""
+        return ds_engine.probe_values(self._a, sites)
 
     def unload(self) -> DS:
         """The current pair; the session releases its buffers."""

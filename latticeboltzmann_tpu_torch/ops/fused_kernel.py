@@ -59,6 +59,13 @@ in FLAT_LAUNCHES.
 State is the unpadded (9, NX, NY) layout: the TPU kernel's mirror-pad
 lanes and VMEM staging have no counterpart here, and the one-step kernels
 run no temporal blocking (ROADMAP, "Not to port").
+
+The probed run (`run_steps_probed`; Simulation.run_probed through
+`Session.probe_values`) samples (rho, u_x, u_y) at probe sites from the
+session's live buffer after every `every` launches into a series
+preallocated on the device: the twin of the JAX _make_probed_runner,
+without its choice of pass structure by every % (2T), which is TPU
+scheduling. The sites need no remapping: the session does not pad.
 """
 
 from __future__ import annotations
@@ -1312,6 +1319,17 @@ class Session:
         """The current state, copied (the session keeps its buffers)."""
         return self._a.clone()
 
+    def probe_sites(self, probes) -> torch.Tensor:
+        """(P, 2) probe sites (i, j) as int64 on the session's device;
+        raises as stream_collide.probe_sites."""
+        return stream_collide.probe_sites(probes, self.cfg, self.device)
+
+    def probe_values(self, sites: torch.Tensor) -> torch.Tensor:
+        """(rho, u_x, u_y) at (P, 2) sites (probe_sites)
+        of the live buffer: (P, 3), moments in at least float32. Copies
+        nothing else of the state."""
+        return stream_collide.probe_values(self._a, sites)
+
     def unload(self) -> torch.Tensor:
         """The current state; the session releases its buffers."""
         out, self._a, self._b = self._a, None, None
@@ -1336,3 +1354,32 @@ def run_steps(
     sess.load(f)
     sess.advance(n_steps)
     return sess.unload()
+
+
+def run_steps_probed(
+    f: torch.Tensor,
+    walls,
+    cfg: LatticeConfig,
+    n_steps: int,
+    probes,
+    *,
+    every: int = 1,
+    wall_spec=None,
+    slip_x=None,
+    slip_y=None,
+    fast_math: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(f_final, series): n_steps launches on f's device with the probe
+    gather after every `every` of them, into a preallocated (n_steps //
+    every, P, 3) device series; one host sync at most, by the caller.
+    `f` is not modified. The JAX runner's choice of pass structure by
+    every % (2T) is TPU scheduling: each launch here is one step, so one
+    schedule serves every `every`."""
+    sess = Session(cfg, walls, device=f.device, wall_spec=wall_spec,
+                   slip_x=slip_x, slip_y=slip_y, fast_math=fast_math)
+    sess.load(f)
+    sites = sess.probe_sites(probes)
+    series = stream_collide.sample_every(
+        n_steps, every, len(sites), stream_collide.moment_dtype(sess.dtype), sess.device,
+        sess.advance, lambda: sess.probe_values(sites))
+    return sess.unload(), series

@@ -200,6 +200,68 @@ def probe_values(f: torch.Tensor, probes) -> torch.Tensor:
     return probe_moments(f[:, probes[:, 0], probes[:, 1]])
 
 
+def moment_dtype(storage: torch.dtype) -> torch.dtype:
+    """The dtype probe_moments returns for a storage dtype: at least
+    float32."""
+    return torch.promote_types(storage, torch.float32)
+
+
+def probe_sites(probes, cfg: LatticeConfig, device) -> torch.Tensor:
+    """(P, 2) probe sites (i, j) as an int64 tensor on `device`. Raises
+    ValueError unless they are (P, 2) and inside the lattice: a device
+    gather out of range is a fault on a card, where the JAX gather
+    clamps."""
+    sites = np.asarray(probes.cpu() if torch.is_tensor(probes) else probes)
+    if sites.ndim != 2 or sites.shape[1] != 2:
+        raise ValueError(f"probes must be (P, 2) (i, j) sites, got {sites.shape}")
+    if not np.issubdtype(sites.dtype, np.integer):
+        raise ValueError(f"probe sites must be integers, got {sites.dtype}")
+    inside = (sites >= 0) & (sites < np.array([cfg.nx, cfg.ny]))
+    if not inside.all():
+        raise ValueError(f"probe sites outside the {cfg.nx}x{cfg.ny} lattice: "
+                         f"{sites[~inside.all(axis=1)].tolist()}")
+    return torch.as_tensor(sites, dtype=torch.int64, device=device)
+
+
+def sample_every(n_steps: int, every: int, n_probes: int, dtype: torch.dtype, device,
+                 advance, gather) -> torch.Tensor:
+    """The loop of every probed run: advance(every), then series[k] =
+    gather() (a (P, 3) tensor), n_steps // every times, into a (n_steps //
+    every, P, 3) series of `dtype` preallocated on `device`. No host sync.
+    Raises ValueError, before any step, unless `every` divides n_steps."""
+    if every < 1 or n_steps % every:
+        raise ValueError(f"n_steps={n_steps} not divisible by every={every}")
+    series = torch.empty((n_steps // every, n_probes, 3), dtype=dtype, device=device)
+    for k in range(n_steps // every):
+        advance(every)
+        series[k] = gather()
+    return series
+
+
+def run_steps_probed(
+    f: torch.Tensor,
+    walls: torch.Tensor,
+    cfg: LatticeConfig,
+    n_steps: int,
+    probes,
+    slip_x: torch.Tensor | None = None,
+    slip_y: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """run_steps plus (rho, u_x, u_y) at the probe sites after every
+    step: (f, series), series (n_steps, P, 3) of moment_dtype, written
+    row by row into a tensor preallocated on f's device, with no host
+    sync (the JAX engine's jit(scan) that emits the probe gather)."""
+    sites = probe_sites(probes, cfg, f.device)
+
+    def advance(n):
+        nonlocal f
+        f = run_steps(f, walls, cfg, n, slip_x, slip_y)
+
+    series = sample_every(n_steps, 1, len(sites), moment_dtype(f.dtype), f.device, advance,
+                          lambda: probe_values(f, sites))
+    return f, series
+
+
 def macroscopic(f: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """rho, u_x, u_y fields (src/latticeboltzmann.c:620-631)."""
     density = f[0]

@@ -49,9 +49,12 @@ rows they read are written, the halo rows they overwrite are read), and
 each card's edge launches wait on every card's copy event, so no copy
 reads a row that a pending launch still writes. The step loop makes no
 host sync. The kernel sessions refuse a mesh of another device type than
-the state's. A multi-process transport (torch.distributed) is ROADMAP
-work; the union-mask launch partition of the JAX path is TPU launch
-economy (ROADMAP, "Not to port").
+the state's. Their probe gather (probe_values) takes each
+probe on the shard that owns its row and copies the moments to the
+session's device; no shard's state is joined for it. A multi-process
+transport (torch.distributed) is ROADMAP work; the union-mask launch
+partition of the JAX path is TPU launch economy (ROADMAP, "Not to
+port").
 """
 
 from __future__ import annotations
@@ -64,7 +67,7 @@ import numpy as np
 import torch
 
 from ..core.spec import E, NSPEEDS, REFLECT_X, REFLECT_Y, LatticeConfig
-from ..ops import fused_ds_kernel, fused_kernel
+from ..ops import ds_engine, fused_ds_kernel, fused_kernel
 from ..ops import stream_collide as ops
 from ..ops.df64 import DS
 from ..ops.fused_kernel import ShardPlane
@@ -339,6 +342,19 @@ def _on(device: torch.device):
     return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
 
 
+@dataclasses.dataclass(frozen=True)
+class ShardSites:
+    """Probe sites of a sharded session (its probe_sites): P, and per shard
+    that owns any, (shard, device, their rows in the series on the
+    session's device, their local (i, j) on the shard's device)."""
+
+    count: int
+    groups: list
+
+    def __len__(self) -> int:
+        return self.count
+
+
 class _ShardedKernelSession:
     """What the two kernel sessions share: per shard two buffers of each
     state component (the state's tensor, or a pair's hi and lo) that swap
@@ -448,6 +464,35 @@ class _ShardedKernelSession:
         comps = [gather_state(comp, self.device) for comp in self._bufs[self._parity]]
         return self._pack(comps)
 
+    def probe_sites(self, probes) -> ShardSites:
+        """(P, 2) global probe sites (i, j) grouped by the shard that owns
+        row i (shard i // L, local row i mod L); raises as
+        stream_collide.probe_sites."""
+        sites = ops.probe_sites(probes, self.cfg, "cpu")
+        groups = []
+        for k, dev in enumerate(self.mesh.devices):
+            mine = torch.nonzero(sites[:, 0] // self.L == k).flatten()
+            if len(mine):
+                local = sites[mine] - torch.tensor([k * self.L, 0])
+                groups.append((k, dev, mine.to(self.device), local.to(dev)))
+        return ShardSites(sites.shape[0], groups)
+
+    def _moments(self, shard, sites: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def probe_values(self, sites: ShardSites) -> torch.Tensor:
+        """(rho, u_x, u_y) at probe_sites' sites of the live shards: (P, 3)
+        on the session's device. Each shard gathers its own probes from
+        its current buffer and copies them over; no shard's state is
+        joined."""
+        out = torch.empty((sites.count, 3), dtype=self.moment_dtype, device=self.device)
+        for k, dev, rows, local in sites.groups:
+            with _on(dev):
+                vals = self._moments(self._pack([comp[k] for comp in self._bufs[self._parity]]),
+                                     local)
+            out[rows] = vals.to(self.device)
+        return out
+
     def unload(self):
         """The current global state; the session releases its buffers."""
         out = self.state()
@@ -475,6 +520,7 @@ class ShardedSession(_ShardedKernelSession):
                  device=None):
         dtype = fused_kernel._storage(cfg)
         super().__init__(cfg, mesh, 1, dtype, overlap, device)
+        self.moment_dtype = ops.moment_dtype(dtype)
         self.fast_math = fast_math
         geom = fused_kernel.host_geometry(cfg, walls, wall_spec, slip_x, slip_y)
         self._geoms = (self._shard_geometry(geom) if isinstance(geom, np.ndarray)
@@ -482,6 +528,9 @@ class ShardedSession(_ShardedKernelSession):
 
     def _pack(self, comps):
         return comps[0]
+
+    def _moments(self, shard, sites):
+        return ops.probe_values(shard, sites)
 
     def _launcher(self, k, src, dst, halo, row0, rows):
         return fused_kernel.ext_launcher(
@@ -608,6 +657,14 @@ class ShardedRdmaSession(ShardedSession):
         self._raise_on_timeout()
         return out
 
+    def probe_values(self, sites):
+        """As ShardedSession.probe_values, ordered after the shards'
+        streams as state() is; a spin that timed out raises at block()."""
+        self._join()
+        out = super().probe_values(sites)
+        self._fork()  # as in state()
+        return out
+
     def unload(self):
         out = super().unload()
         self._ends = None
@@ -625,6 +682,7 @@ class ShardedDSSession(_ShardedKernelSession):
                  overlap: bool = True, device=None):
         fused_ds_kernel._require_float64(cfg)
         super().__init__(cfg, mesh, 2, torch.float32, overlap, device)
+        self.moment_dtype = torch.float64  # the pair recombined
         plane = fused_kernel.host_geometry(cfg, walls)  # None without a solid site
         self.exact = exact
         self.has_walls = plane is not None
@@ -632,6 +690,9 @@ class ShardedDSSession(_ShardedKernelSession):
 
     def _pack(self, comps):
         return DS(*comps)
+
+    def _moments(self, shard, sites):
+        return ds_engine.probe_values(shard, sites)
 
     def _launcher(self, k, src, dst, halo, row0, rows):
         return fused_ds_kernel.ext_launcher(

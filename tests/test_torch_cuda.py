@@ -1104,3 +1104,86 @@ def test_failed_cooperative_launch_raises(cuda_device):
     fk.flat_step(f2, cfg, 2)
     torch.cuda.synchronize()
     assert torch.equal(f2, fk.flat_reference(torch.stack([f, f]), cfg, 2))
+
+
+# --- the probed run (Simulation.run_probed) on the card ----------------------
+
+PROBES = np.array([[5, 7], [12, 30], [1, 0], [15, 39]])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("every", [1, 8, 3])
+@pytest.mark.parametrize("backend,dtype", [("cuda", np.float32), ("cuda", "bfloat16"),
+                                           ("cuda-ds64", np.float64),
+                                           ("sharded-cuda", np.float32),
+                                           ("sharded-cuda-rdma", np.float32),
+                                           ("sharded-cuda-ds64", np.float64)])
+def test_run_probed_bitwise_run_and_probe_values(cuda_device, monkeypatch, backend, dtype,
+                                                 every):
+    """run_probed on the kernel backends (the sharded ones over 2 virtual
+    shards of the card): the series bitwise equal to run() with
+    probe_values between chunks, the final state bitwise equal to an
+    unprobed run's, one counted launch per step (per shard and step)."""
+    from latticeboltzmann_tpu_torch.models import engine
+
+    if backend.startswith("sharded"):
+        mesh = sharded.make_mesh(devices=[cuda_device] * 2)
+        monkeypatch.setitem(engine._BACKENDS, backend, (
+            sharded.make_cuda_ds_backend(mesh) if backend.endswith("ds64")
+            else sharded.make_cuda_backend(mesh, rdma=backend.endswith("rdma"))))
+    cfg, walls = _scene("barrier", dtype)
+    n = 24
+
+    def sim():
+        return Simulation(cfg, walls, backend=backend, allow_experimental=True)
+
+    counts = {"cuda": (fk, "LAUNCHES"), "cuda-ds64": (fdk, "LAUNCHES"),
+              "sharded-cuda": (fk, "EXT_LAUNCHES"), "sharded-cuda-rdma": (fk, "RDMA_LAUNCHES"),
+              "sharded-cuda-ds64": (fdk, "EXT_LAUNCHES")}[backend]
+    before = getattr(*counts)
+    probed = sim()
+    series = probed.run_probed(n, PROBES, every=every)
+    per_step = {"sharded-cuda": 6, "sharded-cuda-rdma": 2, "sharded-cuda-ds64": 6}.get(backend, 1)
+    assert getattr(*counts) - before == n * per_step
+    assert series.shape == (n // every, len(PROBES), 3) and probed.steps_done == n
+    ref = sim()
+    want = np.stack([ref.run(every).probe_values(PROBES) for _ in range(n // every)])
+    np.testing.assert_array_equal(series, want)
+    np.testing.assert_array_equal(probed.state(), sim().run(n).state())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+def test_session_probe_gather_equals_its_plain_version(cuda_device, dtype):
+    """The session's gather from its live buffer on the card equals
+    stream_collide.probe_values of the state on the CPU, bitwise; the ds
+    session's float64 gather equals that of the recombined pair."""
+    from latticeboltzmann_tpu_torch.ops import ds_engine, stream_collide
+
+    cfg, walls = _scene("barrier", dtype)
+    sess = fk.Session(cfg, walls, device=cuda_device, wall_spec=geometry.infer_spec(walls))
+    sess.load(_perturbed(cfg, cuda_device))
+    sess.advance(5)
+    sites = sess.probe_sites(PROBES)
+    got = sess.probe_values(sites)
+    want = stream_collide.probe_values(sess.state().cpu(), PROBES)
+    assert got.dtype == torch.float32 and torch.equal(got.cpu(), want)
+    cfg64 = LatticeConfig(nx=cfg.nx, ny=cfg.ny, dtype=np.float64)
+    ds = fdk.Session(cfg64, walls, device=cuda_device)
+    ds.load(df64.from_f64(initial_state(cfg64), cuda_device))
+    ds.advance(5)
+    got = ds.probe_values(ds.probe_sites(PROBES))
+    want = stream_collide.probe_values(ds_engine.recombine(ds.state()).cpu(), PROBES)
+    assert got.dtype == torch.float64 and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_a_bench_suite_row_is_sane(cuda_device):
+    """Row 8 of bench_suite (400x2000 f32, cuda) at a short length: sane,
+    with every timing key and the card's line."""
+    from latticeboltzmann_tpu_torch import bench_suite
+
+    rows = bench_suite.run_rows([bench_suite.CONFIGS[7]], 240, "card", emit=lambda line: None)
+    (row,) = rows
+    assert row["sane"] and row["backend"] == "cuda" and row["mlups"] > 0
+    assert row["slope_us_per_step"] > 0 and len(row["e2e_runs_s"]) >= bench_suite.E2E_RUNS
