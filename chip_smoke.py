@@ -195,7 +195,33 @@ Phases 22-24 run with phases 15-17 (sharded_phases).
    sane, each row's line and the phase's wall time printed, the launches
    of every kernel route the rows take counted;
 27. scripts/validate_ds.py at 400x2000 for 2,000 steps: cuda-ds64 against
-   the float64 torch engine, Re within 1e-9 relative.
+   the float64 torch engine, Re within 1e-9 relative;
+28. the CLI (python -m latticeboltzmann_tpu_torch) in process through
+   cli.main at 800x4000, under a temporary directory in build/: (a) cuda
+   f32 for CLI_STEPS steps with |u|^2 snapshots and checkpoints every
+   CLI_EVERY, the three wake probes every CLI_PROBE_EVERY, a
+   torch.profiler trace and --debug-nans, then --resume latest for
+   CLI_EVERY steps: its checkpoint's f.raw byte-equal to an unbroken CLI
+   run's, every step and warmup step a counted launch of the wide form,
+   the snapshots byte-equal to write_snapshot_csv of a Simulation run's
+   speed_squared(), probes.csv bitwise equal to run() + probe_values, and
+   the trace (entered before the warmup, closed after the last chunk's
+   events) naming lbm_stream_collide_wide once per launch and holding
+   one lbm_warmup span and an lbm_run span per chunk; (b) bf16 cuda,
+   cuda-ds64 and sharded-cuda-rdma over the visible cards, CLI_OTHER_STEPS
+   steps and a resume of as many against an unbroken run (bitwise; the
+   ds pair, split again from float64 at load, else within DS_RTOL, and
+   the line says which bar held), launches counted, snapshots finite;
+   (c) a NaN planted in one site of a checkpoint, resumed with
+   --debug-nans: exit 1 after the first chunk, the step named; (d)
+   --checkpoint-format orbax (and --movie where matplotlib does not
+   import) refused with exit 2 and no launch, the movie where it
+   imports, and the host IO times at 800x4000 of a snapshot CSV through
+   both paths of utils/native.py's writer (the C++ library, NumPy) and
+   of a checkpoint save and load, with the phase's wall time. Phase 28's
+   launches of each kernel stand beside its entry's launches in the
+   kernels line (cli_launches; the rdma kernel's CLI runs are a ring of
+   cli_cards cards).
 
 The kernels line gives every kernel's bound: the larger of its bytes
 (each input read once, each output written once) over the card's
@@ -219,7 +245,9 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import pathlib
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -800,8 +828,15 @@ def main() -> int:
     engine._BACKENDS.update(default_backends)
     suite_phase(card)
     validate_ds_phase()
+    # phase 28 writes under build/ of the checkout, which git ignores
+    scratch = cuda_build.build_dir().parent.parent
+    scratch.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_", dir=scratch) as tmp:
+        cli_launches = cli_phase(pathlib.Path(tmp))
 
-    print(json.dumps({"kernels": [*f32_entries, *options, ds, *ext, *anatomy]}))
+    entries = [*f32_entries, *options, ds, *ext, *anatomy]
+    add_cli_launches(entries, cli_launches, torch.cuda.device_count())
+    print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
@@ -2577,6 +2612,305 @@ def validate_ds_phase():
     print(f"validate_ds: {json.dumps(out)}; launches {counts}")
     if not out["reynolds_pass"] or counts.get("ds") != 2000:
         raise AssertionError(f"validate_ds failed: {out}, launches {counts}")
+
+
+# the kernels-line entry of each kernel the CLI phase launches: the start
+# of its name, or (exact) its whole name
+CLI_ENTRIES = {"f32": ("lbm_stream_collide_wide<float,", False),
+               "bf16": ("lbm_stream_collide_wide<__nv_bfloat16,", False),
+               "ds": ("lbm_stream_collide_ds", True),
+               "rdma": ("lbm_stream_collide_rdma_wide<", False)}
+
+
+def add_cli_launches(entries, cli_launches, n_cards):
+    """Records phase 28's launches of each kernel beside its entry's
+    launches, as cli_launches; launches stays the count of the entry's
+    own main path. The CLI's rdma runs are a ring of n_cards cards
+    (cli_cards), where the entry's main path is 4 virtual shards."""
+    for kernel, (name, exact) in CLI_ENTRIES.items():
+        hits = [e for e in entries
+                if (e["name"] == name if exact else e["name"].startswith(name))]
+        if len(hits) != 1:
+            raise AssertionError(f"kernels line: {len(hits)} entries for {name!r}")
+        hits[0]["cli_launches"] = cli_launches[kernel]
+        if kernel == "rdma":
+            hits[0]["cli_cards"] = n_cards
+
+
+# the CLI phase (28): the lattice; the f32 main path's steps, its snapshot
+# and checkpoint interval (also the steps of its resume), its stats and
+# probe intervals; each other backend class's steps (and its resume's)
+CLI_NX, CLI_NY = 800, 4000
+CLI_STEPS = 2000
+CLI_EVERY = 1000
+CLI_STATS_EVERY = 500
+CLI_PROBE_EVERY = 100
+CLI_WARMUP = 8
+CLI_OTHER_STEPS = 500
+
+
+def cli_call(label, argv):
+    """latticeboltzmann_tpu_torch.cli.main(argv) in this process, its
+    stdout echoed line by line under `label`: (exit code, stderr)."""
+    import contextlib
+    import io
+
+    from latticeboltzmann_tpu_torch import cli
+
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main([str(a) for a in argv])
+    wall = time.perf_counter() - t0
+    for line in out.getvalue().splitlines():
+        print(f"  cli {label}| {line}")
+    print(f"cli {label}: exit {rc} in {wall!r} s; stderr {err.getvalue().strip()!r}")
+    return rc, err.getvalue()
+
+
+def snapshot_ok(path, nx, ny):
+    """A |u|^2 snapshot CSV of nx rows of ny values, every one finite
+    ('%.10f' writes non-finite values as nan or inf)."""
+    data = path.read_bytes()
+    lines = data.splitlines()
+    if len(lines) != nx or lines[0].count(b", ") != ny - 1 or b"nan" in data or b"inf" in data:
+        raise AssertionError(f"{path}: {len(lines)} rows, {lines[0].count(b', ') + 1} columns, "
+                             f"non-finite {b'nan' in data or b'inf' in data}")
+
+
+def cli_phase(tmp):
+    """Phase 28: the CLI (python -m latticeboltzmann_tpu_torch) on the
+    card at 800x4000, in process through cli.main: (a) the f32 main path
+    with snapshots, checkpoints, probes, a profiler trace and --debug-nans,
+    resumed, against an unbroken CLI run, a Simulation run and the trace;
+    (b) bf16, cuda-ds64 and sharded-cuda-rdma over the visible cards,
+    resumed against an unbroken run; (c) --debug-nans on a planted NaN;
+    (d) the refusals, and the host IO times of a snapshot (both paths of
+    utils/native.py's CSV writer) and a checkpoint. Writes under `tmp`;
+    returns {kernel: launches} of the CLI runs."""
+    import contextlib
+    import shutil
+
+    from latticeboltzmann_tpu_torch import LatticeConfig, Simulation, geometry
+    from latticeboltzmann_tpu_torch.scripts.numerics_tiers import PROBES
+    from latticeboltzmann_tpu_torch.utils import checkpoint, native, viz
+
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    nx, ny = CLI_NX, CLI_NY
+    scene = ["--nx", nx, "--ny", ny, "--geometry", "reference"]
+    launched = {"f32": 0, "bf16": 0, "ds": 0, "rdma": 0}
+
+    def counted(label, argv, want, form, kernel, rc_want=0):
+        reset_counts()
+        rc, err = cli_call(label, argv)
+        if (rc != 0) != (rc_want != 0):
+            raise AssertionError(f"cli {label}: exit {rc}: {err}")
+        counts = expect_counts(f"cli {label}", want, form)
+        launched[kernel] += sum(counts.values())
+        return err
+
+    # (a) the main path: cuda f32, every event, a trace and --debug-nans
+    a = tmp / "f32"
+    probe_args = [x for i, j in PROBES for x in ("--probe", f"{i},{j}")]
+    counted("f32", scene + ["--backend", "cuda", "--precision", "f32", "--steps", CLI_STEPS,
+                            "--warmup", CLI_WARMUP, "--print-stats-every", CLI_STATS_EVERY,
+                            "--save-lattice-every", CLI_EVERY, "--snapshot-dir", a / "data",
+                            "--checkpoint-every", CLI_EVERY, "--checkpoint-dir", a / "ck",
+                            *probe_args, "--probe-every", CLI_PROBE_EVERY,
+                            "--probe-out", a / "probes.csv", "--profile-dir", a / "prof",
+                            "--debug-nans"],
+            {"f32-spec": CLI_STEPS + CLI_WARMUP}, "wide", "f32")
+    end = CLI_STEPS + CLI_EVERY
+    counted("f32 resumed", ["--resume", "latest", "--checkpoint-dir", a / "ck", "--backend", "cuda",
+                            "--steps", CLI_EVERY, "--checkpoint-every", CLI_EVERY,
+                            "--warmup", CLI_WARMUP, "--print-stats-every", CLI_STATS_EVERY],
+            {"f32-spec": CLI_EVERY + CLI_WARMUP}, "wide", "f32")
+    counted("f32 unbroken", scene + ["--backend", "cuda", "--steps", end, "--warmup", CLI_WARMUP,
+                                     "--checkpoint-every", end, "--checkpoint-dir", a / "ck1",
+                                     "--print-stats-every", CLI_EVERY],
+            {"f32-spec": end + CLI_WARMUP}, "wide", "f32")
+    resumed = (a / "ck" / f"{end}.lbmckpt" / "f.raw").read_bytes()
+    if resumed != (a / "ck1" / f"{end}.lbmckpt" / "f.raw").read_bytes():
+        raise AssertionError(f"cli f32: the resumed {end}.lbmckpt/f.raw differs from the "
+                             "unbroken run's")
+    print(f"cli f32: {CLI_STEPS} steps, then --resume latest for {CLI_EVERY}: "
+          f"{end}.lbmckpt/f.raw ({len(resumed)} B) byte-equal to an unbroken {end}-step CLI run's")
+    # the snapshots and the probe series against a Simulation from the same start
+    cfg = LatticeConfig(nx=nx, ny=ny, dtype=np.float32)
+    walls = geometry.reference_barrier(nx, ny)
+    sim = Simulation(cfg, walls, backend="cuda")
+    series = []
+    for k in range(1, CLI_STEPS // CLI_PROBE_EVERY + 1):
+        series.append(sim.run(CLI_PROBE_EVERY).probe_values(PROBES))
+        step = k * CLI_PROBE_EVERY
+        if step % CLI_EVERY == 0:
+            viz.write_snapshot_csv(tmp / "want.csv", sim.speed_squared())
+            if (a / "data" / f"{step}.csv").read_bytes() != (tmp / "want.csv").read_bytes():
+                raise AssertionError(f"cli f32: data/{step}.csv differs from "
+                                     "write_snapshot_csv(Simulation.run().speed_squared())")
+    rows = [line.split(",") for line in (a / "probes.csv").read_text().splitlines()]
+    if rows[0] != ["step", "i", "j", "rho", "u_x", "u_y"] or len(rows) != 1 + 3 * len(series):
+        raise AssertionError(f"cli f32: probes.csv header {rows[0]}, {len(rows)} lines")
+    got = np.array([[float(v) for v in r[3:]] for r in rows[1:]]).reshape(len(series), len(PROBES), 3)
+    sites = np.array([[int(v) for v in r[:3]] for r in rows[1:]]).reshape(len(series), len(PROBES), 3)
+    want = np.stack(series).astype(np.float64)
+    np.testing.assert_array_equal(got, want, err_msg="cli f32: probes.csv != run() + probe_values")
+    steps = np.arange(CLI_PROBE_EVERY, CLI_STEPS + 1, CLI_PROBE_EVERY)
+    np.testing.assert_array_equal(sites[:, :, 0], np.repeat(steps[:, None], len(PROBES), 1))
+    np.testing.assert_array_equal(sites[:, :, 1:], np.broadcast_to(PROBES, sites[:, :, 1:].shape))
+    print(f"cli f32: data/{CLI_EVERY}.csv and data/{CLI_STEPS}.csv byte-equal to "
+          "write_snapshot_csv of Simulation(backend='cuda').run().speed_squared(); probes.csv "
+          f"bitwise equal to run({CLI_PROBE_EVERY}) + probe_values x {len(series)}; last row "
+          f"{rows[-1]}")
+    del sim
+    # the trace: entered before the warmup, closed after the last chunk's events
+    traces = list((a / "prof").glob("*.pt.trace.json"))
+    if len(traces) != 1:
+        raise AssertionError(f"cli f32: traces {traces}")
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    wide = [e for e in kernels if "lbm_stream_collide_wide" in e.get("name", "")]
+    if len(wide) != CLI_STEPS + CLI_WARMUP:
+        raise AssertionError(f"cli f32: the trace names lbm_stream_collide_wide {len(wide)} "
+                             f"times, expected {CLI_STEPS + CLI_WARMUP}; kernels "
+                             f"{sorted({e.get('name') for e in kernels})[:8]}")
+    chunks = CLI_STEPS // CLI_PROBE_EVERY
+    spans = [e.get("name") for e in events if e.get("cat") == "user_annotation"]
+    if spans.count("lbm_warmup") != 1 or spans.count("lbm_run") != chunks:
+        raise AssertionError(f"cli f32: the trace holds {spans.count('lbm_warmup')} lbm_warmup "
+                             f"and {spans.count('lbm_run')} lbm_run spans, expected 1 and "
+                             f"{chunks}")
+    busy_us = sum(e["dur"] for e in kernels)
+    print(f"cli f32 trace ({pathlib.Path(traces[0]).stat().st_size} B): the window from before "
+          f"the warmup to after the last chunk's events names lbm_stream_collide_wide "
+          f"{len(wide)} times (= {CLI_WARMUP} warmup + {CLI_STEPS} steps), {len(kernels)} kernels "
+          f"in all; the wide kernel {sum(e['dur'] for e in wide) / len(wide)!r}"
+          f" us a launch under the profiler, all kernels {busy_us!r} us; name "
+          f"{wide[0]['name']!r}; spans: 1 lbm_warmup, {chunks} lbm_run (one a chunk)")
+    shutil.rmtree(a / "prof")
+    shutil.rmtree(a / "ck1")
+
+    # (b) the other backend classes: a run, its resume, an unbroken run
+    n_cards = torch.cuda.device_count()
+    others = (
+        ("bf16", ["--backend", "cuda", "--precision", "bf16"], {"bf16-spec": 1}, "wide", "bf16"),
+        ("cuda-ds64", ["--backend", "cuda-ds64", "--precision", "f64"], {"ds": 1}, None, "ds"),
+        (f"sharded-cuda-rdma over {n_cards} card(s)",
+         ["--backend", "sharded-cuda-rdma", "--precision", "f32"],
+         {"rdma-f32-spec": n_cards}, "wide", "rdma"),
+    )
+    n, end = CLI_OTHER_STEPS, 2 * CLI_OTHER_STEPS
+    for label, args, per_step, form, kernel in others:
+        d = tmp / kernel
+
+        def want(steps):
+            counts = {k: v * (steps + CLI_WARMUP) for k, v in per_step.items()}
+            return counts, (None if form is None else {form: sum(counts.values())})
+
+        common = ["--warmup", CLI_WARMUP, "--print-stats-every", 0, "--debug-nans"]
+        counted(label, scene + args + common + [
+            "--steps", n, "--save-lattice-every", n, "--snapshot-dir", d / "data",
+            "--checkpoint-every", n, "--checkpoint-dir", d / "ck"], *want(n), kernel)
+        counted(f"{label} resumed", args + common + [
+            "--resume", "latest", "--steps", n, "--save-lattice-every", n,
+            "--snapshot-dir", d / "data", "--checkpoint-every", n, "--checkpoint-dir", d / "ck"],
+            *want(n), kernel)
+        counted(f"{label} unbroken", scene + args + common + [
+            "--steps", end, "--checkpoint-every", end, "--checkpoint-dir", d / "ck1"],
+            *want(end), kernel)
+        for step in (n, end):
+            snapshot_ok(d / "data" / f"{step}.csv", nx, ny)
+        _, f_res, _, cfg_res = checkpoint.load(d / "ck" / f"{end}.lbmckpt")
+        _, f_one, _, _ = checkpoint.load(d / "ck1" / f"{end}.lbmckpt")
+        if np.array_equal(f_res, f_one):
+            bar = "bitwise"
+        elif kernel == "ds":
+            np.testing.assert_allclose(f_res, f_one, rtol=DS_RTOL, atol=0,
+                                       err_msg=f"cli {label}: resumed != unbroken")
+            bar = (f"within DS_RTOL {DS_RTOL} (max rel "
+                   f"{float(np.max(np.abs(f_res - f_one) / np.abs(f_one)))!r}; not bitwise)")
+        else:
+            raise AssertionError(f"cli {label}: the resumed state differs from the unbroken run's")
+        print(f"cli {label}: {n} steps + --resume latest {n} against an unbroken {end}: {bar}; "
+              f"checkpoint dtype {checkpoint.dtype_name(cfg_res.dtype)}; snapshots {n}, {end} "
+              "finite")
+        shutil.rmtree(d)
+
+    # (c) --debug-nans: a NaN planted in one site of a checkpoint
+    nan_ck = tmp / "nan"
+    src = a / "ck" / f"{CLI_STEPS}.lbmckpt"
+    dst = nan_ck / src.name
+    dst.mkdir(parents=True)
+    for name in ("meta.json", "walls.raw"):
+        (dst / name).write_bytes((src / name).read_bytes())
+    f_nan = np.fromfile(src / "f.raw", dtype=np.float32)
+    site = (5, nx // 2, ny // 2)
+    f_nan[np.ravel_multi_index(site, (9, nx, ny))] = np.nan
+    f_nan.tofile(dst / "f.raw")
+    first = CLI_STEPS + CLI_STATS_EVERY
+    err = counted("f32 planted NaN", ["--resume", "latest", "--checkpoint-dir", nan_ck,
+                                      "--backend", "cuda", "--steps", CLI_EVERY,
+                                      "--warmup", CLI_WARMUP, "--print-stats-every",
+                                      CLI_STATS_EVERY, "--checkpoint-every", CLI_STATS_EVERY,
+                                      "--debug-nans"],
+                  {"f32-spec": CLI_STATS_EVERY + CLI_WARMUP}, "wide", "f32", rc_want=1)
+    if f"after step {first}" not in err or (nan_ck / f"{first}.lbmckpt").exists():
+        raise AssertionError(f"cli --debug-nans: {err!r}")
+    print(f"cli --debug-nans: a NaN planted at site {site} of {src.name} stops the resumed run "
+          f"after its first chunk (step {first}, {CLI_STATS_EVERY + CLI_WARMUP} launches, no "
+          "checkpoint written): exit 1")
+
+    # (d) refusals before any step, the movie, and host IO times
+    refusals = [("orbax", ["--checkpoint-format", "orbax", "--checkpoint-every", CLI_EVERY])]
+    try:
+        import matplotlib  # noqa: F401
+        movie_error = None
+    except ImportError as e:
+        movie_error = f"{type(e).__name__}: {e}"
+        refusals.append(("movie", ["--movie", tmp / "flow.gif", "--save-lattice-every", CLI_EVERY]))
+    for label, args in refusals:
+        counted(f"refusal {label}", scene + ["--backend", "cuda", "--steps", CLI_STEPS] + args,
+                {}, None, "f32", rc_want=2)
+    if movie_error is None:
+        t0 = time.perf_counter()
+        out = viz.render_movie(a / "data", tmp / "flow.gif")
+        print(f"cli --movie: {out.stat().st_size} B gif of "
+              f"{len(list((a / 'data').glob('*.csv')))} frames at {nx}x{ny} in "
+              f"{time.perf_counter() - t0!r} s")
+    else:
+        print(f"cli --movie: not run: matplotlib does not import on this machine ({movie_error}); "
+              "the CLI refused it with exit 2 before any step (0 launches); the movie is tested "
+              "on the CPU (tests/test_torch_utils.py, tests/test_torch_cli.py)")
+    step, f_io, w_io, cfg_io = checkpoint.load(a / "ck" / f"{CLI_STEPS}.lbmckpt")
+    usq = Simulation(cfg_io, w_io, backend="cuda", f0=f_io).speed_squared()
+    for path_name, ctx in (("native", contextlib.nullcontext), ("numpy", native.numpy_only)):
+        with ctx():
+            if path_name == "native" and not native.available():
+                raise AssertionError("utils/native.py: the C++ library did not build (g++)")
+            t0 = time.perf_counter()
+            viz.write_snapshot_csv(tmp / f"io_{path_name}.csv", usq)
+            t_csv = time.perf_counter() - t0
+        csv_mb = (tmp / f"io_{path_name}.csv").stat().st_size / 1e6
+        print(f"host IO at {nx}x{ny}, {path_name} CSV writer: snapshot CSV {csv_mb!r} MB in "
+              f"{t_csv!r} s ({csv_mb / t_csv!r} MB/s) (into the page cache)")
+    t0 = time.perf_counter()
+    d = checkpoint.save(tmp / "io_ck", step, f_io, w_io, cfg_io)
+    t_save = time.perf_counter() - t0
+    ck_mb = sum(p.stat().st_size for p in d.iterdir()) / 1e6
+    t0 = time.perf_counter()
+    back = checkpoint.load(d)[1]
+    t_load = time.perf_counter() - t0
+    if not np.array_equal(back, f_io):
+        raise AssertionError("checkpoint round trip")
+    print(f"host IO at {nx}x{ny}: checkpoint save {ck_mb!r} MB in {t_save!r} s "
+          f"({ck_mb / t_save!r} MB/s), load {t_load!r} s ({ck_mb / t_load!r} MB/s) "
+          "(ndarray.tofile / np.fromfile, into and from the page cache)")
+    if (tmp / "io_native.csv").read_bytes() != (tmp / "io_numpy.csv").read_bytes():
+        raise AssertionError("the native and NumPy CSV writers differ")
+    print(f"cli phase (28): {time.perf_counter() - t_phase!r} s; launches {launched}")
+    torch.cuda.empty_cache()
+    return launched
 
 
 if __name__ == "__main__":

@@ -80,6 +80,7 @@ from ..core.spec import NSPEEDS, W, LatticeConfig
 from ..ops import df64, ds_engine, fused_ds_kernel, fused_kernel
 from ..ops import stream_collide as torch_ops
 from ..parallel import sharded
+from ..utils import viz
 from ..utils.interop import round_bf16, state_tensor, storage_dtype, to_numpy
 
 # backend name -> run_steps(f, walls, cfg, n_steps) -> f
@@ -412,8 +413,7 @@ class Simulation:
     def speed_squared(self) -> np.ndarray:
         """|u|^2 field, the quantity PrintLattice dumps
         (src/latticeboltzmann.c:631-633)."""
-        _, ux, uy = torch_ops.macroscopic(self._f64())
-        return to_numpy(ux * ux + uy * uy)
+        return to_numpy(viz.speed_squared(self._f64()))
 
     def reynolds(self, col: int | None = None) -> float:
         """Reynolds number at a column (default ny/2, the reference's

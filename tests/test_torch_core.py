@@ -86,7 +86,9 @@ def test_port_imports_without_jax():
         "latticeboltzmann_tpu_torch.cli, latticeboltzmann_tpu_torch.utils.stats, "
         "latticeboltzmann_tpu_torch.ops.cuda_build, latticeboltzmann_tpu_torch.bench_suite, "
         "latticeboltzmann_tpu_torch.scripts.validate_ds, "
-        "latticeboltzmann_tpu_torch.scripts.numerics_tiers\n"
+        "latticeboltzmann_tpu_torch.scripts.numerics_tiers, "
+        "latticeboltzmann_tpu_torch.utils.native, latticeboltzmann_tpu_torch.utils.viz, "
+        "latticeboltzmann_tpu_torch.utils.checkpoint, latticeboltzmann_tpu_torch.utils.profiler\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'latticeboltzmann_tpu.')))\n"
         "assert not bad, bad\n"
         "assert 'latticeboltzmann_tpu' not in sys.modules\n"

@@ -1187,3 +1187,43 @@ def test_a_bench_suite_row_is_sane(cuda_device):
     (row,) = rows
     assert row["sane"] and row["backend"] == "cuda" and row["mlups"] > 0
     assert row["slope_us_per_step"] > 0 and len(row["e2e_runs_s"]) >= bench_suite.E2E_RUNS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend,precision,dtype", [("cuda", "f32", np.float32),
+                                                      ("cuda-ds64", "f64", np.float64)])
+def test_cli_resumes_on_the_card(cuda_device, tmp_path, capsys, backend, precision, dtype):
+    """The CLI at 64x128 on the card, as chip_smoke's phase 28(b): 20 steps
+    with a snapshot and a checkpoint, --resume latest for 20 more, against
+    an unbroken 40-step run (bitwise; the ds pair within 1e-11 relative,
+    since a float64 checkpoint is split again at load time); every step
+    a counted launch; the snapshot byte-equal to write_snapshot_csv of a
+    Simulation run's speed_squared()."""
+    from latticeboltzmann_tpu_torch import cli
+    from latticeboltzmann_tpu_torch.utils import checkpoint, viz
+
+    scene = ["--nx", "64", "--ny", "128", "--geometry", "barrier", "--backend", backend,
+             "--precision", precision, "--warmup", "2", "--print-stats-every", "0",
+             "--debug-nans"]
+    ck, ck1, data = tmp_path / "ck", tmp_path / "ck1", tmp_path / "data"
+    before = fdk.LAUNCHES if backend == "cuda-ds64" else fk.LAUNCHES
+    assert cli.main(scene + ["--steps", "20", "--checkpoint-every", "20", "--checkpoint-dir",
+                             str(ck), "--save-lattice-every", "20", "--snapshot-dir",
+                             str(data)]) == 0
+    assert cli.main(scene + ["--resume", "latest", "--checkpoint-dir", str(ck), "--steps", "20",
+                             "--checkpoint-every", "20"]) == 0
+    assert cli.main(scene + ["--steps", "40", "--checkpoint-every", "40", "--checkpoint-dir",
+                             str(ck1)]) == 0
+    after = fdk.LAUNCHES if backend == "cuda-ds64" else fk.LAUNCHES
+    assert after - before == 22 + 22 + 42
+    assert "resumed from" in capsys.readouterr().out
+    _, resumed, _, _ = checkpoint.load(ck / "40.lbmckpt")
+    _, unbroken, _, _ = checkpoint.load(ck1 / "40.lbmckpt")
+    if backend == "cuda-ds64":
+        np.testing.assert_allclose(resumed, unbroken, rtol=1e-11, atol=0)
+    else:
+        np.testing.assert_array_equal(resumed, unbroken)
+    cfg = LatticeConfig(nx=64, ny=128, dtype=dtype)
+    sim = Simulation(cfg, geometry.build("barrier", 64, 128), backend=backend).run(20)
+    viz.write_snapshot_csv(tmp_path / "want.csv", sim.speed_squared())
+    assert (data / "20.csv").read_bytes() == (tmp_path / "want.csv").read_bytes()
