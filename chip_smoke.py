@@ -8,7 +8,8 @@ Phases, each of which raises on failure:
 1. device: a CUDA card must be present; prints nvidia-smi's name and
    power limit;
 2. build: compiles the sources of csrc/ (lbm_step.cu, lbm_wide_step.cu,
-   lbm_wide_ext_step.cu, lbm_ds_step.cu, lbm_flat_step.cu, lbm_probes.cu)
+   lbm_wide_ext_step.cu, lbm_ds_step.cu, lbm_flat_step.cu,
+   lbm_temporal_step.cu, lbm_probes.cu)
    with nvcc, one process each, all started together (timed), and prints
    ptxas's registers and spills for every kernel instantiation;
 3. the float32 stream-collide kernel against its plain PyTorch version
@@ -221,23 +222,44 @@ Phases 22-24 run with phases 15-17 (sharded_phases).
    of a checkpoint save and load, with the phase's wall time. Phase 28's
    launches of each kernel stand beside its entry's launches in the
    kernels line (cli_launches; the rdma kernel's CLI runs are a ring of
-   cli_cards cards).
+   cli_cards cards);
+29. the main path's temporal blocking (temporal_phases; the temporal form
+   of the stream-collide kernel, csrc/lbm_temporal_step.cu: a pass of L
+   steps with walls per launch): its tile, registers and spills; one pass
+   at every L the card's tile takes, f32 and bf16, bitwise against the
+   chain of step_reference (and the tiled plain version
+   temporal_reference_blocked on small lattices) at phase 3's scenes, the
+   reference barrier as plane and spec, slip codes, a lattice smaller
+   than one tile and one ragged in both axes; fast math within its bar;
+   us/step of Session(temporal=T) in turns for T in TEMPORAL_DEPTHS and
+   the deepest pass, f32 and bf16, spec and plane at 800x4000, bf16 at
+   4000x16000 and f32 at 400x2000 (the pace by CUDA events, the card's
+   time queued behind a spin, the host's enqueue); then the main path,
+   Simulation(backend="cuda", temporal=T) at the fastest T >= 2, f32 and
+   bf16: WARMUP + MAIN_STEPS steps bitwise equal to phases 4 and 13's
+   states in exactly (WARMUP + MAIN_STEPS) // T counted passes of T steps
+   and one of the rest (no one-step launch), run_probed at every = 1, 8
+   and 3 bitwise equal to temporal=None's, and a run split at a step
+   count no multiple of T bitwise equal to the unsplit one.
 
-The kernels line gives every kernel's bound: the larger of its bytes
-(each input read once, each output written once) over the card's
-published memory rate and its f32 operations over the published f32
-rate (PEAK_BYTES_PER_S, PEAK_F32_OPS_PER_S; the ds kernels' operations
-are counted in their SASS, an FFMA as two, and their entries also carry
-the issue floor: the FP32 instructions over one a lane and clock). For
-the three on-chip probes that bound (the block in and out) is a fraction
-of a microsecond, so
-their entries also carry the shared-memory (or L1) bound per roll or add
-over all of the card's SMs (smem_bound_ns_per_roll, l1_bound_ns_per_add;
-the figure over the SMs of the narrow roll's launch beside it), and
-the roll entries the default form, each form's time per launch and per
-roll, the library call's, and the wide form's shape (cluster size, or
-vectors and warps per CTA). The line before the last is
-the card's name and power limit; the last is {"ok": true, "device":
+The kernels line gives every kernel's bound (the temporal form's for one
+pass: the state read and written once, every level's operations): the
+larger of its bytes (each input read once, each output written once)
+over the card's published memory rate and its f32 operations over the
+published f32 rate (PEAK_BYTES_PER_S, PEAK_F32_OPS_PER_S; the ds
+kernels' operations are counted in their SASS, an FFMA as two). Besides
+bound_ms, every number in the line was measured in the run. The other
+bounds the phases compute from their inputs (computed_bounds: the ds
+kernels' issue floor, the FP32 instructions over one a lane and clock;
+the shared-memory or L1 bound per roll or add of the three on-chip
+probes over all of the card's SMs, and over the SMs of the narrow roll's
+launch; the flat kernel's bound when every step goes through device
+memory; the bf16 bounds of the ext-halo and rdma forms) stand on the
+line before it, by kernel, and the temporal form's shared-memory bound
+of its levels on phase 29's own line. The roll entries carry the default form, each form's time per
+launch and per roll, the library call's, and the wide form's shape
+(cluster size, or vectors and warps per CTA). The line before the last
+is the card's name and power limit; the last is {"ok": true, "device":
 {...}}. Without a CUDA card it exits non-zero and prints no result.
 """
 
@@ -304,6 +326,15 @@ DS_LONG_STEPS = {False: 100, True: 50}
 PROBED_STEPS = 240
 PROBED_EVERY = (1, 8, 3)
 PROBED_TIMED_STEPS = 2000
+
+
+def computed_bounds(entry):
+    """Take out of a kernels-line entry the bounds its phase computed from
+    the run's inputs besides bound_ms (and bound_by): the keys that name
+    a bound or an issue floor. Returns them, by key."""
+    keys = [k for k in entry if k not in ("bound_ms", "bound_by")
+            and ("bound" in k or "issue_floor" in k)]
+    return {k: entry.pop(k) for k in keys}
 
 
 def bound(n_bytes, n_ops):
@@ -393,6 +424,8 @@ def reset_counts():
     fused_kernel.LAUNCHES = fused_ds_kernel.LAUNCHES = 0
     fused_kernel.EXT_LAUNCHES = fused_ds_kernel.EXT_LAUNCHES = 0
     fused_kernel.FLAT_LAUNCHES = fused_kernel.RDMA_LAUNCHES = 0
+    fused_kernel.TEMPORAL_LAUNCHES = fused_kernel.TEMPORAL_STEPS = 0
+    fused_kernel.TEMPORAL_VARIANT_LAUNCHES.clear()
     fused_kernel.VARIANT_LAUNCHES.clear()
     fused_kernel.FORM_LAUNCHES.clear()
     fused_kernel.EXT_VARIANT_LAUNCHES.clear()
@@ -405,8 +438,9 @@ def reset_counts():
 
 def read_counts():
     """{variant: launches} of the stream-collide kernel, its ext-halo
-    form's as "ext-<variant>", its rdma form's as "rdma-<variant>", the ds
-    kernel's under "ds" and "ds-ext",
+    form's as "ext-<variant>", its rdma form's as "rdma-<variant>", its
+    temporal form's as "temporal-<variant>", the ds kernel's under "ds"
+    and "ds-ext",
     the flat kernel's under "flat" and the probes' under their own keys
     ("copy-direct", "roll_y-shuffle", ...)."""
     from latticeboltzmann_tpu_torch.ops import fused_ds_kernel, fused_kernel, probes
@@ -422,6 +456,11 @@ def read_counts():
     if sum(rdma.values()) != fused_kernel.RDMA_LAUNCHES:
         raise AssertionError(f"rdma variant counts {rdma} != {fused_kernel.RDMA_LAUNCHES} launches")
     counts.update({f"rdma-{v}": n for v, n in rdma.items()})
+    temporal = dict(fused_kernel.TEMPORAL_VARIANT_LAUNCHES)
+    if sum(temporal.values()) != fused_kernel.TEMPORAL_LAUNCHES:
+        raise AssertionError(f"temporal variant counts {temporal} != "
+                             f"{fused_kernel.TEMPORAL_LAUNCHES} launches")
+    counts.update({f"temporal-{v}": n for v, n in temporal.items() if n})
     if fused_ds_kernel.LAUNCHES:
         counts["ds"] = fused_ds_kernel.LAUNCHES
     if fused_ds_kernel.EXT_LAUNCHES:
@@ -820,7 +859,7 @@ def main() -> int:
     del sim, eng, a, b
 
     ds, ds_counts, clock = ds_phases(copy)
-    options = option_phases(f32_main)
+    bf16_main, options = option_phases(f32_main)
     ext = sharded_phases(f32_main, ds_counts, clock)
     anatomy = anatomy_phases()
     panels_phase()
@@ -833,9 +872,12 @@ def main() -> int:
     scratch.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_", dir=scratch) as tmp:
         cli_launches = cli_phase(pathlib.Path(tmp))
+    temporal = temporal_phases(f32_main, bf16_main)
 
-    entries = [*f32_entries, *options, ds, *ext, *anatomy]
+    entries = [*f32_entries, *options, ds, *ext, *anatomy, temporal]
     add_cli_launches(entries, cli_launches, torch.cuda.device_count())
+    print("bounds computed from this run's inputs, by kernel (not measured; not in the kernels "
+          "line): " + json.dumps([{"name": e["name"], **computed_bounds(e)} for e in entries]))
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -1054,8 +1096,9 @@ def slip_scene(nx, ny):
 def option_phases(f32_main):
     """Phases 9-14: bf16 storage, the spec variant, slip codes and fast
     math. f32_main: the float32 main path's state after WARMUP +
-    MAIN_STEPS steps (phase 4). Returns the kernels line's entries for
-    the bf16, slip and fast-math variant families."""
+    MAIN_STEPS steps (phase 4). Returns the bf16 main path's state after
+    as many steps (phase 13) and the kernels line's entries for the bf16,
+    slip and fast-math variant families."""
     from latticeboltzmann_tpu_torch import LatticeConfig, Simulation, geometry, initial_state
     from latticeboltzmann_tpu_torch.ops import fused_kernel
     from latticeboltzmann_tpu_torch.utils.interop import bytes_per_site, state_tensor
@@ -1179,7 +1222,7 @@ def option_phases(f32_main):
     sim.run(MAIN_STEPS)
     bf16_launches = expect_counts("bf16 main path", {"bf16-spec": WARMUP + MAIN_STEPS},
                                   form16)["bf16-spec"]
-    f = sim.state()
+    f = bf16_main = sim.state()
     re = sim.reynolds()
     if not (f.dtype == np.float32 and np.isfinite(f).all() and (f >= 0).all()
             and np.isfinite(re)):
@@ -1256,7 +1299,7 @@ def option_phases(f32_main):
     n_f = 9 * cfg.sites  # f values of one state at 800x4000
     ops = F32_OPS_PER_SITE * cfg.sites
     other = {"wide": "narrow", "narrow": "wide"}
-    return [
+    return bf16_main, [
         {"name": "lbm_stream_collide_wide<__nv_bfloat16, GEOM, 8> (plane, wall-free, spec): the "
                  f"wide form, dispatched at 800x4000: {form16 == 'wide'}",
          "route": "cuda", "source": sources["wide"], "replaces": replaces,
@@ -2911,6 +2954,316 @@ def cli_phase(tmp):
     print(f"cli phase (28): {time.perf_counter() - t_phase!r} s; launches {launched}")
     torch.cuda.empty_cache()
     return launched
+
+
+# the temporal form (phase 29): the depths timed beside the card's deepest
+# pass (1: one step-kernel launch per step), the steps of a timed run at
+# 800x4000 (rounded up to a multiple of each depth), and the first part of
+# the split run, no multiple of any depth above 1
+TEMPORAL_DEPTHS = (1, 2, 3, 4, 6, 8)
+TEMPORAL_TIMED_STEPS = 480
+TEMPORAL_SPLIT = (1009, 491)
+
+
+def temporal_bitwise(name, cfg, geom, f, blocked):
+    """One pass of L steps of the temporal form for every L the card's
+    tile takes, from f, bitwise against the chain of step_reference (L
+    steps) and, where blocked(L), against temporal_reference_blocked at
+    the card's tile. Returns max |diff| (0.0)."""
+    from latticeboltzmann_tpu_torch.ops import fused_kernel as fk
+
+    info = fk.temporal_info(f.dtype)
+    tile, most = fk.FlatTile(info["rows"], info["width"]), info["max_steps"]
+    ref, err = f, 0.0
+    for steps in range(1, most + 1):
+        ref = reference(ref, geom, cfg)
+        label = f"temporal {name} ({f.dtype}) L {steps}"
+        got = fk.temporal_step(f, torch.full_like(f, float("nan")), geom, cfg, steps)
+        err = max(err, bitwise(label, got, ref))
+        if blocked(steps):
+            bitwise(f"{label}: temporal_reference_blocked",
+                    fk.temporal_reference_blocked(f, geom, cfg, steps, tile), ref)
+    return err
+
+
+def session_times(sess, n):
+    """(ms per step by CUDA events around sess.advance(n): the pace with
+    the host's launches, card ms per step queued behind a spin, host
+    enqueue ms per step)."""
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    e0.record()
+    sess.advance(n)
+    e1.record()
+    enqueue = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / n, queued_ms(lambda: sess.advance(n), 1) / n, enqueue * 1e3 / n
+
+
+def temporal_times(cfg, walls, geom_kind, f, depths, target, rates, label):
+    """us/step of Session(temporal=T) over `depths` with the walls as a
+    plane or a spec (geom_kind), in turns (the list,
+    then reversed), each run `target` steps rounded up to a multiple of T:
+    by CUDA events (the pace), queued behind a spin (the card's time) and
+    the host's enqueue. Returns {T: (best pace ms, best card ms, best
+    enqueue ms)} per step."""
+    from latticeboltzmann_tpu_torch.ops import fused_kernel as fk
+
+    spec = geometry_spec(walls) if geom_kind == "spec" else None
+    sessions = {}
+    for depth in depths:
+        sess = fk.Session(cfg, walls, device="cuda", wall_spec=spec, temporal=depth)
+        if (geom_kind == "plane") != torch.is_tensor(sess.geom):
+            raise AssertionError(f"{label}: the {geom_kind} variant runs {type(sess.geom)}")
+        sess.load(f)
+        sessions[depth] = sess
+    best = {}
+    for depth in list(depths) + list(reversed(depths)):
+        n = -(-target // depth) * depth
+        pace, card, enq = session_times(sessions[depth], n)
+        rates(f"{label} {geom_kind}, T={depth} ({n} steps, {n // depth} launches; in turns): "
+              f"card {card * 1e3!r} us/step queued behind a spin, host enqueue "
+              f"{enq * 1e3!r} us/step; CUDA events", pace * 1e-3)
+        old = best.get(depth, (float("inf"),) * 3)
+        best[depth] = tuple(min(a, b) for a, b in zip(old, (pace, card, enq)))
+    return best
+
+
+def geometry_spec(walls):
+    from latticeboltzmann_tpu_torch import geometry
+
+    spec = geometry.infer_spec(walls)
+    if spec is None:
+        raise AssertionError("infer_spec found no closed form")
+    return spec
+
+
+def temporal_phases(f32_main, bf16_main):
+    """Phase 29: the temporal form (csrc/lbm_temporal_step.cu), passes of
+    L steps with walls. (a) Its tile, registers and spills; one pass of L
+    steps for every L the card's tile takes, f32 and bf16, bitwise
+    against the chain of step_reference and, below 100,000 sites, against
+    temporal_reference_blocked: phase 3's scenes (plane, wall-free and,
+    where infer_spec finds one, the spec), the reference barrier at
+    800x4000 as plane and spec, slip_scene at 24x40 and 800x4000, a 5x8
+    lattice smaller than one tile and a 37x1000 one ragged in both axes,
+    the forcing guard failing at one column-0 site; fast math within
+    FAST_MATH_RTOL. (b) us/step of Session(temporal=T) at 800x4000 for T
+    in TEMPORAL_DEPTHS and the card's deepest pass, f32 and bf16, spec
+    and plane, in turns (pace by CUDA events, the card's time queued
+    behind a spin, the host's enqueue), then bf16 at 4000x16000 and f32 at
+    400x2000 (spec). (c) The main path: Simulation(reference_barrier(800,
+    4000), backend="cuda", temporal=T) at the fastest T >= 2 of (b), f32
+    and bf16: WARMUP + MAIN_STEPS steps bitwise equal to phase 4's and
+    phase 13's states (f32_main, bf16_main), exactly (WARMUP + MAIN_STEPS)
+    // T launches of T steps and one of the rest, no one-step launch;
+    run_probed at every = 1, 8 and 3 bitwise equal to temporal=None's
+    series and state; run(a) + run(b), a no multiple of T, bitwise equal
+    to run(a + b). Returns the kernels line's entry."""
+    from latticeboltzmann_tpu_torch import LatticeConfig, Simulation, geometry, initial_state
+    from latticeboltzmann_tpu_torch.ops import fused_kernel as fk
+    from latticeboltzmann_tpu_torch.scripts import anatomy
+    from latticeboltzmann_tpu_torch.scripts.numerics_tiers import PROBES
+    from latticeboltzmann_tpu_torch.utils.interop import bytes_per_site, state_tensor
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 29)
+    bf16 = "bfloat16"
+    dtypes = {np.float32: torch.float32, bf16: torch.bfloat16}
+
+    # 29a. the tile, then bitwise at every depth the tile takes
+    info = {}
+    for name, st in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        for kind in ("none", "plane", "spec"):
+            i = info[f"{name}-{kind}"] = fk.temporal_info(st, kind)
+            print(f"temporal kernel lbm_temporal_steps<{name}, {kind}>: tile {i['rows']}x"
+                  f"{i['width']} sites, {i['ctas_per_sm']} CTAs/SM, {i['registers']} registers, "
+                  f"{i['local_bytes']} B local memory (stack and spills), "
+                  f"{i['shared_bytes_per_cta']} shared B/CTA; deepest pass "
+                  f"{i['max_steps']} steps")
+    err = 0.0
+    for dtype in (np.float32, bf16):
+        cases = []
+        for name, cfg, w in scenes(dtype):
+            cases += [(name, cfg, None), (f"{name} plane", cfg, w.astype(np.uint8))]
+            if w.any() and geometry.infer_spec(w) is not None:
+                cases.append((f"{name} spec", cfg, geometry.infer_spec(w)))
+        for nx, ny in ((24, 40), (800, 4000)):
+            walls, slip_x, slip_y = slip_scene(nx, ny)
+            cases.append((f"{nx}x{ny} slip_x top row + slip_y block",
+                          LatticeConfig(nx=nx, ny=ny, dtype=dtype),
+                          fk.class_plane(walls, slip_x, slip_y)))
+        cases.append(("5x8, smaller than one tile", LatticeConfig(nx=5, ny=8, dtype=dtype,
+                                                                  accel=0.005),
+                      geometry.channel(5, 8).astype(np.uint8)))
+        w = geometry.channel(37, 1000)
+        w[10:20, 300:305] = True
+        cases.append(("37x1000, ragged tiles", LatticeConfig(nx=37, ny=1000, dtype=dtype),
+                      w.astype(np.uint8)))
+        for name, cfg, geom in cases:
+            f0 = perturbed_state(cfg, rng)
+            f0[6, cfg.nx // 2, 0] = 1e-6  # the forcing guard fails at one column-0 site
+            f = state_tensor(f0, cfg.dtype, dev)
+            # the blocked plain version's tiles are many small PyTorch calls,
+            # and the CPU tests hold it at L 1-4: here L 1-3 and the deepest
+            # on lattices of one or a few tiles, 1-2 on the ragged one, none
+            # at full width
+            most = fk.temporal_info(f.dtype)["max_steps"]
+            depths = ("L 1-3 and the deepest" if cfg.sites < 2000 else
+                      "L 1-2" if cfg.sites < 100_000 else None)
+            err = max(err, temporal_bitwise(
+                name, cfg, on_card(geom, dev), f,
+                lambda L: (cfg.sites < 2000 and (L <= 3 or L == most))
+                or (cfg.sites < 100_000 and L <= 2)))
+            kind = "wall-free" if geom is None else ("spec" if isinstance(geom, tuple) else "plane")
+            print(f"temporal kernel vs step_reference, {name} ({f.dtype}, {kind}), one pass at "
+                  f"every L in 1...{most}: bitwise"
+                  + (f"; vs temporal_reference_blocked at {depths}: bitwise" if depths else ""))
+    cfg = LatticeConfig(nx=800, ny=4000, dtype=np.float32)
+    walls = geometry.reference_barrier(800, 4000)
+    spec = geometry_spec(walls)
+    f = torch.as_tensor(perturbed_state(cfg, rng), device=dev)
+    steps, bar = fk.FAST_MATH_STEPS, fk.FAST_MATH_RTOL
+    want = fk.temporal_reference(f, spec, cfg, steps)
+    got = fk.temporal_step(f, torch.empty_like(f), spec, cfg, steps, fast_math=True)
+    fast_rel = float(((got - want).abs() / want.abs()).max())
+    if not fast_rel <= bar:
+        raise AssertionError(f"temporal fast math, one pass of {steps}: max rel {fast_rel!r} > {bar}")
+    print(f"temporal kernel, fast math, one pass of {steps} steps vs temporal_reference (IEEE "
+          f"1/rho): max rel {fast_rel!r} (bar {bar})")
+    del want, got
+    print(f"phase 29a (bitwise) took {time.perf_counter() - t_phase:.1f} s")
+    t_part = time.perf_counter()
+
+    # 29b. times by depth, in turns
+    best, depths_of = {}, {}
+    for dtype in (np.float32, bf16):
+        cfg = LatticeConfig(nx=800, ny=4000, dtype=dtype)
+        st = dtypes[dtype]
+        depths = tuple(sorted({*TEMPORAL_DEPTHS, fk.temporal_info(st)["max_steps"]}))
+        depths_of[st] = depths
+        f = state_tensor(perturbed_state(cfg, rng), dtype, dev)
+        rates = rates_printer(cfg, bytes_per_site(dtype))
+        for kind in ("spec", "plane"):
+            best[(st, kind)] = temporal_times(cfg, walls, kind, f, depths, TEMPORAL_TIMED_STEPS,
+                                              rates, f"800x4000 {st}")
+        del f
+    chosen = {st: min((d for d in depths_of[st] if d > 1), key=lambda d: best[(st, "spec")][d][0])
+              for st in dtypes.values()}
+    print(f"temporal depth chosen for the main path (fastest pace of the spec variant, T >= 2): "
+          f"{ {str(k): v for k, v in chosen.items()} }")
+    big = LatticeConfig(nx=4000, ny=16000, dtype=bf16)
+    f = state_tensor(initial_state(big), bf16, dev)
+    best["4000x16000 bf16"] = temporal_times(
+        big, geometry.reference_barrier(4000, 16000), "spec", f, depths_of[torch.bfloat16], 48,
+        rates_printer(big, bytes_per_site(bf16)), "4000x16000 torch.bfloat16")
+    del f
+    torch.cuda.empty_cache()
+    small = LatticeConfig(nx=400, ny=2000, dtype=np.float32)
+    f = state_tensor(perturbed_state(small, rng), np.float32, dev)
+    best["400x2000 f32"] = temporal_times(
+        small, geometry.reference_barrier(400, 2000), "spec", f, depths_of[torch.float32],
+        TEMPORAL_TIMED_STEPS, rates_printer(small, bytes_per_site(np.float32)),
+        "400x2000 torch.float32")
+    del f
+
+    print(f"phase 29b (times) took {time.perf_counter() - t_part:.1f} s")
+    t_part = time.perf_counter()
+
+    # 29c. the main path at the chosen depths
+    n_main = WARMUP + MAIN_STEPS
+    entry_launches, variants, main_us = 0, {}, {}
+    for dtype, want in ((np.float32, f32_main), (bf16, bf16_main)):
+        cfg = LatticeConfig(nx=800, ny=4000, dtype=dtype)
+        st = dtypes[dtype]
+        depth = chosen[st]
+        label = "bf16" if dtype == bf16 else "f32"
+        reset_counts()
+        sim = Simulation(cfg, walls, backend="cuda", temporal=depth)
+        sim.run(n_main)
+        launches = n_main // depth + (1 if n_main % depth else 0)
+        got_counts = expect_counts(f"{label} temporal main path", {f"temporal-{label}-spec": launches})
+        if fk.TEMPORAL_STEPS != n_main:
+            raise AssertionError(f"{label} temporal main path: {fk.TEMPORAL_STEPS} steps counted")
+        entry_launches += launches
+        variants.update(got_counts)
+        main_us[label] = sim.elapsed / n_main * 1e6
+        state = sim.state()
+        if not np.array_equal(state, want):
+            raise AssertionError(f"{label} temporal main path at T={depth} != the T=1 main path "
+                                 f"after {n_main} steps, max |diff| "
+                                 f"{float(np.abs(state - want).max())!r}")
+        print(f"temporal main path: Simulation(reference_barrier(800, 4000), backend=cuda, "
+              f"temporal={depth}), {label}, {n_main} steps in {launches} counted launches of the "
+              f"temporal form ({got_counts}), no one-step launch, {sim.mlups!r} MLUPS "
+              f"({sim.elapsed!r} s): bitwise equal to phase "
+              f"{13 if dtype == bf16 else 4}'s state at T=1")
+        one = Simulation(cfg, walls, backend="cuda", f0=want)
+        for every in PROBED_EVERY:
+            a = one.run_probed(PROBED_STEPS, PROBES, every=every)
+            b = sim.run_probed(PROBED_STEPS, PROBES, every=every)
+            if not (np.array_equal(a, b) and np.array_equal(one.state(), sim.state())):
+                raise AssertionError(f"{label} temporal run_probed(every={every}) != T=1's")
+        print(f"temporal run_probed, {label}, T={depth}: {PROBED_STEPS} steps at every = "
+              f"{PROBED_EVERY}, series and state bitwise equal to temporal=None's")
+        first, second = TEMPORAL_SPLIT
+        if first % depth == 0:
+            raise AssertionError(f"the split run's {first} steps are a multiple of T={depth}")
+        split = Simulation(cfg, walls, backend="cuda", temporal=depth, f0=want)
+        whole = Simulation(cfg, walls, backend="cuda", temporal=depth, f0=want)
+        if not np.array_equal(split.run(first).run(second).state(),
+                              whole.run(first + second).state()):
+            raise AssertionError(f"{label} temporal T={depth}: run({first}) + run({second}) != "
+                                 f"run({first + second})")
+        print(f"temporal {label}, T={depth}: run({first}) + run({second}) == "
+              f"run({first + second}), bitwise")
+        del sim, one, split, whole
+
+    print(f"phase 29c (main paths) took {time.perf_counter() - t_part:.1f} s")
+
+    # the entry: one pass of the chosen f32 depth at 800x4000, spec variant
+    cfg = LatticeConfig(nx=800, ny=4000, dtype=np.float32)
+    depth = chosen[torch.float32]
+    a = torch.as_tensor(perturbed_state(cfg, rng), device=dev)
+    b = torch.empty_like(a)
+    ms = queued_ms(lambda: fk.temporal_step(a, b, spec, cfg, depth), 100)
+    plain_ms = event_ms(lambda: fk.temporal_reference(a, spec, cfg, depth), 2)
+    state_bytes = a.numel() * a.element_size()
+    smem_bytes = depth * cfg.sites * 18 * a.element_size()  # 9 values read, 9 written a level
+    smem_ms = anatomy.onchip_bound_s(smem_bytes) * 1e3
+    print(f"temporal kernel, one pass of {depth} steps at 800x4000 f32 spec: {ms * 1e3!r} us "
+          f"queued ({ms * 1e3 / depth!r} us/step); temporal_reference {plain_ms!r} ms; the "
+          f"levels' shared-memory bound (computed, {anatomy.SMEM_BYTES_PER_CLOCK} B a clock per "
+          f"SM at {anatomy.SM_CLOCK_HZ:.4g} Hz) {smem_ms!r} ms")
+    entry = {
+        "name": f"lbm_temporal_steps<T, GEOM> (a pass of L steps with walls; main path f32 "
+                f"T={chosen[torch.float32]}, bf16 T={chosen[torch.bfloat16]}; ms: one pass of "
+                f"{depth} steps, f32 spec, 800x4000)",
+        "route": "cuda",
+        "source": "latticeboltzmann_tpu_torch/csrc/lbm_temporal_step.cu",
+        "replaces": "latticeboltzmann_tpu/ops/fused_kernel.py:1757 (temporal=T, walls)",
+        "launches": entry_launches,
+        "variant_launches": variants,
+        "max_abs_err": err,
+        "max_rel_err_fast_math": fast_rel,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        # the pass: the state read once and written once; every level's operations
+        **bound(2 * state_bytes, depth * F32_OPS_PER_SITE * cfg.sites),
+        "temporal": {str(k): v for k, v in chosen.items()},
+        "main_path_us_per_step": main_us,
+        "us_per_step_by_T": {f"{k[0]}-{k[1]}" if isinstance(k, tuple) else k:
+                             {str(d): {"pace": t[0] * 1e3, "card": t[1] * 1e3,
+                                       "enqueue": t[2] * 1e3} for d, t in v.items()}
+                             for k, v in best.items()},
+        "tile": info,
+    }
+    print(f"phase 29 took {time.perf_counter() - t_phase:.1f} s")
+    return entry
+
 
 
 if __name__ == "__main__":

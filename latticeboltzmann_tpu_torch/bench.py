@@ -5,10 +5,12 @@ reference's exact scene, on one CUDA card. Prints ONE JSON line.
 bf16 storage and float32 arithmetic, ds64 the pair-DP kernel (backend
 cuda-ds64 on a float64 config), and f64 the float64 "torch" engine on the
 card. --geometry names a scene of core/geometry.build (default
-"reference", the reference's exact scene). --skew/--no-skew and
---temporal, the root bench.py's schedule flags, are refused: every
-kernel on the port's main path runs one step per launch, so they would
-select nothing (ROADMAP C5), and a line must not record a setting that
+"reference", the reference's exact scene). --temporal T, the root
+bench.py's temporal-blocking depth, runs the cuda backend in f32 or bf16
+in passes of T steps (Simulation(temporal=T)); the line records it under
+"temporal" (null without the flag). Everywhere else it would select
+nothing, so it is refused there (exit 2, before any step), as
+--skew/--no-skew are everywhere: a line must not record a setting that
 did not run. The rows of bench_suite.py run through the same flags.
 
 The method (`defended_timing`, which bench_suite.py shares) is the JAX
@@ -24,7 +26,7 @@ and for f64), and the card's name and power limit.
 
 Usage: python -m latticeboltzmann_tpu_torch.bench [--backend auto|cuda|torch|...]
            [--precision f32|bf16|ds64|f64] [--geometry reference|cylinder|...]
-           [--skew|--no-skew] [--temporal T]
+           [--temporal T]
 --backend sharded-cuda (f32) and --precision ds64 --backend
 sharded-cuda-ds64 are the row-sharded rows of bench_suite.py (:36-37,
 :71-73): the rows split over every visible card, on one card the
@@ -129,20 +131,40 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--warmup", type=int, default=96)
     ap.add_argument("--e2e-runs", type=int, default=3)
     ap.add_argument("--skew", dest="skew", action="store_true", default=None,
-                    help="the JAX package's wavefront time-skewing knob; refused "
-                         "until the port's main path has T-step passes (ROADMAP C5)")
+                    help="the JAX package's wavefront time-skewing knob; refused: it is "
+                         "the TPU's sequential-grid carry and selects nothing in the port")
     ap.add_argument("--no-skew", dest="skew", action="store_false")
     ap.add_argument("--temporal", type=int, default=None,
-                    help="the JAX package's temporal blocking depth; refused until "
-                         "the port's main path has T-step passes (ROADMAP C5)")
+                    help="steps per pass through device memory on the cuda backend "
+                         "(f32, bf16); refused on every other backend and precision")
     return ap
+
+
+def schedule_refusal(args) -> str | None:
+    """Why the schedule flags select nothing for these arguments, or None
+    when they select what they name: --temporal on the cuda backend ("auto"
+    takes it for f32 and bf16) in f32 or bf16, at a depth of at least 1.
+    --skew/--no-skew never do."""
+    if args.skew is not None:
+        return ("--skew/--no-skew select nothing in the port: skew is the TPU kernel's "
+                "sequential-grid carry, and the JAX package's tests hold it bitwise equal to "
+                "the plain schedule")
+    if args.temporal is None:
+        return None
+    if args.temporal < 1:
+        return f"--temporal {args.temporal}: a pass runs at least one step"
+    if args.backend not in ("auto", "cuda") or args.precision not in ("f32", "bf16"):
+        return (f"--temporal selects nothing on backend {args.backend!r} at precision "
+                f"{args.precision}: only the cuda backend runs passes of T steps, in f32 and "
+                "bf16")
+    return None
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.skew is not None or args.temporal is not None:
-        print("bench: --skew/--no-skew/--temporal select nothing in the port yet: every "
-              "kernel on its main path runs one step per launch (ROADMAP C5)", file=sys.stderr)
+    refusal = schedule_refusal(args)
+    if refusal is not None:
+        print(f"bench: {refusal}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("bench: no CUDA card (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -156,7 +178,7 @@ def main(argv=None) -> int:
     cfg = LatticeConfig(nx=args.nx, ny=args.ny, dtype=dtype)
     walls = geometry.build(args.geometry, cfg.nx, cfg.ny)
     # an experimental backend named outright is opted in to, as in the CLI
-    sim = Simulation(cfg, walls, backend=backend, device="cuda",
+    sim = Simulation(cfg, walls, backend=backend, device="cuda", temporal=args.temporal,
                      allow_experimental=backend == args.backend)
     sim.run(args.warmup)  # kernel build and first launches, excluded
     timing = defended_timing(sim, args.steps, e2e_runs=args.e2e_runs)
@@ -174,6 +196,7 @@ def main(argv=None) -> int:
         "steps": args.steps,
         **timing,
         "geometry": args.geometry,
+        "temporal": args.temporal,
         "reynolds": float(re),
         "finite_and_positive": ok,
         "device": torch.cuda.get_device_name(0),

@@ -4,7 +4,8 @@
 // relaxation, the solid classes, the store). Included by lbm_step.cu (one
 // step per launch, one site per thread: single-chip, ext-halo and rdma
 // forms), lbm_wide_step.cu (the single-chip form with several columns per
-// thread) and lbm_flat_step.cu (many wall-free steps per launch). Each
+// thread), lbm_flat_step.cu (many wall-free steps per launch) and
+// lbm_temporal_step.cu (a pass of several steps with walls). Each
 // kernel keeps its own indexing and pull: only what a site's values go
 // through is shared, so that a change to one kernel's addressing cannot
 // cost another its registers.

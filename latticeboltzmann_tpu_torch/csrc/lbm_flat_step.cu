@@ -86,6 +86,7 @@
 #include <algorithm>
 
 #include "lbm_collide.cuh"
+#include "lbm_tile.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -98,73 +99,11 @@ struct Plan {
   int count[kRuns];
 };
 
-// The tile's columns, halos included (a pass of L steps writes kW - 2
-// column_halo(L) of them), the threads of a CTA, and the CTAs that share
-// an SM, so that one CTA's loads run under the other's levels: the shape
-// the measurements chose (PERF.md). The rows are what the card's shared
-// memory holds (tile_info).
-constexpr int kW = 72;
-constexpr int kNT = 256;
-constexpr int kCtasPerSm = 2;
-
-// columns of one 16-byte vector
-template <typename T>
-__host__ __device__ constexpr int vec_columns() {
-  return 16 / static_cast<int>(sizeof(T));
-}
-
 // bytes of dynamic shared memory of a tile of `rows` rows: the 9
 // interleaved planes, then one guard bit per site in 32-bit words
 constexpr int64_t tile_bytes(int64_t rows, int64_t itemsize) {
   return rows * 9 * kW * itemsize + 4 * ((rows * kW + 31) / 32);
 }
-
-__device__ __forceinline__ int wrap(int i, int n) {
-  if (i >= 0 && i < n) return i;
-  i %= n;
-  return i < 0 ? i + n : i;
-}
-
-__device__ __forceinline__ void copy16_async(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(__cvta_generic_to_global(gmem))
-               : "memory");
-}
-
-// until every copy this thread started has landed
-__device__ __forceinline__ void copies_wait() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// offset of the slot that holds f_s of the site at (row, column) offset 0
-// in the interleaved tile: natural f_s(x) at (x, s); pushed at (x + e_s,
-// opp s). Called with constant s only, so that it folds to a constant.
-template <bool PUSHED>
-__device__ __forceinline__ int slot_offset(int s) {
-  constexpr int EX[9] = {0, 0, 1, 0, -1, 1, 1, -1, -1};
-  constexpr int EY[9] = {0, 1, 0, -1, 0, 1, -1, -1, 1};
-  constexpr int OPP[9] = {0, 3, 4, 1, 2, 7, 8, 5, 6};
-  return PUSHED ? (9 * EX[s] + OPP[s]) * kW + EY[s] : s * kW;
-}
-
-// A CTA's walk over an (a, b) grid of items with b < nb fastest: item i of
-// the CTA's threads' stride. Each step moves every thread kNT items on.
-struct Walk {
-  int a, b;
-  const int nb, da, db;
-  __device__ __forceinline__ explicit Walk(int nb_)
-      : a(static_cast<int>(threadIdx.x) / nb_), b(static_cast<int>(threadIdx.x) % nb_), nb(nb_),
-        da(kNT / nb_), db(kNT % nb_) {}
-  __device__ __forceinline__ void next() {
-    a += da;
-    b += db;
-    if (b >= nb) {
-      b -= nb;
-      ++a;
-    }
-  }
-};
 
 // Guard bits of the column-0 sites among rows [ra, rb) and columns
 // [ca, cb) of the tile, read at the current level in its layout: bit (r kW
@@ -264,42 +203,6 @@ __device__ __forceinline__ void level(bool pushed, T* sm, const uint32_t* guard,
     tile_level<T, false, HAS0, LAST>(sm, guard, ra, rb, ca, cb, dst, out0, ny, plane, k, fast_math);
   }
 }
-
-// The halo in columns of a pass of L steps: L rounded up to a 16-byte
-// vector's columns, so that a tile's loads are whole vectors
-template <typename T>
-__host__ __device__ constexpr int column_halo(int L) {
-  return (L + vec_columns<T>() - 1) / vec_columns<T>() * vec_columns<T>();
-}
-
-// One output tile of a pass of L steps (tile index `tile`, row-major over
-// tiles_y tile columns; R x C output sites) and what the pass reads around
-// it: the tile holds rows [0, Re + 2L) and columns [0, W), the output at
-// rows [L, L + Re) and columns [pad, pad + Ce).
-struct TileAt {
-  int L, pad;              // halo rows and columns
-  int r0, c0, Re, Ce;      // the output: rows [r0, r0 + Re), columns [c0, c0 + Ce)
-  int gr0, gc0;            // global row and column of tile row and column 0
-  int lr1, lc0, lc1;       // the tile reads rows [0, lr1), columns [lc0, lc1)
-  int first0;              // the first tile column >= lc0 whose global column is 0
-  bool has0;               // the tile holds a site of global column 0
-  __device__ __forceinline__ TileAt(int tile, int tiles_y, int R, int C, int nx, int ny, int L_,
-                                    int pad_)
-      : L(L_), pad(pad_) {
-    const int ti = tile / tiles_y;
-    r0 = ti * R;
-    c0 = (tile - ti * tiles_y) * C;
-    Re = min(R, nx - r0);
-    Ce = min(C, ny - c0);
-    gr0 = r0 - L;
-    gc0 = c0 - pad;
-    lr1 = Re + 2 * L;
-    lc0 = pad - L;
-    lc1 = pad + Ce + L;
-    first0 = lc0 + wrap(wrap(-gc0, ny) - lc0, ny);
-    has0 = first0 < lc1;
-  }
-};
 
 // Start a tile's loads into shared memory as asynchronous 16-byte copies
 // (vec; else plain loads, done on return) and clear its guard bits where
@@ -413,28 +316,14 @@ lbm_flat_steps(T* f2, int nx, int ny, int rows, Plan plan, int vec, Params k, in
   }
 }
 
-// The tile's rows for storage T on the current card: as many as leave
-// kCtasPerSm tiles, each with what the card keeps back per CTA, in an SM's
-// shared memory, and no more than one CTA may have. Also its dynamic
-// shared bytes and what the card gives the kernel with them: its
+// The tile's rows for storage T on the current card (tile_rows), its
+// dynamic shared bytes and what the card gives the kernel with them: its
 // attributes and CTAs per SM.
 template <typename T>
 cudaError_t tile_info(int* rows, int64_t* smem, cudaFuncAttributes* attr, int* per_sm) {
-  int device = 0, per_sm_bytes = 0, per_cta = 0, reserved = 0;
-  cudaError_t err = cudaGetDevice(&device);
+  cudaError_t err = tile_rows(tile_bytes, sizeof(T), rows);
   if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&per_sm_bytes, cudaDevAttrMaxSharedMemoryPerMultiprocessor, device);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&per_cta, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&reserved, cudaDevAttrReservedSharedMemoryPerBlock, device);
-  if (err != cudaSuccess) return err;
-  const int64_t budget = std::min<int64_t>(per_cta, per_sm_bytes / kCtasPerSm - reserved);
-  int r = static_cast<int>(budget / (9 * kW * static_cast<int64_t>(sizeof(T))));
-  while (r > 0 && tile_bytes(r, sizeof(T)) > budget) --r;
-  if (r < 1) return cudaErrorInvalidConfiguration;
-  *rows = r;
-  *smem = tile_bytes(r, sizeof(T));
+  *smem = tile_bytes(*rows, sizeof(T));
   auto kernel = lbm_flat_steps<T>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(*smem));

@@ -6,9 +6,9 @@ the port's backends.
 - "cuda": a persistent ops/fused_kernel.Session around the hand-written
   CUDA kernel, the counterpart of "pallas": float32 or bf16 storage, the
   mask computed in the kernel from geometry.infer_spec's closed form
-  when there is one (as the JAX main path does), free-slip codes and
-  fast math. It raises without a CUDA card, and on float64; it never
-  reroutes.
+  when there is one (as the JAX main path does), free-slip codes, fast
+  math and, with temporal=T, passes of T steps per launch. It raises
+  without a CUDA card, and on float64; it never reroutes.
 - "torch-ds64": the eager pair-DP engine (ops/ds_engine.py, the exact
   tier) on any device, the counterpart of "xla-ds64".
 - "cuda-ds64": a persistent ops/fused_ds_kernel.Session around the CUDA
@@ -123,6 +123,8 @@ _SLIP_BACKENDS = {"torch", "cuda", "sharded", "sharded-sync", "sharded-cuda",
                   "sharded-cuda-fused", "sharded-cuda-rdma"}
 _FASTMATH_BACKENDS = {"cuda", "sharded-cuda", "sharded-cuda-fused", "sharded-cuda-rdma"}
 _WALL_SPEC_BACKENDS = {"cuda", "sharded-cuda", "sharded-cuda-fused", "sharded-cuda-rdma"}
+# backends that run passes of `temporal` steps (the JAX facade's "pallas")
+_TEMPORAL_BACKENDS = {"cuda"}
 # backends that run only behind Simulation(allow_experimental=True)
 _EXPERIMENTAL_BACKENDS = {"sharded-cuda-rdma"}
 
@@ -191,14 +193,21 @@ class Simulation:
     module docstring); `device` defaults to default_device(backend).
 
     skew and temporal are the JAX facade's schedule knobs (wavefront
-    time-skewing and the temporal-blocking depth of the TPU kernels). They
-    are kept as given and select nothing: every kernel of the port runs one
-    step per launch, and the JAX package's own tests hold its schedules
-    bitwise equal to one another (tests/test_pallas.py:706-816 for skew,
-    tests/test_ds.py:191-210 for the ds temporal depth), so one schedule
-    gives every result they can select. allow_experimental opts in to the
-    backends of _EXPERIMENTAL_BACKENDS, which raise RuntimeError without
-    it."""
+    time-skewing and the temporal-blocking depth of the TPU kernels), kept
+    as given. temporal=T on "cuda" runs passes of T steps through the
+    temporal form of the kernel (fused_kernel.Session(temporal=T): n steps
+    as n // T passes of T and one of the rest), bitwise equal to one step
+    per launch; None (the default) and 1 keep one launch per step. On
+    every other backend it selects nothing, as the JAX facade passes it
+    only to "pallas" (models/engine.py:341-342 there). A temporal that is
+    no integer or under 1 raises ValueError on every backend, as the JAX
+    planner does (ops/fused_kernel.py:2008-2015 there); "cuda" also
+    refuses a depth or shape the temporal form does not take
+    (fused_kernel.Session). skew selects nothing anywhere: the
+    JAX package's own tests hold its schedules bitwise equal to one another
+    (tests/test_pallas.py:706-816), so one schedule gives every result it
+    can select. allow_experimental opts in to the backends of
+    _EXPERIMENTAL_BACKENDS, which raise RuntimeError without it."""
 
     def __init__(
         self,
@@ -217,6 +226,10 @@ class Simulation:
     ):
         self.cfg = cfg
         self.skew = skew
+        if temporal is not None and (isinstance(temporal, bool)
+                                     or not isinstance(temporal, (int, np.integer))
+                                     or temporal < 1):
+            raise ValueError(f"temporal must be an integer >= 1 or None, got {temporal!r}")
         self.temporal = temporal
         storage_dtype(cfg.dtype)  # raises on what the port does not take
         if walls is None:
@@ -280,6 +293,8 @@ class Simulation:
             options["wall_spec"] = self.wall_spec
         if backend in _FASTMATH_BACKENDS:
             options["fast_math"] = fast_math
+        if backend in _TEMPORAL_BACKENDS and temporal is not None:
+            options["temporal"] = int(temporal)
         # persistent kernel session: buffers and geometry are built
         # once, and run() is then launches only
         self._session = None

@@ -22,9 +22,9 @@ import subprocess
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 SOURCES = ("lbm_step.cu", "lbm_wide_step.cu", "lbm_wide_ext_step.cu", "lbm_ds_step.cu",
-           "lbm_flat_step.cu", "lbm_probes.cu")
+           "lbm_flat_step.cu", "lbm_temporal_step.cu", "lbm_probes.cu")
 # included by the sources (each from its own directory); hashed with them
-HEADERS = ("lbm_collide.cuh", "lbm_ext.cuh", "lbm_wide.cuh")
+HEADERS = ("lbm_collide.cuh", "lbm_ext.cuh", "lbm_tile.cuh", "lbm_wide.cuh")
 LIB_NAME = "liblbm_kernels.so"
 GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
 # sm_90a keeps Hopper-only instructions available; -fmad=false and no
@@ -253,6 +253,30 @@ def load_library() -> ctypes.CDLL:
     fn.restype = ctypes.c_int
     fn.argtypes = [
         ctypes.c_int64,   # storage: 0 float32, 1 bfloat16
+        ctypes.c_void_p,  # out: 6 int64 (registers, CTAs per SM, shared bytes, local bytes,
+                          # the tile's rows and columns)
+    ]
+    fn = lib.lbm_temporal_steps_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [
+        ctypes.c_void_p,  # src
+        ctypes.c_void_p,  # dst
+        ctypes.c_void_p,  # solid: uint8 class plane (geometry 1), or null
+        ctypes.c_void_p,  # spec: 10 host int64 (geometry 2), or null
+        ctypes.c_int64,   # nx
+        ctypes.c_int64,   # ny
+        ctypes.c_int64,   # storage: 0 float32, 1 bfloat16
+        ctypes.c_int64,   # geometry: 0 none, 1 plane, 2 spec
+        ctypes.c_int64,   # fast_math
+        ctypes.c_int64,   # steps of the pass
+        ctypes.c_void_p,  # params: 9 host floats
+        ctypes.c_void_p,  # cudaStream_t
+    ]
+    fn = lib.lbm_temporal_steps_info
+    fn.restype = ctypes.c_int
+    fn.argtypes = [
+        ctypes.c_int64,   # storage: 0 float32, 1 bfloat16
+        ctypes.c_int64,   # geometry: 0 none, 1 plane, 2 spec
         ctypes.c_void_p,  # out: 6 int64 (registers, CTAs per SM, shared bytes, local bytes,
                           # the tile's rows and columns)
     ]

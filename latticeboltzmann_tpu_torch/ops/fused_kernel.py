@@ -56,9 +56,20 @@ of a pass kept in shared memory (`flat_schedule` plans the passes;
 the twin of the JAX package's make_flat_step. Its launches are counted
 in FLAT_LAUNCHES.
 
+The temporal form (`temporal_step`; plain versions `temporal_reference`
+and, tile by tile, `temporal_reference_blocked`;
+csrc/lbm_temporal_step.cu) is the main path's temporal blocking, the JAX
+kernel at temporal = T > 1 with walls: one launch runs a pass of L steps
+from src to dst, the session's two distinct buffers, the steps of the
+pass kept in shared memory in the flat kernel's tile with a solid class
+per tile site (`temporal_info` reads the tile the card gives it and
+the deepest pass it takes). `Session(temporal=T)`
+runs n steps as n // T passes of T steps and one of n % T. Its launches
+are counted in TEMPORAL_LAUNCHES and TEMPORAL_VARIANT_LAUNCHES, the steps
+they ran in TEMPORAL_STEPS.
+
 State is the unpadded (9, NX, NY) layout: the TPU kernel's mirror-pad
-lanes and VMEM staging have no counterpart here, and the one-step kernels
-run no temporal blocking (ROADMAP, "Not to port").
+lanes and VMEM staging have no counterpart here (ROADMAP, "Not to port").
 
 The probed run (`run_steps_probed`; Simulation.run_probed through
 `Session.probe_values`) samples (rho, u_x, u_y) at probe sites from the
@@ -111,6 +122,11 @@ FLAT_LAUNCHES = 0
 FLAT_TEMPORAL = {torch.float32: 6, torch.bfloat16: 8}
 FLAT_RUNS = 4
 FLAT_MAX_TEMPORAL = 32
+# launches of the temporal form (`temporal_step`), in all and by variant
+# name, and the steps they ran
+TEMPORAL_LAUNCHES = 0
+TEMPORAL_VARIANT_LAUNCHES: collections.Counter = collections.Counter()
+TEMPORAL_STEPS = 0
 
 # the storage and geometry codes of the launcher in csrc/lbm_step.cu
 _STORAGE = {torch.float32: 0, torch.bfloat16: 1}
@@ -1084,24 +1100,44 @@ def flat_reference_blocked(f2: torch.Tensor, cfg: LatticeConfig, n_steps: int, t
     tile = FlatTile(*tile)
     if min(flat_output(tile, f2.dtype, temporal)) < 1:
         raise ValueError(f"tile {tile} leaves no output tile at temporal={temporal}")
-    nx, ny = cfg.nx, cfg.ny
     out = f2.clone()
+    solid = _solid_plane(None, cfg, f2.device)
     parity = 0
     for L in flat_schedule(n_steps, temporal):
-        R, C = flat_output(tile, f2.dtype, L)
-        src, dst = out[parity], out[parity ^ 1]
-        for r0 in range(0, nx, R):
-            for c0 in range(0, ny, C):
-                re, ce = min(R, nx - r0), min(C, ny - c0)
-                dst[:, r0:r0 + re, c0:c0 + ce] = _flat_tile_pass(src, cfg, r0, c0, re, ce, L)
+        _blocked_pass(out[parity], out[parity ^ 1], solid, cfg, L, tile)
         parity ^= 1
     return out
 
 
-def _flat_tile_pass(src: torch.Tensor, cfg: LatticeConfig, r0: int, c0: int, re: int, ce: int,
-                    L: int) -> torch.Tensor:
+def _solid_plane(geom, cfg: LatticeConfig, device: torch.device) -> torch.Tensor:
+    """A geometry source of the step kernels as a uint8 (NX, NY) class
+    plane on `device`: zeros for None, a wall spec's mask, or the plane."""
+    if geom is None:
+        return torch.zeros((cfg.nx, cfg.ny), dtype=torch.uint8, device=device)
+    if isinstance(geom, tuple):
+        return _spec_plane(tuple(map(tuple, geom)), cfg.nx, cfg.ny, device)
+    return geom
+
+
+def _blocked_pass(src: torch.Tensor, dst: torch.Tensor, solid: torch.Tensor,
+                  cfg: LatticeConfig, L: int, tile: FlatTile) -> None:
+    """One pass of L steps src -> dst tile by tile, as the flat and
+    temporal kernels run it: output tiles of flat_output(tile, dtype, L)
+    sites, ragged at the last row and column."""
+    R, C = flat_output(tile, src.dtype, L)
+    for r0 in range(0, cfg.nx, R):
+        for c0 in range(0, cfg.ny, C):
+            re, ce = min(R, cfg.nx - r0), min(C, cfg.ny - c0)
+            dst[:, r0:r0 + re, c0:c0 + ce] = _tile_pass(src, solid, cfg, r0, c0, re, ce, L)
+
+
+def _tile_pass(src: torch.Tensor, solid: torch.Tensor, cfg: LatticeConfig, r0: int, c0: int,
+               re: int, ce: int, L: int) -> torch.Tensor:
     """L levels of one tile: the re x ce output sites at (r0, c0) after L
-    steps from src, through a source window grown by L on each side."""
+    steps from src, through a source window grown by L on each side, with
+    the window's classes from the uint8 plane `solid`: forcing at fluid
+    sources of global column 0 whose guard holds at the level being read,
+    then the collision and each level site's class."""
     _, _, _, _, _, _, _, a14, a58 = kernel_constants(cfg)
     delta = torch.zeros(NSPEEDS, dtype=torch.float32)
     delta[[1, 5, 8]] = torch.tensor([a14, a58, a58])
@@ -1110,15 +1146,17 @@ def _flat_tile_pass(src: torch.Tensor, cfg: LatticeConfig, r0: int, c0: int, re:
     rows = torch.arange(r0 - L, r0 + re + L, device=src.device) % cfg.nx
     cols = torch.arange(c0 - L, c0 + ce + L, device=src.device) % cfg.ny
     cur = src[:, rows][:, :, cols].float()
+    cls = solid[rows][:, cols]
     for _ in range(L):
         h, w = cur.shape[1], cur.shape[2]
         ok = ((cur[6] - a58 > 0) & (cur[3] - a14 > 0) & (cur[7] - a58 > 0)
-              & (cols == 0)[None, :])
+              & (cols == 0)[None, :] & (cls == 0))
         forced = torch.where(ok[None], cur + delta, cur)
         pulled = torch.stack([
             forced[s, 1 - int(E[s, 0]):h - 1 - int(E[s, 0]), 1 - int(E[s, 1]):w - 1 - int(E[s, 1])]
             for s in range(NSPEEDS)])
-        cur = collide_reference(pulled, cfg).to(src.dtype).float()
+        cls = cls[1:-1, 1:-1]
+        cur = _collide_classes(pulled, cls, cfg).to(src.dtype).float()
         cols = cols[1:-1]
     return cur.to(src.dtype)
 
@@ -1143,7 +1181,10 @@ def _check_flat_count(n_steps: int) -> None:
 
 
 def _check_temporal(temporal: int) -> None:
-    if not isinstance(temporal, int) or not 1 <= temporal <= FLAT_MAX_TEMPORAL:
+    """Raise unless `temporal`, the steps of a pass, is an integer in [1,
+    FLAT_MAX_TEMPORAL]."""
+    if (not isinstance(temporal, int) or isinstance(temporal, bool)
+            or not 1 <= temporal <= FLAT_MAX_TEMPORAL):
         raise ValueError(f"temporal must be an integer in [1, {FLAT_MAX_TEMPORAL}], "
                          f"got {temporal!r}")
 
@@ -1227,6 +1268,142 @@ def make_flat_step(
     return step
 
 
+def temporal_reference(src: torch.Tensor, geom, cfg: LatticeConfig, steps: int, *,
+                       fast_math: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of the temporal form: `steps` chained
+    step_reference calls from src, which bfloat16 rounds to storage after
+    every one. geom: None, a uint8 (NX, NY) class plane or a wall spec, as
+    step's. Returns a new tensor. It computes IEEE 1/rho: the kernel's
+    fast-math variant is held to it within FAST_MATH_RTOL."""
+    _check_temporal(steps)
+    plane, spec = (None, geom) if isinstance(geom, tuple) else (geom, None)
+    out = src
+    for _ in range(steps):
+        out = step_reference(out, plane, cfg, wall_spec=spec, fast_math=fast_math)
+    return out
+
+
+def temporal_reference_blocked(src: torch.Tensor, geom, cfg: LatticeConfig, steps: int,
+                               tile: FlatTile) -> torch.Tensor:
+    """Plain PyTorch version of the temporal form's tiling:
+    temporal_reference's result, computed the way
+    csrc/lbm_temporal_step.cu computes it, one pass of `steps` steps tile
+    by tile: output tiles of flat_output(tile, dtype, steps) sites (ragged
+    at the last row and column), each from its source and its classes
+    grown by `steps` on each side with periodic wrap by modulo indices (a
+    site may appear more than once), levels each one site smaller on each
+    side, the forcing at fluid sources of GLOBAL column 0 with the guard
+    read at the level being read, each level site's class after the
+    collision, and bfloat16 rounded to storage after every level. tile: any
+    rows and width that leave an output tile (temporal_info gives the
+    kernel's on a card). Returns a new tensor."""
+    _check_temporal(steps)
+    tile = FlatTile(*tile)
+    if min(flat_output(tile, src.dtype, steps)) < 1:
+        raise ValueError(f"tile {tile} leaves no output tile at {steps} steps")
+    out = torch.empty_like(src)
+    _blocked_pass(src, out, _solid_plane(geom, cfg, src.device), cfg, steps, tile)
+    return out
+
+
+def tile_max_steps(tile: FlatTile, dtype: torch.dtype) -> int:
+    """The deepest pass, at most FLAT_MAX_TEMPORAL steps, whose output
+    tiles (flat_output) in `tile` hold a site; 0 if none does."""
+    steps = [n for n in range(1, FLAT_MAX_TEMPORAL + 1) if min(flat_output(tile, dtype, n)) >= 1]
+    return max(steps, default=0)
+
+
+def temporal_info(dtype: torch.dtype, geometry_kind: str = "spec", device=None) -> dict:
+    """What a card gives the temporal form for storage `dtype` and a
+    geometry kind ("none", "plane", "spec"), as csrc/lbm_temporal_step.cu
+    decides it from the card's shared memory: the tile's `rows` and
+    `width` (one tile per storage type), `max_steps` (the deepest pass
+    the tile takes, tile_max_steps), `registers` and `local_bytes` (stack
+    and spills) per thread, `ctas_per_sm` and `shared_bytes_per_cta`.
+    Needs a CUDA card (default: the current one); read once per card."""
+    index = None if device is None else torch.device(device).index
+    return _temporal_info(dtype, _GEOMETRY[geometry_kind],
+                          torch.cuda.current_device() if index is None else index)
+
+
+@functools.cache
+def _temporal_info(dtype: torch.dtype, geometry: int, index: int) -> dict:
+    out = (ctypes.c_int64 * 6)()
+    with torch.cuda.device(index):
+        rc = cuda_build.load_library().lbm_temporal_steps_info(_STORAGE[dtype], geometry, out)
+    if rc != 0:
+        raise RuntimeError(f"lbm_temporal_steps_info failed: cudaError {rc}")
+    tile = FlatTile(out[4], out[5])
+    return {"registers": out[0], "ctas_per_sm": out[1], "shared_bytes_per_cta": out[2],
+            "local_bytes": out[3], "rows": tile.rows, "width": tile.width,
+            "max_steps": tile_max_steps(tile, dtype)}
+
+
+def _check_temporal_pass(steps: int, dtype: torch.dtype, ny: int, device: torch.device) -> None:
+    """Raise ValueError unless the temporal form takes a pass of `steps`
+    steps on rows of ny columns of storage `dtype` on `device`: whole
+    16-byte vectors a row and, on a card, no deeper than its tile takes
+    (temporal_info)."""
+    _check_temporal(steps)
+    v = WIDE_COLUMNS[dtype]
+    if ny % v:
+        raise ValueError(f"temporal blocking needs NY a multiple of {v} columns ({dtype}: one "
+                         f"16-byte vector), got NY {ny}; temporal=None or 1 runs one step per "
+                         "launch on any shape")
+    if device.type == "cuda":
+        info = temporal_info(dtype, device=device)
+        if steps > info["max_steps"]:
+            raise ValueError(f"a pass of {steps} steps leaves no output tile in the temporal "
+                             f"form's {info['rows']}x{info['width']} tile on {device} ({dtype}): "
+                             f"it takes at most {info['max_steps']}")
+
+
+def temporal_step(
+    src: torch.Tensor,
+    dst: torch.Tensor,
+    geom,
+    cfg: LatticeConfig,
+    steps: int,
+    *,
+    fast_math: bool = False,
+) -> torch.Tensor:
+    """One pass of `steps` steps src -> dst; returns dst. geom, src, dst
+    and fast_math as step's; NY a multiple of a 16-byte vector's columns
+    (4 in float32, 8 in bf16), else ValueError. On a CUDA tensor it
+    launches the temporal kernel on the current stream and counts it in
+    TEMPORAL_LAUNCHES, TEMPORAL_VARIANT_LAUNCHES and TEMPORAL_STEPS; a
+    buffer or class plane not aligned to WIDE_ALIGN bytes, or more steps
+    than the card's tile takes (temporal_info), raise ValueError, and
+    nothing runs in their place. On a CPU tensor it writes
+    temporal_reference's result. Raises on anything the kernel does not
+    take, and on any other device."""
+    global TEMPORAL_LAUNCHES, TEMPORAL_STEPS
+    kind, info = _check(src, dst, geom, cfg)
+    _check_temporal_pass(steps, src.dtype, cfg.ny, src.device)
+    if src.device.type == "cpu":
+        dst.copy_(temporal_reference(src, geom, cfg, steps, fast_math=fast_math))
+        return dst
+    pointers = [src.data_ptr(), dst.data_ptr()] + ([geom.data_ptr()] if kind == "plane" else [])
+    if any(ptr % WIDE_ALIGN for ptr in pointers):
+        raise ValueError(f"the temporal form needs buffers aligned to {WIDE_ALIGN} bytes; "
+                         f"pointers mod {WIDE_ALIGN}: {[ptr % WIDE_ALIGN for ptr in pointers]}")
+    params = (ctypes.c_float * 9)(*kernel_constants(cfg))
+    spec = (ctypes.c_int64 * SPEC_FIELDS)(*info) if kind == "spec" else None
+    rc = cuda_build.load_library().lbm_temporal_steps_launch(
+        src.data_ptr(), dst.data_ptr(), geom.data_ptr() if kind == "plane" else None,
+        ctypes.addressof(spec) if spec is not None else None,
+        cfg.nx, cfg.ny, _STORAGE[src.dtype], _GEOMETRY[kind], int(fast_math), steps,
+        ctypes.addressof(params), torch.cuda.current_stream(src.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"lbm_temporal_steps launch failed: cudaError {rc}")
+    TEMPORAL_LAUNCHES += 1
+    TEMPORAL_STEPS += steps
+    TEMPORAL_VARIANT_LAUNCHES[variant_name(src.dtype, kind, kind == "plane" and info > 1,
+                                           fast_math)] += 1
+    return dst
+
+
 def _host_mask(x):
     return x.cpu().numpy() if torch.is_tensor(x) else x
 
@@ -1263,10 +1440,18 @@ class Session:
     else none for a wall-free mask, else the wall spec when one is given,
     else the walls as a uint8 plane.
 
+    temporal: None or 1 runs one step-kernel launch per step; T >= 2 runs
+    passes of T steps through the temporal form (temporal_step), n steps
+    as n // T launches of T steps and one of n % T, each a pass between
+    the two buffers. A temporal the form does not take (no integer in [1,
+    FLAT_MAX_TEMPORAL], rows of no whole 16-byte vectors, on a card a
+    pass deeper than its tile takes) raises ValueError here: nothing falls
+    back to one step per launch. Every result is bitwise the same.
+
     Usage:
         sess = Session(cfg, walls, device="cuda", wall_spec=spec)
         sess.load(f)       # copy the state in
-        sess.advance(n)    # n launches, no host sync
+        sess.advance(n)    # n steps, no host sync
         sess.block()       # completion barrier
         f = sess.state()   # a copy; the session keeps running
     """
@@ -1281,11 +1466,17 @@ class Session:
         slip_x=None,
         slip_y=None,
         fast_math: bool = False,
+        temporal: int | None = None,
     ):
         self.dtype = _storage(cfg)
         self.cfg = cfg
         self.device = torch.device(device)
         self.fast_math = fast_math
+        if temporal is not None:
+            _check_temporal(temporal)
+            if temporal > 1:
+                _check_temporal_pass(temporal, self.dtype, cfg.ny, self.device)
+        self.temporal = temporal or 1
         geom = host_geometry(cfg, walls, wall_spec, slip_x, slip_y)
         if isinstance(geom, np.ndarray):
             geom = torch.as_tensor(geom, device=self.device)
@@ -1303,11 +1494,19 @@ class Session:
         self._a.copy_(f)
 
     def advance(self, n_steps: int) -> None:
-        """n_steps launches, swapping the two buffers after each."""
+        """n_steps steps: one launch per step, or at temporal T passes of
+        T steps and one of the rest; the two buffers swap after each
+        launch."""
         a, b = self._a, self._b
-        for _ in range(n_steps):
-            step(a, b, self.geom, self.cfg, fast_math=self.fast_math)
-            a, b = b, a
+        if self.temporal == 1:
+            for _ in range(n_steps):
+                step(a, b, self.geom, self.cfg, fast_math=self.fast_math)
+                a, b = b, a
+        else:
+            full, rest = divmod(n_steps, self.temporal)
+            for steps in [self.temporal] * full + ([rest] if rest else []):
+                temporal_step(a, b, self.geom, self.cfg, steps, fast_math=self.fast_math)
+                a, b = b, a
         self._a, self._b = a, b
 
     def block(self) -> None:
@@ -1346,11 +1545,12 @@ def run_steps(
     slip_x=None,
     slip_y=None,
     fast_math: bool = False,
+    temporal: int | None = None,
 ) -> torch.Tensor:
     """Unpadded in, unpadded out: the one-shot form of Session on f's
     device. `f` is not modified."""
     sess = Session(cfg, walls, device=f.device, wall_spec=wall_spec,
-                   slip_x=slip_x, slip_y=slip_y, fast_math=fast_math)
+                   slip_x=slip_x, slip_y=slip_y, fast_math=fast_math, temporal=temporal)
     sess.load(f)
     sess.advance(n_steps)
     return sess.unload()
@@ -1368,15 +1568,18 @@ def run_steps_probed(
     slip_x=None,
     slip_y=None,
     fast_math: bool = False,
+    temporal: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(f_final, series): n_steps launches on f's device with the probe
+    """(f_final, series): n_steps steps on f's device with the probe
     gather after every `every` of them, into a preallocated (n_steps //
     every, P, 3) device series; one host sync at most, by the caller.
     `f` is not modified. The JAX runner's choice of pass structure by
-    every % (2T) is TPU scheduling: each launch here is one step, so one
-    schedule serves every `every`."""
+    every % (2T) is TPU scheduling: here every `every` steps are one
+    Session.advance, which plans its own passes (at temporal T, `every`
+    // T passes of T steps and one of the rest), so one schedule serves
+    every `every`."""
     sess = Session(cfg, walls, device=f.device, wall_spec=wall_spec,
-                   slip_x=slip_x, slip_y=slip_y, fast_math=fast_math)
+                   slip_x=slip_x, slip_y=slip_y, fast_math=fast_math, temporal=temporal)
     sess.load(f)
     sites = sess.probe_sites(probes)
     series = stream_collide.sample_every(

@@ -26,7 +26,8 @@ class RunStats:
     cfg: LatticeConfig
     total_steps: int
     start_time: float = dataclasses.field(default_factory=time.perf_counter)
-    out: object = sys.stdout
+    # sys.stdout when the reporter is made, not when this module is imported
+    out: object = dataclasses.field(default_factory=lambda: sys.stdout)
 
     def __post_init__(self):
         self.itemsize = storage_dtype(self.cfg.dtype).itemsize

@@ -101,19 +101,39 @@ def test_entry_points_refuse_without_a_card(tmp_path, capsys):
 
 def test_bench_parses_the_suite_flags(capsys):
     """bench.py's flags for the suite's rows: --geometry, --precision f64,
-    --skew/--no-skew, --temporal; the precision's backend and bytes. The
-    schedule flags select nothing in the port, so bench refuses them
-    before it looks for a card, and records no setting that did not run."""
-    args = bench.build_parser().parse_args(
-        ["--geometry", "cylinder", "--precision", "f64", "--no-skew", "--temporal", "4"])
+    --skew/--no-skew, --temporal; the precision's backend and bytes.
+    --temporal selects passes of T steps on the cuda backend in f32 and
+    bf16 ("auto" takes cuda there on a card), so it passes the flag check
+    there; on torch, f64, ds64 and the sharded backends it would select
+    nothing, and --skew/--no-skew select nothing anywhere: bench refuses
+    those before it looks for a card, and records no setting that did not
+    run."""
+    parse = bench.build_parser().parse_args
+    args = parse(["--geometry", "cylinder", "--precision", "f64", "--no-skew", "--temporal", "4"])
     assert (args.geometry, args.precision, args.skew, args.temporal) == ("cylinder", "f64",
                                                                         False, 4)
-    args = bench.build_parser().parse_args(["--skew"])
+    args = parse(["--skew"])
     assert args.skew is True and args.temporal is None and args.geometry == "reference"
-    assert bench.build_parser().parse_args([]).skew is None
-    for flags in (["--skew"], ["--no-skew"], ["--temporal", "4"]):
-        assert bench.main(flags) == 2
-        assert "ROADMAP C5" in capsys.readouterr().err
+    assert parse([]).skew is None
+    for flags in (["--skew"], ["--no-skew"], ["--temporal", "4", "--precision", "f64"],
+                  ["--temporal", "4", "--precision", "ds64"],
+                  ["--temporal", "4", "--precision", "ds64", "--backend", "sharded-cuda-ds64"],
+                  ["--temporal", "4", "--backend", "sharded-cuda"],
+                  ["--temporal", "4", "--backend", "sharded-cuda-rdma"],
+                  ["--temporal", "4", "--backend", "torch"],
+                  ["--temporal", "0", "--backend", "cuda"],
+                  ["--skew", "--temporal", "4", "--backend", "cuda"]):
+        assert bench.schedule_refusal(parse(flags)) is not None, flags
+        assert bench.main(flags) == 2, flags
+        err = capsys.readouterr().err
+        assert "select" in err or "at least one step" in err, err
+        assert "no CUDA card" not in err  # refused before the card check
+    for flags in (["--temporal", "4", "--backend", "cuda"], ["--temporal", "2"],
+                  ["--temporal", "8", "--precision", "bf16"], ["--backend", "cuda"], []):
+        assert bench.schedule_refusal(parse(flags)) is None, flags
+    if not torch.cuda.is_available():
+        assert bench.main(["--temporal", "4", "--backend", "cuda"]) == 2
+        assert "no CUDA card" in capsys.readouterr().err
     assert bench.precision_setup("f64", "auto") == (np.float64, "torch", 144)
     assert bench.precision_setup("ds64", "auto") == (np.float64, "cuda-ds64", BYTES_PER_SITE_DS)
     assert bench.precision_setup("ds64", "sharded-cuda-ds64")[1] == "sharded-cuda-ds64"

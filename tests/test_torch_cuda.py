@@ -1106,6 +1106,119 @@ def test_failed_cooperative_launch_raises(cuda_device):
     assert torch.equal(f2, fk.flat_reference(torch.stack([f, f]), cfg, 2))
 
 
+# --- the temporal form: passes of L steps with walls -------------------------
+
+def _temporal_geoms(cfg, device):
+    """Every geometry source of the temporal form on a channel whose walls
+    reach column 0: {kind: geom} (plane and slip planes on the card)."""
+    nx, ny = cfg.nx, cfg.ny
+    walls = geometry.channel(nx, ny)
+    walls[nx // 3: nx // 3 + 3, 0:3] = True
+    open_top = walls.copy()
+    open_top[0] = False
+    slip_x = np.zeros_like(walls)
+    slip_x[0] = True
+    slip_y = np.zeros_like(walls)
+    slip_y[nx // 2, 5:7] = True
+    return {"none": None, "plane": torch.as_tensor(walls.astype(np.uint8), device=device),
+            "spec": (("channel",), ("rect", nx // 3, nx // 3 + 3, 0, 3)),
+            "slip": torch.as_tensor(fk.class_plane(open_top, slip_x, slip_y), device=device)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+@pytest.mark.parametrize("shape", [(16, 40), (5, 8), (100, 96)])
+def test_temporal_kernel_equals_its_plain_versions(shape, dtype, cuda_device):
+    """One pass of L steps for every L the card's tile takes (at 100x96,
+    several of them), every geometry source, bitwise against
+    temporal_reference (L chained step_reference) and
+    temporal_reference_blocked at the card's tile; 5x8 is smaller than
+    one tile, 100x96 ragged in both axes. Every launch counted, with its
+    steps and variant."""
+    cfg = LatticeConfig(nx=shape[0], ny=shape[1], dtype=dtype, accel=0.005)
+    f = _perturbed(cfg, cuda_device)
+    f[6, cfg.nx // 2, 0] = 1e-6  # the guard fails at one column-0 site
+    info = fk.temporal_info(f.dtype)
+    tile, most = fk.FlatTile(info["rows"], info["width"]), info["max_steps"]
+    assert most == fk.tile_max_steps(tile, f.dtype) >= 8
+    depths = range(1, most + 1) if cfg.sites < 1000 else (1, 2, 3, 5, 8, most)
+    before = (fk.TEMPORAL_LAUNCHES, fk.TEMPORAL_STEPS, fk.LAUNCHES)
+    variants = collections.Counter()
+    for kind, geom in _temporal_geoms(cfg, cuda_device).items():
+        for steps in depths:
+            want = fk.temporal_reference(f, geom, cfg, steps)
+            got = fk.temporal_step(f, torch.full_like(f, float("nan")), geom, cfg, steps)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (kind, steps)
+            if steps <= 3 or steps == most:
+                blocked = fk.temporal_reference_blocked(f, geom, cfg, steps, tile)
+                assert torch.equal(blocked, want), (kind, steps)
+            variants[fk.variant_name(f.dtype, "plane" if kind == "slip" else kind,
+                                     kind == "slip", False)] += 1
+    assert (fk.TEMPORAL_LAUNCHES, fk.TEMPORAL_STEPS, fk.LAUNCHES) == (
+        before[0] + 4 * len(depths), before[1] + 4 * sum(depths), before[2])
+    for name, n in variants.items():
+        assert fk.TEMPORAL_VARIANT_LAUNCHES[name] >= n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+def test_temporal_session_equals_one_step_per_launch(dtype, cuda_device):
+    """Simulation(backend="cuda", temporal=T) on a 48x96 plate (the spec
+    variant) and a slip scene (the plane variant): run(7) + run(13) at
+    T=3, passes of 3, 3, 1 and 3, 3, 3, 3, 1 steps and no one-step
+    launch, bitwise equal to 20 steps at temporal=None; run(20) at T=3
+    too."""
+    cfg = LatticeConfig(nx=48, ny=96, dtype=dtype)
+    walls, slip_x, slip_y = _slip_scene(48, 96)
+    for walls_, kw in ((_plate_48x96(), {}), (walls, {"slip_x": slip_x, "slip_y": slip_y})):
+        want = Simulation(cfg, walls_, backend="cuda", **kw).run(20).state()
+        sim = Simulation(cfg, walls_, backend="cuda", temporal=3, **kw)
+        before = (fk.LAUNCHES, fk.TEMPORAL_LAUNCHES, fk.TEMPORAL_STEPS)
+        np.testing.assert_array_equal(sim.run(7).run(13).state(), want)
+        assert (fk.LAUNCHES, fk.TEMPORAL_LAUNCHES, fk.TEMPORAL_STEPS) == (
+            before[0], before[1] + 3 + 5, before[2] + 20)
+        again = Simulation(cfg, walls_, backend="cuda", temporal=3, **kw).run(20).state()
+        np.testing.assert_array_equal(again, want)
+
+
+@pytest.mark.cuda
+def test_temporal_form_refuses_on_the_card(cuda_device):
+    """A pass deeper than the card's tile takes, a buffer that is no
+    16-byte aligned allocation, a row of no whole vectors: ValueError
+    before any launch; Simulation(temporal=) past the tile too."""
+    cfg = LatticeConfig(nx=16, ny=40, dtype=np.float32)
+    f = _perturbed(cfg, cuda_device)
+    out = torch.empty_like(f)
+    most = fk.temporal_info(torch.float32)["max_steps"]
+    before = fk.TEMPORAL_LAUNCHES
+    with pytest.raises(ValueError, match="at most"):
+        fk.temporal_step(f, out, None, cfg, most + 1)
+    flat = torch.zeros(f.numel() + 1, device=cuda_device)
+    with pytest.raises(ValueError, match="aligned"):
+        fk.temporal_step(f, flat[1:].view_as(f), None, cfg, 2)
+    cfg37 = LatticeConfig(nx=16, ny=37, dtype=np.float32)
+    f37 = _perturbed(cfg37, cuda_device)
+    with pytest.raises(ValueError, match="multiple of"):
+        fk.temporal_step(f37, torch.empty_like(f37), None, cfg37, 2)
+    assert fk.TEMPORAL_LAUNCHES == before
+    with pytest.raises(ValueError, match="at most"):
+        Simulation(cfg, geometry.channel(16, 40), backend="cuda", temporal=most + 1)
+    with pytest.raises(ValueError, match="multiple of"):
+        Simulation(cfg37, geometry.channel(16, 37), backend="cuda", temporal=2)
+
+
+@pytest.mark.cuda
+def test_temporal_kernel_fast_math_within_its_tolerance(cuda_device):
+    cfg = LatticeConfig(nx=48, ny=96, dtype=np.float32)
+    f = _perturbed(cfg, cuda_device)
+    spec = geometry.infer_spec(_plate_48x96())
+    want = fk.temporal_reference(f, spec, cfg, fk.FAST_MATH_STEPS)
+    got = fk.temporal_step(f, torch.empty_like(f), spec, cfg, fk.FAST_MATH_STEPS,
+                           fast_math=True)
+    assert float(((got - want).abs() / want.abs()).max()) <= fk.FAST_MATH_RTOL
+
+
 # --- the probed run (Simulation.run_probed) on the card ----------------------
 
 PROBES = np.array([[5, 7], [12, 30], [1, 0], [15, 39]])
