@@ -8,8 +8,8 @@ Phases, each of which raises on failure:
 1. device: a CUDA card must be present; prints nvidia-smi's name and
    power limit;
 2. build: compiles the sources of csrc/ (lbm_step.cu, lbm_wide_step.cu,
-   lbm_wide_ext_step.cu, lbm_ds_step.cu, lbm_flat_step.cu,
-   lbm_temporal_step.cu, lbm_probes.cu)
+   lbm_wide_ext_step.cu, lbm_ds_step.cu, lbm_ds_temporal_step.cu,
+   lbm_flat_step.cu, lbm_temporal_step.cu, lbm_probes.cu)
    with nvcc, one process each, all started together (timed), and prints
    ptxas's registers and spills for every kernel instantiation;
 3. the float32 stream-collide kernel against its plain PyTorch version
@@ -45,12 +45,17 @@ Phases, each of which raises on failure:
    empty box (the wall-free variant): the kernel's chain bitwise equal to
    step_reference's at the end;
 7. the ds main path: Simulation(backend="cuda-ds64") on the 800x4000
-   reference scene for 10,000 steps after a warmup, every step a counted
-   launch; the state must be finite and non-negative and Re finite, and
-   a 200-step run from rest must match the float64 "torch" backend on the
-   same card within 1e-11 relative;
-8. times at 800x4000 of the ds kernel at each tier, its plain versions,
-   the eager "torch-ds64" engine, and the ds main path's slope; the ds
+   reference scene for 10,000 steps after a warmup, in passes of
+   DS_TEMPORAL = 4 steps through the ds kernel's temporal form, every
+   pass a counted launch (2,524) and every step counted in its passes, no
+   one-step launch; the state must be finite and non-negative and Re
+   finite, and a 200-step run from rest must match the float64 "torch"
+   backend on the same card within 1e-11 relative; then the same path at
+   800x4002, an NY the temporal form does not take, NARROW_STEPS counted
+   launches of the one-step kernel;
+8. times at 800x4000 of the one-step ds kernel at each tier, its plain
+   versions, the eager "torch-ds64" engine, and the ds main path's slope
+   (passes of 4); the ds
    kernels' instructions per site, counted in their SASS (cuobjdump) along
    the path of an ordinary site (utils/sass.py: past the forcing branches
    and the division's slow path), the bound they give and their issue
@@ -175,7 +180,8 @@ Phases, each of which raises on failure:
    with cuda, sharded-cuda and sharded-cuda-fused, and one step's 4 rdma
    launches of each form queued behind a spin, in turns, beside the
    ext-halo form's 4 launches, in float32 and bf16.
-Phases 22-24 run with phases 15-17 (sharded_phases).
+Phases 22-24 run with phases 15-17 (sharded_phases); phase 30's entry
+stands beside phase 6-8's in the kernels line.
 25. the probed main path: Simulation(backend="cuda").run_probed on the
    800x4000 reference scene at the three wake probes of
    scripts/numerics_tiers.py, PROBED_STEPS steps at every = 1, 8 and 3;
@@ -240,7 +246,25 @@ Phases 22-24 run with phases 15-17 (sharded_phases).
    states in exactly (WARMUP + MAIN_STEPS) // T counted passes of T steps
    and one of the rest (no one-step launch), run_probed at every = 1, 8
    and 3 bitwise equal to temporal=None's, and a run split at a step
-   count no multiple of T bitwise equal to the unsplit one.
+   count no multiple of T bitwise equal to the unsplit one;
+30. the pair-DP path's temporal form (ds_temporal_phase; the ds kernel's
+   temporal form, csrc/lbm_ds_temporal_step.cu: a pass of L pair steps
+   per launch): its tiles (two CTAs of 256 threads an SM, one of 512),
+   registers and spills at both tiers, masked and wall-free; the SASS of
+   the one-step ds kernels (their pair arithmetic moved into lbm_ds.cuh)
+   and of the kernels that share lbm_tile.cuh against a build of the
+   sources before the move (PARENT_SASS); one pass at every L each tile
+   takes, both tiers, masked and wall-free, bitwise against the chain of
+   step_reference at 5x8, 37x64, 45x1000 (ragged) and 800x4000 and
+   against temporal_reference_blocked at the card's tiles on the small
+   lattices; chains from rest at 800x4000 in passes of 4 (100 fast and 50
+   exact steps; barrier, symmetric channel, empty box) bitwise; phase 7's
+   main path bitwise equal to a temporal=1 session's 10,096 counted
+   one-step launches, and a split run; us/step by CUDA events in turns
+   with the one-step kernel for T = 1-4 and each tile's deepest pass, both
+   tiers at 800x4000 and the fast tier at 400x4000, each beside its
+   bounds (bytes per pass at the published rate and the copy kernel's,
+   the issue floor times the levels' recompute).
 
 The kernels line gives every kernel's bound (the temporal form's for one
 pass: the state read and written once, every level's operations): the
@@ -423,6 +447,7 @@ def reset_counts():
 
     fused_kernel.LAUNCHES = fused_ds_kernel.LAUNCHES = 0
     fused_kernel.EXT_LAUNCHES = fused_ds_kernel.EXT_LAUNCHES = 0
+    fused_ds_kernel.TEMPORAL_LAUNCHES = fused_ds_kernel.TEMPORAL_STEPS = 0
     fused_kernel.FLAT_LAUNCHES = fused_kernel.RDMA_LAUNCHES = 0
     fused_kernel.TEMPORAL_LAUNCHES = fused_kernel.TEMPORAL_STEPS = 0
     fused_kernel.TEMPORAL_VARIANT_LAUNCHES.clear()
@@ -440,9 +465,9 @@ def read_counts():
     """{variant: launches} of the stream-collide kernel, its ext-halo
     form's as "ext-<variant>", its rdma form's as "rdma-<variant>", its
     temporal form's as "temporal-<variant>", the ds kernel's under "ds"
-    and "ds-ext",
-    the flat kernel's under "flat" and the probes' under their own keys
-    ("copy-direct", "roll_y-shuffle", ...)."""
+    (one step a launch), "ds-temporal" (passes of the temporal form) and
+    "ds-ext", the flat kernel's under "flat" and the probes' under their
+    own keys ("copy-direct", "roll_y-shuffle", ...)."""
     from latticeboltzmann_tpu_torch.ops import fused_ds_kernel, fused_kernel, probes
 
     counts = dict(fused_kernel.VARIANT_LAUNCHES)
@@ -463,6 +488,8 @@ def read_counts():
     counts.update({f"temporal-{v}": n for v, n in temporal.items() if n})
     if fused_ds_kernel.LAUNCHES:
         counts["ds"] = fused_ds_kernel.LAUNCHES
+    if fused_ds_kernel.TEMPORAL_LAUNCHES:
+        counts["ds-temporal"] = fused_ds_kernel.TEMPORAL_LAUNCHES
     if fused_ds_kernel.EXT_LAUNCHES:
         counts["ds-ext"] = fused_ds_kernel.EXT_LAUNCHES
     if fused_kernel.FLAT_LAUNCHES:
@@ -615,10 +642,12 @@ def compare_ds_kernel(name, cfg, walls, f0, exact, steps=10):
     return err
 
 
-def long_ds_check(name, cfg, walls, exact):
+def long_ds_check(name, cfg, walls, exact, temporal=None):
     """The ds kernel's chain of DS_LONG_STEPS[exact] steps from rest
     against step_reference's chain from the same state: bitwise at the
-    end, every step a counted launch."""
+    end, every step a counted launch of the one-step kernel; with
+    `temporal`, the temporal form's chain in passes of `temporal` steps
+    and one of the rest, every pass a counted launch."""
     from latticeboltzmann_tpu_torch.models.engine import initial_state
     from latticeboltzmann_tpu_torch.ops import df64, fused_ds_kernel
 
@@ -626,20 +655,31 @@ def long_ds_check(name, cfg, walls, exact):
     solid = torch.as_tensor(walls.astype(np.uint8), device=dev)
     has_walls = bool(walls.any())
     ref = df64.from_f64(initial_state(cfg), dev)
+    steps = DS_LONG_STEPS[exact]
+    before = (fused_ds_kernel.LAUNCHES, fused_ds_kernel.TEMPORAL_LAUNCHES)
     a = df64.DS(ref.hi.clone(), ref.lo.clone())
     b = df64.DS(torch.empty_like(a.hi), torch.empty_like(a.lo))
-    steps = DS_LONG_STEPS[exact]
-    before = fused_ds_kernel.LAUNCHES
+    if temporal is None:
+        for _ in range(steps):
+            fused_ds_kernel.step(a, b, solid, cfg, has_walls=has_walls, exact=exact)
+            a, b = b, a
+        want = (steps, 0)
+    else:
+        for done in range(0, steps, temporal):
+            fused_ds_kernel.temporal_step(a, b, solid, cfg, min(temporal, steps - done),
+                                          has_walls=has_walls, exact=exact)
+            a, b = b, a
+        want = (0, -(-steps // temporal))
     for _ in range(steps):
-        fused_ds_kernel.step(a, b, solid, cfg, has_walls=has_walls, exact=exact)
-        a, b = b, a
         ref = fused_ds_kernel.step_reference(ref.hi, ref.lo, solid if has_walls else None, cfg,
                                              exact)
     torch.cuda.synchronize()
-    launches = fused_ds_kernel.LAUNCHES - before
+    got = (fused_ds_kernel.LAUNCHES - before[0], fused_ds_kernel.TEMPORAL_LAUNCHES - before[1])
+    launches = sum(got)
     tier = "exact" if exact else "fast"
-    if launches != steps:
-        raise AssertionError(f"{name}: {launches} ds kernel launches for {steps} steps")
+    if got != want:
+        raise AssertionError(f"{name}: (one-step, temporal) launches {got} for {steps} steps, "
+                             f"expected {want}")
     for part in ("hi", "lo"):
         got, want = getattr(a, part), getattr(ref, part)
         if not torch.equal(got, want):
@@ -648,9 +688,11 @@ def long_ds_check(name, cfg, walls, exact):
                 f"{name}: ds kernel chain ({tier}) != step_reference chain after {steps} steps "
                 f"from rest, {part} differs at {bad.shape[0]} values (first {bad[:5].tolist()})")
     u_x = float((a.hi[2] - a.hi[4] + a.hi[5] + a.hi[6] - a.hi[7] - a.hi[8]).abs().max())
+    form = "one-step" if temporal is None else f"temporal (passes of {temporal})"
     print(f"ds kernel chain vs step_reference chain {name} ({tier} tier, "
           f"{'masked' if has_walls else 'wall-free'}), {steps} steps from rest, {launches} "
-          f"launches: bitwise equal (max |x-momentum|, the cross-channel component, {u_x!r})")
+          f"launches of the {form} form: bitwise equal (max |x-momentum|, the cross-channel "
+          f"component, {u_x!r})")
 
 
 def rates_printer(cfg, bps):
@@ -858,7 +900,7 @@ def main() -> int:
     }]
     del sim, eng, a, b
 
-    ds, ds_counts, clock = ds_phases(copy)
+    ds, ds_counts, clock, ds_main = ds_phases(copy)
     bf16_main, options = option_phases(f32_main)
     ext = sharded_phases(f32_main, ds_counts, clock)
     anatomy = anatomy_phases()
@@ -873,8 +915,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_", dir=scratch) as tmp:
         cli_launches = cli_phase(pathlib.Path(tmp))
     temporal = temporal_phases(f32_main, bf16_main)
+    ds_temporal = ds_temporal_phase(ds_main, ds_counts, clock, copy)
 
-    entries = [*f32_entries, *options, ds, *ext, *anatomy, temporal]
+    entries = [*f32_entries, *options, ds, ds_temporal, *ext, *anatomy, temporal]
     add_cli_launches(entries, cli_launches, torch.cuda.device_count())
     print("bounds computed from this run's inputs, by kernel (not measured; not in the kernels "
           "line): " + json.dumps([{"name": e["name"], **computed_bounds(e)} for e in entries]))
@@ -972,11 +1015,21 @@ def forms_in_turns(rates, prefix, a, b, geoms, cfg, n, **kw):
         for label, g in geoms.items() for form in fused_kernel.FORMS}, n)
 
 
+def ds_passes(n_steps):
+    """The temporal form's passes of a ds session's advance(n_steps):
+    n_steps // DS_TEMPORAL of DS_TEMPORAL steps and one of the rest."""
+    from latticeboltzmann_tpu_torch.ops import fused_ds_kernel
+
+    return -(-n_steps // fused_ds_kernel.DS_TEMPORAL)
+
+
 def ds_phases(copy):
     """Phases 6-8: the pair-DP kernel and path. copy: copy_rate's result
-    for one float32 state (a ds step moves two). Returns the ds kernel's
-    entry of the kernels line, ds_site_counts() and the SM clock (MHz)
-    read under load."""
+    for one float32 state (a ds step moves two). Returns the one-step ds
+    kernel's entry of the kernels line, ds_site_counts(), the SM clock
+    (MHz) read under load, and the ds main path's {"launches": passes of
+    the temporal form, "state": its pair after WARMUP + MAIN_STEPS steps,
+    "us_per_step": its slope}."""
     from latticeboltzmann_tpu_torch import LatticeConfig, Simulation, geometry
     from latticeboltzmann_tpu_torch.models.engine import initial_state
     from latticeboltzmann_tpu_torch.ops import df64, fused_ds_kernel
@@ -996,7 +1049,8 @@ def ds_phases(copy):
         for exact in (False, True):
             long_ds_check(name, big, w, exact)
 
-    # 7. the ds main path, every launch counted
+    # 7. the ds main path: passes of DS_TEMPORAL steps through the temporal
+    # form, every launch and step counted; then the one-step form's path
     cfg = LatticeConfig(nx=800, ny=4000, dtype=np.float64)
     walls = geometry.reference_barrier(cfg.nx, cfg.ny)
     reset_counts()
@@ -1004,14 +1058,36 @@ def ds_phases(copy):
     sim.run(WARMUP)
     sim.elapsed, sim.steps_done = 0.0, 0
     sim.run(MAIN_STEPS)
-    launches = expect_counts("ds main path", {"ds": WARMUP + MAIN_STEPS})["ds"]
+    passes = ds_passes(WARMUP) + ds_passes(MAIN_STEPS)
+    launches = expect_counts("ds main path", {"ds-temporal": passes})["ds-temporal"]
+    if fused_ds_kernel.TEMPORAL_STEPS != WARMUP + MAIN_STEPS:
+        raise AssertionError(f"ds main path: {fused_ds_kernel.TEMPORAL_STEPS} steps counted in "
+                             f"the temporal form's passes, expected {WARMUP + MAIN_STEPS}")
+    sess = sim._session
     f = sim.state()
     re = sim.reynolds()
     if not (f.dtype == np.float64 and np.isfinite(f).all() and (f >= 0).all()
             and np.isfinite(re)):
         raise AssertionError(f"ds main path state not finite/non-negative, or Re {re!r}")
     print(f"ds main path: {MAIN_STEPS} steps (+{WARMUP} warmup) through backend=cuda-ds64, "
-          f"{launches} ds kernel launches, Re {re!r}, {sim.mlups!r} MLUPS ({sim.elapsed!r} s)")
+          f"{launches} counted passes of {sess.temporal} steps of the temporal form "
+          f"(lbm_ds_temporal_steps), no one-step launch, Re {re!r}, "
+          f"{sim.mlups!r} MLUPS ({sim.elapsed!r} s)")
+    main = {"launches": launches, "state": sim.f}
+    cfg_n = LatticeConfig(nx=800, ny=NARROW_NY, dtype=np.float64)
+    reset_counts()
+    sim_n = Simulation(cfg_n, geometry.reference_barrier(cfg_n.nx, cfg_n.ny), backend="cuda-ds64")
+    sim_n.run(NARROW_STEPS)
+    step_launches = expect_counts(f"ds path at 800x{NARROW_NY}", {"ds": NARROW_STEPS})["ds"]
+    f_n, re_n = sim_n.state(), sim_n.reynolds()
+    if not (np.isfinite(f_n).all() and (f_n >= 0).all() and np.isfinite(re_n)):
+        raise AssertionError(f"ds path at 800x{NARROW_NY}: state not finite/non-negative, or Re "
+                             f"{re_n!r}")
+    print(f"ds path at 800x{NARROW_NY} (NY no multiple of {fused_ds_kernel.TEMPORAL_COLUMNS}: "
+          f"one step a launch): {NARROW_STEPS} steps through backend=cuda-ds64, "
+          f"{step_launches} counted one-step launches (lbm_stream_collide_ds), Re {re_n!r}, "
+          f"{sim_n.mlups!r} MLUPS")
+    del sim_n, f_n
     got = Simulation(cfg, walls, backend="cuda-ds64").run(DS_COMPARE_STEPS).state()
     want = Simulation(cfg, walls, backend="torch", device="cuda").run(DS_COMPARE_STEPS).state()
     rel = float((np.abs(got - want) / np.maximum(np.abs(want), 1e-30)).max())
@@ -1023,7 +1099,9 @@ def ds_phases(copy):
 
     # 8. times at 800x4000
     rates = rates_printer(cfg, fused_ds_kernel.BYTES_PER_SITE_DS)
-    rates("ds main path, fast tier (slope 1680/5040 steps)", slope(sim))
+    main["us_per_step"] = slope(sim) * 1e6
+    rates(f"ds main path, fast tier, passes of {sess.temporal} (slope 1680/5040 steps)",
+          main["us_per_step"] * 1e-6)
 
     dev = torch.device("cuda")
     f = initial_state(cfg)
@@ -1063,11 +1141,12 @@ def ds_phases(copy):
               f"instructions a site at {clock!r} MHz); kernel {ms[exact] * 1e3!r} us")
     exact_keys = {f"exact_tier_{k}": v for k, v in bounds[True].items() if k != "library_ms"}
     return {
-        "name": "lbm_stream_collide_ds",
+        "name": "lbm_stream_collide_ds (one step a launch: temporal=1, and the shapes the "
+                f"temporal form does not take; launches: the 800x{NARROW_NY} path)",
         "route": "cuda",
         "source": "latticeboltzmann_tpu_torch/csrc/lbm_ds_step.cu",
-        "replaces": "latticeboltzmann_tpu/ops/fused_ds_kernel.py:272",
-        "launches": launches,
+        "replaces": "latticeboltzmann_tpu/ops/fused_ds_kernel.py:272 (temporal=1)",
+        "launches": step_launches,
         "max_abs_err": max(max_err.values()),
         "ms": ms[False],
         "plain_ms": plain[False],
@@ -1076,7 +1155,7 @@ def ds_phases(copy):
         # the fast tier, masked; the exact tier's beside it
         **bounds[False],
         **exact_keys,
-    }, counts, clock
+    }, counts, clock, main
 
 
 def slip_scene(nx, ny):
@@ -2556,7 +2635,9 @@ def probed_phases(f32_main):
         # (label, backend, dtype, launches of one run, form, the series it must also equal)
         ("cuda f32", "cuda", np.float32, {"f32-spec": PROBED_STEPS}, "wide", None),
         ("cuda bf16", "cuda", "bfloat16", {"bf16-spec": PROBED_STEPS}, "wide", None),
-        ("cuda-ds64", "cuda-ds64", np.float64, {"ds": PROBED_STEPS}, None, None),
+        # passes of the temporal form: every `every` steps one advance
+        ("cuda-ds64", "cuda-ds64", np.float64,
+         lambda every: {"ds-temporal": PROBED_STEPS // every * ds_passes(every)}, None, None),
         (f"sharded-cuda-rdma over {VIRTUAL_SHARDS} virtual shards", "sharded-cuda-rdma",
          np.float32, {"rdma-f32-spec": PROBED_STEPS * VIRTUAL_SHARDS}, form, "cuda f32"),
         # overlap schedule: each shard's interior and its two edge rows
@@ -2576,7 +2657,8 @@ def probed_phases(f32_main):
             sim = fresh()
             reset_counts()
             got = sim.run_probed(PROBED_STEPS, PROBES, every=every)
-            counts = expect_counts(f"run_probed, {label}, every {every}", want, form_want)
+            counts = expect_counts(f"run_probed, {label}, every {every}",
+                                   want(every) if callable(want) else want, form_want)
             if got.shape != (PROBED_STEPS // every, len(PROBES), 3) or not np.isfinite(got).all():
                 raise AssertionError(f"{label}, every {every}: series {got.shape}, finite "
                                      f"{np.isfinite(got).all()}")
@@ -2637,9 +2719,10 @@ def suite_phase(card):
     if len(rows) != len(bench_suite.CONFIGS) or insane:
         raise AssertionError(f"bench_suite rows not sane: {insane}")
     # the rows' kernel routes: f32 and bf16 single-chip, the ext-halo form
-    # (sharded-cuda), the ds kernel and its ext-halo form
+    # (sharded-cuda), the ds kernel's temporal form (cuda-ds64) and its
+    # ext-halo form (sharded-cuda-ds64)
     for route, prefix in (("f32", "f32-"), ("bf16", "bf16-"), ("ext-halo", "ext-f32-"),
-                          ("ds", "ds"), ("ds ext-halo", "ds-ext")):
+                          ("ds temporal", "ds-temporal"), ("ds ext-halo", "ds-ext")):
         if not any(k.startswith(prefix) and n for k, n in counts.items()):
             raise AssertionError(f"bench_suite launched no {route} kernel: {counts}")
     torch.cuda.empty_cache()
@@ -2649,11 +2732,15 @@ def validate_ds_phase():
     """Phase 27: scripts/validate_ds.py at its default size on the card."""
     from latticeboltzmann_tpu_torch.scripts import validate_ds
 
+    from latticeboltzmann_tpu_torch.ops import fused_ds_kernel
+
     reset_counts()
     out = validate_ds.validate(400, 2000, 2000, "cuda-ds64", "cuda")
     counts = read_counts()
-    print(f"validate_ds: {json.dumps(out)}; launches {counts}")
-    if not out["reynolds_pass"] or counts.get("ds") != 2000:
+    print(f"validate_ds: {json.dumps(out)}; launches {counts}, "
+          f"{fused_ds_kernel.TEMPORAL_STEPS} steps in the temporal form's passes")
+    if (not out["reynolds_pass"] or counts != {"ds-temporal": ds_passes(2000)}
+            or fused_ds_kernel.TEMPORAL_STEPS != 2000):
         raise AssertionError(f"validate_ds failed: {out}, launches {counts}")
 
 
@@ -2661,7 +2748,7 @@ def validate_ds_phase():
 # of its name, or (exact) its whole name
 CLI_ENTRIES = {"f32": ("lbm_stream_collide_wide<float,", False),
                "bf16": ("lbm_stream_collide_wide<__nv_bfloat16,", False),
-               "ds": ("lbm_stream_collide_ds", True),
+               "ds": ("lbm_ds_temporal_steps<", False),
                "rdma": ("lbm_stream_collide_rdma_wide<", False)}
 
 
@@ -2838,7 +2925,9 @@ def cli_phase(tmp):
     n_cards = torch.cuda.device_count()
     others = (
         ("bf16", ["--backend", "cuda", "--precision", "bf16"], {"bf16-spec": 1}, "wide", "bf16"),
-        ("cuda-ds64", ["--backend", "cuda-ds64", "--precision", "f64"], {"ds": 1}, None, "ds"),
+        # the warmup and each chunk are one advance: passes of the temporal form
+        ("cuda-ds64", ["--backend", "cuda-ds64", "--precision", "f64"], {"ds-temporal": ds_passes},
+         None, "ds"),
         (f"sharded-cuda-rdma over {n_cards} card(s)",
          ["--backend", "sharded-cuda-rdma", "--precision", "f32"],
          {"rdma-f32-spec": n_cards}, "wide", "rdma"),
@@ -2848,7 +2937,9 @@ def cli_phase(tmp):
         d = tmp / kernel
 
         def want(steps):
-            counts = {k: v * (steps + CLI_WARMUP) for k, v in per_step.items()}
+            # launches per step, or of one advance (a function of its steps)
+            counts = {k: v(steps) + v(CLI_WARMUP) if callable(v) else v * (steps + CLI_WARMUP)
+                      for k, v in per_step.items()}
             return counts, (None if form is None else {form: sum(counts.values())})
 
         common = ["--warmup", CLI_WARMUP, "--print-stats-every", 0, "--debug-nans"]
@@ -3262,6 +3353,320 @@ def temporal_phases(f32_main, bf16_main):
         "tile": info,
     }
     print(f"phase 29 took {time.perf_counter() - t_phase:.1f} s")
+    return entry
+
+
+# the pair-DP temporal form (phase 30): the depths timed beside each tile's
+# deepest pass, the steps of a timed run (rounded up to a multiple of each
+# depth), and the split run's parts, no multiple of DS_TEMPORAL
+DS_TEMPORAL_DEPTHS = (1, 2, 3, 4)
+# the CTAs an SM of the ds temporal form's tile (csrc/lbm_tile.cuh's
+# kCtasPerSm)
+DS_TEMPORAL_CTAS_PER_SM = 2
+DS_TEMPORAL_TIMED_STEPS = 240
+DS_TEMPORAL_SPLIT = (1009, 491)
+# the SASS of the kernels of the sources whose shared code moved into
+# headers (lbm_ds_step.cu into lbm_ds.cuh; lbm_temporal_step.cu and
+# lbm_flat_step.cu through lbm_tile.cuh), built from the sources before the
+# move by this nvcc on an H100: the first 16 hex digits of
+# utils/sass.digests, by utils/sass.kernel_key
+PARENT_SASS_NVCC = "Build cuda_12.9.r12.9/compiler.36037853_0"
+PARENT_SASS = {
+    "25lbm_stream_collide_ds_extILb0ELb0EEEvPKfS2_PfS3_PKhNS_3ExtEllNS_6ParamsE": "b639a878bb88d862",
+    "25lbm_stream_collide_ds_extILb0ELb1EEEvPKfS2_PfS3_PKhNS_3ExtEllNS_6ParamsE": "ae34c965006d8e85",
+    "25lbm_stream_collide_ds_extILb1ELb0EEEvPKfS2_PfS3_PKhNS_3ExtEllNS_6ParamsE": "7467240c3229a669",
+    "25lbm_stream_collide_ds_extILb1ELb1EEEvPKfS2_PfS3_PKhNS_3ExtEllNS_6ParamsE": "286f0c3793165f12",
+    "21lbm_stream_collide_dsILb0ELb0EEEvPKfS2_PfS3_PKhllNS_6ParamsE": "63469df46dd6522e",
+    "21lbm_stream_collide_dsILb0ELb1EEEvPKfS2_PfS3_PKhllNS_6ParamsE": "753499863f28285d",
+    "21lbm_stream_collide_dsILb1ELb0EEEvPKfS2_PfS3_PKhllNS_6ParamsE": "68adfbc1c78e42b5",
+    "21lbm_stream_collide_dsILb1ELb1EEEvPKfS2_PfS3_PKhllNS_6ParamsE": "ce4af6ba22bf70f6",
+    "14lbm_flat_stepsIfEEvPT_iiiNS_4PlanEiNS_6ParamsEi": "ae59d825dbb445a8",
+    "14lbm_flat_stepsI13__nv_bfloat16EEvPT_iiiNS_4PlanEiNS_6ParamsEi": "c2bd802c7171b025",
+    "18lbm_temporal_stepsIfLi0EEEvPKT_PS1_PKhNS_4SpecEiiiiNS_6ParamsEi": "6018e0560215df62",
+    "18lbm_temporal_stepsIfLi2EEEvPKT_PS1_PKhNS_4SpecEiiiiNS_6ParamsEi": "81b587f2dc3ab01c",
+    "18lbm_temporal_stepsIfLi1EEEvPKT_PS1_PKhNS_4SpecEiiiiNS_6ParamsEi": "c3caf43d15ca894c",
+    "18lbm_temporal_stepsI13__nv_bfloat16Li0EEEvPKT_PS2_PKhNS_4SpecEiiiiNS_6ParamsEi":
+        "042476579fcc65a0",
+    "18lbm_temporal_stepsI13__nv_bfloat16Li2EEEvPKT_PS2_PKhNS_4SpecEiiiiNS_6ParamsEi":
+        "8624b7c7e956a5f6",
+    "18lbm_temporal_stepsI13__nv_bfloat16Li1EEEvPKT_PS2_PKhNS_4SpecEiiiiNS_6ParamsEi":
+        "ff19e0cfeba94bdc",
+}
+
+
+def sass_against_parent():
+    """Raise unless every kernel of PARENT_SASS has the same SASS in the
+    built library (utils/sass.digests of cuobjdump's listing); with another
+    nvcc than PARENT_SASS_NVCC, print that the builds are not comparable."""
+    import subprocess
+
+    from latticeboltzmann_tpu_torch.ops import cuda_build
+    from latticeboltzmann_tpu_torch.utils import sass
+
+    version = subprocess.run([cuda_build.find_nvcc(), "--version"], capture_output=True, text=True,
+                             check=True).stdout.strip().splitlines()[-1]
+    if version != PARENT_SASS_NVCC:
+        print(f"SASS vs the sources before the move: not comparable, this nvcc is {version!r} and "
+              f"the recorded digests are {PARENT_SASS_NVCC!r}'s")
+        return
+    got = sass.digests(sass.disassemble(cuda_build.build()))
+    differ = [k for k, v in PARENT_SASS.items() if not got.get(k, "").startswith(v)]
+    if differ:
+        raise AssertionError(f"SASS differs from the sources before the move: {differ}")
+    print(f"SASS vs the sources before the move ({version}): all {len(PARENT_SASS)} kernels "
+          "identical: lbm_stream_collide_ds and lbm_stream_collide_ds_ext (8, their pair "
+          "arithmetic now in lbm_ds.cuh), lbm_temporal_steps (6) and lbm_flat_steps (2, "
+          "through lbm_tile.cuh)")
+
+
+def ds_pass_traffic(nx, ny, rows, L, has_walls=True):
+    """(bytes a pass of the ds temporal form reads, bytes it writes, site
+    updates of its levels) at a tile of `rows` rows: each output tile
+    reads its rows and 16-byte vectors of columns, halos included, 72 B a
+    site and a class byte (masked), writes its sites, and its level t
+    updates its output grown by L - t a side."""
+    from latticeboltzmann_tpu_torch.ops import fused_ds_kernel as fdk
+    from latticeboltzmann_tpu_torch.ops import fused_kernel as fk
+
+    v = fdk.TEMPORAL_COLUMNS
+    R, C = fk.flat_output(fk.FlatTile(rows, 72), torch.float32, L)
+    pad = -(-L // v) * v
+    res = [min(R, nx - r0) for r0 in range(0, nx, R)]
+    ces = [min(C, ny - c0) for c0 in range(0, ny, C)]
+    cols = sum(-(-(pad + ce + L) // v) * v - (pad - L) // v * v for ce in ces)
+    site = 2 * 9 * 4  # 9 hi and 9 lo floats
+    read = sum(re + 2 * L for re in res) * cols * (site + (1 if has_walls else 0))
+    write = sum(res) * sum(ces) * site
+    updates = sum(sum(re + 2 * g for re in res) * sum(ce + 2 * g for ce in ces)
+                  for g in range(L))
+    return read, write, updates
+
+
+def ds_temporal_bitwise(name, cfg, f, solid, exact, blocked):
+    """One pass of the ds temporal form at every L its tile takes, from the
+    pair f, bitwise against the chain of step_reference (L steps) and, at
+    L <= blocked, against temporal_reference_blocked at that tile. Returns
+    max |diff| (0.0)."""
+    from latticeboltzmann_tpu_torch.ops import df64
+    from latticeboltzmann_tpu_torch.ops import fused_ds_kernel as fdk
+    from latticeboltzmann_tpu_torch.ops import fused_kernel as fk
+
+    hw = solid is not None
+    i = fdk.temporal_info(exact, hw)
+    ref, err = f, 0.0
+    for steps in range(1, i["max_steps"] + 1):
+        ref = fdk.step_reference(ref.hi, ref.lo, solid, cfg, exact)
+        label = f"ds temporal {name} L {steps}"
+        dst = df64.DS(torch.full_like(f.hi, float("nan")), torch.full_like(f.lo, float("nan")))
+        fdk.temporal_step(f, dst, solid, cfg, steps, has_walls=hw, exact=exact)
+        err = max(err, bitwise(f"{label}, hi", dst.hi, ref.hi),
+                  bitwise(f"{label}, lo", dst.lo, ref.lo))
+        if steps <= blocked:
+            b = fdk.temporal_reference_blocked(f.hi, f.lo, solid, cfg, exact, steps,
+                                               fk.FlatTile(i["rows"], i["width"]))
+            bitwise(f"{label}: temporal_reference_blocked, hi", b.hi, ref.hi)
+            bitwise(f"{label}: temporal_reference_blocked, lo", b.lo, ref.lo)
+    return err
+
+
+def ds_temporal_phase(main, counts, clock, copy):
+    """Phase 30: the pair-DP path's temporal form
+    (csrc/lbm_ds_temporal_step.cu), passes of L pair steps. (a) Its tile
+    at both tiers and both variants: rows, registers, spills, occupancy,
+    the deepest pass;
+    the SASS of the kernels whose code moved into headers against the
+    sources before the move (sass_against_parent). (b) One pass at every L
+    the tile takes, both tiers, masked and wall-free, bitwise against the
+    chain of step_reference at 5x8 (smaller than one tile), 37x64, 45x1000
+    (a ragged last tile in both axes) and 800x4000, and against
+    temporal_reference_blocked at the card's tiles for L 1-2 below 100,000
+    sites. (c) Chains from rest at 800x4000 in passes of DS_TEMPORAL (100
+    fast, 50 exact steps; barrier, symmetric channel, empty box), bitwise
+    against step_reference's. (d) Phase 7's main path
+    (main: its WARMUP + MAIN_STEPS steps in passes of DS_TEMPORAL) bitwise
+    equal to a temporal=1 session's, every launch of that one counted as a
+    one-step launch; run(a) + run(b), a no multiple of DS_TEMPORAL, bitwise
+    equal to run(a + b). (e) us/step by CUDA events in turns with the
+    one-step kernel: T in DS_TEMPORAL_DEPTHS and the tile's deepest, both
+    tiers at 800x4000, the fast tier at 400x4000; each time's bounds on
+    its own line (bytes per pass at the published rate and at the copy
+    kernel's, the issue floor times the levels' recompute). counts, clock:
+    ds_phases' SASS counts of the one-step kernel (the same collision) and
+    the SM clock; copy: copy_rate's result for one float32 state. Returns
+    the kernels line's entry."""
+    from latticeboltzmann_tpu_torch import LatticeConfig, Simulation, geometry
+    from latticeboltzmann_tpu_torch.models.engine import initial_state
+    from latticeboltzmann_tpu_torch.ops import df64, ds_engine
+    from latticeboltzmann_tpu_torch.ops import fused_ds_kernel as fdk
+    from latticeboltzmann_tpu_torch.utils import sass
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 30)
+
+    # 30a. the tiles, and the SASS of the moved code
+    info = {}
+    for exact in (False, True):
+        for hw in (True, False):
+            i = info[(exact, hw)] = fdk.temporal_info(exact, hw)
+            print(f"ds temporal kernel lbm_ds_temporal_steps<{'masked' if hw else 'wall-free'}, "
+                  f"{'exact' if exact else 'fast'}>: tile {i['rows']}x{i['width']} sites, "
+                  f"{i['ctas_per_sm']} CTAs/SM, {i['registers']} registers, {i['local_bytes']} B "
+                  f"local memory (stack and spills), {i['shared_bytes_per_cta']} shared B/CTA; "
+                  f"deepest pass {i['max_steps']} steps")
+            if i["ctas_per_sm"] != DS_TEMPORAL_CTAS_PER_SM or i["local_bytes"]:
+                raise AssertionError(f"ds temporal tile {exact, hw}: {i}")
+    sass_against_parent()
+
+    # 30b. bitwise at every depth
+    err = 0.0
+    for name, nx, ny in (("5x8, smaller than one tile", 5, 8), ("37x64", 37, 64),
+                         ("45x1000, a ragged last tile in both axes", 45, 1000),
+                         ("800x4000 reference_barrier", 800, 4000)):
+        big = nx * ny >= 100_000
+        cfg = LatticeConfig(nx=nx, ny=ny, dtype=np.float64, **({} if big else {"accel": 0.005}))
+        if big:
+            walls = geometry.reference_barrier(nx, ny)
+        else:
+            walls = geometry.channel(nx, ny)
+            walls[nx // 3: nx // 3 + 2, 0:3] = True
+        f0 = initial_state(cfg) * (1.0 + 0.05 * rng.uniform(-1.0, 1.0, (9, nx, ny)))
+        f0[6, nx // 2, 0] = 1e-6  # the forcing guard fails at one column-0 site
+        f = df64.from_f64(f0, dev)
+        solid = torch.as_tensor(walls.astype(np.uint8), device=dev)
+        for hw in (True, False):
+            for exact in (False, True):
+                err = max(err, ds_temporal_bitwise(name, cfg, f, solid if hw else None, exact,
+                                                   0 if big else 2))
+                print(f"ds temporal kernel vs step_reference, {name} ({'exact' if exact else 'fast'}"
+                      f" tier, {'masked' if hw else 'wall-free'}), one pass at every L up to "
+                      f"{info[(exact, hw)]['max_steps']}: bitwise"
+                      + ("" if big else "; vs temporal_reference_blocked at L 1-2: bitwise"))
+        del f, solid
+    print(f"phase 30b (bitwise) done at {time.perf_counter() - t_phase:.1f} s")
+
+    # 30c. chains from rest through the session's passes
+    big = LatticeConfig(nx=800, ny=4000, dtype=np.float64)
+    for name, w in (("800x4000 reference_barrier", geometry.reference_barrier(big.nx, big.ny)),
+                    ("800x4000 symmetric channel", geometry.channel(big.nx, big.ny)),
+                    ("800x4000 empty box", geometry.empty(big.nx, big.ny))):
+        for exact in (False, True):
+            long_ds_check(name, big, w, exact, temporal=fdk.DS_TEMPORAL)
+    print(f"phase 30c (chains) done at {time.perf_counter() - t_phase:.1f} s")
+
+    # 30d. the main path against one step a launch; a split run
+    cfg = LatticeConfig(nx=800, ny=4000, dtype=np.float64)
+    walls = geometry.reference_barrier(cfg.nx, cfg.ny)
+    n_main = WARMUP + MAIN_STEPS
+    one = fdk.Session(cfg, walls, device=dev, temporal=1)
+    one.load(df64.from_f64(initial_state(cfg), dev))
+    reset_counts()
+    one.advance(n_main)
+    expect_counts("ds main path at temporal=1", {"ds": n_main})
+    got, want = main["state"], one.state()
+    bitwise("ds main path (temporal form) vs temporal=1, hi", got.hi, want.hi)
+    bitwise("ds main path (temporal form) vs temporal=1, lo", got.lo, want.lo)
+    print(f"ds main path: {n_main} steps in {main['launches']} counted passes of "
+          f"{fdk.DS_TEMPORAL} (phase 7) bitwise equal to a temporal=1 session's {n_main} "
+          f"counted one-step launches")
+    del one, want
+    first, second = DS_TEMPORAL_SPLIT
+    f0 = ds_engine.state_f64(got)
+    split = Simulation(cfg, walls, backend="cuda-ds64", f0=f0)
+    whole = Simulation(cfg, walls, backend="cuda-ds64", f0=f0)
+    if not np.array_equal(split.run(first).run(second).state(), whole.run(first + second).state()):
+        raise AssertionError(f"cuda-ds64: run({first}) + run({second}) != run({first + second})")
+    print(f"cuda-ds64: run({first}) + run({second}) == run({first + second}), bitwise (passes "
+          f"{ds_passes(first)} + {ds_passes(second)} against {ds_passes(first + second)})")
+    del split, whole, got, main["state"]
+    torch.cuda.empty_cache()
+
+    # 30e. times by depth, in turns with the one-step kernel, and bounds
+    lanes = torch.cuda.get_device_properties(0).multi_processor_count * FP32_LANES_PER_SM
+    copy_rate_bps = 2 * 9 * cfg.sites * 4 / (copy["ms"] * 1e-3)  # one f32 state read and written
+    by_t, best_all = {}, {}
+    for label, nx, tiers in (("800x4000", 800, (False, True)), ("400x4000", 400, (False,))):
+        cfg = LatticeConfig(nx=nx, ny=4000, dtype=np.float64)
+        walls = geometry.reference_barrier(nx, 4000)
+        f0 = initial_state(cfg) * (1.0 + 0.05 * rng.uniform(-1.0, 1.0, (9, nx, 4000)))
+        a = df64.from_f64(f0, dev)
+        b = df64.DS(torch.empty_like(a.hi), torch.empty_like(a.lo))
+        solid = torch.as_tensor(walls.astype(np.uint8), device=dev)
+        rates = rates_printer(cfg, fdk.BYTES_PER_SITE_DS)
+        for exact in tiers:
+            tier = "exact" if exact else "fast"
+            fns = {"one-step kernel": (lambda exact=exact: fdk.step(
+                a, b, solid, cfg, has_walls=True, exact=exact), 1)}
+            for L in sorted({*DS_TEMPORAL_DEPTHS, info[(exact, True)]["max_steps"]}):
+                fns[f"T={L}"] = (lambda L=L, exact=exact: fdk.temporal_step(
+                    a, b, solid, cfg, L, has_walls=True, exact=exact), L)
+            best = {}
+            for key in list(fns) + list(reversed(fns)):
+                fn, L = fns[key]
+                n = -(-DS_TEMPORAL_TIMED_STEPS // L)
+                us = event_ms(fn, n) * 1e3 / L
+                rates(f"ds {label} {tier} tier, {key} (CUDA events, {n} launches of {L} "
+                      f"step(s), in turns)", us * 1e-6)
+                best[key] = min(best.get(key, us), us)
+            fp32 = sum(counts[("ds", True, exact)][k] for k in sass.FP32)
+            for key, us in best.items():
+                fn, L = fns[key]
+                if key == "one-step kernel":
+                    continue
+                read, write, updates = ds_pass_traffic(nx, 4000, info[(exact, True)]["rows"], L)
+                pair_state = 2 * 9 * 4 * cfg.sites
+                floor_us = fp32 * updates / (lanes * clock * 1e6) * 1e6 / L
+                print(f"ds temporal bound, {label} {tier} tier, {key}: a pass reads {read} B "
+                      f"({read / pair_state!r} of the pair state) and writes {write} B: "
+                      f"{(read + write) / PEAK_BYTES_PER_S * 1e6 / L!r} us/step at "
+                      f"{PEAK_BYTES_PER_S:.3g} B/s, {(read + write) / copy_rate_bps * 1e6 / L!r} at "
+                      f"the copy kernel's {copy_rate_bps:.4g} B/s; its levels update "
+                      f"{updates / (L * cfg.sites)!r} times the sites: issue floor {floor_us!r} "
+                      f"us/step ({fp32} FP32 instructions a site at {clock!r} MHz on {lanes} "
+                      f"lanes); measured {us!r} us/step (one-step kernel {best['one-step kernel']!r})")
+            by_t[f"{label} {tier}"] = best
+            best_all[(label, exact)] = best
+        del a, b, solid
+
+    # the entry: one pass of DS_TEMPORAL at 800x4000, the fast tier, masked;
+    # its plain version; the bound of the pass
+    cfg = LatticeConfig(nx=800, ny=4000, dtype=np.float64)
+    walls = geometry.reference_barrier(800, 4000)
+    a = df64.from_f64(initial_state(cfg) * (1.0 + 0.05 * rng.uniform(-1.0, 1.0, (9, 800, 4000))),
+                      dev)
+    solid = torch.as_tensor(walls.astype(np.uint8), device=dev)
+    T = fdk.DS_TEMPORAL
+    key = f"T={T}"
+    plain = {exact: event_ms(lambda exact=exact: fdk.temporal_reference(
+        a.hi, a.lo, solid, cfg, exact, T), 1) for exact in (False, True)}
+    n_bytes = 4 * a.hi.numel() * 4 + solid.numel()
+    bd = counted_bound(n_bytes, counts[("ds", True, False)], cfg.sites * T, clock)
+    print(f"ds temporal kernel, one pass of {T} steps at 800x4000, fast tier, masked: "
+          f"{best_all[('800x4000', False)][key] * T!r} us (exact tier "
+          f"{best_all[('800x4000', True)][key] * T!r}); temporal_reference {plain[False]!r} ms "
+          f"(exact {plain[True]!r}); bound of the pass {bd['bound_ms'] * 1e3!r} us by "
+          f"{bd['bound_by']} (each input read once, each output written once, {n_bytes} B; "
+          f"{bd['ops_per_site']} ops a site-step); main path {main['us_per_step']!r} us/step")
+    entry = {
+        "name": f"lbm_ds_temporal_steps<HAS_WALLS, EXACT> (a pass of L pair steps; main path "
+                f"T={T}; ms: one pass of {T} steps, fast tier, masked, 800x4000)",
+        "route": "cuda",
+        "source": "latticeboltzmann_tpu_torch/csrc/lbm_ds_temporal_step.cu",
+        "replaces": "latticeboltzmann_tpu/ops/fused_ds_kernel.py:272 (temporal=DS_TEMPORAL)",
+        "launches": main["launches"],
+        "max_abs_err": err,
+        "ms": best_all[("800x4000", False)][key] * T * 1e-3,
+        "plain_ms": plain[False],
+        "exact_tier_ms": best_all[("800x4000", True)][key] * T * 1e-3,
+        "exact_tier_plain_ms": plain[True],
+        **bd,
+        "main_path_us_per_step": main["us_per_step"],
+        "us_per_step_by_T": by_t,
+        "tile": {f"{'exact' if k[0] else 'fast'}-{'masked' if k[1] else 'wall-free'}": v
+                 for k, v in info.items()},
+    }
+    print(f"phase 30 took {time.perf_counter() - t_phase:.1f} s")
     return entry
 
 

@@ -93,15 +93,6 @@ constexpr int64_t tile_bytes(int64_t rows, int64_t itemsize) {
   return rows * kW * (9 * itemsize + 1);
 }
 
-// an asynchronous copy of N = 4 or 8 bytes (a vector's class bytes)
-template <int N>
-__device__ __forceinline__ void copy_small_async(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s),
-               "l"(__cvta_generic_to_global(gmem)), "n"(N)
-               : "memory");
-}
-
 // The guard of the column-0 sites among rows [ra, rb) and columns [ca, cb)
 // of the tile, read at the current level in its layout, into the top bit
 // of each one's class byte: set where the site is fluid and f6, f3 and f7

@@ -1,11 +1,12 @@
 // The tile of the kernels that run several steps per pass through device
 // memory in shared memory: the flat kernel (lbm_flat_step.cu, wall-free,
-// a stacked ping-pong pair) and the temporal form (lbm_temporal_step.cu,
-// with walls, src -> dst). What they share is the tile's shape, its
-// interleaved layout and the walk over it: the slots of the natural and
-// pushed layouts, the CTA's walk over items, the column halo of a pass
-// and where an output tile lies. Each kernel keeps its own loads, levels
-// and forcing guard.
+// a stacked ping-pong pair), the temporal form (lbm_temporal_step.cu,
+// with walls, src -> dst) and the pair-DP temporal form
+// (lbm_ds_temporal_step.cu, 9 hi and 9 lo planes a row). What they share
+// is the tile's shape, its interleaved layout and the walk over it: the
+// slots of the natural and pushed layouts, the CTA's walk over items, the
+// column halo of a pass and where an output tile lies. Each kernel keeps
+// its own loads, levels and forcing guard.
 
 #pragma once
 
@@ -65,6 +66,15 @@ __device__ __forceinline__ void copy16_async(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
                "l"(__cvta_generic_to_global(gmem))
+               : "memory");
+}
+
+// an asynchronous copy of N = 4 or 8 bytes (a vector's class bytes)
+template <int N>
+__device__ __forceinline__ void copy_small_async(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s),
+               "l"(__cvta_generic_to_global(gmem)), "n"(N)
                : "memory");
 }
 

@@ -12,8 +12,11 @@ the port's backends.
 - "torch-ds64": the eager pair-DP engine (ops/ds_engine.py, the exact
   tier) on any device, the counterpart of "xla-ds64".
 - "cuda-ds64": a persistent ops/fused_ds_kernel.Session around the CUDA
-  ds kernel at the fast tier, the counterpart of "pallas-ds64". Like
-  "cuda", it raises without a card.
+  ds kernel at the fast tier, the counterpart of "pallas-ds64": like it,
+  passes of DS_TEMPORAL = 4 pair steps per launch (the kernel's temporal
+  form; one step a launch where NY is no multiple of 4). The facade's
+  temporal= selects nothing here, as the JAX facade passes it only to
+  "pallas". Like "cuda", it raises without a card.
 - "sharded" / "sharded-sync": the eager row-sharded runner
   (parallel/sharded.py) with the overlap / sync schedule, on any device,
   the counterparts of the JAX backends of the same names.

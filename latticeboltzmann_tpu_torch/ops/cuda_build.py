@@ -22,9 +22,9 @@ import subprocess
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 SOURCES = ("lbm_step.cu", "lbm_wide_step.cu", "lbm_wide_ext_step.cu", "lbm_ds_step.cu",
-           "lbm_flat_step.cu", "lbm_temporal_step.cu", "lbm_probes.cu")
+           "lbm_ds_temporal_step.cu", "lbm_flat_step.cu", "lbm_temporal_step.cu", "lbm_probes.cu")
 # included by the sources (each from its own directory); hashed with them
-HEADERS = ("lbm_collide.cuh", "lbm_ext.cuh", "lbm_tile.cuh", "lbm_wide.cuh")
+HEADERS = ("lbm_collide.cuh", "lbm_ds.cuh", "lbm_ext.cuh", "lbm_tile.cuh", "lbm_wide.cuh")
 LIB_NAME = "liblbm_kernels.so"
 GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
 # sm_90a keeps Hopper-only instructions available; -fmad=false and no
@@ -234,6 +234,30 @@ def load_library() -> ctypes.CDLL:
         ctypes.c_int64,   # exact
         ctypes.c_void_p,  # params: 20 (exact) or 18 (fast) host floats
         ctypes.c_void_p,  # cudaStream_t
+    ]
+    fn = lib.lbm_ds_temporal_steps_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [
+        ctypes.c_void_p,  # src_hi
+        ctypes.c_void_p,  # src_lo
+        ctypes.c_void_p,  # dst_hi
+        ctypes.c_void_p,  # dst_lo
+        ctypes.c_void_p,  # solid (may be null for the wall-free variant)
+        ctypes.c_int64,   # nx
+        ctypes.c_int64,   # ny: a multiple of 4
+        ctypes.c_int64,   # has_walls
+        ctypes.c_int64,   # exact
+        ctypes.c_int64,   # steps of the pass
+        ctypes.c_void_p,  # params: 20 (exact) or 18 (fast) host floats
+        ctypes.c_void_p,  # cudaStream_t
+    ]
+    fn = lib.lbm_ds_temporal_steps_info
+    fn.restype = ctypes.c_int
+    fn.argtypes = [
+        ctypes.c_int64,   # exact
+        ctypes.c_int64,   # has_walls
+        ctypes.c_void_p,  # out: 6 int64 (registers, CTAs per SM, shared bytes, local bytes,
+                          # the tile's rows and columns)
     ]
     fn = lib.lbm_flat_steps_launch
     fn.restype = ctypes.c_int

@@ -19,9 +19,26 @@ writes a range of the shard's local rows, and the rows beyond the shard
 come from two halo rows of each pair component, all 9 speed planes of a
 ring neighbour's boundary row. Its launches are counted in EXT_LAUNCHES.
 
+The temporal form (`temporal_step`; plain versions `temporal_reference`
+and, tile by tile, `temporal_reference_blocked`;
+csrc/lbm_ds_temporal_step.cu) is the JAX kernel's temporal blocking: one
+launch runs a pass of L pair steps from one pair to the other in a tile
+of shared memory, one state through device memory per pass where the
+one-step kernel moves one per step; `temporal_info` reads the tile the
+card gives it and the deepest pass it takes. `Session` (and so the
+'cuda-ds64' backend and `run_steps`) runs n steps as n // T passes of T =
+DS_TEMPORAL and one of the rest, as the JAX run_steps does with
+divmod(n_steps, T), at the fast tier; temporal=1, a shape the temporal
+form does not take (NY no multiple of 4) and the exact tier run the
+one-step kernel, a choice by shape and by tier: the exact tier's passes
+are slower than its one-step kernel on an H100 (PERF.md, row 3-T).
+The two forms' launches are counted apart: LAUNCHES (one step) and
+TEMPORAL_LAUNCHES (passes; their steps in TEMPORAL_STEPS). Every result is
+bitwise independent of T, as the JAX kernel's is.
+
 State is the unpadded DS pair of (9, NX, NY) float32 planes. The TPU
-kernel's mirror-pad lanes, pad re-mirroring, row blocks and temporal
-blocking have no counterpart here (ROADMAP, "Not to port").
+kernel's mirror-pad lanes, pad re-mirroring and 8-row halo blocks have no
+counterpart here.
 """
 
 from __future__ import annotations
@@ -33,21 +50,26 @@ from typing import Callable
 import numpy as np
 import torch
 
-from ..core.spec import NSPEEDS, LatticeConfig
+from ..core.spec import E, NSPEEDS, LatticeConfig
 from ..utils.interop import storage_dtype
-from . import cuda_build, df64, ds_engine, stream_collide
+from . import cuda_build, df64, ds_engine, fused_kernel, stream_collide
 from .df64 import DS
 from .fused_kernel import ShardPlane, check_device, check_ext_launch, check_solid_plane
 
-# kernel launches made by `step` and by the ext-halo form, for callers
-# that must show a run went through the kernel (chip_smoke.py resets and
-# reads both)
+# kernel launches made by `step` (the one-step form), by the ext-halo
+# form and by `temporal_step` (the temporal form; TEMPORAL_STEPS: the steps
+# its passes ran), for callers that must show a run went through a kernel
+# (chip_smoke.py resets and reads them)
 LAUNCHES = 0
 EXT_LAUNCHES = 0
+TEMPORAL_LAUNCHES = 0
+TEMPORAL_STEPS = 0
 
-# the JAX kernel's default temporal-blocking depth; its results are
-# bitwise independent of it, and here it has no effect at all
+# the JAX kernel's default temporal-blocking depth (its DS_TEMPORAL), the
+# steps of a Session's passes; results are bitwise independent of it
 DS_TEMPORAL = 4
+# the temporal form's columns of one 16-byte vector: NY must be a multiple
+TEMPORAL_COLUMNS = 4
 
 # device-memory bytes per site update: two f32 components, 9 reads and
 # 9 writes each (the 1 B mask read of the masked variant not counted)
@@ -58,7 +80,7 @@ BYTES_PER_SITE_DS = 2 * 2 * NSPEEDS * 4
 def kernel_constants_ds(cfg: LatticeConfig, exact: bool) -> tuple[float, ...]:
     """The host floats the kernel takes, split on the host from float64
     exactly as ds_engine splits them, in the order of Params in
-    csrc/lbm_ds_step.cu.
+    csrc/lbm_ds.cuh.
 
     exact=False (the fast tier, 18 floats): the pairs c1, iw0, iw14,
     iw58, c3, csixth (the (hi, lo) of their split_const quads: the kernel
@@ -261,23 +283,214 @@ def ext_launcher(
     return launch
 
 
+def temporal_reference(hi: torch.Tensor, lo: torch.Tensor, solid: torch.Tensor | None,
+                       cfg: LatticeConfig, exact: bool, steps: int) -> DS:
+    """Plain PyTorch version of the temporal form: `steps` chained
+    step_reference calls from (hi, lo). solid: (NX, NY) uint8 codes 0/1,
+    or None for the wall-free variant. Returns a new pair."""
+    fused_kernel._check_temporal(steps)
+    out = DS(hi, lo)
+    for _ in range(steps):
+        out = step_reference(out.hi, out.lo, solid, cfg, exact)
+    return out
+
+
+def temporal_reference_blocked(hi: torch.Tensor, lo: torch.Tensor, solid: torch.Tensor | None,
+                               cfg: LatticeConfig, exact: bool, steps: int, tile) -> DS:
+    """Plain PyTorch version of the temporal form's tiling:
+    temporal_reference's result, computed the way
+    csrc/lbm_ds_temporal_step.cu computes it, one pass of `steps` steps
+    tile by tile: output tiles of fused_kernel.flat_output(tile,
+    torch.float32, steps) sites (ragged at the last row and column), each
+    from its source pair and its classes grown by `steps` on each side
+    with periodic wrap by modulo indices (a site may appear more than
+    once), levels each one site smaller on each side, the pair forcing at
+    fluid sources of GLOBAL column 0 with the guard read at the level
+    being read, then the collision at the tier and bounce-back. tile: any
+    rows and width (a fused_kernel.FlatTile) that leave an output tile
+    (temporal_info gives the kernel's on a card). Returns a new pair."""
+    fused_kernel._check_temporal(steps)
+    tile = fused_kernel.FlatTile(*tile)
+    R, C = fused_kernel.flat_output(tile, torch.float32, steps)
+    if min(R, C) < 1:
+        raise ValueError(f"tile {tile} leaves no output tile at {steps} steps")
+    dev = hi.device
+    walls = (torch.zeros(hi.shape[1:], dtype=torch.bool, device=dev) if solid is None
+             else solid != 0)
+    consts = ds_engine._consts(cfg, dev) if exact else ds_engine._consts_fast(cfg, dev)
+    out = DS(torch.empty_like(hi), torch.empty_like(lo))
+    for r0 in range(0, cfg.nx, R):
+        for c0 in range(0, cfg.ny, C):
+            re, ce = min(R, cfg.nx - r0), min(C, cfg.ny - c0)
+            got = _tile_pass(hi, lo, walls, cfg, consts, exact, r0, c0, re, ce, steps)
+            out.hi[:, r0:r0 + re, c0:c0 + ce] = got.hi
+            out.lo[:, r0:r0 + re, c0:c0 + ce] = got.lo
+    return out
+
+
+# the forced speeds and the sign of their delta (+1 gains, -1 loses)
+_FORCED = ((1, 1), (3, -1), (5, 1), (6, -1), (7, -1), (8, 1))
+
+
+def _tile_pass(hi, lo, walls, cfg: LatticeConfig, consts: dict, exact: bool, r0: int, c0: int,
+               re: int, ce: int, L: int) -> DS:
+    """L levels of one tile: the re x ce output sites at (r0, c0) after L
+    pair steps, through a source window grown by L on each side."""
+    rows = torch.arange(r0 - L, r0 + re + L, device=hi.device) % cfg.nx
+    cols = torch.arange(c0 - L, c0 + ce + L, device=hi.device) % cfg.ny
+    cur = DS(hi[:, rows][:, :, cols], lo[:, rows][:, :, cols])
+    wall = walls[rows][:, cols]
+    collide = ds_engine.collide_planes if exact else ds_engine.collide_planes_fast
+    a14, a58 = consts["a14"], consts["a58"]
+    for _ in range(L):
+        def sp(s):
+            return DS(cur.hi[s], cur.lo[s])
+
+        ok = ((cols == 0)[None, :] & ~wall
+              & df64.gt_zero(df64.sub(sp(6), a58)) & df64.gt_zero(df64.sub(sp(3), a14))
+              & df64.gt_zero(df64.sub(sp(7), a58)))
+        f_hi, f_lo = cur.hi.clone(), cur.lo.clone()
+        for s, sign in _FORCED:
+            a = a14 if s in (1, 3) else a58
+            sel = df64.where(ok, df64.add(sp(s), a if sign > 0 else df64.neg(a)), sp(s))
+            f_hi[s], f_lo[s] = sel.hi, sel.lo
+        h, w = cur.hi.shape[1], cur.hi.shape[2]
+        pulled = DS(*(torch.stack([
+            x[s, 1 - int(E[s, 0]):h - 1 - int(E[s, 0]), 1 - int(E[s, 1]):w - 1 - int(E[s, 1])]
+            for s in range(NSPEEDS)]) for x in (f_hi, f_lo)))
+        wall = wall[1:-1, 1:-1]
+        planes = [DS(pulled.hi[s], pulled.lo[s]) for s in range(NSPEEDS)]
+        cur = ds_engine.bounce_back(pulled, collide(planes, consts), wall)
+        cols = cols[1:-1]
+    return cur
+
+
+def temporal_info(exact: bool = False, has_walls: bool = True, device=None) -> dict:
+    """What a card gives the temporal form at a tier and a variant, as
+    csrc/lbm_ds_temporal_step.cu decides it from the card's shared memory:
+    the tile's `rows` and `width`, `max_steps` (the deepest pass the tile
+    takes, fused_kernel.tile_max_steps), `registers` and `local_bytes`
+    (stack and spills) per thread, `ctas_per_sm` and
+    `shared_bytes_per_cta`. Needs a CUDA card (default: the current one);
+    read once per card."""
+    index = None if device is None else torch.device(device).index
+    return _temporal_info(bool(exact), bool(has_walls),
+                          torch.cuda.current_device() if index is None else index)
+
+
+@functools.cache
+def _temporal_info(exact: bool, has_walls: bool, index: int) -> dict:
+    out = (ctypes.c_int64 * 6)()
+    with torch.cuda.device(index):
+        rc = cuda_build.load_library().lbm_ds_temporal_steps_info(int(exact), int(has_walls), out)
+    if rc != 0:
+        raise RuntimeError(f"lbm_ds_temporal_steps_info failed: cudaError {rc}")
+    tile = fused_kernel.FlatTile(out[4], out[5])
+    return {"registers": out[0], "ctas_per_sm": out[1], "shared_bytes_per_cta": out[2],
+            "local_bytes": out[3], "rows": tile.rows, "width": tile.width,
+            "max_steps": fused_kernel.tile_max_steps(tile, torch.float32)}
+
+
+def temporal_form_takes(ny: int) -> bool:
+    """Whether the temporal form takes rows of ny columns: whole 16-byte
+    vectors of float32."""
+    return ny % TEMPORAL_COLUMNS == 0
+
+
+def _check_temporal_pass(steps: int, ny: int, device: torch.device, exact: bool,
+                         has_walls: bool) -> None:
+    """Raise ValueError unless the temporal form takes a pass of `steps`
+    steps on rows of ny columns on `device`: an integer depth in [1,
+    fused_kernel.FLAT_MAX_TEMPORAL], whole 16-byte vectors a row and, on a
+    card, no deeper than its tile takes (temporal_info)."""
+    fused_kernel._check_temporal(steps)
+    if not temporal_form_takes(ny):
+        raise ValueError(f"the ds temporal form needs NY a multiple of {TEMPORAL_COLUMNS} "
+                         f"columns (one 16-byte vector), got NY {ny}; temporal=1 runs one "
+                         "step per launch on any shape")
+    if device.type == "cuda":
+        info = temporal_info(exact, has_walls, device)
+        if steps > info["max_steps"]:
+            raise ValueError(f"a pass of {steps} steps leaves no output tile in the ds temporal "
+                             f"form's {info['rows']}x{info['width']} tile on {device}: it takes "
+                             f"at most {info['max_steps']}")
+
+
+def temporal_step(
+    src: DS,
+    dst: DS,
+    solid: torch.Tensor | None,
+    cfg: LatticeConfig,
+    steps: int,
+    *,
+    has_walls: bool,
+    exact: bool = False,
+) -> DS:
+    """One pass of `steps` pair steps src -> dst; returns dst. src, dst,
+    solid, has_walls and exact as step's; NY a multiple of 4, else
+    ValueError. On CUDA tensors it launches the temporal kernel on the
+    current stream and counts it in TEMPORAL_LAUNCHES and TEMPORAL_STEPS; a buffer or solid
+    plane not aligned to 16 bytes, or more steps than the card's tile takes
+    (temporal_info), raise ValueError, and nothing runs in their place. On
+    CPU tensors it writes temporal_reference's result. Raises on anything
+    the kernel does not take, and on any other device."""
+    global TEMPORAL_LAUNCHES, TEMPORAL_STEPS
+    _check(src, dst, solid, cfg, has_walls)
+    _check_temporal_pass(steps, cfg.ny, src.hi.device, exact, has_walls)
+    if src.hi.device.type == "cpu":
+        out = temporal_reference(src.hi, src.lo, solid if has_walls else None, cfg, exact, steps)
+        dst.hi.copy_(out.hi)
+        dst.lo.copy_(out.lo)
+        return dst
+    align = fused_kernel.WIDE_ALIGN
+    pointers = [t.data_ptr() for t in (*src, *dst)] + ([solid.data_ptr()] if has_walls else [])
+    if any(ptr % align for ptr in pointers):
+        raise ValueError(f"the ds temporal form needs buffers aligned to {align} bytes; "
+                         f"pointers mod {align}: {[ptr % align for ptr in pointers]}")
+    consts = kernel_constants_ds(cfg, exact)
+    params = (ctypes.c_float * len(consts))(*consts)
+    rc = cuda_build.load_library().lbm_ds_temporal_steps_launch(
+        src.hi.data_ptr(), src.lo.data_ptr(), dst.hi.data_ptr(), dst.lo.data_ptr(),
+        solid.data_ptr() if has_walls else None, cfg.nx, cfg.ny, int(has_walls), int(exact),
+        steps, ctypes.addressof(params),
+        torch.cuda.current_stream(src.hi.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"lbm_ds_temporal_steps launch failed: cudaError {rc}")
+    TEMPORAL_LAUNCHES += 1
+    TEMPORAL_STEPS += steps
+    return dst
+
+
 class Session:
     """Persistent pair state for one lattice configuration on one
     device: the solid plane and four preallocated (9, NX, NY) float32
-    buffers (hi and lo, in and out) that swap roles every step. The
+    buffers (hi and lo, in and out) that swap roles every launch. The
     masked variant runs when the mask has a solid site, the wall-free
     variant otherwise; `exact` selects the tier.
+
+    temporal (default DS_TEMPORAL, the JAX kernel's): n steps run as n //
+    T passes of T steps and one of n % T through the temporal form
+    (temporal_step), each a pass between the two pairs; 1 runs one launch
+    of the one-step kernel per step. A shape the temporal form does not
+    take (NY no multiple of 4), and the exact tier, run one step per
+    launch at any temporal: the exact tier's collision bounds it by issue
+    already, and the halos a pass recomputes made its passes slower than
+    its one-step kernel on an H100 (PERF.md, row 3-T). The attribute
+    `temporal` is the depth that runs. A temporal that is no integer in [1,
+    fused_kernel.FLAT_MAX_TEMPORAL], or on a card a pass deeper than its
+    tile takes, raises ValueError here. Every result is bitwise the same.
 
     Usage:
         sess = Session(cfg, walls, device="cuda")
         sess.load(f)       # copy a DS pair in
-        sess.advance(n)    # n launches, no host sync
+        sess.advance(n)    # n steps, no host sync
         sess.block()       # completion barrier
         f = sess.state()   # a copy; the session keeps running
     """
 
     def __init__(self, cfg: LatticeConfig, walls, *, device: str | torch.device,
-                 exact: bool = False):
+                 exact: bool = False, temporal: int = DS_TEMPORAL):
         _require_float64(cfg)
         walls_np = np.asarray(walls, dtype=bool)
         if walls_np.shape != (cfg.nx, cfg.ny):
@@ -287,6 +500,10 @@ class Session:
         self.device = torch.device(device)
         self.has_walls = bool(walls_np.any())
         self.solid = torch.as_tensor(walls_np.astype(np.uint8), device=self.device)
+        fused_kernel._check_temporal(temporal)
+        self.temporal = temporal if temporal_form_takes(cfg.ny) and not exact else 1
+        if self.temporal > 1:
+            _check_temporal_pass(temporal, cfg.ny, self.device, exact, self.has_walls)
         self._a = self._b = None
 
     def load(self, f: DS) -> None:
@@ -303,11 +520,19 @@ class Session:
         self._a.lo.copy_(f.lo)
 
     def advance(self, n_steps: int) -> None:
-        """n_steps launches, swapping the two pairs after each."""
+        """n_steps steps: one launch per step, or passes of `temporal`
+        steps and one of the rest; the two pairs swap after each launch."""
         a, b = self._a, self._b
-        for _ in range(n_steps):
-            step(a, b, self.solid, self.cfg, has_walls=self.has_walls, exact=self.exact)
-            a, b = b, a
+        if self.temporal == 1:
+            for _ in range(n_steps):
+                step(a, b, self.solid, self.cfg, has_walls=self.has_walls, exact=self.exact)
+                a, b = b, a
+        else:
+            full, rest = divmod(n_steps, self.temporal)
+            for steps in [self.temporal] * full + ([rest] if rest else []):
+                temporal_step(a, b, self.solid, self.cfg, steps, has_walls=self.has_walls,
+                              exact=self.exact)
+                a, b = b, a
         self._a, self._b = a, b
 
     def block(self) -> None:
@@ -338,13 +563,13 @@ class Session:
 
 def run_steps(f: DS, walls, cfg: LatticeConfig, n_steps: int, exact: bool = False,
               temporal: int = DS_TEMPORAL) -> DS:
-    """n_steps of the kernel on f's device, unpadded in and out; `f` is
-    not modified. `temporal` is accepted for the JAX signature: it sets
-    the TPU kernel's fusion depth only (its results are bitwise
-    independent of it) and this kernel runs one step per launch."""
-    del temporal
+    """n_steps on f's device, unpadded in and out, through a Session:
+    passes of `temporal` steps (the JAX run_steps' fusion depth) and one
+    of the rest, or at temporal=1, at the exact tier and where NY is no
+    multiple of 4 one launch per step (Session); bitwise the same at every
+    temporal. `f` is not modified."""
     sess = Session(cfg, walls.cpu().numpy() if torch.is_tensor(walls) else walls,
-                   device=f.hi.device, exact=exact)
+                   device=f.hi.device, exact=exact, temporal=temporal)
     sess.load(f)
     sess.advance(n_steps)
     return sess.unload()

@@ -10,12 +10,15 @@ next to the y wrap, the slow path of an IEEE division) and the early exit
 of threads past the lattice's end. Its counts are a site's instructions,
 where the whole listing would count every branch once. `loops` gives the
 opcodes inside each loop of a kernel, so that a probe's roll can be seen
-to keep its stores and its barrier in the loop over rolls.
+to keep its stores and its barrier in the loop over rolls. `digests`
+fingerprints each kernel's code, so that two builds' kernels can be
+compared instruction for instruction.
 """
 
 from __future__ import annotations
 
 import collections
+import hashlib
 import heapq
 import pathlib
 import re
@@ -29,6 +32,10 @@ FP32 = ("FADD", "FMUL", "FFMA", "MUFU")
 _INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
 _TARGET = re.compile(r"0x([0-9a-f]+)\s*$")
 _PRED_OPERAND = re.compile(r"(^|[\s,])!?U?P[0-6]\b")
+# a mangled name in an anonymous namespace: the length of its identifier
+_ANON = re.compile(r"_ZN(\d+)_GLOBAL__N_")
+# the row of dots that closes a kernel's listing
+_END = re.compile(r"^\s*\.{5,}\s*$", re.MULTILINE)
 
 
 def disassemble(lib: str | pathlib.Path) -> str:
@@ -54,6 +61,29 @@ def functions(text: str) -> dict[str, list[tuple[int, bool, str, str]]]:
             instrs.append((int(m.group(1), 16), guard is not None and "PT" not in guard,
                            m.group(3), m.group(4).strip()))
         out[name] = instrs
+    return out
+
+
+def kernel_key(name: str) -> str:
+    """A mangled kernel name without its anonymous namespace's identifier
+    (_ZN<length>_GLOBAL__N__<tags>), which the compiler derives from the
+    source it was built from: the kernel's own name and signature."""
+    m = _ANON.match(name)
+    return name[m.end(1) + int(m.group(1)):] if m else name
+
+
+def digests(text: str) -> dict[str, str]:
+    """{kernel_key(name): SHA-256 of the kernel's listing} for every
+    kernel of a cuobjdump -sass listing: every instruction with its
+    address, guard, operands and encoding, and the header flags. Two
+    kernels with equal digests have the same SASS."""
+    out = {}
+    for block in text.split("Function : ")[1:]:
+        name, body = (block.split("\n", 1) + [""])[:2]
+        # the listing ends at its row of dots; what follows belongs to the
+        # next object of the library
+        body = _END.split(body, 1)[0]
+        out[kernel_key(name.strip())] = hashlib.sha256(body.strip().encode()).hexdigest()
     return out
 
 

@@ -25,7 +25,10 @@ and the sharded-cuda backend bitwise against the cuda backend. The rdma
 form (the halo exchange inside the kernel, one launch per shard on a
 stream of its own) is held bitwise against step_reference_rdma, comm rows
 and flags included, and sharded-cuda-rdma against cuda; a withheld send
-must end in a raised timeout. The four
+must end in a raised timeout. The ds kernel's temporal form (a pass of L
+pair steps per launch) is held bitwise against the chain of step_reference
+and its tiled plain version at every L both of its tiles take, and the
+cuda-ds64 path's launches are counted per form. The four
 anatomy probes (ops/probes.py) and the flat multi-step kernel are held
 bitwise against their plain versions: they move float32 values, add them
 in one order, or repeat the step kernel's arithmetic. The single-chip
@@ -362,16 +365,117 @@ def test_ds_wrapper_refuses_aliased_buffers(cuda_device):
 
 @pytest.mark.cuda
 def test_cuda_ds64_backend_counts_launches_and_tracks_torch(cuda_device):
+    """20 steps of cuda-ds64 at 24x40: 5 counted passes of DS_TEMPORAL = 4
+    steps of the temporal form and no one-step launch; within the pair-DP
+    bar of the float64 torch backend."""
     cfg, walls = _scene("column0", np.float64)
-    before = fdk.LAUNCHES
+    before = (fdk.LAUNCHES, fdk.TEMPORAL_LAUNCHES, fdk.TEMPORAL_STEPS)
     out = Simulation(cfg, walls, backend="cuda-ds64").run(20).state()
-    assert fdk.LAUNCHES == before + 20
+    assert (fdk.LAUNCHES, fdk.TEMPORAL_LAUNCHES, fdk.TEMPORAL_STEPS) == (
+        before[0], before[1] + 5, before[2] + 20)
     ref = Simulation(cfg, walls, backend="torch").run(20).state()
     assert out.dtype == np.float64
     err = np.abs(out - ref) / np.maximum(np.abs(ref), 1e-30)
     assert err.max() < 1e-11
     with pytest.raises(ValueError, match="float64"):
         Simulation(LatticeConfig(nx=24, ny=40, dtype=np.float32), walls, backend="cuda-ds64")
+
+
+def _ds_temporal_scene(nx, ny, device):
+    """A perturbed pair on the card with the forcing guard failing at one
+    column-0 site, and a channel whose walls reach column 0: (cfg, pair,
+    solid plane)."""
+    cfg = LatticeConfig(nx=nx, ny=ny, dtype=np.float64, accel=0.005)
+    rng = np.random.default_rng(1)
+    f0 = initial_state(cfg) * (1 + 0.05 * rng.uniform(-1, 1, (9, nx, ny)))
+    f0[6, nx // 2, 0] = 1e-6
+    walls = geometry.channel(nx, ny)
+    walls[nx // 3: nx // 3 + 2, 0:3] = True
+    return cfg, df64.from_f64(f0, device), torch.as_tensor(walls.astype(np.uint8), device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exact", [False, True])
+@pytest.mark.parametrize("has_walls", [True, False])
+def test_ds_temporal_kernel_equals_its_plain_versions(has_walls, exact, cuda_device):
+    """One pass of the ds temporal form at every L its tile takes, at
+    37x64 and 13x36 (ragged tiles), bitwise against temporal_reference
+    (the chain of step_reference) and, at L 1-2, against
+    temporal_reference_blocked at the card's tile; every pass a counted
+    launch."""
+    for nx, ny in ((37, 64), (13, 36)):
+        cfg, a, solid = _ds_temporal_scene(nx, ny, cuda_device)
+        solid = solid if has_walls else None
+        info = fdk.temporal_info(exact, has_walls)
+        before = (fdk.TEMPORAL_LAUNCHES, fdk.TEMPORAL_STEPS, fdk.LAUNCHES)
+        ref = a
+        for steps in range(1, info["max_steps"] + 1):
+            ref = fdk.step_reference(ref.hi, ref.lo, solid, cfg, exact)
+            b = df64.DS(torch.full_like(a.hi, float("nan")), torch.full_like(a.lo, float("nan")))
+            fdk.temporal_step(a, b, solid, cfg, steps, has_walls=has_walls, exact=exact)
+            torch.cuda.synchronize()
+            assert torch.equal(b.hi, ref.hi) and torch.equal(b.lo, ref.lo), (nx, steps)
+            if steps <= 2:
+                tile = fk.FlatTile(info["rows"], info["width"])
+                blocked = fdk.temporal_reference_blocked(a.hi, a.lo, solid, cfg, exact, steps,
+                                                         tile)
+                assert torch.equal(blocked.hi, ref.hi) and torch.equal(blocked.lo, ref.lo)
+        deepest = info["max_steps"]
+        assert (fdk.TEMPORAL_LAUNCHES, fdk.TEMPORAL_STEPS, fdk.LAUNCHES) == (
+            before[0] + deepest, before[1] + deepest * (deepest + 1) // 2, before[2])
+
+
+@pytest.mark.cuda
+def test_cuda_ds64_counts_launches_per_form(cuda_device):
+    """cuda-ds64 at 24x40: 10 steps in passes of 4, 4 and 2 of the temporal
+    form, bitwise equal to a temporal=1 session's 10 one-step launches; at
+    24x38 (NY no multiple of 4), and in an exact-tier session, every step a
+    one-step launch."""
+    cfg, walls = _scene("column0", np.float64)
+    f0 = df64.to_f64(_perturbed_pair(cfg, "cpu"))
+    before = (fdk.LAUNCHES, fdk.TEMPORAL_LAUNCHES, fdk.TEMPORAL_STEPS)
+    sim = Simulation(cfg, walls, backend="cuda-ds64", f0=f0).run(10)
+    assert sim._session.temporal == fdk.DS_TEMPORAL
+    assert (fdk.LAUNCHES, fdk.TEMPORAL_LAUNCHES, fdk.TEMPORAL_STEPS) == (
+        before[0], before[1] + 3, before[2] + 10)
+    one = fdk.Session(cfg, walls, device=cuda_device, temporal=1)
+    one.load(df64.from_f64(f0, cuda_device))
+    one.advance(10)
+    assert fdk.LAUNCHES == before[0] + 10
+    np.testing.assert_array_equal(sim.state(), df64.to_f64(one.state()))
+    cfg38 = LatticeConfig(nx=24, ny=38, dtype=np.float64, accel=0.005)
+    before = (fdk.LAUNCHES, fdk.TEMPORAL_LAUNCHES)
+    sim = Simulation(cfg38, geometry.channel(24, 38), backend="cuda-ds64").run(5)
+    assert sim._session.temporal == 1
+    assert (fdk.LAUNCHES, fdk.TEMPORAL_LAUNCHES) == (before[0] + 5, before[1])
+    exact = fdk.Session(cfg, walls, device=cuda_device, exact=True)
+    exact.load(df64.from_f64(f0, cuda_device))
+    exact.advance(5)
+    assert exact.temporal == 1
+    assert (fdk.LAUNCHES, fdk.TEMPORAL_LAUNCHES) == (before[0] + 10, before[1])
+
+
+@pytest.mark.cuda
+def test_ds_temporal_form_refuses_on_the_card(cuda_device):
+    """A buffer 4 bytes off a 16-byte boundary, and a pass one step deeper
+    than the tile takes: ValueError and no launch, nothing in their place;
+    a session deeper than the tile takes is refused when it is built."""
+    cfg, a, solid = _ds_temporal_scene(16, 40, cuda_device)
+    n = a.hi.numel()
+    off = torch.empty(n + 1, dtype=torch.float32, device=cuda_device)[1:].view_as(a.hi)
+    dst = df64.DS(torch.empty_like(a.hi), torch.empty_like(a.lo))
+    before = (fdk.TEMPORAL_LAUNCHES, fdk.LAUNCHES)
+    with pytest.raises(ValueError, match="aligned"):
+        fdk.temporal_step(df64.DS(off, a.lo), dst, solid, cfg, 2, has_walls=True)
+    with pytest.raises(ValueError, match="aligned"):
+        fdk.temporal_step(a, df64.DS(dst.hi, off), solid, cfg, 2, has_walls=True)
+    deepest = fdk.temporal_info(False, True)["max_steps"]
+    for exact in (False, True):
+        with pytest.raises(ValueError, match="no output tile"):
+            fdk.temporal_step(a, dst, solid, cfg, deepest + 1, has_walls=True, exact=exact)
+    with pytest.raises(ValueError, match="no output tile"):
+        fdk.Session(cfg, solid.cpu().numpy() == 1, device=cuda_device, temporal=deepest + 1)
+    assert (fdk.TEMPORAL_LAUNCHES, fdk.LAUNCHES) == before
 
 
 def _shard_planes(plane, n, device):
@@ -1236,7 +1340,8 @@ def test_run_probed_bitwise_run_and_probe_values(cuda_device, monkeypatch, backe
     """run_probed on the kernel backends (the sharded ones over 2 virtual
     shards of the card): the series bitwise equal to run() with
     probe_values between chunks, the final state bitwise equal to an
-    unprobed run's, one counted launch per step (per shard and step)."""
+    unprobed run's, one counted launch per step (per shard and step); on
+    cuda-ds64 every step counted in the passes of the temporal form."""
     from latticeboltzmann_tpu_torch.models import engine
 
     if backend.startswith("sharded"):
@@ -1250,7 +1355,7 @@ def test_run_probed_bitwise_run_and_probe_values(cuda_device, monkeypatch, backe
     def sim():
         return Simulation(cfg, walls, backend=backend, allow_experimental=True)
 
-    counts = {"cuda": (fk, "LAUNCHES"), "cuda-ds64": (fdk, "LAUNCHES"),
+    counts = {"cuda": (fk, "LAUNCHES"), "cuda-ds64": (fdk, "TEMPORAL_STEPS"),
               "sharded-cuda": (fk, "EXT_LAUNCHES"), "sharded-cuda-rdma": (fk, "RDMA_LAUNCHES"),
               "sharded-cuda-ds64": (fdk, "EXT_LAUNCHES")}[backend]
     before = getattr(*counts)
@@ -1319,7 +1424,12 @@ def test_cli_resumes_on_the_card(cuda_device, tmp_path, capsys, backend, precisi
              "--precision", precision, "--warmup", "2", "--print-stats-every", "0",
              "--debug-nans"]
     ck, ck1, data = tmp_path / "ck", tmp_path / "ck1", tmp_path / "data"
-    before = fdk.LAUNCHES if backend == "cuda-ds64" else fk.LAUNCHES
+    def launched():
+        # the steps of the ds path's passes (the temporal form), or the f32
+        # path's launches (one a step)
+        return fdk.TEMPORAL_STEPS if backend == "cuda-ds64" else fk.LAUNCHES
+
+    before, one_step_before = launched(), fdk.LAUNCHES
     assert cli.main(scene + ["--steps", "20", "--checkpoint-every", "20", "--checkpoint-dir",
                              str(ck), "--save-lattice-every", "20", "--snapshot-dir",
                              str(data)]) == 0
@@ -1327,8 +1437,9 @@ def test_cli_resumes_on_the_card(cuda_device, tmp_path, capsys, backend, precisi
                              "--checkpoint-every", "20"]) == 0
     assert cli.main(scene + ["--steps", "40", "--checkpoint-every", "40", "--checkpoint-dir",
                              str(ck1)]) == 0
-    after = fdk.LAUNCHES if backend == "cuda-ds64" else fk.LAUNCHES
-    assert after - before == 22 + 22 + 42
+    assert launched() - before == 22 + 22 + 42
+    if backend == "cuda-ds64":
+        assert fdk.LAUNCHES == one_step_before
     assert "resumed from" in capsys.readouterr().out
     _, resumed, _, _ = checkpoint.load(ck / "40.lbmckpt")
     _, unbroken, _, _ = checkpoint.load(ck1 / "40.lbmckpt")

@@ -105,3 +105,27 @@ def test_loops_gives_each_backward_branch_its_body():
     assert found[0][2] == collections.Counter({"LDG": 1, "STS": 1, "BRA": 1})
     # the loop over rolls holds the inner loop's moves and the barrier
     assert found[2][2] == collections.Counter({"LDS": 1, "STS": 1, "BRA": 2, "WARPSYNC": 1})
+
+
+def test_kernel_key_drops_the_anonymous_namespace_tag():
+    """Two builds of one kernel from differently named sources give two
+    namespace tags and one key: the kernel's own name and signature."""
+    a = ("_ZN56_GLOBAL__N__d44e22f9_23_lbm_ds_temporal_step_cu_6f75cbfa"
+         "21lbm_ds_temporal_stepsILb0EEvPKf")
+    b = "_ZN45_GLOBAL__N__0badc0de_16_lbm_other_cu_12345678" "21lbm_ds_temporal_stepsILb0EEvPKf"
+    assert sass.kernel_key(a) == sass.kernel_key(b) == "21lbm_ds_temporal_stepsILb0EEvPKf"
+    assert sass.kernel_key("_Z6kernelPf") == "_Z6kernelPf"
+
+
+def test_digests_tell_kernels_apart_and_ignore_what_follows_the_listing():
+    """One digest per kernel; an instruction changed changes only its
+    kernel's digest; what follows a listing's row of dots (the next
+    object's header) changes nothing."""
+    base = sass.digests(_LISTING)
+    assert set(base) == {"_Z6kernelPf", "_Z5otherv"}
+    assert base["_Z6kernelPf"] != base["_Z5otherv"]
+    changed = sass.digests(_LISTING.replace("FMUL R7, R6, R2", "FMUL R7, R6, R3"))
+    assert changed["_Z6kernelPf"] != base["_Z6kernelPf"]
+    assert changed["_Z5otherv"] == base["_Z5otherv"]
+    trailer = _LISTING.replace("\t\t..........\n", "\t\t..........\nFatbin elf code:\narch = sm_90a\n")
+    assert sass.digests(trailer) == base
