@@ -250,10 +250,7 @@ stands beside phase 6-8's in the kernels line.
 30. the pair-DP path's temporal form (ds_temporal_phase; the ds kernel's
    temporal form, csrc/lbm_ds_temporal_step.cu: a pass of L pair steps
    per launch): its tiles (two CTAs of 256 threads an SM, one of 512),
-   registers and spills at both tiers, masked and wall-free; the SASS of
-   the one-step ds kernels (their pair arithmetic moved into lbm_ds.cuh)
-   and of the kernels that share lbm_tile.cuh against a build of the
-   sources before the move (PARENT_SASS); one pass at every L each tile
+   registers and spills at both tiers, masked and wall-free; one pass at every L each tile
    takes, both tiers, masked and wall-free, bitwise against the chain of
    step_reference at 5x8, 37x64, 45x1000 (ragged) and 800x4000 and
    against temporal_reference_blocked at the card's tiles on the small
@@ -265,6 +262,10 @@ stands beside phase 6-8's in the kernels line.
    tiers at 800x4000 and the fast tier at 400x4000, each beside its
    bounds (bytes per pass at the published rate and the copy kernel's,
    the issue floor times the levels' recompute).
+
+Every phase call of main() prints `phase N took S s` (N: the phases it
+runs, e.g. 6-8) on its own line, and a `phase seconds` line before the
+bounds line gathers them.
 
 The kernels line gives every kernel's bound (the temporal form's for one
 pass: the state read and written once, every level's operations): the
@@ -782,6 +783,29 @@ def share(label, kernel_ms, copy):
           f"({copy['library_ms'] / kernel_ms!r} of Tensor.copy_'s)")
 
 
+class PhaseClock:
+    """The wall time of each phase call of main(): done(label) closes the
+    phase that ran since the last mark, run(label, fn, ...) times one
+    call; each prints `phase <label> took S s` on its own line and keeps
+    the seconds under its label (the phases' numbers)."""
+
+    def __init__(self):
+        self.seconds = {}
+        self._t = time.perf_counter()
+
+    def done(self, label):
+        now = time.perf_counter()
+        self.seconds[label] = now - self._t
+        print(f"phase {label} took {now - self._t:.1f} s")
+        self._t = now
+
+    def run(self, label, fn, *args, **kw):
+        self._t = time.perf_counter()
+        out = fn(*args, **kw)
+        self.done(label)
+        return out
+
+
 def main() -> int:
     # 1. device
     if not torch.cuda.is_available():
@@ -792,6 +816,7 @@ def main() -> int:
     from latticeboltzmann_tpu_torch.ops import cuda_build, fused_kernel
     from latticeboltzmann_tpu_torch.utils.interop import bytes_per_site
 
+    clock_ = PhaseClock()
     card = card_info()
     print(f"card: {card}")
     # the sharded phases register their backends over meshes of their own;
@@ -801,6 +826,8 @@ def main() -> int:
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"cuda {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
 
+    clock_.done("1")
+
     # 2. build
     t0 = time.perf_counter()
     lib = cuda_build.build()
@@ -809,6 +836,7 @@ def main() -> int:
     for line in (lib.parent / "nvcc.log").read_text().splitlines():
         if any(k in line for k in ("entry function", "registers", "spill", "stack")):
             print(f"  ptxas: {line.strip()}")
+    clock_.done("2")
 
     # 3. kernel vs its plain version
     rng = np.random.default_rng(SEED)
@@ -817,6 +845,7 @@ def main() -> int:
         f0 = perturbed_state(cfg, rng)
         worst(max_err, compare_kernel(name, cfg, w.astype(np.uint8), f0))
         worst(max_err, compare_kernel(name, cfg, None, f0))
+    clock_.done("3")
 
     # 4. the main path, every launch counted, by variant and by form
     cfg = LatticeConfig(nx=800, ny=4000, dtype=np.float32)
@@ -845,6 +874,7 @@ def main() -> int:
           f"(rtol {ENGINE_RTOL}, atol {ENGINE_ATOL})")
     narrow_launches, e = narrow_path(np.float32, "f32-spec", ENGINE_RTOL, ENGINE_ATOL, rng)
     worst(max_err, {"narrow": e})
+    clock_.done("4")
 
     # 5. times at 800x4000
     rates = rates_printer(cfg, bytes_per_site(cfg.dtype))
@@ -899,26 +929,29 @@ def main() -> int:
         **f32_bound,
     }]
     del sim, eng, a, b
+    clock_.done("5")
 
-    ds, ds_counts, clock, ds_main = ds_phases(copy)
-    bf16_main, options = option_phases(f32_main)
-    ext = sharded_phases(f32_main, ds_counts, clock)
-    anatomy = anatomy_phases()
-    panels_phase()
-    probed_phases(f32_main)
+    ds, ds_counts, clock, ds_main = clock_.run("6-8", ds_phases, copy)
+    bf16_main, options = clock_.run("9-14", option_phases, f32_main)
+    ext = clock_.run("15-17+22-24", sharded_phases, f32_main, ds_counts, clock)
+    anatomy = clock_.run("18-20", anatomy_phases)
+    clock_.run("21", panels_phase)
+    clock_.run("25", probed_phases, f32_main)
     engine._BACKENDS.update(default_backends)
-    suite_phase(card)
-    validate_ds_phase()
+    clock_.run("26", suite_phase, card)
+    clock_.run("27", validate_ds_phase)
     # phase 28 writes under build/ of the checkout, which git ignores
     scratch = cuda_build.build_dir().parent.parent
     scratch.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_", dir=scratch) as tmp:
-        cli_launches = cli_phase(pathlib.Path(tmp))
-    temporal = temporal_phases(f32_main, bf16_main)
-    ds_temporal = ds_temporal_phase(ds_main, ds_counts, clock, copy)
+        cli_launches = clock_.run("28", cli_phase, pathlib.Path(tmp))
+    temporal = clock_.run("29", temporal_phases, f32_main, bf16_main)
+    ds_temporal = clock_.run("30", ds_temporal_phase, ds_main, ds_counts, clock, copy)
 
     entries = [*f32_entries, *options, ds, ds_temporal, *ext, *anatomy, temporal]
     add_cli_launches(entries, cli_launches, torch.cuda.device_count())
+    print(f"phase seconds (wall, by phase call; {sum(clock_.seconds.values()):.1f} s in all): "
+          + json.dumps({k: round(v, 1) for k, v in clock_.seconds.items()}))
     print("bounds computed from this run's inputs, by kernel (not measured; not in the kernels "
           "line): " + json.dumps([{"name": e["name"], **computed_bounds(e)} for e in entries]))
     print(json.dumps({"kernels": entries}))
@@ -3352,7 +3385,6 @@ def temporal_phases(f32_main, bf16_main):
                              for k, v in best.items()},
         "tile": info,
     }
-    print(f"phase 29 took {time.perf_counter() - t_phase:.1f} s")
     return entry
 
 
@@ -3365,58 +3397,6 @@ DS_TEMPORAL_DEPTHS = (1, 2, 3, 4)
 DS_TEMPORAL_CTAS_PER_SM = 2
 DS_TEMPORAL_TIMED_STEPS = 240
 DS_TEMPORAL_SPLIT = (1009, 491)
-# the SASS of the kernels of the sources whose shared code moved into
-# headers (lbm_ds_step.cu into lbm_ds.cuh; lbm_temporal_step.cu and
-# lbm_flat_step.cu through lbm_tile.cuh), built from the sources before the
-# move by this nvcc on an H100: the first 16 hex digits of
-# utils/sass.digests, by utils/sass.kernel_key
-PARENT_SASS_NVCC = "Build cuda_12.9.r12.9/compiler.36037853_0"
-PARENT_SASS = {
-    "25lbm_stream_collide_ds_extILb0ELb0EEEvPKfS2_PfS3_PKhNS_3ExtEllNS_6ParamsE": "b639a878bb88d862",
-    "25lbm_stream_collide_ds_extILb0ELb1EEEvPKfS2_PfS3_PKhNS_3ExtEllNS_6ParamsE": "ae34c965006d8e85",
-    "25lbm_stream_collide_ds_extILb1ELb0EEEvPKfS2_PfS3_PKhNS_3ExtEllNS_6ParamsE": "7467240c3229a669",
-    "25lbm_stream_collide_ds_extILb1ELb1EEEvPKfS2_PfS3_PKhNS_3ExtEllNS_6ParamsE": "286f0c3793165f12",
-    "21lbm_stream_collide_dsILb0ELb0EEEvPKfS2_PfS3_PKhllNS_6ParamsE": "63469df46dd6522e",
-    "21lbm_stream_collide_dsILb0ELb1EEEvPKfS2_PfS3_PKhllNS_6ParamsE": "753499863f28285d",
-    "21lbm_stream_collide_dsILb1ELb0EEEvPKfS2_PfS3_PKhllNS_6ParamsE": "68adfbc1c78e42b5",
-    "21lbm_stream_collide_dsILb1ELb1EEEvPKfS2_PfS3_PKhllNS_6ParamsE": "ce4af6ba22bf70f6",
-    "14lbm_flat_stepsIfEEvPT_iiiNS_4PlanEiNS_6ParamsEi": "ae59d825dbb445a8",
-    "14lbm_flat_stepsI13__nv_bfloat16EEvPT_iiiNS_4PlanEiNS_6ParamsEi": "c2bd802c7171b025",
-    "18lbm_temporal_stepsIfLi0EEEvPKT_PS1_PKhNS_4SpecEiiiiNS_6ParamsEi": "6018e0560215df62",
-    "18lbm_temporal_stepsIfLi2EEEvPKT_PS1_PKhNS_4SpecEiiiiNS_6ParamsEi": "81b587f2dc3ab01c",
-    "18lbm_temporal_stepsIfLi1EEEvPKT_PS1_PKhNS_4SpecEiiiiNS_6ParamsEi": "c3caf43d15ca894c",
-    "18lbm_temporal_stepsI13__nv_bfloat16Li0EEEvPKT_PS2_PKhNS_4SpecEiiiiNS_6ParamsEi":
-        "042476579fcc65a0",
-    "18lbm_temporal_stepsI13__nv_bfloat16Li2EEEvPKT_PS2_PKhNS_4SpecEiiiiNS_6ParamsEi":
-        "8624b7c7e956a5f6",
-    "18lbm_temporal_stepsI13__nv_bfloat16Li1EEEvPKT_PS2_PKhNS_4SpecEiiiiNS_6ParamsEi":
-        "ff19e0cfeba94bdc",
-}
-
-
-def sass_against_parent():
-    """Raise unless every kernel of PARENT_SASS has the same SASS in the
-    built library (utils/sass.digests of cuobjdump's listing); with another
-    nvcc than PARENT_SASS_NVCC, print that the builds are not comparable."""
-    import subprocess
-
-    from latticeboltzmann_tpu_torch.ops import cuda_build
-    from latticeboltzmann_tpu_torch.utils import sass
-
-    version = subprocess.run([cuda_build.find_nvcc(), "--version"], capture_output=True, text=True,
-                             check=True).stdout.strip().splitlines()[-1]
-    if version != PARENT_SASS_NVCC:
-        print(f"SASS vs the sources before the move: not comparable, this nvcc is {version!r} and "
-              f"the recorded digests are {PARENT_SASS_NVCC!r}'s")
-        return
-    got = sass.digests(sass.disassemble(cuda_build.build()))
-    differ = [k for k, v in PARENT_SASS.items() if not got.get(k, "").startswith(v)]
-    if differ:
-        raise AssertionError(f"SASS differs from the sources before the move: {differ}")
-    print(f"SASS vs the sources before the move ({version}): all {len(PARENT_SASS)} kernels "
-          "identical: lbm_stream_collide_ds and lbm_stream_collide_ds_ext (8, their pair "
-          "arithmetic now in lbm_ds.cuh), lbm_temporal_steps (6) and lbm_flat_steps (2, "
-          "through lbm_tile.cuh)")
 
 
 def ds_pass_traffic(nx, ny, rows, L, has_walls=True):
@@ -3473,9 +3453,7 @@ def ds_temporal_phase(main, counts, clock, copy):
     """Phase 30: the pair-DP path's temporal form
     (csrc/lbm_ds_temporal_step.cu), passes of L pair steps. (a) Its tile
     at both tiers and both variants: rows, registers, spills, occupancy,
-    the deepest pass;
-    the SASS of the kernels whose code moved into headers against the
-    sources before the move (sass_against_parent). (b) One pass at every L
+    the deepest pass. (b) One pass at every L
     the tile takes, both tiers, masked and wall-free, bitwise against the
     chain of step_reference at 5x8 (smaller than one tile), 37x64, 45x1000
     (a ragged last tile in both axes) and 800x4000, and against
@@ -3505,7 +3483,7 @@ def ds_temporal_phase(main, counts, clock, copy):
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED + 30)
 
-    # 30a. the tiles, and the SASS of the moved code
+    # 30a. the tiles
     info = {}
     for exact in (False, True):
         for hw in (True, False):
@@ -3517,7 +3495,6 @@ def ds_temporal_phase(main, counts, clock, copy):
                   f"deepest pass {i['max_steps']} steps")
             if i["ctas_per_sm"] != DS_TEMPORAL_CTAS_PER_SM or i["local_bytes"]:
                 raise AssertionError(f"ds temporal tile {exact, hw}: {i}")
-    sass_against_parent()
 
     # 30b. bitwise at every depth
     err = 0.0
@@ -3666,7 +3643,6 @@ def ds_temporal_phase(main, counts, clock, copy):
         "tile": {f"{'exact' if k[0] else 'fast'}-{'masked' if k[1] else 'wall-free'}": v
                  for k, v in info.items()},
     }
-    print(f"phase 30 took {time.perf_counter() - t_phase:.1f} s")
     return entry
 
 
