@@ -101,13 +101,18 @@ Phases, each of which raises on failure:
    the wide form and its two one-row launches of the narrow form (the
    launcher's default), bitwise equal to phase 4's cuda state; sharded-cuda-fused over 4
    shards, FUSED_STEPS steps, and sharded-cuda-ds64 over 4 shards,
-   DS_SHARDED_STEPS steps, bitwise equal to cuda and cuda-ds64; with two
-   or more cards also a mesh of the cards. Then sharded-cuda and
-   sharded-cuda-rdma over 4 virtual shards at 800x4002, an NY the wide
-   forms do not take, NARROW_SHARDED_STEPS steps, every launch of the
-   narrow form, bitwise equal to cuda there;
+   DS_SHARDED_STEPS steps in passes of DS_TEMPORAL = 4 through the ds
+   kernel's ext-halo temporal form (one launch per shard and pass, the
+   4-row halos copied once per pass), bitwise equal to cuda and
+   cuda-ds64; with two or more cards also a mesh of the cards. Then
+   sharded-cuda and sharded-cuda-rdma over 4 virtual shards at 800x4002,
+   an NY the wide forms do not take, NARROW_SHARDED_STEPS steps, every
+   launch of the narrow form, bitwise equal to cuda there, and
+   sharded-cuda-ds64 there, every step one launch per shard of the
+   one-step ds ext-halo form, bitwise equal to cuda-ds64 there;
 17. times: us/step of each sharded path beside cuda and cuda-ds64, in
-   turns, with the host's enqueue time; the halo exchange per step; the
+   turns, with the host's enqueue time; the halo exchange per step (per
+   pass of 4 for sharded-cuda-ds64); the
    ext-halo kernels' launches of one step (interior + edges, or one per
    shard; both forms of the stream-collide kernel's, and the default mix,
    in float32 and bf16, in turns; the ds kernel's too) beside the
@@ -194,7 +199,8 @@ stands beside phase 6-8's in the kernels line.
    pair's probe columns), on "sharded-cuda-rdma" over VIRTUAL_SHARDS
    virtual shards (series also bitwise equal to "cuda"'s, 4 launches per
    step) and on "sharded-cuda-ds64" over VIRTUAL_SHARDS virtual shards
-   (series also bitwise equal to "cuda-ds64"'s, 12 launches per step);
+   (series also bitwise equal to "cuda-ds64"'s; passes of 4 and one of
+   the rest per sample, one launch per shard and pass);
    then us/step of run_probed and of run() in turns, at every = 1
    and 8, and the gather's cost per sample;
 26. every row of latticeboltzmann_tpu_torch/bench_suite.py once at its
@@ -261,7 +267,27 @@ stands beside phase 6-8's in the kernels line.
    with the one-step kernel for T = 1-4 and each tile's deepest pass, both
    tiers at 800x4000 and the fast tier at 400x4000, each beside its
    bounds (bytes per pass at the published rate and the copy kernel's,
-   the issue floor times the levels' recompute).
+   the issue floor times the levels' recompute);
+31. the pair-DP shard pass (ds_sharded_temporal_phase; the ds kernel's
+   ext-halo temporal form, csrc/lbm_ds_temporal_step.cu's
+   lbm_ds_temporal_steps_ext: a pass of L pair steps on a shard, the rows
+   beyond it from Td-row pair halos): its tile, registers and spills at
+   both tiers, masked and wall-free; one pass at every L 1-4 with 4-row
+   halos (and the deepest at halos of that depth on rings of one shard),
+   both tiers, masked and wall-free, every row range of both schedules
+   (the whole shard; the interior and two L-row bands), bitwise against
+   the chain of step_reference on the halo-extended block, on rings of
+   1, 2 and 4 virtual shards at 800x4000, 2 shards of 5x8 and one of
+   37x64, and against temporal_reference_ext_blocked at the card's tile
+   on the small lattices; the main path, sharded-cuda-ds64 over 4 virtual
+   shards (and 4 cards where there are 4, else a line says so) for
+   DS_SHARDED_STEPS steps in counted passes of 4, no one-step launch,
+   bitwise equal to cuda-ds64 and to a temporal=1 sharded session; the
+   path's us/step and enqueue in turns at temporal=1 and at passes of 4
+   with overlap=True and overlap=False beside cuda-ds64, on 4 virtual
+   shards and on one shard; the halo exchange alone per pass; one pass's
+   launches at L 1-4 queued behind a spin beside the local temporal
+   form's pass, each with its bounds.
 
 Every phase call of main() prints `phase N took S s` (N: the phases it
 runs, e.g. 6-8) on its own line, and a `phase seconds` line before the
@@ -449,6 +475,7 @@ def reset_counts():
     fused_kernel.LAUNCHES = fused_ds_kernel.LAUNCHES = 0
     fused_kernel.EXT_LAUNCHES = fused_ds_kernel.EXT_LAUNCHES = 0
     fused_ds_kernel.TEMPORAL_LAUNCHES = fused_ds_kernel.TEMPORAL_STEPS = 0
+    fused_ds_kernel.EXT_TEMPORAL_LAUNCHES = fused_ds_kernel.EXT_TEMPORAL_STEPS = 0
     fused_kernel.FLAT_LAUNCHES = fused_kernel.RDMA_LAUNCHES = 0
     fused_kernel.TEMPORAL_LAUNCHES = fused_kernel.TEMPORAL_STEPS = 0
     fused_kernel.TEMPORAL_VARIANT_LAUNCHES.clear()
@@ -466,8 +493,9 @@ def read_counts():
     """{variant: launches} of the stream-collide kernel, its ext-halo
     form's as "ext-<variant>", its rdma form's as "rdma-<variant>", its
     temporal form's as "temporal-<variant>", the ds kernel's under "ds"
-    (one step a launch), "ds-temporal" (passes of the temporal form) and
-    "ds-ext", the flat kernel's under "flat" and the probes' under their
+    (one step a launch), "ds-temporal" (passes of the temporal form),
+    "ds-ext" (the one-step ext-halo form) and "ds-ext-temporal" (passes of
+    the ext-halo temporal form), the flat kernel's under "flat" and the probes' under their
     own keys ("copy-direct", "roll_y-shuffle", ...)."""
     from latticeboltzmann_tpu_torch.ops import fused_ds_kernel, fused_kernel, probes
 
@@ -493,6 +521,8 @@ def read_counts():
         counts["ds-temporal"] = fused_ds_kernel.TEMPORAL_LAUNCHES
     if fused_ds_kernel.EXT_LAUNCHES:
         counts["ds-ext"] = fused_ds_kernel.EXT_LAUNCHES
+    if fused_ds_kernel.EXT_TEMPORAL_LAUNCHES:
+        counts["ds-ext-temporal"] = fused_ds_kernel.EXT_TEMPORAL_LAUNCHES
     if fused_kernel.FLAT_LAUNCHES:
         counts["flat"] = fused_kernel.FLAT_LAUNCHES
     counts.update({k: n for k, n in probes.LAUNCHES.items() if n})
@@ -947,8 +977,9 @@ def main() -> int:
         cli_launches = clock_.run("28", cli_phase, pathlib.Path(tmp))
     temporal = clock_.run("29", temporal_phases, f32_main, bf16_main)
     ds_temporal = clock_.run("30", ds_temporal_phase, ds_main, ds_counts, clock, copy)
+    ds_ext_temporal = clock_.run("31", ds_sharded_temporal_phase, ds_counts, clock, copy)
 
-    entries = [*f32_entries, *options, ds, ds_temporal, *ext, *anatomy, temporal]
+    entries = [*f32_entries, *options, ds, ds_temporal, ds_ext_temporal, *ext, *anatomy, temporal]
     add_cli_launches(entries, cli_launches, torch.cuda.device_count())
     print(f"phase seconds (wall, by phase call; {sum(clock_.seconds.values()):.1f} s in all): "
           + json.dumps({k: round(v, 1) for k, v in clock_.seconds.items()}))
@@ -1841,12 +1872,13 @@ def sharded_phases(f32_main, ds_counts, clock):
         return {"wide": steps * mesh.size, "narrow": steps * 2 * mesh.size}
 
     def sharded_path(label, backend, make, mesh, cfg_, n_steps, key, per_step, want, warmup=0,
-                     copies_per_step=None, form="wide", scene=None, **options):
+                     copies_per_step=None, session_copies=0, form="wide", scene=None, **options):
         """Register `backend` over `mesh`, drive it through Simulation for
         warmup + n_steps counted steps, the stream-collide launches of
         `form` (expect_counts), on `scene` (default: the reference scene's
         walls) and hold its state bitwise to `want`; with copies_per_step
-        also the halo copies the host started."""
+        also the halo copies the host started (and session_copies once: a
+        session's static halo class rows)."""
         engine.register_backend(backend, make(mesh))
         reset_counts()
         sharded.HALO_COPIES = 0
@@ -1859,7 +1891,8 @@ def sharded_phases(f32_main, ds_counts, clock):
         by_form[backend, label, cfg_.ny] = dict(fused_kernel.EXT_FORM_LAUNCHES
                                                 + fused_kernel.RDMA_FORM_LAUNCHES)
         copies = sharded.HALO_COPIES
-        if copies_per_step is not None and copies != (warmup + n_steps) * copies_per_step:
+        if (copies_per_step is not None
+                and copies != (warmup + n_steps) * copies_per_step + session_copies):
             raise AssertionError(f"{backend} over {label}: {copies} halo copies from the host, "
                                  f"expected {copies_per_step} per step")
         got = sim.state()
@@ -1915,9 +1948,22 @@ def sharded_phases(f32_main, ds_counts, clock):
                  key, launches_per_step(mesh4, overlap=False), want)
     cfg64 = LatticeConfig(nx=800, ny=4000, dtype=np.float64)
     want = Simulation(cfg64, walls, backend="cuda-ds64").run(DS_SHARDED_STEPS).state()
+    # passes of DS_TEMPORAL through the ext-halo temporal form, one launch
+    # per shard and pass (the backend's default schedule), the T-row halos
+    # of both components copied once per pass
+    T = fused_ds_kernel.DS_TEMPORAL
+    sharded_path(
+        f"{VIRTUAL_SHARDS} virtual shards", "sharded-cuda-ds64", sharded.make_cuda_ds_backend,
+        mesh4, cfg64, DS_SHARDED_STEPS, "ds-ext-temporal", mesh4.size / T, want,
+        copies_per_step=2 * 2 * mesh4.size / T, session_copies=2 * mesh4.size)
+    # the one-step ext-halo form where the temporal form does not apply: an
+    # NY of no whole 16-byte vectors, one launch per shard and step
+    cfg64_n = LatticeConfig(nx=800, ny=NARROW_NY, dtype=np.float64)
+    want = Simulation(cfg64_n, walls_n, backend="cuda-ds64").run(NARROW_SHARDED_STEPS).state()
     ds_launches = sharded_path(
         f"{VIRTUAL_SHARDS} virtual shards", "sharded-cuda-ds64", sharded.make_cuda_ds_backend,
-        mesh4, cfg64, DS_SHARDED_STEPS, "ds-ext", launches_per_step(mesh4), want)
+        mesh4, cfg64_n, NARROW_SHARDED_STEPS, "ds-ext", mesh4.size, want,
+        copies_per_step=2 * 2 * mesh4.size, session_copies=2 * mesh4.size, scene=walls_n)
     del want
 
     # 17. times, in turns: each path's us/step end to end (a sync per
@@ -1945,13 +1991,16 @@ def sharded_phases(f32_main, ds_counts, clock):
     paths_in_turns(rates64, {"cuda-ds64": Simulation(cfg64, walls, backend="cuda-ds64"),
                              ds_key: sims[ds_key]}, 1000)
     def exchange_only(sess):
-        """One step's halo copies from the session's plan, no launches."""
+        """One pass's halo copies from the session's plan (a step's, or a
+        pass of sess.temporal steps'), no launches."""
         copies = sess._plans[sess._parity][0]
         return lambda: (sess.exchange.start(copies), sess.exchange.finish())
 
     for label in (f"sharded-cuda, {VIRTUAL_SHARDS} virtual shards", ds_key):
-        ms = event_ms(exchange_only(sims[label]._session), 500)
-        print(f"halo exchange alone, {label}: {ms * 1e3!r} us/step (CUDA events, 500 exchanges)")
+        sess = sims[label]._session
+        ms = event_ms(exchange_only(sess), 500)
+        print(f"halo exchange alone, {label}: {ms * 1e3!r} us a pass of {sess.temporal} step(s), "
+              f"{ms * 1e3 / sess.temporal!r} us/step (CUDA events, 500 exchanges)")
     del sims, f32_paths
 
     # the ext-halo kernels' launches of one step at the main path's
@@ -2673,9 +2722,11 @@ def probed_phases(f32_main):
          lambda every: {"ds-temporal": PROBED_STEPS // every * ds_passes(every)}, None, None),
         (f"sharded-cuda-rdma over {VIRTUAL_SHARDS} virtual shards", "sharded-cuda-rdma",
          np.float32, {"rdma-f32-spec": PROBED_STEPS * VIRTUAL_SHARDS}, form, "cuda f32"),
-        # overlap schedule: each shard's interior and its two edge rows
+        # passes of the ext-halo temporal form per sample, one launch per
+        # shard and pass
         (f"sharded-cuda-ds64 over {VIRTUAL_SHARDS} virtual shards", "sharded-cuda-ds64",
-         np.float64, {"ds-ext": PROBED_STEPS * VIRTUAL_SHARDS * 3}, None, "cuda-ds64"),
+         np.float64, lambda every: {"ds-ext-temporal": PROBED_STEPS // every * ds_passes(every)
+                                    * VIRTUAL_SHARDS}, None, "cuda-ds64"),
     )
     series_of = {}
     for label, backend, dtype, want, form_want, also in cases:
@@ -2753,10 +2804,13 @@ def suite_phase(card):
         raise AssertionError(f"bench_suite rows not sane: {insane}")
     # the rows' kernel routes: f32 and bf16 single-chip, the ext-halo form
     # (sharded-cuda), the ds kernel's temporal form (cuda-ds64) and its
-    # ext-halo form (sharded-cuda-ds64)
+    # ext-halo temporal form (sharded-cuda-ds64, passes of 4); a key ending
+    # in "-" names a family of variants, any other one kernel
     for route, prefix in (("f32", "f32-"), ("bf16", "bf16-"), ("ext-halo", "ext-f32-"),
-                          ("ds temporal", "ds-temporal"), ("ds ext-halo", "ds-ext")):
-        if not any(k.startswith(prefix) and n for k, n in counts.items()):
+                          ("ds temporal", "ds-temporal"),
+                          ("ds ext-halo temporal", "ds-ext-temporal")):
+        if not any((k.startswith(prefix) if prefix.endswith("-") else k == prefix) and n
+                   for k, n in counts.items()):
             raise AssertionError(f"bench_suite launched no {route} kernel: {counts}")
     torch.cuda.empty_cache()
 
@@ -3644,6 +3698,406 @@ def ds_temporal_phase(main, counts, clock, copy):
                  for k, v in info.items()},
     }
     return entry
+
+
+# the pair-DP shard pass (phase 31): the rings of virtual shards held at
+# every depth at 800x4000, the halo rows of the held passes, the steps of
+# a timed path run, and the calls of a queued timing
+DS_EXT_RINGS = (1, 2, 4)
+DS_EXT_DEPTH = 4
+DS_EXT_TIMED_STEPS = 1000
+DS_EXT_QUEUED_CALLS = 50
+
+
+def ds_ring_shard(a, solid, n, k, depth):
+    """Shard k of a ring of n over the card's pair a (rows by modulo): its
+    pair, its (top, bot) halo pairs of `depth` rows from the ring
+    neighbours, its ShardPlane with (depth, NY) class rows (None without
+    solid); whole allocations, so 16-byte aligned."""
+    from latticeboltzmann_tpu_torch.ops import df64
+    from latticeboltzmann_tpu_torch.ops.fused_kernel import ShardPlane
+
+    nx = a.hi.shape[1]
+    L = nx // n
+
+    def rows(x, p, q):
+        idx = torch.arange(p, q, device=x.device) % nx
+        return x.index_select(x.dim() - 2, idx).contiguous()
+
+    r0 = k * L
+    pair = df64.DS(rows(a.hi, r0, r0 + L), rows(a.lo, r0, r0 + L))
+    halo = tuple(df64.DS(rows(a.hi, p, q), rows(a.lo, p, q))
+                 for p, q in ((r0 - depth, r0), (r0 + L, r0 + L + depth)))
+    plane = None if solid is None else ShardPlane(
+        rows(solid, r0, r0 + L), rows(solid, r0 - depth, r0), rows(solid, r0 + L, r0 + L + depth))
+    return pair, halo, plane
+
+
+def ds_ext_ranges(Ls, L):
+    """(row0, rows) of the launches the two schedules make on a shard of
+    Ls rows in a pass of L steps: the whole shard (overlap=False); the
+    interior [L, Ls - L) and the two L-row bands (overlap=True)."""
+    out = [(0, Ls)]
+    if Ls >= 2 * L + 1:
+        out += [(L, Ls - 2 * L), (0, L), (Ls - L, L)]
+    return out
+
+
+def ds_ext_bitwise(name, cfg, a, solid, exact, rings, blocked):
+    """The ext-halo temporal form on each shard of rings of n shards over
+    the pair a: one pass at every L from 1 to DS_EXT_DEPTH with halos of
+    DS_EXT_DEPTH rows and, on a ring of one, the deepest pass the tile
+    takes at halos of that depth, each row range of the two schedules,
+    bitwise against the chain of step_reference on the halo-extended
+    block (temporal_reference_ext's) and, at L <= blocked, against
+    temporal_reference_ext_blocked at the card's tile over the whole
+    shard and the bands; rows outside a range must stay untouched. Returns
+    (max |diff|, launches)."""
+    from latticeboltzmann_tpu_torch.ops import df64
+    from latticeboltzmann_tpu_torch.ops import fused_ds_kernel as fdk
+    from latticeboltzmann_tpu_torch.ops import fused_kernel as fk
+
+    hw = solid is not None
+    info = fdk.temporal_info(exact, hw, ext=True)
+    tile = fk.FlatTile(info["rows"], info["width"])
+    err, launches = 0.0, 0
+    for n in rings:
+        for k in range(n):
+            depths = [DS_EXT_DEPTH] + ([info["max_steps"]] if n == 1 else [])
+            for Td in depths:
+                pair, halo, plane = ds_ring_shard(a, solid, n, k, Td)
+                Ls = pair.hi.shape[1]
+                top, bot = halo
+                cur = df64.DS(torch.cat([top.hi, pair.hi, bot.hi], 1),
+                              torch.cat([top.lo, pair.lo, bot.lo], 1))
+                walls = None if plane is None else torch.cat([plane.top, plane.plane, plane.bot])
+                for L in range(1, Td + 1):
+                    cur = fdk.step_reference(cur.hi, cur.lo, walls, cfg, exact)
+                    if Td != DS_EXT_DEPTH and L != Td:
+                        continue
+                    want = df64.DS(cur.hi[:, Td:Td + Ls], cur.lo[:, Td:Td + Ls])
+                    label = f"ds ext temporal {name}, {n} shard(s), shard {k}, L {L}, Td {Td}"
+                    for row0, rows in ds_ext_ranges(Ls, L):
+                        dst = df64.DS(torch.full_like(pair.hi, float("nan")),
+                                      torch.full_like(pair.lo, float("nan")))
+                        fdk.ext_temporal_launcher(pair, dst, halo, plane, cfg, L, has_walls=hw,
+                                                  exact=exact, row0=row0, rows=rows)()
+                        launches += 1
+                        got_hi, got_lo = dst.hi[:, row0:row0 + rows], dst.lo[:, row0:row0 + rows]
+                        err = max(err,
+                                  bitwise(f"{label}, rows [{row0}, {row0 + rows}), hi", got_hi,
+                                          want.hi[:, row0:row0 + rows]),
+                                  bitwise(f"{label}, rows [{row0}, {row0 + rows}), lo", got_lo,
+                                          want.lo[:, row0:row0 + rows]))
+                        outside = torch.ones(Ls, dtype=torch.bool, device=dst.hi.device)
+                        outside[row0:row0 + rows] = False
+                        if not torch.isnan(dst.hi[:, outside]).all():
+                            raise AssertionError(f"{label}: rows outside [{row0}, {row0 + rows}) "
+                                                 "written")
+                        if L <= blocked and (rows == Ls or row0 == 0):
+                            b = fdk.temporal_reference_ext_blocked(
+                                pair.hi, pair.lo, halo, plane, cfg, exact, L, tile, row0, rows)
+                            bitwise(f"{label}: temporal_reference_ext_blocked, hi", b.hi,
+                                    want.hi[:, row0:row0 + rows])
+                            bitwise(f"{label}: temporal_reference_ext_blocked, lo", b.lo,
+                                    want.lo[:, row0:row0 + rows])
+    return err, launches
+
+
+def ds_ext_traffic(ny, rows, L, ranges):
+    """ds_pass_traffic summed over a shard's launches of a pass: each
+    range (row0, rows) lays its own tiles."""
+    out = [ds_pass_traffic(r, ny, rows, L) for _, r in ranges]
+    return tuple(sum(x[i] for x in out) for i in range(3))
+
+
+def ds_sharded_temporal_phase(counts, clock, copy):
+    """Phase 31: the pair-DP shard pass (csrc/lbm_ds_temporal_step.cu's
+    ext-halo form, fused_ds_kernel.ext_temporal_launcher): a pass of L
+    pair steps on a shard, the rows beyond it from Td-row pair halos. (a)
+    Its tile at both tiers and variants: registers, spills, CTAs/SM, the
+    deepest pass. (b) One pass at every L 1-4 with 4-row halos (and the
+    deepest at Td = that depth on rings of one shard), both tiers, masked
+    and wall-free, every row range of both schedules, bitwise against the
+    chain of step_reference on the halo-extended block: on rings of 1, 2
+    and 4 virtual shards at 800x4000, 2 shards of 5x8 and one of 37x64 (a
+    ragged last tile), and against temporal_reference_ext_blocked at the
+    card's tile at L 1-2 on the small lattices. (c) The main path:
+    sharded-cuda-ds64 over 4 virtual shards of 800x4000 for
+    DS_SHARDED_STEPS steps, every pass counted (DS_SHARDED_STEPS / 4 passes
+    of 4, one launch per shard and pass; no one-step launch), bitwise equal
+    to cuda-ds64 and to a temporal=1 sharded session's counted one-step
+    launches; over 4 cards where there are 4. (d) Times in turns by the
+    host clock with enqueue: the path at temporal=1 (the one-step form),
+    at passes of 4 with overlap=True and overlap=False, beside cuda-ds64, on
+    4 virtual shards and on one shard; the halo exchange alone per pass;
+    one pass's launches at L 1-4 queued behind a spin, by CUDA events,
+    beside the local temporal form's pass; each with its bounds (bytes per
+    pass at the published rate and the copy kernel's, the issue floor
+    times the levels' recompute). counts, clock: ds_phases' SASS counts
+    and SM clock; copy: copy_rate's result for one float32 state. Returns
+    the kernels line's entry."""
+    from latticeboltzmann_tpu_torch import LatticeConfig, Simulation, geometry
+    from latticeboltzmann_tpu_torch.models import engine
+    from latticeboltzmann_tpu_torch.models.engine import initial_state
+    from latticeboltzmann_tpu_torch.ops import df64
+    from latticeboltzmann_tpu_torch.ops import fused_ds_kernel as fdk
+    from latticeboltzmann_tpu_torch.parallel import sharded
+    from latticeboltzmann_tpu_torch.utils import sass
+
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rng = np.random.default_rng(SEED + 31)
+    T = fdk.DS_TEMPORAL
+
+    # 31a. the tiles
+    info = {}
+    for exact in (False, True):
+        for hw in (True, False):
+            i = info[(exact, hw)] = fdk.temporal_info(exact, hw, ext=True)
+            print(f"ds ext-halo temporal kernel lbm_ds_temporal_steps_ext<"
+                  f"{'masked' if hw else 'wall-free'}, {'exact' if exact else 'fast'}>: tile "
+                  f"{i['rows']}x{i['width']} sites, {i['ctas_per_sm']} CTAs/SM, {i['registers']} "
+                  f"registers, {i['local_bytes']} B local memory (stack and spills), "
+                  f"{i['shared_bytes_per_cta']} shared B/CTA; deepest pass {i['max_steps']} steps")
+            if i["ctas_per_sm"] != DS_TEMPORAL_CTAS_PER_SM or i["local_bytes"]:
+                raise AssertionError(f"ds ext temporal tile {exact, hw}: {i}")
+    t_part = time.perf_counter()
+
+    # 31b. bitwise at every depth and row range
+    err, held = 0.0, 0
+    reset_counts()
+    for name, nx, ny, rings in (("800x4000 reference_barrier", 800, 4000, DS_EXT_RINGS),
+                                ("10x8 (5-row shards, one tile wider than the lattice)", 10, 8,
+                                 (2,)),
+                                ("37x64 (a ragged last tile)", 37, 64, (1,))):
+        big = nx * ny >= 100_000
+        cfg = LatticeConfig(nx=nx, ny=ny, dtype=np.float64, **({} if big else {"accel": 0.005}))
+        if big:
+            walls = geometry.reference_barrier(nx, ny)
+        else:
+            walls = geometry.channel(nx, ny)
+            walls[nx // 2 - 1: nx // 2 + 1, 0:3] = True
+        f0 = initial_state(cfg) * (1.0 + 0.05 * rng.uniform(-1.0, 1.0, (9, nx, ny)))
+        f0[6, nx // 2, 0] = 1e-6  # the forcing guard fails at one column-0 site
+        a = df64.from_f64(f0, dev)
+        solid = torch.as_tensor(walls.astype(np.uint8), device=dev)
+        for hw in (True, False):
+            for exact in (False, True):
+                e, n = ds_ext_bitwise(name, cfg, a, solid if hw else None, exact, rings,
+                                      0 if big else 2)
+                err, held = max(err, e), held + n
+                print(f"ds ext-halo temporal kernel vs the chain of step_reference on the "
+                      f"halo-extended block, {name} ({'exact' if exact else 'fast'} tier, "
+                      f"{'masked' if hw else 'wall-free'}), rings of {list(rings)} shard(s), L 1-"
+                      f"{DS_EXT_DEPTH} at Td {DS_EXT_DEPTH}"
+                      + (f" and L {info[(exact, hw)]['max_steps']} at Td "
+                         f"{info[(exact, hw)]['max_steps']}" if 1 in rings else "")
+                      + f", every row range of both schedules ({n} launches): bitwise"
+                      + ("" if big else "; vs temporal_reference_ext_blocked at L 1-2: bitwise"))
+        del a, solid
+    torch.cuda.synchronize()
+    expect_counts("phase 31b", {"ds-ext-temporal": held})
+    print(f"phase 31b (bitwise) took {time.perf_counter() - t_part:.1f} s")
+    t_part = time.perf_counter()
+
+    # 31c. the main path, counted, against cuda-ds64 and against temporal=1
+    cfg = LatticeConfig(nx=800, ny=4000, dtype=np.float64)
+    walls = geometry.reference_barrier(800, 4000)
+    want = Simulation(cfg, walls, backend="cuda-ds64").run(DS_SHARDED_STEPS).state()
+    meshes = {f"{VIRTUAL_SHARDS} virtual shards": sharded.make_mesh(
+        devices=[dev] * VIRTUAL_SHARDS)}
+    if torch.cuda.device_count() >= VIRTUAL_SHARDS:
+        meshes[f"{VIRTUAL_SHARDS} cards"] = sharded.make_mesh(VIRTUAL_SHARDS)
+    else:
+        print(f"{torch.cuda.device_count()} card(s) visible: the sharded-cuda-ds64 passes over a "
+              f"mesh of {VIRTUAL_SHARDS} cards were not run")
+    main_launches = None
+    for label, mesh in meshes.items():
+        engine.register_backend("sharded-cuda-ds64", sharded.make_cuda_ds_backend(mesh))
+        reset_counts()
+        sharded.HALO_COPIES = 0
+        sim = Simulation(cfg, walls, backend="sharded-cuda-ds64")
+        sim.run(DS_SHARDED_STEPS)
+        passes = DS_SHARDED_STEPS // T
+        got_counts = expect_counts(f"sharded-cuda-ds64 over {label}",
+                                   {"ds-ext-temporal": passes * mesh.size})
+        if fdk.EXT_TEMPORAL_STEPS != DS_SHARDED_STEPS * mesh.size:
+            raise AssertionError(f"sharded-cuda-ds64 over {label}: {fdk.EXT_TEMPORAL_STEPS} "
+                                 f"steps in its launches, expected {DS_SHARDED_STEPS * mesh.size}")
+        # per pass both components' two halos a shard; once a session the
+        # static halo class rows
+        copies = sharded.HALO_COPIES
+        if copies != passes * 2 * 2 * mesh.size + 2 * mesh.size:
+            raise AssertionError(f"sharded-cuda-ds64 over {label}: {copies} halo copies, expected "
+                                 f"{passes * 4 * mesh.size + 2 * mesh.size} (one exchange per "
+                                 "pass, the class rows once)")
+        got = sim.state()
+        if not np.array_equal(got, want):
+            raise AssertionError(f"sharded-cuda-ds64 over {label} != cuda-ds64 after "
+                                 f"{DS_SHARDED_STEPS} steps, max |diff| "
+                                 f"{float(np.abs(got - want).max())!r}")
+        if main_launches is None:
+            main_launches = got_counts["ds-ext-temporal"]
+        print(f"sharded-cuda-ds64 over {label}: {DS_SHARDED_STEPS} steps in {passes} passes of {T}, "
+              f"{got_counts['ds-ext-temporal']} counted launches of the ext-halo temporal form (one "
+              f"per shard and pass; no one-step launch), {copies} halo copies ({2 * 2 * mesh.size} "
+              f"of (9, {T}, 4000) a pass, {2 * mesh.size} class blocks once), bitwise equal to "
+              f"cuda-ds64, Re {sim.reynolds()!r}")
+        del sim
+    one = sharded.ShardedDSSession(cfg, walls, mesh=meshes[f"{VIRTUAL_SHARDS} virtual shards"],
+                                   temporal=1)
+    one.load(df64.from_f64(initial_state(cfg), dev))
+    reset_counts()
+    one.advance(DS_SHARDED_STEPS)
+    expect_counts("sharded-cuda-ds64 at temporal=1", {"ds-ext": DS_SHARDED_STEPS * VIRTUAL_SHARDS})
+    if not np.array_equal(df64.to_f64(one.unload()), want):
+        raise AssertionError("the temporal=1 sharded session != cuda-ds64")
+    print(f"ShardedDSSession(temporal=1) over {VIRTUAL_SHARDS} virtual shards: "
+          f"{DS_SHARDED_STEPS * VIRTUAL_SHARDS} counted one-step ext-halo launches, bitwise equal "
+          "to cuda-ds64 and so to the passes of 4")
+    del one, want
+    engine.register_backend("sharded-cuda-ds64", sharded.make_cuda_ds_backend(
+        meshes[f"{VIRTUAL_SHARDS} virtual shards"]))
+    print(f"phase 31c (main path) took {time.perf_counter() - t_part:.1f} s")
+    t_part = time.perf_counter()
+
+    # 31d. times: the paths in turns by the host clock, with enqueue
+    rates = rates_printer(cfg, fdk.BYTES_PER_SITE_DS)
+    path_us = {}
+    for mesh_label, n in ((f"{VIRTUAL_SHARDS} virtual shards", VIRTUAL_SHARDS), ("1 shard", 1)):
+        mesh = sharded.make_mesh(devices=[dev] * n)
+        group = {"cuda-ds64": Simulation(cfg, walls, backend="cuda-ds64")}
+        for label, kw in (("temporal=1 (one-step form, overlap)", dict(temporal=1, overlap=True)),
+                          (f"passes of {T}, overlap=True", dict(overlap=True)),
+                          (f"passes of {T}, overlap=False", dict(overlap=False))):
+            engine.register_backend("sharded-cuda-ds64", sharded.make_cuda_ds_backend(mesh, **kw))
+            group[f"sharded-cuda-ds64 {mesh_label}, {label}"] = Simulation(
+                cfg, walls, backend="sharded-cuda-ds64")
+        for sim in group.values():
+            sim.run(2 * T)
+        torch.cuda.synchronize()
+        best = {}
+        order = list(group) + list(reversed(group))
+        for key in order + order:
+            sim = group[key]
+            t0 = time.perf_counter()
+            sim.run(DS_EXT_TIMED_STEPS, block=False)
+            enqueue = (time.perf_counter() - t0) / DS_EXT_TIMED_STEPS
+            torch.cuda.synchronize()
+            sec = (time.perf_counter() - t0) / DS_EXT_TIMED_STEPS
+            rates(f"{key} (host clock, {DS_EXT_TIMED_STEPS} steps, in turns; enqueue "
+                  f"{enqueue * 1e6!r} us/step)", sec)
+            prev = best.get(key, (float("inf"), float("inf")))
+            best[key] = (min(prev[0], sec * 1e6), min(prev[1], enqueue * 1e6))
+        path_us[mesh_label] = best
+        for key in (k for k in group if f"passes of {T}" in k):
+            sess = group[key]._session
+            copies = sess._plans[sess._parity][0]
+            ms = event_ms(lambda sess=sess, copies=copies: (sess.exchange.start(copies),
+                                                            sess.exchange.finish()), 500)
+            print(f"halo exchange alone, {key}: {ms * 1e3!r} us a pass ({len(copies)} copies of "
+                  f"(9, {T}, 4000) float32), {ms * 1e3 / T!r} us/step (CUDA events, 500 "
+                  "exchanges)")
+            break
+        del group
+    engine.register_backend("sharded-cuda-ds64", sharded.make_cuda_ds_backend(
+        meshes[f"{VIRTUAL_SHARDS} virtual shards"]))
+    torch.cuda.empty_cache()
+
+    # one pass's launches queued behind a spin, by depth, beside the local
+    # temporal form's pass; each time's bounds
+    a = df64.from_f64(initial_state(cfg) * (1.0 + 0.05 * rng.uniform(-1.0, 1.0, (9, 800, 4000))),
+                      dev)
+    b = df64.DS(torch.empty_like(a.hi), torch.empty_like(a.lo))
+    solid = torch.as_tensor(walls.astype(np.uint8), device=dev)
+    lanes = torch.cuda.get_device_properties(0).multi_processor_count * FP32_LANES_PER_SM
+    copy_rate_bps = 2 * 9 * cfg.sites * 4 / (copy["ms"] * 1e-3)
+    fp32 = sum(counts[("ds", True, False)][k] for k in sass.FP32)
+    rows_tile = info[(False, True)]["rows"]
+    rings = {n: [ds_ring_shard(a, solid, n, k, DS_EXT_DEPTH) for k in range(n)]
+             for n in (VIRTUAL_SHARDS, 1)}
+    outs = {n: [df64.DS(torch.empty_like(p.hi), torch.empty_like(p.lo)) for p, _, _ in ring]
+            for n, ring in rings.items()}
+    pass_us, bounds = {}, {}
+    for L in range(1, DS_EXT_DEPTH + 1):
+        fns = {"local temporal form (1 launch)": lambda L=L: fdk.temporal_step(
+            a, b, solid, cfg, L, has_walls=True)}
+        for n, ring in rings.items():
+            Ls = 800 // n
+            for overlap in (False, True):
+                ranges = ds_ext_ranges(Ls, L)
+                ranges = ranges[1:] if overlap and len(ranges) > 1 else ranges[:1]
+                calls = [fdk.ext_temporal_launcher(p, outs[n][k], None if row0 >= L and
+                                                   row0 + r + L <= Ls else h, pl, cfg, L,
+                                                   has_walls=True, row0=row0, rows=r)
+                         for k, (p, h, pl) in enumerate(ring) for row0, r in ranges]
+                key = (f"{n} shard(s), {'interior + bands' if overlap else 'one launch per shard'}"
+                       f" ({len(calls)} launches)")
+                fns[key] = lambda calls=calls: [c() for c in calls]
+                read, write, updates = ds_ext_traffic(4000, rows_tile, L, ranges)
+                bounds[L, key] = (n * read, n * write, n * updates)
+        t = in_turns(lambda label, sec, L=L: rates(label, sec / L), f"ds ext-halo temporal, "
+                     f"one pass of {L}", fns, DS_EXT_QUEUED_CALLS, timer=queued_ms)
+        for key, ms in t.items():
+            pass_us[L, key] = ms * 1e3
+            if (L, key) not in bounds:
+                continue
+            read, write, updates = bounds[L, key]
+            pair_state = 2 * 9 * 4 * cfg.sites
+            floor_us = fp32 * updates / (lanes * clock * 1e6) * 1e6 / L
+            print(f"ds ext-halo temporal bound, one pass of {L}, {key}: reads {read} B "
+                  f"({read / pair_state!r} of the pair state) and writes {write} B: "
+                  f"{(read + write) / PEAK_BYTES_PER_S * 1e6 / L!r} us/step at "
+                  f"{PEAK_BYTES_PER_S:.3g} B/s, {(read + write) / copy_rate_bps * 1e6 / L!r} at the "
+                  f"copy kernel's {copy_rate_bps:.4g} B/s; its levels update "
+                  f"{updates / (L * cfg.sites)!r} times the sites: issue floor {floor_us!r} us/step "
+                  f"({fp32} FP32 instructions a site at {clock!r} MHz on {lanes} lanes); measured "
+                  f"{ms * 1e3 / L!r} us/step (local temporal form "
+                  f"{t['local temporal form (1 launch)'] * 1e3 / L!r})")
+
+    # the entry: one pass of T on 4 virtual shards, one launch per shard
+    # (the path's schedule), fast tier, masked; its plain version; the bound
+    ring = rings[VIRTUAL_SHARDS]
+    plain_ms = event_ms(lambda: [fdk.temporal_reference_ext(p.hi, p.lo, h, pl, cfg, False, T)
+                                 for p, h, pl in ring], 1)
+    halo_bytes = sum(t.numel() * 4 for _, h, _ in ring for side in h for t in side)
+    halo_bytes += sum(pl.top.numel() + pl.bot.numel() for _, _, pl in ring)
+    n_bytes = 4 * a.hi.numel() * 4 + solid.numel() + halo_bytes
+    bd = counted_bound(n_bytes, counts[("ds", True, False)], cfg.sites * T, clock)
+    fused = next(k for (L, k) in pass_us if L == T and k.startswith(f"{VIRTUAL_SHARDS} shard(s), "
+                                                                     "one launch"))
+    overlap_key = next(k for (L, k) in pass_us if L == T and k.startswith(
+        f"{VIRTUAL_SHARDS} shard(s), interior"))
+    one_key = next(k for (L, k) in pass_us if L == T and k.startswith("1 shard(s), one launch"))
+    print(f"ds ext-halo temporal kernel, one pass of {T} on {VIRTUAL_SHARDS} virtual shards of "
+          f"800x4000, one launch per shard: {pass_us[T, fused]!r} us (interior + bands "
+          f"{pass_us[T, overlap_key]!r}; one shard {pass_us[T, one_key]!r}; the local temporal "
+          f"form {pass_us[T, 'local temporal form (1 launch)']!r}); temporal_reference_ext over "
+          f"{VIRTUAL_SHARDS} shards {plain_ms!r} ms; bound of the pass {bd['bound_ms'] * 1e3!r} us "
+          f"by {bd['bound_by']} ({n_bytes} B, each input read once and each output written once)")
+    print(f"phase 31d (times) took {time.perf_counter() - t_part:.1f} s")
+    return {
+        "name": f"lbm_ds_temporal_steps_ext<HAS_WALLS, EXACT> (a shard's pass of L pair steps, "
+                f"Td-row pair halos; main path sharded-cuda-ds64 over {VIRTUAL_SHARDS} virtual "
+                f"shards in passes of {T}, one launch per shard and pass; ms: one pass's "
+                f"{VIRTUAL_SHARDS} launches, fast tier, masked, 800x4000)",
+        "route": "cuda",
+        "source": "latticeboltzmann_tpu_torch/csrc/lbm_ds_temporal_step.cu",
+        "replaces": "latticeboltzmann_tpu/ops/fused_ds_kernel.py:272 (ext_halo=True, "
+                    "temporal=DS_TEMPORAL)",
+        "launches": main_launches,
+        "max_abs_err": err,
+        "ms": pass_us[T, fused] * 1e-3,
+        "plain_ms": plain_ms,
+        "interior_and_bands_ms": pass_us[T, overlap_key] * 1e-3,
+        "one_shard_ms": pass_us[T, one_key] * 1e-3,
+        **bd,
+        "pass_us_by_L": {f"L={L} {k}": v for (L, k), v in pass_us.items()},
+        "path_us_per_step_and_enqueue": path_us,
+        "tile": {f"{'exact' if k[0] else 'fast'}-{'masked' if k[1] else 'wall-free'}": v
+                 for k, v in info.items()},
+    }
 
 
 

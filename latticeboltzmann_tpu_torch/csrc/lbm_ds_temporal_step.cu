@@ -68,6 +68,44 @@
 // (fused_ds_kernel.temporal_reference in the port, whose tiled form
 // fused_ds_kernel.temporal_reference_blocked follows this kernel's tiles),
 // at any L the tile takes and at either tier. No --use_fast_math.
+//
+// The ext-halo form (lbm_ds_temporal_steps_ext, launched by
+// lbm_ds_temporal_steps_ext_launch) replaces the same pl.pallas_call
+// (_make_ds_pass at ops/fused_ds_kernel.py:272) with ext_halo=True at
+// temporal = DS_TEMPORAL, as _get_sharded_runner (:385-472) drives it per
+// shard: each pass of the TPU runner ppermutes T rows of both pair
+// components from each ring neighbour (`extend`, :435-438) and runs T
+// steps on the shard's extended rows. Here one launch is one pass of L <=
+// Td steps on a shard's (9, Ls, NY) pair, writing the local rows [row0,
+// row0 + rows), so that a caller can run the rows that take no halo while
+// the halos are copied, and the rest after. It is this kernel with two
+// changes and nothing else:
+// - where the rows come from (load_pair_tile<.., EXT>): tile row lr of a
+//   tile reads the shard's local row q; q < 0 reads row Td + q of the top
+//   halo (9, Td, NY) and q >= Ls row q - Ls of the bottom one, hi and lo
+//   each, and a class byte from the halo's static (Td, NY) class rows. No
+//   x wrap: the ring of shards outside is the x periodicity. Columns wrap
+//   modulo NY as in the local form, and the forcing at GLOBAL column 0 is
+//   unchanged, since the mesh splits rows only; a halo row's column-0
+//   site is forced at every level from its own pairs and class, as in the
+//   TPU window;
+// - where the output goes: tiles are laid from row0 over `rows` rows and
+//   written there.
+// Every load is a 16-byte cp.async from its own plane (whole allocations,
+// NY % 4 == 0); the launcher refuses a pass deeper than the halos (L >
+// Td) and one whose reads would leave [-Td, Ls + Td).
+//
+// What bounds the ext-halo form. A pass of 4 steps on a 200-row shard of
+// 800x4000 (4 shards) lays 15 rows of tiles (14 full, one of 4 rows) and
+// 63 columns; it reads the rows of its tiles with their halos, 1.6 times
+// the shard's rows (a ragged 4-row tile reads 12), and 1.13 times its
+// columns, 73 B a site: about 105 MB, and writes 58 MB: 163 MB a pass per
+// shard, 652 MB for the four, 49 us a step at 3.35 TB/s, as the local
+// form. The levels recompute about 1.3 times the output sites (1.28 for
+// the local form), so the fast tier's issue floor becomes about 79 us a
+// step. The halo copies add 4 x 9 x 4 x NY x 4 B a shard a pass (2.3 MB
+// for 4 shards, 0.4% of the pass). Issue, not bytes, bounds it, as the
+// local form: the design adds no work to the levels and keeps the tile.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -97,6 +135,20 @@ __host__ __device__ constexpr int a58_at(bool exact) { return exact ? 18 : 16; }
 constexpr int64_t ds_tile_bytes(int64_t rows, int64_t pair_bytes) {
   return rows * kW * (9 * pair_bytes + 1);
 }
+
+// The ext-halo form's shard: what lies beyond its rows, and the rows a
+// launch writes. Unused (zero) in the local form.
+struct Halo {
+  const float* top_hi = nullptr;       // (9, depth, ny): the rows above local row 0
+  const float* top_lo = nullptr;
+  const float* bot_hi = nullptr;       // (9, depth, ny): the rows below local row nx - 1
+  const float* bot_lo = nullptr;
+  const uint8_t* solid_top = nullptr;  // (depth, ny): their class rows (masked variant)
+  const uint8_t* solid_bot = nullptr;
+  int depth = 0;                       // the halos' rows
+  int row0 = 0;                        // first local row the launch writes
+  int rows = 0;                        // rows it writes
+};
 
 // offset of the hi slot that holds f_s of the site at offset 0: natural
 // f_s(x) at (x, s); pushed at (x + e_s, opp s). Called with constant s.
@@ -215,13 +267,16 @@ __device__ __forceinline__ void pair_level(float* sm, const uint8_t* cls, int ra
 // hi and 9 lo planes of each (row, 16-byte vector) item, and its 4 class
 // bytes (masked: one copy from the solid plane; wall-free: zeros). A
 // vector's global columns are contiguous: the tile's first column and NY
-// are multiples of 4.
-template <bool HAS_WALLS>
+// are multiples of 4. Local form: rows wrap modulo nx. Ext-halo form
+// (EXT): tile row lr is the shard's local row q = h.row0 + a.gr0 + lr,
+// read from the top halo's row depth + q where q < 0 and from the bottom
+// halo's row q - nx where q >= nx.
+template <bool HAS_WALLS, bool EXT>
 __device__ __forceinline__ void load_pair_tile(float* sm, uint8_t* cls, const TileAt& a,
                                                const float* __restrict__ src_hi,
                                                const float* __restrict__ src_lo,
                                                const uint8_t* __restrict__ solid, int nx, int ny,
-                                               int64_t plane) {
+                                               int64_t plane, const Halo& h) {
   constexpr int V = vec_columns<float>();
   const int k0 = a.lc0 / V;
   const int nb = (a.lc1 + V - 1) / V - k0;
@@ -230,33 +285,65 @@ __device__ __forceinline__ void load_pair_tile(float* sm, uint8_t* cls, const Ti
   for (int i = threadIdx.x; i < n; i += kNT, at.next()) {
     const int lr = at.a;
     const int lc = (k0 + at.b) * V;
-    const int gi = wrap(a.gr0 + lr, nx);
-    const int gj = wrap(a.gc0 + lc, ny);
-    const int64_t gs = static_cast<int64_t>(gi) * ny + gj;
-    float* d = sm + lr * kRowFloats + lc;
+    if constexpr (EXT) {
+      int gi = h.row0 + a.gr0 + lr;
+      const float* hi = src_hi;
+      const float* lo = src_lo;
+      const uint8_t* cl = solid;
+      int64_t pl = plane;
+      if (gi < 0 || gi >= nx) {
+        const bool top = gi < 0;
+        hi = top ? h.top_hi : h.bot_hi;
+        lo = top ? h.top_lo : h.bot_lo;
+        cl = top ? h.solid_top : h.solid_bot;
+        pl = static_cast<int64_t>(h.depth) * ny;
+        gi = top ? h.depth + gi : gi - nx;
+      }
+      const int gj = wrap(a.gc0 + lc, ny);
+      const int64_t gs = static_cast<int64_t>(gi) * ny + gj;
+      float* d = sm + lr * kRowFloats + lc;
 #pragma unroll
-    for (int s = 0; s < 9; ++s) {
-      copy16_async(d + s * kW, src_hi + gs + s * plane);
-      copy16_async(d + kLo + s * kW, src_lo + gs + s * plane);
-    }
-    uint8_t* c = cls + lr * kW + lc;
-    if (HAS_WALLS) {
-      copy_small_async<V>(c, solid + gs);
+      for (int s = 0; s < 9; ++s) {
+        copy16_async(d + s * kW, hi + gs + s * pl);
+        copy16_async(d + kLo + s * kW, lo + gs + s * pl);
+      }
+      uint8_t* c = cls + lr * kW + lc;
+      if (HAS_WALLS) {
+        copy_small_async<V>(c, cl + gs);
+      } else {
+        *reinterpret_cast<uint32_t*>(c) = 0u;
+      }
     } else {
-      *reinterpret_cast<uint32_t*>(c) = 0u;
+      const int gi = wrap(a.gr0 + lr, nx);
+      const int gj = wrap(a.gc0 + lc, ny);
+      const int64_t gs = static_cast<int64_t>(gi) * ny + gj;
+      float* d = sm + lr * kRowFloats + lc;
+#pragma unroll
+      for (int s = 0; s < 9; ++s) {
+        copy16_async(d + s * kW, src_hi + gs + s * plane);
+        copy16_async(d + kLo + s * kW, src_lo + gs + s * plane);
+      }
+      uint8_t* c = cls + lr * kW + lc;
+      if (HAS_WALLS) {
+        copy_small_async<V>(c, solid + gs);
+      } else {
+        *reinterpret_cast<uint32_t*>(c) = 0u;
+      }
     }
   }
 }
 
-// src -> dst, L steps: four distinct (9, nx, ny) planes. rows: the tile's
-// rows; a pass of L steps writes output tiles of (rows - 2 L) x (kW - 2
-// column_halo(L)) sites. solid: the uint8 class plane (HAS_WALLS).
-template <bool HAS_WALLS, bool EXACT>
-__global__ void __launch_bounds__(kNT, kCtasPerSm)
-lbm_ds_temporal_steps(const float* __restrict__ src_hi, const float* __restrict__ src_lo,
-                      float* __restrict__ dst_hi, float* __restrict__ dst_lo,
-                      const uint8_t* __restrict__ solid, int nx, int ny, int rows, int L,
-                      Params k) {
+// The pass of both forms, src -> dst, L steps: four distinct (9, nx, ny)
+// planes (EXT: a shard's blocks, nx its rows; the output rows [h.row0,
+// h.row0 + h.rows)). rows: the tile's rows; a pass of L steps writes
+// output tiles of (rows - 2 L) x (kW - 2 column_halo(L)) sites. solid:
+// the uint8 class plane (HAS_WALLS).
+template <bool HAS_WALLS, bool EXACT, bool EXT>
+__device__ __forceinline__ void pass_tiles(const float* __restrict__ src_hi,
+                                           const float* __restrict__ src_lo,
+                                           float* __restrict__ dst_hi, float* __restrict__ dst_lo,
+                                           const uint8_t* __restrict__ solid, int nx, int ny,
+                                           int rows, int L, Params k, Halo h) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* sm = reinterpret_cast<float*>(smem);
   uint8_t* cls = smem + static_cast<int64_t>(rows) * kRowFloats * sizeof(float);
@@ -264,19 +351,20 @@ lbm_ds_temporal_steps(const float* __restrict__ src_hi, const float* __restrict_
   const int pad = column_halo<float>(L);
   const int R = rows - 2 * L;
   const int C = kW - 2 * pad;
+  const int out_rows = EXT ? h.rows : nx;
   const int tiles_y = (ny + C - 1) / C;
-  const int tiles = ((nx + R - 1) / R) * tiles_y;
+  const int tiles = ((out_rows + R - 1) / R) * tiles_y;
   const ds a14 = pair(k, a14_at(EXACT));
   const ds a58 = pair(k, a58_at(EXACT));
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const TileAt a(tile, tiles_y, R, C, nx, ny, L, pad);
+    const TileAt a(tile, tiles_y, R, C, out_rows, ny, L, pad);
     // the previous tile's last level has read the shared tile (its closing
     // barrier) before these loads overwrite it
-    load_pair_tile<HAS_WALLS>(sm, cls, a, src_hi, src_lo, solid, nx, ny, plane);
+    load_pair_tile<HAS_WALLS, EXT>(sm, cls, a, src_hi, src_lo, solid, nx, ny, plane, h);
     copies_wait();
     __syncthreads();
     // the output tile's sites at dst[out0 + r ny + c] for tile site (r, c)
-    const int64_t out0 = static_cast<int64_t>(a.gr0) * ny + a.gc0;
+    const int64_t out0 = static_cast<int64_t>((EXT ? h.row0 : 0) + a.gr0) * ny + a.gc0;
     for (int t = 1; t <= L; ++t) {
       const int g = L - t;  // how far level t reaches beyond the output
       const int ra = L - g, rb = L + a.Re + g;
@@ -306,6 +394,27 @@ lbm_ds_temporal_steps(const float* __restrict__ src_hi, const float* __restrict_
   }
 }
 
+// The local form: the whole lattice, periodic in both axes.
+template <bool HAS_WALLS, bool EXACT>
+__global__ void __launch_bounds__(kNT, kCtasPerSm)
+lbm_ds_temporal_steps(const float* __restrict__ src_hi, const float* __restrict__ src_lo,
+                      float* __restrict__ dst_hi, float* __restrict__ dst_lo,
+                      const uint8_t* __restrict__ solid, int nx, int ny, int rows, int L,
+                      Params k) {
+  pass_tiles<HAS_WALLS, EXACT, false>(src_hi, src_lo, dst_hi, dst_lo, solid, nx, ny, rows, L, k,
+                                      Halo{});
+}
+
+// The ext-halo form: a shard of nx rows, the rows beyond it from h's halos.
+template <bool HAS_WALLS, bool EXACT>
+__global__ void __launch_bounds__(kNT, kCtasPerSm)
+lbm_ds_temporal_steps_ext(const float* __restrict__ src_hi, const float* __restrict__ src_lo,
+                          float* __restrict__ dst_hi, float* __restrict__ dst_lo,
+                          const uint8_t* __restrict__ solid, int nx, int ny, int rows, int L,
+                          Params k, Halo h) {
+  pass_tiles<HAS_WALLS, EXACT, true>(src_hi, src_lo, dst_hi, dst_lo, solid, nx, ny, rows, L, k, h);
+}
+
 // What the card gives the kernel at a tier and a variant, read once per
 // card (each launch asks): the tile's rows (tile_rows), its dynamic shared
 // bytes, the kernel's attributes, its CTAs per SM and the card's SMs.
@@ -317,7 +426,17 @@ struct Info {
 
 constexpr int kMaxDevices = 64;
 
-template <bool HAS_WALLS, bool EXACT>
+// the kernel of a form, at a tier and a variant
+template <bool HAS_WALLS, bool EXACT, bool EXT>
+auto kernel_of() {
+  if constexpr (EXT) {
+    return lbm_ds_temporal_steps_ext<HAS_WALLS, EXACT>;
+  } else {
+    return lbm_ds_temporal_steps<HAS_WALLS, EXACT>;
+  }
+}
+
+template <bool HAS_WALLS, bool EXACT, bool EXT>
 cudaError_t pair_tile_info(Info* out) {
   static Info cache[kMaxDevices];
   static bool known[kMaxDevices] = {};
@@ -336,7 +455,7 @@ cudaError_t pair_tile_info(Info* out) {
   err = tile_rows(ds_tile_bytes, 2 * sizeof(float), &info.rows);
   if (err != cudaSuccess) return err;
   info.smem = ds_tile_bytes(info.rows, 2 * sizeof(float));
-  auto kernel = lbm_ds_temporal_steps<HAS_WALLS, EXACT>;
+  auto kernel = kernel_of<HAS_WALLS, EXACT, EXT>();
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(info.smem));
   if (err != cudaSuccess) return err;
@@ -351,11 +470,31 @@ cudaError_t pair_tile_info(Info* out) {
   return cudaSuccess;
 }
 
+template <bool EXT>
 cudaError_t pair_info(int64_t has_walls, int64_t exact, Info* out) {
   if (has_walls) {
-    return exact ? pair_tile_info<true, true>(out) : pair_tile_info<true, false>(out);
+    return exact ? pair_tile_info<true, true, EXT>(out) : pair_tile_info<true, false, EXT>(out);
   }
-  return exact ? pair_tile_info<false, true>(out) : pair_tile_info<false, false>(out);
+  return exact ? pair_tile_info<false, true, EXT>(out) : pair_tile_info<false, false, EXT>(out);
+}
+
+// The launch constants from their host floats: 20 (exact) or 18 (fast).
+Params params_from(const void* params, int64_t exact) {
+  Params k{};
+  const float* h = static_cast<const float*>(params);
+  for (int q = 0; q < (exact ? 20 : 18); ++q) k.v[q] = h[q];
+  return k;
+}
+
+// The co-resident grid of a pass over `rows` output rows at the tile of
+// `info`, no larger than the work; 0 when the pass leaves no output tile
+// or the tile count reaches 2^30 (32-bit tile arithmetic).
+int64_t pass_grid(const Info& info, int64_t rows, int64_t ny, int L) {
+  const int64_t R = info.rows - 2 * L, C = kW - 2 * column_halo<float>(L);
+  if (R < 1 || C < 1) return 0;
+  const int64_t tiles = ((rows + R - 1) / R) * ((ny + C - 1) / C);
+  if (tiles >= (1LL << 30)) return 0;
+  return std::min<int64_t>(tiles, static_cast<int64_t>(info.per_sm) * info.sms);
 }
 
 bool misaligned(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; }
@@ -388,20 +527,12 @@ extern "C" int lbm_ds_temporal_steps_launch(const void* src_hi, const void* src_
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Info info;
-  const cudaError_t err = pair_info(has_walls, exact, &info);
+  const cudaError_t err = pair_info<false>(has_walls, exact, &info);
   if (err != cudaSuccess) return static_cast<int>(err);
-  // the pass leaves an output tile, and the tile count stays under 2^30
-  // (32-bit tile arithmetic)
   const int L = static_cast<int>(steps);
-  const int64_t R = info.rows - 2 * L, C = kW - 2 * column_halo<float>(L);
-  if (R < 1 || C < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t tiles = ((nx + R - 1) / R) * ((ny + C - 1) / C);
-  if (tiles >= (1LL << 30)) return static_cast<int>(cudaErrorInvalidValue);
-  // the co-resident grid, no larger than the work
-  const int64_t n_blocks = std::min<int64_t>(tiles, static_cast<int64_t>(info.per_sm) * info.sms);
-  Params k{};
-  const float* h = static_cast<const float*>(params);
-  for (int q = 0; q < (exact ? 20 : 18); ++q) k.v[q] = h[q];
+  const int64_t n_blocks = pass_grid(info, nx, ny, L);
+  if (n_blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const Params k = params_from(params, exact);
   const auto* sh = static_cast<const float*>(src_hi);
   const auto* sl = static_cast<const float*>(src_lo);
   auto* dh = static_cast<float*>(dst_hi);
@@ -440,7 +571,113 @@ extern "C" int lbm_ds_temporal_steps_launch(const void* src_hi, const void* src_
 extern "C" int lbm_ds_temporal_steps_info(int64_t exact, int64_t has_walls, int64_t* out) {
   if (out == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   Info info;
-  const cudaError_t err = pair_info(has_walls, exact, &info);
+  const cudaError_t err = pair_info<false>(has_walls, exact, &info);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = info.attr.numRegs;
+  out[1] = info.per_sm;
+  out[2] = info.smem;
+  out[3] = static_cast<int64_t>(info.attr.localSizeBytes);
+  out[4] = info.rows;
+  out[5] = kW;
+  return 0;
+}
+
+// The ext-halo form: one pass of `steps` pair steps of the local rows
+// [row0, row0 + rows) of a shard's (9, nx, ny) blocks (src_hi, src_lo) ->
+// (dst_hi, dst_lo) on `stream`, all four float32, device, contiguous,
+// distinct, 16-byte aligned, ny a multiple of 4. top_hi/top_lo and
+// bot_hi/bot_lo: (9, depth, ny) float32 device blocks, the depth rows above
+// local row 0 and below local row nx - 1, all 9 speed planes of both
+// components, 16-byte aligned; solid_top, solid_bot: their (depth, ny)
+// uint8 class rows (masked variant). A pass reads `steps` rows beyond
+// each side of its output: where those leave the shard, the halo of that
+// side is required and depth >= steps; never read otherwise (depth 0 and
+// null pointers allowed). With halos, steps > depth is refused. solid:
+// the shard's (nx, ny) uint8 codes 0 fluid / 1 bounce-back (read only
+// when has_walls != 0). exact, steps, params and the return as
+// lbm_ds_temporal_steps_launch's.
+extern "C" int lbm_ds_temporal_steps_ext_launch(
+    const void* src_hi, const void* src_lo, void* dst_hi, void* dst_lo, const void* top_hi,
+    const void* top_lo, const void* bot_hi, const void* bot_lo, const void* solid,
+    const void* solid_top, const void* solid_bot, int64_t nx, int64_t ny, int64_t depth,
+    int64_t row0, int64_t rows, int64_t has_walls, int64_t exact, int64_t steps,
+    const void* params, void* stream) {
+  const void* bufs[] = {src_hi, src_lo, dst_hi, dst_lo};
+  for (int i = 0; i < 4; ++i) {
+    if (bufs[i] == nullptr || misaligned(bufs[i])) return static_cast<int>(cudaErrorInvalidValue);
+    for (int j = 0; j < i; ++j) {
+      if (bufs[i] == bufs[j]) return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  if (nx < 1 || ny < 1 || nx >= (1LL << 30) || ny >= (1LL << 30) ||
+      ny % vec_columns<float>() != 0 || (has_walls && (solid == nullptr || misaligned(solid))) ||
+      steps < 1 || steps > 64 || params == nullptr || depth < 0 || depth >= (1LL << 30) ||
+      row0 < 0 || rows < 1 || row0 + rows > nx || (depth > 0 && steps > depth)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // each side the pass reads beyond the shard needs its halo, deep enough
+  const void* sides[2][3] = {{top_hi, top_lo, solid_top}, {bot_hi, bot_lo, solid_bot}};
+  const bool needs[2] = {row0 - steps < 0, row0 + rows + steps > nx};
+  for (int side = 0; side < 2; ++side) {
+    if (!needs[side]) continue;
+    if (steps > depth) return static_cast<int>(cudaErrorInvalidValue);
+    for (int b = 0; b < (has_walls ? 3 : 2); ++b) {
+      const void* q = sides[side][b];
+      if (q == nullptr || misaligned(q)) return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  Info info;
+  const cudaError_t err = pair_info<true>(has_walls, exact, &info);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int L = static_cast<int>(steps);
+  const int64_t n_blocks = pass_grid(info, rows, ny, L);
+  if (n_blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const Params k = params_from(params, exact);
+  Halo h;
+  h.top_hi = static_cast<const float*>(top_hi);
+  h.top_lo = static_cast<const float*>(top_lo);
+  h.bot_hi = static_cast<const float*>(bot_hi);
+  h.bot_lo = static_cast<const float*>(bot_lo);
+  h.solid_top = static_cast<const uint8_t*>(solid_top);
+  h.solid_bot = static_cast<const uint8_t*>(solid_bot);
+  h.depth = static_cast<int>(depth);
+  h.row0 = static_cast<int>(row0);
+  h.rows = static_cast<int>(rows);
+  const auto* sh = static_cast<const float*>(src_hi);
+  const auto* sl = static_cast<const float*>(src_lo);
+  auto* dh = static_cast<float*>(dst_hi);
+  auto* dl = static_cast<float*>(dst_lo);
+  const auto* w = static_cast<const uint8_t*>(solid);
+  const int n[] = {static_cast<int>(nx), static_cast<int>(ny), info.rows};
+  const dim3 grid(static_cast<unsigned>(n_blocks));
+  const dim3 block(kNT);
+  const size_t shared = static_cast<size_t>(info.smem);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (has_walls) {
+    if (exact) {
+      lbm_ds_temporal_steps_ext<true, true><<<grid, block, shared, st>>>(sh, sl, dh, dl, w, n[0],
+                                                                         n[1], n[2], L, k, h);
+    } else {
+      lbm_ds_temporal_steps_ext<true, false><<<grid, block, shared, st>>>(sh, sl, dh, dl, w, n[0],
+                                                                          n[1], n[2], L, k, h);
+    }
+  } else {
+    if (exact) {
+      lbm_ds_temporal_steps_ext<false, true><<<grid, block, shared, st>>>(
+          sh, sl, dh, dl, nullptr, n[0], n[1], n[2], L, k, h);
+    } else {
+      lbm_ds_temporal_steps_ext<false, false><<<grid, block, shared, st>>>(
+          sh, sl, dh, dl, nullptr, n[0], n[1], n[2], L, k, h);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// lbm_ds_temporal_steps_info for the ext-halo form: the same six values.
+extern "C" int lbm_ds_temporal_steps_ext_info(int64_t exact, int64_t has_walls, int64_t* out) {
+  if (out == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  Info info;
+  const cudaError_t err = pair_info<true>(has_walls, exact, &info);
   if (err != cudaSuccess) return static_cast<int>(err);
   out[0] = info.attr.numRegs;
   out[1] = info.per_sm;

@@ -259,6 +259,38 @@ def load_library() -> ctypes.CDLL:
         ctypes.c_void_p,  # out: 6 int64 (registers, CTAs per SM, shared bytes, local bytes,
                           # the tile's rows and columns)
     ]
+    fn = lib.lbm_ds_temporal_steps_ext_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [
+        ctypes.c_void_p,  # src_hi: the shard's (9, nx, ny) blocks
+        ctypes.c_void_p,  # src_lo
+        ctypes.c_void_p,  # dst_hi
+        ctypes.c_void_p,  # dst_lo
+        ctypes.c_void_p,  # top_hi: (9, depth, ny), the rows above the shard, or null
+        ctypes.c_void_p,  # top_lo
+        ctypes.c_void_p,  # bot_hi: (9, depth, ny), the rows below the shard, or null
+        ctypes.c_void_p,  # bot_lo
+        ctypes.c_void_p,  # solid (may be null for the wall-free variant)
+        ctypes.c_void_p,  # top halo class rows (depth, ny), or null
+        ctypes.c_void_p,  # bot halo class rows (depth, ny), or null
+        ctypes.c_int64,   # nx: the shard's rows
+        ctypes.c_int64,   # ny: a multiple of 4
+        ctypes.c_int64,   # depth: the halos' rows (0 without halos)
+        ctypes.c_int64,   # row0: first row written
+        ctypes.c_int64,   # rows written
+        ctypes.c_int64,   # has_walls
+        ctypes.c_int64,   # exact
+        ctypes.c_int64,   # steps of the pass
+        ctypes.c_void_p,  # params: 20 (exact) or 18 (fast) host floats
+        ctypes.c_void_p,  # cudaStream_t
+    ]
+    fn = lib.lbm_ds_temporal_steps_ext_info
+    fn.restype = ctypes.c_int
+    fn.argtypes = [
+        ctypes.c_int64,   # exact
+        ctypes.c_int64,   # has_walls
+        ctypes.c_void_p,  # out: 6 int64, as lbm_ds_temporal_steps_info's
+    ]
     fn = lib.lbm_flat_steps_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [

@@ -36,6 +36,17 @@ The two forms' launches are counted apart: LAUNCHES (one step) and
 TEMPORAL_LAUNCHES (passes; their steps in TEMPORAL_STEPS). Every result is
 bitwise independent of T, as the JAX kernel's is.
 
+The ext-halo temporal form (`ext_temporal_launcher`; plain versions
+`temporal_reference_ext` and, tile by tile, `temporal_reference_ext_blocked`)
+is the temporal form on one shard of the row-sharded path, the JAX
+kernel's ext_halo=True form at temporal=DS_TEMPORAL as its sharded runner
+drives it (_get_sharded_runner, :385-472 there): a launch runs a pass of L
+pair steps and writes a range of the shard's local rows, and the source
+rows beyond the shard come from two halo blocks of Td >= L rows of each
+pair component (the ring neighbours' boundary rows, all 9 speed planes)
+with their static class rows. Its launches are counted in
+EXT_TEMPORAL_LAUNCHES (their steps in EXT_TEMPORAL_STEPS).
+
 State is the unpadded DS pair of (9, NX, NY) float32 planes. The TPU
 kernel's mirror-pad lanes, pad re-mirroring and 8-row halo blocks have no
 counterpart here.
@@ -57,13 +68,16 @@ from .df64 import DS
 from .fused_kernel import ShardPlane, check_device, check_ext_launch, check_solid_plane
 
 # kernel launches made by `step` (the one-step form), by the ext-halo
-# form and by `temporal_step` (the temporal form; TEMPORAL_STEPS: the steps
-# its passes ran), for callers that must show a run went through a kernel
-# (chip_smoke.py resets and reads them)
+# form, by `temporal_step` (the temporal form; TEMPORAL_STEPS: the steps
+# its passes ran) and by the ext-halo temporal form, for callers that
+# must show a run went through a kernel (chip_smoke.py resets and reads
+# them)
 LAUNCHES = 0
 EXT_LAUNCHES = 0
 TEMPORAL_LAUNCHES = 0
 TEMPORAL_STEPS = 0
+EXT_TEMPORAL_LAUNCHES = 0
+EXT_TEMPORAL_STEPS = 0
 
 # the JAX kernel's default temporal-blocking depth (its DS_TEMPORAL), the
 # steps of a Session's passes; results are bitwise independent of it
@@ -309,6 +323,17 @@ def temporal_reference_blocked(hi: torch.Tensor, lo: torch.Tensor, solid: torch.
     being read, then the collision at the tier and bounce-back. tile: any
     rows and width (a fused_kernel.FlatTile) that leave an output tile
     (temporal_info gives the kernel's on a card). Returns a new pair."""
+    nx = hi.shape[1]
+    return _blocked(hi, lo, solid, cfg, exact, steps, tile, nx,
+                    lambda r0, re: torch.arange(r0 - steps, r0 + re + steps) % nx)
+
+
+def _blocked(hi, lo, solid, cfg: LatticeConfig, exact: bool, steps: int, tile, n_rows: int,
+             source_rows) -> DS:
+    """One pass of `steps` steps tile by tile over n_rows output rows of
+    every column: output tiles of flat_output(tile, float32, steps) sites,
+    tile row r0 of them from the re + 2 steps rows source_rows(r0, re) of
+    hi, lo and solid (None: wall-free). Returns an (9, n_rows, NY) pair."""
     fused_kernel._check_temporal(steps)
     tile = fused_kernel.FlatTile(*tile)
     R, C = fused_kernel.flat_output(tile, torch.float32, steps)
@@ -318,11 +343,14 @@ def temporal_reference_blocked(hi: torch.Tensor, lo: torch.Tensor, solid: torch.
     walls = (torch.zeros(hi.shape[1:], dtype=torch.bool, device=dev) if solid is None
              else solid != 0)
     consts = ds_engine._consts(cfg, dev) if exact else ds_engine._consts_fast(cfg, dev)
-    out = DS(torch.empty_like(hi), torch.empty_like(lo))
-    for r0 in range(0, cfg.nx, R):
+    shape = (NSPEEDS, n_rows, cfg.ny)
+    out = DS(hi.new_empty(shape), lo.new_empty(shape))
+    for r0 in range(0, n_rows, R):
+        re = min(R, n_rows - r0)
+        rows = source_rows(r0, re).to(dev)
         for c0 in range(0, cfg.ny, C):
-            re, ce = min(R, cfg.nx - r0), min(C, cfg.ny - c0)
-            got = _tile_pass(hi, lo, walls, cfg, consts, exact, r0, c0, re, ce, steps)
+            ce = min(C, cfg.ny - c0)
+            got = _tile_pass(hi, lo, walls, cfg, consts, exact, rows, c0, ce, steps)
             out.hi[:, r0:r0 + re, c0:c0 + ce] = got.hi
             out.lo[:, r0:r0 + re, c0:c0 + ce] = got.lo
     return out
@@ -332,11 +360,11 @@ def temporal_reference_blocked(hi: torch.Tensor, lo: torch.Tensor, solid: torch.
 _FORCED = ((1, 1), (3, -1), (5, 1), (6, -1), (7, -1), (8, 1))
 
 
-def _tile_pass(hi, lo, walls, cfg: LatticeConfig, consts: dict, exact: bool, r0: int, c0: int,
-               re: int, ce: int, L: int) -> DS:
-    """L levels of one tile: the re x ce output sites at (r0, c0) after L
-    pair steps, through a source window grown by L on each side."""
-    rows = torch.arange(r0 - L, r0 + re + L, device=hi.device) % cfg.nx
+def _tile_pass(hi, lo, walls, cfg: LatticeConfig, consts: dict, exact: bool, rows: torch.Tensor,
+               c0: int, ce: int, L: int) -> DS:
+    """L levels of one tile: the len(rows) - 2 L x ce output sites at
+    column c0 after L pair steps, through a source window of the rows
+    `rows` of hi, lo and walls and the columns grown by L on each side."""
     cols = torch.arange(c0 - L, c0 + ce + L, device=hi.device) % cfg.ny
     cur = DS(hi[:, rows][:, :, cols], lo[:, rows][:, :, cols])
     wall = walls[rows][:, cols]
@@ -365,26 +393,28 @@ def _tile_pass(hi, lo, walls, cfg: LatticeConfig, consts: dict, exact: bool, r0:
     return cur
 
 
-def temporal_info(exact: bool = False, has_walls: bool = True, device=None) -> dict:
-    """What a card gives the temporal form at a tier and a variant, as
-    csrc/lbm_ds_temporal_step.cu decides it from the card's shared memory:
-    the tile's `rows` and `width`, `max_steps` (the deepest pass the tile
-    takes, fused_kernel.tile_max_steps), `registers` and `local_bytes`
-    (stack and spills) per thread, `ctas_per_sm` and
-    `shared_bytes_per_cta`. Needs a CUDA card (default: the current one);
-    read once per card."""
+def temporal_info(exact: bool = False, has_walls: bool = True, device=None,
+                  ext: bool = False) -> dict:
+    """What a card gives the temporal form (ext: its ext-halo form) at a
+    tier and a variant, as csrc/lbm_ds_temporal_step.cu decides it from
+    the card's shared memory: the tile's `rows` and `width`, `max_steps`
+    (the deepest pass the tile takes, fused_kernel.tile_max_steps),
+    `registers` and `local_bytes` (stack and spills) per thread,
+    `ctas_per_sm` and `shared_bytes_per_cta`. Needs a CUDA card (default:
+    the current one); read once per card."""
     index = None if device is None else torch.device(device).index
     return _temporal_info(bool(exact), bool(has_walls),
-                          torch.cuda.current_device() if index is None else index)
+                          torch.cuda.current_device() if index is None else index, bool(ext))
 
 
 @functools.cache
-def _temporal_info(exact: bool, has_walls: bool, index: int) -> dict:
+def _temporal_info(exact: bool, has_walls: bool, index: int, ext: bool = False) -> dict:
     out = (ctypes.c_int64 * 6)()
+    name = "lbm_ds_temporal_steps_ext_info" if ext else "lbm_ds_temporal_steps_info"
     with torch.cuda.device(index):
-        rc = cuda_build.load_library().lbm_ds_temporal_steps_info(int(exact), int(has_walls), out)
+        rc = getattr(cuda_build.load_library(), name)(int(exact), int(has_walls), out)
     if rc != 0:
-        raise RuntimeError(f"lbm_ds_temporal_steps_info failed: cudaError {rc}")
+        raise RuntimeError(f"{name} failed: cudaError {rc}")
     tile = fused_kernel.FlatTile(out[4], out[5])
     return {"registers": out[0], "ctas_per_sm": out[1], "shared_bytes_per_cta": out[2],
             "local_bytes": out[3], "rows": tile.rows, "width": tile.width,
@@ -460,6 +490,226 @@ def temporal_step(
     TEMPORAL_LAUNCHES += 1
     TEMPORAL_STEPS += steps
     return dst
+
+
+# --- the ext-halo temporal form (a shard's passes) ---------------------------
+
+
+def _extended(hi, lo, halo, solid):
+    """The halo-extended block of a shard: (hi, lo, walls, Td) with the
+    top halo's Td rows, the shard's rows and the bottom halo's, walls
+    from a ShardPlane with (Td, NY) class rows, or None."""
+    top, bot = halo
+    depth = top.hi.shape[1]
+    hi_ext = torch.cat([top.hi, hi, bot.hi], dim=1)
+    lo_ext = torch.cat([top.lo, lo, bot.lo], dim=1)
+    walls = None if solid is None else torch.cat([solid.top, solid.plane, solid.bot])
+    return hi_ext, lo_ext, walls, depth
+
+
+def temporal_reference_ext(hi: torch.Tensor, lo: torch.Tensor, halo: tuple[DS, DS],
+                           solid: ShardPlane | None, cfg: LatticeConfig, exact: bool,
+                           steps: int) -> DS:
+    """Plain PyTorch version of the ext-halo temporal form on a whole
+    shard: `steps` chained step_reference calls on the halo-extended pair
+    (top Td rows, the shard, bottom Td rows) with its class rows, then the
+    shard's rows. After steps <= Td steps the extended block's own x wrap
+    has not reached them. halo: (top, bot), pairs of (9, Td, NY) blocks,
+    the Td rows above and below the shard; solid: a ShardPlane of codes
+    0/1 whose top and bot are the halo rows' (Td, NY) class rows, or None
+    for the wall-free variant. Returns a new pair."""
+    hi_ext, lo_ext, walls, depth = _extended(hi, lo, halo, solid)
+    if steps > depth:
+        raise ValueError(f"a pass of {steps} steps reads {steps} halo rows a side; the halos "
+                         f"hold {depth}")
+    out = temporal_reference(hi_ext, lo_ext, walls, cfg, exact, steps)
+    n = hi.shape[1]
+    return DS(out.hi[:, depth:depth + n], out.lo[:, depth:depth + n])
+
+
+def temporal_reference_ext_blocked(hi: torch.Tensor, lo: torch.Tensor, halo: tuple[DS, DS],
+                                   solid: ShardPlane | None, cfg: LatticeConfig, exact: bool,
+                                   steps: int, tile, row0: int = 0,
+                                   rows: int | None = None) -> DS:
+    """Plain PyTorch version of the ext-halo temporal form's tiling: the
+    rows [row0, row0 + rows) (default: to the shard's end) of
+    temporal_reference_ext's result, computed the way
+    csrc/lbm_ds_temporal_step.cu's ext-halo form computes them: output
+    tiles of fused_kernel.flat_output(tile, torch.float32, steps) sites
+    laid from row0, each from its source rows grown by `steps` a side,
+    where local row q < 0 reads top halo row Td + q and q >= Ls reads
+    bottom halo row q - Ls, columns by modulo, then the levels of
+    temporal_reference_blocked. Raises where a tile would read past a halo.
+    Returns a (9, rows, NY) pair."""
+    n = hi.shape[1]
+    rows = n - row0 if rows is None else rows
+    if not (0 <= row0 and rows >= 1 and row0 + rows <= n):
+        raise ValueError(f"rows [{row0}, {row0 + rows}) outside the shard's {n} rows")
+    hi_ext, lo_ext, walls, depth = _extended(hi, lo, halo, solid)
+
+    def source_rows(r0, re):
+        q0, q1 = row0 + r0 - steps, row0 + r0 + re + steps
+        if q0 < -depth or q1 > n + depth:
+            raise ValueError(f"a tile at rows [{row0 + r0}, {row0 + r0 + re}) reads rows "
+                             f"[{q0}, {q1}) past the {depth}-row halos of a {n}-row shard")
+        return torch.arange(q0, q1) + depth
+
+    return _blocked(hi_ext, lo_ext, walls, cfg, exact, steps, tile, rows, source_rows)
+
+
+def check_ext_temporal_depth(steps: int, device, exact: bool, has_walls: bool) -> None:
+    """Raise ValueError unless the ext-halo temporal form's tile on
+    `device` takes a pass of `steps` steps (nothing to check on the
+    CPU)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return
+    info = temporal_info(exact, has_walls, device, ext=True)
+    if steps > info["max_steps"]:
+        raise ValueError(f"a pass of {steps} steps leaves no output tile in the ds temporal "
+                         f"form's {info['rows']}x{info['width']} tile on {device}: it takes "
+                         f"at most {info['max_steps']}")
+
+
+def _check_ext_temporal(src: DS, dst: DS, halo, solid, cfg: LatticeConfig, steps: int,
+                        has_walls: bool, exact: bool, row0: int, rows: int) -> int:
+    """The checks of ext_temporal_launcher; returns Td (0 without halo)."""
+    _require_float64(cfg)
+    fused_kernel._check_temporal(steps)
+    named = (("src.hi", src.hi), ("src.lo", src.lo), ("dst.hi", dst.hi), ("dst.lo", dst.lo))
+    check_device(src.hi)
+    n_rows = src.hi.shape[1] if src.hi.dim() == 3 else -1
+    shape = (NSPEEDS, n_rows, cfg.ny)
+    for name, t in named:
+        if t.dtype != torch.float32 or tuple(t.shape) != shape or n_rows < 1:
+            raise ValueError(f"{name} must be float32 {shape}, got {t.dtype} {tuple(t.shape)}")
+        if not t.is_contiguous() or t.device != src.hi.device:
+            raise ValueError(f"{name} must be contiguous and on src.hi's device")
+    if not (0 <= row0 and rows >= 1 and row0 + rows <= n_rows):
+        raise ValueError(f"rows [{row0}, {row0 + rows}) outside the shard's {n_rows} rows")
+    if len({t.untyped_storage().data_ptr() for _, t in named}) != 4:
+        raise ValueError("a pass is out of place: src.hi, src.lo, dst.hi and dst.lo "
+                         "must be four distinct buffers")
+    if not temporal_form_takes(cfg.ny):
+        raise ValueError(f"the ds temporal form needs NY a multiple of {TEMPORAL_COLUMNS} "
+                         f"columns (one 16-byte vector), got NY {cfg.ny}")
+    dev = src.hi.device
+    depth = 0
+    if halo is not None:
+        if len(halo) != 2:
+            raise ValueError("halo must be (top, bot), pairs of (9, Td, NY) blocks")
+        blocks = [t for side in halo for t in side]
+        depth = blocks[0].shape[1] if blocks[0].dim() == 3 else 0
+        for t in blocks:
+            if (t.dtype != torch.float32 or tuple(t.shape) != (NSPEEDS, depth, cfg.ny)
+                    or not t.is_contiguous() or t.device != dev or depth < 1):
+                raise ValueError(f"halo blocks must be contiguous float32 (9, Td, {cfg.ny}) on "
+                                 f"{dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+        if steps > depth:
+            raise ValueError(f"a pass of {steps} steps reads {steps} halo rows a side; the "
+                             f"halos hold {depth}")
+    if row0 - steps < -depth or row0 + rows + steps > n_rows + depth:
+        raise ValueError(f"rows [{row0}, {row0 + rows}) of a {n_rows}-row shard read "
+                         f"{steps} rows a side, past {depth} halo rows: give the halos")
+    if has_walls:
+        if not isinstance(solid, ShardPlane):
+            raise ValueError("the masked variant needs a ShardPlane")
+        check_solid_plane(solid.plane, (n_rows, cfg.ny), dev, max_code=1)
+        if halo is not None:
+            for t in (solid.top, solid.bot):
+                check_solid_plane(t, (depth, cfg.ny), dev, max_code=1)
+    if dev.type == "cuda":
+        check_ext_temporal_depth(steps, dev, exact, has_walls)
+        align = fused_kernel.WIDE_ALIGN
+        tensors = [t for _, t in named]
+        if halo is not None:
+            tensors += [t for side in halo for t in side]
+        if has_walls:
+            tensors += [solid.plane] + ([solid.top, solid.bot] if halo is not None else [])
+        if any(t.data_ptr() % align for t in tensors):
+            raise ValueError(f"the ds temporal form needs buffers aligned to {align} bytes; "
+                             f"pointers mod {align}: {[t.data_ptr() % align for t in tensors]}")
+    return depth
+
+
+def ext_temporal_launcher(
+    src: DS,
+    dst: DS,
+    halo,
+    solid: ShardPlane | None,
+    cfg: LatticeConfig,
+    steps: int,
+    *,
+    has_walls: bool,
+    exact: bool = False,
+    row0: int = 0,
+    rows: int | None = None,
+) -> Callable[[], None]:
+    """Validate one launch of the ext-halo temporal form and return it as a
+    call with no arguments, to be made any number of times: a pass of
+    `steps` pair steps that writes the local rows [row0, row0 + rows)
+    (default: all) of the shard pair src -> dst from the buffers' contents
+    at that time.
+
+    src, dst: the shard's pairs of (9, Ls, NY) float32 blocks, four
+    distinct buffers, NY a multiple of 4; halo: (top, bot), pairs of (9,
+    Td, NY) blocks, the Td >= steps rows above and below the shard, needed
+    unless the pass reads only the shard's rows (row0 >= steps and row0 +
+    rows + steps <= Ls; else None); solid: a ShardPlane of codes 0/1 whose
+    top and bot are the halos' (Td, NY) class rows (read when has_walls).
+    On CUDA tensors the call launches the kernel on the current stream
+    and counts it in EXT_TEMPORAL_LAUNCHES and EXT_TEMPORAL_STEPS; a
+    buffer not aligned to 16 bytes or a pass deeper than the card's tile
+    takes raise ValueError here, and nothing runs in their place. On CPU
+    tensors the call writes temporal_reference_ext's rows. Raises on
+    anything the kernel does not take, and on any other device."""
+    n_rows = src.hi.shape[1] if src.hi.dim() == 3 else 0
+    rows = n_rows - row0 if rows is None else rows
+    depth = _check_ext_temporal(src, dst, halo, solid, cfg, steps, has_walls, exact, row0, rows)
+    if src.hi.device.type == "cpu":
+        def reference():
+            if halo is None:
+                zero = src.hi.new_zeros((NSPEEDS, steps, cfg.ny))
+                h = (DS(zero, zero), DS(zero, zero))
+                plane = None
+                if has_walls:
+                    none = solid.plane.new_zeros((steps, cfg.ny))
+                    plane = ShardPlane(solid.plane, none, none)
+            else:
+                h, plane = halo, solid if has_walls else None
+            out = temporal_reference_ext(src.hi, src.lo, h, plane, cfg, exact, steps)
+            dst.hi[:, row0:row0 + rows].copy_(out.hi[:, row0:row0 + rows])
+            dst.lo[:, row0:row0 + rows].copy_(out.lo[:, row0:row0 + rows])
+
+        return reference
+
+    consts = kernel_constants_ds(cfg, exact)
+    params = (ctypes.c_float * len(consts))(*consts)
+    fn = cuda_build.load_library().lbm_ds_temporal_steps_ext_launch
+    top, bot = halo if halo is not None else (DS(None, None), DS(None, None))
+    plane = solid if has_walls else ShardPlane(None, None, None)
+    if halo is None:
+        plane = ShardPlane(plane.plane, None, None)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    args = (ptr(src.hi), ptr(src.lo), ptr(dst.hi), ptr(dst.lo), ptr(top.hi), ptr(top.lo),
+            ptr(bot.hi), ptr(bot.lo), ptr(plane.plane), ptr(plane.top), ptr(plane.bot),
+            n_rows, cfg.ny, depth, row0, rows, int(has_walls), int(exact), steps,
+            ctypes.addressof(params))
+    device = src.hi.device
+
+    def launch():
+        global EXT_TEMPORAL_LAUNCHES, EXT_TEMPORAL_STEPS
+        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"lbm_ds_temporal_steps ext-halo launch failed: cudaError {rc}")
+        EXT_TEMPORAL_LAUNCHES += 1
+        EXT_TEMPORAL_STEPS += steps
+
+    launch.host_args = params  # alive as long as the call
+    return launch
 
 
 class Session:

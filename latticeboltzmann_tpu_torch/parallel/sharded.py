@@ -22,8 +22,14 @@ Three runners, each with the JAX package's overlap and sync schedules:
   twin of make_pallas_run_steps (:212-615 there). The kernel forces the
   halo row's column-0 site itself, so a halo row carries all 9 planes.
 - ShardedDSSession, make_cuda_ds_run_steps / make_cuda_ds_backend
-  ("sharded-cuda-ds64"): the ext-halo form of the pair-DP kernel, the
-  twin of fused_ds_kernel._get_sharded_runner (:385-500 there).
+  ("sharded-cuda-ds64"): the twin of fused_ds_kernel._get_sharded_runner
+  and sharded_run_steps (:385-500 there): passes of DS_TEMPORAL = 4 pair
+  steps per shard through the ext-halo temporal form of the pair-DP
+  kernel (fused_ds_kernel.ext_temporal_launcher), the T-row pair halos of
+  each shard exchanged once per pass, n steps as n // T passes and one of
+  the rest; the one-step ext-halo form (fused_ds_kernel.ext_launcher)
+  where the temporal form does not apply (temporal=1, the exact tier, NY
+  no multiple of 4, shards of fewer than T rows).
 
 - ShardedRdmaSession, make_cuda_run_steps(rdma=True) /
   make_cuda_backend(rdma=True) ("sharded-cuda-rdma"): the rdma form of the
@@ -37,9 +43,11 @@ Three runners, each with the JAX package's overlap and sync schedules:
 
 overlap=True starts the halo copies, launches the interior rows [1,
 L-1), which take no halo, then waits for the copies and launches rows 0
-and L-1: _trio (:312-376 there) at one-row granularity. A shard of fewer
-than 3 rows takes one launch. overlap=False exchanges, then launches each
-shard once. Both are bitwise equal to the single-chip paths.
+and L-1: _trio (:312-376 there) at one-row granularity; a pass of s steps
+(the ds session's) launches the rows [s, L-s) first and the two s-row
+bands after. A shard of fewer than 2 s + 1 rows takes one launch.
+overlap=False exchanges, then launches each shard once. Both are bitwise
+equal to the single-chip paths.
 
 Every runner moves its halo rows through HaloExchange. On a mesh of one
 card every copy and launch runs on the current stream, in order. Across
@@ -356,11 +364,14 @@ class ShardSites:
 
 
 class _ShardedKernelSession:
-    """What the two kernel sessions share: per shard two buffers of each
-    state component (the state's tensor, or a pair's hi and lo) that swap
-    roles every step, two (9, NY) halo rows of each component, the halo
-    exchange and the launch plan of each buffer parity. Subclasses give
-    the components and the launches."""
+    """What the kernel sessions share: per shard two buffers of each state
+    component (the state's tensor, or a pair's hi and lo) that swap roles
+    every pass, the halo blocks of each component above and below the
+    shard ((9, NY) rows, or (9, T, NY) blocks for passes of T = temporal
+    steps), the halo exchange and the launch plan of each buffer parity
+    and pass depth. Subclasses give the components and the launches."""
+
+    temporal = 1
 
     def __init__(self, cfg: LatticeConfig, mesh: Mesh, n_comp: int, dtype: torch.dtype,
                  overlap: bool, device):
@@ -378,70 +389,105 @@ class _ShardedKernelSession:
         shape = (NSPEEDS, self.L, cfg.ny)
         self._bufs = [[[torch.empty(shape, dtype=dtype, device=d) for d in mesh.devices]
                        for _ in range(n_comp)] for _ in range(2)]
-        self._top = [[torch.empty(shape[::2], dtype=dtype, device=d) for d in mesh.devices]
+        halo = (NSPEEDS, cfg.ny) if self.temporal == 1 else (NSPEEDS, self.temporal, cfg.ny)
+        self._top = [[torch.empty(halo, dtype=dtype, device=d) for d in mesh.devices]
                      for _ in range(n_comp)]
         self._bot = [[torch.empty_like(t) for t in comp] for comp in self._top]
         self._parity = 0
+        # the plans of full passes by parity, and of shorter ones by
+        # (parity, steps)
         self._plans = None
+        self._short_plans = {}
+
+    def _edge_rows(self, x: torch.Tensor, dim: int, side: str) -> torch.Tensor:
+        """The rows of x along `dim` that a neighbour's halo holds: the last
+        (side "last") or first `temporal` rows, without that axis for
+        passes of one step."""
+        t, n = self.temporal, x.shape[dim]
+        if t == 1:
+            return x.select(dim, n - 1 if side == "last" else 0)
+        return x.narrow(dim, n - t if side == "last" else 0, t)
 
     def _shard_geometry(self, plane: np.ndarray) -> list[ShardPlane]:
         """A host (NX, NY) uint8 class plane split over the mesh, with
-        each shard's static halo class rows: one exchange per session."""
-        L, n = self.L, self.mesh.size
+        each shard's static halo class rows ((NY,), or (T, NY) for passes
+        of T steps): one exchange per session."""
+        n = self.mesh.size
         planes = _blocks(self.mesh, torch.as_tensor(plane), 0)
-        tops = [torch.empty(self.cfg.ny, dtype=torch.uint8, device=d) for d in self.mesh.devices]
+        tops = [torch.empty_like(self._edge_rows(p, 0, "last")) for p in planes]
         bots = [torch.empty_like(t) for t in tops]
         self.exchange.start([c for k in range(n) for c in (
-            (tops[k], planes[(k - 1) % n][L - 1]), (bots[k], planes[(k + 1) % n][0]))])
+            (tops[k], self._edge_rows(planes[(k - 1) % n], 0, "last")),
+            (bots[k], self._edge_rows(planes[(k + 1) % n], 0, "first")))])
         self.exchange.finish()
         return [ShardPlane(p, t, b) for p, t, b in zip(planes, tops, bots)]
 
-    def _launcher(self, k: int, src, dst, halo, row0: int, rows: int) -> Callable[[], None]:
+    def _launcher(self, k: int, src, dst, halo, row0: int, rows: int,
+                  steps: int) -> Callable[[], None]:
         raise NotImplementedError
 
     def _pack(self, comps):
         raise NotImplementedError
 
-    def _plan(self, parity: int):
-        """(copies, interior launches, edge launches) for a step that reads
-        buffer `parity` and writes the other, launches grouped by device."""
+    def _plan(self, parity: int, steps: int):
+        """(copies, interior launches, edge launches) for a pass of `steps`
+        steps that reads buffer `parity` and writes the other, launches
+        grouped by device: the interior rows [steps, L - steps) read no
+        halo."""
         src_bufs, dst_bufs = self._bufs[parity], self._bufs[1 - parity]
         n, L = self.mesh.size, self.L
         copies = []
         for c, comp in enumerate(src_bufs):
             for k in range(n):
-                copies.append((self._top[c][k], comp[(k - 1) % n][:, L - 1]))
-                copies.append((self._bot[c][k], comp[(k + 1) % n][:, 0]))
+                copies.append((self._top[c][k], self._edge_rows(comp[(k - 1) % n], 1, "last")))
+                copies.append((self._bot[c][k], self._edge_rows(comp[(k + 1) % n], 1, "first")))
         interior, edges = {}, {}
         for k, dev in enumerate(self.mesh.devices):
             src = self._pack([comp[k] for comp in src_bufs])
             dst = self._pack([comp[k] for comp in dst_bufs])
             halo = (self._pack([t[k] for t in self._top]), self._pack([b[k] for b in self._bot]))
             with _on(dev):
-                if self.overlap and L >= 3:
+                if self.overlap and L >= 2 * steps + 1:
                     interior.setdefault(dev, []).append(
-                        self._launcher(k, src, dst, None, 1, L - 2))
+                        self._launcher(k, src, dst, None, steps, L - 2 * steps, steps))
                     edges.setdefault(dev, []).extend(
-                        self._launcher(k, src, dst, halo, r, 1) for r in (0, L - 1))
+                        self._launcher(k, src, dst, halo, r, steps, steps)
+                        for r in (0, L - steps))
                 else:
-                    edges.setdefault(dev, []).append(self._launcher(k, src, dst, halo, 0, L))
+                    edges.setdefault(dev, []).append(
+                        self._launcher(k, src, dst, halo, 0, L, steps))
         return copies, list(interior.items()), list(edges.items())
 
     def load(self, f) -> None:
         """Copy a global state (a tensor, or a DS pair) into the shards'
-        current buffers; the launch plans are built at the first load."""
+        current buffers; the plans of full passes are built at the first
+        load, a shorter pass's at its first run."""
         comps = [f] if torch.is_tensor(f) else [f.hi, f.lo]
         for c, x in enumerate(comps):
             for dst, block in zip(self._bufs[self._parity][c], shard_state(self.mesh, x)):
                 dst.copy_(block)
         if self._plans is None:
-            self._plans = [self._plan(0), self._plan(1)]
+            self._plans = [self._plan(p, self.temporal) for p in (0, 1)]
+
+    def _passes(self, n_steps: int) -> list[int]:
+        """The steps of each pass of n_steps: n // T passes of T =
+        temporal and one of the rest (sharded_run_steps' divmod there)."""
+        full, rest = divmod(n_steps, self.temporal)
+        return [self.temporal] * full + ([rest] if rest else [])
 
     def advance(self, n_steps: int) -> None:
-        """n_steps: per step the halo copies, the interior launches, the
-        wait for the copies, the edge launches; no host sync."""
-        for _ in range(n_steps):
-            copies, interior, edges = self._plans[self._parity]
+        """n_steps in passes (_passes): per pass the halo copies, the
+        interior launches, the wait for the copies, the edge launches; no
+        host sync."""
+        for steps in self._passes(n_steps):
+            if steps == self.temporal:
+                plan = self._plans[self._parity]
+            else:
+                key = (self._parity, steps)
+                if key not in self._short_plans:
+                    self._short_plans[key] = self._plan(*key)
+                plan = self._short_plans[key]
+            copies, interior, edges = plan
             self.exchange.start(copies)
             for dev, calls in interior:
                 with _on(dev):
@@ -497,6 +543,7 @@ class _ShardedKernelSession:
         """The current global state; the session releases its buffers."""
         out = self.state()
         self._bufs = self._top = self._bot = self._plans = None
+        self._short_plans = {}
         return out
 
 
@@ -532,7 +579,7 @@ class ShardedSession(_ShardedKernelSession):
     def _moments(self, shard, sites):
         return ops.probe_values(shard, sites)
 
-    def _launcher(self, k, src, dst, halo, row0, rows):
+    def _launcher(self, k, src, dst, halo, row0, rows, steps):
         return fused_kernel.ext_launcher(
             src, dst, halo, self._geoms[k], self.cfg, row0=row0, rows=rows,
             row_offset=k * self.L, fast_math=self.fast_math)
@@ -572,11 +619,11 @@ class ShardedRdmaSession(ShardedSession):
                 for peer in (mesh.devices[(k - 1) % n], mesh.devices[(k + 1) % n]):
                     fused_kernel.enable_peer_access(d, peer)
 
-    def _plan(self, parity: int):
+    def _plan(self, parity: int, steps: int):
         """The rdma launches of a step that reads buffer `parity`: one per
         shard, grouped by device."""
         if not self.rdma:
-            return super()._plan(parity)
+            return super()._plan(parity, steps)
         n, L = self.mesh.size, self.L
         src, dst = self._bufs[parity][0], self._bufs[1 - parity][0]
         plan = {}
@@ -672,20 +719,47 @@ class ShardedRdmaSession(ShardedSession):
 
 
 class ShardedDSSession(_ShardedKernelSession):
-    """Persistent sharded pair state of the ds kernel's ext-halo form over
-    a mesh, the twin of fused_ds_kernel.Session for the row-sharded path:
-    the masked variant when the mask has a solid site (codes 0/1, static
-    halo class rows), `exact` selecting the tier, overlap the schedule.
-    Needs a float64 config (the host-side precision of the pair)."""
+    """Persistent sharded pair state of the ds kernel's ext-halo forms
+    over a mesh, the twin of fused_ds_kernel.Session for the row-sharded
+    path (and of the JAX sharded_run_steps): the masked variant when the
+    mask has a solid site (codes 0/1, static halo class rows), `exact`
+    selecting the tier, overlap the schedule (default False, the JAX
+    runner's exchange-then-launch: faster on an H100 at 800x4000 than the
+    interior and two bands of each pass, PERF.md row 3'-T). Needs a
+    float64 config (the host-side precision of the pair).
+
+    temporal (default DS_TEMPORAL, the JAX runner's): n steps run as n //
+    T passes of T steps and one of n % T through the ext-halo temporal
+    form (fused_ds_kernel.ext_temporal_launcher), each shard's T-row pair
+    halos and static (T, NY) class rows beside them, the halos exchanged
+    once per pass. The one-step ext-halo form (ext_launcher, one-row
+    halos, an exchange per step) runs instead at temporal=1, where NY is
+    no multiple of 4, where a shard has fewer than T rows and at the exact
+    tier (whose passes lose to its one-step kernel on an H100, as
+    fused_ds_kernel.Session's do): each a choice by shape or tier, never a
+    reaction to a failed launch. The attribute `temporal` is the depth
+    that runs; the two forms count their launches apart (EXT_LAUNCHES,
+    EXT_TEMPORAL_LAUNCHES). A temporal that is no integer in [1,
+    fused_kernel.FLAT_MAX_TEMPORAL], or on a card a pass deeper than the
+    tile takes, raises ValueError. Every result is bitwise the same."""
 
     def __init__(self, cfg: LatticeConfig, walls, *, mesh: Mesh, exact: bool = False,
-                 overlap: bool = True, device=None):
+                 overlap: bool = False, device=None,
+                 temporal: int = fused_ds_kernel.DS_TEMPORAL):
         fused_ds_kernel._require_float64(cfg)
+        fused_kernel._check_temporal(temporal)
+        L = shard_rows(cfg.nx, mesh.size)
+        if (temporal > 1 and fused_ds_kernel.temporal_form_takes(cfg.ny) and L >= temporal
+                and not exact):
+            self.temporal = temporal
         super().__init__(cfg, mesh, 2, torch.float32, overlap, device)
         self.moment_dtype = torch.float64  # the pair recombined
         plane = fused_kernel.host_geometry(cfg, walls)  # None without a solid site
         self.exact = exact
         self.has_walls = plane is not None
+        if self.temporal > 1:
+            for d in mesh.unique_devices():
+                fused_ds_kernel.check_ext_temporal_depth(self.temporal, d, exact, self.has_walls)
         self._geoms = self._shard_geometry(plane) if self.has_walls else [None] * mesh.size
 
     def _pack(self, comps):
@@ -694,9 +768,13 @@ class ShardedDSSession(_ShardedKernelSession):
     def _moments(self, shard, sites):
         return ds_engine.probe_values(shard, sites)
 
-    def _launcher(self, k, src, dst, halo, row0, rows):
-        return fused_ds_kernel.ext_launcher(
-            src, dst, halo, self._geoms[k], self.cfg, has_walls=self.has_walls,
+    def _launcher(self, k, src, dst, halo, row0, rows, steps):
+        if self.temporal == 1:
+            return fused_ds_kernel.ext_launcher(
+                src, dst, halo, self._geoms[k], self.cfg, has_walls=self.has_walls,
+                exact=self.exact, row0=row0, rows=rows)
+        return fused_ds_kernel.ext_temporal_launcher(
+            src, dst, halo, self._geoms[k], self.cfg, steps, has_walls=self.has_walls,
             exact=self.exact, row0=row0, rows=rows)
 
 
@@ -764,15 +842,16 @@ def make_cuda_backend(mesh: Mesh | None = None, *, overlap: bool = True, rdma: b
 
 
 def make_cuda_ds_run_steps(mesh: Mesh, cfg: LatticeConfig, *, exact: bool = False,
-                           overlap: bool = True):
+                           overlap: bool = False, temporal: int = fused_ds_kernel.DS_TEMPORAL):
     """(f: DS, walls, n_steps) -> DS through a ShardedDSSession over the
-    mesh (twin of fused_ds_kernel.sharded_run_steps); on a CPU mesh the
-    plain version stands in."""
+    mesh (twin of fused_ds_kernel.sharded_run_steps), in passes of
+    `temporal` steps where the temporal form applies; on a CPU mesh the
+    plain versions stand in."""
     shard_rows(cfg.nx, mesh.size)
 
     def run_steps(f: DS, walls, n_steps: int) -> DS:
         sess = ShardedDSSession(cfg, walls, mesh=mesh, exact=exact, overlap=overlap,
-                                device=f.hi.device)
+                                device=f.hi.device, temporal=temporal)
         sess.load(f)
         sess.advance(n_steps)
         return sess.unload()
@@ -780,15 +859,18 @@ def make_cuda_ds_run_steps(mesh: Mesh, cfg: LatticeConfig, *, exact: bool = Fals
     return run_steps
 
 
-def make_cuda_ds_backend(mesh: Mesh | None = None, *, exact: bool = False):
+def make_cuda_ds_backend(mesh: Mesh | None = None, *, exact: bool = False, overlap: bool = False,
+                         temporal: int = fused_ds_kernel.DS_TEMPORAL):
     """The sharded ds kernel path as a Simulation backend: run(f, walls,
     cfg, n_steps) and run.session(cfg, walls, *, device) (see
-    make_cuda_backend). The fast tier by default, as on
-    'sharded-pallas-ds64'."""
+    make_cuda_backend). The fast tier by default, in passes of
+    DS_TEMPORAL steps, as on 'sharded-pallas-ds64'; overlap selects the
+    schedule (ShardedDSSession)."""
 
     def session(cfg, walls, *, device=None):
         m = make_mesh() if mesh is None else mesh
-        return ShardedDSSession(cfg, walls, mesh=m, exact=exact, device=device)
+        return ShardedDSSession(cfg, walls, mesh=m, exact=exact, overlap=overlap, device=device,
+                                temporal=temporal)
 
     def run(f, walls, cfg, n_steps):
         sess = session(cfg, walls, device=f.hi.device)

@@ -28,7 +28,11 @@ and flags included, and sharded-cuda-rdma against cuda; a withheld send
 must end in a raised timeout. The ds kernel's temporal form (a pass of L
 pair steps per launch) is held bitwise against the chain of step_reference
 and its tiled plain version at every L both of its tiles take, and the
-cuda-ds64 path's launches are counted per form. The four
+cuda-ds64 path's launches are counted per form; its ext-halo form (a
+shard's pass, the rows beyond it from Td-row halos) bitwise against
+temporal_reference_ext and its tiled plain version over whole shards,
+edge bands and interiors, and the sharded-cuda-ds64 path's launches
+counted per form. The four
 anatomy probes (ops/probes.py) and the flat multi-step kernel are held
 bitwise against their plain versions: they move float32 values, add them
 in one order, or repeat the step kernel's arithmetic. The single-chip
@@ -44,6 +48,7 @@ their plain versions and one torch.roll, their launches counted by form.
 """
 
 import collections
+import ctypes
 
 import numpy as np
 import pytest
@@ -676,9 +681,11 @@ def test_sharded_cuda_equals_cuda_bitwise(cuda_device, monkeypatch):
     assert fk.EXT_VARIANT_LAUNCHES["f32-spec"] == before + 20 * 3 * 4
     np.testing.assert_array_equal(out, Simulation(cfg, walls, backend="cuda").run(20).state())
     cfg, walls = _scene("column0", np.float64)
-    before = fdk.EXT_LAUNCHES
+    before = (fdk.EXT_LAUNCHES, fdk.EXT_TEMPORAL_LAUNCHES, fdk.EXT_TEMPORAL_STEPS)
     out = Simulation(cfg, walls, backend="sharded-cuda-ds64").run(20).state()
-    assert fdk.EXT_LAUNCHES == before + 20 * 3 * 4
+    # 5 passes of 4 steps, one launch per 6-row shard (fewer than 2 T + 1 rows)
+    assert (fdk.EXT_LAUNCHES, fdk.EXT_TEMPORAL_LAUNCHES, fdk.EXT_TEMPORAL_STEPS) == (
+        before[0], before[1] + 5 * 4, before[2] + 20 * 4)
     np.testing.assert_array_equal(out, Simulation(cfg, walls, backend="cuda-ds64").run(20).state())
 
 
@@ -1323,6 +1330,168 @@ def test_temporal_kernel_fast_math_within_its_tolerance(cuda_device):
     assert float(((got - want).abs() / want.abs()).max()) <= fk.FAST_MATH_RTOL
 
 
+def _ds_ring_shard(a, solid, n, k, depth):
+    """Shard k of a ring of n over the card's pair a: its pair, its (top,
+    bot) halo pairs of `depth` rows from the ring neighbours (rows by
+    modulo), its ShardPlane with (depth, NY) class rows; all whole
+    allocations."""
+    nx = a.hi.shape[1]
+    L = nx // n
+
+    def rows(x, lo, hi):
+        return x[..., [r % nx for r in range(lo, hi)], :].contiguous()
+
+    r0 = k * L
+    pair = df64.DS(rows(a.hi, r0, r0 + L), rows(a.lo, r0, r0 + L))
+    halo = tuple(df64.DS(rows(a.hi, p, q), rows(a.lo, p, q))
+                 for p, q in ((r0 - depth, r0), (r0 + L, r0 + L + depth)))
+    plane = fk.ShardPlane(rows(solid, r0, r0 + L), rows(solid, r0 - depth, r0),
+                          rows(solid, r0 + L, r0 + L + depth))
+    return pair, halo, plane
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exact", [False, True])
+@pytest.mark.parametrize("has_walls", [True, False])
+def test_ds_ext_temporal_kernel_equals_its_plain_versions(has_walls, exact, cuda_device):
+    """The ext-halo temporal form: one pass at every L from 1 to 4 with
+    halos of Td = 4 and Td = L rows, on rings of 1, 2 and 4 shards of
+    24x40, 2 shards of 5x8 and one shard of 37x64 (a ragged last tile),
+    each over the whole shard, its two L-row edge bands and the interior
+    between them; the deepest pass the tile takes at Td = that depth on
+    the one-shard rings: bitwise against temporal_reference_ext, the whole
+    shard also against temporal_reference_ext_blocked at the card's tile
+    (L 1-2), and the rows outside the range untouched; every launch counted
+    as the ext-halo temporal form's."""
+    info = fdk.temporal_info(exact, has_walls, ext=True)
+    tile = fk.FlatTile(info["rows"], info["width"])
+    launches = 0
+    for (nx, ny), rings in (((24, 40), (1, 2, 4)), ((10, 8), (2,)), ((37, 64), (1,))):
+        cfg, a, solid = _ds_temporal_scene(nx, ny, cuda_device)
+        for n in rings:
+            for k in range(n):
+                depths = [(L, Td) for L in range(1, 5) for Td in sorted({4, L})]
+                if n == 1:
+                    depths.append((info["max_steps"], info["max_steps"]))
+                for L, Td in depths:
+                    pair, halo, plane = _ds_ring_shard(a, solid, n, k, Td)
+                    plane = plane if has_walls else None
+                    Ls = pair.hi.shape[1]
+                    want = fdk.temporal_reference_ext(pair.hi, pair.lo, halo, plane, cfg, exact, L)
+                    ranges = [(0, Ls), (0, min(L, Ls)), (max(Ls - L, 0), min(L, Ls))]
+                    ranges += [(L, Ls - 2 * L)] if Ls > 2 * L else []
+                    for row0, rows in ranges:
+                        dst = df64.DS(torch.full_like(pair.hi, float("nan")),
+                                      torch.full_like(pair.lo, float("nan")))
+                        fdk.ext_temporal_launcher(pair, dst, halo, plane, cfg, L,
+                                                  has_walls=has_walls, exact=exact, row0=row0,
+                                                  rows=rows)()
+                        launches += 1
+                        torch.cuda.synchronize()
+                        got = df64.DS(dst.hi[:, row0:row0 + rows], dst.lo[:, row0:row0 + rows])
+                        ref = df64.DS(want.hi[:, row0:row0 + rows], want.lo[:, row0:row0 + rows])
+                        assert torch.equal(got.hi, ref.hi) and torch.equal(got.lo, ref.lo), (
+                            nx, n, k, L, Td, row0, rows)
+                        outside = torch.ones(Ls, dtype=torch.bool, device=cuda_device)
+                        outside[row0:row0 + rows] = False
+                        assert torch.isnan(dst.hi[:, outside]).all()
+                    if L <= 2:
+                        b = fdk.temporal_reference_ext_blocked(pair.hi, pair.lo, halo, plane,
+                                                               cfg, exact, L, tile)
+                        assert torch.equal(b.hi, want.hi) and torch.equal(b.lo, want.lo)
+    assert launches > 0
+
+
+@pytest.mark.cuda
+def test_ds_ext_temporal_form_refuses_on_the_card(cuda_device):
+    """A pass deeper than the halos (and, at the C entry point, the same
+    launch with the Python checks passed by), a range that reads past the
+    shard without halos, a halo block 4 bytes off a 16-byte boundary, NY no
+    multiple of 4 and a pass deeper than the tile: refused, no launch."""
+    from latticeboltzmann_tpu_torch.ops import cuda_build
+
+    cfg, a, solid = _ds_temporal_scene(16, 40, cuda_device)
+    pair, halo, plane = _ds_ring_shard(a, solid, 2, 0, 2)
+    dst = df64.DS(torch.empty_like(pair.hi), torch.empty_like(pair.lo))
+    before = (fdk.EXT_TEMPORAL_LAUNCHES, fdk.EXT_LAUNCHES)
+    with pytest.raises(ValueError, match="halos hold 2"):
+        fdk.ext_temporal_launcher(pair, dst, halo, plane, cfg, 3, has_walls=True)
+    with pytest.raises(ValueError, match="give the halos"):
+        fdk.ext_temporal_launcher(pair, dst, None, plane, cfg, 2, has_walls=True)
+    n = halo[0].hi.numel()
+    off = torch.empty(n + 1, dtype=torch.float32, device=cuda_device)[1:].view_as(halo[0].hi)
+    with pytest.raises(ValueError, match="aligned"):
+        fdk.ext_temporal_launcher(pair, dst, (df64.DS(off, halo[0].lo), halo[1]), plane, cfg, 2,
+                                  has_walls=True)
+    deepest = fdk.temporal_info(False, True, ext=True)["max_steps"]
+    deep = _ds_ring_shard(a, solid, 1, 0, deepest + 1)
+    whole = df64.DS(torch.empty_like(a.hi), torch.empty_like(a.lo))
+    with pytest.raises(ValueError, match="no output tile"):
+        fdk.ext_temporal_launcher(deep[0], whole, deep[1], deep[2], cfg, deepest + 1,
+                                  has_walls=True)
+    cfg38, a38, solid38 = _ds_temporal_scene(16, 38, cuda_device)
+    p38, h38, pl38 = _ds_ring_shard(a38, solid38, 2, 0, 2)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        fdk.ext_temporal_launcher(p38, df64.DS(torch.empty_like(p38.hi), torch.empty_like(p38.lo)),
+                                  h38, pl38, cfg38, 2, has_walls=True)
+    consts = fdk.kernel_constants_ds(cfg, False)
+    params = (ctypes.c_float * len(consts))(*consts)
+    top, bot = halo
+    rc = cuda_build.load_library().lbm_ds_temporal_steps_ext_launch(
+        pair.hi.data_ptr(), pair.lo.data_ptr(), dst.hi.data_ptr(), dst.lo.data_ptr(),
+        top.hi.data_ptr(), top.lo.data_ptr(), bot.hi.data_ptr(), bot.lo.data_ptr(),
+        plane.plane.data_ptr(), plane.top.data_ptr(), plane.bot.data_ptr(), 8, 40, 2, 0, 8, 1, 0,
+        3, ctypes.addressof(params), torch.cuda.current_stream().cuda_stream)
+    assert rc != 0
+    assert (fdk.EXT_TEMPORAL_LAUNCHES, fdk.EXT_LAUNCHES) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("overlap", [True, False])
+def test_sharded_cuda_ds64_counts_launches_per_form(cuda_device, monkeypatch, overlap):
+    """sharded-cuda-ds64 over 4 virtual shards of 12 rows (48x40), 10
+    steps: passes of 4, 4 and 2 of the ext-halo temporal form, each shard's
+    interior and two bands (overlap) or one launch (a shard of fewer than
+    2 s + 1 rows, or without overlap), no one-step launch, bitwise equal to
+    cuda-ds64; on 8 shards of 3 rows, at the exact tier and at NY 38 every
+    step is a one-step ext-halo launch (3 a shard and step with overlap),
+    bitwise the same; the backend's default schedule is overlap=False."""
+    from latticeboltzmann_tpu_torch.models import engine
+
+    assert sharded.ShardedDSSession.__init__.__kwdefaults__["overlap"] is False
+    mesh4 = sharded.make_mesh(devices=[cuda_device] * 4)
+    monkeypatch.setitem(engine._BACKENDS, "sharded-cuda-ds64",
+                        sharded.make_cuda_ds_backend(mesh4, overlap=overlap))
+    cfg, a, solid = _ds_temporal_scene(48, 40, cuda_device)
+    walls = solid.cpu().numpy() == 1
+    f0 = df64.to_f64(a)
+    before = (fdk.EXT_LAUNCHES, fdk.EXT_TEMPORAL_LAUNCHES, fdk.EXT_TEMPORAL_STEPS)
+    out = Simulation(cfg, walls, backend="sharded-cuda-ds64", f0=f0).run(10).state()
+    per_pass = {4: 3 if overlap else 1, 2: 3 if overlap else 1}
+    want = (before[0], before[1] + 4 * (2 * per_pass[4] + per_pass[2]),
+            before[2] + 4 * (2 * 4 * per_pass[4] + 2 * per_pass[2]))
+    assert (fdk.EXT_LAUNCHES, fdk.EXT_TEMPORAL_LAUNCHES, fdk.EXT_TEMPORAL_STEPS) == want
+    np.testing.assert_array_equal(
+        out, Simulation(cfg, walls, backend="cuda-ds64", f0=f0).run(10).state())
+    for label, mesh, kw, nyy in (("3-row shards", [cuda_device] * 16, {}, 40),
+                                 ("exact tier", [cuda_device] * 4, {"exact": True}, 40),
+                                 ("NY 38", [cuda_device] * 4, {}, 38)):
+        c, p, s = _ds_temporal_scene(48, nyy, cuda_device)
+        w = s.cpu().numpy() == 1
+        sess = sharded.ShardedDSSession(c, w, mesh=sharded.make_mesh(devices=mesh),
+                                        overlap=overlap, **kw)
+        assert sess.temporal == 1, label
+        sess.load(p)
+        before = (fdk.EXT_LAUNCHES, fdk.EXT_TEMPORAL_LAUNCHES)
+        sess.advance(5)
+        per_step = len(mesh) * (3 if overlap else 1)
+        assert (fdk.EXT_LAUNCHES, fdk.EXT_TEMPORAL_LAUNCHES) == (
+            before[0] + 5 * per_step, before[1]), label
+        got = sess.unload()
+        ref = fdk.run_steps(p, w, c, 5, exact=kw.get("exact", False))
+        assert torch.equal(got.hi, ref.hi) and torch.equal(got.lo, ref.lo), label
+
+
 # --- the probed run (Simulation.run_probed) on the card ----------------------
 
 PROBES = np.array([[5, 7], [12, 30], [1, 0], [15, 39]])
@@ -1357,11 +1526,18 @@ def test_run_probed_bitwise_run_and_probe_values(cuda_device, monkeypatch, backe
 
     counts = {"cuda": (fk, "LAUNCHES"), "cuda-ds64": (fdk, "TEMPORAL_STEPS"),
               "sharded-cuda": (fk, "EXT_LAUNCHES"), "sharded-cuda-rdma": (fk, "RDMA_LAUNCHES"),
-              "sharded-cuda-ds64": (fdk, "EXT_LAUNCHES")}[backend]
+              "sharded-cuda-ds64": (fdk, "EXT_TEMPORAL_STEPS")}[backend]
     before = getattr(*counts)
+    one_step = fdk.EXT_LAUNCHES
     probed = sim()
     series = probed.run_probed(n, PROBES, every=every)
-    per_step = {"sharded-cuda": 6, "sharded-cuda-rdma": 2, "sharded-cuda-ds64": 6}.get(backend, 1)
+    per_step = {"sharded-cuda": 6, "sharded-cuda-rdma": 2}.get(backend, 1)
+    if backend == "sharded-cuda-ds64":
+        # passes of 4 and one of the rest per sample, one launch per shard
+        # and pass (the backend's default schedule): each shard's launches
+        # count every step of their passes
+        per_step = 2
+        assert fdk.EXT_LAUNCHES == one_step
     assert getattr(*counts) - before == n * per_step
     assert series.shape == (n // every, len(PROBES), 3) and probed.steps_done == n
     ref = sim()
