@@ -9,7 +9,8 @@ Phases, each of which raises on failure:
    power limit;
 2. build: compiles the sources of csrc/ (lbm_step.cu, lbm_wide_step.cu,
    lbm_wide_ext_step.cu, lbm_ds_step.cu, lbm_ds_temporal_step.cu,
-   lbm_flat_step.cu, lbm_temporal_step.cu, lbm_probes.cu)
+   lbm_flat_step.cu, lbm_temporal_step.cu, lbm_temporal_rdma_step.cu,
+   lbm_probes.cu)
    with nvcc, one process each, all started together (timed), and prints
    ptxas's registers and spills for every kernel instantiation;
 3. the float32 stream-collide kernel against its plain PyTorch version
@@ -97,10 +98,14 @@ Phases, each of which raises on failure:
    version;
 16. the sharded main paths on the 800x4000 reference scene, every launch
    counted by variant and by form: sharded-cuda over 1 and 4 virtual
-   shards for WARMUP + MAIN_STEPS steps, each shard's interior launch of
-   the wide form and its two one-row launches of the narrow form (the
-   launcher's default), bitwise equal to phase 4's cuda state; sharded-cuda-fused over 4
-   shards, FUSED_STEPS steps, and sharded-cuda-ds64 over 4 shards,
+   shards for WARMUP + MAIN_STEPS steps in passes of SHARDED_TEMPORAL = 3
+   through the ext-halo temporal form (per pass each shard's interior and
+   two 3-row bands, its 3-row halos copied once), bitwise equal to phase
+   4's cuda state; at temporal=1 over 4 virtual shards, FUSED_STEPS steps,
+   each shard's interior launch of the one-step form's wide form and its
+   two one-row launches of the narrow form (the launcher's default);
+   sharded-cuda-fused over 4 shards, FUSED_STEPS steps in passes of 3
+   (one launch per shard and pass), and sharded-cuda-ds64 over 4 shards,
    DS_SHARDED_STEPS steps in passes of DS_TEMPORAL = 4 through the ds
    kernel's ext-halo temporal form (one launch per shard and pass, the
    4-row halos copied once per pass), bitwise equal to cuda and
@@ -176,11 +181,14 @@ Phases, each of which raises on failure:
    end in a raised timeout and not in a hang;
 23. the rdma path, inside phase 16: Simulation(backend=
    "sharded-cuda-rdma", allow_experimental=True) over 4 virtual shards on
-   the 800x4000 reference scene for WARMUP + MAIN_STEPS steps, 4 counted
-   launches of the wide form and 0 halo copies per step, bitwise equal to
-   phase 4's cuda state (and so to sharded-cuda's); with two or more cards
-   also over a mesh of the cards (peer pointers), else a line says that it
-   was not run; and at 800x4002 in the narrow form, as phase 16;
+   the 800x4000 reference scene for WARMUP + MAIN_STEPS steps in passes of
+   3 through the rdma temporal form, 4 counted launches and 0 halo copies
+   per pass, bitwise equal to phase 4's cuda state (and so to
+   sharded-cuda's); with two or more cards also over a mesh of the cards
+   (peer pointers), else a line says that it was not run; at temporal=1
+   over 4 virtual shards, FUSED_STEPS steps, 4 counted launches of the
+   one-step form's wide form per step; and at 800x4002 in the one-step
+   narrow form, as phase 16;
 24. its times, inside phase 17: us/step and host enqueue us/step in turns
    with cuda, sharded-cuda and sharded-cuda-fused, and one step's 4 rdma
    launches of each form queued behind a spin, in turns, beside the
@@ -197,8 +205,9 @@ stands beside phase 6-8's in the kernels line.
    probes); the same on
    "cuda" with bf16 storage, on "cuda-ds64" (series in float64 from the
    pair's probe columns), on "sharded-cuda-rdma" over VIRTUAL_SHARDS
-   virtual shards (series also bitwise equal to "cuda"'s, 4 launches per
-   step) and on "sharded-cuda-ds64" over VIRTUAL_SHARDS virtual shards
+   virtual shards (series also bitwise equal to "cuda"'s; passes of 3 and
+   one of the rest per sample, 4 launches per pass) and on
+   "sharded-cuda-ds64" over VIRTUAL_SHARDS virtual shards
    (series also bitwise equal to "cuda-ds64"'s; passes of 4 and one of
    the rest per sample, one launch per shard and pass);
    then us/step of run_probed and of run() in turns, at every = 1
@@ -221,7 +230,8 @@ stands beside phase 6-8's in the kernels line.
    the trace (entered before the warmup, closed after the last chunk's
    events) naming lbm_stream_collide_wide once per launch and holding
    one lbm_warmup span and an lbm_run span per chunk; (b) bf16 cuda,
-   cuda-ds64 and sharded-cuda-rdma over the visible cards, CLI_OTHER_STEPS
+   cuda-ds64 and sharded-cuda-rdma over the visible cards (passes of 3
+   through the rdma temporal form), CLI_OTHER_STEPS
    steps and a resume of as many against an unbroken run (bitwise; the
    ds pair, split again from float64 at load, else within DS_RTOL, and
    the line says which bar held), launches counted, snapshots finite;
@@ -287,7 +297,25 @@ stands beside phase 6-8's in the kernels line.
    with overlap=True and overlap=False beside cuda-ds64, on 4 virtual
    shards and on one shard; the halo exchange alone per pass; one pass's
    launches at L 1-4 queued behind a spin beside the local temporal
-   form's pass, each with its bounds.
+   form's pass, each with its bounds;
+32. the f32/bf16 shard pass (shard_pass_phase; the temporal form's
+   ext-halo form, csrc/lbm_temporal_step.cu's lbm_temporal_steps_ext, and
+   its rdma form, csrc/lbm_temporal_rdma_step.cu's
+   lbm_temporal_steps_rdma: a pass of L steps on a shard, the rows beyond
+   it from T-row halos the host copied, or sent by the neighbours'
+   kernels into comm blocks): their tiles, registers and spills; the rdma
+   grid's spinning CTAs against the card's slots; both bitwise against
+   their plain versions (temporal_reference_ext, its tiling
+   temporal_reference_ext_blocked, temporal_reference_rdma) at L 1..T and
+   the deepest pass, f32 (T = 3) and bf16 (T = 2), wall-free, plane, spec
+   and slip, every row range of both schedules, on rings of 1, 2 and 4
+   virtual shards at 800x4000, 48x136 and 24x40, comm blocks, flags and
+   launch words included; fast math within FAST_MATH_RTOL; a withheld
+   send ends in a timeout error; sharded-cuda, -fused and -rdma over 4
+   virtual shards (and 4 cards where there are 4) counted per form and
+   bitwise to cuda and to temporal=1; one pass of each form queued behind a
+   spin in turns with its bounds, and each path's us/step and enqueue by
+   the host clock beside cuda, cuda at temporal=T and the one-step forms.
 
 Every phase call of main() prints `phase N took S s` (N: the phases it
 runs, e.g. 6-8) on its own line, and a `phase seconds` line before the
@@ -479,6 +507,10 @@ def reset_counts():
     fused_kernel.FLAT_LAUNCHES = fused_kernel.RDMA_LAUNCHES = 0
     fused_kernel.TEMPORAL_LAUNCHES = fused_kernel.TEMPORAL_STEPS = 0
     fused_kernel.TEMPORAL_VARIANT_LAUNCHES.clear()
+    fused_kernel.EXT_TEMPORAL_LAUNCHES = fused_kernel.EXT_TEMPORAL_STEPS = 0
+    fused_kernel.EXT_TEMPORAL_VARIANT_LAUNCHES.clear()
+    fused_kernel.RDMA_TEMPORAL_LAUNCHES = fused_kernel.RDMA_TEMPORAL_STEPS = 0
+    fused_kernel.RDMA_TEMPORAL_VARIANT_LAUNCHES.clear()
     fused_kernel.VARIANT_LAUNCHES.clear()
     fused_kernel.FORM_LAUNCHES.clear()
     fused_kernel.EXT_VARIANT_LAUNCHES.clear()
@@ -492,7 +524,9 @@ def reset_counts():
 def read_counts():
     """{variant: launches} of the stream-collide kernel, its ext-halo
     form's as "ext-<variant>", its rdma form's as "rdma-<variant>", its
-    temporal form's as "temporal-<variant>", the ds kernel's under "ds"
+    temporal form's as "temporal-<variant>", a shard's passes as
+    "ext-temporal-<variant>" (the ext-halo temporal form) and
+    "rdma-temporal-<variant>" (the rdma temporal form), the ds kernel's under "ds"
     (one step a launch), "ds-temporal" (passes of the temporal form),
     "ds-ext" (the one-step ext-halo form) and "ds-ext-temporal" (passes of
     the ext-halo temporal form), the flat kernel's under "flat" and the probes' under their
@@ -515,6 +549,14 @@ def read_counts():
         raise AssertionError(f"temporal variant counts {temporal} != "
                              f"{fused_kernel.TEMPORAL_LAUNCHES} launches")
     counts.update({f"temporal-{v}": n for v, n in temporal.items() if n})
+    for form, variants, total in (
+            ("ext-temporal", fused_kernel.EXT_TEMPORAL_VARIANT_LAUNCHES,
+             fused_kernel.EXT_TEMPORAL_LAUNCHES),
+            ("rdma-temporal", fused_kernel.RDMA_TEMPORAL_VARIANT_LAUNCHES,
+             fused_kernel.RDMA_TEMPORAL_LAUNCHES)):
+        if sum(variants.values()) != total:
+            raise AssertionError(f"{form} variant counts {dict(variants)} != {total} launches")
+        counts.update({f"{form}-{v}": n for v, n in variants.items() if n})
     if fused_ds_kernel.LAUNCHES:
         counts["ds"] = fused_ds_kernel.LAUNCHES
     if fused_ds_kernel.TEMPORAL_LAUNCHES:
@@ -963,7 +1005,7 @@ def main() -> int:
 
     ds, ds_counts, clock, ds_main = clock_.run("6-8", ds_phases, copy)
     bf16_main, options = clock_.run("9-14", option_phases, f32_main)
-    ext = clock_.run("15-17+22-24", sharded_phases, f32_main, ds_counts, clock)
+    pass_launches, ext = clock_.run("15-17+22-24", sharded_phases, f32_main, ds_counts, clock)
     anatomy = clock_.run("18-20", anatomy_phases)
     clock_.run("21", panels_phase)
     clock_.run("25", probed_phases, f32_main)
@@ -978,8 +1020,10 @@ def main() -> int:
     temporal = clock_.run("29", temporal_phases, f32_main, bf16_main)
     ds_temporal = clock_.run("30", ds_temporal_phase, ds_main, ds_counts, clock, copy)
     ds_ext_temporal = clock_.run("31", ds_sharded_temporal_phase, ds_counts, clock, copy)
+    shard_pass = clock_.run("32", shard_pass_phase, pass_launches, copy)
 
-    entries = [*f32_entries, *options, ds, ds_temporal, ds_ext_temporal, *ext, *anatomy, temporal]
+    entries = [*f32_entries, *options, ds, ds_temporal, ds_ext_temporal, *ext, *anatomy, temporal,
+               *shard_pass]
     add_cli_launches(entries, cli_launches, torch.cuda.device_count())
     print(f"phase seconds (wall, by phase call; {sum(clock_.seconds.values()):.1f} s in all): "
           + json.dumps({k: round(v, 1) for k, v in clock_.seconds.items()}))
@@ -1077,6 +1121,12 @@ def forms_in_turns(rates, prefix, a, b, geoms, cfg, n, **kw):
         f"{form} form, {label}": (lambda form=form, g=g: fused_kernel.step(a, b, g, cfg,
                                                                            form=form, **kw))
         for label, g in geoms.items() for form in fused_kernel.FORMS}, n)
+
+
+def passes(n_steps, temporal):
+    """The passes of a session's advance(n_steps) at depth `temporal`:
+    n_steps // temporal of temporal steps and one of the rest."""
+    return -(-n_steps // temporal)
 
 
 def ds_passes(n_steps):
@@ -1773,8 +1823,10 @@ def sharded_phases(f32_main, ds_counts, clock):
     """Phases 15-17 and 22-24: the ext-halo and rdma kernels and the
     row-sharded paths. f32_main: phase 4's float32 state after WARMUP +
     MAIN_STEPS steps; ds_counts, clock: ds_phases' SASS counts and SM
-    clock, for the ds ext-halo kernel's bound. Returns the kernels line's
-    entries of the two ext-halo kernels and the rdma kernel."""
+    clock, for the ds ext-halo kernel's bound. Returns ({"ext", "ext_fused",
+    "rdma": the shard passes' launches on their main paths over
+    VIRTUAL_SHARDS virtual shards}, the kernels line's entries of the two
+    one-step ext-halo kernels and the one-step rdma kernel)."""
     from latticeboltzmann_tpu_torch import LatticeConfig, Simulation, geometry, initial_state
     from latticeboltzmann_tpu_torch.models import engine
     from latticeboltzmann_tpu_torch.ops import df64, fused_ds_kernel, fused_kernel
@@ -1859,26 +1911,43 @@ def sharded_phases(f32_main, ds_counts, clock):
     print(f"sharded meshes: {', '.join(f'{k} {[str(d) for d in m.devices]}' for k, m in meshes.items())}")
     sims = {}
     by_form = {}  # (backend, mesh label, NY): the path's launches by form
+    T = sharded.SHARDED_TEMPORAL[torch.float32]
 
-    def launches_per_step(mesh, overlap=True):
+    def pass_launches(mesh, overlap=True, rdma=False, temporal=T):
+        """The launches of one advance(steps) of a path over `mesh`: per
+        pass (or step, at temporal=1) the interior and two bands of each
+        shard of at least 2 s + 1 rows (overlap), else one launch a shard
+        (the fused schedule and the rdma forms)."""
         L = cfg.nx // mesh.size
-        return mesh.size * (3 if overlap and L >= 3 else 1)
+
+        def launches(steps):
+            if not steps:
+                return 0
+            full, rest = divmod(steps, temporal)
+            per = [temporal] * full + ([rest] if rest else [])
+            return sum(mesh.size * (3 if overlap and not rdma and L >= 2 * s + 1 else 1)
+                       for s in per)
+
+        return launches
 
     def default_forms(mesh, steps):
-        """The ext-halo launches by form of `steps` steps of the overlap
-        schedule where the wide form applies: each shard's interior wide,
-        its two one-row launches narrow (fused_kernel.ext_launcher's
+        """The one-step ext-halo launches by form of `steps` steps of the
+        overlap schedule where the wide form applies: each shard's interior
+        wide, its two one-row launches narrow (fused_kernel.ext_launcher's
         default)."""
         return {"wide": steps * mesh.size, "narrow": steps * 2 * mesh.size}
 
-    def sharded_path(label, backend, make, mesh, cfg_, n_steps, key, per_step, want, warmup=0,
-                     copies_per_step=None, session_copies=0, form="wide", scene=None, **options):
+    def sharded_path(label, backend, make, mesh, cfg_, n_steps, key, per_advance, want,
+                     warmup=0, copies_per_advance=None, session_copies=0, form=None, scene=None,
+                     **options):
         """Register `backend` over `mesh`, drive it through Simulation for
-        warmup + n_steps counted steps, the stream-collide launches of
-        `form` (expect_counts), on `scene` (default: the reference scene's
-        walls) and hold its state bitwise to `want`; with copies_per_step
-        also the halo copies the host started (and session_copies once: a
-        session's static halo class rows)."""
+        warmup + n_steps counted steps (two advances), per_advance(steps)
+        launches of `key` an advance (the stream-collide launches of the
+        one-step forms also of `form`: expect_counts), on `scene` (default:
+        the reference scene's walls) and hold its state bitwise to `want`;
+        with copies_per_advance(steps) also the halo copies the host
+        started (and session_copies once: a session's static halo class
+        rows)."""
         engine.register_backend(backend, make(mesh))
         reset_counts()
         sharded.HALO_COPIES = 0
@@ -1887,84 +1956,111 @@ def sharded_phases(f32_main, ds_counts, clock):
         sim.elapsed, sim.steps_done = 0.0, 0
         sim.run(n_steps)
         n = expect_counts(f"{backend} over {label}",
-                          {key: (warmup + n_steps) * per_step}, form)[key]
+                          {key: per_advance(warmup) + per_advance(n_steps)}, form)[key]
         by_form[backend, label, cfg_.ny] = dict(fused_kernel.EXT_FORM_LAUNCHES
                                                 + fused_kernel.RDMA_FORM_LAUNCHES)
         copies = sharded.HALO_COPIES
-        if (copies_per_step is not None
-                and copies != (warmup + n_steps) * copies_per_step + session_copies):
+        want_copies = (None if copies_per_advance is None else
+                       copies_per_advance(warmup) + copies_per_advance(n_steps) + session_copies)
+        if want_copies is not None and copies != want_copies:
             raise AssertionError(f"{backend} over {label}: {copies} halo copies from the host, "
-                                 f"expected {copies_per_step} per step")
+                                 f"expected {want_copies}")
         got = sim.state()
         if not np.array_equal(got, want):
             raise AssertionError(f"{backend} over {label}: state != the single-chip path's after "
                                  f"{warmup + n_steps} steps, max |diff| "
                                  f"{float(np.abs(got - want).max())!r}")
-        print(f"{backend} over {label}: {warmup + n_steps} steps at {cfg_.nx}x{cfg_.ny}, {n} "
-              f"counted {key} launches ({per_step} per step; by form {form}), {copies} halo "
-              f"copies from the host, bitwise equal to the single-chip path, Re "
+        print(f"{backend} over {label}: {warmup + n_steps} steps at {cfg_.nx}x{cfg_.ny}, "
+              f"temporal {sim._session.temporal}, {n} counted {key} launches (by form {form}), "
+              f"{copies} halo copies from the host, bitwise equal to the single-chip path, Re "
               f"{sim.reynolds()!r}, {sim.mlups!r} MLUPS ({sim.elapsed!r} s)")
         if scene is None:
             sims[f"{backend}, {label}"] = sim
         return n
 
-    key = f"ext-{fused_kernel.variant_name(torch.float32, 'spec', False, False)}"
+    def per_step(n_per_step):
+        return lambda steps: steps * n_per_step
+
+    variant = fused_kernel.variant_name(torch.float32, 'spec', False, False)
+    key, ext_pass_key = f"ext-{variant}", f"ext-temporal-{variant}"
+    # passes of T through the ext-halo temporal form: per pass the interior
+    # and two T-row bands of each shard, 2 T-row halo blocks a shard copied
+    ext_pass_launches = {}
     for label, mesh in meshes.items():
-        sharded_path(
+        ext_pass_launches[label] = sharded_path(
             label, "sharded-cuda", lambda m: sharded.make_cuda_backend(m, overlap=True), mesh,
-            cfg, MAIN_STEPS, key, launches_per_step(mesh), f32_main, warmup=WARMUP,
-            form=default_forms(mesh, WARMUP + MAIN_STEPS))
-    # 23. the rdma path: one launch per shard and step, no copy from the host
-    rdma_key = f"rdma-{fused_kernel.variant_name(torch.float32, 'spec', False, False)}"
+            cfg, MAIN_STEPS, ext_pass_key, pass_launches(mesh), f32_main, warmup=WARMUP,
+            copies_per_advance=lambda s, m=mesh: passes(s, T) * 2 * m.size if s else 0)
+    mesh4 = meshes[f"{VIRTUAL_SHARDS} virtual shards"]
+    label4 = f"{VIRTUAL_SHARDS} virtual shards"
+    label4_one = f"{label4}, temporal=1"
+    want = Simulation(cfg, walls, backend="cuda").run(FUSED_STEPS).state()
+    # the one-step ext-halo forms at temporal=1: each shard's interior wide,
+    # its two one-row launches narrow, a halo row a side copied every step
+    sharded_path(
+        label4_one, "sharded-cuda",
+        lambda m: sharded.make_cuda_backend(m, overlap=True, temporal=1), mesh4, cfg, FUSED_STEPS,
+        key, pass_launches(mesh4, temporal=1), want, form=default_forms(mesh4, FUSED_STEPS),
+        copies_per_advance=per_step(2 * mesh4.size))
+    # 23. the rdma path: one launch per shard and pass, no copy from the host
+    rdma_key = f"rdma-{variant}"
+    rdma_pass_key = f"rdma-temporal-{variant}"
     rdma_launches = {}
     for label, mesh in meshes.items():
         if mesh.size == 1:
             continue
         rdma_launches[label] = sharded_path(
             label, "sharded-cuda-rdma", lambda m: sharded.make_cuda_backend(m, rdma=True), mesh,
-            cfg, MAIN_STEPS, rdma_key, mesh.size, f32_main, warmup=WARMUP, copies_per_step=0,
-            allow_experimental=True)
+            cfg, MAIN_STEPS, rdma_pass_key, pass_launches(mesh, rdma=True), f32_main,
+            warmup=WARMUP, copies_per_advance=per_step(0), allow_experimental=True)
     if not n_cards:
         print("one card visible: the rdma path over a mesh of cards (peer pointers between "
               "cards) was not run")
-    mesh4 = meshes[f"{VIRTUAL_SHARDS} virtual shards"]
-    # the narrow forms' sharded paths: an NY the wide forms do not take
+    # the one-step rdma form at temporal=1, one launch per shard and step
+    rdma_launches[label4_one] = sharded_path(
+        label4_one, "sharded-cuda-rdma",
+        lambda m: sharded.make_cuda_backend(m, rdma=True, temporal=1), mesh4, cfg, FUSED_STEPS,
+        rdma_key, per_step(mesh4.size), want, copies_per_advance=per_step(0), form="wide",
+        allow_experimental=True)
+    # the narrow forms' sharded paths: an NY the wide and temporal forms do
+    # not take, one step a launch
     cfg_n = LatticeConfig(nx=800, ny=NARROW_NY, dtype=np.float32)
     walls_n = geometry.reference_barrier(cfg_n.nx, cfg_n.ny)
-    want = Simulation(cfg_n, walls_n, backend="cuda").run(NARROW_SHARDED_STEPS).state()
-    label4 = f"{VIRTUAL_SHARDS} virtual shards"
+    want_n = Simulation(cfg_n, walls_n, backend="cuda").run(NARROW_SHARDED_STEPS).state()
     narrow_launches = {
-        "ext": sharded_path(f"{VIRTUAL_SHARDS} virtual shards", "sharded-cuda",
+        "ext": sharded_path(label4, "sharded-cuda",
                             lambda m: sharded.make_cuda_backend(m, overlap=True), mesh4, cfg_n,
-                            NARROW_SHARDED_STEPS, key, launches_per_step(mesh4), want,
+                            NARROW_SHARDED_STEPS, key, pass_launches(mesh4, temporal=1), want_n,
                             form="narrow", scene=walls_n),
-        "rdma": sharded_path(f"{VIRTUAL_SHARDS} virtual shards", "sharded-cuda-rdma",
+        "rdma": sharded_path(label4, "sharded-cuda-rdma",
                              lambda m: sharded.make_cuda_backend(m, rdma=True), mesh4, cfg_n,
-                             NARROW_SHARDED_STEPS, rdma_key, mesh4.size, want, copies_per_step=0,
-                             form="narrow", scene=walls_n, allow_experimental=True)}
-    want = Simulation(cfg, walls, backend="cuda").run(FUSED_STEPS).state()
-    sharded_path(f"{VIRTUAL_SHARDS} virtual shards", "sharded-cuda-fused",
-                 lambda m: sharded.make_cuda_backend(m, overlap=False), mesh4, cfg, FUSED_STEPS,
-                 key, launches_per_step(mesh4, overlap=False), want)
+                             NARROW_SHARDED_STEPS, rdma_key, per_step(mesh4.size), want_n,
+                             copies_per_advance=per_step(0), form="narrow", scene=walls_n,
+                             allow_experimental=True)}
+    fused_launches = sharded_path(
+        label4, "sharded-cuda-fused", lambda m: sharded.make_cuda_backend(m, overlap=False),
+        mesh4, cfg, FUSED_STEPS, ext_pass_key, pass_launches(mesh4, overlap=False), want,
+        copies_per_advance=lambda s: passes(s, T) * 2 * mesh4.size)
     cfg64 = LatticeConfig(nx=800, ny=4000, dtype=np.float64)
     want = Simulation(cfg64, walls, backend="cuda-ds64").run(DS_SHARDED_STEPS).state()
     # passes of DS_TEMPORAL through the ext-halo temporal form, one launch
     # per shard and pass (the backend's default schedule), the T-row halos
     # of both components copied once per pass
-    T = fused_ds_kernel.DS_TEMPORAL
+    T_ds = fused_ds_kernel.DS_TEMPORAL
     sharded_path(
-        f"{VIRTUAL_SHARDS} virtual shards", "sharded-cuda-ds64", sharded.make_cuda_ds_backend,
-        mesh4, cfg64, DS_SHARDED_STEPS, "ds-ext-temporal", mesh4.size / T, want,
-        copies_per_step=2 * 2 * mesh4.size / T, session_copies=2 * mesh4.size)
+        label4, "sharded-cuda-ds64", sharded.make_cuda_ds_backend,
+        mesh4, cfg64, DS_SHARDED_STEPS, "ds-ext-temporal", per_step(mesh4.size / T_ds), want,
+        copies_per_advance=per_step(2 * 2 * mesh4.size / T_ds), session_copies=2 * mesh4.size)
     # the one-step ext-halo form where the temporal form does not apply: an
     # NY of no whole 16-byte vectors, one launch per shard and step
     cfg64_n = LatticeConfig(nx=800, ny=NARROW_NY, dtype=np.float64)
     want = Simulation(cfg64_n, walls_n, backend="cuda-ds64").run(NARROW_SHARDED_STEPS).state()
     ds_launches = sharded_path(
-        f"{VIRTUAL_SHARDS} virtual shards", "sharded-cuda-ds64", sharded.make_cuda_ds_backend,
-        mesh4, cfg64_n, NARROW_SHARDED_STEPS, "ds-ext", mesh4.size, want,
-        copies_per_step=2 * 2 * mesh4.size, session_copies=2 * mesh4.size, scene=walls_n)
-    del want
+        label4, "sharded-cuda-ds64", sharded.make_cuda_ds_backend,
+        mesh4, cfg64_n, NARROW_SHARDED_STEPS, "ds-ext", per_step(mesh4.size), want,
+        copies_per_advance=per_step(2 * 2 * mesh4.size), session_copies=2 * mesh4.size,
+        scene=walls_n)
+    del want, want_n
 
     # 17. times, in turns: each path's us/step end to end (a sync per
     # run) with the host's enqueue time, and the halo exchange per step
@@ -1996,7 +2092,8 @@ def sharded_phases(f32_main, ds_counts, clock):
         copies = sess._plans[sess._parity][0]
         return lambda: (sess.exchange.start(copies), sess.exchange.finish())
 
-    for label in (f"sharded-cuda, {VIRTUAL_SHARDS} virtual shards", ds_key):
+    for label in (f"sharded-cuda, {VIRTUAL_SHARDS} virtual shards", f"sharded-cuda, {label4_one}",
+                  ds_key):
         sess = sims[label]._session
         ms = event_ms(exchange_only(sess), 500)
         print(f"halo exchange alone, {label}: {ms * 1e3!r} us a pass of {sess.temporal} step(s), "
@@ -2144,8 +2241,11 @@ def sharded_phases(f32_main, ds_counts, clock):
     ds_bound = counted_bound(4 * a.hi.numel() * 4 + solid.numel() + halo_bytes,
                              ds_counts[("ds_ext", True, False)], cfg64.sites, clock)
 
-    ext_main = by_form["sharded-cuda", label4, cfg.ny]
-    return [
+    ext_main = by_form["sharded-cuda", label4_one, cfg.ny]
+    # the shard passes' launches on their main paths, for phase 32's entries
+    pass_launches_of = {"ext": ext_pass_launches[label4], "ext_fused": fused_launches,
+                        "rdma": rdma_launches[label4]}
+    return pass_launches_of, [
         {"name": "lbm_stream_collide_ext_wide<float, spec, 4> (row-sharded ext-halo form, "
                  f"wide; {VIRTUAL_SHARDS} virtual shards, interior + edge launches, the one-row "
                  "edge launches in the narrow form lbm_stream_collide_ext<float, spec> of "
@@ -2175,7 +2275,7 @@ def sharded_phases(f32_main, ds_counts, clock):
          "route": "cuda", "source": "latticeboltzmann_tpu_torch/csrc/lbm_wide_ext_step.cu",
          "narrow_form_source": "latticeboltzmann_tpu_torch/csrc/lbm_step.cu",
          "replaces": "latticeboltzmann_tpu/ops/fused_kernel.py:1757 (rdma=True)",
-         "launches": rdma_launches[label4], "narrow_form_launches": narrow_launches["rdma"],
+         "launches": rdma_launches[label4_one], "narrow_form_launches": narrow_launches["rdma"],
          "max_abs_err": max(rdma_err.values()), "max_rel_err_fast_math": rdma_fast_rel,
          "ms": rdma_t["f32"]["wide"], "narrow_form_ms": rdma_t["f32"]["narrow"],
          "bf16_ms": rdma_t["bf16"]["wide"], "bf16_narrow_form_ms": rdma_t["bf16"]["narrow"],
@@ -2712,7 +2812,6 @@ def probed_phases(f32_main):
     mesh = sharded.make_mesh(devices=["cuda"] * VIRTUAL_SHARDS)
     engine.register_backend("sharded-cuda-rdma", sharded.make_cuda_backend(mesh, rdma=True))
     engine.register_backend("sharded-cuda-ds64", sharded.make_cuda_ds_backend(mesh))
-    form = {"wide": PROBED_STEPS * VIRTUAL_SHARDS}
     cases = (
         # (label, backend, dtype, launches of one run, form, the series it must also equal)
         ("cuda f32", "cuda", np.float32, {"f32-spec": PROBED_STEPS}, "wide", None),
@@ -2720,8 +2819,11 @@ def probed_phases(f32_main):
         # passes of the temporal form: every `every` steps one advance
         ("cuda-ds64", "cuda-ds64", np.float64,
          lambda every: {"ds-temporal": PROBED_STEPS // every * ds_passes(every)}, None, None),
+        # passes of the rdma temporal form per sample, one launch per shard
+        # and pass
         (f"sharded-cuda-rdma over {VIRTUAL_SHARDS} virtual shards", "sharded-cuda-rdma",
-         np.float32, {"rdma-f32-spec": PROBED_STEPS * VIRTUAL_SHARDS}, form, "cuda f32"),
+         np.float32, lambda every: {"rdma-temporal-f32-spec": PROBED_STEPS // every * passes(
+             every, sharded.SHARDED_TEMPORAL[torch.float32]) * VIRTUAL_SHARDS}, None, "cuda f32"),
         # passes of the ext-halo temporal form per sample, one launch per
         # shard and pass
         (f"sharded-cuda-ds64 over {VIRTUAL_SHARDS} virtual shards", "sharded-cuda-ds64",
@@ -2802,11 +2904,13 @@ def suite_phase(card):
     insane = [r["config"] for r in rows if not r["sane"]]
     if len(rows) != len(bench_suite.CONFIGS) or insane:
         raise AssertionError(f"bench_suite rows not sane: {insane}")
-    # the rows' kernel routes: f32 and bf16 single-chip, the ext-halo form
-    # (sharded-cuda), the ds kernel's temporal form (cuda-ds64) and its
-    # ext-halo temporal form (sharded-cuda-ds64, passes of 4); a key ending
-    # in "-" names a family of variants, any other one kernel
-    for route, prefix in (("f32", "f32-"), ("bf16", "bf16-"), ("ext-halo", "ext-f32-"),
+    # the rows' kernel routes: f32 and bf16 single-chip, the ext-halo
+    # temporal form (sharded-cuda, passes of 3), the ds kernel's temporal
+    # form (cuda-ds64) and its ext-halo temporal form (sharded-cuda-ds64,
+    # passes of 4); a key ending in "-" names a family of variants, any
+    # other one kernel
+    for route, prefix in (("f32", "f32-"), ("bf16", "bf16-"),
+                          ("ext-halo temporal", "ext-temporal-f32-"),
                           ("ds temporal", "ds-temporal"),
                           ("ds ext-halo temporal", "ds-ext-temporal")):
         if not any((k.startswith(prefix) if prefix.endswith("-") else k == prefix) and n
@@ -2836,7 +2940,7 @@ def validate_ds_phase():
 CLI_ENTRIES = {"f32": ("lbm_stream_collide_wide<float,", False),
                "bf16": ("lbm_stream_collide_wide<__nv_bfloat16,", False),
                "ds": ("lbm_ds_temporal_steps<", False),
-               "rdma": ("lbm_stream_collide_rdma_wide<", False)}
+               "rdma": ("lbm_temporal_steps_rdma<", False)}
 
 
 def add_cli_launches(entries, cli_launches, n_cards):
@@ -3015,9 +3119,11 @@ def cli_phase(tmp):
         # the warmup and each chunk are one advance: passes of the temporal form
         ("cuda-ds64", ["--backend", "cuda-ds64", "--precision", "f64"], {"ds-temporal": ds_passes},
          None, "ds"),
+        # the warmup and each chunk are one advance: passes of the rdma
+        # temporal form, one launch per card and pass
         (f"sharded-cuda-rdma over {n_cards} card(s)",
          ["--backend", "sharded-cuda-rdma", "--precision", "f32"],
-         {"rdma-f32-spec": n_cards}, "wide", "rdma"),
+         {"rdma-temporal-f32-spec": lambda steps: passes(steps, 3) * n_cards}, None, "rdma"),
     )
     n, end = CLI_OTHER_STEPS, 2 * CLI_OTHER_STEPS
     for label, args, per_step, form, kernel in others:
@@ -4099,6 +4205,562 @@ def ds_sharded_temporal_phase(counts, clock, copy):
                  for k, v in info.items()},
     }
 
+
+
+# the f32/bf16 shard pass (phase 32): the rings of virtual shards of the
+# bitwise checks, the small lattices beside 800x4000, the steps of the
+# backends' counted runs, the timed runs' steps and the queued passes
+SHARD_RINGS = (1, 2, 4)
+SHARD_SCENES = ((800, 4000), (48, 136), (24, 40))
+SHARD_PATH_STEPS = 600
+SHARD_TIMED_STEPS = 600
+SHARD_QUEUED_PASSES = 30
+# the depths of the queued passes (halos of the deepest; T runs beside
+# them the interior + bands and the one-step forms)
+SHARD_DEPTHS = (1, 2, 3, 4)
+
+
+def pass_ring_shard(f, geom, n, k, depth):
+    """Shard k of a ring of n over the card's state f: (its block, its
+    (top, bot) halo blocks of `depth` rows from the ring neighbours, its
+    geometry: a ShardPlane with (depth, NY) class rows, or the wall spec
+    or None as they are)."""
+    from latticeboltzmann_tpu_torch.ops.fused_kernel import ShardPlane
+
+    L = f.shape[1] // n
+    r0 = k * L
+
+    def rows(x, a, b):
+        idx = torch.arange(a, b, device=x.device) % x.shape[-2]
+        return x.index_select(x.dim() - 2, idx).contiguous()
+
+    halo = (rows(f, r0 - depth, r0), rows(f, r0 + L, r0 + L + depth))
+    if torch.is_tensor(geom):
+        geom = ShardPlane(rows(geom, r0, r0 + L), rows(geom, r0 - depth, r0),
+                          rows(geom, r0 + L, r0 + L + depth))
+    return rows(f, r0, r0 + L), halo, geom
+
+
+class RdmaPassRing:
+    """n virtual shards of the card wired for the rdma temporal form as
+    ShardedRdmaSession wires them: two buffers a shard, a temporal RdmaEnd
+    of `depth` rows and a stream each; run(steps) launches one pass of
+    every shard (or of `only`), each launch built at its first use."""
+
+    def __init__(self, cfg, f, geom, n, depth, fast_math=False, timeout_s=RDMA_CHECK_TIMEOUT_S):
+        from latticeboltzmann_tpu_torch.ops import fused_kernel
+
+        dev = f.device
+        self.cfg, self.n, self.L = cfg, n, cfg.nx // n
+        shards = [pass_ring_shard(f, geom, n, k, depth) for k in range(n)]
+        self.geoms = [g for _, _, g in shards]
+        self.bufs = [[b for b, _, _ in shards], [torch.full_like(b, float("nan")) for b, _, _ in shards]]
+        self.ends = [fused_kernel.rdma_end(cfg, dev, depth=depth) for _ in range(n)]
+        self.streams = [torch.cuda.Stream(dev) for _ in range(n)]
+        self.options = dict(fast_math=fast_math, timeout_s=timeout_s)
+        self.launches = {}
+        self.parity = self.passes = 0
+        torch.cuda.synchronize()
+
+    def run(self, steps, only=None):
+        from latticeboltzmann_tpu_torch.ops import fused_kernel
+
+        cur = torch.cuda.current_stream()
+        for st in self.streams:
+            st.wait_stream(cur)
+        self.passes += 1
+        for k in range(self.n):
+            key = (self.parity, k, steps)
+            if key not in self.launches:
+                n = self.n
+                self.launches[key] = fused_kernel.rdma_temporal_launcher(
+                    self.bufs[self.parity][k], self.bufs[1 - self.parity][k], self.ends[k],
+                    self.ends[(k - 1) % n], self.ends[(k + 1) % n], self.geoms[k], self.cfg,
+                    steps, card_shards=n, row_offset=k * self.L, stream=self.streams[k],
+                    **self.options)
+            if only is None or k in only:
+                self.launches[key](self.passes)
+        for st in self.streams:
+            cur.wait_stream(st)
+        self.parity ^= 1
+
+    def timed_out(self):
+        from latticeboltzmann_tpu_torch.ops import fused_kernel
+
+        torch.cuda.synchronize()
+        return [fused_kernel.rdma_timed_out(e) for e in self.ends]
+
+
+def shard_pass_bitwise(name, cfg, f, geom, rings, depth, deepest, blocked_tile=None):
+    """Both shard forms at one scene, storage and geometry, bitwise against
+    their plain versions: the ext-halo temporal form on each shard of each
+    ring at every L 1..depth (Td = depth) over every row range of both
+    schedules (the whole shard; the interior and two L-row bands), and at
+    L = Td = deepest on a ring of one, against temporal_reference_ext
+    (with blocked_tile also against temporal_reference_ext_blocked at the
+    card's tile, over whole shards); the rdma temporal form on each ring
+    in passes of 1, ..., depth, depth, its blocks, comm blocks, flags and
+    launch words after each pass against temporal_reference_rdma from the
+    same inputs, and on a ring of one of at least `deepest` rows (a pass
+    sends as many) a pass of `deepest` with ends of that depth. Returns
+    (ext launches, rdma launches)."""
+    from latticeboltzmann_tpu_torch.ops import fused_kernel as fk
+
+    n_ext = n_rdma = 0
+    cases = [(n, depth, L) for n in rings for L in range(1, depth + 1)]
+    if 1 in rings:
+        cases.append((1, deepest, deepest))
+    for n, td, L in cases:
+        Ls = cfg.nx // n
+        for k in range(n):
+            src, halo, g = pass_ring_shard(f, geom, n, k, td)
+            want = fk.temporal_reference_ext(src, halo, g, cfg, L, row_offset=k * Ls)
+            ranges = [(0, Ls)] + ([(L, Ls - 2 * L), (0, L), (Ls - L, L)] if Ls > 2 * L else [])
+            for row0, rows in ranges:
+                dst = torch.full_like(src, float("nan"))
+                inner = row0 >= L and row0 + rows + L <= Ls
+                fk.ext_temporal_launcher(src, dst, None if inner else halo, g, cfg, L,
+                                         row0=row0, rows=rows, row_offset=k * Ls)()
+                n_ext += 1
+                got = dst[:, row0:row0 + rows]
+                if not torch.equal(got, want[:, row0:row0 + rows]):
+                    d = float((got.float() - want[:, row0:row0 + rows].float()).abs().max())
+                    raise AssertionError(f"{name}: ext-halo temporal kernel != "
+                                         f"temporal_reference_ext, ring of {n}, shard {k}, L {L} "
+                                         f"(Td {td}), rows [{row0}, {row0 + rows}): max |diff| "
+                                         f"{d!r}")
+            if blocked_tile is not None and td == depth and not torch.equal(
+                    want, fk.temporal_reference_ext_blocked(src, halo, g, cfg, L, blocked_tile,
+                                                            row_offset=k * Ls)):
+                raise AssertionError(f"{name}: temporal_reference_ext_blocked != "
+                                     f"temporal_reference_ext, ring of {n}, L {L}")
+    for n in rings:
+        for td, plan in ((depth, list(range(1, depth + 1)) + [depth]),
+                         (deepest, [deepest]) if n == 1 and cfg.nx >= deepest else (None, [])):
+            if not plan:
+                continue
+            ring = RdmaPassRing(cfg, f, geom, n, td)
+            ref_ends = [fk.rdma_end(cfg, f.device, depth=td) for _ in range(n)]
+            for p, L in enumerate(plan, 1):
+                srcs = [b.clone() for b in ring.bufs[ring.parity]]
+                ring.run(L)
+                if any(ring.timed_out()):
+                    raise AssertionError(f"{name}: rdma temporal pass {p} gave up waiting "
+                                         f"(error words {ring.timed_out()})")
+                n_rdma += n
+                refs = fk.temporal_reference_rdma(srcs, ref_ends, ring.geoms, cfg, L, p)
+                for k in range(n):
+                    got = ring.bufs[ring.parity][k]
+                    if not torch.equal(got, refs[k]):
+                        d = float((got.float() - refs[k].float()).abs().max())
+                        raise AssertionError(f"{name}: rdma temporal kernel != "
+                                             f"temporal_reference_rdma, ring of {n}, shard {k}, "
+                                             f"pass {p} of {L} (Td {td}): max |diff| {d!r}")
+                    for part in ("top", "bot", "flags"):
+                        if not torch.equal(getattr(ring.ends[k], part), getattr(ref_ends[k], part)):
+                            raise AssertionError(f"{name}: rdma temporal comm {part} != the plain "
+                                                 f"version's, ring of {n}, shard {k}, pass {p}")
+                    if ring.ends[k].work.any():
+                        raise AssertionError(f"{name}: launch words {ring.ends[k].work.tolist()} "
+                                             "not zero after a pass")
+            del ring
+    torch.cuda.synchronize()
+    return n_ext, n_rdma
+
+
+def shard_pass_phase(main_launches, copy):
+    """Phase 32: the f32/bf16 shard pass: the ext-halo temporal form
+    (csrc/lbm_temporal_step.cu's lbm_temporal_steps_ext,
+    fused_kernel.ext_temporal_launcher: a pass of L steps on a shard, the
+    rows beyond it from Td-row halos) and the rdma temporal form
+    (csrc/lbm_temporal_rdma_step.cu's lbm_temporal_steps_rdma,
+    fused_kernel.rdma_temporal_launcher: a whole shard's pass with its halo
+    exchange inside the kernel). (a) Their tiles: registers, spills,
+    CTAs/SM, the deepest pass; the rdma grid at 800x4000 (edge tiles and
+    the edge CTAs that may spin, against the card's slots). (b) Both
+    bitwise against their plain versions (shard_pass_bitwise) at L 1..T
+    (T = SHARDED_TEMPORAL: 3 in float32, 2 in bf16) and the deepest pass,
+    f32 and bf16, wall-free, plane, spec and slip, on rings of 1, 2 and 4
+    virtual shards at 800x4000, 48x136 and 24x40; fast math of both within
+    FAST_MATH_RTOL after FAST_MATH_STEPS steps; a withheld send ends in a
+    timeout error, not a hang. (c) sharded-cuda, -fused and -rdma over 4
+    virtual shards at 800x4000, SHARD_PATH_STEPS steps in f32 and bf16,
+    every launch counted per form, bitwise to cuda and to the same backend
+    at temporal=1 (the one-step forms). (d) Times in turns: one pass of L
+    = 1-4 (SHARD_DEPTHS) queued behind a spin per form (the ext-halo form
+    one launch a shard, the rdma form, the local temporal form; at L = T
+    also the ext-halo form's interior + bands and the one-step forms' T
+    steps) with each pass's bounds; each path's us/step
+    and enqueue by the host clock beside cuda, cuda at temporal=T and the
+    one-step forms; the halo exchange alone. main_launches: the passes'
+    launches on phases 16 and 23's main paths; copy: copy_rate's result
+    for one float32 state. Returns the kernels line's two entries."""
+    from latticeboltzmann_tpu_torch import LatticeConfig, Simulation, geometry
+    from latticeboltzmann_tpu_torch.models import engine
+    from latticeboltzmann_tpu_torch.ops import fused_kernel as fk
+    from latticeboltzmann_tpu_torch.parallel import sharded
+    from latticeboltzmann_tpu_torch.utils.interop import bytes_per_site, state_tensor
+
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rng = np.random.default_rng(SEED + 32)
+    dtypes = {"f32": np.float32, "bf16": "bfloat16"}
+    depth_of = {st: sharded.SHARDED_TEMPORAL[torch.float32 if st == "f32" else torch.bfloat16]
+                for st in dtypes}
+    t_part = time.perf_counter()
+
+    # 32a. the tiles, and the rdma grid's spinning CTAs against the slots
+    info = {}
+    for st, dt in dtypes.items():
+        storage = torch.float32 if st == "f32" else torch.bfloat16
+        local = fk.temporal_info(storage, "spec", dev)
+        for form in ("ext", "rdma"):
+            for kind in ("none", "plane", "spec"):
+                i = info[st, form, kind] = fk.temporal_info(storage, kind, dev, ext=form == "ext",
+                                                            rdma=form == "rdma")
+                print(f"shard pass kernel lbm_temporal_steps_{form}<{st}, {kind}>: tile "
+                      f"{i['rows']}x{i['width']} sites, {i['ctas_per_sm']} CTAs/SM, "
+                      f"{i['registers']} registers, {i['local_bytes']} B local memory (stack and "
+                      f"spills), {i['shared_bytes_per_cta']} shared B/CTA; deepest pass "
+                      f"{i['max_steps']} steps (the local form's tile {local['rows']}x"
+                      f"{local['width']}, {local['registers']} registers)")
+                if (i["rows"], i["width"], i["max_steps"]) != (
+                        local["rows"], local["width"], local["max_steps"]):
+                    raise AssertionError(f"{form} {st} {kind}: the tile differs from the local "
+                                         f"form's: {i} against {local}")
+        T = depth_of[st]
+        slots = info[st, "rdma", "spec"]["ctas_per_sm"] * torch.cuda.get_device_properties(
+            0).multi_processor_count
+        g = fk.rdma_temporal_grid(storage, "spec", 800 // VIRTUAL_SHARDS, 4000, T, VIRTUAL_SHARDS)
+        print(f"rdma temporal grid, {st}, a pass of {T} on each of {VIRTUAL_SHARDS} virtual shards "
+              f"of 800x4000: {g['ctas']} CTAs a launch ({g['interior_tiles']} interior tiles, "
+              f"{g['edge_tiles']} edge tiles walked by {g['edge_ctas']} edge CTAs, the senders); "
+              f"at most {VIRTUAL_SHARDS * g['edge_ctas']} CTAs spin at once against {slots} slots")
+        if VIRTUAL_SHARDS * g["edge_ctas"] >= slots:
+            raise AssertionError(f"rdma grid {g}: spinning CTAs fill the {slots} slots")
+    print(f"phase 32a (tiles) took {time.perf_counter() - t_part:.1f} s")
+    t_part = time.perf_counter()
+
+    # 32b. bitwise at every depth, row range and ring
+    reset_counts()
+    n_ext = n_rdma = 0
+    for nx, ny in SHARD_SCENES:
+        big = nx * ny >= 100_000
+        walls = geometry.reference_barrier(nx, ny) if big else geometry.channel(nx, ny)
+        if not big:
+            walls[nx // 2 - 2:nx // 2 + 2, 0:3] = True
+        slip_w, slip_x, slip_y = slip_scene(nx, ny)
+        for st, dt in dtypes.items():
+            cfg = LatticeConfig(nx=nx, ny=ny, dtype=dt, **({} if big else {"accel": 0.005}))
+            f0 = guard_off_at_boundaries(perturbed_state(cfg, rng), nx)
+            f = state_tensor(f0, cfg.dtype, dev)
+            geoms = {"wall-free": None,
+                     "plane": torch.as_tensor(walls.astype(np.uint8), device=dev),
+                     "spec": geometry.infer_spec(walls),
+                     "slip": torch.as_tensor(fk.class_plane(slip_w, slip_x, slip_y), device=dev)}
+            deepest = info[st, "ext", "spec"]["max_steps"]
+            tile = fk.FlatTile(info[st, "ext", "spec"]["rows"], info[st, "ext", "spec"]["width"])
+            for kind, g in geoms.items():
+                e, r = shard_pass_bitwise(f"{nx}x{ny} {st} {kind}", cfg, f, g, SHARD_RINGS,
+                                             depth_of[st], deepest, None if big else tile)
+                n_ext += e
+                n_rdma += r
+            print(f"shard pass kernels vs their plain versions, {nx}x{ny} {st}, wall-free, plane, "
+                  f"spec and slip, rings of {list(SHARD_RINGS)} virtual shard(s): the ext-halo "
+                  f"temporal form at L 1-{depth_of[st]} (Td {depth_of[st]}) over the whole shard, "
+                  f"the interior and both bands, and L {deepest} on a ring of one; the rdma "
+                  f"temporal form in passes of 1-{depth_of[st]} and {depth_of[st]}, and "
+                  f"{deepest} on a ring of one, comm blocks, flags and launch words included: "
+                  "bitwise" + ("" if big else "; temporal_reference_ext_blocked at the card's "
+                               f"tile {tile.rows}x{tile.width}: bitwise"))
+    got = read_counts()
+    ext_keys = {k: v for k, v in got.items() if k.startswith("ext-temporal-")}
+    rdma_keys = {k: v for k, v in got.items() if k.startswith("rdma-temporal-")}
+    if (sum(ext_keys.values()), sum(rdma_keys.values())) != (n_ext, n_rdma) or (
+            set(got) - set(ext_keys) - set(rdma_keys)):
+        raise AssertionError(f"phase 32b: launches {got}, expected {n_ext} ext-halo and {n_rdma} "
+                             "rdma temporal launches and nothing else")
+    print(f"phase 32b: {n_ext} ext-halo and {n_rdma} rdma temporal launches counted by variant: "
+          f"{got}")
+    # fast math, both forms, 4 virtual shards of 800x4000 through the sessions
+    cfg = LatticeConfig(nx=800, ny=4000, dtype=np.float32)
+    walls = geometry.reference_barrier(800, 4000)
+    spec = geometry.infer_spec(walls)
+    mesh4 = sharded.make_mesh(devices=[dev] * VIRTUAL_SHARDS)
+    f0 = state_tensor(perturbed_state(cfg, rng), cfg.dtype, dev)
+    ref = fk.temporal_reference(f0, spec, cfg, fk.FAST_MATH_STEPS)
+    fast_rel = {}
+    for form, make in (("ext", sharded.ShardedSession), ("rdma", sharded.ShardedRdmaSession)):
+        sess = make(cfg, walls, mesh=mesh4, wall_spec=spec, fast_math=True)
+        sess.load(f0)
+        sess.advance(fk.FAST_MATH_STEPS)
+        got_f = sess.unload()
+        fast_rel[form] = float(((got_f - ref).abs() / ref.abs()).max())
+        if not fast_rel[form] <= fk.FAST_MATH_RTOL:
+            raise AssertionError(f"{form} temporal fast math: max rel {fast_rel[form]!r}")
+    print(f"shard pass fast math (rcp.approx) over {VIRTUAL_SHARDS} virtual shards, "
+          f"{fk.FAST_MATH_STEPS} steps in passes of {depth_of['f32']}, against the IEEE chain: "
+          f"max rel ext-halo {fast_rel['ext']!r}, rdma {fast_rel['rdma']!r} (bar "
+          f"{fk.FAST_MATH_RTOL})")
+    # a withheld send: one shard of a ring of two launched alone
+    timeout_s = 0.25
+    ring = RdmaPassRing(cfg, f0, spec, 2, depth_of["f32"], timeout_s=timeout_s)
+    t0 = time.perf_counter()
+    ring.run(depth_of["f32"], only={0})
+    words = ring.timed_out()
+    took = time.perf_counter() - t0
+    if words != [1, 0] or not timeout_s <= took < timeout_s + 2.0:
+        raise AssertionError(f"rdma temporal withheld send: error words {words} after {took!r} s")
+    t0 = time.perf_counter()
+    for _ in range(20):
+        ring.run(depth_of["f32"], only={0})
+    ring.timed_out()
+    later = time.perf_counter() - t0
+    if not later < timeout_s:
+        raise AssertionError(f"rdma temporal withheld send: 20 later passes took {later!r} s")
+    print(f"rdma temporal withheld send: shard 0 of 2 at 800x4000 launched alone gave up after "
+          f"{took!r} s (timeout {timeout_s} s), error words {words}; 20 later passes skipped "
+          f"their waits in {later!r} s")
+    del ring, ref
+    print(f"phase 32b (bitwise) took {time.perf_counter() - t_part:.1f} s")
+    t_part = time.perf_counter()
+
+    # 32c. the three backends over 4 virtual shards, counted, against cuda
+    # and temporal=1
+    backends = (("sharded-cuda", {}), ("sharded-cuda-fused", {"overlap": False}),
+                ("sharded-cuda-rdma", {"rdma": True}))
+    for st, dt in dtypes.items():
+        cfg = LatticeConfig(nx=800, ny=4000, dtype=dt)
+        T = depth_of[st]
+        variant = fk.variant_name(fk._storage(cfg), "spec", False, False)
+        want = Simulation(cfg, walls, backend="cuda").run(SHARD_PATH_STEPS).state()
+        n_pass = passes(SHARD_PATH_STEPS, T)
+        for backend, kw in backends:
+            rdma = kw.get("rdma", False)
+            per_pass = VIRTUAL_SHARDS * (3 if backend == "sharded-cuda" else 1)
+            outs = {}
+            for temporal in (None, 1):
+                engine.register_backend(backend, sharded.make_cuda_backend(mesh4, temporal=temporal,
+                                                                           **kw))
+                reset_counts()
+                sharded.HALO_COPIES = 0
+                sim = Simulation(cfg, walls, backend=backend, allow_experimental=True)
+                outs[temporal] = sim.run(SHARD_PATH_STEPS).state()
+                copies = sharded.HALO_COPIES
+                if temporal is None:
+                    key = f"{'rdma' if rdma else 'ext'}-temporal-{variant}"
+                    counted = expect_counts(f"{backend} {st}", {key: n_pass * per_pass})
+                    steps_in = fk.RDMA_TEMPORAL_STEPS if rdma else fk.EXT_TEMPORAL_STEPS
+                    if steps_in != SHARD_PATH_STEPS * per_pass or copies != (
+                            0 if rdma else n_pass * 2 * VIRTUAL_SHARDS):
+                        raise AssertionError(f"{backend} {st}: {steps_in} steps in its launches, "
+                                             f"{copies} halo copies")
+                else:
+                    key = f"{'rdma' if rdma else 'ext'}-{variant}"
+                    counted = expect_counts(f"{backend} {st} temporal=1",
+                                            {key: SHARD_PATH_STEPS * per_pass})
+                print(f"{backend} {st} over {VIRTUAL_SHARDS} virtual shards, temporal "
+                      f"{sim._session.temporal}: {SHARD_PATH_STEPS} steps, launches {counted}, "
+                      f"{copies} halo copies from the host")
+            for temporal, out in outs.items():
+                if not np.array_equal(out, want):
+                    raise AssertionError(f"{backend} {st} (temporal {temporal}) != cuda after "
+                                         f"{SHARD_PATH_STEPS} steps, max |diff| "
+                                         f"{float(np.abs(out - want).max())!r}")
+            print(f"{backend} {st}: passes of {T} and temporal=1 bitwise equal to each other and "
+                  f"to cuda after {SHARD_PATH_STEPS} steps")
+    if torch.cuda.device_count() >= VIRTUAL_SHARDS:
+        cards = sharded.make_mesh(VIRTUAL_SHARDS)
+        cfg = LatticeConfig(nx=800, ny=4000, dtype=np.float32)
+        want = Simulation(cfg, walls, backend="cuda").run(SHARD_PATH_STEPS).state()
+        for backend, kw in backends:
+            engine.register_backend(backend, sharded.make_cuda_backend(cards, **kw))
+            out = Simulation(cfg, walls, backend=backend, allow_experimental=True).run(
+                SHARD_PATH_STEPS).state()
+            if not np.array_equal(out, want):
+                raise AssertionError(f"{backend} over {VIRTUAL_SHARDS} cards != cuda")
+            print(f"{backend} f32 over {VIRTUAL_SHARDS} cards in passes of {depth_of['f32']}: "
+                  f"bitwise equal to cuda after {SHARD_PATH_STEPS} steps")
+    else:
+        print(f"{torch.cuda.device_count()} card(s) visible: the shard passes over a mesh of "
+              f"{VIRTUAL_SHARDS} cards were not run")
+    print(f"phase 32c (backends) took {time.perf_counter() - t_part:.1f} s")
+    t_part = time.perf_counter()
+
+    # 32d. times: one pass queued behind a spin per form, with its bounds;
+    # the paths by the host clock, in turns; the halo exchange alone
+    copy_bps = 2 * 9 * 800 * 4000 * 4 / (copy["ms"] * 1e-3)
+    pass_us, path_us, bounds, plain_ms = {}, {}, {}, {}
+    for st, dt in dtypes.items():
+        cfg = LatticeConfig(nx=800, ny=4000, dtype=dt)
+        T = depth_of[st]
+        rates = rates_printer(cfg, bytes_per_site(cfg.dtype))
+        a = state_tensor(perturbed_state(cfg, rng), cfg.dtype, dev)
+        b = torch.empty_like(a)
+        n, Ls = VIRTUAL_SHARDS, 800 // VIRTUAL_SHARDS
+        depth = max(SHARD_DEPTHS)
+        ring_shards = [pass_ring_shard(a, spec, n, k, depth) for k in range(n)]
+        outs = [torch.empty_like(x) for x, _, _ in ring_shards]
+
+        def calls_of(ranges, L):
+            return [fk.ext_temporal_launcher(x, outs[k], None if r0 >= L and r0 + r + L <= Ls
+                                             else h, g, cfg, L, row0=r0, rows=r, row_offset=k * Ls)
+                    for k, (x, h, g) in enumerate(ring_shards) for r0, r in ranges]
+
+        one_step = [fk.ext_launcher(x, outs[k], (h[0][:, -1].contiguous(), h[1][:, 0].contiguous()),
+                                    g, cfg, row_offset=k * Ls)
+                    for k, (x, h, g) in enumerate(ring_shards)]
+        ring = RdmaPassRing(cfg, a, spec, n, depth)
+        ring1 = RdmaRing(cfg, spec, a.float().cpu().numpy(), n)
+        elem = a.element_size()
+        for L in SHARD_DEPTHS:
+            fused_calls = calls_of([(0, Ls)], L)
+            fns = {
+                "local temporal form (1 launch)": lambda L=L: fk.temporal_step(a, b, spec, cfg, L),
+                f"ext-halo temporal form, one launch per shard ({n})": lambda c=fused_calls: [
+                    x() for x in c],
+                f"rdma temporal form ({n} launches, a stream each)": lambda L=L: ring.run(L),
+            }
+            if L == T:
+                band_calls = calls_of([(T, Ls - 2 * T), (0, T), (Ls - T, T)], T)
+                fns.update({
+                    f"ext-halo temporal form, interior + bands ({3 * n} launches)": lambda: [
+                        x() for x in band_calls],
+                    f"one-step ext-halo form, one launch per shard, {T} steps ({n * T} "
+                    "launches)": lambda: [x() for _ in range(T) for x in one_step],
+                    f"one-step rdma form, {T} steps ({n * T} launches)": ring1.timed_run(T),
+                })
+            t = in_turns(lambda label, sec, L=L, rates=rates: rates(label, sec / L),
+                         f"{st} spec 800x4000, {n} virtual shards, one pass of {L}", fns,
+                         SHARD_QUEUED_PASSES, timer=queued_ms)
+            if any(ring.timed_out()) or any(ring1.timed_out()):
+                raise AssertionError(f"{st} timing rings gave up waiting")
+            # bounds of a pass: the shard blocks read once and written once,
+            # the L halo rows a side read once; 124 FLOP a site and step
+            halo_bytes = n * 2 * 9 * L * cfg.ny * elem
+            bd = bound(2 * a.numel() * elem + halo_bytes, F32_OPS_PER_SITE * cfg.sites * L)
+            for label, ms in t.items():
+                pass_us[st, L, label] = ms * 1e3
+            print(f"shard pass bound, {st}, one pass of {L} on {n} virtual shards: "
+                  f"{bd['bound_ms'] * 1e3!r} us by {bd['bound_by']} "
+                  f"({2 * a.numel() * elem + halo_bytes} B, each input read once and each output "
+                  f"written once; {F32_OPS_PER_SITE * cfg.sites * L} FP32 operations), "
+                  f"{bd['bound_ms'] * 1e3 / L!r} us/step; the same bytes at the copy kernel's "
+                  f"{copy_bps:.4g} B/s {(2 * a.numel() * elem + halo_bytes) / copy_bps * 1e6 / L!r}"
+                  f" us/step; measured one launch a shard "
+                  f"{t[f'ext-halo temporal form, one launch per shard ({n})'] * 1e3 / L!r}, rdma "
+                  f"{t[f'rdma temporal form ({n} launches, a stream each)'] * 1e3 / L!r}, the "
+                  f"local form {t['local temporal form (1 launch)'] * 1e3 / L!r} us/step")
+            if L == T:
+                bounds[st] = bd
+        if st == "f32":
+            plain_ms["ext"] = event_ms(lambda: [fk.temporal_reference_ext(
+                x, h, g, cfg, T, row_offset=k * Ls) for k, (x, h, g) in enumerate(ring_shards)], 1)
+            ref_ends = [fk.rdma_end(cfg, dev, depth=T) for _ in range(n)]
+            srcs = [x for x, _, _ in ring_shards]
+            plain_pass = iter(range(1, 100))
+            plain_ms["rdma"] = event_ms(lambda: fk.temporal_reference_rdma(
+                srcs, ref_ends, [spec] * n, cfg, T, next(plain_pass)), 1)
+            print(f"plain versions, one pass of {T} over {n} shards: temporal_reference_ext "
+                  f"{plain_ms['ext']!r} ms, temporal_reference_rdma {plain_ms['rdma']!r} ms")
+        del ring, ring1, a, b, outs, ring_shards, fused_calls, band_calls, one_step
+        torch.cuda.empty_cache()
+
+        # the paths by the host clock, in turns, with enqueue
+        group = {"cuda": Simulation(cfg, walls, backend="cuda"),
+                 f"cuda, temporal={T}": Simulation(cfg, walls, backend="cuda", temporal=T)}
+        for backend, kw in backends:
+            for temporal in (None, 1):
+                engine.register_backend(backend, sharded.make_cuda_backend(
+                    mesh4, temporal=temporal, **kw))
+                group[f"{backend}, {VIRTUAL_SHARDS} virtual shards"
+                      + ("" if temporal is None else ", temporal=1")] = Simulation(
+                    cfg, walls, backend=backend, allow_experimental=True)
+        engine.register_backend("sharded-cuda", sharded.make_cuda_backend(
+            sharded.make_mesh(devices=[dev])))
+        group["sharded-cuda, 1 shard (suite row 4's mesh)"] = Simulation(cfg, walls,
+                                                                         backend="sharded-cuda")
+        for sim in group.values():
+            sim.run(2 * T)
+        torch.cuda.synchronize()
+        best = {}
+        order = list(group) + list(reversed(group))
+        for label in order:
+            sim = group[label]
+            t0 = time.perf_counter()
+            sim.run(SHARD_TIMED_STEPS, block=False)
+            enqueue = (time.perf_counter() - t0) / SHARD_TIMED_STEPS
+            torch.cuda.synchronize()
+            sec = (time.perf_counter() - t0) / SHARD_TIMED_STEPS
+            rates(f"{st} path {label} (host clock, {SHARD_TIMED_STEPS} steps, in turns; enqueue "
+                  f"{enqueue * 1e6!r} us/step)", sec)
+            prev = best.get(label, (float("inf"), float("inf")))
+            best[label] = (min(prev[0], sec * 1e6), min(prev[1], enqueue * 1e6))
+        path_us[st] = best
+        sess = group[f"sharded-cuda, {VIRTUAL_SHARDS} virtual shards"]._session
+        copies = sess._plans[sess._parity][0]
+        ms = event_ms(lambda: (sess.exchange.start(copies), sess.exchange.finish()), 200)
+        print(f"halo exchange alone, {st} sharded-cuda over {VIRTUAL_SHARDS} virtual shards: "
+              f"{ms * 1e3!r} us a pass ({len(copies)} copies of (9, {T}, 4000)), "
+              f"{ms * 1e3 / T!r} us/step (CUDA events, 200 exchanges)")
+        del group, sess
+        torch.cuda.empty_cache()
+    for backend, kw in backends:
+        engine.register_backend(backend, sharded.make_cuda_backend(**kw))
+    print(f"phase 32d (times) took {time.perf_counter() - t_part:.1f} s")
+
+    T = depth_of["f32"]
+    n = VIRTUAL_SHARDS
+
+    def us(st, prefix):
+        return next(v for (s_, L, k), v in pass_us.items()
+                    if s_ == st and L == depth_of[st] and k.startswith(prefix))
+
+    common = {"pass_us_by_L": {f"{st} L={L} {k}": v for (st, L, k), v in pass_us.items()},
+              "path_us_per_step_and_enqueue": path_us,
+              "tile": {f"{st}-{form}-{kind}": v for (st, form, kind), v in info.items()}}
+    return [{
+        "name": f"lbm_temporal_steps_ext<float, spec> (a shard's pass of L steps, Td-row halos; "
+                f"main path sharded-cuda over {n} virtual shards of 800x4000 in passes of {T}, "
+                f"interior + two {T}-row bands a shard and pass; ms: one pass, one launch per "
+                f"shard; beside it interior + bands, and bf16 at T={depth_of['bf16']})",
+        "route": "cuda",
+        "source": "latticeboltzmann_tpu_torch/csrc/lbm_temporal_step.cu",
+        "replaces": "latticeboltzmann_tpu/ops/fused_kernel.py:1757 (external_halo=True, "
+                    "temporal=T; parallel/sharded.py:264-286, 338-343)",
+        "launches": main_launches["ext"],
+        "one_launch_per_shard_launches": main_launches["ext_fused"],
+        "max_abs_err": 0.0,
+        "ms": us("f32", "ext-halo temporal form, one launch") * 1e-3,
+        "interior_and_bands_ms": us("f32", "ext-halo temporal form, interior") * 1e-3,
+        "local_temporal_form_ms": us("f32", "local temporal form") * 1e-3,
+        "one_step_form_ms": us("f32", "one-step ext-halo") * 1e-3,
+        "bf16_ms": us("bf16", "ext-halo temporal form, one launch") * 1e-3,
+        "bf16_interior_and_bands_ms": us("bf16", "ext-halo temporal form, interior") * 1e-3,
+        "bf16_bound_ms": bounds["bf16"]["bound_ms"],
+        "max_rel_err_fast_math": fast_rel["ext"],
+        "plain_ms": plain_ms["ext"],
+        **bounds["f32"],
+        **common,
+    }, {
+        "name": f"lbm_temporal_steps_rdma<float, spec> (a shard's pass of L steps with the halo "
+                f"exchange inside the kernel; main path sharded-cuda-rdma over {n} virtual shards "
+                f"of 800x4000 in passes of {T}, one launch per shard and pass, a stream each; ms: "
+                f"one pass; beside it bf16 at T={depth_of['bf16']})",
+        "route": "cuda",
+        "source": "latticeboltzmann_tpu_torch/csrc/lbm_temporal_rdma_step.cu",
+        "replaces": "latticeboltzmann_tpu/ops/fused_kernel.py:1757 (rdma=True, temporal=T; "
+                    "parallel/sharded.py:264-286, 351-352)",
+        "launches": main_launches["rdma"],
+        "max_abs_err": 0.0,
+        "ms": us("f32", "rdma temporal form") * 1e-3,
+        "one_step_form_ms": us("f32", "one-step rdma") * 1e-3,
+        "bf16_ms": us("bf16", "rdma temporal form") * 1e-3,
+        "bf16_bound_ms": bounds["bf16"]["bound_ms"],
+        "max_rel_err_fast_math": fast_rel["rdma"],
+        "plain_ms": plain_ms["rdma"],
+        **bounds["f32"],
+    }]
 
 
 if __name__ == "__main__":

@@ -70,6 +70,48 @@
 // fused_kernel.temporal_reference_blocked follows this kernel's tiles):
 // bitwise, for any L. fast_math (rcp.approx.f32) has no bitwise
 // reference.
+//
+// The ext-halo form (lbm_temporal_steps_ext, launched by
+// lbm_temporal_steps_ext_launch) replaces the same pl.pallas_call
+// (ops/fused_kernel.py:1757) with external_halo=True at temporal = T, as
+// latticeboltzmann_tpu/parallel/sharded.py::make_pallas_run_steps drives it
+// per shard (its one_pass, :426-463 there): each pass ppermutes T rows of f
+// from each ring neighbour and runs T steps on the shard's extended rows,
+// T = 3 in float32 and 2 in bf16 (:264-286). Here one launch is one pass of
+// L <= Td steps on a shard's (9, Ls, NY) block, writing the local rows
+// [row0, row0 + rows), so that a caller can run the rows that take no halo
+// while the halos are copied, and the rest after. It is this kernel with two
+// changes and nothing else:
+// - where the rows come from (load_tile_ext, lbm_temporal.cuh): tile row lr
+//   of a tile reads the shard's local row q; q < 0 reads row Td + q of the
+//   top halo (9, Td, NY) and q >= Ls row q - Ls of the bottom one, each with
+//   all 9 planes, and a class byte from the halo's static (Td, NY) class rows
+//   (codes 0-3: the slip classes cross a shard boundary too) or, in the spec
+//   variant, spec_solid at the global row wrap(row_offset + q, gnx), halo
+//   rows included, as lbm_wide_ext_step.cu evaluates it. No x wrap: the ring
+//   of shards outside is the x periodicity. Columns wrap modulo NY as in the
+//   local form, and the forcing at GLOBAL column 0 is unchanged, since the
+//   mesh splits rows only: a halo row's column-0 site is forced at every
+//   level from its own values and class, as in the TPU window;
+// - where the output goes: tiles are laid from row0 over `rows` rows and
+//   written there.
+// The tile, its loads as whole 16-byte vectors, the levels and their
+// barriers are the local form's (tile_levels and the rest of
+// lbm_temporal.cuh), and the local form keeps its own load path. The
+// launcher refuses a pass deeper than the halos (L > Td), one whose reads
+// would leave [-Td, Ls + Td), NY of no whole vectors, misaligned buffers and
+// a pass that leaves no output tile. fast_math is the same run-time flag.
+//
+// What bounds the ext-halo form. A pass of 3 steps in float32 on a 200-row
+// shard of 800x4000 (4 shards) lays 6 rows of tiles (5 of 37 output rows
+// and one of 15) and 63 columns: its tiles read 1.17 times the shard's rows
+// with their halos and 1.13 times its columns, 73 B a site, and write it
+// once, as the local form's do; the halo blocks add 2 x 9 x 3 x NY x 4 B a
+// shard a pass (0.9 MB for 4 shards). Each launch lays 378 tiles, 1.4 waves
+// of the card's 264 co-resident CTAs, where the whole lattice's 1,386 make
+// 5.3: the last partial wave of each shard's launch is what 4 shards lose
+// against one lattice. The row-sharded rdma form of the same pass is
+// csrc/lbm_temporal_rdma_step.cu.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -77,194 +119,9 @@
 
 #include <algorithm>
 
-#include "lbm_collide.cuh"
-#include "lbm_tile.cuh"
+#include "lbm_temporal.cuh"
 
 namespace {
-
-// a site's class byte: the solid class, and the forcing guard's bit
-constexpr unsigned kClassBits = 0x7f;
-constexpr unsigned kGuardBit = 0x80;
-
-// bytes of dynamic shared memory of a tile of `rows` rows: the 9
-// interleaved planes, then one class byte per site (a row of planes is a
-// whole number of 16-byte vectors, so the class bytes stay aligned)
-constexpr int64_t tile_bytes(int64_t rows, int64_t itemsize) {
-  return rows * kW * (9 * itemsize + 1);
-}
-
-// The guard of the column-0 sites among rows [ra, rb) and columns [ca, cb)
-// of the tile, read at the current level in its layout, into the top bit
-// of each one's class byte: set where the site is fluid and f6, f3 and f7
-// all stay above their decrements. Every other site's bit stays 0 from
-// the load. `first`: the first tile column >= ca whose global column is 0;
-// the others follow every ny columns.
-template <typename T, bool PUSHED>
-__device__ __forceinline__ void guard_bits(const T* sm, uint8_t* cls, int ra, int rb, int first,
-                                           int cb, int ny, const Params& k) {
-  const int occ = first < cb ? (cb - 1 - first) / ny + 1 : 0;
-  const int n = (rb - ra) * occ;
-  const int o6 = slot_offset<PUSHED>(6);
-  const int o3 = slot_offset<PUSHED>(3);
-  const int o7 = slot_offset<PUSHED>(7);
-  for (int i = threadIdx.x; i < n; i += kNT) {
-    const int r = ra + i / occ;
-    const int c = first + (i - (i / occ) * occ) * ny;
-    const T* site = sm + r * 9 * kW + c;
-    const unsigned b = cls[r * kW + c];
-    const bool ok = (b & kClassBits) == 0 && (load(site + o6) - k.a58 > 0.0f) &&
-                    (load(site + o3) - k.a14 > 0.0f) && (load(site + o7) - k.a58 > 0.0f);
-    cls[r * kW + c] = static_cast<uint8_t>(ok ? (b | kGuardBit) : (b & kClassBits));
-  }
-}
-
-// One level over rows [ra, rb) x columns [ca, cb) of the tile: each site
-// pulls its 9 values from shared memory, adds the forcing where the source
-// has global column 0 and its guard bit is set (HAS0), collides, applies
-// its class, and writes back into the slots it read (PUSHED: the source
-// layout is the pushed one; the result is in the other). The last level
-// (LAST) writes its sites to dst instead, tile site (r, c) at dst[out0 + r
-// ny + c] of each plane.
-template <typename T, int GEOM, bool PUSHED, bool HAS0, bool LAST>
-__device__ __forceinline__ void tile_level(T* sm, const uint8_t* cls, int ra, int rb, int ca,
-                                           int cb, T* dst, int64_t out0, int ny, int64_t plane,
-                                           const Params& k, int fast_math) {
-  constexpr int EX[9] = {0, 0, 1, 0, -1, 1, 1, -1, -1};
-  constexpr int EY[9] = {0, 1, 0, -1, 0, 1, -1, -1, 1};
-  constexpr int OPP[9] = {0, 3, 4, 1, 2, 7, 8, 5, 6};
-  constexpr int FORCE[9] = {0, 1, 0, -1, 0, 1, -1, -1, 1};
-
-  const int n = (rb - ra) * (cb - ca);
-  Walk at(cb - ca);
-  for (int i = threadIdx.x; i < n; i += kNT, at.next()) {
-    const int r = ra + at.a, c = ca + at.b;
-    const int g = r * kW + c;
-    T* site = sm + r * 9 * kW + c;
-    float p[9];
-#pragma unroll
-    for (int s = 0; s < 9; ++s) {
-      // natural: f_s(x - e_s) at slot (x - e_s, s); pushed: slot (x, opp s)
-      p[s] = load(site + (PUSHED ? OPP[s] * kW : (s - 9 * EX[s]) * kW - EY[s]));
-    }
-    if (HAS0) {
-#pragma unroll
-      for (int s = 0; s < 9; ++s) {
-        if (FORCE[s] != 0) {
-          const int y = g - EX[s] * kW - EY[s];  // the source site
-          if (cls[y] & kGuardBit) {
-            const float a = (s == 1 || s == 3) ? k.a14 : k.a58;
-            p[s] = p[s] + (FORCE[s] > 0 ? a : -a);
-          }
-        }
-      }
-    }
-    float out[9];
-    collide<GEOM>(p, [&] { return GEOM == kNone ? 0 : static_cast<int>(cls[g] & kClassBits); },
-                  k, fast_math, out);
-    if (LAST) {
-      T* o = dst + out0 + static_cast<int64_t>(r) * ny + c;
-#pragma unroll
-      for (int s = 0; s < 9; ++s) store(o + s * plane, out[s]);
-    } else {
-#pragma unroll
-      for (int s = 0; s < 9; ++s) {
-        // natural source: into slot (x + e_s, opp s), where p[opp s] was
-        // read; pushed source: into slot (x, s)
-        store(site + (PUSHED ? s * kW : (9 * EX[s] + OPP[s]) * kW + EY[s]), out[s]);
-      }
-    }
-  }
-}
-
-// tile_level in the layout a level reads
-template <typename T, int GEOM, bool HAS0, bool LAST>
-__device__ __forceinline__ void level(bool pushed, T* sm, const uint8_t* cls, int ra, int rb,
-                                      int ca, int cb, T* dst, int64_t out0, int ny,
-                                      int64_t plane, const Params& k, int fast_math) {
-  if (pushed) {
-    tile_level<T, GEOM, true, HAS0, LAST>(sm, cls, ra, rb, ca, cb, dst, out0, ny, plane, k,
-                                          fast_math);
-  } else {
-    tile_level<T, GEOM, false, HAS0, LAST>(sm, cls, ra, rb, ca, cb, dst, out0, ny, plane, k,
-                                           fast_math);
-  }
-}
-
-// Start a tile's loads into shared memory as asynchronous copies: the 9
-// planes of each (row, 16-byte vector) item, and its V class bytes (the
-// plane variant: one copy from the class plane; the spec variant: the
-// spec at the sites' global indices; wall-free: zeros). A vector's global
-// columns are contiguous: the tile's first column and NY are multiples of
-// V.
-template <typename T, int GEOM>
-__device__ __forceinline__ void load_tile(T* sm, uint8_t* cls, const TileAt& a, const T* src,
-                                          const uint8_t* solid, const Spec& g, int nx, int ny,
-                                          int64_t plane) {
-  constexpr int V = vec_columns<T>();
-  const int k0 = a.lc0 / V;
-  const int nb = (a.lc1 + V - 1) / V - k0;
-  const int n = a.lr1 * nb;
-  Walk at(nb);
-  for (int i = threadIdx.x; i < n; i += kNT, at.next()) {
-    const int lr = at.a;
-    const int lc = (k0 + at.b) * V;
-    const int gi = wrap(a.gr0 + lr, nx);
-    const int gj = wrap(a.gc0 + lc, ny);
-    const int64_t gs = static_cast<int64_t>(gi) * ny + gj;
-    T* d = sm + lr * 9 * kW + lc;
-#pragma unroll
-    for (int s = 0; s < 9; ++s) copy16_async(d + s * kW, src + gs + s * plane);
-    uint8_t* c = cls + lr * kW + lc;
-    if (GEOM == kPlane) {
-      copy_small_async<V>(c, solid + gs);
-    } else {
-#pragma unroll
-      for (int j = 0; j < V; ++j) {
-        c[j] = (GEOM == kSpec && spec_solid(g, gi, gj + j, nx)) ? 1 : 0;
-      }
-    }
-  }
-}
-
-// The L levels of a loaded tile, the last of which stores the output tile.
-template <typename T, int GEOM>
-__device__ __forceinline__ void tile_levels(T* sm, uint8_t* cls, const TileAt& a, T* dst, int ny,
-                                            int64_t plane, const Params& k, int fast_math) {
-  // the output tile's sites at dst[out0 + r ny + c] for tile site (r, c)
-  const int64_t out0 = static_cast<int64_t>(a.gr0) * ny + a.gc0;
-  for (int t = 1; t <= a.L; ++t) {
-    const int g = a.L - t;  // how far level t reaches beyond the output
-    const int ra = a.L - g, rb = a.L + a.Re + g;
-    const int ca = a.pad - g, cb = a.pad + a.Ce + g;
-    const bool pushed = (t % 2) == 0;  // level 1 reads the loaded (natural) tile
-    const bool last = t == a.L;
-    if (a.has0) {
-      const int lo = ca - 1;
-      const int first = lo + wrap(a.first0 - lo, ny);
-      if (pushed) {
-        guard_bits<T, true>(sm, cls, ra - 1, rb + 1, first, cb + 1, ny, k);
-      } else {
-        guard_bits<T, false>(sm, cls, ra - 1, rb + 1, first, cb + 1, ny, k);
-      }
-      __syncthreads();
-      if (last) {
-        level<T, GEOM, true, true>(pushed, sm, cls, ra, rb, ca, cb, dst, out0, ny, plane, k,
-                                   fast_math);
-      } else {
-        level<T, GEOM, true, false>(pushed, sm, cls, ra, rb, ca, cb, dst, out0, ny, plane, k,
-                                    fast_math);
-      }
-    } else if (last) {
-      level<T, GEOM, false, true>(pushed, sm, cls, ra, rb, ca, cb, dst, out0, ny, plane, k,
-                                  fast_math);
-    } else {
-      level<T, GEOM, false, false>(pushed, sm, cls, ra, rb, ca, cb, dst, out0, ny, plane, k,
-                                   fast_math);
-    }
-    // every read of this level before the next level's (or tile's) writes
-    __syncthreads();
-  }
-}
 
 // src -> dst, L steps: (9, nx, ny) each, distinct. rows: the tile's rows; a
 // pass of L steps writes output tiles of (rows - 2 L) x (kW - 2
@@ -294,49 +151,75 @@ lbm_temporal_steps(const T* __restrict__ src, T* __restrict__ dst,
   }
 }
 
-// What the card gives the kernel for storage T and geometry GEOM, read once
-// per card (launch_temporal asks at every launch): the tile's rows
-// (tile_rows), its dynamic shared bytes, the kernel's attributes, its CTAs
-// per SM and the card's SMs.
-struct Info {
-  int rows = 0, per_sm = 0, sms = 0;
-  int64_t smem = 0;
-  cudaFuncAttributes attr{};
-};
-
-constexpr int kMaxDevices = 64;
-
+// The ext-halo form: a pass of L steps on a shard of nx rows, writing its
+// local rows [h.row0, h.row0 + h.rows), the rows beyond it from h. The
+// output tiles are laid from h.row0, and tile_levels writes them through
+// `out`, dst shifted to that row.
 template <typename T, int GEOM>
+__global__ void __launch_bounds__(kNT, kCtasPerSm)
+lbm_temporal_steps_ext(const T* __restrict__ src, T* __restrict__ dst,
+                       const uint8_t* __restrict__ solid, Spec g, int nx, int ny, int rows, int L,
+                       Params k, int fast_math, TemporalHalo<T> h) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* sm = reinterpret_cast<T*>(smem);
+  uint8_t* cls = smem + static_cast<int64_t>(rows) * 9 * kW * sizeof(T);
+  const int64_t plane = static_cast<int64_t>(nx) * ny;  // plane offsets in 64 bits
+  const int pad = column_halo<T>(L);
+  const int R = rows - 2 * L;
+  const int C = kW - 2 * pad;
+  const int tiles_y = (ny + C - 1) / C;
+  const int tiles = ((h.rows + R - 1) / R) * tiles_y;
+  T* out = dst + static_cast<int64_t>(h.row0) * ny;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const TileAt a(tile, tiles_y, R, C, h.rows, ny, L, pad);
+    // the previous tile's last level has read the shared tile (its closing
+    // barrier) before these loads overwrite it
+    load_tile_ext<T, GEOM>(sm, cls, a, src, solid, g, nx, ny, plane, h);
+    copies_wait();
+    __syncthreads();
+    tile_levels<T, GEOM>(sm, cls, a, out, ny, plane, k, fast_math);
+  }
+}
+
+// the kernel of a form (EXT: the ext-halo one) for storage T and geometry
+template <typename T, int GEOM, bool EXT>
+auto kernel_of() {
+  if constexpr (EXT) {
+    return lbm_temporal_steps_ext<T, GEOM>;
+  } else {
+    return lbm_temporal_steps<T, GEOM>;
+  }
+}
+
+template <typename T, int GEOM, bool EXT>
 cudaError_t tile_info(Info* out) {
   static Info cache[kMaxDevices];
   static bool known[kMaxDevices] = {};
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return err;
-  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (known[device]) {
-    *out = cache[device];
-    return cudaSuccess;
+  return card_info<T>(kernel_of<T, GEOM, EXT>(), cache, known, out);
+}
+
+template <typename T, bool EXT>
+cudaError_t info_geometry(int64_t geometry, Info* out) {
+  switch (geometry) {
+    case kPlane:
+      return tile_info<T, kPlane, EXT>(out);
+    case kSpec:
+      return tile_info<T, kSpec, EXT>(out);
+    default:
+      return tile_info<T, kNone, EXT>(out);
   }
-  Info info;
-  err = cudaDeviceGetAttribute(&info.sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
-  err = tile_rows(tile_bytes, sizeof(T), &info.rows);
-  if (err != cudaSuccess) return err;
-  info.smem = tile_bytes(info.rows, sizeof(T));
-  auto kernel = lbm_temporal_steps<T, GEOM>;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(info.smem));
-  if (err != cudaSuccess) return err;
-  err = cudaFuncGetAttributes(&info.attr, kernel);
-  if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info.per_sm, kernel, kNT, info.smem);
-  if (err != cudaSuccess) return err;
-  if (info.per_sm < 1) return cudaErrorInvalidConfiguration;
-  cache[device] = info;
-  known[device] = true;
-  *out = info;
-  return cudaSuccess;
+}
+
+// The co-resident grid of a pass over `rows` output rows at the tile of
+// `info`, no larger than the work; 0 when the pass leaves no output tile
+// or the tile count reaches 2^30 (32-bit tile arithmetic).
+template <typename T>
+int64_t pass_grid(const Info& info, int64_t rows, int64_t ny, int L) {
+  const int64_t R = info.rows - 2 * L, C = kW - 2 * column_halo<T>(L);
+  if (R < 1 || C < 1) return 0;
+  const int64_t tiles = ((rows + R - 1) / R) * ((ny + C - 1) / C);
+  if (tiles >= (1LL << 30)) return 0;
+  return std::min<int64_t>(tiles, static_cast<int64_t>(info.per_sm) * info.sms);
 }
 
 template <typename T, int GEOM>
@@ -344,16 +227,10 @@ int launch_temporal(const void* src, void* dst, const uint8_t* solid, const Spec
                     int ny, int L, const Params& k, int fast_math, cudaStream_t st) {
   if (ny % vec_columns<T>() != 0) return static_cast<int>(cudaErrorInvalidValue);
   Info info;
-  const cudaError_t err = tile_info<T, GEOM>(&info);
+  const cudaError_t err = tile_info<T, GEOM, false>(&info);
   if (err != cudaSuccess) return static_cast<int>(err);
-  // the pass leaves an output tile, and the tile count stays under 2^30
-  // (32-bit tile arithmetic)
-  const int64_t R = info.rows - 2 * L, C = kW - 2 * column_halo<T>(L);
-  if (R < 1 || C < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t tiles = ((nx + R - 1) / R) * ((ny + C - 1) / C);
-  if (tiles >= (1LL << 30)) return static_cast<int>(cudaErrorInvalidValue);
-  // the co-resident grid, no larger than the work
-  const int64_t n_blocks = std::min<int64_t>(tiles, static_cast<int64_t>(info.per_sm) * info.sms);
+  const int64_t n_blocks = pass_grid<T>(info, nx, ny, L);
+  if (n_blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
   lbm_temporal_steps<T, GEOM><<<static_cast<unsigned>(n_blocks), kNT,
                                 static_cast<size_t>(info.smem), st>>>(
       static_cast<const T*>(src), static_cast<T*>(dst), solid, g, nx, ny, info.rows, L, k,
@@ -375,16 +252,44 @@ int launch_geometry(const void* src, void* dst, const uint8_t* solid, const Spec
   }
 }
 
+template <typename T, int GEOM>
+int launch_ext(const void* src, void* dst, const uint8_t* solid, const Spec& g, int nx, int ny,
+               int L, const Params& k, int fast_math, const TemporalHalo<T>& h,
+               cudaStream_t st) {
+  Info info;
+  const cudaError_t err = tile_info<T, GEOM, true>(&info);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t n_blocks = pass_grid<T>(info, h.rows, ny, L);
+  if (n_blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
+  lbm_temporal_steps_ext<T, GEOM><<<static_cast<unsigned>(n_blocks), kNT,
+                                    static_cast<size_t>(info.smem), st>>>(
+      static_cast<const T*>(src), static_cast<T*>(dst), solid, g, nx, ny, info.rows, L, k,
+      fast_math, h);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
-cudaError_t info_geometry(int64_t geometry, Info* out) {
+int launch_ext_geometry(const void* src, void* dst, const uint8_t* solid, const Spec& g,
+                        int64_t geometry, int nx, int ny, int L, const Params& k, int fast_math,
+                        const TemporalHalo<T>& h, cudaStream_t st) {
   switch (geometry) {
     case kPlane:
-      return tile_info<T, kPlane>(out);
+      return launch_ext<T, kPlane>(src, dst, solid, g, nx, ny, L, k, fast_math, h, st);
     case kSpec:
-      return tile_info<T, kSpec>(out);
+      return launch_ext<T, kSpec>(src, dst, solid, g, nx, ny, L, k, fast_math, h, st);
     default:
-      return tile_info<T, kNone>(out);
+      return launch_ext<T, kNone>(src, dst, solid, g, nx, ny, L, k, fast_math, h, st);
   }
+}
+
+template <typename T>
+TemporalHalo<T> halo_of(const void* top, const void* bot, const void* solid_top,
+                        const void* solid_bot, int64_t depth, int64_t row0, int64_t rows,
+                        int64_t offset, int64_t gnx) {
+  return TemporalHalo<T>{static_cast<const T*>(top), static_cast<const T*>(bot),
+                         static_cast<const uint8_t*>(solid_top),
+                         static_cast<const uint8_t*>(solid_bot), static_cast<int>(depth),
+                         static_cast<int>(row0), static_cast<int>(rows), offset, gnx};
 }
 
 }  // namespace
@@ -430,14 +335,78 @@ extern "C" int lbm_temporal_steps_info(int64_t storage, int64_t geometry, int64_
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Info info;
-  const cudaError_t err = storage == 1 ? info_geometry<__nv_bfloat16>(geometry, &info)
-                                       : info_geometry<float>(geometry, &info);
+  const cudaError_t err = storage == 1 ? info_geometry<__nv_bfloat16, false>(geometry, &info)
+                                       : info_geometry<float, false>(geometry, &info);
   if (err != cudaSuccess) return static_cast<int>(err);
-  out[0] = info.attr.numRegs;
-  out[1] = info.per_sm;
-  out[2] = info.smem;
-  out[3] = static_cast<int64_t>(info.attr.localSizeBytes);
-  out[4] = info.rows;
-  out[5] = kW;
+  info_values(info, out);
+  return 0;
+}
+
+// The ext-halo form: one pass of `steps` steps of the local rows [row0,
+// row0 + rows) of a shard's (9, nx, ny) block src -> dst on `stream`, src
+// and dst as lbm_temporal_steps_launch's; local row 0 is global row offset
+// of a gnx-row lattice. top, bot: (9, depth, ny) blocks of src's storage,
+// the depth rows above local row 0 and below local row nx - 1, all 9
+// planes, 16-byte aligned; solid_top, solid_bot: their (depth, ny) uint8
+// class rows (geometry 1, 16-byte aligned). A pass reads `steps` rows beyond
+// each side of its output: where those leave the shard, that side's halo
+// is required and depth >= steps; it is never read otherwise (depth 0 and
+// null pointers allowed). With halos, steps > depth is refused. solid: the
+// shard's (nx, ny) class plane (geometry 1); spec (geometry 2): evaluated
+// at global rows, periodic in gnx. The other arguments and the return as
+// lbm_temporal_steps_launch's.
+extern "C" int lbm_temporal_steps_ext_launch(
+    const void* src, void* dst, const void* top, const void* bot, const void* solid,
+    const void* solid_top, const void* solid_bot, const void* spec, int64_t nx, int64_t ny,
+    int64_t depth, int64_t row0, int64_t rows, int64_t offset, int64_t gnx, int64_t storage,
+    int64_t geometry, int64_t fast_math, int64_t steps, const void* params, void* stream) {
+  const bool plane = geometry == kPlane;
+  if (src == nullptr || dst == nullptr || src == dst || misaligned(src) || misaligned(dst) ||
+      nx < 1 || ny < 1 || nx >= (1LL << 30) || ny >= (1LL << 30) || storage < 0 ||
+      storage > 1 || ny % (storage == 1 ? vec_columns<__nv_bfloat16>() : vec_columns<float>()) ||
+      geometry < kNone || geometry > kSpec || (plane && (solid == nullptr || misaligned(solid))) ||
+      (geometry == kSpec && spec == nullptr) || steps < 1 || steps > 64 || params == nullptr ||
+      depth < 0 || depth >= (1LL << 30) || row0 < 0 || rows < 1 || row0 + rows > nx ||
+      (depth > 0 && steps > depth) || offset < 0 || gnx >= (1LL << 62) || offset + nx > gnx) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // each side the pass reads beyond the shard needs its halo, deep enough
+  const void* sides[2][2] = {{top, solid_top}, {bot, solid_bot}};
+  const bool needs[2] = {row0 - steps < 0, row0 + rows + steps > nx};
+  for (int side = 0; side < 2; ++side) {
+    if (!needs[side]) continue;
+    if (steps > depth) return static_cast<int>(cudaErrorInvalidValue);
+    for (int b = 0; b < (plane ? 2 : 1); ++b) {
+      const void* q = sides[side][b];
+      if (q == nullptr || misaligned(q)) return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  const Params k = params_from(params);
+  const Spec g = spec_from(spec, geometry);
+  const uint8_t* w = plane ? static_cast<const uint8_t*>(solid) : nullptr;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int n[] = {static_cast<int>(nx), static_cast<int>(ny), static_cast<int>(steps),
+                   fast_math != 0};
+  if (storage == 1) {
+    using B = __nv_bfloat16;
+    return launch_ext_geometry<B>(
+        src, dst, w, g, geometry, n[0], n[1], n[2], k, n[3],
+        halo_of<B>(top, bot, solid_top, solid_bot, depth, row0, rows, offset, gnx), st);
+  }
+  return launch_ext_geometry<float>(
+      src, dst, w, g, geometry, n[0], n[1], n[2], k, n[3],
+      halo_of<float>(top, bot, solid_top, solid_bot, depth, row0, rows, offset, gnx), st);
+}
+
+// lbm_temporal_steps_info for the ext-halo form: the same six values.
+extern "C" int lbm_temporal_steps_ext_info(int64_t storage, int64_t geometry, int64_t* out) {
+  if (out == nullptr || storage < 0 || storage > 1 || geometry < kNone || geometry > kSpec) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Info info;
+  const cudaError_t err = storage == 1 ? info_geometry<__nv_bfloat16, true>(geometry, &info)
+                                       : info_geometry<float, true>(geometry, &info);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  info_values(info, out);
   return 0;
 }

@@ -22,9 +22,11 @@ import subprocess
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 SOURCES = ("lbm_step.cu", "lbm_wide_step.cu", "lbm_wide_ext_step.cu", "lbm_ds_step.cu",
-           "lbm_ds_temporal_step.cu", "lbm_flat_step.cu", "lbm_temporal_step.cu", "lbm_probes.cu")
+           "lbm_ds_temporal_step.cu", "lbm_flat_step.cu", "lbm_temporal_step.cu",
+           "lbm_temporal_rdma_step.cu", "lbm_probes.cu")
 # included by the sources (each from its own directory); hashed with them
-HEADERS = ("lbm_collide.cuh", "lbm_ds.cuh", "lbm_ext.cuh", "lbm_tile.cuh", "lbm_wide.cuh")
+HEADERS = ("lbm_collide.cuh", "lbm_ds.cuh", "lbm_ext.cuh", "lbm_temporal.cuh", "lbm_tile.cuh",
+           "lbm_wide.cuh")
 LIB_NAME = "liblbm_kernels.so"
 GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
 # sm_90a keeps Hopper-only instructions available; -fmad=false and no
@@ -335,6 +337,80 @@ def load_library() -> ctypes.CDLL:
         ctypes.c_int64,   # geometry: 0 none, 1 plane, 2 spec
         ctypes.c_void_p,  # out: 6 int64 (registers, CTAs per SM, shared bytes, local bytes,
                           # the tile's rows and columns)
+    ]
+    # the shard's forms of the temporal kernel take the same info arguments
+    for name in ("lbm_temporal_steps_ext_info", "lbm_temporal_steps_rdma_info"):
+        getattr(lib, name).restype = ctypes.c_int
+        getattr(lib, name).argtypes = fn.argtypes
+    fn = lib.lbm_temporal_steps_ext_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [
+        ctypes.c_void_p,  # src: the shard's (9, nx, ny) block
+        ctypes.c_void_p,  # dst
+        ctypes.c_void_p,  # top: (9, depth, ny), the rows above local row 0 (or null)
+        ctypes.c_void_p,  # bot: (9, depth, ny), the rows below local row nx - 1 (or null)
+        ctypes.c_void_p,  # solid: the shard's uint8 class plane (geometry 1), or null
+        ctypes.c_void_p,  # solid_top: top's (depth, ny) class rows (geometry 1), or null
+        ctypes.c_void_p,  # solid_bot
+        ctypes.c_void_p,  # spec: 10 host int64 (geometry 2), or null
+        ctypes.c_int64,   # nx: the shard's rows
+        ctypes.c_int64,   # ny
+        ctypes.c_int64,   # depth: the halos' rows
+        ctypes.c_int64,   # row0: first local row written
+        ctypes.c_int64,   # rows written
+        ctypes.c_int64,   # offset: global row of local row 0
+        ctypes.c_int64,   # gnx: global rows
+        ctypes.c_int64,   # storage: 0 float32, 1 bfloat16
+        ctypes.c_int64,   # geometry: 0 none, 1 plane, 2 spec
+        ctypes.c_int64,   # fast_math
+        ctypes.c_int64,   # steps of the pass
+        ctypes.c_void_p,  # params: 9 host floats
+        ctypes.c_void_p,  # cudaStream_t
+    ]
+    fn = lib.lbm_temporal_steps_rdma_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [
+        ctypes.c_void_p,  # src: the shard's (9, nx, ny) block
+        ctypes.c_void_p,  # dst
+        ctypes.c_void_p,  # top: this shard's (2, 9, depth, ny) comm block above
+        ctypes.c_void_p,  # bot: below
+        ctypes.c_void_p,  # up_bot: the upper neighbour's bot block
+        ctypes.c_void_p,  # down_top: the lower neighbour's top block
+        ctypes.c_void_p,  # flags: this shard's [top, bot] flag words
+        ctypes.c_void_p,  # up_flag: the upper neighbour's bot flag word
+        ctypes.c_void_p,  # down_flag: the lower neighbour's top flag word
+        ctypes.c_void_p,  # work: this shard's launch words
+        ctypes.c_void_p,  # solid: the shard's uint8 class plane (geometry 1), or null
+        ctypes.c_void_p,  # solid_top: the (depth, ny) class rows above (geometry 1), or null
+        ctypes.c_void_p,  # solid_bot
+        ctypes.c_void_p,  # spec: 10 host int64 (geometry 2), or null
+        ctypes.c_int64,   # nx: the shard's rows
+        ctypes.c_int64,   # ny
+        ctypes.c_int64,   # depth: the comm blocks' rows
+        ctypes.c_int64,   # offset: global row of local row 0
+        ctypes.c_int64,   # gnx: global rows
+        ctypes.c_int64,   # storage: 0 float32, 1 bfloat16
+        ctypes.c_int64,   # geometry: 0 none, 1 plane, 2 spec
+        ctypes.c_int64,   # fast_math
+        ctypes.c_int64,   # steps of the pass
+        ctypes.c_void_p,  # params: 9 host floats
+        ctypes.c_int64,   # pass: 1, 2, ... since the flags were zeroed
+        ctypes.c_int64,   # timeout_ns of an edge CTA's wait
+        ctypes.c_int64,   # card_shards: the ring's launches on this card
+        ctypes.c_void_p,  # cudaStream_t
+    ]
+    lib.lbm_temporal_steps_rdma_words.restype = ctypes.c_int64
+    lib.lbm_temporal_steps_rdma_words.argtypes = []
+    fn = lib.lbm_temporal_steps_rdma_grid
+    fn.restype = ctypes.c_int
+    fn.argtypes = [
+        ctypes.c_int64,   # storage: 0 float32, 1 bfloat16
+        ctypes.c_int64,   # geometry: 0 none, 1 plane, 2 spec
+        ctypes.c_int64,   # nx: the shard's rows
+        ctypes.c_int64,   # ny
+        ctypes.c_int64,   # steps of the pass
+        ctypes.c_int64,   # card_shards
+        ctypes.c_void_p,  # out: 4 int64 (CTAs, edge CTAs, interior tiles, edge tiles)
     ]
     fn = lib.lbm_copy_launch
     fn.restype = ctypes.c_int

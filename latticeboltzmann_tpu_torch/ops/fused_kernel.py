@@ -68,6 +68,22 @@ runs n steps as n // T passes of T steps and one of n % T. Its launches
 are counted in TEMPORAL_LAUNCHES and TEMPORAL_VARIANT_LAUNCHES, the steps
 they ran in TEMPORAL_STEPS.
 
+A shard's passes of the row-sharded path have two forms of their own,
+the temporal form's tile and levels on a shard whose rows beyond it come
+from T-row halo blocks (csrc/lbm_temporal_step.cu, lbm_temporal.cuh):
+the ext-halo temporal form (`ext_temporal_launcher`; plain versions
+`temporal_reference_ext` and, tile by tile,
+`temporal_reference_ext_blocked`), a pass of L <= T steps of a range of
+a shard's rows from halos the host copied, counted in
+EXT_TEMPORAL_LAUNCHES, EXT_TEMPORAL_VARIANT_LAUNCHES and
+EXT_TEMPORAL_STEPS; and the rdma temporal form
+(`rdma_temporal_launcher`; plain version `temporal_reference_rdma`, with
+its send and compute halves; csrc/lbm_temporal_rdma_step.cu), a pass of a
+whole shard that sends its T edge rows into its neighbours' comm blocks
+(`rdma_end(..., depth=T)`, `rdma_temporal_schedule`) inside the kernel,
+counted in RDMA_TEMPORAL_LAUNCHES, RDMA_TEMPORAL_VARIANT_LAUNCHES and
+RDMA_TEMPORAL_STEPS.
+
 State is the unpadded (9, NX, NY) layout: the TPU kernel's mirror-pad
 lanes and VMEM staging have no counterpart here (ROADMAP, "Not to port").
 
@@ -127,6 +143,15 @@ FLAT_MAX_TEMPORAL = 32
 TEMPORAL_LAUNCHES = 0
 TEMPORAL_VARIANT_LAUNCHES: collections.Counter = collections.Counter()
 TEMPORAL_STEPS = 0
+# the same for a shard's passes: the ext-halo temporal form
+# (`ext_temporal_launcher`) and the rdma temporal form
+# (`rdma_temporal_launcher`)
+EXT_TEMPORAL_LAUNCHES = 0
+EXT_TEMPORAL_VARIANT_LAUNCHES: collections.Counter = collections.Counter()
+EXT_TEMPORAL_STEPS = 0
+RDMA_TEMPORAL_LAUNCHES = 0
+RDMA_TEMPORAL_VARIANT_LAUNCHES: collections.Counter = collections.Counter()
+RDMA_TEMPORAL_STEPS = 0
 
 # the storage and geometry codes of the launcher in csrc/lbm_step.cu
 _STORAGE = {torch.float32: 0, torch.bfloat16: 1}
@@ -152,6 +177,13 @@ FAST_MATH_STEPS = 10
 # the rdma form: how long an edge row waits for a neighbour's rows before
 # its launch gives up (seconds)
 RDMA_TIMEOUT_S = 2.0
+# the int64 launch words of an rdma end: the one-step form's [ticket
+# counter, error word]; the temporal form's [ticket counter, error word,
+# CTAs finished, senders done up, senders done down]
+# (csrc/lbm_temporal_rdma_step.cu restates them; lbm_temporal_steps_rdma_words
+# reads them back)
+RDMA_WORDS = 2
+RDMA_TEMPORAL_WORDS = 5
 
 # solid planes whose codes were checked, by tensor: (version counter at
 # the check, largest code). The check syncs with the device, so it runs
@@ -626,14 +658,15 @@ def step_reference_ext_wide(
 
 
 def check_ext_launch(blocks, halo, dtype: torch.dtype, cfg: LatticeConfig, row0: int,
-                     rows: int) -> int:
+                     rows: int, halo_rows: bool = True) -> int:
     """The checks of an ext-halo launch that do not depend on its kernel.
     blocks: (name, tensor) pairs, the first a source: contiguous (9, L,
     NY) blocks of `dtype` on the first one's device, a CPU tensor or the
     current card. The row range [row0, row0 + rows) lies in the shard. A
     range that writes row 0 or L - 1 needs halo = (top, bot), each side a
     (9, NY) row or a tuple of them (a pair's components), contiguous, of
-    `dtype`, on that device. Returns L."""
+    `dtype`, on that device (halo_rows=False: the caller checks its
+    halos). Returns L."""
     name0, src = blocks[0]
     check_device(src)
     n_rows = src.shape[1] if src.dim() == 3 else -1
@@ -645,7 +678,7 @@ def check_ext_launch(blocks, halo, dtype: torch.dtype, cfg: LatticeConfig, row0:
             raise ValueError(f"{name} must be contiguous and on {name0}'s device")
     if not (0 <= row0 and rows >= 1 and row0 + rows <= n_rows):
         raise ValueError(f"rows [{row0}, {row0 + rows}) outside the shard's {n_rows} rows")
-    if row0 == 0 or row0 + rows == n_rows:
+    if halo_rows and (row0 == 0 or row0 + rows == n_rows):
         if halo is None or len(halo) != 2:
             raise ValueError("a launch that writes an edge row needs the (top, bot) halo rows")
         for t in (t for side in halo for t in ((side,) if torch.is_tensor(side) else side)):
@@ -797,21 +830,34 @@ def rdma_schedule(rows: int, step: int) -> dict:
 
 class RdmaEnd(NamedTuple):
     """One shard's receiving end of the in-kernel halo exchange, on the
-    shard's device: the comm rows its neighbours write (by step parity, all
-    9 speed planes of a boundary row each), the flag words they then set,
-    and the shard's own launch words."""
+    shard's device: the comm rows its neighbours write (by step or pass
+    parity, all 9 speed planes of each row), the flag words they then set,
+    and the shard's own launch words. The one-step form's end holds one row
+    a side; the temporal form's (rdma_end(..., depth=T)) T rows a side."""
 
     top: torch.Tensor    # (2, 9, NY) storage dtype: the row above local row 0
-    bot: torch.Tensor    # (2, 9, NY): the row below the last local row
-    flags: torch.Tensor  # (2,) int64, [top, bot]: the step whose rows they hold
-    work: torch.Tensor   # (2,) int64, [ticket counter, error word]
+                         # (temporal form: (2, 9, T, NY), the T rows above it)
+    bot: torch.Tensor    # (2, 9, NY): the row below the last local row (or T rows)
+    flags: torch.Tensor  # (2,) int64, [top, bot]: the step (pass) whose rows they hold
+    work: torch.Tensor   # (RDMA_WORDS,) int64, [ticket counter, error word]
+                         # (temporal form: (RDMA_TEMPORAL_WORDS,))
 
 
-def rdma_end(cfg: LatticeConfig, device) -> RdmaEnd:
-    """A zeroed RdmaEnd for a shard of a cfg.ny-column lattice on `device`."""
-    rows = torch.zeros((2, NSPEEDS, cfg.ny), dtype=_storage(cfg), device=device)
-    words = torch.zeros(2, dtype=torch.int64, device=device)
-    return RdmaEnd(rows, torch.zeros_like(rows), words, torch.zeros_like(words))
+def rdma_end(cfg: LatticeConfig, device, depth: int | None = None) -> RdmaEnd:
+    """A zeroed RdmaEnd for a shard of a cfg.ny-column lattice on
+    `device`: the one-step form's, or with `depth` the temporal form's,
+    whose comm blocks hold `depth` rows a side (a pass of up to `depth`
+    steps)."""
+    if depth is None:
+        shape, n_words = (2, NSPEEDS, cfg.ny), RDMA_WORDS
+    else:
+        if not isinstance(depth, int) or isinstance(depth, bool) or depth < 1:
+            raise ValueError(f"depth must be a positive integer, got {depth!r}")
+        shape, n_words = (2, NSPEEDS, depth, cfg.ny), RDMA_TEMPORAL_WORDS
+    rows = torch.zeros(shape, dtype=_storage(cfg), device=device)
+    words = torch.zeros(n_words, dtype=torch.int64, device=device)
+    return RdmaEnd(rows, torch.zeros_like(rows), torch.zeros(2, dtype=torch.int64, device=device),
+                   words)
 
 
 def rdma_reset(end: RdmaEnd) -> None:
@@ -872,16 +918,22 @@ def step_reference_rdma(srcs, ends, geoms, cfg: LatticeConfig, step: int) -> lis
 
 
 def _check_rdma_end(name: str, end: RdmaEnd, dtype: torch.dtype, ny: int,
-                    device_type: str) -> None:
+                    device_type: str, depth: int | None = None) -> None:
+    """Raise unless `end` is the one-step form's end (depth None) or the
+    temporal form's of `depth` rows a side, of `dtype`, on one device of
+    type device_type."""
+    shape = (2, NSPEEDS, ny) if depth is None else (2, NSPEEDS, depth, ny)
+    n_words = RDMA_WORDS if depth is None else RDMA_TEMPORAL_WORDS
     for rows in (end.top, end.bot):
-        if (rows.dtype != dtype or tuple(rows.shape) != (2, NSPEEDS, ny)
+        if (rows.dtype != dtype or tuple(rows.shape) != shape
                 or not rows.is_contiguous() or rows.device != end.top.device):
-            raise ValueError(f"{name}: comm rows must be contiguous {dtype} {(2, NSPEEDS, ny)} "
+            raise ValueError(f"{name}: comm rows must be contiguous {dtype} {shape} "
                              f"on one device, got {rows.dtype} {tuple(rows.shape)}")
-    for words in (end.flags, end.work):
-        if (words.dtype != torch.int64 or tuple(words.shape) != (2,)
+    for words, n in ((end.flags, 2), (end.work, n_words)):
+        if (words.dtype != torch.int64 or tuple(words.shape) != (n,)
                 or not words.is_contiguous() or words.device != end.top.device):
-            raise ValueError(f"{name}: flags and work must be int64 (2,) on the comm rows' device")
+            raise ValueError(f"{name}: flags and work must be int64 (2,) and ({n_words},) on "
+                             "the comm rows' device")
     if end.top.device.type != device_type:
         raise ValueError(f"{name} lies on {end.top.device}, the shard on a {device_type} device")
 
@@ -1120,30 +1172,40 @@ def _solid_plane(geom, cfg: LatticeConfig, device: torch.device) -> torch.Tensor
 
 
 def _blocked_pass(src: torch.Tensor, dst: torch.Tensor, solid: torch.Tensor,
-                  cfg: LatticeConfig, L: int, tile: FlatTile) -> None:
+                  cfg: LatticeConfig, L: int, tile: FlatTile, n_rows: int | None = None,
+                  source_rows=None) -> None:
     """One pass of L steps src -> dst tile by tile, as the flat and
     temporal kernels run it: output tiles of flat_output(tile, dtype, L)
-    sites, ragged at the last row and column."""
+    sites over n_rows output rows (default cfg.nx), ragged at the last row
+    and column; the tile of output rows [r0, r0 + re) reads the rows
+    source_rows(r0, re) of src and solid (default: r0 - L .. r0 + re + L -
+    1, periodic in cfg.nx)."""
     R, C = flat_output(tile, src.dtype, L)
-    for r0 in range(0, cfg.nx, R):
+    n_rows = cfg.nx if n_rows is None else n_rows
+    if source_rows is None:
+        def source_rows(r0, re):
+            return torch.arange(r0 - L, r0 + re + L) % cfg.nx
+    for r0 in range(0, n_rows, R):
+        re = min(R, n_rows - r0)
+        rows = source_rows(r0, re).to(src.device)
         for c0 in range(0, cfg.ny, C):
-            re, ce = min(R, cfg.nx - r0), min(C, cfg.ny - c0)
-            dst[:, r0:r0 + re, c0:c0 + ce] = _tile_pass(src, solid, cfg, r0, c0, re, ce, L)
+            ce = min(C, cfg.ny - c0)
+            dst[:, r0:r0 + re, c0:c0 + ce] = _tile_pass(src, solid, cfg, rows, c0, ce, L)
 
 
-def _tile_pass(src: torch.Tensor, solid: torch.Tensor, cfg: LatticeConfig, r0: int, c0: int,
-               re: int, ce: int, L: int) -> torch.Tensor:
-    """L levels of one tile: the re x ce output sites at (r0, c0) after L
-    steps from src, through a source window grown by L on each side, with
-    the window's classes from the uint8 plane `solid`: forcing at fluid
-    sources of global column 0 whose guard holds at the level being read,
-    then the collision and each level site's class."""
+def _tile_pass(src: torch.Tensor, solid: torch.Tensor, cfg: LatticeConfig, rows: torch.Tensor,
+               c0: int, ce: int, L: int) -> torch.Tensor:
+    """L levels of one tile: the len(rows) - 2 L x ce output sites at
+    column c0 after L steps from src, through a source window of the rows
+    `rows` and the columns grown by L on each side, with the window's
+    classes from the uint8 plane `solid`: forcing at fluid sources of
+    global column 0 whose guard holds at the level being read, then the
+    collision and each level site's class."""
     _, _, _, _, _, _, _, a14, a58 = kernel_constants(cfg)
     delta = torch.zeros(NSPEEDS, dtype=torch.float32)
     delta[[1, 5, 8]] = torch.tensor([a14, a58, a58])
     delta[[3, 6, 7]] = torch.tensor([-a14, -a58, -a58])
     delta = delta.to(src.device)[:, None, None]
-    rows = torch.arange(r0 - L, r0 + re + L, device=src.device) % cfg.nx
     cols = torch.arange(c0 - L, c0 + ce + L, device=src.device) % cfg.ny
     cur = src[:, rows][:, :, cols].float()
     cls = solid[rows][:, cols]
@@ -1313,26 +1375,32 @@ def tile_max_steps(tile: FlatTile, dtype: torch.dtype) -> int:
     return max(steps, default=0)
 
 
-def temporal_info(dtype: torch.dtype, geometry_kind: str = "spec", device=None) -> dict:
-    """What a card gives the temporal form for storage `dtype` and a
-    geometry kind ("none", "plane", "spec"), as csrc/lbm_temporal_step.cu
-    decides it from the card's shared memory: the tile's `rows` and
-    `width` (one tile per storage type), `max_steps` (the deepest pass
-    the tile takes, tile_max_steps), `registers` and `local_bytes` (stack
-    and spills) per thread, `ctas_per_sm` and `shared_bytes_per_cta`.
-    Needs a CUDA card (default: the current one); read once per card."""
+def temporal_info(dtype: torch.dtype, geometry_kind: str = "spec", device=None,
+                  ext: bool = False, rdma: bool = False) -> dict:
+    """What a card gives the temporal form (ext: its ext-halo form; rdma:
+    its rdma form) for storage `dtype` and a geometry kind ("none",
+    "plane", "spec"), as csrc/lbm_temporal_step.cu and
+    csrc/lbm_temporal_rdma_step.cu decide it from the card's shared
+    memory: the tile's `rows` and `width` (one tile per storage type, the
+    same in every form), `max_steps` (the deepest pass the tile takes,
+    tile_max_steps), `registers` and `local_bytes` (stack and spills) per
+    thread, `ctas_per_sm` and `shared_bytes_per_cta`. Needs a CUDA card
+    (default: the current one); read once per card."""
+    name = ("lbm_temporal_steps_rdma_info" if rdma else
+            "lbm_temporal_steps_ext_info" if ext else "lbm_temporal_steps_info")
     index = None if device is None else torch.device(device).index
     return _temporal_info(dtype, _GEOMETRY[geometry_kind],
-                          torch.cuda.current_device() if index is None else index)
+                          torch.cuda.current_device() if index is None else index, name)
 
 
 @functools.cache
-def _temporal_info(dtype: torch.dtype, geometry: int, index: int) -> dict:
+def _temporal_info(dtype: torch.dtype, geometry: int, index: int,
+                   name: str = "lbm_temporal_steps_info") -> dict:
     out = (ctypes.c_int64 * 6)()
     with torch.cuda.device(index):
-        rc = cuda_build.load_library().lbm_temporal_steps_info(_STORAGE[dtype], geometry, out)
+        rc = getattr(cuda_build.load_library(), name)(_STORAGE[dtype], geometry, out)
     if rc != 0:
-        raise RuntimeError(f"lbm_temporal_steps_info failed: cudaError {rc}")
+        raise RuntimeError(f"{name} failed: cudaError {rc}")
     tile = FlatTile(out[4], out[5])
     return {"registers": out[0], "ctas_per_sm": out[1], "shared_bytes_per_cta": out[2],
             "local_bytes": out[3], "rows": tile.rows, "width": tile.width,
@@ -1402,6 +1470,451 @@ def temporal_step(
     TEMPORAL_VARIANT_LAUNCHES[variant_name(src.dtype, kind, kind == "plane" and info > 1,
                                            fast_math)] += 1
     return dst
+
+
+# --- a shard's passes: the ext-halo and rdma temporal forms -----------------
+
+
+def _ext_temporal_block(src, halo, geom, cfg: LatticeConfig, row_offset: int):
+    """(block, solid, Td): the halo-extended (9, Td + Ls + Td, NY) block
+    (top, src, bot) of a shard and its uint8 class rows (None for the
+    wall-free variant; a ShardPlane's plane with its (Td, NY) halo class
+    rows; a wall spec taken at the global rows row_offset - Td ..
+    row_offset + Ls + Td - 1, periodic in cfg.nx)."""
+    top, bot = halo
+    depth = top.shape[1]
+    if bot.shape[1] != depth:
+        raise ValueError(f"halo blocks of {depth} and {bot.shape[1]} rows")
+    block = torch.cat([top, src, bot], dim=1)
+    if geom is None:
+        solid = None
+    elif isinstance(geom, ShardPlane):
+        solid = torch.cat([geom.top, geom.plane, geom.bot])
+    else:
+        solid = _spec_rows(geom, cfg, row_offset - depth, block.shape[1], src.device)
+    return block, solid, depth
+
+
+def temporal_reference_ext(src: torch.Tensor, halo, geom, cfg: LatticeConfig, steps: int, *,
+                           row_offset: int = 0, fast_math: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of the ext-halo temporal form on a whole
+    shard: `steps` chained step_reference calls on the halo-extended block
+    (the top halo's Td rows, the shard's Ls rows, the bottom halo's Td
+    rows) with its class rows, then the shard's rows; after steps <= Td
+    steps the extended block's own x wrap has not reached them. bf16
+    rounds to storage after every step.
+
+    src: the shard's (9, Ls, NY) block, local row 0 at global row
+    row_offset of the cfg.nx-row lattice; halo: (top, bot), (9, Td, NY)
+    blocks, the Td rows above and below it, all 9 planes. geom: None; a
+    ShardPlane whose top and bot are the halo rows' (Td, NY) class rows
+    (codes 0-3); or a wall spec, evaluated at the global rows row_offset -
+    Td .. row_offset + Ls + Td - 1, periodic in cfg.nx. It computes IEEE
+    1/rho: the kernel's fast-math variant is held to it within
+    FAST_MATH_RTOL. Returns a new (9, Ls, NY) tensor."""
+    block, solid, depth = _ext_temporal_block(src, halo, geom, cfg, row_offset)
+    if steps > depth:
+        raise ValueError(f"a pass of {steps} steps reads {steps} halo rows a side; the halos "
+                         f"hold {depth}")
+    out = temporal_reference(block, solid, cfg, steps, fast_math=fast_math)
+    return out[:, depth:depth + src.shape[1]]
+
+
+def temporal_reference_ext_blocked(src: torch.Tensor, halo, geom, cfg: LatticeConfig,
+                                   steps: int, tile: FlatTile, *, row_offset: int = 0,
+                                   row0: int = 0, rows: int | None = None) -> torch.Tensor:
+    """Plain PyTorch version of the ext-halo temporal form's tiling: the
+    rows [row0, row0 + rows) (default: to the shard's end) of
+    temporal_reference_ext's result, computed the way
+    csrc/lbm_temporal_step.cu's ext-halo form computes them: output tiles
+    of flat_output(tile, dtype, steps) sites laid from row0, each from its
+    source rows grown by `steps` a side, where local row q < 0 reads top
+    halo row Td + q and q >= Ls reads bottom halo row q - Ls, columns by
+    modulo, then the levels of temporal_reference_blocked. The arguments of
+    temporal_reference_ext, and tile (any rows and width that leave an
+    output tile; temporal_info gives the kernel's on a card). Raises where
+    a tile would read past a halo. Returns a (9, rows, NY) tensor."""
+    _check_temporal(steps)
+    tile = FlatTile(*tile)
+    if min(flat_output(tile, src.dtype, steps)) < 1:
+        raise ValueError(f"tile {tile} leaves no output tile at {steps} steps")
+    n = src.shape[1]
+    rows = n - row0 if rows is None else rows
+    if not (0 <= row0 and rows >= 1 and row0 + rows <= n):
+        raise ValueError(f"rows [{row0}, {row0 + rows}) outside the shard's {n} rows")
+    block, solid, depth = _ext_temporal_block(src, halo, geom, cfg, row_offset)
+    if solid is None:
+        solid = torch.zeros(block.shape[1:], dtype=torch.uint8, device=src.device)
+
+    def source_rows(r0, re):
+        q0, q1 = row0 + r0 - steps, row0 + r0 + re + steps
+        if q0 < -depth or q1 > n + depth:
+            raise ValueError(f"a tile at rows [{row0 + r0}, {row0 + r0 + re}) reads rows "
+                             f"[{q0}, {q1}) past the {depth}-row halos of a {n}-row shard")
+        return torch.arange(q0, q1) + depth
+
+    out = src.new_empty((NSPEEDS, rows, cfg.ny))
+    _blocked_pass(block, out, solid, cfg, steps, tile, rows, source_rows)
+    return out
+
+
+def check_ext_temporal_depth(steps: int, dtype: torch.dtype, device) -> None:
+    """Raise ValueError unless the shard forms' tile on `device` (the
+    ext-halo and rdma forms share it) takes a pass of `steps` steps of
+    storage `dtype` (nothing to check on the CPU)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return
+    info = temporal_info(dtype, device=device, ext=True)
+    if steps > info["max_steps"]:
+        raise ValueError(f"a pass of {steps} steps leaves no output tile in the temporal form's "
+                         f"{info['rows']}x{info['width']} tile on {device} ({dtype}): it takes "
+                         f"at most {info['max_steps']}")
+
+
+def _check_ext_temporal(src, dst, halo, geom, cfg: LatticeConfig, steps: int, row0: int,
+                        rows: int, row_offset: int) -> tuple[str, object, int]:
+    """Validate a launch of a shard's temporal forms; return the geometry
+    kind, what the launch needs of it (the largest class code, or the spec
+    fields) and Td (0 without halo)."""
+    _check_temporal(steps)
+    dtype = _storage(cfg)
+    n_rows = check_ext_launch((("src", src), ("dst", dst)), None, dtype, cfg, row0, rows,
+                              halo_rows=False)
+    if src.data_ptr() == dst.data_ptr():
+        raise ValueError("a pass is out of place: src and dst must be distinct buffers")
+    if not 0 <= row_offset <= cfg.nx - n_rows:
+        raise ValueError(f"a {n_rows}-row shard at global row {row_offset} lies outside "
+                         f"the {cfg.nx}-row lattice")
+    v = WIDE_COLUMNS[dtype]
+    if cfg.ny % v:
+        raise ValueError(f"temporal blocking needs NY a multiple of {v} columns ({dtype}: one "
+                         f"16-byte vector), got NY {cfg.ny}")
+    dev = src.device
+    depth = 0
+    if halo is not None:
+        if len(halo) != 2:
+            raise ValueError("halo must be (top, bot), (9, Td, NY) blocks")
+        depth = halo[0].shape[1] if halo[0].dim() == 3 else 0
+        for t in halo:
+            if (t.dtype != dtype or tuple(t.shape) != (NSPEEDS, depth, cfg.ny) or depth < 1
+                    or not t.is_contiguous() or t.device != dev):
+                raise ValueError(f"halo blocks must be contiguous {dtype} (9, Td, {cfg.ny}) on "
+                                 f"{dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+        if steps > depth:
+            raise ValueError(f"a pass of {steps} steps reads {steps} halo rows a side; the "
+                             f"halos hold {depth}")
+    if row0 - steps < -depth or row0 + rows + steps > n_rows + depth:
+        raise ValueError(f"rows [{row0}, {row0 + rows}) of a {n_rows}-row shard read "
+                         f"{steps} rows a side, past {depth} halo rows: give the halos")
+    if geom is None:
+        kind, info = "none", None
+    elif isinstance(geom, ShardPlane):
+        kind = "plane"
+        info = check_solid_plane(geom.plane, (n_rows, cfg.ny), dev)
+        if halo is not None:
+            for t in (geom.top, geom.bot):
+                info = max(info, check_solid_plane(t, (depth, cfg.ny), dev))
+    elif isinstance(geom, tuple):
+        kind, info = "spec", kernel_spec(geom, cfg.nx, cfg.ny)
+    else:
+        raise ValueError(f"a shard's temporal forms take None, a ShardPlane or a wall spec, "
+                         f"got {type(geom)}")
+    if dev.type == "cuda":
+        check_ext_temporal_depth(steps, dtype, dev)
+        tensors = [src, dst] + (list(halo) if halo is not None else [])
+        if kind == "plane":
+            tensors += [geom.plane] + ([geom.top, geom.bot] if halo is not None else [])
+        if any(t.data_ptr() % WIDE_ALIGN for t in tensors):
+            raise ValueError(f"the temporal forms need buffers aligned to {WIDE_ALIGN} bytes; "
+                             f"pointers mod {WIDE_ALIGN}: "
+                             f"{[t.data_ptr() % WIDE_ALIGN for t in tensors]}")
+    return kind, info, depth
+
+
+def ext_temporal_launcher(
+    src: torch.Tensor,
+    dst: torch.Tensor,
+    halo,
+    geom,
+    cfg: LatticeConfig,
+    steps: int,
+    *,
+    row0: int = 0,
+    rows: int | None = None,
+    row_offset: int = 0,
+    fast_math: bool = False,
+) -> Callable[[], None]:
+    """Validate one launch of the ext-halo temporal form and return it as a
+    call with no arguments, to be made any number of times: a pass of
+    `steps` steps that writes the local rows [row0, row0 + rows) (default:
+    all) of the shard src -> dst from the buffers' contents at that time.
+
+    src, dst: the shard's (9, Ls, NY) blocks of the storage dtype, distinct,
+    NY a multiple of WIDE_COLUMNS (one 16-byte vector), local row 0 at
+    global row row_offset. halo: (top, bot), (9, Td, NY) blocks, the Td >=
+    steps rows above and below the shard, all 9 planes; needed unless the
+    pass reads only the shard's rows (row0 >= steps and row0 + rows + steps
+    <= Ls; else None). geom: None, a ShardPlane whose top and bot are the
+    halos' (Td, NY) class rows, or a wall spec (evaluated at global rows).
+    On CUDA tensors the call launches the kernel on the current stream and
+    counts it in EXT_TEMPORAL_LAUNCHES, EXT_TEMPORAL_VARIANT_LAUNCHES and
+    EXT_TEMPORAL_STEPS; a buffer not aligned to WIDE_ALIGN bytes or a pass
+    deeper than the card's tile takes raise ValueError here, and nothing
+    runs in their place. On CPU tensors the call writes
+    temporal_reference_ext's rows. Raises on anything the kernel does not
+    take, and on any other device."""
+    n_rows = src.shape[1] if src.dim() == 3 else 0
+    rows = n_rows - row0 if rows is None else rows
+    kind, info, depth = _check_ext_temporal(src, dst, halo, geom, cfg, steps, row0, rows,
+                                            row_offset)
+    if src.device.type == "cpu":
+        def reference():
+            if halo is None:
+                # the pass reads no halo row: any rows of the right depth
+                h = (src.new_zeros((NSPEEDS, steps, cfg.ny)),) * 2
+                g = geom
+                if kind == "plane":
+                    none = geom.plane.new_zeros((steps, cfg.ny))
+                    g = ShardPlane(geom.plane, none, none)
+            else:
+                h, g = halo, geom
+            out = temporal_reference_ext(src, h, g, cfg, steps, row_offset=row_offset)
+            dst[:, row0:row0 + rows].copy_(out[:, row0:row0 + rows])
+
+        return reference
+
+    # host arrays the launch reads: kept alive by the closure
+    params = (ctypes.c_float * 9)(*kernel_constants(cfg))
+    spec = (ctypes.c_int64 * SPEC_FIELDS)(*info) if kind == "spec" else None
+    top, bot = halo if halo is not None else (None, None)
+    plane = geom if kind == "plane" else ShardPlane(None, None, None)
+    if halo is None:
+        plane = ShardPlane(plane.plane, None, None)
+    fn = cuda_build.load_library().lbm_temporal_steps_ext_launch
+    args = (_ptr(src), _ptr(dst), _ptr(top), _ptr(bot), _ptr(plane.plane), _ptr(plane.top),
+            _ptr(plane.bot), ctypes.addressof(spec) if spec is not None else None,
+            n_rows, cfg.ny, depth, row0, rows, row_offset, cfg.nx, _STORAGE[src.dtype],
+            _GEOMETRY[kind], int(fast_math), steps, ctypes.addressof(params))
+    variant = variant_name(src.dtype, kind, kind == "plane" and info > 1, fast_math)
+    device = src.device
+
+    def launch():
+        global EXT_TEMPORAL_LAUNCHES, EXT_TEMPORAL_STEPS
+        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"lbm_temporal_steps ext-halo launch failed: cudaError {rc}")
+        EXT_TEMPORAL_LAUNCHES += 1
+        EXT_TEMPORAL_STEPS += steps
+        EXT_TEMPORAL_VARIANT_LAUNCHES[variant] += 1
+
+    launch.host_args = (params, spec)  # alive as long as the call
+    return launch
+
+
+def rdma_temporal_schedule(rows: int, depth: int, steps: int, pass_: int) -> dict:
+    """The schedule of the in-kernel halo exchange of a pass (the rdma
+    temporal form) as plain Python constants, the twin of rdma_schedule at
+    depth `depth` and of the JAX kernel's rdma_schedule at temporal = T
+    (ops/fused_kernel.py:137-179 there; top_halo_rows = (hr - T, hr)): pass
+    `pass_` (1, 2, ... since the flags were zeroed) of `steps` <= depth
+    steps on a `rows`-row shard sends the shard's first `steps` rows into
+    rows [0, steps) of the upper neighbour's bot[parity] and its last
+    `steps` rows into rows [depth - steps, depth) of the lower neighbour's
+    top[parity], then sets their flags to `flag`; the shard's edge tiles
+    read those rows of its own comm blocks once both its flags hold at
+    least `flag`. The kernel (csrc/lbm_temporal_rdma_step.cu) restates
+    this; its plain versions read it from here. The reuse discipline is
+    rdma_schedule's: two parities, monotonic flag values."""
+    return dict(
+        parity=pass_ % 2,
+        flag=pass_,
+        up=-1,
+        down=+1,
+        send_up_rows=(0, steps),                   # -> the upper neighbour's bot[parity]
+        up_bot_rows=(0, steps),
+        send_down_rows=(rows - steps, rows),       # -> the lower neighbour's top[parity]
+        down_top_rows=(depth - steps, depth),
+        top_flag=0,
+        bot_flag=1,
+    )
+
+
+def rdma_temporal_send_reference(src: torch.Tensor, up: RdmaEnd, down: RdmaEnd, steps: int,
+                                 pass_: int) -> None:
+    """Plain PyTorch version of a pass's send role: the shard's first and
+    last `steps` rows into its neighbours' comm blocks, then their flags,
+    by rdma_temporal_schedule."""
+    s = rdma_temporal_schedule(src.shape[1], up.bot.shape[2], steps, pass_)
+    (a, b), (c, d) = s["send_up_rows"], s["up_bot_rows"]
+    up.bot[s["parity"]][:, c:d].copy_(src[:, a:b])
+    up.flags[s["bot_flag"]] = s["flag"]
+    (a, b), (c, d) = s["send_down_rows"], s["down_top_rows"]
+    down.top[s["parity"]][:, c:d].copy_(src[:, a:b])
+    down.flags[s["top_flag"]] = s["flag"]
+
+
+def rdma_temporal_compute_reference(src: torch.Tensor, end: RdmaEnd, geom, cfg: LatticeConfig,
+                                    steps: int, pass_: int, *,
+                                    row_offset: int = 0) -> torch.Tensor:
+    """Plain PyTorch version of a pass's interior and edge roles:
+    temporal_reference_ext from the `steps` rows of this pass's parity of
+    the comm blocks that the pass reads (and of a ShardPlane's halo class
+    rows). Raises RuntimeError where the kernel's edge tiles would wait in
+    vain: a flag below this pass's value."""
+    depth = end.top.shape[2]
+    s = rdma_temporal_schedule(src.shape[1], depth, steps, pass_)
+    if int(end.flags.min()) < s["flag"]:
+        raise RuntimeError(f"pass {pass_}: a neighbour's rows have not arrived "
+                           f"(flags {end.flags.tolist()})")
+    (a, b), (c, d) = s["down_top_rows"], s["up_bot_rows"]
+    halo = (end.top[s["parity"]][:, a:b], end.bot[s["parity"]][:, c:d])
+    if isinstance(geom, ShardPlane):
+        geom = ShardPlane(geom.plane, geom.top[a:b], geom.bot[c:d])
+    return temporal_reference_ext(src, halo, geom, cfg, steps, row_offset=row_offset)
+
+
+def temporal_reference_rdma(srcs, ends, geoms, cfg: LatticeConfig, steps: int,
+                            pass_: int) -> list[torch.Tensor]:
+    """Plain PyTorch version of one pass of the rdma temporal form over a
+    whole ring: every shard sends (rdma_temporal_send_reference), then
+    every shard runs its pass from what it received
+    (rdma_temporal_compute_reference). srcs: the shards' (9, Ls, NY) blocks
+    in row order; ends: their temporal RdmaEnds (rdma_end(..., depth=Td)),
+    which this writes; geoms: each shard's None, ShardPlane (with (Td, NY)
+    halo class rows) or wall spec. Returns the shards' new blocks."""
+    n, L = len(srcs), srcs[0].shape[1]
+    s = rdma_temporal_schedule(L, ends[0].top.shape[2], steps, pass_)
+    for k, src in enumerate(srcs):
+        rdma_temporal_send_reference(src, ends[(k + s["up"]) % n], ends[(k + s["down"]) % n],
+                                     steps, pass_)
+    return [rdma_temporal_compute_reference(src, ends[k], geoms[k], cfg, steps, pass_,
+                                            row_offset=k * L) for k, src in enumerate(srcs)]
+
+
+def rdma_temporal_launcher(
+    src: torch.Tensor,
+    dst: torch.Tensor,
+    end: RdmaEnd,
+    up: RdmaEnd,
+    down: RdmaEnd,
+    geom,
+    cfg: LatticeConfig,
+    steps: int,
+    *,
+    card_shards: int,
+    row_offset: int = 0,
+    fast_math: bool = False,
+    timeout_s: float = RDMA_TIMEOUT_S,
+    stream=None,
+) -> Callable[[int], None]:
+    """Validate one shard's launch of the rdma temporal form and return it
+    as a call launch(pass_), to be made once per pass with pass_ = 1, 2, ...
+    since rdma_reset: a pass of `steps` steps of the whole shard src -> dst
+    from the buffers' contents at that time, after sending its first and
+    last `steps` rows to its neighbours' ends, its edge tiles after the
+    neighbours' rows of the same pass arrived in `end`.
+
+    src, dst: the shard's (9, Ls, NY) blocks, Ls >= steps, NY a multiple of
+    WIDE_COLUMNS, local row 0 at global row row_offset. end: the shard's
+    own temporal RdmaEnd (rdma_end(cfg, device, depth=Td), Td >= steps);
+    up, down: its ring neighbours' (the shard itself on a ring of one),
+    which may lie on other cards that this card can address. geom: None, a
+    ShardPlane with (Td, NY) halo class rows, or a wall spec.
+    card_shards: the ring's launches that share this card (its virtual
+    shards; 1 on a card of its own), which bounds the CTAs of each launch
+    that may spin (csrc/lbm_temporal_rdma_step.cu). Every shard of the
+    ring must make the same call, on CUDA each on a stream of its own
+    (`stream`, default: the current one at the call), or the edge tiles
+    give up after timeout_s and leave the pass in end.work[1]
+    (rdma_timed_out).
+
+    On CUDA tensors the call launches the kernel and counts it in
+    RDMA_TEMPORAL_LAUNCHES, RDMA_TEMPORAL_VARIANT_LAUNCHES and
+    RDMA_TEMPORAL_STEPS. On CPU tensors it is the plain version in two
+    halves, launch.send(pass_) and launch.compute(pass_): a ring calls
+    every shard's send before any compute (launch(pass_) runs both, which
+    suffices on a ring of one). Raises on anything the kernel does not
+    take."""
+    L = src.shape[1] if src.dim() == 3 else -1
+    depth = end.top.shape[2] if end.top.dim() == 4 else 0
+    kind, info, _ = _check_ext_temporal(src, dst, (end.top[0], end.bot[0]), geom, cfg, steps, 0,
+                                        L, row_offset)
+    if L < steps:
+        raise ValueError(f"a pass of {steps} steps sends {steps} rows a side; the shard has {L}")
+    for name, e in (("end", end), ("up", up), ("down", down)):
+        _check_rdma_end(name, e, src.dtype, cfg.ny, src.device.type, depth=depth)
+    if end.top.device != src.device:
+        raise ValueError(f"end lies on {end.top.device}, the shard on {src.device}")
+    if not isinstance(card_shards, int) or isinstance(card_shards, bool) or card_shards < 1:
+        raise ValueError(f"card_shards must be a positive integer, got {card_shards!r}")
+    if src.device.type == "cpu":
+        def send(pass_: int) -> None:
+            rdma_temporal_send_reference(src, up, down, steps, pass_)
+
+        def compute(pass_: int) -> None:
+            dst.copy_(rdma_temporal_compute_reference(src, end, geom, cfg, steps, pass_,
+                                                      row_offset=row_offset))
+
+        def reference(pass_: int) -> None:
+            send(pass_)
+            compute(pass_)
+
+        reference.send, reference.compute = send, compute
+        return reference
+
+    lib = cuda_build.load_library()
+    if lib.lbm_temporal_steps_rdma_words() != RDMA_TEMPORAL_WORDS:
+        raise RuntimeError("the built rdma kernel's launch words differ from "
+                           f"RDMA_TEMPORAL_WORDS = {RDMA_TEMPORAL_WORDS}")
+    for t in (up.bot, down.top):
+        if t.data_ptr() % WIDE_ALIGN:
+            raise ValueError(f"the neighbours' comm blocks must be aligned to {WIDE_ALIGN} bytes")
+    # host arrays the launch reads: kept alive by the closure
+    params = (ctypes.c_float * 9)(*kernel_constants(cfg))
+    spec = (ctypes.c_int64 * SPEC_FIELDS)(*info) if kind == "spec" else None
+    plane = geom if kind == "plane" else ShardPlane(None, None, None)
+    flag = rdma_temporal_schedule(L, depth, steps, 1)
+    fn = lib.lbm_temporal_steps_rdma_launch
+    args = (_ptr(src), _ptr(dst), _ptr(end.top), _ptr(end.bot), _ptr(up.bot), _ptr(down.top),
+            _ptr(end.flags), _ptr(up.flags[flag["bot_flag"]:]), _ptr(down.flags[flag["top_flag"]:]),
+            _ptr(end.work), _ptr(plane.plane), _ptr(plane.top), _ptr(plane.bot),
+            ctypes.addressof(spec) if spec is not None else None,
+            L, cfg.ny, depth, row_offset, cfg.nx, _STORAGE[src.dtype], _GEOMETRY[kind],
+            int(fast_math), steps, ctypes.addressof(params))
+    variant = variant_name(src.dtype, kind, kind == "plane" and info > 1, fast_math)
+    device, timeout_ns = src.device, int(timeout_s * 1e9)
+    handle = None if stream is None else stream.cuda_stream
+
+    def launch(pass_: int) -> None:
+        global RDMA_TEMPORAL_LAUNCHES, RDMA_TEMPORAL_STEPS
+        st = torch.cuda.current_stream(device).cuda_stream if handle is None else handle
+        rc = fn(*args, pass_, timeout_ns, card_shards, st)
+        if rc != 0:
+            raise RuntimeError(f"lbm_temporal_steps rdma launch failed: cudaError {rc}")
+        RDMA_TEMPORAL_LAUNCHES += 1
+        RDMA_TEMPORAL_STEPS += steps
+        RDMA_TEMPORAL_VARIANT_LAUNCHES[variant] += 1
+
+    # what the launch addresses, alive as long as the call
+    launch.host_args = (params, spec, src, dst, end, up, down, geom)
+    return launch
+
+
+def rdma_temporal_grid(dtype: torch.dtype, geometry_kind: str, rows: int, ny: int, steps: int,
+                       card_shards: int, device=None) -> dict:
+    """The grid of one launch of the rdma temporal form on a card: `ctas`
+    launched, `edge_ctas` (the most of them that spin), `interior_tiles`
+    and `edge_tiles`, for a shard of `rows` rows, as
+    csrc/lbm_temporal_rdma_step.cu lays it. Needs a CUDA card."""
+    out = (ctypes.c_int64 * 4)()
+    index = torch.cuda.current_device() if device is None else torch.device(device).index
+    with torch.cuda.device(index):
+        rc = cuda_build.load_library().lbm_temporal_steps_rdma_grid(
+            _STORAGE[dtype], _GEOMETRY[geometry_kind], rows, ny, steps, card_shards, out)
+    if rc != 0:
+        raise RuntimeError(f"lbm_temporal_steps_rdma_grid failed: cudaError {rc}")
+    return {"ctas": out[0], "edge_ctas": out[1], "interior_tiles": out[2], "edge_tiles": out[3]}
 
 
 def _host_mask(x):

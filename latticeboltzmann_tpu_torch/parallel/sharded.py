@@ -17,10 +17,17 @@ Three runners, each with the JAX package's overlap and sync schedules:
   The forcing runs before the exchange, so 3 speed planes of a boundary
   row suffice (UP_SPEEDS, DOWN_SPEEDS).
 - ShardedSession, make_cuda_run_steps / make_cuda_backend
-  ("sharded-cuda", "sharded-cuda-fused"): the ext-halo form of the
-  stream-collide kernel per shard (ops/fused_kernel.ext_launcher), the
-  twin of make_pallas_run_steps (:212-615 there). The kernel forces the
-  halo row's column-0 site itself, so a halo row carries all 9 planes.
+  ("sharded-cuda", "sharded-cuda-fused"): the twin of
+  make_pallas_run_steps (:212-615 there), in passes of T =
+  SHARDED_TEMPORAL steps (3 in float32, 2 in bf16, the JAX runner's
+  depth, :264-286 there): each shard's T-row halos (all 9 planes: the
+  kernel forces a halo row's column-0 site itself) exchanged once per
+  pass, every pass through the ext-halo temporal form of the
+  stream-collide kernel (ops/fused_kernel.ext_temporal_launcher), n steps
+  as n // T passes and one of the rest. The one-step ext-halo form
+  (fused_kernel.ext_launcher, one-row halos, an exchange per step) runs
+  instead at temporal=1, where NY is no whole number of 16-byte vectors
+  and where a shard has fewer than T rows.
 - ShardedDSSession, make_cuda_ds_run_steps / make_cuda_ds_backend
   ("sharded-cuda-ds64"): the twin of fused_ds_kernel._get_sharded_runner
   and sharded_run_steps (:385-500 there): passes of DS_TEMPORAL = 4 pair
@@ -32,22 +39,32 @@ Three runners, each with the JAX package's overlap and sync schedules:
   no multiple of 4, shards of fewer than T rows).
 
 - ShardedRdmaSession, make_cuda_run_steps(rdma=True) /
-  make_cuda_backend(rdma=True) ("sharded-cuda-rdma"): the rdma form of the
-  stream-collide kernel (ops/fused_kernel.rdma_launcher), the twin of
+  make_cuda_backend(rdma=True) ("sharded-cuda-rdma"): the twin of
   make_pallas_run_steps(rdma=True) (:221, :351-352 there). One launch per
-  shard and step exchanges its own halo rows through the neighbours' comm
-  buffers; the host makes no copy and no event in the step loop. Each
-  shard launches on a stream of its own, virtual shards of one card too: a
-  shard's edge rows wait inside its kernel for the neighbours' kernels of
-  the same step, which must not queue behind it.
+  shard and pass of the rdma temporal form of the stream-collide kernel
+  (ops/fused_kernel.rdma_temporal_launcher) sends its own T edge rows
+  into the neighbours' comm blocks and runs the pass; the host makes no
+  copy and no event in the pass loop. The one-step rdma form
+  (fused_kernel.rdma_launcher) runs where the passes do not apply
+  (temporal=1, NY of no whole 16-byte vectors, a shard of fewer than 2 T
+  + 1 rows: no interior to hide the exchange behind), and a shard of
+  fewer than 3 rows keeps the exchange-then-launch. Each shard launches
+  on a stream of its own, virtual shards of one card too: a shard's edge
+  tiles wait inside its kernel for the neighbours' kernels of the same
+  pass, which must not queue behind it.
 
-overlap=True starts the halo copies, launches the interior rows [1,
-L-1), which take no halo, then waits for the copies and launches rows 0
-and L-1: _trio (:312-376 there) at one-row granularity; a pass of s steps
-(the ds session's) launches the rows [s, L-s) first and the two s-row
-bands after. A shard of fewer than 2 s + 1 rows takes one launch.
-overlap=False exchanges, then launches each shard once. Both are bitwise
-equal to the single-chip paths.
+Each of these choices of form is made by shape and counted per form,
+never a reaction to a failed build or launch. The TPU runner's `br < 32`
+clause (T = 2 for VMEM-capped row blocks) is the TPU's block and is not
+ported.
+
+overlap=True starts the halo copies, launches the interior rows [s,
+L-s) of a pass of s steps, which take no halo, then waits for the copies
+and launches the two s-row bands: _trio (:312-376 there) at row
+granularity (at one step a pass, rows [1, L-1) and rows 0 and L-1). A
+shard of fewer than 2 s + 1 rows takes one launch. overlap=False
+exchanges, then launches each shard once. Both are bitwise equal to the
+single-chip paths.
 
 Every runner moves its halo rows through HaloExchange. On a mesh of one
 card every copy and launch runs on the current stream, in order. Across
@@ -88,6 +105,10 @@ DOWN_SPEEDS = (4, 7, 8)
 # row copies started by HaloExchange.start, for callers that must show a
 # path started none (the rdma form exchanges inside its kernel)
 HALO_COPIES = 0
+
+# the steps of a pass of the f32/bf16 kernel sessions by storage type: the
+# JAX runner's depth (make_pallas_run_steps, sharded.py:264-286 there)
+SHARDED_TEMPORAL = {torch.float32: 3, torch.bfloat16: 2}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -475,19 +496,23 @@ class _ShardedKernelSession:
         full, rest = divmod(n_steps, self.temporal)
         return [self.temporal] * full + ([rest] if rest else [])
 
+    def _plan_for(self, steps: int):
+        """The plan of a pass of `steps` steps from the current buffer
+        parity: a full pass's, or a shorter one's, built at its first
+        run."""
+        if steps == self.temporal:
+            return self._plans[self._parity]
+        key = (self._parity, steps)
+        if key not in self._short_plans:
+            self._short_plans[key] = self._plan(*key)
+        return self._short_plans[key]
+
     def advance(self, n_steps: int) -> None:
         """n_steps in passes (_passes): per pass the halo copies, the
         interior launches, the wait for the copies, the edge launches; no
         host sync."""
         for steps in self._passes(n_steps):
-            if steps == self.temporal:
-                plan = self._plans[self._parity]
-            else:
-                key = (self._parity, steps)
-                if key not in self._short_plans:
-                    self._short_plans[key] = self._plan(*key)
-                plan = self._short_plans[key]
-            copies, interior, edges = plan
+            copies, interior, edges = self._plan_for(steps)
             self.exchange.start(copies)
             for dev, calls in interior:
                 with _on(dev):
@@ -548,13 +573,27 @@ class _ShardedKernelSession:
 
 
 class ShardedSession(_ShardedKernelSession):
-    """Persistent sharded state of the stream-collide kernel's ext-halo
-    form over a mesh, the twin of fused_kernel.Session for the row-sharded
-    path: float32 or bf16 storage, the geometry of host_geometry (none,
-    the wall spec evaluated at global rows, or the class plane with its
-    static halo class rows), fast math. overlap selects the schedule.
-    state() and load() take the global (9, NX, NY) state on `device`
-    (default: the first mesh device).
+    """Persistent sharded state of the stream-collide kernel's shard forms
+    over a mesh, the twin of fused_kernel.Session for the row-sharded path:
+    float32 or bf16 storage, the geometry of host_geometry (none, the wall
+    spec evaluated at global rows, or the class plane with its static halo
+    class rows), fast math. overlap selects the schedule. state() and
+    load() take the global (9, NX, NY) state on `device` (default: the
+    first mesh device).
+
+    temporal (default None: SHARDED_TEMPORAL by storage, the JAX runner's
+    depth): n steps run as n // T passes of T steps and one of n % T
+    through the ext-halo temporal form (fused_kernel.ext_temporal_launcher),
+    each shard's T-row halos and static (T, NY) class rows beside them, the
+    halos exchanged once per pass. The one-step ext-halo form
+    (fused_kernel.ext_launcher, one-row halos, an exchange per step) runs
+    instead at temporal=1, where NY is no multiple of WIDE_COLUMNS and
+    where a shard has fewer than T rows: each a choice by shape, never a
+    reaction to a failed launch. The attribute `temporal` is the depth that
+    runs; the forms count their launches apart (EXT_LAUNCHES,
+    EXT_TEMPORAL_LAUNCHES). A temporal that is no integer in [1,
+    fused_kernel.FLAT_MAX_TEMPORAL], or on a card a pass deeper than the
+    tile takes, raises ValueError. Every result is bitwise the same.
 
     Usage:
         sess = ShardedSession(cfg, walls, mesh=make_mesh(devices=["cuda:0"] * 4),
@@ -564,14 +603,28 @@ class ShardedSession(_ShardedKernelSession):
 
     def __init__(self, cfg: LatticeConfig, walls, *, mesh: Mesh, overlap: bool = True,
                  wall_spec=None, slip_x=None, slip_y=None, fast_math: bool = False,
-                 device=None):
+                 device=None, temporal: int | None = None):
         dtype = fused_kernel._storage(cfg)
+        depth = SHARDED_TEMPORAL[dtype] if temporal is None else temporal
+        fused_kernel._check_temporal(depth)
+        L = shard_rows(cfg.nx, mesh.size)
+        if (depth > 1 and cfg.ny % fused_kernel.WIDE_COLUMNS[dtype] == 0
+                and L >= self._pass_rows(depth)):
+            self.temporal = depth
         super().__init__(cfg, mesh, 1, dtype, overlap, device)
         self.moment_dtype = ops.moment_dtype(dtype)
         self.fast_math = fast_math
+        if self.temporal > 1:
+            for d in mesh.unique_devices():
+                fused_kernel.check_ext_temporal_depth(self.temporal, dtype, d)
         geom = fused_kernel.host_geometry(cfg, walls, wall_spec, slip_x, slip_y)
         self._geoms = (self._shard_geometry(geom) if isinstance(geom, np.ndarray)
                        else [geom] * mesh.size)
+
+    @staticmethod
+    def _pass_rows(temporal: int) -> int:
+        """The rows a shard needs for passes of `temporal` steps."""
+        return temporal
 
     def _pack(self, comps):
         return comps[0]
@@ -580,38 +633,56 @@ class ShardedSession(_ShardedKernelSession):
         return ops.probe_values(shard, sites)
 
     def _launcher(self, k, src, dst, halo, row0, rows, steps):
-        return fused_kernel.ext_launcher(
-            src, dst, halo, self._geoms[k], self.cfg, row0=row0, rows=rows,
+        if self.temporal == 1:
+            return fused_kernel.ext_launcher(
+                src, dst, halo, self._geoms[k], self.cfg, row0=row0, rows=rows,
+                row_offset=k * self.L, fast_math=self.fast_math)
+        return fused_kernel.ext_temporal_launcher(
+            src, dst, halo, self._geoms[k], self.cfg, steps, row0=row0, rows=rows,
             row_offset=k * self.L, fast_math=self.fast_math)
 
 
 class ShardedRdmaSession(ShardedSession):
-    """ShardedSession on the rdma form of the kernel: one launch per shard
-    and step that exchanges its own halo rows (fused_kernel.rdma_launcher),
-    so advance() makes no copy and no event. Per shard an RdmaEnd (comm
-    rows for both step parities, flag and launch words) and, on cards, a
-    stream of its own; neighbouring shards on different cards need peer
-    access, and the session raises where a card refuses it. load() zeroes
-    the flags and orders the shards' streams after the current streams;
-    state(), unload() and block() wait for them, and raise RuntimeError when
-    an edge row gave up waiting for a neighbour's rows (`timeout_s`). A shard
-    of fewer than 3 rows has no interior to hide the exchange behind and
-    keeps ShardedSession's exchange-then-launch (sharded.py:335-336 there).
-    On a CPU mesh the plain version stands in: every shard's send, then
-    every shard's step."""
+    """ShardedSession on the rdma forms of the kernel: one launch per shard
+    and pass that exchanges its own halo rows, so advance() makes no copy
+    and no event. In passes of T = temporal steps (ShardedSession's
+    default and checks) through the rdma temporal form
+    (fused_kernel.rdma_temporal_launcher) wherever NY is a multiple of
+    WIDE_COLUMNS and a shard has at least 2 T + 1 rows (an interior to
+    hide the exchange behind); else one step a launch through the one-step
+    rdma form (fused_kernel.rdma_launcher), and a shard of fewer than 3
+    rows keeps ShardedSession's exchange-then-launch (sharded.py:335-336
+    there). Per shard an RdmaEnd (comm rows or T-row blocks for both
+    parities, flag and launch words) and, on cards, a stream of its own;
+    neighbouring shards on different cards need peer access, and the
+    session raises where a card refuses it. `step` counts the launches of
+    each shard since load() (passes, or steps at temporal 1): the flag
+    value and parity of the next. load() zeroes the flags and orders the
+    shards' streams after the current streams; state(), unload() and
+    block() wait for them, and raise RuntimeError when an edge tile gave up
+    waiting for a neighbour's rows (`timeout_s`). On a CPU mesh the plain
+    version stands in: every shard's send, then every shard's pass."""
+
+    @staticmethod
+    def _pass_rows(temporal: int) -> int:
+        """An interior to hide the exchange behind: 2 T + 1 rows."""
+        return 2 * temporal + 1
 
     def __init__(self, cfg: LatticeConfig, walls, *, mesh: Mesh, wall_spec=None, slip_x=None,
                  slip_y=None, fast_math: bool = False, device=None,
-                 timeout_s: float = fused_kernel.RDMA_TIMEOUT_S):
+                 timeout_s: float = fused_kernel.RDMA_TIMEOUT_S, temporal: int | None = None):
         super().__init__(cfg, walls, mesh=mesh, overlap=False, wall_spec=wall_spec,
-                         slip_x=slip_x, slip_y=slip_y, fast_math=fast_math, device=device)
-        self.rdma = self.L >= 3
+                         slip_x=slip_x, slip_y=slip_y, fast_math=fast_math, device=device,
+                         temporal=temporal)
+        self.rdma = self.temporal > 1 or self.L >= 3
         self.timeout_s = timeout_s
         self.step = 0
         self._ends = self._streams = None
         if not self.rdma:
             return
-        self._ends = [fused_kernel.rdma_end(cfg, d) for d in mesh.devices]
+        depth = None if self.temporal == 1 else self.temporal
+        self._ends = [fused_kernel.rdma_end(cfg, d, depth=depth) for d in mesh.devices]
+        self._card_shards = [mesh.devices.count(d) for d in mesh.devices]
         if self.device.type == "cuda":
             self._streams = [torch.cuda.Stream(d) for d in mesh.devices]
             n = mesh.size
@@ -620,20 +691,25 @@ class ShardedRdmaSession(ShardedSession):
                     fused_kernel.enable_peer_access(d, peer)
 
     def _plan(self, parity: int, steps: int):
-        """The rdma launches of a step that reads buffer `parity`: one per
-        shard, grouped by device."""
+        """The rdma launches of a pass of `steps` steps that reads buffer
+        `parity`: one per shard, grouped by device."""
         if not self.rdma:
             return super()._plan(parity, steps)
         n, L = self.mesh.size, self.L
         src, dst = self._bufs[parity][0], self._bufs[1 - parity][0]
         plan = {}
         for k, dev in enumerate(self.mesh.devices):
+            args = (src[k], dst[k], self._ends[k], self._ends[(k - 1) % n],
+                    self._ends[(k + 1) % n], self._geoms[k], self.cfg)
+            options = dict(row_offset=k * L, fast_math=self.fast_math, timeout_s=self.timeout_s,
+                           stream=None if self._streams is None else self._streams[k])
             with _on(dev):
-                plan.setdefault(dev, []).append(fused_kernel.rdma_launcher(
-                    src[k], dst[k], self._ends[k], self._ends[(k - 1) % n],
-                    self._ends[(k + 1) % n], self._geoms[k], self.cfg, row_offset=k * L,
-                    fast_math=self.fast_math, timeout_s=self.timeout_s,
-                    stream=None if self._streams is None else self._streams[k]))
+                if self.temporal == 1:
+                    call = fused_kernel.rdma_launcher(*args, **options)
+                else:
+                    call = fused_kernel.rdma_temporal_launcher(
+                        *args, steps, card_shards=self._card_shards[k], **options)
+            plan.setdefault(dev, []).append(call)
         return list(plan.items())
 
     def _current_streams(self):
@@ -660,10 +736,11 @@ class ShardedRdmaSession(ShardedSession):
         for k, end in enumerate(self._ends):
             step = fused_kernel.rdma_timed_out(end)
             if step:
+                what = "step" if self.temporal == 1 else "pass"
                 raise RuntimeError(
-                    f"shard {k}: an edge row of step {step} waited {self.timeout_s} s for a "
+                    f"shard {k}: an edge row of {what} {step} waited {self.timeout_s} s for a "
                     "neighbour's halo rows and gave up; the state is not valid (did every "
-                    "shard of the ring launch that step?)")
+                    f"shard of the ring launch that {what}?)")
 
     def load(self, f) -> None:
         self._join()
@@ -675,11 +752,13 @@ class ShardedRdmaSession(ShardedSession):
             self._fork()
 
     def advance(self, n_steps: int) -> None:
+        """n_steps in passes (_passes), one launch per shard and pass, each
+        with the next flag value; no copy, no event, no host sync."""
         if not self.rdma:
             return super().advance(n_steps)
-        for _ in range(n_steps):
+        for steps in self._passes(n_steps):
             self.step += 1
-            plan = self._plans[self._parity]
+            plan = self._plan_for(steps)
             if self._streams is None:
                 calls = [call for _, calls in plan for call in calls]
                 for call in calls:
@@ -794,14 +873,16 @@ def _kernel_session(cfg, walls, *, mesh: Mesh, overlap: bool, rdma: bool, **opti
 
 def make_cuda_run_steps(mesh: Mesh, cfg: LatticeConfig, *, overlap: bool = True,
                         wall_spec=None, has_slip: bool = False, fast_math: bool = False,
-                        rdma: bool = False):
+                        rdma: bool = False, temporal: int | None = None):
     """(f, walls, n_steps) -> f through a ShardedSession over the mesh
     (twin of make_pallas_run_steps), with rdma=True a ShardedRdmaSession:
     walls is the bool mask, or with has_slip the uint8 class plane
-    (fused_kernel.class_plane). On CUDA meshes the kernel runs; on a CPU
-    mesh its plain version (fused_kernel.step_reference_ext, or
-    step_reference_rdma's halves) stands in, as fused_kernel.Session does
-    on the CPU."""
+    (fused_kernel.class_plane); temporal as the sessions' (default
+    SHARDED_TEMPORAL by storage, as make_pallas_run_steps' temporal=None).
+    On CUDA meshes the kernels run; on a CPU mesh their plain versions
+    (fused_kernel.temporal_reference_ext, temporal_reference_rdma's halves,
+    or the one-step forms') stand in, as fused_kernel.Session does on the
+    CPU."""
     shard_rows(cfg.nx, mesh.size)
 
     def run_steps(f, walls, n_steps: int):
@@ -810,7 +891,8 @@ def make_cuda_run_steps(mesh: Mesh, cfg: LatticeConfig, *, overlap: bool = True,
             walls, sx, sy = _class_masks(walls)
             slips = {"slip_x": sx, "slip_y": sy}
         sess = _kernel_session(cfg, walls, mesh=mesh, overlap=overlap, rdma=rdma,
-                               wall_spec=wall_spec, fast_math=fast_math, device=f.device, **slips)
+                               wall_spec=wall_spec, fast_math=fast_math, device=f.device,
+                               temporal=temporal, **slips)
         sess.load(f)
         sess.advance(n_steps)
         return sess.unload()
@@ -818,18 +900,20 @@ def make_cuda_run_steps(mesh: Mesh, cfg: LatticeConfig, *, overlap: bool = True,
     return run_steps
 
 
-def make_cuda_backend(mesh: Mesh | None = None, *, overlap: bool = True, rdma: bool = False):
+def make_cuda_backend(mesh: Mesh | None = None, *, overlap: bool = True, rdma: bool = False,
+                      temporal: int | None = None):
     """The sharded kernel path as a Simulation backend (twin of
     make_pallas_backend): run(f, walls, cfg, n_steps, wall_spec=None,
     slip_x=None, slip_y=None, fast_math=False) for one-shot callers, and
     run.session(cfg, walls, *, device, **options), the persistent
-    ShardedSession (rdma=True: ShardedRdmaSession) the facade keeps. `mesh`
-    defaults to make_mesh() at the call."""
+    ShardedSession (rdma=True: ShardedRdmaSession) the facade keeps, in
+    passes of `temporal` steps (default SHARDED_TEMPORAL by storage).
+    `mesh` defaults to make_mesh() at the call."""
 
     def session(cfg, walls, *, device=None, **options):
         m = make_mesh() if mesh is None else mesh
         return _kernel_session(cfg, walls, mesh=m, overlap=overlap, rdma=rdma, device=device,
-                               **options)
+                               temporal=temporal, **options)
 
     def run(f, walls, cfg, n_steps, **options):
         sess = session(cfg, walls, device=f.device, **options)
@@ -886,5 +970,6 @@ __all__ = [
     "UP_SPEEDS", "DOWN_SPEEDS", "Mesh", "make_mesh", "shard_rows", "shard_state",
     "gather_state", "exchange_halos", "make_run_steps", "make_backend", "HaloExchange",
     "ShardedSession", "ShardedRdmaSession", "ShardedDSSession", "make_cuda_run_steps", "make_cuda_backend",
+    "SHARDED_TEMPORAL",
     "make_cuda_ds_run_steps", "make_cuda_ds_backend",
 ]

@@ -676,9 +676,15 @@ def test_sharded_cuda_equals_cuda_bitwise(cuda_device, monkeypatch):
     monkeypatch.setitem(engine._BACKENDS, "sharded-cuda", sharded.make_cuda_backend(mesh))
     monkeypatch.setitem(engine._BACKENDS, "sharded-cuda-ds64", sharded.make_cuda_ds_backend(mesh))
     cfg, walls = _scene("column0")
-    before = fk.EXT_VARIANT_LAUNCHES["f32-spec"]
+    before = (fk.EXT_LAUNCHES, fk.EXT_TEMPORAL_VARIANT_LAUNCHES["f32-spec"],
+              fk.EXT_TEMPORAL_STEPS)
     out = Simulation(cfg, walls, backend="sharded-cuda").run(20).state()
-    assert fk.EXT_VARIANT_LAUNCHES["f32-spec"] == before + 20 * 3 * 4
+    # 7 passes: 6 of 3 steps, one launch per 6-row shard (fewer than 2 T + 1
+    # rows), and one of 2, the interior and two 2-row bands of each shard;
+    # no one-step launch
+    assert (fk.EXT_LAUNCHES, fk.EXT_TEMPORAL_VARIANT_LAUNCHES["f32-spec"],
+            fk.EXT_TEMPORAL_STEPS) == (before[0], before[1] + 6 * 4 + 3 * 4,
+                                       before[2] + 6 * 3 * 4 + 2 * 3 * 4)
     np.testing.assert_array_equal(out, Simulation(cfg, walls, backend="cuda").run(20).state())
     cfg, walls = _scene("column0", np.float64)
     before = (fdk.EXT_LAUNCHES, fdk.EXT_TEMPORAL_LAUNCHES, fdk.EXT_TEMPORAL_STEPS)
@@ -809,11 +815,12 @@ def test_rdma_kernel_forms_equal_their_plain_versions_and_each_other(geom, n, cu
 
 @pytest.mark.cuda
 def test_sharded_paths_count_their_launches_by_form(cuda_device, monkeypatch):
-    """sharded-cuda and sharded-cuda-rdma over 4 virtual shards at 24x40:
-    the rdma launches and sharded-cuda's interior launches take the wide
-    form, sharded-cuda's one-row launches the narrow one (the launcher's
-    default); at 24x38 (38 % 4 != 0) every launch is narrow. Every launch
-    counted by form, bitwise equal to the cuda backend."""
+    """sharded-cuda and sharded-cuda-rdma at temporal=1 (the one-step
+    forms) over 4 virtual shards at 24x40: the rdma launches and
+    sharded-cuda's interior launches take the wide form, sharded-cuda's
+    one-row launches the narrow one (the launcher's default); at 24x38 (38
+    % 4 != 0) every launch is narrow. Every launch counted by form, bitwise
+    equal to the cuda backend."""
     from latticeboltzmann_tpu_torch.models import engine
 
     mesh = sharded.make_mesh(devices=[cuda_device] * 4)
@@ -827,7 +834,8 @@ def test_sharded_paths_count_their_launches_by_form(cuda_device, monkeypatch):
                  {"wide": 4, "narrow": 8} if wide else {"narrow": 12}),
                 ("sharded-cuda-rdma", True, fk.RDMA_FORM_LAUNCHES,
                  {"wide" if wide else "narrow": 4})):
-            monkeypatch.setitem(engine._BACKENDS, backend, sharded.make_cuda_backend(mesh, rdma=rdma))
+            monkeypatch.setitem(engine._BACKENDS, backend,
+                                sharded.make_cuda_backend(mesh, rdma=rdma, temporal=1))
             before = dict(counts)
             sim = Simulation(cfg, walls, backend=backend, allow_experimental=True)
             np.testing.assert_array_equal(sim.run(20).state(), want)
@@ -881,25 +889,31 @@ def test_rdma_withheld_send_raises_and_does_not_hang(cuda_device):
 @pytest.mark.cuda
 def test_sharded_cuda_rdma_equals_cuda_bitwise(cuda_device, monkeypatch):
     """sharded-cuda-rdma over 2 and 4 virtual shards of the card, 20 steps,
-    against the cuda backend: one counted launch per shard and step, no halo
-    copy from the host; a session that loads twice starts its flags again."""
+    against the cuda backend: 2 shards of 12 rows in passes of 3 (7 passes,
+    one counted launch of the rdma temporal form per shard and pass), 4
+    shards of 6 rows (fewer than 2 T + 1) one counted launch of the
+    one-step rdma form per shard and step; no halo copy from the host; a
+    session that loads twice starts its flags again."""
     from latticeboltzmann_tpu_torch.models import engine
 
     cfg, walls = _scene("column0")
     want = Simulation(cfg, walls, backend="cuda").run(20).state()
-    for n in (2, 4):
+    for n, launches in ((2, 7), (4, 20)):
         mesh = sharded.make_mesh(devices=[cuda_device] * n)
         monkeypatch.setitem(engine._BACKENDS, "sharded-cuda-rdma",
                             sharded.make_cuda_backend(mesh, rdma=True))
         with pytest.raises(RuntimeError, match="allow_experimental=True"):
             Simulation(cfg, walls, backend="sharded-cuda-rdma")
-        before, copies = fk.RDMA_VARIANT_LAUNCHES["f32-spec"], sharded.HALO_COPIES
+        counts = fk.RDMA_TEMPORAL_VARIANT_LAUNCHES if n == 2 else fk.RDMA_VARIANT_LAUNCHES
+        before, copies = counts["f32-spec"], sharded.HALO_COPIES
         sim = Simulation(cfg, walls, backend="sharded-cuda-rdma", allow_experimental=True)
         np.testing.assert_array_equal(sim.run(20).state(), want)
-        assert fk.RDMA_VARIANT_LAUNCHES["f32-spec"] == before + 20 * n
+        assert counts["f32-spec"] == before + launches * n
         assert sharded.HALO_COPIES == copies
         sess = sim._session
-        assert sess.step == 20 and all(e.flags.tolist() == [20, 20] for e in sess._ends)
+        assert sess.temporal == (3 if n == 2 else 1)
+        assert sess.step == launches and all(e.flags.tolist() == [launches] * 2
+                                             for e in sess._ends)
         sim.f = torch.as_tensor(initial_state(cfg), device=cuda_device)  # a second load
         assert sess.step == 0 and all(e.flags.tolist() == [0, 0] for e in sess._ends)
         np.testing.assert_array_equal(sim.run(20).state(), want)
@@ -923,6 +937,279 @@ def test_rdma_path_across_cards_equals_single_chip(cuda_device, monkeypatch):
                             sharded.make_cuda_backend(sharded.make_mesh(devices=devices), rdma=True))
         sim = Simulation(cfg, walls, backend="sharded-cuda-rdma", allow_experimental=True)
         np.testing.assert_array_equal(sim.run(20).state(), want)
+
+
+def _rows_mod(x, a, b):
+    """Rows [a, b) of x along dim -2, modulo its rows, contiguous."""
+    idx = torch.tensor([r % x.shape[-2] for r in range(a, b)], device=x.device)
+    return x.index_select(x.dim() - 2, idx).contiguous()
+
+
+def _pass_shard(f, geom, n, k, depth):
+    """Shard k of a ring of n over the card's state f: (block, (top, bot)
+    halo blocks of `depth` rows, geometry with (depth, NY) class rows)."""
+    L = f.shape[1] // n
+    r0 = k * L
+    halo = (_rows_mod(f, r0 - depth, r0), _rows_mod(f, r0 + L, r0 + L + depth))
+    if torch.is_tensor(geom):
+        geom = fk.ShardPlane(_rows_mod(geom, r0, r0 + L), _rows_mod(geom, r0 - depth, r0),
+                             _rows_mod(geom, r0 + L, r0 + L + depth))
+    return _rows_mod(f, r0, r0 + L), halo, geom
+
+
+def _on_card_geometry(kind, cfg, walls, device):
+    g = _geometry_source(kind, cfg, walls)
+    return torch.as_tensor(g, device=device) if isinstance(g, np.ndarray) else g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2, 4])
+@pytest.mark.parametrize("geom", ["none", "plane", "spec", "slip", "bf16-spec", "bf16-slip"])
+def test_ext_temporal_kernel_equals_its_plain_versions(geom, n, cuda_device):
+    """The ext-halo temporal form on each shard of a ring of n (column0,
+    24x40), halos of 4 rows: one pass at every L 1-4 over the whole shard,
+    the two L-row bands and the interior, bitwise against
+    temporal_reference_ext (and so against the local chain), and against
+    temporal_reference_ext_blocked at the card's tile; one pass of the
+    deepest L the tile takes on a ring of one, halos of that depth. Every
+    launch counted in EXT_TEMPORAL_LAUNCHES."""
+    dtype = "bfloat16" if geom.startswith("bf16") else np.float32
+    cfg, walls = _scene("column0", dtype)
+    g = _on_card_geometry(geom.removeprefix("bf16-"), cfg, walls, cuda_device)
+    f = _perturbed(cfg, cuda_device)
+    info = fk.temporal_info(fk._storage(cfg), device=cuda_device, ext=True)
+    tile = fk.FlatTile(info["rows"], info["width"])
+    Ls = 24 // n
+    before = fk.EXT_TEMPORAL_LAUNCHES
+    launches = 0
+    depths = [(L, 4) for L in range(1, 5)] + ([(info["max_steps"],) * 2] if n == 1 else [])
+    for L, depth in depths:
+        want = fk.temporal_reference(f, g, cfg, L)
+        for k in range(n):
+            src, halo, gk = _pass_shard(f, g, n, k, depth)
+            ranges = [(0, Ls)] + ([(L, Ls - 2 * L), (0, L), (Ls - L, L)] if Ls > 2 * L else [])
+            for row0, rows in ranges:
+                dst = torch.full_like(src, float("nan"))
+                fk.ext_temporal_launcher(src, dst, halo, gk, cfg, L, row0=row0, rows=rows,
+                                         row_offset=k * Ls)()
+                launches += 1
+                torch.cuda.synchronize()
+                assert torch.equal(dst[:, row0:row0 + rows],
+                                   want[:, k * Ls + row0:k * Ls + row0 + rows]), (L, k, row0)
+                if depth == 4 and row0 == 0 and rows == Ls:
+                    assert torch.equal(dst, fk.temporal_reference_ext_blocked(
+                        src, halo, gk, cfg, L, tile, row_offset=k * Ls))
+    assert fk.EXT_TEMPORAL_LAUNCHES == before + launches
+
+
+class _RdmaPassRing:
+    """n virtual shards of the card wired for the rdma temporal form as
+    ShardedRdmaSession wires them: two buffers a shard, a temporal RdmaEnd
+    of depth T and a stream each, a launch per shard, parity and pass
+    depth."""
+
+    def __init__(self, cfg, geom, n, T, device, fast_math=False, timeout_s=1.0):
+        f = _perturbed(cfg, device)
+        self.n, self.L, self.cfg = n, cfg.nx // n, cfg
+        self.shards = [_pass_shard(f, geom, n, k, T) for k in range(n)]
+        self.geoms = [s[2] for s in self.shards]
+        self.bufs = [[s[0] for s in self.shards], [torch.empty_like(s[0]) for s in self.shards]]
+        self.ends = [fk.rdma_end(cfg, device, depth=T) for _ in range(n)]
+        self.streams = [torch.cuda.Stream(device) for _ in range(n)]
+        self.options = dict(fast_math=fast_math, timeout_s=timeout_s)
+        self.launches = {}
+        self.parity = self.passes = 0
+        torch.cuda.synchronize()
+
+    def launch(self, k, steps):
+        key = (self.parity, k, steps)
+        if key not in self.launches:
+            n = self.n
+            self.launches[key] = fk.rdma_temporal_launcher(
+                self.bufs[self.parity][k], self.bufs[1 - self.parity][k], self.ends[k],
+                self.ends[(k - 1) % n], self.ends[(k + 1) % n], self.geoms[k], self.cfg, steps,
+                card_shards=n, row_offset=k * self.L, stream=self.streams[k], **self.options)
+        return self.launches[key]
+
+    def advance(self, steps, only=None):
+        self.passes += 1
+        for st in self.streams:
+            st.wait_stream(torch.cuda.current_stream())
+        for k in range(self.n):
+            if only is None or k in only:
+                self.launch(k, steps)(self.passes)
+        self.parity ^= 1
+        torch.cuda.synchronize()
+        return [fk.rdma_timed_out(e) for e in self.ends]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2, 4])
+@pytest.mark.parametrize("geom", ["none", "plane", "spec", "slip", "bf16-spec", "bf16-plane"])
+def test_rdma_temporal_kernel_equals_its_plain_version(geom, n, cuda_device):
+    """The rdma temporal form over a ring of n virtual shards of 48x40, each
+    shard on a stream of its own: passes of T, T, 1, T (T =
+    SHARDED_TEMPORAL), every shard's block, comm blocks and flags bitwise
+    against temporal_reference_rdma from the same inputs, the launch words
+    back at zero after each pass; one counted launch per shard and pass."""
+    dtype = "bfloat16" if geom.startswith("bf16") else np.float32
+    cfg = LatticeConfig(nx=48, ny=40, dtype=dtype, accel=0.005)
+    walls = geometry.channel(48, 40)
+    walls[20:26, 0:3] = True
+    T = sharded.SHARDED_TEMPORAL[fk._storage(cfg)]
+    g = _on_card_geometry(geom.removeprefix("bf16-"), cfg, walls, cuda_device)
+    ring = _RdmaPassRing(cfg, g, n, T, cuda_device)
+    ref_ends = [fk.rdma_end(cfg, cuda_device, depth=T) for _ in range(n)]
+    before = fk.RDMA_TEMPORAL_LAUNCHES
+    passes = (T, T, 1, T)
+    for p, steps in enumerate(passes, 1):
+        srcs = [b.clone() for b in ring.bufs[ring.parity]]
+        assert ring.advance(steps) == [0] * n
+        refs = fk.temporal_reference_rdma(srcs, ref_ends, ring.geoms, cfg, steps, p)
+        for k in range(n):
+            assert torch.equal(ring.bufs[ring.parity][k], refs[k]), (p, k)
+            for got, want in zip(ring.ends[k][:3], ref_ends[k][:3]):  # top, bot, flags
+                assert torch.equal(got, want), (p, k)
+            assert not ring.ends[k].work.any()
+    assert fk.RDMA_TEMPORAL_LAUNCHES == before + len(passes) * n
+
+
+@pytest.mark.cuda
+def test_shard_temporal_forms_fast_math_within_tolerance(cuda_device):
+    """Both shard forms' fast-math variants (rcp.approx) after
+    FAST_MATH_STEPS steps in passes of 3 over 4 virtual shards of 48x96,
+    within FAST_MATH_RTOL of the IEEE chain."""
+    cfg = LatticeConfig(nx=48, ny=96, dtype=np.float32)
+    spec = geometry.infer_spec(_plate_48x96())
+    f = _perturbed(cfg, cuda_device)
+    ref = fk.temporal_reference(f, spec, cfg, fk.FAST_MATH_STEPS)
+    mesh = sharded.make_mesh(devices=[cuda_device] * 4)
+    for rdma in (False, True):
+        sess = (sharded.ShardedRdmaSession(cfg, _plate_48x96(), mesh=mesh, wall_spec=spec,
+                                           fast_math=True) if rdma else
+                sharded.ShardedSession(cfg, _plate_48x96(), mesh=mesh, wall_spec=spec,
+                                       fast_math=True))
+        assert sess.temporal == 3
+        sess.load(f)
+        sess.advance(fk.FAST_MATH_STEPS)
+        got = sess.state()
+        assert float(((got - ref).abs() / ref.abs()).max()) <= fk.FAST_MATH_RTOL
+
+
+@pytest.mark.cuda
+def test_shard_temporal_forms_refuse_on_the_card(cuda_device):
+    """On the card the wrappers refuse a misaligned buffer, a pass deeper
+    than the card's tile takes and a ring too large for the card's slots
+    (no edge CTA could spin with one slot to spare), and the entry points
+    themselves refuse a pass deeper than the halos: ValueError or a
+    refused launch, never another form in their place."""
+    cfg, _ = _scene("column0")
+    f = _perturbed(cfg, cuda_device)
+    src, halo, _ = _pass_shard(f, None, 2, 0, 3)
+    dst = torch.empty_like(src)
+    odd = torch.zeros(src.numel() + 1, device=cuda_device)[1:].view(src.shape).copy_(src)
+    with pytest.raises(ValueError, match="aligned"):
+        fk.ext_temporal_launcher(odd, dst, halo, None, cfg, 3)
+    deepest = fk.temporal_info(torch.float32, device=cuda_device, ext=True)["max_steps"]
+    deep_src, deep_halo, _ = _pass_shard(f, None, 2, 0, deepest + 1)
+    with pytest.raises(ValueError, match="leaves no output tile"):
+        fk.ext_temporal_launcher(deep_src, torch.empty_like(deep_src), deep_halo, None, cfg,
+                                 deepest + 1)
+    lib = fk.cuda_build.load_library()
+    params = (ctypes.c_float * 9)(*fk.kernel_constants(cfg))
+    rc = lib.lbm_temporal_steps_ext_launch(
+        src.data_ptr(), dst.data_ptr(), halo[0].data_ptr(), halo[1].data_ptr(), None, None, None,
+        None, 12, 40, 3, 0, 12, 0, 24, 0, 0, 0, 4, ctypes.addressof(params),
+        torch.cuda.current_stream().cuda_stream)
+    assert rc != 0  # 4 steps on 3-row halos
+    end = fk.rdma_end(cfg, cuda_device, depth=3)
+    slots = fk.rdma_temporal_grid(torch.float32, "none", 12, 40, 3, 1, cuda_device)
+    assert slots["edge_ctas"] >= 1
+    info = fk.temporal_info(torch.float32, "none", cuda_device, rdma=True)
+    too_many = info["ctas_per_sm"] * torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    call = fk.rdma_temporal_launcher(src, dst, end, end, end, None, cfg, 3, card_shards=too_many)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        call(1)
+
+
+@pytest.mark.cuda
+def test_rdma_temporal_withheld_send_raises_and_does_not_hang(cuda_device):
+    """One shard of a ring of two launched alone in passes of 3: its edge
+    tiles wait for rows that never come, give up after the timeout and
+    leave the pass in the shard's error word; later passes of that shard
+    skip their waits. Through the session the same ends in a raised
+    RuntimeError, and a load clears it."""
+    import time
+
+    cfg, walls = _scene("column0")
+    ring = _RdmaPassRing(cfg, None, 2, 3, cuda_device, timeout_s=0.2)
+    t0 = time.perf_counter()
+    assert ring.advance(3, only={0}) == [1, 0]
+    assert 0.2 <= time.perf_counter() - t0 < 3.0
+    t0 = time.perf_counter()
+    for _ in range(10):
+        assert ring.advance(3, only={0}) == [1, 0]
+    assert time.perf_counter() - t0 < 0.2
+
+    sess = sharded.ShardedRdmaSession(cfg, walls, mesh=sharded.make_mesh(devices=[cuda_device] * 2),
+                                      timeout_s=0.2)
+    assert sess.temporal == 3
+    sess.load(_perturbed(cfg, cuda_device))
+    (_, calls), = sess._plans[sess._parity]
+    calls[0](1)  # shard 0 only
+    with pytest.raises(RuntimeError, match="pass 1 waited"):
+        sess.block()
+    sess.load(_perturbed(cfg, cuda_device))  # a load clears the error
+    sess.advance(7)
+    sess.block()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+def test_sharded_backends_count_their_passes_by_form(dtype, cuda_device, monkeypatch):
+    """sharded-cuda, sharded-cuda-fused and sharded-cuda-rdma over 4
+    virtual shards of 48x40 (12-row shards), 20 steps in passes of T =
+    SHARDED_TEMPORAL: the interior and two T-row bands of each shard and
+    pass, one launch per shard and pass, or one rdma launch per shard and
+    pass, counted per form with every step; no one-step launch; 2 halo
+    blocks copied per shard and pass (none for rdma); bitwise equal to the
+    cuda backend and to the same backend at temporal=1."""
+    from latticeboltzmann_tpu_torch.models import engine
+
+    cfg = LatticeConfig(nx=48, ny=40, dtype=dtype, accel=0.005)
+    walls = geometry.channel(48, 40)
+    walls[20:26, 0:3] = True
+    T = sharded.SHARDED_TEMPORAL[fk._storage(cfg)]
+    n_passes = -(-20 // T)
+    want = Simulation(cfg, walls, backend="cuda").run(20).state()
+    mesh = sharded.make_mesh(devices=[cuda_device] * 4)
+    for backend, options, per_pass in (("sharded-cuda", {}, 12), ("sharded-cuda-fused",
+                                       {"overlap": False}, 4), ("sharded-cuda-rdma",
+                                                                {"rdma": True}, 4)):
+        rdma = backend.endswith("rdma")
+        outs = []
+        for temporal in (None, 1):
+            monkeypatch.setitem(engine._BACKENDS, backend, sharded.make_cuda_backend(
+                mesh, temporal=temporal, **options))
+            counters = (fk.EXT_LAUNCHES, fk.RDMA_LAUNCHES, fk.EXT_TEMPORAL_LAUNCHES,
+                        fk.RDMA_TEMPORAL_LAUNCHES, fk.EXT_TEMPORAL_STEPS, fk.RDMA_TEMPORAL_STEPS)
+            copies = sharded.HALO_COPIES
+            sim = Simulation(cfg, walls, backend=backend, allow_experimental=True)
+            outs.append(sim.run(20).state())
+            got = [after - b for after, b in zip(
+                (fk.EXT_LAUNCHES, fk.RDMA_LAUNCHES, fk.EXT_TEMPORAL_LAUNCHES,
+                 fk.RDMA_TEMPORAL_LAUNCHES, fk.EXT_TEMPORAL_STEPS, fk.RDMA_TEMPORAL_STEPS),
+                counters)]
+            if temporal is None:
+                steps = 20 * per_pass
+                assert sim._session.temporal == T
+                assert got == ([0, 0, 0, per_pass * n_passes, 0, steps] if rdma else
+                               [0, 0, per_pass * n_passes, 0, steps, 0])
+                assert sharded.HALO_COPIES - copies == (0 if rdma else 8 * n_passes)
+            else:
+                assert got[2:] == [0, 0, 0, 0] and got[1 if rdma else 0] > 0
+        np.testing.assert_array_equal(outs[0], want)
+        np.testing.assert_array_equal(outs[0], outs[1])
 
 
 def _rand(shape, device, dtype=torch.float32, seed=0):
@@ -1509,8 +1796,11 @@ def test_run_probed_bitwise_run_and_probe_values(cuda_device, monkeypatch, backe
     """run_probed on the kernel backends (the sharded ones over 2 virtual
     shards of the card): the series bitwise equal to run() with
     probe_values between chunks, the final state bitwise equal to an
-    unprobed run's, one counted launch per step (per shard and step); on
-    cuda-ds64 every step counted in the passes of the temporal form."""
+    unprobed run's, one counted launch per step; on cuda-ds64 and the
+    sharded backends every step counted in the passes of their temporal
+    forms (sharded-cuda: the interior and two 3-row bands of each 8-row
+    shard; -rdma and -ds64: one launch per shard and pass), no one-step
+    launch."""
     from latticeboltzmann_tpu_torch.models import engine
 
     if backend.startswith("sharded"):
@@ -1525,19 +1815,18 @@ def test_run_probed_bitwise_run_and_probe_values(cuda_device, monkeypatch, backe
         return Simulation(cfg, walls, backend=backend, allow_experimental=True)
 
     counts = {"cuda": (fk, "LAUNCHES"), "cuda-ds64": (fdk, "TEMPORAL_STEPS"),
-              "sharded-cuda": (fk, "EXT_LAUNCHES"), "sharded-cuda-rdma": (fk, "RDMA_LAUNCHES"),
+              "sharded-cuda": (fk, "EXT_TEMPORAL_STEPS"),
+              "sharded-cuda-rdma": (fk, "RDMA_TEMPORAL_STEPS"),
               "sharded-cuda-ds64": (fdk, "EXT_TEMPORAL_STEPS")}[backend]
     before = getattr(*counts)
-    one_step = fdk.EXT_LAUNCHES
+    one_step = (fdk.EXT_LAUNCHES, fk.EXT_LAUNCHES, fk.RDMA_LAUNCHES)
     probed = sim()
     series = probed.run_probed(n, PROBES, every=every)
-    per_step = {"sharded-cuda": 6, "sharded-cuda-rdma": 2}.get(backend, 1)
-    if backend == "sharded-cuda-ds64":
-        # passes of 4 and one of the rest per sample, one launch per shard
-        # and pass (the backend's default schedule): each shard's launches
-        # count every step of their passes
-        per_step = 2
-        assert fdk.EXT_LAUNCHES == one_step
+    # passes of T and one of the rest per sample: each launch counts every
+    # step of its pass
+    per_step = {"sharded-cuda": 6, "sharded-cuda-rdma": 2, "sharded-cuda-ds64": 2}.get(backend, 1)
+    if backend.startswith("sharded"):
+        assert (fdk.EXT_LAUNCHES, fk.EXT_LAUNCHES, fk.RDMA_LAUNCHES) == one_step
     assert getattr(*counts) - before == n * per_step
     assert series.shape == (n // every, len(PROBES), 3) and probed.steps_done == n
     ref = sim()

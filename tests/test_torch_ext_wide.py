@@ -161,11 +161,12 @@ def _jax_scene():
 @pytest.mark.parametrize("backend", ["sharded-cuda", "sharded-cuda-rdma"])
 def test_sharded_paths_with_the_wide_form_bitwise_jax_sharded_pallas_interpret(
         monkeypatch, backend):
-    """Both sharded kernel paths over a CPU mesh of 2 shards with the wide
-    form forced (every launcher asked for form="wide", which on CPU tensors
-    runs step_reference_ext_wide) equal the JAX ppermute path in interpret
-    mode over a mesh of 2, float32, the wall spec (both facades infer
-    it)."""
+    """Both sharded kernel paths at temporal=1 (the one-step forms; the
+    backends' passes of T steps are tests/test_torch_sharded_temporal.py's)
+    over a CPU mesh of 2 shards with the wide form forced (every launcher
+    asked for form="wide", which on CPU tensors runs
+    step_reference_ext_wide) equal the JAX ppermute path in interpret mode
+    over a mesh of 2, float32, the wall spec (both facades infer it)."""
     n, steps = 2, JAX_STEPS
     monkeypatch.setitem(jax_engine._BACKENDS, "sharded-pallas-interpret",
                         jax_sharded.make_pallas_backend(jax_sharded.make_mesh(n), interpret=True))
@@ -186,7 +187,7 @@ def test_sharded_paths_with_the_wide_form_bitwise_jax_sharded_pallas_interpret(
     monkeypatch.setattr(fk, "rdma_launcher", functools.partial(fk.rdma_launcher, form="wide"))
     mesh = sharded.make_mesh(devices=["cpu"] * n)
     monkeypatch.setitem(engine._BACKENDS, backend,
-                        sharded.make_cuda_backend(mesh, rdma=backend.endswith("rdma")))
+                        sharded.make_cuda_backend(mesh, rdma=backend.endswith("rdma"), temporal=1))
     monkeypatch.setattr(engine, "_KERNEL_BACKENDS", set())  # a CPU mesh, for the tests
     cfg = LatticeConfig(nx=JAX_NX, ny=NY, dtype=np.float32)
     sim = Simulation(cfg, walls, backend=backend, device="cpu", f0=f0, allow_experimental=True)

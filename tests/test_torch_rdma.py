@@ -257,7 +257,8 @@ def test_rdma_path_bitwise_sharded_cuda(monkeypatch, dtype, kind, n):
     cfg = LatticeConfig(nx=NX, ny=NY, dtype=dtype)
     got, sim = _port_run(monkeypatch, "sharded-cuda-rdma", n, cfg, kind)
     assert isinstance(sim._session, sharded.ShardedRdmaSession) and sim._session.rdma
-    assert sim._session.step == STEPS
+    # one launch per shard and pass: STEPS // T passes of T and one of the rest
+    assert sim._session.step == -(-STEPS // sim._session.temporal)
     want, ref_sim = _port_run(monkeypatch, "sharded-cuda", n, cfg, kind)
     assert type(ref_sim._session) is sharded.ShardedSession
     np.testing.assert_array_equal(got, want)
@@ -315,7 +316,8 @@ def test_make_cuda_run_steps_rdma_and_reload():
     sess.load(f)
     sess.advance(STEPS)
     first = sess.state()
-    assert sess.step == STEPS and all(e.flags.tolist() == [STEPS] * 2 for e in sess._ends)
+    passes = -(-STEPS // sess.temporal)
+    assert sess.step == passes and all(e.flags.tolist() == [passes] * 2 for e in sess._ends)
     sess.load(f)
     assert sess.step == 0 and all(e.flags.tolist() == [0, 0] for e in sess._ends)
     sess.advance(STEPS)
