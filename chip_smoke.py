@@ -60,7 +60,9 @@ Phases, each of which raises on failure:
    kernels' instructions per site, counted in their SASS (cuobjdump) along
    the path of an ordinary site (utils/sass.py: past the forcing branches
    and the division's slow path), the bound they give and their issue
-   floor at the SM clock read under load;
+   floor at the SM clock read under load; and the temporal pass kernels'
+   (phases 30-31) along a site's trip through a level's loop and a
+   vector's through the tile-load loop;
 9. the bf16-storage kernel against step_reference, bitwise, at the four
    scenes of phase 3, plane and wall-free variants;
 10. the spec variant against the plane variant and step_reference,
@@ -274,10 +276,13 @@ stands beside phase 6-8's in the kernels line.
    exact steps; barrier, symmetric channel, empty box) bitwise; phase 7's
    main path bitwise equal to a temporal=1 session's 10,096 counted
    one-step launches, and a split run; us/step by CUDA events in turns
-   with the one-step kernel for T = 1-4 and each tile's deepest pass, both
-   tiers at 800x4000 and the fast tier at 400x4000, each beside its
-   bounds (bytes per pass at the published rate and the copy kernel's,
-   the issue floor times the levels' recompute);
+   with the one-step kernel for T = 1-4 and the tile's deepest pass, both
+   tiers at 800x4000 and 400x4000, each beside its tile (registers, CTAs
+   per SM, shared bytes), us a pass and bounds (read and recompute
+   factors, bytes per pass at the published rate and the copy kernel's,
+   the one-step kernel's FP32 issue floor times the recompute, and the
+   floor of all the pass kernel's instructions, counted in its SASS along
+   a site's trip through a level and a vector's through the tile load);
 31. the pair-DP shard pass (ds_sharded_temporal_phase; the ds kernel's
    ext-halo temporal form, csrc/lbm_ds_temporal_step.cu's
    lbm_ds_temporal_steps_ext: a pass of L pair steps on a shard, the rows
@@ -296,8 +301,9 @@ stands beside phase 6-8's in the kernels line.
    path's us/step and enqueue in turns at temporal=1 and at passes of 4
    with overlap=True and overlap=False beside cuda-ds64, on 4 virtual
    shards and on one shard; the halo exchange alone per pass; one pass's
-   launches at L 1-4 queued behind a spin beside the local temporal
-   form's pass, each with its bounds;
+   launches at L 1-4 and the tile's deepest, both tiers, queued behind a
+   spin beside the local temporal form's pass, each with its tile, us a
+   pass and bounds;
 32. the f32/bf16 shard pass (shard_pass_phase; the temporal form's
    ext-halo form, csrc/lbm_temporal_step.cu's lbm_temporal_steps_ext, and
    its rdma form, csrc/lbm_temporal_rdma_step.cu's
@@ -429,31 +435,60 @@ def bound(n_bytes, n_ops):
 
 
 def ds_site_counts():
-    """{(kernel, has_walls, exact): opcode counts along an ordinary site's
-    path} for the ds kernels (kernel "ds" or "ds_ext") of the built
-    library, read from its SASS; prints a line for each."""
+    """{(kernel, has_walls, exact): counts} for the ds kernels of the built
+    library, read from its SASS; prints a line for each. The one-step
+    kernels (kernel "ds" or "ds_ext"): the opcode counts along an ordinary
+    site's path. The temporal pass kernels ("ds_temporal" and
+    "ds_temporal_ext"): {"levels": [opcode counts along an ordinary site's
+    trip through each level's loop over sites (its natural and pushed
+    layouts)], "load": those along one trip through the tile-load loop, a
+    16-byte vector of every plane and its class bytes}."""
     import re
 
     from latticeboltzmann_tpu_torch.ops import cuda_build
     from latticeboltzmann_tpu_torch.utils import sass
 
+    def innermost(found):
+        return [(f, b, body) for f, b, body in found
+                if not any(f <= f2 and b2 <= b and (f2, b2) != (f, b) for f2, b2, _ in found)]
+
     out = {}
     for name, instrs in sass.functions(sass.disassemble(cuda_build.build())).items():
-        m = re.search(r"lbm_stream_collide_(ds|ds_ext)ILb([01])ELb([01])E", name)
+        m = re.search(r"lbm_(stream_collide_ds|stream_collide_ds_ext|ds_temporal_steps|"
+                      r"ds_temporal_steps_ext)ILb([01])ELb([01])E", name)
         if not m:
             continue
-        key = (m.group(1), m.group(2) == "1", m.group(3) == "1")
-        path = sass.site_path(instrs)
-        if not path["MUFU"]:
-            raise AssertionError(f"{name}: no division on the site path: {dict(path)}")
-        out[key] = path
-        print(f"ds SASS, {key[0]} {'masked' if key[1] else 'wall-free'} "
-              f"{'exact' if key[2] else 'fast'}: per site FADD {path['FADD']}, FMUL "
-              f"{path['FMUL']}, FFMA {path['FFMA']}, MUFU {path['MUFU']} (FP32 "
-              f"{sum(path[k] for k in sass.FP32)}), all instructions {sum(path.values())}; "
-              f"the whole kernel {len(instrs)}")
-    if len(out) != 8:
-        raise AssertionError(f"found {sorted(out)} of the 8 ds kernels in the SASS")
+        kernel = {"stream_collide_ds": "ds", "stream_collide_ds_ext": "ds_ext",
+                  "ds_temporal_steps": "ds_temporal",
+                  "ds_temporal_steps_ext": "ds_temporal_ext"}[m.group(1)]
+        key = (kernel, m.group(2) == "1", m.group(3) == "1")
+        label = f"ds SASS, {kernel} {'masked' if key[1] else 'wall-free'} " \
+                f"{'exact' if key[2] else 'fast'}"
+        if kernel in ("ds", "ds_ext"):
+            path = sass.site_path(instrs)
+            if not path["MUFU"]:
+                raise AssertionError(f"{name}: no division on the site path: {dict(path)}")
+            out[key] = path
+            print(f"{label}: per site FADD {path['FADD']}, FMUL {path['FMUL']}, FFMA "
+                  f"{path['FFMA']}, MUFU {path['MUFU']} (FP32 {sum(path[k] for k in sass.FP32)}), "
+                  f"all instructions {sum(path.values())}; the whole kernel {len(instrs)}")
+            continue
+        inner = innermost(sass.loops(instrs))
+        loads = [sass.loop_path(instrs, f, b) for f, b, body in inner if body["LDGSTS"]]
+        trips = [sass.loop_path(instrs, f, b) for f, b, body in inner if not body["LDGSTS"]]
+        # a level's trip divides and stores its 18 floats to the shared tile
+        levels = [t for t in trips if t["MUFU"] and t["STS"] == 18 and not t["STG"]]
+        if len(loads) != 1 or len(levels) != 2:
+            raise AssertionError(f"{name}: {len(loads)} tile-load loops and {len(levels)} level "
+                                 f"loops (want 1 and 2) among {len(inner)} innermost loops")
+        out[key] = {"levels": levels, "load": loads[0]}
+        print(f"{label}: a site update along the level loops (natural, pushed): "
+              + ", ".join(f"FP32 {sum(t[k] for k in sass.FP32)}, all instructions "
+                          f"{sum(t.values())}" for t in levels)
+              + f"; a 16-byte vector of the tile load: {sum(loads[0].values())} instructions "
+                f"({loads[0]['LDGSTS']} copies); the whole kernel {len(instrs)}")
+    if len(out) != 16:
+        raise AssertionError(f"found {sorted(out)} of the 16 ds kernels in the SASS")
     return out
 
 
@@ -3561,10 +3596,10 @@ DS_TEMPORAL_SPLIT = (1009, 491)
 
 def ds_pass_traffic(nx, ny, rows, L, has_walls=True):
     """(bytes a pass of the ds temporal form reads, bytes it writes, site
-    updates of its levels) at a tile of `rows` rows: each output tile
-    reads its rows and 16-byte vectors of columns, halos included, 72 B a
-    site and a class byte (masked), writes its sites, and its level t
-    updates its output grown by L - t a side."""
+    updates of its levels, 16-byte vectors of columns it loads) at a tile
+    of `rows` rows: each output tile reads its rows and 16-byte vectors of
+    columns, halos included, 72 B a site and a class byte (masked), writes
+    its sites, and its level t updates its output grown by L - t a side."""
     from latticeboltzmann_tpu_torch.ops import fused_ds_kernel as fdk
     from latticeboltzmann_tpu_torch.ops import fused_kernel as fk
 
@@ -3579,7 +3614,42 @@ def ds_pass_traffic(nx, ny, rows, L, has_walls=True):
     write = sum(res) * sum(ces) * site
     updates = sum(sum(re + 2 * g for re in res) * sum(ce + 2 * g for ce in ces)
                   for g in range(L))
-    return read, write, updates
+    return read, write, updates, sum(re + 2 * L for re in res) * cols // v
+
+
+def tile_line(i):
+    """A ds temporal tile's registers, CTAs per SM and shared bytes, for a
+    line."""
+    return (f"{i['registers']} registers, {i['local_bytes']} B local memory, {i['ctas_per_sm']} "
+            f"CTAs/SM, {i['shared_bytes_per_cta']} shared B/CTA (a tile of {i['rows']}x"
+            f"{i['width']})")
+
+
+def pass_issue_floors(one_step, pass_counts, updates, vectors, clock_mhz):
+    """The issue floors of a ds temporal pass that makes `updates` site
+    updates and loads `vectors` 16-byte vectors, at one instruction a lane
+    and clock (FP32_LANES_PER_SM lanes an SM: one warp instruction a
+    scheduler and clock) at clock_mhz. The FP32 floor: the one-step
+    kernel's FP32 instructions a site (`one_step`, ds_site_counts) at each
+    update. The floor of all instructions, from the pass kernel's own SASS
+    (`pass_counts`, ds_site_counts): a trip through a level's loop over
+    sites at each update (the mean of its two layouts' levels) and a trip
+    through its tile-load loop at each vector. Barriers, the column-0
+    tiles' guard bits, the last level's global stores and idle lanes are
+    left out, so both are floors. Returns {lanes, fp32 (instructions a
+    site), level (instructions a site update), load (instructions a
+    vector), fp32_us, all_us}."""
+    from latticeboltzmann_tpu_torch.utils import sass
+
+    lanes = torch.cuda.get_device_properties(0).multi_processor_count * FP32_LANES_PER_SM
+    per_us = lanes * clock_mhz  # instructions a microsecond
+    fp32 = sum(one_step[k] for k in sass.FP32)
+    levels = pass_counts["levels"]
+    level = sum(sum(t.values()) for t in levels) / len(levels)
+    load = sum(pass_counts["load"].values())
+    return {"lanes": lanes, "fp32": fp32, "level": level, "load": load,
+            "fp32_us": fp32 * updates / per_us,
+            "all_us": (level * updates + load * vectors) / per_us}
 
 
 def ds_temporal_bitwise(name, cfg, f, solid, exact, blocked):
@@ -3626,17 +3696,18 @@ def ds_temporal_phase(main, counts, clock, copy):
     one-step launch; run(a) + run(b), a no multiple of DS_TEMPORAL, bitwise
     equal to run(a + b). (e) us/step by CUDA events in turns with the
     one-step kernel: T in DS_TEMPORAL_DEPTHS and the tile's deepest, both
-    tiers at 800x4000, the fast tier at 400x4000; each time's bounds on
-    its own line (bytes per pass at the published rate and at the copy
-    kernel's, the issue floor times the levels' recompute). counts, clock:
-    ds_phases' SASS counts of the one-step kernel (the same collision) and
-    the SM clock; copy: copy_rate's result for one float32 state. Returns
+    tiers at 800x4000 and 400x4000; each time's tile (registers, CTAs per
+    SM, shared bytes), us a pass and bounds on its own line (the read and
+    recompute factors, bytes per pass at the published rate and at the
+    copy kernel's, pass_issue_floors' FP32 and all-instruction floors).
+    counts, clock: ds_phases' SASS counts (ds_site_counts: the one-step
+    kernel's site and the pass kernel's level and load loops) and the SM
+    clock; copy: copy_rate's result for one float32 state. Returns
     the kernels line's entry."""
     from latticeboltzmann_tpu_torch import LatticeConfig, Simulation, geometry
     from latticeboltzmann_tpu_torch.models.engine import initial_state
     from latticeboltzmann_tpu_torch.ops import df64, ds_engine
     from latticeboltzmann_tpu_torch.ops import fused_ds_kernel as fdk
-    from latticeboltzmann_tpu_torch.utils import sass
 
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
@@ -3720,10 +3791,9 @@ def ds_temporal_phase(main, counts, clock, copy):
     torch.cuda.empty_cache()
 
     # 30e. times by depth, in turns with the one-step kernel, and bounds
-    lanes = torch.cuda.get_device_properties(0).multi_processor_count * FP32_LANES_PER_SM
     copy_rate_bps = 2 * 9 * cfg.sites * 4 / (copy["ms"] * 1e-3)  # one f32 state read and written
     by_t, best_all = {}, {}
-    for label, nx, tiers in (("800x4000", 800, (False, True)), ("400x4000", 400, (False,))):
+    for label, nx, tiers in (("800x4000", 800, (False, True)), ("400x4000", 400, (False, True))):
         cfg = LatticeConfig(nx=nx, ny=4000, dtype=np.float64)
         walls = geometry.reference_barrier(nx, 4000)
         f0 = initial_state(cfg) * (1.0 + 0.05 * rng.uniform(-1.0, 1.0, (9, nx, 4000)))
@@ -3746,22 +3816,28 @@ def ds_temporal_phase(main, counts, clock, copy):
                 rates(f"ds {label} {tier} tier, {key} (CUDA events, {n} launches of {L} "
                       f"step(s), in turns)", us * 1e-6)
                 best[key] = min(best.get(key, us), us)
-            fp32 = sum(counts[("ds", True, exact)][k] for k in sass.FP32)
             for key, us in best.items():
                 fn, L = fns[key]
                 if key == "one-step kernel":
                     continue
-                read, write, updates = ds_pass_traffic(nx, 4000, info[(exact, True)]["rows"], L)
+                read, write, updates, vectors = ds_pass_traffic(nx, 4000,
+                                                                info[(exact, True)]["rows"], L)
                 pair_state = 2 * 9 * 4 * cfg.sites
-                floor_us = fp32 * updates / (lanes * clock * 1e6) * 1e6 / L
-                print(f"ds temporal bound, {label} {tier} tier, {key}: a pass reads {read} B "
-                      f"({read / pair_state!r} of the pair state) and writes {write} B: "
+                fl = pass_issue_floors(counts[("ds", True, exact)],
+                                       counts[("ds_temporal", True, exact)], updates, vectors, clock)
+                print(f"ds temporal tile and bound, {label} {tier} tier, {key}: "
+                      f"{tile_line(info[(exact, True)])}; {us * L!r} us a pass; read factor "
+                      f"{read / pair_state!r}, recompute factor {updates / (L * cfg.sites)!r}; a "
+                      f"pass reads {read} B and writes {write} B: "
                       f"{(read + write) / PEAK_BYTES_PER_S * 1e6 / L!r} us/step at "
                       f"{PEAK_BYTES_PER_S:.3g} B/s, {(read + write) / copy_rate_bps * 1e6 / L!r} at "
-                      f"the copy kernel's {copy_rate_bps:.4g} B/s; its levels update "
-                      f"{updates / (L * cfg.sites)!r} times the sites: issue floor {floor_us!r} "
-                      f"us/step ({fp32} FP32 instructions a site at {clock!r} MHz on {lanes} "
-                      f"lanes); measured {us!r} us/step (one-step kernel {best['one-step kernel']!r})")
+                      f"the copy kernel's {copy_rate_bps:.4g} B/s; issue floor "
+                      f"{fl['fp32_us'] / L!r} us/step ({fl['fp32']} FP32 instructions a site of "
+                      f"the one-step kernel at {clock!r} MHz on {fl['lanes']} lanes), "
+                      f"{fl['all_us'] / L!r} of all the pass kernel's instructions ({fl['level']!r} "
+                      f"a site update, {fl['load']} a vector loaded, one a lane and clock; the "
+                      f"kernel at {fl['all_us'] / (us * L)!r} of it); measured {us!r} us/step "
+                      f"(one-step kernel {best['one-step kernel']!r})")
             by_t[f"{label} {tier}"] = best
             best_all[(label, exact)] = best
         del a, b, solid
@@ -3813,6 +3889,7 @@ DS_EXT_RINGS = (1, 2, 4)
 DS_EXT_DEPTH = 4
 DS_EXT_TIMED_STEPS = 1000
 DS_EXT_QUEUED_CALLS = 50
+DS_EXT_DEEP_CALLS = 5
 
 
 def ds_ring_shard(a, solid, n, k, depth):
@@ -3914,7 +3991,7 @@ def ds_ext_traffic(ny, rows, L, ranges):
     """ds_pass_traffic summed over a shard's launches of a pass: each
     range (row0, rows) lays its own tiles."""
     out = [ds_pass_traffic(r, ny, rows, L) for _, r in ranges]
-    return tuple(sum(x[i] for x in out) for i in range(3))
+    return tuple(sum(x[i] for x in out) for i in range(len(out[0])))
 
 
 def ds_sharded_temporal_phase(counts, clock, copy):
@@ -3937,11 +4014,13 @@ def ds_sharded_temporal_phase(counts, clock, copy):
     host clock with enqueue: the path at temporal=1 (the one-step form),
     at passes of 4 with overlap=True and overlap=False, beside cuda-ds64, on
     4 virtual shards and on one shard; the halo exchange alone per pass;
-    one pass's launches at L 1-4 queued behind a spin, by CUDA events,
-    beside the local temporal form's pass; each with its bounds (bytes per
-    pass at the published rate and the copy kernel's, the issue floor
-    times the levels' recompute). counts, clock: ds_phases' SASS counts
-    and SM clock; copy: copy_rate's result for one float32 state. Returns
+    one pass's launches at L 1-4 and the tile's deepest (from halos of that
+    depth), both tiers, queued behind a spin, by CUDA events, beside the
+    local temporal form's pass; each with its tile (registers, CTAs per
+    SM, shared bytes), us a pass and bounds (the read and recompute
+    factors, bytes per pass at the published rate and the copy kernel's,
+    pass_issue_floors' FP32 and all-instruction floors). counts, clock:
+    ds_phases' SASS counts (ds_site_counts) and SM clock; copy: copy_rate's result for one float32 state. Returns
     the kernels line's entry."""
     from latticeboltzmann_tpu_torch import LatticeConfig, Simulation, geometry
     from latticeboltzmann_tpu_torch.models import engine
@@ -3949,7 +4028,6 @@ def ds_sharded_temporal_phase(counts, clock, copy):
     from latticeboltzmann_tpu_torch.ops import df64
     from latticeboltzmann_tpu_torch.ops import fused_ds_kernel as fdk
     from latticeboltzmann_tpu_torch.parallel import sharded
-    from latticeboltzmann_tpu_torch.utils import sass
 
     torch.cuda.empty_cache()
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -4111,56 +4189,70 @@ def ds_sharded_temporal_phase(counts, clock, copy):
         meshes[f"{VIRTUAL_SHARDS} virtual shards"]))
     torch.cuda.empty_cache()
 
-    # one pass's launches queued behind a spin, by depth, beside the local
-    # temporal form's pass; each time's bounds
+    # one pass's launches queued behind a spin, by tier and depth (1-4 and
+    # the tile's deepest, from halos of that depth), beside the local
+    # temporal form's pass; each time's tile and bounds
     a = df64.from_f64(initial_state(cfg) * (1.0 + 0.05 * rng.uniform(-1.0, 1.0, (9, 800, 4000))),
                       dev)
     b = df64.DS(torch.empty_like(a.hi), torch.empty_like(a.lo))
     solid = torch.as_tensor(walls.astype(np.uint8), device=dev)
-    lanes = torch.cuda.get_device_properties(0).multi_processor_count * FP32_LANES_PER_SM
     copy_rate_bps = 2 * 9 * cfg.sites * 4 / (copy["ms"] * 1e-3)
-    fp32 = sum(counts[("ds", True, False)][k] for k in sass.FP32)
     rows_tile = info[(False, True)]["rows"]
-    rings = {n: [ds_ring_shard(a, solid, n, k, DS_EXT_DEPTH) for k in range(n)]
-             for n in (VIRTUAL_SHARDS, 1)}
-    outs = {n: [df64.DS(torch.empty_like(p.hi), torch.empty_like(p.lo)) for p, _, _ in ring]
-            for n, ring in rings.items()}
+    deepest = info[(False, True)]["max_steps"]
+    rings = {(n, td): [ds_ring_shard(a, solid, n, k, td) for k in range(n)]
+             for n in (VIRTUAL_SHARDS, 1) for td in sorted({DS_EXT_DEPTH, deepest})}
+    outs = {n: [df64.DS(*(torch.empty((9, 800 // n, 4000), dtype=torch.float32, device=dev)
+                          for _ in range(2))) for _ in range(n)] for n in (VIRTUAL_SHARDS, 1)}
     pass_us, bounds = {}, {}
-    for L in range(1, DS_EXT_DEPTH + 1):
-        fns = {"local temporal form (1 launch)": lambda L=L: fdk.temporal_step(
-            a, b, solid, cfg, L, has_walls=True)}
-        for n, ring in rings.items():
-            Ls = 800 // n
-            for overlap in (False, True):
-                ranges = ds_ext_ranges(Ls, L)
-                ranges = ranges[1:] if overlap and len(ranges) > 1 else ranges[:1]
-                calls = [fdk.ext_temporal_launcher(p, outs[n][k], None if row0 >= L and
-                                                   row0 + r + L <= Ls else h, pl, cfg, L,
-                                                   has_walls=True, row0=row0, rows=r)
-                         for k, (p, h, pl) in enumerate(ring) for row0, r in ranges]
-                key = (f"{n} shard(s), {'interior + bands' if overlap else 'one launch per shard'}"
-                       f" ({len(calls)} launches)")
-                fns[key] = lambda calls=calls: [c() for c in calls]
-                read, write, updates = ds_ext_traffic(4000, rows_tile, L, ranges)
-                bounds[L, key] = (n * read, n * write, n * updates)
-        t = in_turns(lambda label, sec, L=L: rates(label, sec / L), f"ds ext-halo temporal, "
-                     f"one pass of {L}", fns, DS_EXT_QUEUED_CALLS, timer=queued_ms)
-        for key, ms in t.items():
-            pass_us[L, key] = ms * 1e3
-            if (L, key) not in bounds:
-                continue
-            read, write, updates = bounds[L, key]
-            pair_state = 2 * 9 * 4 * cfg.sites
-            floor_us = fp32 * updates / (lanes * clock * 1e6) * 1e6 / L
-            print(f"ds ext-halo temporal bound, one pass of {L}, {key}: reads {read} B "
-                  f"({read / pair_state!r} of the pair state) and writes {write} B: "
-                  f"{(read + write) / PEAK_BYTES_PER_S * 1e6 / L!r} us/step at "
-                  f"{PEAK_BYTES_PER_S:.3g} B/s, {(read + write) / copy_rate_bps * 1e6 / L!r} at the "
-                  f"copy kernel's {copy_rate_bps:.4g} B/s; its levels update "
-                  f"{updates / (L * cfg.sites)!r} times the sites: issue floor {floor_us!r} us/step "
-                  f"({fp32} FP32 instructions a site at {clock!r} MHz on {lanes} lanes); measured "
-                  f"{ms * 1e3 / L!r} us/step (local temporal form "
-                  f"{t['local temporal form (1 launch)'] * 1e3 / L!r})")
+    for exact in (False, True):
+        tier = "exact" if exact else "fast"
+        local = f"{tier} tier, local temporal form (1 launch)"
+        for L in sorted({*range(1, DS_EXT_DEPTH + 1), deepest}):
+            td = DS_EXT_DEPTH if L <= DS_EXT_DEPTH else L
+            fns = {local: lambda L=L, exact=exact: fdk.temporal_step(
+                a, b, solid, cfg, L, has_walls=True, exact=exact)}
+            for n in (VIRTUAL_SHARDS, 1):
+                Ls = 800 // n
+                for overlap in (False, True):
+                    ranges = ds_ext_ranges(Ls, L)
+                    ranges = ranges[1:] if overlap and len(ranges) > 1 else ranges[:1]
+                    calls = [fdk.ext_temporal_launcher(p, outs[n][k], None if row0 >= L and
+                                                       row0 + r + L <= Ls else h, pl, cfg, L,
+                                                       has_walls=True, exact=exact, row0=row0,
+                                                       rows=r)
+                             for k, (p, h, pl) in enumerate(rings[n, td]) for row0, r in ranges]
+                    key = (f"{tier} tier, {n} shard(s), "
+                           f"{'interior + bands' if overlap else 'one launch per shard'} "
+                           f"({len(calls)} launches)")
+                    fns[key] = lambda calls=calls: [c() for c in calls]
+                    traffic = ds_ext_traffic(4000, rows_tile, L, ranges)
+                    bounds[L, key] = tuple(n * x for x in traffic)
+            n_calls = DS_EXT_QUEUED_CALLS if L <= DS_EXT_DEPTH else DS_EXT_DEEP_CALLS
+            t = in_turns(lambda label, sec, L=L: rates(label, sec / L), f"ds ext-halo temporal, "
+                         f"one pass of {L}", fns, n_calls, timer=queued_ms)
+            for key, ms in t.items():
+                pass_us[L, key] = ms * 1e3
+                if (L, key) not in bounds:
+                    continue
+                read, write, updates, vectors = bounds[L, key]
+                pair_state = 2 * 9 * 4 * cfg.sites
+                fl = pass_issue_floors(counts[("ds", True, exact)],
+                                       counts[("ds_temporal_ext", True, exact)], updates, vectors,
+                                       clock)
+                print(f"ds ext-halo temporal tile and bound, one pass of {L}, {key}: "
+                      f"{tile_line(info[(exact, True)])}; {ms * 1e3!r} us a pass; read factor "
+                      f"{read / pair_state!r}, recompute factor {updates / (L * cfg.sites)!r}; "
+                      f"reads {read} B and writes {write} B: "
+                      f"{(read + write) / PEAK_BYTES_PER_S * 1e6 / L!r} us/step at "
+                      f"{PEAK_BYTES_PER_S:.3g} B/s, {(read + write) / copy_rate_bps * 1e6 / L!r} at "
+                      f"the copy kernel's {copy_rate_bps:.4g} B/s; issue floor "
+                      f"{fl['fp32_us'] / L!r} us/step ({fl['fp32']} FP32 instructions a site of "
+                      f"the one-step kernel at {clock!r} MHz on {fl['lanes']} lanes), "
+                      f"{fl['all_us'] / L!r} of all the pass kernel's instructions ({fl['level']!r} "
+                      f"a site update, {fl['load']} a vector loaded; the kernel at "
+                      f"{fl['all_us'] / (ms * 1e3)!r} of it); measured {ms * 1e3 / L!r} us/step "
+                      f"(local temporal form {t[local] * 1e3 / L!r})")
+    rings = {n: rings[n, DS_EXT_DEPTH] for n in (VIRTUAL_SHARDS, 1)}
 
     # the entry: one pass of T on 4 virtual shards, one launch per shard
     # (the path's schedule), fast tier, masked; its plain version; the bound
@@ -4171,15 +4263,18 @@ def ds_sharded_temporal_phase(counts, clock, copy):
     halo_bytes += sum(pl.top.numel() + pl.bot.numel() for _, _, pl in ring)
     n_bytes = 4 * a.hi.numel() * 4 + solid.numel() + halo_bytes
     bd = counted_bound(n_bytes, counts[("ds", True, False)], cfg.sites * T, clock)
-    fused = next(k for (L, k) in pass_us if L == T and k.startswith(f"{VIRTUAL_SHARDS} shard(s), "
-                                                                     "one launch"))
-    overlap_key = next(k for (L, k) in pass_us if L == T and k.startswith(
-        f"{VIRTUAL_SHARDS} shard(s), interior"))
-    one_key = next(k for (L, k) in pass_us if L == T and k.startswith("1 shard(s), one launch"))
+    def key_of(start):
+        return next(k for (L, k) in pass_us if L == T and k.startswith(start))
+
+    fused = key_of(f"fast tier, {VIRTUAL_SHARDS} shard(s), one launch")
+    overlap_key = key_of(f"fast tier, {VIRTUAL_SHARDS} shard(s), interior")
+    one_key = key_of("fast tier, 1 shard(s), one launch")
+    exact_key = key_of(f"exact tier, {VIRTUAL_SHARDS} shard(s), one launch")
     print(f"ds ext-halo temporal kernel, one pass of {T} on {VIRTUAL_SHARDS} virtual shards of "
           f"800x4000, one launch per shard: {pass_us[T, fused]!r} us (interior + bands "
           f"{pass_us[T, overlap_key]!r}; one shard {pass_us[T, one_key]!r}; the local temporal "
-          f"form {pass_us[T, 'local temporal form (1 launch)']!r}); temporal_reference_ext over "
+          f"form {pass_us[T, key_of('fast tier, local')]!r}; the exact tier "
+          f"{pass_us[T, exact_key]!r}); temporal_reference_ext over "
           f"{VIRTUAL_SHARDS} shards {plain_ms!r} ms; bound of the pass {bd['bound_ms'] * 1e3!r} us "
           f"by {bd['bound_by']} ({n_bytes} B, each input read once and each output written once)")
     print(f"phase 31d (times) took {time.perf_counter() - t_part:.1f} s")
@@ -4198,6 +4293,7 @@ def ds_sharded_temporal_phase(counts, clock, copy):
         "plain_ms": plain_ms,
         "interior_and_bands_ms": pass_us[T, overlap_key] * 1e-3,
         "one_shard_ms": pass_us[T, one_key] * 1e-3,
+        "exact_tier_ms": pass_us[T, exact_key] * 1e-3,
         **bd,
         "pass_us_by_L": {f"L={L} {k}": v for (L, k), v in pass_us.items()},
         "path_us_per_step_and_enqueue": path_us,

@@ -22,15 +22,18 @@
 // (the halos) and writes it once: about 650 MB, 163 MB a step, where one
 // step a launch moves 464 MB: 49 us a step at the published 3.35 TB/s.
 // The levels recompute the halos: summed over the 4 levels they update
-// 1.28 times the output sites, so the fast tier's issue floor of the
-// one-step kernel (640 FP32 instructions a site along its SASS, 61 us a
-// step at 1.98 GHz on 132 SMs) becomes about 78 us a step, and the exact
-// tier's (1,606) about 196: issue, not bytes, bounds this form. A tile of
-// one CTA of 512 threads an SM (44 rows) cuts the recompute to 1.14 and
-// the reads to about 1.4, but leaves 16 warps an SM, against 32, to hide
-// the pair chains' latency: measured on an H100 it tied with this tile at
-// 800x4000 and lost at 400x4000 in the fast tier (PERF.md, row 3-T), so
-// the tile is the float32 forms' shape.
+// 1.28 times the output sites. Issue, not bytes, bounds this form, and all
+// of a site's instructions take issue slots, not only its FP32 ones: along
+// this kernel's SASS a site's update in a level is about 720 instructions
+// in the fast tier (637 FP32) and 1,690 in the exact (1,603), and a
+// 16-byte vector of the tile load about 100. At one instruction a lane
+// and clock, with the recompute, that is about 90 us a step at 1.98 GHz
+// on 132 SMs in the fast tier and 208 in the exact, and the pass takes
+// about 1.5 times as long (chip_smoke.py phase 30 prints both; the
+// readings are in PERF.md, row 3-T). Both tiles measured on an H100 have
+// 16 warps an SM: one CTA of 512 threads (44 rows: recompute 1.14, reads
+// 1.4) tied with this tile at 800x4000 and lost at 400x4000. A
+// row-streaming form measured slower (PERF.md, rows 3-T and 3'-T).
 //
 // The design is lbm_temporal_step.cu's with a pair per slot:
 // - a persistent grid of as many CTAs as the card holds at once, each
@@ -102,10 +105,13 @@
 // columns, 73 B a site: about 105 MB, and writes 58 MB: 163 MB a pass per
 // shard, 652 MB for the four, 49 us a step at 3.35 TB/s, as the local
 // form. The levels recompute about 1.3 times the output sites (1.28 for
-// the local form), so the fast tier's issue floor becomes about 79 us a
-// step. The halo copies add 4 x 9 x 4 x NY x 4 B a shard a pass (2.3 MB
-// for 4 shards, 0.4% of the pass). Issue, not bytes, bounds it, as the
-// local form: the design adds no work to the levels and keeps the tile.
+// the local form). The halo copies add 4 x 9 x 4 x NY x 4 B a shard a pass
+// (2.3 MB for 4 shards, 0.4% of the pass). Issue, not bytes, bounds it, as
+// the local form: the design adds no work to the levels and keeps the
+// tile. Each shard's launch lays 945 tiles, 3.6 waves of 264 CTAs, the
+// last one partial, four times a pass: a candidate cause of what the 4
+// shards lose against the local form's one launch, not measured apart
+// (PERF.md, section 7).
 
 #include <cuda_runtime.h>
 #include <stdint.h>

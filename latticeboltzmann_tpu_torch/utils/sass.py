@@ -10,7 +10,9 @@ next to the y wrap, the slow path of an IEEE division) and the early exit
 of threads past the lattice's end. Its counts are a site's instructions,
 where the whole listing would count every branch once. `loops` gives the
 opcodes inside each loop of a kernel, so that a probe's roll can be seen
-to keep its stores and its barrier in the loop over rolls. `digests`
+to keep its stores and its barrier in the loop over rolls; `loop_path`
+walks one loop's body along the same cheapest path, an ordinary site's
+trip through a loop over sites (a temporal pass's level). `digests`
 fingerprints each kernel's code, so that two builds' kernels can be
 compared instruction for instruction.
 """
@@ -105,36 +107,67 @@ def _successors(instrs, k, index):
     return nxt
 
 
-def site_path(instrs: list[tuple[int, bool, str, str]]) -> collections.Counter:
-    """Opcode counts (without modifiers: FADD, MUFU, LDG, ...) along the
-    path from the first instruction to an unguarded EXIT with the fewest
-    FP32 instructions; raises if no EXIT is reachable."""
+def _cheapest_path(instrs, start, end, within=None) -> collections.Counter:
+    """Opcode counts along the path from instruction index `start` to one
+    that `end(k)` accepts with the fewest FP32 instructions, its steps kept
+    to the indices `within(k)` accepts; None if no such path exists."""
     index = {addr: k for k, (addr, *_rest) in enumerate(instrs)}
 
     def weight(k):
         return int(instrs[k][2].split(".")[0] in FP32)
 
-    best = {0: weight(0)}
-    prev = {0: None}
-    heap = [(best[0], 0)]
+    best = {start: weight(start)}
+    prev = {start: None}
+    heap = [(best[start], start)]
     while heap:
         d, k = heapq.heappop(heap)
         if d > best[k]:
             continue
-        _, guarded, op, _ = instrs[k]
-        if op.split(".")[0] == "EXIT" and not guarded:
+        if end(k):
             path = collections.Counter()
             while k is not None:
                 path[instrs[k][2].split(".")[0]] += 1
                 k = prev[k]
             return path
         for s in _successors(instrs, k, index):
+            if within is not None and not within(s):
+                continue
             ds = d + weight(s)
             if ds < best.get(s, ds + 1):
                 best[s] = ds
                 prev[s] = k
                 heapq.heappush(heap, (ds, s))
-    raise ValueError("no unguarded EXIT is reachable from the entry")
+    return None
+
+
+def site_path(instrs: list[tuple[int, bool, str, str]]) -> collections.Counter:
+    """Opcode counts (without modifiers: FADD, MUFU, LDG, ...) along the
+    path from the first instruction to an unguarded EXIT with the fewest
+    FP32 instructions; raises if no EXIT is reachable."""
+
+    def is_exit(k):
+        _, guarded, op, _ = instrs[k]
+        return op.split(".")[0] == "EXIT" and not guarded
+
+    path = _cheapest_path(instrs, 0, is_exit)
+    if path is None:
+        raise ValueError("no unguarded EXIT is reachable from the entry")
+    return path
+
+
+def loop_path(instrs: list[tuple[int, bool, str, str]], first: int,
+              branch: int) -> collections.Counter:
+    """Opcode counts along one trip through the loop from address `first`
+    to its backward branch at address `branch` (an entry of `loops`): the
+    path inside the loop from its first instruction to the branch with the
+    fewest FP32 instructions, the branch included; raises if the branch
+    cannot be reached inside the loop."""
+    index = {addr: k for k, (addr, *_rest) in enumerate(instrs)}
+    k0, k1 = index[first], index[branch]
+    path = _cheapest_path(instrs, k0, lambda k: k == k1, lambda k: k0 <= k <= k1)
+    if path is None:
+        raise ValueError(f"the branch at {branch:#x} is not reachable inside its loop")
+    return path
 
 
 def loops(instrs: list[tuple[int, bool, str, str]]) -> list[tuple[int, int, collections.Counter]]:

@@ -107,6 +107,59 @@ def test_loops_gives_each_backward_branch_its_body():
     assert found[2][2] == collections.Counter({"LDS": 1, "STS": 1, "BRA": 2, "WARPSYNC": 1})
 
 
+# a kernel shaped like a temporal pass's level: a loop over sites whose
+# body holds a forcing block that only some sites enter, an IEEE
+# division's fast path beside its called slow path, the shared stores and
+# the backward branch; then the exit
+_LEVEL = """
+\t\tFunction : _Z5levelPf
+        /*0000*/                   MOV R1, c[0x0][0x28] ;                     /* 0x00000a0000017a02 */
+        /*0010*/                   LDS R2, [R0] ;                             /* 0x0000000000027984 */
+        /*0020*/               @P1 BRA 0x0040 ;                               /* 0x0000000000041947 */
+        /*0030*/                   FADD R2, R2, R4 ;                          /* 0x0000000402027221 */
+        /*0040*/                   MUFU.RCP R6, R2 ;                          /* 0x0000000200067308 */
+        /*0050*/              @!P0 BRA 0x0070 ;                               /* 0x0000000000048947 */
+        /*0060*/                   CALL.REL.NOINC 0x00e0 ;                    /* 0x0000000000107944 */
+        /*0070*/                   FMUL R7, R6, R2 ;                          /* 0x0000000206077220 */
+        /*0080*/                   STS [R0], R7 ;                             /* 0x0000000700007388 */
+        /*0090*/                   IADD3 R2, R2, 0x4, RZ ;                    /* 0x0000000402027810 */
+        /*00a0*/                   IADD3 R0, R0, 0x100, RZ ;                  /* 0x0000010000007810 */
+        /*00b0*/               @P3 BRA 0x0010 ;                               /* 0x0000000000043947 */
+        /*00c0*/                   EXIT ;                                     /* 0x000000000000794d */
+        /*00d0*/                   BRA 0x00d0;                                /* 0xfffffffc00fc7947 */
+        /*00e0*/                   FADD R9, R9, R9 ;                          /* 0x0000000909097221 */
+        /*00f0*/                   RET.REL.NODEC R10 0x0 ;                    /* 0xffffff8c0a007950 */
+"""
+
+
+def test_loop_path_walks_an_ordinary_sites_trip_through_a_level():
+    """One trip through the loop over sites: around the forcing block and
+    the division's slow path, to the backward branch; nothing before the
+    loop or after it is counted."""
+    instrs = sass.functions(_LEVEL)["_Z5levelPf"]
+    [(first, branch, _)] = sass.loops(instrs)
+    assert (first, branch) == (0x10, 0xb0)
+    path = sass.loop_path(instrs, first, branch)
+    assert path["MOV"] == path["EXIT"] == path["FADD"] == 0
+    assert path["MUFU"] == path["FMUL"] == 1
+    assert path == collections.Counter({"LDS": 1, "BRA": 3, "MUFU": 1, "FMUL": 1, "STS": 1,
+                                        "IADD3": 2})
+
+
+def test_loop_path_counts_an_inner_loop_once():
+    """The loop over rolls of the probe-shaped kernel: its inner loop's
+    branch falls through, so each body instruction counts once."""
+    instrs = sass.functions(_LOOPS)["_Z4rollPf"]
+    path = sass.loop_path(instrs, 0x30, 0x70)
+    assert path == collections.Counter({"LDS": 1, "STS": 1, "BRA": 2, "WARPSYNC": 1})
+
+
+def test_loop_path_needs_its_branch_inside_the_loop():
+    instrs = sass.functions(_LEVEL)["_Z5levelPf"]
+    with pytest.raises(ValueError, match="not reachable inside its loop"):
+        sass.loop_path(instrs, 0x80, 0x50)
+
+
 def test_kernel_key_drops_the_anonymous_namespace_tag():
     """Two builds of one kernel from differently named sources give two
     namespace tags and one key: the kernel's own name and signature."""
