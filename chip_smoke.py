@@ -309,7 +309,10 @@ stands beside phase 6-8's in the kernels line.
    its rdma form, csrc/lbm_temporal_rdma_step.cu's
    lbm_temporal_steps_rdma: a pass of L steps on a shard, the rows beyond
    it from T-row halos the host copied, or sent by the neighbours'
-   kernels into comm blocks): their tiles, registers and spills; the rdma
+   kernels into comm blocks): their tiles, CTAs (one of 512 threads an
+   SM, two tile buffers), registers and spills; each launch's plan at 4
+   virtual shards and at one shard (tile rows, tiles, CTAs, the tiles the
+   busiest CTA walks), the ext plan against its plain twin; the rdma
    grid's spinning CTAs against the card's slots; both bitwise against
    their plain versions (temporal_reference_ext, its tiling
    temporal_reference_ext_blocked, temporal_reference_rdma) at L 1..T and
@@ -320,8 +323,11 @@ stands beside phase 6-8's in the kernels line.
    send ends in a timeout error; sharded-cuda, -fused and -rdma over 4
    virtual shards (and 4 cards where there are 4) counted per form and
    bitwise to cuda and to temporal=1; one pass of each form queued behind a
-   spin in turns with its bounds, and each path's us/step and enqueue by
-   the host clock beside cuda, cuda at temporal=T and the one-step forms.
+   spin in turns with its bounds (the ext-halo form also on one 800-row
+   shard), the issue floors of the local, ext-halo and rdma forms' passes
+   from their SASS (temporal_site_counts) at the SM clock read under load,
+   and each path's us/step and enqueue by the host clock beside cuda, cuda
+   at temporal=T and the one-step forms.
 
 Every phase call of main() prints `phase N took S s` (N: the phases it
 runs, e.g. 6-8) on its own line, and a `phase seconds` line before the
@@ -351,6 +357,7 @@ is the card's name and power limit; the last is {"ok": true, "device":
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import pathlib
 import sys
@@ -434,6 +441,17 @@ def bound(n_bytes, n_ops):
             "library_ms": None}
 
 
+@functools.cache
+def built_sass():
+    """{kernel: instructions} of the built library's SASS (utils/sass.py's
+    functions), disassembled and parsed once for every phase that reads
+    it."""
+    from latticeboltzmann_tpu_torch.ops import cuda_build
+    from latticeboltzmann_tpu_torch.utils import sass
+
+    return sass.functions(sass.disassemble(cuda_build.build()))
+
+
 def ds_site_counts():
     """{(kernel, has_walls, exact): counts} for the ds kernels of the built
     library, read from its SASS; prints a line for each. The one-step
@@ -445,7 +463,6 @@ def ds_site_counts():
     16-byte vector of every plane and its class bytes}."""
     import re
 
-    from latticeboltzmann_tpu_torch.ops import cuda_build
     from latticeboltzmann_tpu_torch.utils import sass
 
     def innermost(found):
@@ -453,7 +470,7 @@ def ds_site_counts():
                 if not any(f <= f2 and b2 <= b and (f2, b2) != (f, b) for f2, b2, _ in found)]
 
     out = {}
-    for name, instrs in sass.functions(sass.disassemble(cuda_build.build())).items():
+    for name, instrs in built_sass().items():
         m = re.search(r"lbm_(stream_collide_ds|stream_collide_ds_ext|ds_temporal_steps|"
                       r"ds_temporal_steps_ext)ILb([01])ELb([01])E", name)
         if not m:
@@ -490,6 +507,87 @@ def ds_site_counts():
     if len(out) != 16:
         raise AssertionError(f"found {sorted(out)} of the 16 ds kernels in the SASS")
     return out
+
+
+def temporal_site_counts():
+    """{(form, storage): counts} for the float32/bf16 temporal kernels of the
+    built library in their spec variant, read from its SASS: form "local"
+    (lbm_temporal_steps, row 1-T), "ext" (lbm_temporal_steps_ext, row
+    1'-T) or "rdma" (lbm_temporal_steps_rdma, row 1-rdma-T); storage "f32"
+    or "bf16". counts: {"level": instructions of a fluid site's trip
+    (through the division, utils/sass.loop_path(through="MUFU")) through a
+    level's loop over sites that writes the shared tile (the fewest among
+    those loops), "last": the same for the last level's loop, which stores
+    to device memory, "load": a trip through the tile-load loop, one
+    16-byte vector of every plane and its class bytes}; prints a line for
+    each."""
+    import re
+
+    from latticeboltzmann_tpu_torch.utils import sass
+
+    out = {}
+    for name, instrs in built_sass().items():
+        m = re.search(r"lbm_temporal_steps(_ext|_rdma)?I(f|13__nv_bfloat16)Li2E", name)
+        if not m:
+            continue
+        key = ((m.group(1) or "_local")[1:], "f32" if m.group(2) == "f" else "bf16")
+        found = sass.loops(instrs)
+        inner = [(f, b, body) for f, b, body in found
+                 if not any(f <= f2 and b2 <= b and (f2, b2) != (f, b) for f2, b2, _ in found)]
+        trips = {"level": [], "last": [], "load": []}
+        for f, b, body in inner:
+            if body["LDGSTS"]:
+                trips["load"].append(sum(sass.loop_path(instrs, f, b).values()))
+            elif body["MUFU"]:
+                # a fluid site's trip: through the division's reciprocal
+                t = sass.loop_path(instrs, f, b, through="MUFU")
+                trips["last" if t["STG"] else "level"].append(sum(t.values()))
+        if not all(trips.values()):
+            raise AssertionError(f"{name}: level, last-level and load loops {trips}")
+        out[key] = {k: min(v) for k, v in trips.items()}
+        print(f"temporal SASS, {key[0]} {key[1]} spec: a site update along a level's loop "
+              f"{out[key]['level']} instructions (its {len(trips['level'])} level loops: "
+              f"{sorted(trips['level'])}), along the last level's {out[key]['last']} "
+              f"({sorted(trips['last'])}); a 16-byte vector of the tile load {out[key]['load']} "
+              f"({sorted(trips['load'])}); the whole kernel {len(instrs)}")
+    if len(out) != 6:
+        raise AssertionError(f"found {sorted(out)} of the 6 spec temporal kernels in the SASS")
+    return out
+
+
+def temporal_pass_work(rows, ny, L, tile_rows, dtype):
+    """(site updates of a pass's levels before the last, of its last level,
+    16-byte vectors its tiles load) of a pass of L steps over `rows` output
+    rows of NY columns at tiles of tile_rows rows (fused_kernel.TILE_WIDTH
+    columns, halos included): each output tile of Re x Ce sites loads its
+    rows grown by L a side and its 16-byte vectors of columns grown by L a
+    side, and its level t updates its output grown by L - t a side."""
+    from latticeboltzmann_tpu_torch.ops import fused_kernel as fk
+
+    v = fk.WIDE_COLUMNS[dtype]
+    R, C = fk.flat_output(fk.FlatTile(tile_rows, fk.TILE_WIDTH), dtype, L)
+    pad = -(-L // v) * v
+    res = [min(R, rows - r0) for r0 in range(0, rows, R)]
+    ces = [min(C, ny - c0) for c0 in range(0, ny, C)]
+    vectors = sum(re + 2 * L for re in res) * sum(
+        -(-(pad + ce + L) // v) - (pad - L) // v for ce in ces)
+    inner = sum(sum(re + 2 * g for re in res) * sum(ce + 2 * g for ce in ces)
+                for g in range(1, L))
+    return inner, sum(res) * sum(ces), vectors
+
+
+def temporal_issue_floor_us(counts, work, clock_mhz):
+    """The issue floor (us) of a pass's work (temporal_pass_work) at one
+    instruction a lane and clock of the card's SMs (FP32_LANES_PER_SM lanes
+    an SM: one warp instruction a scheduler and clock) at clock_mhz, its
+    instructions counted in the kernel's SASS (temporal_site_counts): a
+    level's trip at each inner update, the last level's at each output
+    site, the load's at each vector. Barriers, the column-0 tiles' guard
+    bits and idle lanes are left out: a floor."""
+    inner, last, vectors = work
+    lanes = torch.cuda.get_device_properties(0).multi_processor_count * FP32_LANES_PER_SM
+    n = counts["level"] * inner + counts["last"] * last + counts["load"] * vectors
+    return n / (lanes * clock_mhz)
 
 
 def sm_clock_mhz(fn, n):
@@ -2365,13 +2463,12 @@ def roll_sass():
     moves and barriers for each. Raises otherwise."""
     import re
 
-    from latticeboltzmann_tpu_torch.ops import cuda_build
     from latticeboltzmann_tpu_torch.utils import sass
 
     shown = ("LDS", "STS", "STAS", "BAR", "NOP", "WARPSYNC", "SYNCS", "UCGABAR_ARV",
              "UCGABAR_WAIT", "MEMBAR", "CCTL")
     checked = 0
-    for name, instrs in sass.functions(sass.disassemble(cuda_build.build())).items():
+    for name, instrs in built_sass().items():
         m = re.search(r"lbm_roll_(x_wide|y_clusterILi(\d)E)", name)
         if not m:
             continue
@@ -4472,7 +4569,9 @@ def shard_pass_phase(main_launches, copy):
     (csrc/lbm_temporal_rdma_step.cu's lbm_temporal_steps_rdma,
     fused_kernel.rdma_temporal_launcher: a whole shard's pass with its halo
     exchange inside the kernel). (a) Their tiles: registers, spills,
-    CTAs/SM, the deepest pass; the rdma grid at 800x4000 (edge tiles and
+    CTAs/SM, threads, tile buffers, the deepest pass; each launch's plan at
+    800x4000 on 4 virtual shards and on one shard (the ext plan against
+    fused_kernel.shard_tile_plan); the rdma grid at 800x4000 (edge tiles and
     the edge CTAs that may spin, against the card's slots). (b) Both
     bitwise against their plain versions (shard_pass_bitwise) at L 1..T
     (T = SHARDED_TEMPORAL: 3 in float32, 2 in bf16) and the deepest pass,
@@ -4484,9 +4583,10 @@ def shard_pass_phase(main_launches, copy):
     every launch counted per form, bitwise to cuda and to the same backend
     at temporal=1 (the one-step forms). (d) Times in turns: one pass of L
     = 1-4 (SHARD_DEPTHS) queued behind a spin per form (the ext-halo form
-    one launch a shard, the rdma form, the local temporal form; at L = T
-    also the ext-halo form's interior + bands and the one-step forms' T
-    steps) with each pass's bounds; each path's us/step
+    one launch a shard and on one 800-row shard, the rdma form, the local
+    temporal form; at L = T also the ext-halo form's interior + bands and
+    the one-step forms' T steps) with each pass's bounds, and at L = T each
+    form's issue floor from its SASS; each path's us/step
     and enqueue by the host clock beside cuda, cuda at temporal=T and the
     one-step forms; the halo exchange alone. main_launches: the passes'
     launches on phases 16 and 23's main paths; copy: copy_rate's result
@@ -4505,8 +4605,9 @@ def shard_pass_phase(main_launches, copy):
                 for st in dtypes}
     t_part = time.perf_counter()
 
-    # 32a. the tiles, and the rdma grid's spinning CTAs against the slots
-    info = {}
+    # 32a. the tiles, each launch's plan, and the rdma grid's spinning CTAs
+    # against the slots
+    info, plans = {}, {}
     for st, dt in dtypes.items():
         storage = torch.float32 if st == "f32" else torch.bfloat16
         local = fk.temporal_info(storage, "spec", dev)
@@ -4514,12 +4615,14 @@ def shard_pass_phase(main_launches, copy):
             for kind in ("none", "plane", "spec"):
                 i = info[st, form, kind] = fk.temporal_info(storage, kind, dev, ext=form == "ext",
                                                             rdma=form == "rdma")
-                print(f"shard pass kernel lbm_temporal_steps_{form}<{st}, {kind}>: tile "
-                      f"{i['rows']}x{i['width']} sites, {i['ctas_per_sm']} CTAs/SM, "
+                print(f"shard pass kernel lbm_temporal_steps_{form}<{st}, {kind}>: the card's "
+                      f"largest tile {i['rows']}x{i['width']} sites, {i['ctas_per_sm']} CTA(s)/SM "
+                      f"of {i['threads']} threads with {i['buffers']} tile buffers, "
                       f"{i['registers']} registers, {i['local_bytes']} B local memory (stack and "
                       f"spills), {i['shared_bytes_per_cta']} shared B/CTA; deepest pass "
                       f"{i['max_steps']} steps (the local form's tile {local['rows']}x"
-                      f"{local['width']}, {local['registers']} registers)")
+                      f"{local['width']}, {local['ctas_per_sm']} CTAs/SM of {local['threads']} "
+                      f"threads, {local['registers']} registers)")
                 if (i["rows"], i["width"], i["max_steps"]) != (
                         local["rows"], local["width"], local["max_steps"]):
                     raise AssertionError(f"{form} {st} {kind}: the tile differs from the local "
@@ -4529,11 +4632,32 @@ def shard_pass_phase(main_launches, copy):
             0).multi_processor_count
         g = fk.rdma_temporal_grid(storage, "spec", 800 // VIRTUAL_SHARDS, 4000, T, VIRTUAL_SHARDS)
         print(f"rdma temporal grid, {st}, a pass of {T} on each of {VIRTUAL_SHARDS} virtual shards "
-              f"of 800x4000: {g['ctas']} CTAs a launch ({g['interior_tiles']} interior tiles, "
-              f"{g['edge_tiles']} edge tiles walked by {g['edge_ctas']} edge CTAs, the senders); "
-              f"at most {VIRTUAL_SHARDS * g['edge_ctas']} CTAs spin at once against {slots} slots")
-        if VIRTUAL_SHARDS * g["edge_ctas"] >= slots:
+              f"of 800x4000: {g['ctas']} CTAs a launch, every one of which may wait for the "
+              f"neighbours' rows ({g['interior_tiles']} interior tiles, then {g['edge_tiles']} "
+              f"edge tiles, handed out by the launch's tile counter); at most "
+              f"{VIRTUAL_SHARDS * g['ctas']} CTAs spin at once against {slots} slots")
+        if VIRTUAL_SHARDS * g["ctas"] >= slots:
             raise AssertionError(f"rdma grid {g}: spinning CTAs fill the {slots} slots")
+        ext_info = info[st, "ext", "spec"]
+        R_big, C_big = fk.flat_output(fk.FlatTile(ext_info["rows"], fk.TILE_WIDTH), storage, T)
+        for n in (VIRTUAL_SHARDS, 1):
+            rows = 800 // n
+            e = fk.ext_temporal_plan(storage, "spec", rows, 4000, T, dev)
+            r = fk.rdma_temporal_grid(storage, "spec", rows, 4000, T, n, dev)
+            twin = fk.shard_tile_plan(storage, rows, 4000, T, ext_info["rows"], slots)
+            if e != {k: twin[k] for k in e}:
+                raise AssertionError(f"ext plan {e} != its plain twin {twin}")
+            plans[st, n] = {"ext": e, "rdma": r}
+            print(f"shard pass plan, {st}, a pass of {T} on {n} shard(s) of 800x4000 ({rows} "
+                  f"rows a launch; {ext_info['ctas_per_sm']} CTA/SM of {ext_info['threads']} "
+                  f"threads, {ext_info['buffers']} tile buffers, {slots} slots): ext-halo form: "
+                  f"tile {e['rows']}x72 ({e['rows'] - 2 * T} output rows), {e['tiles']} tiles "
+                  f"on {e['ctas']} CTAs, the busiest walking {e['waves']} (the card's largest "
+                  f"tile {ext_info['rows']}x72 would lay {-(-rows // R_big) * -(-4000 // C_big)} "
+                  "tiles); "
+                  f"rdma form (a ring of {n}): tile {r['rows']}x72, {r['interior_tiles']} interior "
+                  f"and {r['edge_tiles']} edge tiles on {r['ctas']} CTAs (the {fk.RDMA_SENDERS} "
+                  f"senders among them), about {r['waves']} each")
     print(f"phase 32a (tiles) took {time.perf_counter() - t_part:.1f} s")
     t_part = time.perf_counter()
 
@@ -4686,7 +4810,8 @@ def shard_pass_phase(main_launches, copy):
     # 32d. times: one pass queued behind a spin per form, with its bounds;
     # the paths by the host clock, in turns; the halo exchange alone
     copy_bps = 2 * 9 * 800 * 4000 * 4 / (copy["ms"] * 1e-3)
-    pass_us, path_us, bounds, plain_ms = {}, {}, {}, {}
+    pass_us, path_us, bounds, plain_ms, floors = {}, {}, {}, {}, {}
+    sass_counts = temporal_site_counts()
     for st, dt in dtypes.items():
         cfg = LatticeConfig(nx=800, ny=4000, dtype=dt)
         T = depth_of[st]
@@ -4708,14 +4833,18 @@ def shard_pass_phase(main_launches, copy):
                     for k, (x, h, g) in enumerate(ring_shards)]
         ring = RdmaPassRing(cfg, a, spec, n, depth)
         ring1 = RdmaRing(cfg, spec, a.float().cpu().numpy(), n)
+        whole, whole_halo, _ = pass_ring_shard(a, spec, 1, 0, depth)
+        whole_out = torch.empty_like(whole)
         elem = a.element_size()
         for L in SHARD_DEPTHS:
             fused_calls = calls_of([(0, Ls)], L)
+            one_shard = fk.ext_temporal_launcher(whole, whole_out, whole_halo, spec, cfg, L)
             fns = {
                 "local temporal form (1 launch)": lambda L=L: fk.temporal_step(a, b, spec, cfg, L),
                 f"ext-halo temporal form, one launch per shard ({n})": lambda c=fused_calls: [
                     x() for x in c],
                 f"rdma temporal form ({n} launches, a stream each)": lambda L=L: ring.run(L),
+                "ext-halo temporal form, one shard (1 launch)": one_shard,
             }
             if L == T:
                 band_calls = calls_of([(T, Ls - 2 * T), (0, T), (Ls - T, T)], T)
@@ -4749,6 +4878,37 @@ def shard_pass_phase(main_launches, copy):
                   f"local form {t['local temporal form (1 launch)'] * 1e3 / L!r} us/step")
             if L == T:
                 bounds[st] = bd
+                # the issue floors of the pass from the kernels' SASS, at the
+                # SM clock read under load
+                clock = sm_clock_mhz(fns[f"ext-halo temporal form, one launch per shard ({n})"],
+                                     200)
+                local_rows = fk.temporal_info(fk._storage(cfg), "spec", dev)["rows"]
+                work = {
+                    "local": temporal_pass_work(800, 4000, L, local_rows, fk._storage(cfg)),
+                    "ext": [sum(w) for w in zip(*[temporal_pass_work(
+                        Ls, 4000, L, fused_calls[k].plan["rows"], fk._storage(cfg))
+                        for k in range(n)])],
+                    "rdma": [n * w for w in temporal_pass_work(
+                        Ls, 4000, L, plans[st, n]["rdma"]["rows"], fk._storage(cfg))],
+                    "one shard": temporal_pass_work(800, 4000, L, one_shard.plan["rows"],
+                                                    fk._storage(cfg)),
+                }
+                measured = {"local": t["local temporal form (1 launch)"],
+                            "ext": t[f"ext-halo temporal form, one launch per shard ({n})"],
+                            "rdma": t[f"rdma temporal form ({n} launches, a stream each)"],
+                            "one shard": t["ext-halo temporal form, one shard (1 launch)"]}
+                for form, w in work.items():
+                    c = sass_counts[form if form != "one shard" else "ext", st]
+                    us = temporal_issue_floor_us(c, w, clock)
+                    floors[st, form] = {"issue_floor_us": us, "sm_clock_mhz": clock,
+                                        "instructions": c, "work": list(w)}
+                    print(f"shard pass issue floor, {st}, one pass of {L}, {form} "
+                          f"({'lbm_temporal_steps' if form == 'local' else 'lbm_temporal_steps_' + ('rdma' if form == 'rdma' else 'ext')}"
+                          f"): {us!r} us ({us / L!r} us/step; {w[0]} inner site updates x "
+                          f"{c['level']} instructions + {w[1]} last-level x {c['last']} + {w[2]} "
+                          f"16-byte vectors x {c['load']}, at {clock} MHz); measured "
+                          f"{measured[form] * 1e3!r} us, {us / (measured[form] * 1e3)!r} of the "
+                          f"floor's time; byte bound {bd['bound_ms'] * 1e3!r} us")
         if st == "f32":
             plain_ms["ext"] = event_ms(lambda: [fk.temporal_reference_ext(
                 x, h, g, cfg, T, row_offset=k * Ls) for k, (x, h, g) in enumerate(ring_shards)], 1)
@@ -4759,7 +4919,8 @@ def shard_pass_phase(main_launches, copy):
                 srcs, ref_ends, [spec] * n, cfg, T, next(plain_pass)), 1)
             print(f"plain versions, one pass of {T} over {n} shards: temporal_reference_ext "
                   f"{plain_ms['ext']!r} ms, temporal_reference_rdma {plain_ms['rdma']!r} ms")
-        del ring, ring1, a, b, outs, ring_shards, fused_calls, band_calls, one_step
+        del ring, ring1, a, b, outs, ring_shards, fused_calls, band_calls, one_step, whole, \
+            whole_out, one_shard
         torch.cuda.empty_cache()
 
         # the paths by the host clock, in turns, with enqueue
@@ -4814,7 +4975,9 @@ def shard_pass_phase(main_launches, copy):
 
     common = {"pass_us_by_L": {f"{st} L={L} {k}": v for (st, L, k), v in pass_us.items()},
               "path_us_per_step_and_enqueue": path_us,
-              "tile": {f"{st}-{form}-{kind}": v for (st, form, kind), v in info.items()}}
+              "tile": {f"{st}-{form}-{kind}": v for (st, form, kind), v in info.items()},
+              "plan": {f"{st} {n} shard(s)": v for (st, n), v in plans.items()},
+              "issue_floor_us_by_form": {f"{st} {form}": v for (st, form), v in floors.items()}}
     return [{
         "name": f"lbm_temporal_steps_ext<float, spec> (a shard's pass of L steps, Td-row halos; "
                 f"main path sharded-cuda over {n} virtual shards of 800x4000 in passes of {T}, "
@@ -4836,6 +4999,8 @@ def shard_pass_phase(main_launches, copy):
         "bf16_bound_ms": bounds["bf16"]["bound_ms"],
         "max_rel_err_fast_math": fast_rel["ext"],
         "plain_ms": plain_ms["ext"],
+        "one_shard_ms": us("f32", "ext-halo temporal form, one shard") * 1e-3,
+        "issue_floor_ms": floors["f32", "ext"]["issue_floor_us"] * 1e-3,
         **bounds["f32"],
         **common,
     }, {
@@ -4855,6 +5020,8 @@ def shard_pass_phase(main_launches, copy):
         "bf16_bound_ms": bounds["bf16"]["bound_ms"],
         "max_rel_err_fast_math": fast_rel["rdma"],
         "plain_ms": plain_ms["rdma"],
+        "issue_floor_ms": floors["f32", "rdma"]["issue_floor_us"] * 1e-3,
+        "plan": common["plan"],
         **bounds["f32"],
     }]
 

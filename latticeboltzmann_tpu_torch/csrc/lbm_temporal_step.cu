@@ -80,8 +80,9 @@
 // T = 3 in float32 and 2 in bf16 (:264-286). Here one launch is one pass of
 // L <= Td steps on a shard's (9, Ls, NY) block, writing the local rows
 // [row0, row0 + rows), so that a caller can run the rows that take no halo
-// while the halos are copied, and the rest after. It is this kernel with two
-// changes and nothing else:
+// while the halos are copied, and the rest after. It computes what this
+// kernel computes with two changes to what it reads and writes (and its own
+// CTA and tile plan, below):
 // - where the rows come from (load_tile_ext, lbm_temporal.cuh): tile row lr
 //   of a tile reads the shard's local row q; q < 0 reads row Td + q of the
 //   top halo (9, Td, NY) and q >= Ls row q - Ls of the bottom one, each with
@@ -103,14 +104,32 @@
 // a pass that leaves no output tile. fast_math is the same run-time flag.
 //
 // What bounds the ext-halo form. A pass of 3 steps in float32 on a 200-row
-// shard of 800x4000 (4 shards) lays 6 rows of tiles (5 of 37 output rows
-// and one of 15) and 63 columns: its tiles read 1.17 times the shard's rows
-// with their halos and 1.13 times its columns, 73 B a site, and write it
-// once, as the local form's do; the halo blocks add 2 x 9 x 3 x NY x 4 B a
-// shard a pass (0.9 MB for 4 shards). Each launch lays 378 tiles, 1.4 waves
-// of the card's 264 co-resident CTAs, where the whole lattice's 1,386 make
-// 5.3: the last partial wave of each shard's launch is what 4 shards lose
-// against one lattice. The row-sharded rdma form of the same pass is
+// shard of 800x4000 (4 shards) reads the shard's rows grown by its tiles'
+// halos, 73 B a site, and writes it once, as the local form's tiles do;
+// the halo blocks add 2 x 9 x 3 x NY x 4 B a shard a pass (0.9 MB for 4
+// shards). At the card's largest tile (43 rows) a shard's launch lays 6
+// rows of tiles (five of 37 output rows and one of 15) x 63 columns, 378
+// tiles, 1.4 waves of the 264 co-resident CTAs of the local form's shape,
+// where the whole lattice's 1,386 make 5.3: the last partial wave of each
+// launch is what 4 shards lost against one lattice (PERF.md, PR 17). And
+// a CTA of that shape loads its tile, waits, runs the levels and stores:
+// only the SM's other CTA runs while it waits.
+//
+// So the shard forms run their passes differently from the local form
+// (PERF.md, PR 19), both parts in lbm_temporal.cuh:
+// - each launch plans its own tile (plan_tiles): the output tile height R
+//   <= rows - 2 L whose waves (the tiles the busiest CTA walks) times one
+//   tile's cost (tile_cost, from the bytes and site updates measured on an
+//   H100) is least; lbm_temporal_steps_ext_plan reports it;
+// - one CTA of kShardThreads = 512 threads an SM holds two tile buffers of
+//   the card's tile rows (229,120 B in float32, 229,824 B in bf16) and
+//   walks its tiles in a grid-stride loop (pass_tiles): the copies of its
+//   next tile start as a cp.async group of their own before the levels of
+//   the current one, which wait only for their own group
+//   (cp.async.wait_group 1) and a barrier.
+// A site's arithmetic, the tile's layout and the levels are the local
+// form's, so every tiling gives the same bits.
+// The row-sharded rdma form of the same pass is
 // csrc/lbm_temporal_rdma_step.cu.
 
 #include <cuda_bf16.h>
@@ -153,32 +172,20 @@ lbm_temporal_steps(const T* __restrict__ src, T* __restrict__ dst,
 
 // The ext-halo form: a pass of L steps on a shard of nx rows, writing its
 // local rows [h.row0, h.row0 + h.rows), the rows beyond it from h. The
-// output tiles are laid from h.row0, and tile_levels writes them through
-// `out`, dst shifted to that row.
+// output tiles are laid from h.row0 at the launch's planned tile of `rows`
+// rows and written through dst shifted to that row; each CTA walks them in
+// a grid-stride loop, its next tile loading under its current tile's
+// levels (pass_tiles, lbm_temporal.cuh).
 template <typename T, int GEOM>
-__global__ void __launch_bounds__(kNT, kCtasPerSm)
+__global__ void __launch_bounds__(kShardThreads, 1)
 lbm_temporal_steps_ext(const T* __restrict__ src, T* __restrict__ dst,
                        const uint8_t* __restrict__ solid, Spec g, int nx, int ny, int rows, int L,
                        Params k, int fast_math, TemporalHalo<T> h) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* sm = reinterpret_cast<T*>(smem);
-  uint8_t* cls = smem + static_cast<int64_t>(rows) * 9 * kW * sizeof(T);
-  const int64_t plane = static_cast<int64_t>(nx) * ny;  // plane offsets in 64 bits
-  const int pad = column_halo<T>(L);
+  const int C = kW - 2 * column_halo<T>(L);
   const int R = rows - 2 * L;
-  const int C = kW - 2 * pad;
-  const int tiles_y = (ny + C - 1) / C;
-  const int tiles = ((h.rows + R - 1) / R) * tiles_y;
-  T* out = dst + static_cast<int64_t>(h.row0) * ny;
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const TileAt a(tile, tiles_y, R, C, h.rows, ny, L, pad);
-    // the previous tile's last level has read the shared tile (its closing
-    // barrier) before these loads overwrite it
-    load_tile_ext<T, GEOM>(sm, cls, a, src, solid, g, nx, ny, plane, h);
-    copies_wait();
-    __syncthreads();
-    tile_levels<T, GEOM>(sm, cls, a, out, ny, plane, k, fast_math);
-  }
+  StrideTiles next(((h.rows + R - 1) / R) * ((ny + C - 1) / C));
+  pass_tiles<T, GEOM>(next, rows, h.rows, src, dst + static_cast<int64_t>(h.row0) * ny, solid, g,
+                      nx, ny, L, k, fast_math, h);
 }
 
 // the kernel of a form (EXT: the ext-halo one) for storage T and geometry
@@ -195,7 +202,12 @@ template <typename T, int GEOM, bool EXT>
 cudaError_t tile_info(Info* out) {
   static Info cache[kMaxDevices];
   static bool known[kMaxDevices] = {};
-  return card_info<T>(kernel_of<T, GEOM, EXT>(), cache, known, out);
+  if constexpr (EXT) {
+    return card_info<T>(kernel_of<T, GEOM, EXT>(), cache, known, out, kShardThreads,
+                        kShardBuffers);
+  } else {
+    return card_info<T>(kernel_of<T, GEOM, EXT>(), cache, known, out);
+  }
 }
 
 template <typename T, bool EXT>
@@ -252,18 +264,39 @@ int launch_geometry(const void* src, void* dst, const uint8_t* solid, const Spec
   }
 }
 
+// The ext-halo form's plan of a launch over `rows` output rows at the card
+// of `info` (plan_tiles; tile_rows > 0: that tile): one CTA an SM slot, no
+// more than the tiles; false when no tile leaves an output row or the tile
+// count reaches 2^30.
+template <typename T>
+bool ext_plan(const Info& info, int64_t rows, int64_t ny, int L, Plan* out, int tile_rows = 0) {
+  const int64_t C = kW - 2 * column_halo<T>(L);
+  if (C < 1) return false;
+  const int64_t slots = static_cast<int64_t>(info.per_sm) * info.sms;
+  const auto lay = [&](int R, Plan* p) {
+    p->tiles = ((rows + R - 1) / R) * ((ny + C - 1) / C);
+    if (p->tiles >= (1LL << 30)) return false;
+    p->ctas = std::min<int64_t>(p->tiles, slots);
+    p->waves = (p->tiles + p->ctas - 1) / p->ctas;
+    return true;
+  };
+  return plan_tiles<T>(info.rows, L, lay, out, tile_rows);
+}
+
 template <typename T, int GEOM>
 int launch_ext(const void* src, void* dst, const uint8_t* solid, const Spec& g, int nx, int ny,
-               int L, const Params& k, int fast_math, const TemporalHalo<T>& h,
+               int L, const Params& k, int fast_math, const TemporalHalo<T>& h, int tile_rows,
                cudaStream_t st) {
   Info info;
   const cudaError_t err = tile_info<T, GEOM, true>(&info);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t n_blocks = pass_grid<T>(info, h.rows, ny, L);
-  if (n_blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
-  lbm_temporal_steps_ext<T, GEOM><<<static_cast<unsigned>(n_blocks), kNT,
+  Plan plan;
+  if (tile_rows > info.rows || !ext_plan<T>(info, h.rows, ny, L, &plan, tile_rows)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  lbm_temporal_steps_ext<T, GEOM><<<static_cast<unsigned>(plan.ctas), kShardThreads,
                                     static_cast<size_t>(info.smem), st>>>(
-      static_cast<const T*>(src), static_cast<T*>(dst), solid, g, nx, ny, info.rows, L, k,
+      static_cast<const T*>(src), static_cast<T*>(dst), solid, g, nx, ny, plan.rows, L, k,
       fast_math, h);
   return static_cast<int>(cudaGetLastError());
 }
@@ -271,14 +304,14 @@ int launch_ext(const void* src, void* dst, const uint8_t* solid, const Spec& g, 
 template <typename T>
 int launch_ext_geometry(const void* src, void* dst, const uint8_t* solid, const Spec& g,
                         int64_t geometry, int nx, int ny, int L, const Params& k, int fast_math,
-                        const TemporalHalo<T>& h, cudaStream_t st) {
+                        const TemporalHalo<T>& h, int tile_rows, cudaStream_t st) {
   switch (geometry) {
     case kPlane:
-      return launch_ext<T, kPlane>(src, dst, solid, g, nx, ny, L, k, fast_math, h, st);
+      return launch_ext<T, kPlane>(src, dst, solid, g, nx, ny, L, k, fast_math, h, tile_rows, st);
     case kSpec:
-      return launch_ext<T, kSpec>(src, dst, solid, g, nx, ny, L, k, fast_math, h, st);
+      return launch_ext<T, kSpec>(src, dst, solid, g, nx, ny, L, k, fast_math, h, tile_rows, st);
     default:
-      return launch_ext<T, kNone>(src, dst, solid, g, nx, ny, L, k, fast_math, h, st);
+      return launch_ext<T, kNone>(src, dst, solid, g, nx, ny, L, k, fast_math, h, tile_rows, st);
   }
 }
 
@@ -329,7 +362,8 @@ extern "C" int lbm_temporal_steps_launch(const void* src, void* dst, const void*
 // (bf16) and geometry 0-2: out[0] registers per thread, out[1] CTAs per SM,
 // out[2] dynamic shared bytes per CTA, out[3] local-memory bytes per thread
 // (stack and spills), out[4] the tile's rows and out[5] its columns, halos
-// included. Returns 0 or a CUDA error.
+// included, out[6] the CTA's threads, out[7] its tile buffers. Returns 0 or
+// a CUDA error.
 extern "C" int lbm_temporal_steps_info(int64_t storage, int64_t geometry, int64_t* out) {
   if (out == nullptr || storage < 0 || storage > 1 || geometry < kNone || geometry > kSpec) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -353,13 +387,16 @@ extern "C" int lbm_temporal_steps_info(int64_t storage, int64_t geometry, int64_
 // is required and depth >= steps; it is never read otherwise (depth 0 and
 // null pointers allowed). With halos, steps > depth is refused. solid: the
 // shard's (nx, ny) class plane (geometry 1); spec (geometry 2): evaluated
-// at global rows, periodic in gnx. The other arguments and the return as
-// lbm_temporal_steps_launch's.
+// at global rows, periodic in gnx. tile_rows: 0 lays the tiles of the
+// launch's plan (lbm_temporal_steps_ext_plan); else the tile's rows, halos
+// included, at most the card's (lbm_temporal_steps_ext_info). The other
+// arguments and the return as lbm_temporal_steps_launch's.
 extern "C" int lbm_temporal_steps_ext_launch(
     const void* src, void* dst, const void* top, const void* bot, const void* solid,
     const void* solid_top, const void* solid_bot, const void* spec, int64_t nx, int64_t ny,
     int64_t depth, int64_t row0, int64_t rows, int64_t offset, int64_t gnx, int64_t storage,
-    int64_t geometry, int64_t fast_math, int64_t steps, const void* params, void* stream) {
+    int64_t geometry, int64_t fast_math, int64_t steps, const void* params, int64_t tile_rows,
+    void* stream) {
   const bool plane = geometry == kPlane;
   if (src == nullptr || dst == nullptr || src == dst || misaligned(src) || misaligned(dst) ||
       nx < 1 || ny < 1 || nx >= (1LL << 30) || ny >= (1LL << 30) || storage < 0 ||
@@ -367,7 +404,8 @@ extern "C" int lbm_temporal_steps_ext_launch(
       geometry < kNone || geometry > kSpec || (plane && (solid == nullptr || misaligned(solid))) ||
       (geometry == kSpec && spec == nullptr) || steps < 1 || steps > 64 || params == nullptr ||
       depth < 0 || depth >= (1LL << 30) || row0 < 0 || rows < 1 || row0 + rows > nx ||
-      (depth > 0 && steps > depth) || offset < 0 || gnx >= (1LL << 62) || offset + nx > gnx) {
+      (depth > 0 && steps > depth) || offset < 0 || gnx >= (1LL << 62) || offset + nx > gnx ||
+      tile_rows < 0 || tile_rows >= (1LL << 30)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   // each side the pass reads beyond the shard needs its halo, deep enough
@@ -391,14 +429,17 @@ extern "C" int lbm_temporal_steps_ext_launch(
     using B = __nv_bfloat16;
     return launch_ext_geometry<B>(
         src, dst, w, g, geometry, n[0], n[1], n[2], k, n[3],
-        halo_of<B>(top, bot, solid_top, solid_bot, depth, row0, rows, offset, gnx), st);
+        halo_of<B>(top, bot, solid_top, solid_bot, depth, row0, rows, offset, gnx),
+        static_cast<int>(tile_rows), st);
   }
   return launch_ext_geometry<float>(
       src, dst, w, g, geometry, n[0], n[1], n[2], k, n[3],
-      halo_of<float>(top, bot, solid_top, solid_bot, depth, row0, rows, offset, gnx), st);
+      halo_of<float>(top, bot, solid_top, solid_bot, depth, row0, rows, offset, gnx),
+      static_cast<int>(tile_rows), st);
 }
 
-// lbm_temporal_steps_info for the ext-halo form: the same six values.
+// lbm_temporal_steps_info for the ext-halo form: the same eight values, the
+// card's largest tile (a launch plans its own, lbm_temporal_steps_ext_plan).
 extern "C" int lbm_temporal_steps_ext_info(int64_t storage, int64_t geometry, int64_t* out) {
   if (out == nullptr || storage < 0 || storage > 1 || geometry < kNone || geometry > kSpec) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -408,5 +449,35 @@ extern "C" int lbm_temporal_steps_ext_info(int64_t storage, int64_t geometry, in
                                        : info_geometry<float, true>(geometry, &info);
   if (err != cudaSuccess) return static_cast<int>(err);
   info_values(info, out);
+  return 0;
+}
+
+// The plan of one launch of the ext-halo form over `rows` output rows of
+// NY columns, a pass of `steps` steps, on the current card (tile_rows as
+// the launch's): out[0] the tile's rows, halos included, out[1] the output
+// tiles, out[2] the CTAs launched, out[3] the tiles the busiest CTA walks.
+// Returns 0, or cudaErrorInvalidValue where the launch would be refused.
+extern "C" int lbm_temporal_steps_ext_plan(int64_t storage, int64_t geometry, int64_t rows,
+                                           int64_t ny, int64_t steps, int64_t tile_rows,
+                                           int64_t* out) {
+  if (out == nullptr || storage < 0 || storage > 1 || geometry < kNone || geometry > kSpec ||
+      rows < 1 || ny < 1 || rows >= (1LL << 30) || ny >= (1LL << 30) || steps < 1 || steps > 64 ||
+      tile_rows < 0 || tile_rows >= (1LL << 30)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Info info;
+  const cudaError_t err = storage == 1 ? info_geometry<__nv_bfloat16, true>(geometry, &info)
+                                       : info_geometry<float, true>(geometry, &info);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  Plan plan;
+  const int L = static_cast<int>(steps);
+  const int t = static_cast<int>(tile_rows);
+  const bool ok = t <= info.rows && (storage == 1 ? ext_plan<__nv_bfloat16>(info, rows, ny, L, &plan, t)
+                                                  : ext_plan<float>(info, rows, ny, L, &plan, t));
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  out[0] = plan.rows;
+  out[1] = plan.tiles;
+  out[2] = plan.ctas;
+  out[3] = plan.waves;
   return 0;
 }

@@ -95,13 +95,15 @@ __device__ __forceinline__ int slot_offset(int s) {
 }
 
 // A CTA's walk over an (a, b) grid of items with b < nb fastest: item i of
-// the CTA's threads' stride. Each step moves every thread kNT items on.
-struct Walk {
+// the CTA's threads' stride. Each step moves every thread NT items on (NT:
+// the CTA's threads).
+template <int NT>
+struct WalkOf {
   int a, b;
   const int nb, da, db;
-  __device__ __forceinline__ explicit Walk(int nb_)
+  __device__ __forceinline__ explicit WalkOf(int nb_)
       : a(static_cast<int>(threadIdx.x) / nb_), b(static_cast<int>(threadIdx.x) % nb_), nb(nb_),
-        da(kNT / nb_), db(kNT % nb_) {}
+        da(NT / nb_), db(NT % nb_) {}
   __device__ __forceinline__ void next() {
     a += da;
     b += db;
@@ -111,6 +113,7 @@ struct Walk {
     }
   }
 };
+using Walk = WalkOf<kNT>;
 
 // The halo in columns of a pass of L steps: L rounded up to a 16-byte
 // vector's columns, so that a tile's loads are whole vectors

@@ -335,13 +335,24 @@ def load_library() -> ctypes.CDLL:
     fn.argtypes = [
         ctypes.c_int64,   # storage: 0 float32, 1 bfloat16
         ctypes.c_int64,   # geometry: 0 none, 1 plane, 2 spec
-        ctypes.c_void_p,  # out: 6 int64 (registers, CTAs per SM, shared bytes, local bytes,
-                          # the tile's rows and columns)
+        ctypes.c_void_p,  # out: 8 int64 (registers, CTAs per SM, shared bytes, local bytes,
+                          # the tile's rows and columns, the CTA's threads and tile buffers)
     ]
     # the shard's forms of the temporal kernel take the same info arguments
     for name in ("lbm_temporal_steps_ext_info", "lbm_temporal_steps_rdma_info"):
         getattr(lib, name).restype = ctypes.c_int
         getattr(lib, name).argtypes = fn.argtypes
+    fn = lib.lbm_temporal_steps_ext_plan
+    fn.restype = ctypes.c_int
+    fn.argtypes = [
+        ctypes.c_int64,   # storage: 0 float32, 1 bfloat16
+        ctypes.c_int64,   # geometry: 0 none, 1 plane, 2 spec
+        ctypes.c_int64,   # rows: the launch's output rows
+        ctypes.c_int64,   # ny
+        ctypes.c_int64,   # steps of the pass
+        ctypes.c_int64,   # tile_rows: 0 for the plan's tile
+        ctypes.c_void_p,  # out: 4 int64 (the tile's rows, tiles, CTAs, waves)
+    ]
     fn = lib.lbm_temporal_steps_ext_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [
@@ -365,6 +376,7 @@ def load_library() -> ctypes.CDLL:
         ctypes.c_int64,   # fast_math
         ctypes.c_int64,   # steps of the pass
         ctypes.c_void_p,  # params: 9 host floats
+        ctypes.c_int64,   # tile_rows: 0 for the plan's tile
         ctypes.c_void_p,  # cudaStream_t
     ]
     fn = lib.lbm_temporal_steps_rdma_launch
@@ -397,6 +409,7 @@ def load_library() -> ctypes.CDLL:
         ctypes.c_int64,   # pass: 1, 2, ... since the flags were zeroed
         ctypes.c_int64,   # timeout_ns of an edge CTA's wait
         ctypes.c_int64,   # card_shards: the ring's launches on this card
+        ctypes.c_int64,   # tile_rows: 0 for the plan's tile
         ctypes.c_void_p,  # cudaStream_t
     ]
     lib.lbm_temporal_steps_rdma_words.restype = ctypes.c_int64
@@ -410,7 +423,9 @@ def load_library() -> ctypes.CDLL:
         ctypes.c_int64,   # ny
         ctypes.c_int64,   # steps of the pass
         ctypes.c_int64,   # card_shards
-        ctypes.c_void_p,  # out: 4 int64 (CTAs, edge CTAs, interior tiles, edge tiles)
+        ctypes.c_int64,   # tile_rows: 0 for the plan's tile
+        ctypes.c_void_p,  # out: 5 int64 (CTAs, interior tiles, edge tiles, the tile's
+                          # rows, waves)
     ]
     fn = lib.lbm_copy_launch
     fn.restype = ctypes.c_int

@@ -74,7 +74,9 @@ from T-row halo blocks (csrc/lbm_temporal_step.cu, lbm_temporal.cuh):
 the ext-halo temporal form (`ext_temporal_launcher`; plain versions
 `temporal_reference_ext` and, tile by tile,
 `temporal_reference_ext_blocked`), a pass of L <= T steps of a range of
-a shard's rows from halos the host copied, counted in
+a shard's rows from halos the host copied (each launch at the tile of
+its own plan, `shard_tile_plan`, which `ext_temporal_plan` reads from the
+card), counted in
 EXT_TEMPORAL_LAUNCHES, EXT_TEMPORAL_VARIANT_LAUNCHES and
 EXT_TEMPORAL_STEPS; and the rdma temporal form
 (`rdma_temporal_launcher`; plain version `temporal_reference_rdma`, with
@@ -179,11 +181,21 @@ FAST_MATH_STEPS = 10
 RDMA_TIMEOUT_S = 2.0
 # the int64 launch words of an rdma end: the one-step form's [ticket
 # counter, error word]; the temporal form's [ticket counter, error word,
-# CTAs finished, senders done up, senders done down]
+# CTAs finished, senders done up, senders done down, tiles handed out]
 # (csrc/lbm_temporal_rdma_step.cu restates them; lbm_temporal_steps_rdma_words
 # reads them back)
 RDMA_WORDS = 2
-RDMA_TEMPORAL_WORDS = 5
+RDMA_TEMPORAL_WORDS = 6
+# the shard forms' tile plan (shard_tile_plan): ns per byte of a tile's
+# traffic and per site update of its levels, by storage, on one SM of an
+# H100 (PERF.md, PR 19; csrc/lbm_temporal.cuh restates them), and the CTAs
+# of an rdma launch that send first (csrc/lbm_temporal_rdma_step.cu
+# restates it)
+TILE_NS_PER_BYTE = 0.0449
+TILE_NS_PER_SITE = {torch.float32: 1.0, torch.bfloat16: 1.28}
+RDMA_SENDERS = 8
+# the temporal forms' tile columns, halos included (csrc/lbm_tile.cuh's kW)
+TILE_WIDTH = 72
 
 # solid planes whose codes were checked, by tensor: (version counter at
 # the check, largest code). The check syncs with the device, so it runs
@@ -1376,27 +1388,38 @@ def tile_max_steps(tile: FlatTile, dtype: torch.dtype) -> int:
 
 
 def temporal_info(dtype: torch.dtype, geometry_kind: str = "spec", device=None,
-                  ext: bool = False, rdma: bool = False) -> dict:
+                  ext: bool = False, rdma: bool = False, launch=None) -> dict:
     """What a card gives the temporal form (ext: its ext-halo form; rdma:
     its rdma form) for storage `dtype` and a geometry kind ("none",
     "plane", "spec"), as csrc/lbm_temporal_step.cu and
     csrc/lbm_temporal_rdma_step.cu decide it from the card's shared
-    memory: the tile's `rows` and `width` (one tile per storage type, the
-    same in every form), `max_steps` (the deepest pass the tile takes,
-    tile_max_steps), `registers` and `local_bytes` (stack and spills) per
-    thread, `ctas_per_sm` and `shared_bytes_per_cta`. Needs a CUDA card
-    (default: the current one); read once per card."""
+    memory: the card's largest tile, `rows` and `width` (one tile per
+    storage type, the same in every form), `max_steps` (the deepest pass
+    the tile takes, tile_max_steps), `registers` and `local_bytes` (stack
+    and spills) per thread, `ctas_per_sm`, `shared_bytes_per_cta`, the
+    CTA's `threads` and its tile `buffers`. With ext or rdma, `launch` =
+    (rows, ny, steps) of one launch (rdma: (rows, ny, steps,
+    card_shards)) adds its `plan` (ext_temporal_plan, rdma_temporal_grid).
+    Needs a CUDA card (default: the current one); read once per card."""
     name = ("lbm_temporal_steps_rdma_info" if rdma else
             "lbm_temporal_steps_ext_info" if ext else "lbm_temporal_steps_info")
     index = None if device is None else torch.device(device).index
-    return _temporal_info(dtype, _GEOMETRY[geometry_kind],
-                          torch.cuda.current_device() if index is None else index, name)
+    index = torch.cuda.current_device() if index is None else index
+    info = dict(_temporal_info(dtype, _GEOMETRY[geometry_kind], index, name))
+    if launch is not None:
+        if rdma:
+            info["plan"] = rdma_temporal_grid(dtype, geometry_kind, *launch, device=index)
+        elif ext:
+            info["plan"] = ext_temporal_plan(dtype, geometry_kind, *launch, device=index)
+        else:
+            raise ValueError("a launch's plan is the shard forms' (ext or rdma)")
+    return info
 
 
 @functools.cache
 def _temporal_info(dtype: torch.dtype, geometry: int, index: int,
                    name: str = "lbm_temporal_steps_info") -> dict:
-    out = (ctypes.c_int64 * 6)()
+    out = (ctypes.c_int64 * 8)()
     with torch.cuda.device(index):
         rc = getattr(cuda_build.load_library(), name)(_STORAGE[dtype], geometry, out)
     if rc != 0:
@@ -1404,7 +1427,7 @@ def _temporal_info(dtype: torch.dtype, geometry: int, index: int,
     tile = FlatTile(out[4], out[5])
     return {"registers": out[0], "ctas_per_sm": out[1], "shared_bytes_per_cta": out[2],
             "local_bytes": out[3], "rows": tile.rows, "width": tile.width,
-            "max_steps": tile_max_steps(tile, dtype)}
+            "max_steps": tile_max_steps(tile, dtype), "threads": out[6], "buffers": out[7]}
 
 
 def _check_temporal_pass(steps: int, dtype: torch.dtype, ny: int, device: torch.device) -> None:
@@ -1558,6 +1581,108 @@ def temporal_reference_ext_blocked(src: torch.Tensor, halo, geom, cfg: LatticeCo
     return out
 
 
+def tile_cost(dtype: torch.dtype, out_rows: int, steps: int, width: int = TILE_WIDTH) -> float:
+    """The estimated time (ns on one SM) of one output tile of out_rows
+    rows of the shard forms in a pass of `steps` steps: the larger of its
+    bytes (its source sites, 9 values and a class byte each, read; its
+    output sites written) at TILE_NS_PER_BYTE and its levels' site
+    updates at TILE_NS_PER_SITE[dtype] (a CTA's next tile loads under its
+    current tile's levels). The twin of csrc/lbm_temporal.cuh's
+    tile_cost."""
+    v = WIDE_COLUMNS[dtype]
+    pad = -(-steps // v) * v
+    c = width - 2 * pad
+    cols = (-(-(pad + c + steps) // v) - (pad - steps) // v) * v
+    site = 9 * torch.empty((), dtype=dtype).element_size()
+    n_bytes = float(out_rows + 2 * steps) * cols * (site + 1) + float(out_rows) * c * site
+    updates = 0.0
+    for g in range(steps):
+        updates += float(out_rows + 2 * g) * (c + 2 * g)
+    return max(TILE_NS_PER_BYTE * n_bytes, TILE_NS_PER_SITE[dtype] * updates)
+
+
+def rdma_tile_grid(dtype: torch.dtype, out_rows: int, rows: int, ny: int, steps: int, slots: int,
+                   card_shards: int, width: int = TILE_WIDTH) -> dict | None:
+    """The rdma temporal form's grid for a shard of `rows` rows at output
+    tiles of out_rows rows on a card of `slots` co-resident CTAs that
+    card_shards launches share: `interior_tiles` and `edge_tiles` (the
+    row blocks whose source rows reach a halo) and `ctas`, the CTAs it
+    launches: every one of them may wait for the neighbours' rows, so at
+    most (slots - 1) // card_shards, and no more than its RDMA_SENDERS
+    senders and its tiles; None where the launch would be refused. The
+    twin of csrc/lbm_temporal_rdma_step.cu's rdma_grid_at."""
+    c = width - 2 * (-(-steps // WIDE_COLUMNS[dtype]) * WIDE_COLUMNS[dtype])
+    if out_rows < 1 or c < 1:
+        return None
+    tiles_y = -(-ny // c)
+    nb = -(-rows // out_rows)
+    i0 = min(-(-steps // out_rows), nb)
+    last = (rows - steps) // out_rows if rows >= steps else 0
+    i1 = max(min(last, nb - 1), i0)
+    most = (slots - 1) // card_shards
+    if nb * tiles_y >= 1 << 30 or most < RDMA_SENDERS:
+        return None
+    interior, edge = (i1 - i0) * tiles_y, (nb - (i1 - i0)) * tiles_y
+    return {"ctas": min(most, RDMA_SENDERS + interior + edge), "interior_tiles": interior,
+            "edge_tiles": edge}
+
+
+def shard_tile_plan(dtype: torch.dtype, rows: int, ny: int, steps: int, max_rows: int,
+                    slots: int, *, rdma: bool = False, card_shards: int = 1,
+                    width: int = TILE_WIDTH) -> dict | None:
+    """The tile plan of one launch of a shard form, the twin of
+    csrc/lbm_temporal.cuh's plan_tiles: over every output tile height R in
+    [1, max_rows - 2 steps] (max_rows: the card's largest tile,
+    temporal_info), the launch's output tiles over its `rows` rows
+    (ext-halo form: one CTA a tile up to `slots`, the card's co-resident
+    CTAs; rdma form: rdma_tile_grid, the whole shard) and the tiles its
+    busiest CTA walks ("waves"; the rdma form's CTAs take tiles from a
+    counter, so about tiles / ctas); the R of the least waves x tile_cost wins,
+    the larger R on a tie. Returns {"rows": the tile's rows, halos
+    included, "output_rows": R, "tiles", "ctas", "waves", "cost" (ns),
+    and rdma_tile_grid's keys with rdma}, or None where no R gives a
+    launch."""
+    best = None
+    c = width - 2 * (-(-steps // WIDE_COLUMNS[dtype]) * WIDE_COLUMNS[dtype])
+    for r in range(max_rows - 2 * steps, 0, -1) if c >= 1 else ():
+        if rdma:
+            grid = rdma_tile_grid(dtype, r, rows, ny, steps, slots, card_shards, width)
+            if grid is None:
+                continue
+            tiles = grid["interior_tiles"] + grid["edge_tiles"]
+            p = {**grid, "tiles": tiles, "waves": -(-tiles // grid["ctas"])}
+        else:
+            tiles = -(-rows // r) * -(-ny // c)
+            if tiles >= 1 << 30:
+                continue
+            ctas = min(tiles, slots)
+            p = {"tiles": tiles, "ctas": ctas, "waves": -(-tiles // ctas)}
+        p.update(rows=r + 2 * steps, output_rows=r,
+                 cost=float(p["waves"]) * tile_cost(dtype, r, steps, width))
+        if best is None or p["cost"] < best["cost"]:
+            best = p
+    return best
+
+
+def ext_temporal_plan(dtype: torch.dtype, geometry_kind: str, rows: int, ny: int, steps: int,
+                      device=None, tile_rows: int | None = None) -> dict:
+    """The plan of one launch of the ext-halo temporal form over `rows`
+    output rows as the card's launcher makes it
+    (csrc/lbm_temporal_step.cu's lbm_temporal_steps_ext_plan; tile_rows:
+    a tile of that many rows instead of the planned one): the tile's
+    `rows`, halos included, the launch's `tiles`, the `ctas` it launches
+    and the `waves`, the tiles its busiest CTA walks; shard_tile_plan
+    computes the same from the card's tile and slots. Needs a CUDA card."""
+    out = (ctypes.c_int64 * 4)()
+    index = torch.cuda.current_device() if device is None else torch.device(device).index
+    with torch.cuda.device(index):
+        rc = cuda_build.load_library().lbm_temporal_steps_ext_plan(
+            _STORAGE[dtype], _GEOMETRY[geometry_kind], rows, ny, steps, tile_rows or 0, out)
+    if rc != 0:
+        raise RuntimeError(f"lbm_temporal_steps_ext_plan failed: cudaError {rc}")
+    return {"rows": out[0], "tiles": out[1], "ctas": out[2], "waves": out[3]}
+
+
 def check_ext_temporal_depth(steps: int, dtype: torch.dtype, device) -> None:
     """Raise ValueError unless the shard forms' tile on `device` (the
     ext-halo and rdma forms share it) takes a pass of `steps` steps of
@@ -1632,6 +1757,22 @@ def _check_ext_temporal(src, dst, halo, geom, cfg: LatticeConfig, steps: int, ro
     return kind, info, depth
 
 
+def _check_tile_rows(tile_rows, steps: int, dtype: torch.dtype, device: torch.device) -> None:
+    """Raise ValueError unless tile_rows is None (the plan's tile) or the
+    rows of a tile that leaves output rows in a pass of `steps` steps and,
+    on a card, fits the shard forms' largest tile there."""
+    if tile_rows is None:
+        return
+    if (not isinstance(tile_rows, int) or isinstance(tile_rows, bool)
+            or tile_rows < 2 * steps + 1):
+        raise ValueError(f"tile_rows must be an integer of at least 2 steps + 1 = {2 * steps + 1}"
+                         f", got {tile_rows!r}")
+    if device.type == "cuda":
+        most = temporal_info(dtype, device=device, ext=True)["rows"]
+        if tile_rows > most:
+            raise ValueError(f"tile_rows {tile_rows} exceeds the card's tile of {most} rows")
+
+
 def ext_temporal_launcher(
     src: torch.Tensor,
     dst: torch.Tensor,
@@ -1644,11 +1785,15 @@ def ext_temporal_launcher(
     rows: int | None = None,
     row_offset: int = 0,
     fast_math: bool = False,
+    tile_rows: int | None = None,
 ) -> Callable[[], None]:
     """Validate one launch of the ext-halo temporal form and return it as a
     call with no arguments, to be made any number of times: a pass of
     `steps` steps that writes the local rows [row0, row0 + rows) (default:
-    all) of the shard src -> dst from the buffers' contents at that time.
+    all) of the shard src -> dst from the buffers' contents at that time,
+    at the tile of the launch's plan (ext_temporal_plan; `launch.plan` on
+    a card) or, with tile_rows, at a tile of that many rows (halos
+    included, at most the card's: temporal_info).
 
     src, dst: the shard's (9, Ls, NY) blocks of the storage dtype, distinct,
     NY a multiple of WIDE_COLUMNS (one 16-byte vector), local row 0 at
@@ -1668,6 +1813,7 @@ def ext_temporal_launcher(
     rows = n_rows - row0 if rows is None else rows
     kind, info, depth = _check_ext_temporal(src, dst, halo, geom, cfg, steps, row0, rows,
                                             row_offset)
+    _check_tile_rows(tile_rows, steps, src.dtype, src.device)
     if src.device.type == "cpu":
         def reference():
             if halo is None:
@@ -1679,8 +1825,13 @@ def ext_temporal_launcher(
                     g = ShardPlane(geom.plane, none, none)
             else:
                 h, g = halo, geom
-            out = temporal_reference_ext(src, h, g, cfg, steps, row_offset=row_offset)
-            dst[:, row0:row0 + rows].copy_(out[:, row0:row0 + rows])
+            if tile_rows is None:
+                out = temporal_reference_ext(src, h, g, cfg, steps, row_offset=row_offset)
+                dst[:, row0:row0 + rows].copy_(out[:, row0:row0 + rows])
+            else:
+                dst[:, row0:row0 + rows].copy_(temporal_reference_ext_blocked(
+                    src, h, g, cfg, steps, FlatTile(tile_rows, TILE_WIDTH),
+                    row_offset=row_offset, row0=row0, rows=rows))
 
         return reference
 
@@ -1695,9 +1846,10 @@ def ext_temporal_launcher(
     args = (_ptr(src), _ptr(dst), _ptr(top), _ptr(bot), _ptr(plane.plane), _ptr(plane.top),
             _ptr(plane.bot), ctypes.addressof(spec) if spec is not None else None,
             n_rows, cfg.ny, depth, row0, rows, row_offset, cfg.nx, _STORAGE[src.dtype],
-            _GEOMETRY[kind], int(fast_math), steps, ctypes.addressof(params))
+            _GEOMETRY[kind], int(fast_math), steps, ctypes.addressof(params), tile_rows or 0)
     variant = variant_name(src.dtype, kind, kind == "plane" and info > 1, fast_math)
     device = src.device
+    plan = ext_temporal_plan(src.dtype, kind, rows, cfg.ny, steps, device, tile_rows)
 
     def launch():
         global EXT_TEMPORAL_LAUNCHES, EXT_TEMPORAL_STEPS
@@ -1709,6 +1861,7 @@ def ext_temporal_launcher(
         EXT_TEMPORAL_VARIANT_LAUNCHES[variant] += 1
 
     launch.host_args = (params, spec)  # alive as long as the call
+    launch.plan = plan
     return launch
 
 
@@ -1755,13 +1908,15 @@ def rdma_temporal_send_reference(src: torch.Tensor, up: RdmaEnd, down: RdmaEnd, 
 
 
 def rdma_temporal_compute_reference(src: torch.Tensor, end: RdmaEnd, geom, cfg: LatticeConfig,
-                                    steps: int, pass_: int, *,
-                                    row_offset: int = 0) -> torch.Tensor:
+                                    steps: int, pass_: int, *, row_offset: int = 0,
+                                    tile: FlatTile | None = None) -> torch.Tensor:
     """Plain PyTorch version of a pass's interior and edge roles:
     temporal_reference_ext from the `steps` rows of this pass's parity of
     the comm blocks that the pass reads (and of a ShardPlane's halo class
-    rows). Raises RuntimeError where the kernel's edge tiles would wait in
-    vain: a flag below this pass's value."""
+    rows); with `tile`, temporal_reference_ext_blocked at that tile over the
+    whole shard, as the kernel lays its planned tiles. Raises RuntimeError
+    where the kernel's edge tiles would wait in vain: a flag below this
+    pass's value."""
     depth = end.top.shape[2]
     s = rdma_temporal_schedule(src.shape[1], depth, steps, pass_)
     if int(end.flags.min()) < s["flag"]:
@@ -1771,25 +1926,30 @@ def rdma_temporal_compute_reference(src: torch.Tensor, end: RdmaEnd, geom, cfg: 
     halo = (end.top[s["parity"]][:, a:b], end.bot[s["parity"]][:, c:d])
     if isinstance(geom, ShardPlane):
         geom = ShardPlane(geom.plane, geom.top[a:b], geom.bot[c:d])
+    if tile is not None:
+        return temporal_reference_ext_blocked(src, halo, geom, cfg, steps, tile,
+                                              row_offset=row_offset)
     return temporal_reference_ext(src, halo, geom, cfg, steps, row_offset=row_offset)
 
 
 def temporal_reference_rdma(srcs, ends, geoms, cfg: LatticeConfig, steps: int,
-                            pass_: int) -> list[torch.Tensor]:
+                            pass_: int, tile: FlatTile | None = None) -> list[torch.Tensor]:
     """Plain PyTorch version of one pass of the rdma temporal form over a
     whole ring: every shard sends (rdma_temporal_send_reference), then
     every shard runs its pass from what it received
-    (rdma_temporal_compute_reference). srcs: the shards' (9, Ls, NY) blocks
-    in row order; ends: their temporal RdmaEnds (rdma_end(..., depth=Td)),
-    which this writes; geoms: each shard's None, ShardPlane (with (Td, NY)
-    halo class rows) or wall spec. Returns the shards' new blocks."""
+    (rdma_temporal_compute_reference, with `tile` tile by tile). srcs: the
+    shards' (9, Ls, NY) blocks in row order; ends: their temporal RdmaEnds
+    (rdma_end(..., depth=Td)), which this writes; geoms: each shard's None,
+    ShardPlane (with (Td, NY) halo class rows) or wall spec. Returns the
+    shards' new blocks."""
     n, L = len(srcs), srcs[0].shape[1]
     s = rdma_temporal_schedule(L, ends[0].top.shape[2], steps, pass_)
     for k, src in enumerate(srcs):
         rdma_temporal_send_reference(src, ends[(k + s["up"]) % n], ends[(k + s["down"]) % n],
                                      steps, pass_)
     return [rdma_temporal_compute_reference(src, ends[k], geoms[k], cfg, steps, pass_,
-                                            row_offset=k * L) for k, src in enumerate(srcs)]
+                                            row_offset=k * L, tile=tile)
+            for k, src in enumerate(srcs)]
 
 
 def rdma_temporal_launcher(
@@ -1807,13 +1967,17 @@ def rdma_temporal_launcher(
     fast_math: bool = False,
     timeout_s: float = RDMA_TIMEOUT_S,
     stream=None,
+    tile_rows: int | None = None,
 ) -> Callable[[int], None]:
     """Validate one shard's launch of the rdma temporal form and return it
     as a call launch(pass_), to be made once per pass with pass_ = 1, 2, ...
     since rdma_reset: a pass of `steps` steps of the whole shard src -> dst
     from the buffers' contents at that time, after sending its first and
     last `steps` rows to its neighbours' ends, its edge tiles after the
-    neighbours' rows of the same pass arrived in `end`.
+    neighbours' rows of the same pass arrived in `end`; at the tile of the
+    launch's plan (rdma_temporal_grid; `launch.plan` on a card, None where
+    the card refuses the grid) or, with tile_rows, at a tile of that many
+    rows (as ext_temporal_launcher's).
 
     src, dst: the shard's (9, Ls, NY) blocks, Ls >= steps, NY a multiple of
     WIDE_COLUMNS, local row 0 at global row row_offset. end: the shard's
@@ -1848,13 +2012,16 @@ def rdma_temporal_launcher(
         raise ValueError(f"end lies on {end.top.device}, the shard on {src.device}")
     if not isinstance(card_shards, int) or isinstance(card_shards, bool) or card_shards < 1:
         raise ValueError(f"card_shards must be a positive integer, got {card_shards!r}")
+    _check_tile_rows(tile_rows, steps, src.dtype, src.device)
     if src.device.type == "cpu":
+        tile = None if tile_rows is None else FlatTile(tile_rows, TILE_WIDTH)
+
         def send(pass_: int) -> None:
             rdma_temporal_send_reference(src, up, down, steps, pass_)
 
         def compute(pass_: int) -> None:
             dst.copy_(rdma_temporal_compute_reference(src, end, geom, cfg, steps, pass_,
-                                                      row_offset=row_offset))
+                                                      row_offset=row_offset, tile=tile))
 
         def reference(pass_: int) -> None:
             send(pass_)
@@ -1889,7 +2056,7 @@ def rdma_temporal_launcher(
     def launch(pass_: int) -> None:
         global RDMA_TEMPORAL_LAUNCHES, RDMA_TEMPORAL_STEPS
         st = torch.cuda.current_stream(device).cuda_stream if handle is None else handle
-        rc = fn(*args, pass_, timeout_ns, card_shards, st)
+        rc = fn(*args, pass_, timeout_ns, card_shards, tile_rows or 0, st)
         if rc != 0:
             raise RuntimeError(f"lbm_temporal_steps rdma launch failed: cudaError {rc}")
         RDMA_TEMPORAL_LAUNCHES += 1
@@ -1898,23 +2065,34 @@ def rdma_temporal_launcher(
 
     # what the launch addresses, alive as long as the call
     launch.host_args = (params, spec, src, dst, end, up, down, geom)
+    try:
+        launch.plan = rdma_temporal_grid(src.dtype, kind, L, cfg.ny, steps, card_shards, device,
+                                         tile_rows)
+    except RuntimeError:
+        launch.plan = None  # a grid the card refuses: the launch raises
     return launch
 
 
 def rdma_temporal_grid(dtype: torch.dtype, geometry_kind: str, rows: int, ny: int, steps: int,
-                       card_shards: int, device=None) -> dict:
-    """The grid of one launch of the rdma temporal form on a card: `ctas`
-    launched, `edge_ctas` (the most of them that spin), `interior_tiles`
-    and `edge_tiles`, for a shard of `rows` rows, as
-    csrc/lbm_temporal_rdma_step.cu lays it. Needs a CUDA card."""
-    out = (ctypes.c_int64 * 4)()
+                       card_shards: int, device=None, tile_rows: int | None = None) -> dict:
+    """The plan and grid of one launch of the rdma temporal form on a card,
+    for a shard of `rows` rows, as csrc/lbm_temporal_rdma_step.cu lays it:
+    the tile's `rows`, halos included, the `ctas` launched (every one of
+    which may wait for the neighbours' rows), `interior_tiles` and
+    `edge_tiles`, and the `waves`, the tiles a CTA walks if they spread
+    evenly (shard_tile_plan(rdma=True) computes the same from the card's
+    tile and slots); tile_rows: a tile of that many rows instead of the
+    planned one. Needs a CUDA card."""
+    out = (ctypes.c_int64 * 5)()
     index = torch.cuda.current_device() if device is None else torch.device(device).index
     with torch.cuda.device(index):
         rc = cuda_build.load_library().lbm_temporal_steps_rdma_grid(
-            _STORAGE[dtype], _GEOMETRY[geometry_kind], rows, ny, steps, card_shards, out)
+            _STORAGE[dtype], _GEOMETRY[geometry_kind], rows, ny, steps, card_shards,
+            tile_rows or 0, out)
     if rc != 0:
         raise RuntimeError(f"lbm_temporal_steps_rdma_grid failed: cudaError {rc}")
-    return {"ctas": out[0], "edge_ctas": out[1], "interior_tiles": out[2], "edge_tiles": out[3]}
+    return {"ctas": out[0], "interior_tiles": out[1], "edge_tiles": out[2], "rows": out[3],
+            "waves": out[4]}
 
 
 def _host_mask(x):

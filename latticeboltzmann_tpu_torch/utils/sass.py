@@ -155,18 +155,40 @@ def site_path(instrs: list[tuple[int, bool, str, str]]) -> collections.Counter:
     return path
 
 
-def loop_path(instrs: list[tuple[int, bool, str, str]], first: int,
-              branch: int) -> collections.Counter:
+def loop_path(instrs: list[tuple[int, bool, str, str]], first: int, branch: int,
+              through: str | None = None) -> collections.Counter:
     """Opcode counts along one trip through the loop from address `first`
     to its backward branch at address `branch` (an entry of `loops`): the
     path inside the loop from its first instruction to the branch with the
-    fewest FP32 instructions, the branch included; raises if the branch
-    cannot be reached inside the loop."""
+    fewest FP32 instructions, the branch included; with `through` (an
+    opcode without modifiers, e.g. "MUFU"), the fewest among the paths that
+    pass an instruction of that opcode (a fluid site's trip through a level
+    whose solid sites branch around the collision and its division).
+    Raises if no such path reaches the branch inside the loop."""
     index = {addr: k for k, (addr, *_rest) in enumerate(instrs)}
     k0, k1 = index[first], index[branch]
-    path = _cheapest_path(instrs, k0, lambda k: k == k1, lambda k: k0 <= k <= k1)
+
+    def inside(k):
+        return k0 <= k <= k1
+
+    if through is None:
+        path = _cheapest_path(instrs, k0, lambda k: k == k1, inside)
+    else:
+        path = None
+        for m in range(k0, k1 + 1):
+            if instrs[m][2].split(".")[0] != through:
+                continue
+            head = _cheapest_path(instrs, k0, lambda k, m=m: k == m, inside)
+            tail = _cheapest_path(instrs, m, lambda k: k == k1, inside)
+            if head is None or tail is None:
+                continue
+            both = head + tail
+            both[through] -= 1  # the instruction ends one half and starts the other
+            if path is None or (sum(both[x] for x in FP32) < sum(path[x] for x in FP32)):
+                path = both
     if path is None:
-        raise ValueError(f"the branch at {branch:#x} is not reachable inside its loop")
+        raise ValueError(f"the branch at {branch:#x} is not reachable inside its loop"
+                         + (f" through a {through}" if through else ""))
     return path
 
 

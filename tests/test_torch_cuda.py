@@ -49,6 +49,7 @@ their plain versions and one torch.roll, their launches counted by form.
 
 import collections
 import ctypes
+import itertools
 
 import numpy as np
 import pytest
@@ -968,9 +969,10 @@ def _on_card_geometry(kind, cfg, walls, device):
 def test_ext_temporal_kernel_equals_its_plain_versions(geom, n, cuda_device):
     """The ext-halo temporal form on each shard of a ring of n (column0,
     24x40), halos of 4 rows: one pass at every L 1-4 over the whole shard,
-    the two L-row bands and the interior, bitwise against
+    the two L-row bands and the interior, at the launch's planned tile and
+    at a forced tile of 2 L + 1 rows, bitwise against
     temporal_reference_ext (and so against the local chain), and against
-    temporal_reference_ext_blocked at the card's tile; one pass of the
+    temporal_reference_ext_blocked at the planned tile; one pass of the
     deepest L the tile takes on a ring of one, halos of that depth. Every
     launch counted in EXT_TEMPORAL_LAUNCHES."""
     dtype = "bfloat16" if geom.startswith("bf16") else np.float32
@@ -988,17 +990,21 @@ def test_ext_temporal_kernel_equals_its_plain_versions(geom, n, cuda_device):
         for k in range(n):
             src, halo, gk = _pass_shard(f, g, n, k, depth)
             ranges = [(0, Ls)] + ([(L, Ls - 2 * L), (0, L), (Ls - L, L)] if Ls > 2 * L else [])
-            for row0, rows in ranges:
+            for (row0, rows), tile_rows in itertools.product(ranges, (None, 2 * L + 1)):
                 dst = torch.full_like(src, float("nan"))
-                fk.ext_temporal_launcher(src, dst, halo, gk, cfg, L, row0=row0, rows=rows,
-                                         row_offset=k * Ls)()
+                go = fk.ext_temporal_launcher(src, dst, halo, gk, cfg, L, row0=row0, rows=rows,
+                                              row_offset=k * Ls, tile_rows=tile_rows)
+                assert go.plan["rows"] == tile_rows or (tile_rows is None
+                                                        and go.plan["rows"] <= tile.rows)
+                go()
                 launches += 1
                 torch.cuda.synchronize()
                 assert torch.equal(dst[:, row0:row0 + rows],
                                    want[:, k * Ls + row0:k * Ls + row0 + rows]), (L, k, row0)
-                if depth == 4 and row0 == 0 and rows == Ls:
+                if depth == 4 and row0 == 0 and rows == Ls and tile_rows is None:
                     assert torch.equal(dst, fk.temporal_reference_ext_blocked(
-                        src, halo, gk, cfg, L, tile, row_offset=k * Ls))
+                        src, halo, gk, cfg, L, fk.FlatTile(go.plan["rows"], tile.width),
+                        row_offset=k * Ls))
     assert fk.EXT_TEMPORAL_LAUNCHES == before + launches
 
 
@@ -1008,7 +1014,7 @@ class _RdmaPassRing:
     of depth T and a stream each, a launch per shard, parity and pass
     depth."""
 
-    def __init__(self, cfg, geom, n, T, device, fast_math=False, timeout_s=1.0):
+    def __init__(self, cfg, geom, n, T, device, fast_math=False, timeout_s=1.0, tile_rows=None):
         f = _perturbed(cfg, device)
         self.n, self.L, self.cfg = n, cfg.nx // n, cfg
         self.shards = [_pass_shard(f, geom, n, k, T) for k in range(n)]
@@ -1016,7 +1022,7 @@ class _RdmaPassRing:
         self.bufs = [[s[0] for s in self.shards], [torch.empty_like(s[0]) for s in self.shards]]
         self.ends = [fk.rdma_end(cfg, device, depth=T) for _ in range(n)]
         self.streams = [torch.cuda.Stream(device) for _ in range(n)]
-        self.options = dict(fast_math=fast_math, timeout_s=timeout_s)
+        self.options = dict(fast_math=fast_math, timeout_s=timeout_s, tile_rows=tile_rows)
         self.launches = {}
         self.parity = self.passes = 0
         torch.cuda.synchronize()
@@ -1044,28 +1050,35 @@ class _RdmaPassRing:
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("tile", ["planned", "forced"])
 @pytest.mark.parametrize("n", [1, 2, 4])
 @pytest.mark.parametrize("geom", ["none", "plane", "spec", "slip", "bf16-spec", "bf16-plane"])
-def test_rdma_temporal_kernel_equals_its_plain_version(geom, n, cuda_device):
+def test_rdma_temporal_kernel_equals_its_plain_version(geom, n, tile, cuda_device):
     """The rdma temporal form over a ring of n virtual shards of 48x40, each
-    shard on a stream of its own: passes of T, T, 1, T (T =
+    shard on a stream of its own, at each launch's planned tile or at a
+    forced tile of 2 T + 1 rows: passes of T, T, 1, T (T =
     SHARDED_TEMPORAL), every shard's block, comm blocks and flags bitwise
-    against temporal_reference_rdma from the same inputs, the launch words
-    back at zero after each pass; one counted launch per shard and pass."""
+    against temporal_reference_rdma from the same inputs (at the forced
+    tile its blocked form), the launch words back at zero after each pass;
+    one counted launch per shard and pass."""
     dtype = "bfloat16" if geom.startswith("bf16") else np.float32
     cfg = LatticeConfig(nx=48, ny=40, dtype=dtype, accel=0.005)
     walls = geometry.channel(48, 40)
     walls[20:26, 0:3] = True
     T = sharded.SHARDED_TEMPORAL[fk._storage(cfg)]
     g = _on_card_geometry(geom.removeprefix("bf16-"), cfg, walls, cuda_device)
-    ring = _RdmaPassRing(cfg, g, n, T, cuda_device)
+    tile_rows = 2 * T + 1 if tile == "forced" else None
+    ring = _RdmaPassRing(cfg, g, n, T, cuda_device, tile_rows=tile_rows)
     ref_ends = [fk.rdma_end(cfg, cuda_device, depth=T) for _ in range(n)]
     before = fk.RDMA_TEMPORAL_LAUNCHES
     passes = (T, T, 1, T)
     for p, steps in enumerate(passes, 1):
         srcs = [b.clone() for b in ring.bufs[ring.parity]]
         assert ring.advance(steps) == [0] * n
-        refs = fk.temporal_reference_rdma(srcs, ref_ends, ring.geoms, cfg, steps, p)
+        assert ring.launch(0, steps).plan["rows"] == tile_rows or tile_rows is None
+        refs = fk.temporal_reference_rdma(
+            srcs, ref_ends, ring.geoms, cfg, steps, p,
+            tile=None if tile_rows is None else fk.FlatTile(tile_rows, fk.TILE_WIDTH))
         for k in range(n):
             assert torch.equal(ring.bufs[ring.parity][k], refs[k]), (p, k)
             for got, want in zip(ring.ends[k][:3], ref_ends[k][:3]):  # top, bot, flags
@@ -1119,12 +1132,17 @@ def test_shard_temporal_forms_refuse_on_the_card(cuda_device):
     params = (ctypes.c_float * 9)(*fk.kernel_constants(cfg))
     rc = lib.lbm_temporal_steps_ext_launch(
         src.data_ptr(), dst.data_ptr(), halo[0].data_ptr(), halo[1].data_ptr(), None, None, None,
-        None, 12, 40, 3, 0, 12, 0, 24, 0, 0, 0, 4, ctypes.addressof(params),
+        None, 12, 40, 3, 0, 12, 0, 24, 0, 0, 0, 4, ctypes.addressof(params), 0,
         torch.cuda.current_stream().cuda_stream)
     assert rc != 0  # 4 steps on 3-row halos
+    largest = fk.temporal_info(torch.float32, device=cuda_device, ext=True)["rows"]
+    with pytest.raises(ValueError, match="tile_rows"):
+        fk.ext_temporal_launcher(src, dst, halo, None, cfg, 3, tile_rows=largest + 1)
+    with pytest.raises(ValueError, match="tile_rows"):
+        fk.ext_temporal_launcher(src, dst, halo, None, cfg, 3, tile_rows=6)
     end = fk.rdma_end(cfg, cuda_device, depth=3)
-    slots = fk.rdma_temporal_grid(torch.float32, "none", 12, 40, 3, 1, cuda_device)
-    assert slots["edge_ctas"] >= 1
+    grid = fk.rdma_temporal_grid(torch.float32, "none", 12, 40, 3, 1, cuda_device)
+    assert grid["ctas"] >= fk.RDMA_SENDERS
     info = fk.temporal_info(torch.float32, "none", cuda_device, rdma=True)
     too_many = info["ctas_per_sm"] * torch.cuda.get_device_properties(cuda_device).multi_processor_count
     call = fk.rdma_temporal_launcher(src, dst, end, end, end, None, cfg, 3, card_shards=too_many)
@@ -1162,6 +1180,84 @@ def test_rdma_temporal_withheld_send_raises_and_does_not_hang(cuda_device):
     sess.load(_perturbed(cfg, cuda_device))  # a load clears the error
     sess.advance(7)
     sess.block()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+def test_shard_temporal_kernels_walk_many_tiles_a_cta(dtype, cuda_device):
+    """Both shard forms on rings of 1 and 4 virtual shards of 256x2048 (the
+    reference barrier's wall spec), a pass of every L 1..T (T =
+    SHARDED_TEMPORAL) at the launch's planned tile and at a forced tile of
+    2 L + 1 rows, where every CTA walks many tiles, each loading while the
+    previous one's levels run: bitwise against the local chain, the rdma
+    form's comm blocks and flags against temporal_reference_rdma, and the
+    plans' CTAs and tiles as the launchers report them."""
+    cfg = LatticeConfig(nx=256, ny=2048, dtype=dtype)
+    spec = geometry.infer_spec(geometry.reference_barrier(256, 2048))
+    storage = fk._storage(cfg)
+    T = sharded.SHARDED_TEMPORAL[storage]
+    f = _perturbed(cfg, cuda_device, seed=5)
+    for n in (1, 4):
+        Ls = 256 // n
+        for L in range(1, T + 1):
+            want = fk.temporal_reference(f, spec, cfg, L)
+            for tile_rows in (None, 2 * L + 1):
+                for k in range(n):
+                    src, halo, _ = _pass_shard(f, None, n, k, T)
+                    dst = torch.full_like(src, float("nan"))
+                    go = fk.ext_temporal_launcher(src, dst, halo, spec, cfg, L,
+                                                  row_offset=k * Ls, tile_rows=tile_rows)
+                    go()
+                    torch.cuda.synchronize()
+                    assert go.plan["ctas"] * go.plan["waves"] >= go.plan["tiles"]
+                    assert torch.equal(dst, want[:, k * Ls:(k + 1) * Ls]), (n, L, tile_rows, k)
+                ring = _RdmaPassRing(cfg, spec, n, T, cuda_device, tile_rows=tile_rows)
+                ring.shards = [_pass_shard(f, None, n, k, T) for k in range(n)]
+                ring.bufs[0] = [s_[0] for s_ in ring.shards]
+                srcs = [b.clone() for b in ring.bufs[0]]
+                ref_ends = [fk.rdma_end(cfg, cuda_device, depth=T) for _ in range(n)]
+                assert ring.advance(L) == [0] * n
+                refs = fk.temporal_reference_rdma(srcs, ref_ends, [spec] * n, cfg, L, 1)
+                assert torch.equal(torch.cat(ring.bufs[1], 1), want), (n, L, tile_rows)
+                plan = ring.launch(0, L).plan
+                assert plan["rows"] == tile_rows or tile_rows is None
+                assert plan["ctas"] * plan["waves"] >= plan["interior_tiles"] + plan["edge_tiles"]
+                for k in range(n):
+                    assert torch.equal(ring.bufs[1][k], refs[k])
+                    for got, ref in zip(ring.ends[k][:3], ref_ends[k][:3]):
+                        assert torch.equal(got, ref), (n, L, tile_rows, k)
+                    assert not ring.ends[k].work.any()
+
+
+@pytest.mark.cuda
+def test_shard_forms_plan_as_their_plain_twin(cuda_device):
+    """The shard forms' card (one CTA of 512 threads an SM, two tile
+    buffers) and the plans their launchers make, at 800x4000's shards and
+    at small ones, equal fused_kernel.shard_tile_plan (the plain twin) at
+    the card's tile and slots, for both storages and 1 or 4 launches of the
+    ring on the card; the local form keeps 2 CTAs of 256 threads."""
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for dtype, T in ((torch.float32, 3), (torch.bfloat16, 2)):
+        local = fk.temporal_info(dtype, "spec", cuda_device)
+        assert (local["threads"], local["buffers"]) == (256, 1)
+        for kind in ("none", "plane", "spec"):
+            for rdma in (False, True):
+                info = fk.temporal_info(dtype, kind, cuda_device, ext=not rdma, rdma=rdma)
+                assert (info["threads"], info["buffers"], info["ctas_per_sm"]) == (512, 2, 1)
+                assert info["rows"] == local["rows"] and info["local_bytes"] == 0
+        info = fk.temporal_info(dtype, "spec", cuda_device, ext=True)
+        slots = info["ctas_per_sm"] * sms
+        for rows, ny, L in ((200, 4000, T), (800, 4000, T), (12, 40, 1), (37, 136, 2)):
+            twin = fk.shard_tile_plan(dtype, rows, ny, L, info["rows"], slots)
+            card = fk.ext_temporal_plan(dtype, "spec", rows, ny, L, cuda_device)
+            assert card == {key: twin[key] for key in card}, (dtype, rows, L)
+            assert fk.temporal_info(dtype, "spec", cuda_device, ext=True,
+                                    launch=(rows, ny, L))["plan"] == card
+            for shards in (1, 4):
+                twin = fk.shard_tile_plan(dtype, rows, ny, L, info["rows"], slots, rdma=True,
+                                          card_shards=shards)
+                card = fk.rdma_temporal_grid(dtype, "spec", rows, ny, L, shards, cuda_device)
+                assert card == {key: twin[key] for key in card}, (dtype, rows, L, shards)
 
 
 @pytest.mark.cuda

@@ -160,6 +160,40 @@ def test_loop_path_needs_its_branch_inside_the_loop():
         sass.loop_path(instrs, 0x80, 0x50)
 
 
+# a level whose solid sites branch around the collision: the path with the
+# fewest FP32 instructions skips the division, a fluid site's takes it
+_CLASSES = """
+\t\tFunction : _Z7classesPf
+        /*0000*/                   MOV R1, c[0x0][0x28] ;                     /* 0x00000a0000017a02 */
+        /*0010*/                   LDS R2, [R0] ;                             /* 0x0000000000027984 */
+        /*0020*/               @P1 BRA 0x0070 ;                               /* 0x0000000000041947 */
+        /*0030*/                   FADD R2, R2, R4 ;                          /* 0x0000000402027221 */
+        /*0040*/                   MUFU.RCP R6, R2 ;                          /* 0x0000000200067308 */
+        /*0050*/                   FMUL R7, R6, R2 ;                          /* 0x0000000206077220 */
+        /*0060*/                   FADD R7, R7, R4 ;                          /* 0x0000000407077221 */
+        /*0070*/                   STS [R0], R7 ;                             /* 0x0000000700007388 */
+        /*0080*/                   IADD3 R0, R0, 0x100, RZ ;                  /* 0x0000010000007810 */
+        /*0090*/               @P3 BRA 0x0010 ;                               /* 0x0000000000043947 */
+        /*00a0*/                   EXIT ;                                     /* 0x000000000000794d */
+"""
+
+
+def test_loop_path_through_an_opcode_takes_a_fluid_sites_trip():
+    """Without `through` the walk takes the solid sites' branch around the
+    collision (no division); through "MUFU" it takes the fluid sites' trip,
+    the reciprocal counted once; through an opcode the loop lacks it
+    raises."""
+    instrs = sass.functions(_CLASSES)["_Z7classesPf"]
+    [(first, branch, _)] = sass.loops(instrs)
+    solid = sass.loop_path(instrs, first, branch)
+    assert solid == collections.Counter({"LDS": 1, "BRA": 2, "STS": 1, "IADD3": 1})
+    fluid = sass.loop_path(instrs, first, branch, through="MUFU")
+    assert fluid == collections.Counter({"LDS": 1, "BRA": 2, "FADD": 2, "MUFU": 1, "FMUL": 1,
+                                         "STS": 1, "IADD3": 1})
+    with pytest.raises(ValueError, match="through a LDGSTS"):
+        sass.loop_path(instrs, first, branch, through="LDGSTS")
+
+
 def test_kernel_key_drops_the_anonymous_namespace_tag():
     """Two builds of one kernel from differently named sources give two
     namespace tags and one key: the kernel's own name and signature."""

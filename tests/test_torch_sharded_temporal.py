@@ -27,7 +27,11 @@ what it received) is its plain version. Here:
   sharded-pallas-interpret and -fused-interpret backends (T=3 on both
   sides); bf16 against the port's own paths only: the JAX planner rounds
   bf16 every second step (ROADMAP, "Not to port");
-- the launchers' refusals.
+- the launchers' refusals;
+- the shard forms' tile plan (fused_kernel.shard_tile_plan, the twin of
+  csrc/lbm_temporal.cuh's plan_tiles) against a brute force over every
+  tile height, tile by tile, and both blocked plain versions at planned
+  tiles bitwise against the chains.
 tests/test_torch_cuda.py holds the kernels against these plain versions on
 a card. The bar is bitwise throughout: both sides run the same float32
 operations in the same order.
@@ -542,3 +546,161 @@ def test_sharded_passes_equal_jax_sharded_interpret(monkeypatch, backend, jax_ba
     got = sim.run(7).state()
     assert sim._session.temporal == 3
     np.testing.assert_array_equal(got, np.asarray(ref.run(7).state()))
+
+
+# ---- the shard forms' tile plan ----
+
+def _walks(count, ctas):
+    """The tiles each of `ctas` CTAs walks when CTA i takes tiles i, i +
+    ctas, ... of `count`."""
+    walked = [0] * ctas
+    for j in range(count):
+        walked[j % ctas] += 1
+    return walked
+
+
+def _brute_force_plan(dt, rows, ny, L, max_rows, slots, rdma, card_shards, width):
+    """Every output tile height R's launch, counted tile by tile: the row
+    blocks and their ragged heights, the edge blocks (those whose source
+    rows leave the shard), the tiles each CTA walks; its cost waves x
+    tile_cost, the tile's bytes and site updates counted vector by vector
+    and level by level. Returns {R: record} for every R that gives a
+    launch."""
+    v = fk.WIDE_COLUMNS[dt]
+    pad = -(-L // v) * v
+    c = width - 2 * pad
+    site = 9 * torch.empty((), dtype=dt).element_size()
+    out = {}
+    for r in range(1, max_rows - 2 * L + 1):
+        blocks = [(r0, min(r, rows - r0)) for r0 in range(0, rows, r)]
+        assert sum(h for _, h in blocks) == rows and all(1 <= h <= r for _, h in blocks)
+        tiles_y = len(range(0, ny, c))
+        vectors = {col // v for col in range(pad - L, pad + c + L)}
+        n_bytes = (r + 2 * L) * len(vectors) * v * (site + 1) + r * c * site
+        updates = sum((r + 2 * (L - t)) * (c + 2 * (L - t)) for t in range(1, L + 1))
+        cost = max(fk.TILE_NS_PER_BYTE * n_bytes, fk.TILE_NS_PER_SITE[dt] * updates)
+        assert fk.tile_cost(dt, r, L, width) == pytest.approx(cost, rel=1e-12)
+        rec = {"output_rows": r, "rows": r + 2 * L, "tiles": len(blocks) * tiles_y}
+        if rdma:
+            edge_blocks = [i for i, (r0, h) in enumerate(blocks) if r0 - L < 0 or r0 + h + L > rows]
+            grid = fk.rdma_tile_grid(dt, r, rows, ny, L, slots, card_shards, width)
+            if (slots - 1) // card_shards < fk.RDMA_SENDERS:
+                assert grid is None
+                continue
+            assert grid["edge_tiles"] == len(edge_blocks) * tiles_y
+            assert grid["interior_tiles"] == rec["tiles"] - grid["edge_tiles"]
+            # the deadlock rule: every CTA may spin, and every launch's CTAs
+            # together leave a slot
+            assert card_shards * grid["ctas"] <= slots - 1
+            assert grid["ctas"] == min((slots - 1) // card_shards,
+                                       fk.RDMA_SENDERS + rec["tiles"])
+            rec.update(grid, waves=max(_walks(rec["tiles"], grid["ctas"])))
+        else:
+            ctas = min(rec["tiles"], slots)
+            rec.update(ctas=ctas, waves=max(_walks(rec["tiles"], ctas)))
+        rec["cost"] = rec["waves"] * fk.tile_cost(dt, r, L, width)
+        out[r] = rec
+    return out
+
+
+@pytest.mark.parametrize("form", ["ext", "rdma-1", "rdma-4"])
+@pytest.mark.parametrize("slots", [5, 40, 132])
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("L", [1, 3])
+@pytest.mark.parametrize("rows", [7, 24, 200])
+def test_shard_tile_plan_equals_a_brute_force_over_every_tile(rows, L, dt, slots, form):
+    """shard_tile_plan over shard rows, depth, storage, the card's slots and
+    the ring's launches on the card: its tiles cover the launch's rows
+    exactly at an output height R <= the largest tile's rows - 2 L, and it
+    takes the R of the least waves x tile_cost (the larger on a tie) among
+    every R a brute force counts tile by tile; its counts are that R's. On
+    5 slots the rdma form has no plan: its 8 senders need more."""
+    storage = fk._storage(LatticeConfig(nx=8, ny=8, dtype=DTYPES[dt]))
+    rdma, card_shards = form != "ext", int(form[-1]) if form != "ext" else 1
+    max_rows = {torch.float32: 43, torch.bfloat16: 84}[storage] if rows == 200 else 16
+    width = 24 if rows < 200 else fk.TILE_WIDTH
+    ny = 136
+    plan = fk.shard_tile_plan(storage, rows, ny, L, max_rows, slots, rdma=rdma,
+                              card_shards=card_shards, width=width)
+    every = _brute_force_plan(storage, rows, ny, L, max_rows, slots, rdma, card_shards, width)
+    if not every:  # too few slots for the rdma form's senders and a spare
+        assert plan is None and rdma
+        return
+    least = min(rec["cost"] for rec in every.values())
+    best = max(r for r, rec in every.items() if rec["cost"] == least)
+    assert plan == every[best]
+    assert 1 <= plan["output_rows"] <= max_rows - 2 * L
+    assert plan["rows"] == plan["output_rows"] + 2 * L
+
+
+def test_shard_tile_plan_costs_no_more_than_the_largest_tile():
+    """A 200-row shard of 800x4000 at L = 3 in float32 on 132 CTA slots:
+    the card's largest tile (43 rows: 37 output rows) lays 6 rows of tiles
+    x 63 columns, 378 tiles in 3 waves; the planned tile costs no more,
+    lays its tiles over the shard's rows, and a tile of 6 rows (no output
+    row at L = 3) gives no plan."""
+    planned = fk.shard_tile_plan(torch.float32, 200, 4000, 3, 43, 132)
+    assert planned["cost"] <= 3 * fk.tile_cost(torch.float32, 37, 3)
+    assert planned["tiles"] == -(-200 // planned["output_rows"]) * 63
+    assert planned["ctas"] == 132 and planned["waves"] == -(-planned["tiles"] // 132)
+    assert fk.shard_tile_plan(torch.float32, 200, 4000, 3, 6, 132) is None
+
+
+@pytest.mark.parametrize("n", [1, 2, 4])
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("shape", [(24, 40), (48, 136)])
+@pytest.mark.parametrize("dt", list(DTYPES))
+def test_blocked_plain_versions_at_planned_tiles_equal_the_chains(dt, shape, kind, n):
+    """A pass of T = SHARDED_TEMPORAL steps on each shard of a ring of n at
+    the tile each form plans (shard_tile_plan on 6 slots, the rdma form on
+    40, tiles of at most 16 x 24 sites, so that both axes are tiled):
+    temporal_reference_ext_blocked
+    bitwise equal to temporal_reference_ext, and temporal_reference_rdma at
+    the rdma form's planned tile bitwise equal to it without one, comm
+    blocks and flags included."""
+    nx, ny = shape
+    cfg, f, geoms = _scene(nx, ny, DTYPES[dt], seed=3)
+    storage = fk._storage(cfg)
+    T = sharded.SHARDED_TEMPORAL[storage]
+    g, Ls = geoms[kind], nx // n
+    ext_plan = fk.shard_tile_plan(storage, Ls, ny, T, 16, 6, width=24)
+    rdma_plan = fk.shard_tile_plan(storage, Ls, ny, T, 16, 40, rdma=True, card_shards=n, width=24)
+    shards = [_shard(f, g, n, k, T) for k in range(n)]
+    for k, (src, halo, geom) in enumerate(shards):
+        want = fk.temporal_reference_ext(src, halo, geom, cfg, T, row_offset=k * Ls)
+        got = fk.temporal_reference_ext_blocked(src, halo, geom, cfg, T,
+                                                fk.FlatTile(ext_plan["rows"], 24),
+                                                row_offset=k * Ls)
+        assert torch.equal(got, want), k
+    ends = {t: [fk.rdma_end(cfg, "cpu", depth=T) for _ in range(n)] for t in ("plain", "tiled")}
+    srcs, plane_geoms = [s[0] for s in shards], [s[2] for s in shards]
+    want = fk.temporal_reference_rdma(srcs, ends["plain"], plane_geoms, cfg, T, 1)
+    got = fk.temporal_reference_rdma(srcs, ends["tiled"], plane_geoms, cfg, T, 1,
+                                     tile=fk.FlatTile(rdma_plan["rows"], 24))
+    for k in range(n):
+        assert torch.equal(got[k], want[k]), k
+        for a, b in zip(ends["tiled"][k][:3], ends["plain"][k][:3]):
+            assert torch.equal(a, b), k
+
+
+def test_launchers_on_the_cpu_lay_a_given_tile():
+    """With tile_rows the CPU paths of both launchers write the blocked
+    plain version at that tile, bitwise the chain's rows; a tile that
+    leaves no output row is refused."""
+    cfg, f, geoms = _scene(24, 40, np.float32)
+    src, halo, geom = _shard(f, geoms["slip"], 2, 1, 3)
+    want = fk.temporal_reference_ext(src, halo, geom, cfg, 3, row_offset=12)
+    dst = torch.full_like(src, float("nan"))
+    fk.ext_temporal_launcher(src, dst, halo, geom, cfg, 3, row0=2, rows=9, row_offset=12,
+                             tile_rows=8)()
+    assert torch.equal(dst[:, 2:11], want[:, 2:11]) and torch.isnan(dst[:, :2]).all()
+    end = fk.rdma_end(cfg, "cpu", depth=3)
+    out = torch.empty_like(f)
+    fk.rdma_temporal_launcher(f, out, end, end, end, geoms["spec"], cfg, 3, card_shards=1,
+                              tile_rows=7)(1)
+    assert torch.equal(out, fk.temporal_reference(f, geoms["spec"], cfg, 3))
+    for bad in (6, 0, 7.0, True):
+        with pytest.raises(ValueError, match="tile_rows"):
+            fk.ext_temporal_launcher(src, dst, halo, geom, cfg, 3, tile_rows=bad)
+    with pytest.raises(ValueError, match="tile_rows"):
+        fk.rdma_temporal_launcher(f, out, end, end, end, None, cfg, 3, card_shards=1, tile_rows=5)
