@@ -3650,14 +3650,26 @@ def temporal_phases(f32_main, bf16_main):
     state_bytes = a.numel() * a.element_size()
     smem_bytes = depth * cfg.sites * 18 * a.element_size()  # 9 values read, 9 written a level
     smem_ms = anatomy.onchip_bound_s(smem_bytes) * 1e3
+    # the bytes as tiled: every tile's 16-byte vectors of all 9 planes, halos
+    # included, read (the spec variant reads no class bytes), the state written
+    tile = info["f32-spec"]
+    _, _, vectors = temporal_pass_work(800, 4000, depth, tile["rows"], torch.float32)
+    tiled_read = vectors * 16 * 9
+    tiled_ms = (tiled_read + state_bytes) / PEAK_BYTES_PER_S * 1e3
     print(f"temporal kernel, one pass of {depth} steps at 800x4000 f32 spec: {ms * 1e3!r} us "
           f"queued ({ms * 1e3 / depth!r} us/step); temporal_reference {plain_ms!r} ms; the "
           f"levels' shared-memory bound (computed, {anatomy.SMEM_BYTES_PER_CLOCK} B a clock per "
-          f"SM at {anatomy.SM_CLOCK_HZ:.4g} Hz) {smem_ms!r} ms")
+          f"SM at {anatomy.SM_CLOCK_HZ:.4g} Hz) {smem_ms!r} ms; the bytes as tiled "
+          f"({tile['rows']}x{tile['width']} tiles, {tile['ctas_per_sm']} CTAs/SM of "
+          f"{tile['threads']} threads: {tiled_read / state_bytes!r} of the state read, one "
+          f"written) {tiled_ms!r} ms at {PEAK_BYTES_PER_S:.3g} B/s, the kernel at "
+          f"{tiled_ms / ms!r} of it")
     entry = {
-        "name": f"lbm_temporal_steps<T, GEOM> (a pass of L steps with walls; main path f32 "
-                f"T={chosen[torch.float32]}, bf16 T={chosen[torch.bfloat16]}; ms: one pass of "
-                f"{depth} steps, f32 spec, 800x4000)",
+        "name": f"lbm_temporal_steps<T, GEOM> (a pass of L steps with walls, 2 CTAs of 256 "
+                f"threads an SM, a tile's rows in two groups of copies, its first level on the "
+                f"top rows while the bottom rows land; main path f32 T={chosen[torch.float32]}, "
+                f"bf16 T={chosen[torch.bfloat16]}; ms: one pass of {depth} steps, f32 spec, "
+                f"800x4000)",
         "route": "cuda",
         "source": "latticeboltzmann_tpu_torch/csrc/lbm_temporal_step.cu",
         "replaces": "latticeboltzmann_tpu/ops/fused_kernel.py:1757 (temporal=T, walls)",
@@ -3669,6 +3681,8 @@ def temporal_phases(f32_main, bf16_main):
         "plain_ms": plain_ms,
         # the pass: the state read once and written once; every level's operations
         **bound(2 * state_bytes, depth * F32_OPS_PER_SITE * cfg.sites),
+        "bytes_as_tiled_bound_ms": tiled_ms,
+        "read_factor": tiled_read / state_bytes,
         "temporal": {str(k): v for k, v in chosen.items()},
         "main_path_us_per_step": main_us,
         "us_per_step_by_T": {f"{k[0]}-{k[1]}" if isinstance(k, tuple) else k:

@@ -139,23 +139,23 @@ __device__ __forceinline__ void level(bool pushed, T* sm, const uint8_t* cls, in
   }
 }
 
-// Start a tile's loads into shared memory as asynchronous copies: the 9
-// planes of each (row, 16-byte vector) item, and its V class bytes (the
-// plane variant: one copy from the class plane; the spec variant: the
-// spec at the sites' global indices; wall-free: zeros). A vector's global
-// columns are contiguous: the tile's first column and NY are multiples of
-// V.
+// Start the loads of a tile's rows [r0, r1) into shared memory as
+// asynchronous copies: the 9 planes of each (row, 16-byte vector) item,
+// and its V class bytes (the plane variant: one copy from the class plane;
+// the spec variant: the spec at the sites' global indices; wall-free:
+// zeros). A vector's global columns are contiguous: the tile's first column
+// and NY are multiples of V.
 template <typename T, int GEOM>
 __device__ __forceinline__ void load_tile(T* sm, uint8_t* cls, const TileAt& a, const T* src,
                                           const uint8_t* solid, const Spec& g, int nx, int ny,
-                                          int64_t plane) {
+                                          int64_t plane, int r0, int r1) {
   constexpr int V = vec_columns<T>();
   const int k0 = a.lc0 / V;
   const int nb = (a.lc1 + V - 1) / V - k0;
-  const int n = a.lr1 * nb;
+  const int n = (r1 - r0) * nb;
   Walk at(nb);
   for (int i = threadIdx.x; i < n; i += kNT, at.next()) {
-    const int lr = at.a;
+    const int lr = r0 + at.a;
     const int lc = (k0 + at.b) * V;
     const int gi = wrap(a.gr0 + lr, nx);
     const int gj = wrap(a.gc0 + lc, ny);
@@ -175,14 +175,15 @@ __device__ __forceinline__ void load_tile(T* sm, uint8_t* cls, const TileAt& a, 
   }
 }
 
-// The L levels of a loaded tile, the last of which stores the output tile.
-// NT: the CTA's threads.
+// The levels t0 .. L of a loaded tile (those before t0 have run), the last
+// of which stores the output tile. NT: the CTA's threads.
 template <typename T, int GEOM, int NT = kNT>
 __device__ __forceinline__ void tile_levels(T* sm, uint8_t* cls, const TileAt& a, T* dst, int ny,
-                                            int64_t plane, const Params& k, int fast_math) {
+                                            int64_t plane, const Params& k, int fast_math,
+                                            int t0 = 1) {
   // the output tile's sites at dst[out0 + r ny + c] for tile site (r, c)
   const int64_t out0 = static_cast<int64_t>(a.gr0) * ny + a.gc0;
-  for (int t = 1; t <= a.L; ++t) {
+  for (int t = t0; t <= a.L; ++t) {
     const int g = a.L - t;  // how far level t reaches beyond the output
     const int ra = a.L - g, rb = a.L + a.Re + g;
     const int ca = a.pad - g, cb = a.pad + a.Ce + g;

@@ -57,7 +57,20 @@
 //   writes would otherwise race with other sites' guard reads), then a
 //   barrier;
 // - the last level writes the output tile from registers to dst, one site
-//   per thread along rows.
+//   per thread along rows;
+// - a tile's rows load as two groups of copies, the top half and the
+//   bottom half, and its first level runs on the rows whose sources are in
+//   the top half while the bottom half lands, then on the rest (a tile
+//   that holds global column 0 waits for all its rows: its guard bits read
+//   them first). A CTA that waits for its tile leaves the SM to the other
+//   CTA's levels alone; this shortens the wait.
+// Taken apart on an H100 (scripts/temporal_parts.py; PERF.md), a pass of
+// 6 is its levels' time (its levels alone 0.95 of it in float32, 0.96 in
+// bf16), and neither more warps an SM nor two sites a thread run them
+// faster; one CTA an SM with two tile buffers, its next tile loading under
+// its levels, ran them 13% slower (a level's barrier then stops the whole
+// SM) and lost at 6 steps, and a tile height planned per launch lost there
+// too.
 // It takes NY a multiple of a 16-byte vector's columns and 16-byte
 // aligned buffers (the wrapper refuses every other shape), and a pass as
 // deep as leaves an output tile (lbm_temporal_steps_info gives the tile).
@@ -142,6 +155,25 @@
 
 namespace {
 
+// Level 1 of a tile that holds no site of global column 0, over its rows
+// [r0, r1) only (the level's rows are [1, lr1 - 1)): the last level when L
+// is 1.
+template <typename T, int GEOM>
+__device__ __forceinline__ void first_level_rows(T* sm, const uint8_t* cls, const TileAt& a,
+                                                 int r0, int r1, T* dst, int ny, int64_t plane,
+                                                 const Params& k, int fast_math) {
+  if (r1 <= r0) return;
+  const int64_t out0 = static_cast<int64_t>(a.gr0) * ny + a.gc0;
+  const int ca = a.pad - (a.L - 1), cb = a.pad + a.Ce + a.L - 1;
+  if (a.L == 1) {
+    tile_level<T, GEOM, false, false, true>(sm, cls, r0, r1, ca, cb, dst, out0, ny, plane, k,
+                                            fast_math);
+  } else {
+    tile_level<T, GEOM, false, false, false>(sm, cls, r0, r1, ca, cb, dst, out0, ny, plane, k,
+                                             fast_math);
+  }
+}
+
 // src -> dst, L steps: (9, nx, ny) each, distinct. rows: the tile's rows; a
 // pass of L steps writes output tiles of (rows - 2 L) x (kW - 2
 // column_halo(L)) sites. solid: the uint8 class plane (GEOM kPlane).
@@ -162,11 +194,31 @@ lbm_temporal_steps(const T* __restrict__ src, T* __restrict__ dst,
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const TileAt a(tile, tiles_y, R, C, nx, ny, L, pad);
     // the previous tile's last level has read the shared tile (its closing
-    // barrier) before these loads overwrite it
-    load_tile<T, GEOM>(sm, cls, a, src, solid, g, nx, ny, plane);
+    // barrier) before these loads overwrite it: its top and bottom rows, two
+    // groups of copies
+    const int mid = a.lr1 / 2;
+    load_tile<T, GEOM>(sm, cls, a, src, solid, g, nx, ny, plane, 0, mid);
+    copies_commit();
+    load_tile<T, GEOM>(sm, cls, a, src, solid, g, nx, ny, plane, mid, a.lr1);
+    copies_commit();
+    if (a.has0) {
+      // a column-0 tile's guard bits read every row first
+      copies_wait();
+      __syncthreads();
+      tile_levels<T, GEOM>(sm, cls, a, dst, ny, plane, k, fast_math);
+      continue;
+    }
+    // level 1, row r reading rows r - 1 .. r + 1: the rows above mid - 1
+    // while the bottom rows land, then the rest
+    copies_wait_but_newest();
+    __syncthreads();
+    first_level_rows<T, GEOM>(sm, cls, a, 1, mid - 1, dst, ny, plane, k, fast_math);
     copies_wait();
     __syncthreads();
-    tile_levels<T, GEOM>(sm, cls, a, dst, ny, plane, k, fast_math);
+    first_level_rows<T, GEOM>(sm, cls, a, max(1, mid - 1), a.lr1 - 1, dst, ny, plane, k,
+                              fast_math);
+    __syncthreads();
+    tile_levels<T, GEOM>(sm, cls, a, dst, ny, plane, k, fast_math, 2);
   }
 }
 

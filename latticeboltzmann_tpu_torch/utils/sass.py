@@ -38,6 +38,7 @@ _PRED_OPERAND = re.compile(r"(^|[\s,])!?U?P[0-6]\b")
 _ANON = re.compile(r"_ZN(\d+)_GLOBAL__N_")
 # the row of dots that closes a kernel's listing
 _END = re.compile(r"^\s*\.{5,}\s*$", re.MULTILINE)
+_BLANKS = re.compile(r"[ \t]+")
 
 
 def disassemble(lib: str | pathlib.Path) -> str:
@@ -77,15 +78,18 @@ def kernel_key(name: str) -> str:
 def digests(text: str) -> dict[str, str]:
     """{kernel_key(name): SHA-256 of the kernel's listing} for every
     kernel of a cuobjdump -sass listing: every instruction with its
-    address, guard, operands and encoding, and the header flags. Two
-    kernels with equal digests have the same SASS."""
+    address, guard, operands and encoding, and the header flags, each run
+    of blanks taken as one (cuobjdump pads every kernel of an object to
+    the column of its widest instruction, so a kernel added beside another
+    moves the other's padding). Two kernels with equal digests have the
+    same SASS."""
     out = {}
     for block in text.split("Function : ")[1:]:
         name, body = (block.split("\n", 1) + [""])[:2]
         # the listing ends at its row of dots; what follows belongs to the
         # next object of the library
-        body = _END.split(body, 1)[0]
-        out[kernel_key(name.strip())] = hashlib.sha256(body.strip().encode()).hexdigest()
+        body = _BLANKS.sub(" ", _END.split(body, 1)[0].strip())
+        out[kernel_key(name.strip())] = hashlib.sha256(body.encode()).hexdigest()
     return out
 
 

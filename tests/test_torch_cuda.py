@@ -1713,6 +1713,31 @@ def test_temporal_kernel_fast_math_within_its_tolerance(cuda_device):
     assert float(((got - want).abs() / want.abs()).max()) <= fk.FAST_MATH_RTOL
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+def test_temporal_kernel_walks_many_tiles_a_cta(dtype, cuda_device):
+    """The local form on 256x2048 (the reference barrier's wall spec, and
+    a slip scene as the plane variant), one pass of every L the card's
+    tile takes, where every CTA walks many tiles, each tile's bottom rows
+    loading under its first level's top rows, and some tiles hold global
+    column 0: bitwise against temporal_reference; every launch counted."""
+    cfg = LatticeConfig(nx=256, ny=2048, dtype=dtype)
+    spec = geometry.infer_spec(geometry.reference_barrier(256, 2048))
+    walls, slip_x, slip_y = _slip_scene(256, 2048)
+    slip = torch.as_tensor(fk.class_plane(walls, slip_x, slip_y), device=cuda_device)
+    f = _perturbed(cfg, cuda_device, seed=7)
+    most = fk.temporal_info(f.dtype)["max_steps"]
+    before = fk.TEMPORAL_LAUNCHES
+    for geom in (spec, slip):
+        want = f
+        for L in range(1, most + 1):
+            want = fk.temporal_reference(want, geom, cfg, 1)
+            got = fk.temporal_step(f, torch.full_like(f, float("nan")), geom, cfg, L)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), L
+    assert fk.TEMPORAL_LAUNCHES == before + 2 * most
+
+
 def _ds_ring_shard(a, solid, n, k, depth):
     """Shard k of a ring of n over the card's pair a: its pair, its (top,
     bot) halo pairs of `depth` rows from the ring neighbours (rows by

@@ -207,7 +207,8 @@ def test_kernel_key_drops_the_anonymous_namespace_tag():
 def test_digests_tell_kernels_apart_and_ignore_what_follows_the_listing():
     """One digest per kernel; an instruction changed changes only its
     kernel's digest; what follows a listing's row of dots (the next
-    object's header) changes nothing."""
+    object's header) changes nothing, nor does the column the encodings
+    are padded to (cuobjdump pads to an object's widest instruction)."""
     base = sass.digests(_LISTING)
     assert set(base) == {"_Z6kernelPf", "_Z5otherv"}
     assert base["_Z6kernelPf"] != base["_Z5otherv"]
@@ -216,3 +217,5 @@ def test_digests_tell_kernels_apart_and_ignore_what_follows_the_listing():
     assert changed["_Z5otherv"] == base["_Z5otherv"]
     trailer = _LISTING.replace("\t\t..........\n", "\t\t..........\nFatbin elf code:\narch = sm_90a\n")
     assert sass.digests(trailer) == base
+    assert sass.digests(_LISTING.replace(" ;  ", " ;   ")) == base
+    assert sass.digests(_LISTING.replace("R7, R6", "R7,R6")) != base
