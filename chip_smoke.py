@@ -327,7 +327,24 @@ stands beside phase 6-8's in the kernels line.
    shard), the issue floors of the local, ext-halo and rdma forms' passes
    from their SASS (temporal_site_counts) at the SM clock read under load,
    and each path's us/step and enqueue by the host clock beside cuda, cuda
-   at temporal=T and the one-step forms.
+   at temporal=T and the one-step forms;
+33. the modules (modules_phase): (a) Simulation(backend="cuda",
+   temporal=MODULES_TEMPORAL) on the reference scene at 800 x NARROW_NY,
+   an NY of no whole 16-byte vectors, f32 and bf16: the session chooses
+   one step per launch by shape, MODULES_STEPS counted launches of the
+   narrow form and no pass of the temporal form, bitwise equal to
+   temporal=None from the same state, each path's us/step by the host
+   clock beside temporal=None's; (b) backend="cuda" with a float64 config
+   at 800x4000: the torch engine on the card with no kernel session,
+   reported as fused_kernel.F64_FORM and counted in F64_STEPS
+   (F64_MAIN_STEPS steps, no kernel launch), finite and non-negative, Re
+   finite, its us/step; bitwise equal to backend="torch" on the card, and
+   against the port's golden oracle (models/golden.py, float64 NumPy on
+   the host) at F64_GOLDEN_SCENE after F64_GOLDEN_STEPS steps, the max
+   absolute and relative differences printed (bitwise expected), within
+   the JAX package's bar for its jitted float64 engine against golden.
+   The narrow launches of (a) stand beside rows 1 and 1b's entries in the
+   kernels line (modules_launches).
 
 Every phase call of main() prints `phase N took S s` (N: the phases it
 runs, e.g. 6-8) on its own line, and a `phase seconds` line before the
@@ -418,6 +435,17 @@ DS_LONG_STEPS = {False: 100, True: 50}
 PROBED_STEPS = 240
 PROBED_EVERY = (1, 8, 3)
 PROBED_TIMED_STEPS = 2000
+# the modules phase (33): the depth asked at an NY of no whole vectors and
+# the steps of each such path; the float64 cuda path's steps at 800x4000;
+# the scene (NX, NY; docs/NUMERICS.md's) and steps of its comparison with
+# golden, and the JAX package's bar for its jitted float64 engine against
+# golden (tests/test_xla_parity.py:53-60)
+MODULES_TEMPORAL = 6
+MODULES_STEPS = 1000
+F64_MAIN_STEPS = 200
+F64_GOLDEN_SCENE = (240, 400)
+F64_GOLDEN_STEPS = 20
+F64_GOLDEN_RTOL, F64_GOLDEN_ATOL = 1e-13, 1e-18
 
 
 def computed_bounds(entry):
@@ -1154,10 +1182,15 @@ def main() -> int:
     ds_temporal = clock_.run("30", ds_temporal_phase, ds_main, ds_counts, clock, copy)
     ds_ext_temporal = clock_.run("31", ds_sharded_temporal_phase, ds_counts, clock, copy)
     shard_pass = clock_.run("32", shard_pass_phase, pass_launches, copy)
+    modules_launches = clock_.run("33", modules_phase, card)
+    if clock_.seconds["33"] > MODULES_BUDGET_S:
+        raise AssertionError(f"phase 33 took {clock_.seconds['33']:.1f} s, over its "
+                             f"{MODULES_BUDGET_S} s budget")
 
     entries = [*f32_entries, *options, ds, ds_temporal, ds_ext_temporal, *ext, *anatomy, temporal,
                *shard_pass]
     add_cli_launches(entries, cli_launches, torch.cuda.device_count())
+    add_modules_launches(entries, modules_launches)
     print(f"phase seconds (wall, by phase call; {sum(clock_.seconds.values()):.1f} s in all): "
           + json.dumps({k: round(v, 1) for k, v in clock_.seconds.items()}))
     print("bounds computed from this run's inputs, by kernel (not measured; not in the kernels "
@@ -5038,6 +5071,107 @@ def shard_pass_phase(main_launches, copy):
         "plan": common["plan"],
         **bounds["f32"],
     }]
+
+
+# phase 33's wall-time budget (seconds)
+MODULES_BUDGET_S = 30
+# the kernels line's entries of the narrow one-step form (rows 1 and 1b),
+# by storage type, which phase 33's temporal paths at an NY of no whole
+# vectors launch
+MODULES_ENTRIES = {"f32": "lbm_stream_collide<float> ",
+                   "bf16": "lbm_stream_collide<__nv_bfloat16> "}
+
+
+def add_modules_launches(entries, launches):
+    """Records phase 33's narrow launches of each storage type beside its
+    entry's launches, as modules_launches; launches stays the count of the
+    entry's own main path."""
+    for kind, name in MODULES_ENTRIES.items():
+        hits = [e for e in entries if e["name"].startswith(name)]
+        if len(hits) != 1:
+            raise AssertionError(f"kernels line: {len(hits)} entries for {name!r}")
+        hits[0]["modules_launches"] = launches[kind]
+
+
+def modules_phase(card):
+    """Phase 33: the temporal paths at an NY of no whole 16-byte vectors,
+    counted and bitwise to temporal=None, and the float64 cuda path on the
+    torch engine, counted, against the torch backend and golden. Returns
+    {"f32": narrow launches, "bf16": ...} of the temporal paths."""
+    from latticeboltzmann_tpu_torch import LatticeConfig, Simulation, geometry
+    from latticeboltzmann_tpu_torch.models import golden
+    from latticeboltzmann_tpu_torch.ops import fused_kernel as fk
+
+    # (a) temporal=T at 800 x NARROW_NY: one narrow launch per step
+    launches = {}
+    for kind, dtype in (("f32", np.float32), ("bf16", "bfloat16")):
+        cfg = LatticeConfig(nx=800, ny=NARROW_NY, dtype=dtype)
+        walls = geometry.reference_barrier(cfg.nx, cfg.ny)
+        variant = f"{kind}-spec"
+        states, us = {}, {}
+        for temporal in (None, MODULES_TEMPORAL):
+            sim = Simulation(cfg, walls, backend="cuda", temporal=temporal)
+            if sim._session.temporal != 1:
+                raise AssertionError(f"800x{NARROW_NY} {kind}: the session runs passes of "
+                                     f"{sim._session.temporal}, expected 1")
+            reset_counts()
+            sim.run(MODULES_STEPS)
+            n = expect_counts(f"800x{NARROW_NY} {kind} temporal={temporal}",
+                              {variant: MODULES_STEPS}, "narrow")[variant]
+            states[temporal], us[temporal] = sim.state(), sim.elapsed / MODULES_STEPS * 1e6
+            if temporal is not None:
+                launches[kind] = n
+        if not np.array_equal(states[MODULES_TEMPORAL], states[None]):
+            raise AssertionError(f"800x{NARROW_NY} {kind}: temporal={MODULES_TEMPORAL} differs "
+                                 "from temporal=None")
+        f = states[None]
+        if not (np.isfinite(f).all() and (f >= 0).all()):
+            raise AssertionError(f"800x{NARROW_NY} {kind}: state not finite/non-negative")
+        print(f"modules, 800x{NARROW_NY} {kind} Simulation(backend=cuda, temporal="
+              f"{MODULES_TEMPORAL}): {launches[kind]} {variant} launches of the narrow form, 0 "
+              f"temporal launches, bitwise equal to temporal=None; {us[MODULES_TEMPORAL]!r} "
+              f"us/step against temporal=None's {us[None]!r} (host clock, {MODULES_STEPS} "
+              f"steps each; {card})")
+
+    # (b) float64 on cuda: the torch engine on the card, no session
+    cfg = LatticeConfig(nx=800, ny=4000, dtype=np.float64)
+    walls = geometry.reference_barrier(cfg.nx, cfg.ny)
+    sim = Simulation(cfg, walls, backend="cuda")
+    if sim.form != fk.F64_FORM or sim._session is not None or sim.device.type != "cuda":
+        raise AssertionError(f"cuda float64: form {sim.form!r}, session {sim._session}, "
+                             f"device {sim.device}")
+    reset_counts()
+    steps0 = fk.F64_STEPS
+    sim.run(F64_MAIN_STEPS)
+    expect_counts("cuda float64", {})
+    if fk.F64_STEPS - steps0 != F64_MAIN_STEPS:
+        raise AssertionError(f"cuda float64: {fk.F64_STEPS - steps0} engine steps counted, "
+                             f"expected {F64_MAIN_STEPS}")
+    f, re = sim.state(), sim.reynolds()
+    if not (f.dtype == np.float64 and np.isfinite(f).all() and (f >= 0).all()
+            and np.isfinite(re)):
+        raise AssertionError(f"cuda float64: state {f.dtype} not finite/non-negative, or Re {re!r}")
+    print(f"modules, 800x4000 float64 Simulation(backend=cuda): form {sim.form!r}, "
+          f"{F64_MAIN_STEPS} engine steps counted, no kernel launch, Re {re!r}; "
+          f"{sim.elapsed / F64_MAIN_STEPS * 1e6!r} us/step (host clock; {card})")
+
+    nx, ny = F64_GOLDEN_SCENE
+    cfg = LatticeConfig(nx=nx, ny=ny, dtype=np.float64)
+    walls = geometry.reference_barrier(nx, ny)
+    sim = Simulation(cfg, walls, backend="cuda")
+    got = sim.run(F64_GOLDEN_STEPS).state()
+    eng = Simulation(cfg, walls, backend="torch", device=sim.device).run(F64_GOLDEN_STEPS).state()
+    if not np.array_equal(got, eng):
+        raise AssertionError(f"{nx}x{ny} float64: backend=cuda differs from backend=torch")
+    want = golden.run(golden.initial_state(cfg), walls, cfg, F64_GOLDEN_STEPS)
+    diff = np.abs(got - want)
+    rel = float((diff / np.maximum(np.abs(want), np.finfo(np.float64).tiny)).max())
+    print(f"modules, {nx}x{ny} reference_barrier float64, {F64_GOLDEN_STEPS} steps: backend=cuda "
+          f"bitwise equal to backend=torch on the card; against golden (host NumPy): bitwise "
+          f"{bool(np.array_equal(got, want))}, max |diff| {float(diff.max())!r}, max relative "
+          f"{rel!r} (bar rtol {F64_GOLDEN_RTOL}, atol {F64_GOLDEN_ATOL})")
+    np.testing.assert_allclose(got, want, rtol=F64_GOLDEN_RTOL, atol=F64_GOLDEN_ATOL)
+    return launches
 
 
 if __name__ == "__main__":

@@ -107,7 +107,10 @@ def resolve_backend(name: str, dtype=np.float32) -> str:
     one): the kernel takes those two storage dtypes, and the JAX package
     sends float64 to its plain engine on the accelerator too. Any other
     name is returned as it is, so an explicit choice that cannot run
-    raises instead of rerouting."""
+    raises instead of rerouting. An explicit "cuda" with float64 runs:
+    the facade takes it to the same "torch" engine on the card
+    (Simulation.form "torch-f64"), so a float64 checkpoint resumes under
+    --backend cuda too."""
     if name != "auto":
         return name
     import torch

@@ -7,8 +7,15 @@ the port's backends.
   CUDA kernel, the counterpart of "pallas": float32 or bf16 storage, the
   mask computed in the kernel from geometry.infer_spec's closed form
   when there is one (as the JAX main path does), free-slip codes, fast
-  math and, with temporal=T, passes of T steps per launch. It raises
-  without a CUDA card, and on float64; it never reroutes.
+  math and, with temporal=T, passes of T steps per launch (one step per
+  launch where NY holds no whole 16-byte vectors, as the session
+  chooses by shape). float64 storage, which no kernel takes, runs the
+  "torch" engine on the card with no session, as the JAX "pallas" runs
+  float64 on its XLA engine: a choice by dtype (fused_kernel.run_steps),
+  reported by Simulation.form as fused_kernel.F64_FORM ("torch-f64")
+  and counted in fused_kernel.F64_STEPS, bitwise equal to
+  backend="torch". It raises without a CUDA card, and a failed build or
+  launch raises: nothing reroutes on failure.
 - "torch-ds64": the eager pair-DP engine (ops/ds_engine.py, the exact
   tier) on any device, the counterpart of "xla-ds64".
 - "cuda-ds64": a persistent ops/fused_ds_kernel.Session around the CUDA
@@ -41,8 +48,9 @@ backends raise without a card.
 
 A backend function with a `session` attribute (session(cfg, walls, *,
 device, **options) -> a session with load, advance, state) runs through
-a persistent session that the facade keeps; any other runs as
-run_steps(f, walls, cfg, n_steps, **options). A blocking run() ends with
+a persistent session that the facade keeps, except for float64 storage
+on _F64_ENGINE_BACKENDS; any other runs as run_steps(f, walls, cfg,
+n_steps, **options). A blocking run() ends with
 the session's block(), or the backend function's own `block` attribute
 where it has one (the eager sharded runners wait for every card of their
 mesh), else with a synchronize of the simulation's device.
@@ -85,6 +93,7 @@ from ..ops import stream_collide as torch_ops
 from ..parallel import sharded
 from ..utils import viz
 from ..utils.interop import round_bf16, state_tensor, storage_dtype, to_numpy
+from . import golden
 
 # backend name -> run_steps(f, walls, cfg, n_steps) -> f
 _BACKENDS: dict[str, Callable] = {}
@@ -128,6 +137,9 @@ _FASTMATH_BACKENDS = {"cuda", "sharded-cuda", "sharded-cuda-fused", "sharded-cud
 _WALL_SPEC_BACKENDS = {"cuda", "sharded-cuda", "sharded-cuda-fused", "sharded-cuda-rdma"}
 # backends that run passes of `temporal` steps (the JAX facade's "pallas")
 _TEMPORAL_BACKENDS = {"cuda"}
+# backends that run float64 storage on the portable engine, with no
+# kernel session (fused_kernel.run_steps' choice by dtype)
+_F64_ENGINE_BACKENDS = {"cuda"}
 # backends that run only behind Simulation(allow_experimental=True)
 _EXPERIMENTAL_BACKENDS = {"sharded-cuda-rdma"}
 
@@ -162,25 +174,6 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _reynolds_sequential(f: np.ndarray, walls: np.ndarray, cfg: LatticeConfig) -> float:
-    """Reynolds number over the central column from a host float64 state
-    (src/latticeboltzmann.c:522-547): mean u_y of the non-wall sites at
-    j = NY/2, times the characteristic length 10, over nu. The port's copy
-    of the JAX package's golden.reynolds: numpy's elementwise float64
-    arithmetic, then a strict sequential sum over i, like the C loop."""
-    j = int(cfg.ny / 2.0)
-    col = f[:, :, j]  # (9, NX)
-    fluid = ~walls[:, j]
-    density = col[0]
-    for s in range(1, NSPEEDS):
-        density = density + col[s]
-    u_y = ((col[5] + col[1]) + col[8] - ((col[6] + col[3]) + col[7])) / density
-    total = 0.0
-    for v in u_y[fluid]:
-        total += float(v)
-    return total / int(fluid.sum()) * 10.0 / cfg.viscosity
-
-
 def default_device(backend: str) -> str:
     """The device a backend runs on when none is given: "cuda" for the
     kernel backends; for the others "cuda" when a card is available,
@@ -200,13 +193,19 @@ class Simulation:
     as given. temporal=T on "cuda" runs passes of T steps through the
     temporal form of the kernel (fused_kernel.Session(temporal=T): n steps
     as n // T passes of T and one of the rest), bitwise equal to one step
-    per launch; None (the default) and 1 keep one launch per step. On
-    every other backend it selects nothing, as the JAX facade passes it
-    only to "pallas" (models/engine.py:341-342 there). A temporal that is
-    no integer or under 1 raises ValueError on every backend, as the JAX
-    planner does (ops/fused_kernel.py:2008-2015 there); "cuda" also
-    refuses a depth or shape the temporal form does not take
-    (fused_kernel.Session). skew selects nothing anywhere: the
+    per launch; None (the default) and 1 keep one launch per step, and so
+    does any T where NY holds no whole 16-byte vectors (the session's
+    choice by shape). On every other backend, and on "cuda" with float64
+    storage, it selects nothing, as the JAX facade passes it only to
+    "pallas" (models/engine.py:341-342 there), whose planner ignores it
+    for float64. A temporal that is no integer or under 1 raises
+    ValueError on every backend, as the JAX planner does
+    (ops/fused_kernel.py:2008-2015 there); "cuda" also refuses a depth
+    past the temporal form's tile on the card (fused_kernel.Session).
+    `form` reads what runs: fused_kernel.KERNEL_FORM ("kernel") where a
+    kernel session runs, fused_kernel.F64_FORM ("torch-f64") for float64
+    on "cuda", and "engine" on the backends that run no kernel. skew
+    selects nothing anywhere: the
     JAX package's own tests hold its schedules bitwise equal to one another
     (tests/test_pallas.py:706-816), so one schedule gives every result it
     can select. allow_experimental opts in to the backends of
@@ -258,6 +257,9 @@ class Simulation:
                 f"free-slip boundaries are not implemented on the {backend!r} "
                 f"backend; supported: {sorted(_SLIP_BACKENDS)}"
             )
+        # float64 on a kernel backend that takes it: no session, the engine
+        f64_engine = (backend in _F64_ENGINE_BACKENDS
+                      and fused_kernel.run_form(cfg) == fused_kernel.F64_FORM)
         self.device = torch.device(default_device(backend) if device is None else device)
         if backend in _KERNEL_BACKENDS and self.device.type != "cuda":
             raise ValueError(f"backend {backend!r} runs on a CUDA device, not {self.device}")
@@ -303,7 +305,9 @@ class Simulation:
         self._session = None
         self._f = None
         self._options = {}
-        session = getattr(self._run_steps, "session", None)
+        session = None if f64_engine else getattr(self._run_steps, "session", None)
+        self.form = (fused_kernel.F64_FORM if f64_engine
+                     else fused_kernel.KERNEL_FORM if session is not None else "engine")
         if session is not None:
             self._session = session(cfg, self.walls_np, device=self.device, **options)
         else:
@@ -437,11 +441,11 @@ class Simulation:
         """Reynolds number at a column (default ny/2, the reference's
         regression scalar, src/latticeboltzmann.c:522-547). On the ds
         backends the default column is summed on the host, one site after
-        the other in float64, as the JAX facade does through its golden
-        model (models/engine.py:511-516, models/golden.py:204-220 there):
-        a device sum adds in another order."""
+        the other in float64, by golden.reynolds, as the JAX facade does
+        through its golden model (models/engine.py:511-516 there): a
+        device sum adds in another order."""
         if self.backend in _DS_BACKENDS and col is None:
-            return _reynolds_sequential(self.state(), self.walls_np, self.cfg)
+            return golden.reynolds(self.state(), self.walls_np, self.cfg)
         return float(torch_ops.reynolds(self._f64(), self.walls, self.cfg, col))
 
     @property

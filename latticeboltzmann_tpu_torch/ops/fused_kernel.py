@@ -89,6 +89,13 @@ RDMA_TEMPORAL_STEPS.
 State is the unpadded (9, NX, NY) layout: the TPU kernel's mirror-pad
 lanes and VMEM staging have no counterpart here (ROADMAP, "Not to port").
 
+A float64 config has no kernel (ROADMAP B15): `run_steps` and
+`run_steps_probed` take it to the portable engine (ops/stream_collide.py)
+on f's device, the form F64_FORM, counted in F64_STEPS, as the JAX
+run_steps takes it to its XLA engine when its planner returns None. The
+kernel entry points (`step`, `temporal_step`, the ext-halo and rdma
+launchers) and `Session` raise NotImplementedError on it.
+
 The probed run (`run_steps_probed`; Simulation.run_probed through
 `Session.probe_values`) samples (rho, u_x, u_y) at probe sites from the
 session's live buffer after every `every` launches into a series
@@ -119,6 +126,12 @@ from . import cuda_build, stream_collide
 # kernel (chip_smoke.py resets and reads both)
 LAUNCHES = 0
 VARIANT_LAUNCHES: collections.Counter = collections.Counter()
+# the forms run_steps chooses by dtype (run_form): the portable engine
+# for float64, which no kernel takes, and the kernel session; the steps
+# run in the first, which no launch count includes
+F64_FORM = "torch-f64"
+KERNEL_FORM = "kernel"
+F64_STEPS = 0
 # the same launches by the single-chip kernel's form, "wide" or "narrow"
 FORM_LAUNCHES: collections.Counter = collections.Counter()
 # the same for the ext-halo form's launches (`ext_launcher`)
@@ -1430,23 +1443,35 @@ def _temporal_info(dtype: torch.dtype, geometry: int, index: int,
             "max_steps": tile_max_steps(tile, dtype), "threads": out[6], "buffers": out[7]}
 
 
-def _check_temporal_pass(steps: int, dtype: torch.dtype, ny: int, device: torch.device) -> None:
-    """Raise ValueError unless the temporal form takes a pass of `steps`
-    steps on rows of ny columns of storage `dtype` on `device`: whole
-    16-byte vectors a row and, on a card, no deeper than its tile takes
-    (temporal_info)."""
-    _check_temporal(steps)
-    v = WIDE_COLUMNS[dtype]
-    if ny % v:
-        raise ValueError(f"temporal blocking needs NY a multiple of {v} columns ({dtype}: one "
-                         f"16-byte vector), got NY {ny}; temporal=None or 1 runs one step per "
-                         "launch on any shape")
+def temporal_form_takes(dtype: torch.dtype, ny: int) -> bool:
+    """Whether the temporal form takes rows of ny columns of storage
+    `dtype`: whole 16-byte vectors (WIDE_COLUMNS)."""
+    return ny % WIDE_COLUMNS[dtype] == 0
+
+
+def _check_tile_depth(steps: int, dtype: torch.dtype, device: torch.device) -> None:
+    """On a card, raise ValueError when a pass of `steps` steps is deeper
+    than the temporal form's tile takes there (temporal_info)."""
     if device.type == "cuda":
         info = temporal_info(dtype, device=device)
         if steps > info["max_steps"]:
             raise ValueError(f"a pass of {steps} steps leaves no output tile in the temporal "
                              f"form's {info['rows']}x{info['width']} tile on {device} ({dtype}): "
                              f"it takes at most {info['max_steps']}")
+
+
+def _check_temporal_pass(steps: int, dtype: torch.dtype, ny: int, device: torch.device) -> None:
+    """Raise ValueError unless the temporal form takes a pass of `steps`
+    steps on rows of ny columns of storage `dtype` on `device`: whole
+    16-byte vectors a row and, on a card, no deeper than its tile takes
+    (temporal_info)."""
+    _check_temporal(steps)
+    if not temporal_form_takes(dtype, ny):
+        v = WIDE_COLUMNS[dtype]
+        raise ValueError(f"temporal blocking needs NY a multiple of {v} columns ({dtype}: one "
+                         f"16-byte vector), got NY {ny}; Session(temporal=T) runs one step per "
+                         "launch at such an NY")
+    _check_tile_depth(steps, dtype, device)
 
 
 def temporal_step(
@@ -2134,10 +2159,15 @@ class Session:
     temporal: None or 1 runs one step-kernel launch per step; T >= 2 runs
     passes of T steps through the temporal form (temporal_step), n steps
     as n // T launches of T steps and one of n % T, each a pass between
-    the two buffers. A temporal the form does not take (no integer in [1,
-    FLAT_MAX_TEMPORAL], rows of no whole 16-byte vectors, on a card a
-    pass deeper than its tile takes) raises ValueError here: nothing falls
-    back to one step per launch. Every result is bitwise the same.
+    the two buffers. Where the temporal form does not take the rows (NY
+    of no whole 16-byte vectors: temporal_form_takes), T >= 2 runs one
+    step per launch, a choice by shape counted by form in FORM_LAUNCHES,
+    as the ds and sharded sessions choose; `temporal` reads the depth
+    that runs, `requested_temporal` the one asked. A depth no form takes
+    (no integer in [1, FLAT_MAX_TEMPORAL], on a card a pass deeper than
+    its tile takes) raises ValueError here, at any shape. Every result is
+    bitwise the same. float64 storage raises NotImplementedError (ROADMAP
+    B15); run_steps takes it to the portable engine.
 
     Usage:
         sess = Session(cfg, walls, device="cuda", wall_spec=spec)
@@ -2166,8 +2196,10 @@ class Session:
         if temporal is not None:
             _check_temporal(temporal)
             if temporal > 1:
-                _check_temporal_pass(temporal, self.dtype, cfg.ny, self.device)
-        self.temporal = temporal or 1
+                _check_tile_depth(temporal, self.dtype, self.device)
+        self.requested_temporal = temporal
+        self.temporal = (temporal if temporal and temporal_form_takes(self.dtype, cfg.ny)
+                         else 1)
         geom = host_geometry(cfg, walls, wall_spec, slip_x, slip_y)
         if isinstance(geom, np.ndarray):
             geom = torch.as_tensor(geom, device=self.device)
@@ -2226,6 +2258,32 @@ class Session:
         return out
 
 
+def run_form(cfg: LatticeConfig) -> str:
+    """The form run_steps takes for this config's storage: F64_FORM (the
+    portable engine) for float64, else KERNEL_FORM; raises on a storage
+    the port does not take."""
+    return F64_FORM if storage_dtype(cfg.dtype) == torch.float64 else KERNEL_FORM
+
+
+def _engine_masks(f: torch.Tensor, walls, slip_x, slip_y) -> tuple:
+    """walls, slip_x, slip_y as bool tensors on f's device (None stays
+    None), for the portable engine."""
+    return tuple(None if m is None else torch.as_tensor(m, dtype=torch.bool, device=f.device)
+                 for m in (walls, slip_x, slip_y))
+
+
+def _engine_steps(f: torch.Tensor, masks: tuple, cfg: LatticeConfig, n_steps: int):
+    """n_steps of the portable engine from a float64 f on its device,
+    counted in F64_STEPS; masks as _engine_masks gives them."""
+    global F64_STEPS
+    if f.dtype != torch.float64:
+        raise TypeError(f"f must be torch.float64 (the config's storage), got {f.dtype}")
+    walls, slip_x, slip_y = masks
+    out = stream_collide.run_steps(f, walls, cfg, n_steps, slip_x, slip_y)
+    F64_STEPS += n_steps
+    return out
+
+
 def run_steps(
     f: torch.Tensor,
     walls,
@@ -2239,7 +2297,13 @@ def run_steps(
     temporal: int | None = None,
 ) -> torch.Tensor:
     """Unpadded in, unpadded out: the one-shot form of Session on f's
-    device. `f` is not modified."""
+    device. `f` is not modified. A float64 config runs the portable
+    engine on f's device instead (F64_FORM, counted in F64_STEPS), with
+    the slip masks; wall_spec, fast_math and temporal select nothing
+    there, as the JAX run_steps ignores them when its planner returns
+    None for float64."""
+    if run_form(cfg) == F64_FORM:
+        return _engine_steps(f, _engine_masks(f, walls, slip_x, slip_y), cfg, n_steps)
     sess = Session(cfg, walls, device=f.device, wall_spec=wall_spec,
                    slip_x=slip_x, slip_y=slip_y, fast_math=fast_math, temporal=temporal)
     sess.load(f)
@@ -2268,7 +2332,21 @@ def run_steps_probed(
     every % (2T) is TPU scheduling: here every `every` steps are one
     Session.advance, which plans its own passes (at temporal T, `every`
     // T passes of T steps and one of the rest), so one schedule serves
-    every `every`."""
+    every `every`. A float64 config runs the portable engine as run_steps
+    does, `every` steps between gathers in the same loop
+    (stream_collide.sample_every), the series float64."""
+    if run_form(cfg) == F64_FORM:
+        masks = _engine_masks(f, walls, slip_x, slip_y)
+        sites = stream_collide.probe_sites(probes, cfg, f.device)
+
+        def advance(n):
+            nonlocal f
+            f = _engine_steps(f, masks, cfg, n)
+
+        series = stream_collide.sample_every(n_steps, every, len(sites), torch.float64,
+                                             f.device, advance,
+                                             lambda: stream_collide.probe_values(f, sites))
+        return f, series
     sess = Session(cfg, walls, device=f.device, wall_spec=wall_spec,
                    slip_x=slip_x, slip_y=slip_y, fast_math=fast_math, temporal=temporal)
     sess.load(f)

@@ -32,8 +32,8 @@ def test_auto_backend_follows_precision_and_card(card, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: card)
     assert resolve_backend("auto", np.float32) == ("cuda" if card else "torch")
     assert resolve_backend("auto", np.float64) == "torch"
-    # an explicit choice is never rerouted: cuda with f64 still raises in
-    # Simulation (the kernel takes float32 only)
+    # an explicit choice is returned as it is: cuda with f64 runs the torch
+    # engine on the card (Simulation.form "torch-f64")
     assert resolve_backend("cuda", np.float64) == "cuda"
     assert resolve_backend("cuda-ds64", np.float64) == "cuda-ds64"
 

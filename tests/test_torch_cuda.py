@@ -272,9 +272,43 @@ def test_cuda_backend_tracks_torch_backend(cuda_device):
     assert fk.VARIANT_LAUNCHES["f32-spec"] == before + 20
     ref = Simulation(cfg, walls, backend="torch", device=cuda_device).run(20).state()
     np.testing.assert_allclose(out, ref, rtol=1e-4, atol=1e-7)
+    # float64 has no kernel: the facade runs the torch engine on the card,
+    # reported as such; the kernel session itself still refuses it
+    cfg64 = LatticeConfig(nx=16, ny=40, dtype=np.float64)
+    sim64 = Simulation(cfg64, walls[:16], backend="cuda")
+    assert sim64.form == fk.F64_FORM and sim64._session is None
+    assert sim64.device.type == "cuda"
     with pytest.raises(NotImplementedError, match="ROADMAP B15"):
-        Simulation(LatticeConfig(nx=16, ny=40, dtype=np.float64), walls[:16],
-                   backend="cuda")
+        fk.Session(cfg64, walls[:16], device=cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slip", [False, True])
+def test_cuda_float64_runs_the_torch_engine_on_the_card(slip, cuda_device):
+    """backend="cuda" with a float64 config on the card: the torch
+    engine with no kernel session, reported as fused_kernel.F64_FORM and
+    counted in F64_STEPS, no kernel launched; bitwise equal to
+    backend="torch" on the card in run(), run_probed() and reynolds(),
+    with the slip masks reaching the engine."""
+    cfg = LatticeConfig(nx=48, ny=96, dtype=np.float64)
+    walls = _plate_48x96()
+    kw = {}
+    if slip:
+        walls, slip_x, slip_y = _slip_scene(48, 96)
+        kw = {"slip_x": slip_x, "slip_y": slip_y}
+    steps, launches = fk.F64_STEPS, fk.LAUNCHES
+    sim = Simulation(cfg, walls, backend="cuda", temporal=6, **kw)
+    ref = Simulation(cfg, walls, backend="torch", device=cuda_device, **kw)
+    assert sim.form == fk.F64_FORM and sim._session is None and sim.device.type == "cuda"
+    sim.run(20)
+    ref.run(20)
+    assert fk.F64_STEPS == steps + 20 and fk.LAUNCHES == launches
+    np.testing.assert_array_equal(sim.state(), ref.state())
+    assert sim.reynolds() == ref.reynolds()
+    probes_ = [(10, 40), (30, 90)]
+    np.testing.assert_array_equal(sim.run_probed(12, probes_, every=4),
+                                  ref.run_probed(12, probes_, every=4))
+    np.testing.assert_array_equal(sim.state(), ref.state())
 
 
 @pytest.mark.cuda
@@ -1698,8 +1732,33 @@ def test_temporal_form_refuses_on_the_card(cuda_device):
     assert fk.TEMPORAL_LAUNCHES == before
     with pytest.raises(ValueError, match="at most"):
         Simulation(cfg, geometry.channel(16, 40), backend="cuda", temporal=most + 1)
-    with pytest.raises(ValueError, match="multiple of"):
-        Simulation(cfg37, geometry.channel(16, 37), backend="cuda", temporal=2)
+    with pytest.raises(ValueError, match="at most"):
+        Simulation(cfg37, geometry.channel(16, 37), backend="cuda", temporal=most + 1)
+    # at NY 37 the facade's session chooses one step per launch by shape
+    sim = Simulation(cfg37, geometry.channel(16, 37), backend="cuda", temporal=2)
+    assert (sim._session.temporal, sim._session.requested_temporal) == (1, 2)
+    assert fk.TEMPORAL_LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+def test_temporal_at_an_ny_of_no_whole_vectors_runs_the_narrow_form(dtype, cuda_device):
+    """Simulation(backend="cuda", temporal=6) at 48x98 (no whole 16-byte
+    vectors a row in f32 or bf16): one narrow-form launch of the one-step
+    kernel per step, no pass of the temporal form, bitwise equal to
+    temporal=None."""
+    cfg = LatticeConfig(nx=48, ny=98, dtype=dtype)
+    walls = geometry.channel(48, 98)
+    walls[10:30, 20:25] = True
+    f0 = _perturbed(cfg, cuda_device).float().cpu().numpy()
+    want = Simulation(cfg, walls, backend="cuda", f0=f0).run(25).state()
+    narrow, passes, launches = fk.FORM_LAUNCHES["narrow"], fk.TEMPORAL_LAUNCHES, fk.LAUNCHES
+    sim = Simulation(cfg, walls, backend="cuda", f0=f0, temporal=6)
+    assert (sim._session.temporal, sim._session.requested_temporal) == (1, 6)
+    got = sim.run(13).run(12).state()
+    assert fk.FORM_LAUNCHES["narrow"] == narrow + 25 and fk.LAUNCHES == launches + 25
+    assert fk.TEMPORAL_LAUNCHES == passes
+    np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.cuda
@@ -1995,14 +2054,17 @@ def test_a_bench_suite_row_is_sane(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("backend,precision,dtype", [("cuda", "f32", np.float32),
-                                                      ("cuda-ds64", "f64", np.float64)])
+                                                      ("cuda-ds64", "f64", np.float64),
+                                                      ("cuda", "f64", np.float64)])
 def test_cli_resumes_on_the_card(cuda_device, tmp_path, capsys, backend, precision, dtype):
     """The CLI at 64x128 on the card, as chip_smoke's phase 28(b): 20 steps
     with a snapshot and a checkpoint, --resume latest for 20 more, against
     an unbroken 40-step run (bitwise; the ds pair within 1e-11 relative,
     since a float64 checkpoint is split again at load time); every step
-    a counted launch; the snapshot byte-equal to write_snapshot_csv of a
-    Simulation run's speed_squared()."""
+    a counted launch, or on cuda with float64 a counted step of the torch
+    engine (a float64 checkpoint resumes under --backend cuda); the
+    snapshot byte-equal to write_snapshot_csv of a Simulation run's
+    speed_squared()."""
     from latticeboltzmann_tpu_torch import cli
     from latticeboltzmann_tpu_torch.utils import checkpoint, viz
 
@@ -2011,11 +2073,13 @@ def test_cli_resumes_on_the_card(cuda_device, tmp_path, capsys, backend, precisi
              "--debug-nans"]
     ck, ck1, data = tmp_path / "ck", tmp_path / "ck1", tmp_path / "data"
     def launched():
-        # the steps of the ds path's passes (the temporal form), or the f32
-        # path's launches (one a step)
-        return fdk.TEMPORAL_STEPS if backend == "cuda-ds64" else fk.LAUNCHES
+        # the steps of the ds path's passes (the temporal form), the float64
+        # path's engine steps, or the f32 path's launches (one a step)
+        if backend == "cuda-ds64":
+            return fdk.TEMPORAL_STEPS
+        return fk.F64_STEPS if dtype == np.float64 else fk.LAUNCHES
 
-    before, one_step_before = launched(), fdk.LAUNCHES
+    before, one_step_before, kernel_before = launched(), fdk.LAUNCHES, fk.LAUNCHES
     assert cli.main(scene + ["--steps", "20", "--checkpoint-every", "20", "--checkpoint-dir",
                              str(ck), "--save-lattice-every", "20", "--snapshot-dir",
                              str(data)]) == 0
@@ -2026,6 +2090,8 @@ def test_cli_resumes_on_the_card(cuda_device, tmp_path, capsys, backend, precisi
     assert launched() - before == 22 + 22 + 42
     if backend == "cuda-ds64":
         assert fdk.LAUNCHES == one_step_before
+    elif dtype == np.float64:
+        assert fk.LAUNCHES == kernel_before
     assert "resumed from" in capsys.readouterr().out
     _, resumed, _, _ = checkpoint.load(ck / "40.lbmckpt")
     _, unbroken, _, _ = checkpoint.load(ck1 / "40.lbmckpt")

@@ -237,7 +237,7 @@ def test_facade_ds_reynolds_is_the_sequential_host_sum(monkeypatch):
     re = sim.reynolds()
     assert re == jsim.reynolds()
     assert re == golden.reynolds(sim.state(), walls, jcfg)
-    assert re == engine._reynolds_sequential(sim.state(), walls, cfg)
+    assert re == engine.golden.reynolds(sim.state(), walls, cfg)
     monkeypatch.setattr(stream_collide, "reynolds", device_sum)
     assert sim.reynolds(col=7) == pytest.approx(jsim.reynolds(col=7), rel=1e-12)
     # the float64 "torch" backend keeps the engine's reducer, as JAX "xla" does

@@ -1,8 +1,10 @@
 """The port's slice end to end on the CPU: the Simulation facade against
 the JAX package's, state carried across by utils/interop.py; the kernel
 runner (Session and wrapper, on the CPU through step_reference) against
-the JAX fused kernel's runner; the CLI; and the cuda backend's refusal
-without a card."""
+the JAX fused kernel's runner; the CLI; the cuda backend's refusal
+without a card; and float64 on the cuda backend, which runs the torch
+engine with no kernel session, as the JAX pallas backend runs float64 on
+its XLA engine."""
 
 import dataclasses
 import pathlib
@@ -209,3 +211,93 @@ def test_schedule_keywords_construct_and_select_nothing(backend, monkeypatch):
     jsim = JaxSimulation(jcfg, jwalls, backend="xla", skew=False, temporal=None,
                          allow_experimental=False)
     assert jsim.skew is False and jsim.temporal is None
+
+
+def _f64_scene():
+    """24x40 float64, a channel and a block, with slip masks on a copy."""
+    cfg = LatticeConfig(nx=24, ny=40, dtype=np.float64)
+    walls = geometry.channel(24, 40)
+    walls[8:14, 10:13] = True
+    return cfg, walls
+
+
+@pytest.mark.parametrize("slip", [False, True])
+def test_cuda_float64_runs_the_torch_engine(slip, monkeypatch):
+    """backend="cuda" with a float64 config (the CPU twin of the card's
+    path): no kernel session, the "torch" engine, reported as
+    fused_kernel.F64_FORM and counted in F64_STEPS; bitwise equal to
+    backend="torch" in run(), run_probed() and reynolds(), with the schedule
+    and kernel options kept as given and selecting nothing, slip masks
+    reaching the engine. Against the JAX fused_kernel.run_steps, which
+    takes float64 to its XLA engine, at the JAX test's bar (rtol 1e-13,
+    atol 1e-18; tests/test_pallas.py:161-170)."""
+    from latticeboltzmann_tpu_torch.models import engine
+
+    monkeypatch.setattr(engine, "_KERNEL_BACKENDS", set())  # on the CPU, for the test
+    cfg, walls = _f64_scene()
+    kw = {}
+    if slip:
+        slip_x, slip_y = np.zeros_like(walls), np.zeros_like(walls)
+        slip_x[0] = True
+        slip_y[12, 30:33] = True
+        walls = walls.copy()
+        walls[0] = False
+        kw = {"slip_x": slip_x, "slip_y": slip_y}
+    steps_before, launches_before = fk.F64_STEPS, fk.LAUNCHES
+    sim = Simulation(cfg, walls, backend="cuda", device="cpu", temporal=3, skew=True,
+                     fast_math=True, **kw)
+    assert sim.form == fk.F64_FORM == "torch-f64" and sim._session is None
+    assert (sim.temporal, sim.skew, sim.fast_math) == (3, True, True)
+    ref = Simulation(cfg, walls, backend="torch", device="cpu", **kw)
+    assert ref.form == "engine"
+    sim.run(5).run(2)
+    ref.run(7)
+    assert fk.F64_STEPS == steps_before + 7 and fk.LAUNCHES == launches_before
+    np.testing.assert_array_equal(sim.state(), ref.state())
+    assert sim.state().dtype == np.float64
+    assert sim.reynolds() == ref.reynolds()
+    probes = [(5, 20), (12, 3)]
+    series = sim.run_probed(6, probes, every=3)
+    np.testing.assert_array_equal(series, ref.run_probed(6, probes, every=3))
+    assert series.dtype == np.float64 and fk.F64_STEPS == steps_before + 13
+    np.testing.assert_array_equal(sim.state(), ref.state())
+    if slip:
+        return
+    jcfg = JaxConfig(nx=24, ny=40, dtype=np.float64)
+    want = np.asarray(jfk.run_steps(jnp.asarray(jax_initial_state(jcfg)), jnp.asarray(walls),
+                                    jcfg, 5))
+    got = Simulation(cfg, walls, backend="cuda", device="cpu").run(5).state()
+    np.testing.assert_allclose(got, want, rtol=1e-13, atol=1e-18)
+
+
+def test_kernel_runner_takes_float64_to_the_engine_and_the_kernels_refuse_it():
+    """fused_kernel.run_steps / run_steps_probed with float64: the engine
+    on f's device (F64_STEPS counted, no session built), f unchanged, the
+    series every `every` steps equal to the engine's per-step series; the
+    kernel entry points and Session still raise NotImplementedError naming
+    ROADMAP B15."""
+    from latticeboltzmann_tpu_torch.ops import stream_collide
+
+    cfg, walls = _f64_scene()
+    f = interop.state_tensor(jax_initial_state(JaxConfig(nx=24, ny=40, dtype=np.float64)),
+                             cfg.dtype, "cpu")
+    f0 = f.clone()
+    w = torch.as_tensor(walls)
+    before = fk.F64_STEPS
+    out = fk.run_steps(f, walls, cfg, 6, wall_spec=geometry.infer_spec(walls), temporal=4)
+    assert fk.run_form(cfg) == fk.F64_FORM and fk.F64_STEPS == before + 6
+    assert torch.equal(f, f0)
+    assert torch.equal(out, stream_collide.run_steps(f, w, cfg, 6))
+    fout, series = fk.run_steps_probed(f, w, cfg, 6, [(3, 4), (9, 30)], every=2)
+    ref_f, ref_series = stream_collide.run_steps_probed(f, w, cfg, 6, [(3, 4), (9, 30)])
+    assert torch.equal(fout, ref_f) and torch.equal(series, ref_series[1::2])
+    assert series.dtype == torch.float64 and fk.F64_STEPS == before + 12
+    assert fk.run_form(LatticeConfig(nx=24, ny=40, dtype=np.float32)) == fk.KERNEL_FORM
+    with pytest.raises(NotImplementedError, match="ROADMAP B15"):
+        fk.Session(cfg, walls, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP B15"):
+        fk.step(f, torch.empty_like(f), None, cfg)
+    with pytest.raises(NotImplementedError, match="ROADMAP B15"):
+        fk.temporal_step(f, torch.empty_like(f), None, cfg, 2)
+    with pytest.raises(TypeError, match="float64"):
+        fk.run_steps(f.float(), walls, cfg, 1)

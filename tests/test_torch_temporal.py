@@ -11,8 +11,10 @@ and bf16, every geometry source and L = 1-4, on tiles forced small; the
 Session's passes (n // T of T steps, one of the rest) bitwise against one
 step per launch; the Session against the JAX fused kernel at temporal=T
 in interpret mode at the bars of the JAX package's own tests
-(tests/test_pallas.py:112-138, 234-246); and the facade's and the
-wrapper's refusals. tests/test_torch_cuda.py holds the kernel against
+(tests/test_pallas.py:112-138, 234-246); at an NY of no whole 16-byte
+vectors the session's choice of one step per launch, bitwise to
+temporal=None and held against the JAX kernel's passes there; and the
+facade's and the wrapper's refusals. tests/test_torch_cuda.py holds the kernel against
 both plain versions on a card.
 """
 
@@ -242,19 +244,24 @@ def test_temporal_selects_nothing_on_the_other_backends(backend, monkeypatch):
 
 
 def test_session_refuses_what_the_temporal_form_does_not_take(cuda_on_cpu):
-    """A row of no whole 16-byte vectors (NY 37 in float32, 44 in bf16), a
-    depth past FLAT_MAX_TEMPORAL or no integer: ValueError when the session
-    is built, never one step per launch instead; temporal=1 and None run
-    one launch per step on any shape."""
+    """A depth past FLAT_MAX_TEMPORAL or no integer: ValueError when the
+    session is built, at any shape. A row of no whole 16-byte vectors (NY
+    37 in float32, 44 in bf16) is refused by temporal_step alone: there
+    Session(temporal=2) and Simulation(backend="cuda", temporal=2) choose
+    one step per launch by shape (the session's temporal 1, its
+    requested_temporal 2), as temporal=1 and None do on any shape."""
     for ny, dtype in ((37, np.float32), (44, "bfloat16")):
         cfg = LatticeConfig(nx=16, ny=ny, dtype=dtype)
         walls = geometry.channel(16, ny)
-        with pytest.raises(ValueError, match="multiple of"):
-            fk.Session(cfg, walls, device="cpu", temporal=2)
-        with pytest.raises(ValueError, match="multiple of"):
-            Simulation(cfg, walls, backend="cuda", device="cpu", temporal=2)
+        sess = fk.Session(cfg, walls, device="cpu", temporal=2)
+        assert (sess.temporal, sess.requested_temporal) == (1, 2)
+        sim = Simulation(cfg, walls, backend="cuda", device="cpu", temporal=2)
+        assert sim.temporal == 2 and sim._session.temporal == 1
         for temporal in (None, 1):
             assert fk.Session(cfg, walls, device="cpu", temporal=temporal).temporal == 1
+        for temporal in (0, fk.FLAT_MAX_TEMPORAL + 1, 2.0, True):
+            with pytest.raises(ValueError):
+                fk.Session(cfg, walls, device="cpu", temporal=temporal)
     cfg = LatticeConfig(nx=16, ny=40, dtype=np.float32)
     walls = geometry.channel(16, 40)
     for temporal in (0, fk.FLAT_MAX_TEMPORAL + 1, 2.0, True):
@@ -269,6 +276,58 @@ def test_session_refuses_what_the_temporal_form_does_not_take(cuda_on_cpu):
     t37 = state_tensor(initial_state(cfg37), cfg37.dtype, "cpu")
     with pytest.raises(ValueError, match="multiple of"):
         fk.temporal_step(t37, torch.empty_like(t37), None, cfg37, 2)
+
+
+@pytest.mark.parametrize("temporal", [2, 3])
+@pytest.mark.parametrize("ny, dtype", [(37, np.float32), (44, "bfloat16")])
+def test_temporal_at_an_ny_of_no_whole_vectors_runs_one_step_per_launch(
+        ny, dtype, temporal, cuda_on_cpu, monkeypatch):
+    """At an NY the temporal form does not take, Session(temporal=T),
+    run_steps, run_steps_probed and Simulation(backend="cuda", temporal=T)
+    run one launch of the one-step wrapper per step (no pass), bitwise
+    equal to temporal=None; the walls reach column 0."""
+    cfg, f, geoms = _scene(16, ny, dtype)
+    spec = geoms["spec"]
+    want = fk.run_steps(f, geometry.spec_mask(spec, 16, ny), cfg, 7, wall_spec=spec)
+    passes = _record_passes(monkeypatch)
+    sess = fk.Session(cfg, geometry.spec_mask(spec, 16, ny), device="cpu", wall_spec=spec,
+                      temporal=temporal)
+    assert (sess.temporal, sess.requested_temporal) == (1, temporal)
+    sess.load(f)
+    sess.advance(7)
+    assert torch.equal(sess.state(), want) and passes == [0] * 7
+    passes.clear()
+    walls = geometry.spec_mask(spec, 16, ny)
+    got = fk.run_steps(f, walls, cfg, 7, wall_spec=spec, temporal=temporal)
+    fout, series = fk.run_steps_probed(f, walls, cfg, 6, [(5, 20), (12, 3)], every=3,
+                                       wall_spec=spec, temporal=temporal)
+    assert torch.equal(got, want) and passes == [0] * 13
+    ref_f, ref_series = fk.run_steps_probed(f, walls, cfg, 6, [(5, 20), (12, 3)], every=3,
+                                            wall_spec=spec)
+    assert torch.equal(fout, ref_f) and torch.equal(series, ref_series)
+    passes.clear()
+    f0 = f.float().numpy()
+    sim = Simulation(cfg, walls, backend="cuda", device="cpu", f0=f0, temporal=temporal)
+    ref = Simulation(cfg, walls, backend="cuda", device="cpu", f0=f0)
+    sim.run(4).run(3)
+    assert passes == [0] * 7 and sim.temporal == temporal and sim._session.temporal == 1
+    np.testing.assert_array_equal(sim.state(), ref.run(7).state())
+
+
+def test_temporal_at_an_ny_of_no_whole_vectors_vs_jax_temporal_blocking():
+    """The port at 16x37 (f32), temporal=2, 7 steps (one step per launch by
+    shape) against the JAX fused kernel in interpret mode at temporal=2,
+    which pads the lanes and runs passes, at the bar of
+    test_session_vs_jax_temporal_blocking (rtol 1e-5, atol 1e-7)."""
+    jcfg = JaxConfig(nx=16, ny=37, dtype=np.float32)
+    walls = jgeo.channel(jcfg.nx, jcfg.ny)
+    walls[5:9, 10:13] = True
+    want = np.asarray(jfk.run_steps(jnp.asarray(jax_initial_state(jcfg)), jnp.asarray(walls),
+                                    jcfg, 7, interpret=True, temporal=2))
+    cfg = LatticeConfig(nx=16, ny=37, dtype=np.float32)
+    got = fk.run_steps(state_tensor(initial_state(cfg), cfg.dtype, "cpu"), walls, cfg, 7,
+                       temporal=2)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-7)
 
 
 # ---- against the JAX fused kernel at temporal=T ----
