@@ -344,7 +344,34 @@ stands beside phase 6-8's in the kernels line.
    absolute and relative differences printed (bitwise expected), within
    the JAX package's bar for its jitted float64 engine against golden.
    The narrow launches of (a) stand beside rows 1 and 1b's entries in the
-   kernels line (modules_launches).
+   kernels line (modules_launches);
+34. sharded scaling and the shard-by-shard checkpoint (scaling_phase):
+   (a) scripts/scaling.py's mode_cpu at SCALING_CPU_SCENE on 1, 2, 4 and
+   8 virtual CPU shards, every row bitwise to its unsharded path; (b) its
+   mode_gpu (cuda and sharded-cuda at 400x2000 by slope, 240/720 steps,
+   cuda once, on the first mesh, since its path does not depend on the
+   mesh; sharded and sharded-sync by the host clock over SCALING_STEPS
+   steps, then SCALING_TRACE_STEPS traced steps of sharded
+   and sharded-cuda: the halo exchange's share of the card's time from
+   the copies HaloExchange.start issues, the top five events, the share
+   of the halo time that overlaps an lbm_ kernel) and mode_ab (the
+   overlap and sync schedules at 400x2000: slope us/step, MLUPS, the
+   trace's shares) over 4 virtual shards of the card and over the
+   visible cards; (c) mode_predict at 400x2000 and 800x4000 and its DP
+   section (every table under the card's name and power limit); a row
+   that fails, or a trace without an lbm_ kernel (for the eager paths
+   without a kernel), fails the phase; (d) the per-shard checkpoint
+   (utils/checkpoint.py, format "sharded") of sharded-cuda in f32 and
+   bf16 and of sharded-cuda-ds64 at 800x4000 on CKPT_SHARDS virtual
+   shards after CKPT_SAVED_AT steps, resumed through load_shards onto 4
+   and 2 shards for CKPT_MORE steps, bitwise equal to the unbroken run;
+   the rise of torch.cuda.max_memory_allocated above the sessions'
+   buffers during the save and during each restore, at most one shard in
+   the saved dtype, beside the rise of a gathered Simulation.state()
+   save; save and load MB/s and ms a shard (the reads warm, from the page
+   cache). Over SCALING_BUDGET_S fails the script. Its launches of rows
+   1, 1'-T and 3'-T stand beside their entries in the kernels line
+   (scaling_launches).
 
 Every phase call of main() prints `phase N took S s` (N: the phases it
 runs, e.g. 6-8) on its own line, and a `phase seconds` line before the
@@ -377,6 +404,7 @@ import dataclasses
 import functools
 import json
 import pathlib
+import shutil
 import sys
 import tempfile
 import time
@@ -1186,11 +1214,17 @@ def main() -> int:
     if clock_.seconds["33"] > MODULES_BUDGET_S:
         raise AssertionError(f"phase 33 took {clock_.seconds['33']:.1f} s, over its "
                              f"{MODULES_BUDGET_S} s budget")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_scaling_", dir=scratch) as tmp:
+        scaling_launches = clock_.run("34", scaling_phase, card, pathlib.Path(tmp))
+    if clock_.seconds["34"] > SCALING_BUDGET_S:
+        raise AssertionError(f"phase 34 took {clock_.seconds['34']:.1f} s, over its "
+                             f"{SCALING_BUDGET_S} s budget")
 
     entries = [*f32_entries, *options, ds, ds_temporal, ds_ext_temporal, *ext, *anatomy, temporal,
                *shard_pass]
     add_cli_launches(entries, cli_launches, torch.cuda.device_count())
     add_modules_launches(entries, modules_launches)
+    add_scaling_launches(entries, scaling_launches)
     print(f"phase seconds (wall, by phase call; {sum(clock_.seconds.values()):.1f} s in all): "
           + json.dumps({k: round(v, 1) for k, v in clock_.seconds.items()}))
     print("bounds computed from this run's inputs, by kernel (not measured; not in the kernels "
@@ -5172,6 +5206,168 @@ def modules_phase(card):
           f"{rel!r} (bar rtol {F64_GOLDEN_RTOL}, atol {F64_GOLDEN_ATOL})")
     np.testing.assert_allclose(got, want, rtol=F64_GOLDEN_RTOL, atol=F64_GOLDEN_ATOL)
     return launches
+
+
+# phase 34: its wall-time budget (seconds); mode_cpu's scene and steps;
+# mode_gpu's host-clock steps of its eager rows (the eager "sharded" path
+# runs 20-35 ms a step over 4 virtual shards at 400x2000 on an H100; its
+# kernel rows are timed by slope) and its traced steps of sharded-cuda (64
+# in the script) and mode_predict's steps; the checkpoint's scene,
+# shards, the step it is saved at and the steps after it (multiples of
+# the passes of 3, 2 and 4)
+SCALING_BUDGET_S = 45
+SCALING_CPU_SCENE = (24, 40)
+SCALING_CPU_STEPS = 6
+SCALING_STEPS = 24
+SCALING_TRACE_STEPS = 24
+SCALING_PREDICT_STEPS = 1200
+CKPT_SCENE = (800, 4000)
+CKPT_SHARDS = 4
+CKPT_SAVED_AT = 12
+CKPT_MORE = 12
+# the kernels line's entries of rows 1, 1'-T and 3'-T by the launch
+# counts of read_counts that phase 34 makes of them (a prefix of the key;
+# the entry of row 1'-T is its float32 instantiation, so bf16's launches
+# of it, from the checkpoint's bf16 run, are printed but not counted there)
+SCALING_ENTRIES = {"f32-": "lbm_stream_collide_wide<float, ",
+                   "ext-temporal-f32-": "lbm_temporal_steps_ext<float, spec> ",
+                   "ds-ext-temporal": "lbm_ds_temporal_steps_ext<HAS_WALLS, EXACT> "}
+
+
+def add_scaling_launches(entries, launches):
+    """Records phase 34's launches of rows 1, 1'-T (f32) and 3'-T
+    beside their entries' launches, as scaling_launches; launches stays
+    the count of the entry's own main path."""
+    for key, name in SCALING_ENTRIES.items():
+        hits = [e for e in entries if e["name"].startswith(name)]
+        if len(hits) != 1:
+            raise AssertionError(f"kernels line: {len(hits)} entries for {name!r}")
+        hits[0]["scaling_launches"] = launches[key]
+
+
+def scaling_phase(card, tmp):
+    """Phase 34: scripts/scaling.py's four modes and the shard-by-shard
+    checkpoint. Returns phase 34's launches by SCALING_ENTRIES key; raises
+    unless each of them launched."""
+    from latticeboltzmann_tpu_torch.parallel import sharded
+    from latticeboltzmann_tpu_torch.scripts import scaling
+
+    def emit(line):
+        print(line, flush=True)
+
+    t_part = time.perf_counter()
+    print(f"phase 34a: scaling --mode cpu (virtual CPU shards; host times, relative only)")
+    scaling.mode_cpu(*SCALING_CPU_SCENE, SCALING_CPU_STEPS, emit=emit)
+    print(f"phase 34a took {time.perf_counter() - t_part:.1f} s")
+
+    reset_counts()
+    t_part = time.perf_counter()
+    traces = tmp / "traces"
+    meshes = (("4 virtual shards of card 0", sharded.make_mesh(devices=["cuda:0"] * 4)),
+              (f"the {torch.cuda.device_count()} visible card(s)", sharded.make_mesh()))
+    for i, (label, mesh) in enumerate(meshes):
+        t0 = time.perf_counter()
+        backends = [row[0] for row in scaling.GPU_ROWS if i == 0 or row[0] != "cuda"]
+        print(f"\nphase 34b: scaling --mode gpu over {label} ({card}; rows {backends}; the eager "
+              f"rows {SCALING_STEPS} steps by the host clock; {SCALING_TRACE_STEPS} traced)")
+        scaling.mode_gpu(mesh, SCALING_STEPS, traces, trace_steps=SCALING_TRACE_STEPS,
+                         backends=backends, emit=emit)
+        t1 = time.perf_counter()
+        print(f"mode gpu took {t1 - t0:.1f} s\n\nphase 34b: scaling --mode ab over {label} ({card})")
+        scaling.mode_ab(mesh, traces, scenes=((400, 2000),), emit=emit)
+        print(f"mode ab took {time.perf_counter() - t1:.1f} s")
+    print(f"phase 34b took {time.perf_counter() - t_part:.1f} s")
+    t_part = time.perf_counter()
+    print(f"\nphase 34c: scaling --mode predict ({card})")
+    scaling.mode_predict(SCALING_PREDICT_STEPS, emit=emit)
+    print(f"phase 34c took {time.perf_counter() - t_part:.1f} s")
+    t_part = time.perf_counter()
+    checkpoint_phase(card, tmp)
+    print(f"phase 34d took {time.perf_counter() - t_part:.1f} s")
+
+    counts = read_counts()
+    launches = {key: sum(n for k, n in counts.items() if k.startswith(key))
+                for key in SCALING_ENTRIES}
+    print(f"phase 34: launches by kernel {launches} (all counts {counts})")
+    if not all(launches.values()):
+        raise AssertionError(f"phase 34: a kernel of its paths never launched: {launches}")
+    return launches
+
+
+def _mb(n_bytes):
+    return n_bytes / 1e6
+
+
+def checkpoint_phase(card, tmp):
+    """Phase 34d: the per-shard checkpoint of sharded-cuda (f32, bf16) and
+    sharded-cuda-ds64 at CKPT_SCENE on CKPT_SHARDS virtual shards, resumed
+    onto 4 and 2 shards bitwise to the unbroken run, with the memory rise
+    of each save and restore against one shard in the saved dtype and the
+    gathered save's beside it."""
+    from latticeboltzmann_tpu_torch import LatticeConfig, Simulation, geometry
+    from latticeboltzmann_tpu_torch.parallel import sharded
+    from latticeboltzmann_tpu_torch.scripts import scaling
+    from latticeboltzmann_tpu_torch.utils import checkpoint
+
+    nx, ny = CKPT_SCENE
+    walls = geometry.reference_barrier(nx, ny)
+
+    def rise(fn):
+        """(fn(), seconds, max_memory_allocated rise above the bytes
+        allocated before it)."""
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, torch.cuda.max_memory_allocated() - base
+
+    for kind, dtype, backend, saved_bytes in (
+            ("f32", np.float32, "sharded-cuda", 4), ("bf16", "bfloat16", "sharded-cuda", 2),
+            ("ds64", np.float64, "sharded-cuda-ds64", 8)):
+        cfg = LatticeConfig(nx=nx, ny=ny, dtype=dtype)
+        pair = kind == "ds64"
+        mesh = sharded.make_mesh(devices=["cuda:0"] * CKPT_SHARDS)
+        with scaling.backends_over(mesh):
+            sim = Simulation(cfg, walls, backend=backend).run(CKPT_SAVED_AT)
+            shard_bytes = 9 * (nx // CKPT_SHARDS) * ny * saved_bytes
+            d, t_save, save_rise = rise(lambda: checkpoint.save(
+                tmp / kind, CKPT_SAVED_AT, sim._session.shards(), walls, cfg, format="sharded"))
+            _, _, gathered_rise = rise(lambda: checkpoint.save(
+                tmp / kind / "gathered", CKPT_SAVED_AT, sim.state(), walls, cfg))
+            want = sim.run(CKPT_MORE).state()
+            del sim
+        if save_rise > shard_bytes:
+            raise AssertionError(f"checkpoint {kind}: the save rose {save_rise} B, over one "
+                                 f"shard's {shard_bytes} B")
+        print(f"checkpoint {kind} ({backend}, {nx}x{ny} on {CKPT_SHARDS} virtual shards, "
+              f"{card}): saved shard by shard after {CKPT_SAVED_AT} steps into {d.name}: "
+              f"{_mb(save_rise)!r} MB device-memory rise (bound: one shard, "
+              f"{_mb(shard_bytes)!r} MB), a gathered Simulation.state() save "
+              f"{_mb(gathered_rise)!r} MB; {_mb(shard_bytes * CKPT_SHARDS) / t_save!r} "
+              f"MB/s, {t_save / CKPT_SHARDS * 1e3!r} ms a shard")
+        for n in (4, 2):
+            mesh = sharded.make_mesh(devices=["cuda:0"] * n)
+            with scaling.backends_over(mesh):
+                other = Simulation(cfg, walls, backend=backend)
+                _, t_load, load_rise = rise(lambda: setattr(
+                    other, "f", checkpoint.load_shards(d, mesh, pair=pair)[1]))
+                got = other.run(CKPT_MORE).state()
+                del other
+            bound = 9 * (nx // n) * ny * saved_bytes
+            if not np.array_equal(got, want):
+                raise AssertionError(f"checkpoint {kind}: resumed onto {n} shards, "
+                                     f"{CKPT_MORE} steps differ from the unbroken run")
+            if load_rise > bound:
+                raise AssertionError(f"checkpoint {kind}: the restore onto {n} shards rose "
+                                     f"{load_rise} B, over one shard's {bound} B")
+            print(f"checkpoint {kind}: restored onto {n} shards by load_shards, "
+                  f"{CKPT_MORE} more steps bitwise equal to the unbroken run; "
+                  f"{_mb(load_rise)!r} MB device-memory rise (bound: one shard, "
+                  f"{_mb(bound)!r} MB); {_mb(shard_bytes * CKPT_SHARDS) / t_load!r} MB/s, "
+                  f"{t_load / n * 1e3!r} ms a shard (warm reads)")
+        shutil.rmtree(tmp / kind)
 
 
 if __name__ == "__main__":

@@ -132,7 +132,9 @@ def _refusal(args) -> str | None:
     an orbax checkpoint, or a movie without matplotlib; else None."""
     if args.checkpoint_format == "orbax":
         return ("--checkpoint-format orbax: the orbax format is the JAX package's and is "
-                "not ported; use --checkpoint-format raw")
+                "not ported; its counterpart in the port, a row-sharded state saved shard by "
+                "shard, is utils/checkpoint.save(..., format='sharded'); use "
+                "--checkpoint-format raw")
     if args.movie:
         try:
             import matplotlib  # noqa: F401

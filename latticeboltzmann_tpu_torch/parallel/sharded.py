@@ -76,7 +76,11 @@ reads a row that a pending launch still writes. The step loop makes no
 host sync. The kernel sessions refuse a mesh of another device type than
 the state's. Their probe gather (probe_values) takes each
 probe on the shard that owns its row and copies the moments to the
-session's device; no shard's state is joined for it. A multi-process
+session's device; no shard's state is joined for it. shards() hands
+out the live shards and load() takes a sequence of them, one shard at a
+time (the shard-by-shard checkpoint). HaloExchange.start opens the span
+HALO_SPAN in a torch.profiler trace, so scripts/scaling.py reads the
+exchange's share of the card's time from it. A multi-process
 transport (torch.distributed) is ROADMAP work; the union-mask launch
 partition of the JAX path is TPU launch economy (ROADMAP, "Not to
 port").
@@ -105,6 +109,12 @@ DOWN_SPEEDS = (4, 7, 8)
 # row copies started by HaloExchange.start, for callers that must show a
 # path started none (the rdma form exchanges inside its kernel)
 HALO_COPIES = 0
+
+# the span HaloExchange.start opens in a torch.profiler trace around the
+# copies it issues (only while a profiler runs: a span costs host time
+# on every call); scripts/scaling.py's trace reader takes the card's
+# copies launched inside it as the halo exchange
+HALO_SPAN = "lbm_halo_exchange"
 
 # the steps of a pass of the f32/bf16 kernel sessions by storage type: the
 # JAX runner's depth (make_pallas_run_steps, sharded.py:264-286 there)
@@ -205,6 +215,13 @@ class HaloExchange:
     def start(self, copies) -> None:
         global HALO_COPIES
         HALO_COPIES += len(copies)
+        if torch.autograd._profiler_enabled():
+            with torch.profiler.record_function(HALO_SPAN):
+                self._start(copies)
+        else:
+            self._start(copies)
+
+    def _start(self, copies) -> None:
         if not self.multi:
             for dst, src in copies:
                 dst.copy_(src)
@@ -480,15 +497,45 @@ class _ShardedKernelSession:
         return copies, list(interior.items()), list(edges.items())
 
     def load(self, f) -> None:
-        """Copy a global state (a tensor, or a DS pair) into the shards'
-        current buffers; the plans of full passes are built at the first
-        load, a shorter pass's at its first run."""
-        comps = [f] if torch.is_tensor(f) else [f.hi, f.lo]
-        for c, x in enumerate(comps):
-            for dst, block in zip(self._bufs[self._parity][c], shard_state(self.mesh, x)):
-                dst.copy_(block)
+        """Copy a state into the shards' current buffers: a global state
+        (a tensor, or a DS pair), or a sequence of mesh.size shards in row
+        order ((9, L, NY) tensors or DS pairs, on any device: shards(), or
+        utils/checkpoint.load_shards), taken one at a time, so no
+        whole-state tensor is made; a shard of another shape or dtype than
+        the session's buffers raises. The plans of full passes are built at
+        the first load, a shorter pass's at its first run."""
+        if torch.is_tensor(f) or isinstance(f, DS):
+            comps = [f] if torch.is_tensor(f) else [f.hi, f.lo]
+            for c, x in enumerate(comps):
+                for dst, block in zip(self._bufs[self._parity][c], shard_state(self.mesh, x)):
+                    dst.copy_(block)
+        else:
+            self._load_shards(f)
         if self._plans is None:
             self._plans = [self._plan(p, self.temporal) for p in (0, 1)]
+
+    def _load_shards(self, shards) -> None:
+        """load() of a sequence of shards: shard k is read (a checkpoint's
+        reads its rows here), copied into buffer k and let go before the
+        next is read."""
+        n, bufs = self.mesh.size, self._bufs[self._parity]
+        if len(shards) != n:
+            raise ValueError(f"{len(shards)} shards for a mesh of {n}")
+        shape = (NSPEEDS, self.L, self.cfg.ny)
+        for k in range(n):
+            block = shards[k]
+            comps = [block] if torch.is_tensor(block) else [block.hi, block.lo]
+            if len(comps) != len(bufs) or any(tuple(x.shape) != shape for x in comps):
+                raise ValueError(f"shard {k}: {len(comps)} component(s) of shape "
+                                 f"{[tuple(x.shape) for x in comps]}; the session holds "
+                                 f"{len(bufs)} of {shape}")
+            # copy_ would round another storage dtype without a word
+            if any(x.dtype != dst[k].dtype for x, dst in zip(comps, bufs)):
+                raise ValueError(f"shard {k}: {[x.dtype for x in comps]}; the session holds "
+                                 f"{[dst[k].dtype for dst in bufs]}")
+            for c, dst in enumerate(bufs):
+                dst[k].copy_(comps[c])
+            del block, comps  # no name holds the shard while the next is read
 
     def _passes(self, n_steps: int) -> list[int]:
         """The steps of each pass of n_steps: n // T passes of T =
@@ -535,6 +582,16 @@ class _ShardedKernelSession:
         comps = [gather_state(comp, self.device) for comp in self._bufs[self._parity]]
         return self._pack(comps)
 
+    def shards(self) -> list:
+        """The live shards of the current state, one per mesh entry in row
+        order: (9, L, NY) tensors, or DS pairs, each on its device; not
+        joined and not copied (state() is the join). They are the
+        session's own buffers, so they hold this state until the next
+        advance(): read them before it (utils/checkpoint.save(...,
+        format="sharded") does, one shard at a time)."""
+        return [self._pack([comp[k] for comp in self._bufs[self._parity]])
+                for k in range(self.mesh.size)]
+
     def probe_sites(self, probes) -> ShardSites:
         """(P, 2) global probe sites (i, j) grouped by the shard that owns
         row i (shard i // L, local row i mod L); raises as
@@ -579,7 +636,9 @@ class ShardedSession(_ShardedKernelSession):
     spec evaluated at global rows, or the class plane with its static halo
     class rows), fast math. overlap selects the schedule. state() and
     load() take the global (9, NX, NY) state on `device` (default: the
-    first mesh device).
+    first mesh device); shards() gives the live shards, one per mesh
+    entry, and load() also takes such a sequence, so a state moves shard
+    by shard (utils/checkpoint.py's "sharded" format).
 
     temporal (default None: SHARDED_TEMPORAL by storage, the JAX runner's
     depth): n steps run as n // T passes of T steps and one of n % T
@@ -678,6 +737,7 @@ class ShardedRdmaSession(ShardedSession):
         self.timeout_s = timeout_s
         self.step = 0
         self._ends = self._streams = None
+        self._read = False
         if not self.rdma:
             return
         depth = None if self.temporal == 1 else self.temporal
@@ -756,6 +816,9 @@ class ShardedRdmaSession(ShardedSession):
         with the next flag value; no copy, no event, no host sync."""
         if not self.rdma:
             return super().advance(n_steps)
+        if self._read:
+            self._fork()  # the caller's reads of shards() come first
+            self._read = False
         for steps in self._passes(n_steps):
             self.step += 1
             plan = self._plan_for(steps)
@@ -782,6 +845,15 @@ class ShardedRdmaSession(ShardedSession):
         self._fork()  # the next launches overwrite what the gather reads
         self._raise_on_timeout()
         return out
+
+    def shards(self) -> list:
+        """As ShardedSession.shards, ordered after the shards' streams;
+        the next advance() orders the shards' streams after what the
+        caller reads of them."""
+        self._join()
+        self._raise_on_timeout()
+        self._read = True
+        return super().shards()
 
     def probe_values(self, sites):
         """As ShardedSession.probe_values, ordered after the shards'

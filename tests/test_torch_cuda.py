@@ -2103,3 +2103,62 @@ def test_cli_resumes_on_the_card(cuda_device, tmp_path, capsys, backend, precisi
     sim = Simulation(cfg, geometry.build("barrier", 64, 128), backend=backend).run(20)
     viz.write_snapshot_csv(tmp_path / "want.csv", sim.speed_squared())
     assert (data / "20.csv").read_bytes() == (tmp_path / "want.csv").read_bytes()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["f32", "bf16", "ds64"])
+def test_sharded_checkpoint_on_the_card(cuda_device, tmp_path, monkeypatch, kind):
+    """A sharded run on 4 virtual shards of the card saved shard by shard
+    (utils/checkpoint.py, format "sharded") and resumed through
+    load_shards onto 2 shards: bitwise equal to the unbroken run, and
+    neither the save nor the restore allocates on the card."""
+    from latticeboltzmann_tpu_torch.models import engine
+    from latticeboltzmann_tpu_torch.utils import checkpoint
+
+    dtype = {"f32": np.float32, "bf16": "bfloat16", "ds64": np.float64}[kind]
+    backend = "sharded-cuda-ds64" if kind == "ds64" else "sharded-cuda"
+    make = sharded.make_cuda_ds_backend if kind == "ds64" else sharded.make_cuda_backend
+    cfg = LatticeConfig(nx=64, ny=128, dtype=dtype)
+    walls = geometry.build("barrier", 64, 128)
+
+    def rise(fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, torch.cuda.max_memory_allocated() - base
+
+    monkeypatch.setitem(engine._BACKENDS, backend,
+                        make(sharded.make_mesh(devices=[cuda_device] * 4)))
+    sim = Simulation(cfg, walls, backend=backend).run(12)
+    d, saved = rise(lambda: checkpoint.save(tmp_path, 12, sim._session.shards(), walls, cfg,
+                                            format="sharded"))
+    want = sim.run(12).state()
+    mesh = sharded.make_mesh(devices=[cuda_device] * 2)
+    monkeypatch.setitem(engine._BACKENDS, backend, make(mesh))
+    other = Simulation(cfg, walls, backend=backend)
+    _, loaded = rise(lambda: setattr(
+        other, "f", checkpoint.load_shards(d, mesh, pair=kind == "ds64")[1]))
+    np.testing.assert_array_equal(other.run(12).state(), want)
+    assert saved == 0 and loaded == 0
+
+
+@pytest.mark.cuda
+def test_scaling_trace_reads_the_card(cuda_device, tmp_path, monkeypatch):
+    """scripts/scaling.py's trace of sharded-cuda on 2 virtual shards of
+    the card: the halo copies HaloExchange.start issues are strided copy
+    kernels, the compute lbm_ kernels, and on one card (one stream) no
+    halo time overlaps a kernel."""
+    from latticeboltzmann_tpu_torch.models import engine
+    from latticeboltzmann_tpu_torch.scripts import scaling
+
+    monkeypatch.setitem(engine._BACKENDS, "sharded-cuda",
+                        sharded.make_cuda_backend(sharded.make_mesh(devices=[cuda_device] * 2)))
+    cfg = LatticeConfig(nx=64, ny=128, dtype=np.float32)
+    sim = Simulation(cfg, geometry.build("barrier", 64, 128), backend="sharded-cuda")
+    s = scaling.traced(sim, 6, tmp_path)
+    assert 0 < s.halo_us < s.device_us and s.compute_us > 0
+    assert s.halo_us + s.compute_us == pytest.approx(s.device_us, rel=1e-9)
+    assert all("direct_copy_kernel_cuda" in scaling.short_name(n) for n in s.halo_names)
+    assert s.overlap_us == 0.0
