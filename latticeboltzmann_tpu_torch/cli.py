@@ -209,8 +209,7 @@ def main(argv=None) -> int:
           f"backend={sim.backend} precision={precision} device={sim.device}")
 
     # under --profile-dir the warmup and each chunk's run are named spans
-    # of the trace (lbm_warmup, lbm_run)
-    span = profiler.annotate if args.profile_dir else lambda name: contextlib.nullcontext()
+    # of the trace (lbm_warmup, lbm_run), beside the program's own
     with contextlib.ExitStack() as profiling:
         if args.profile_dir:
             profiling.enter_context(profiler.trace(args.profile_dir))
@@ -220,7 +219,7 @@ def main(argv=None) -> int:
             # run, then restore the state; through sim.run so the timed run
             # takes the warmed path
             f_before = _copy_state(sim.f)
-            with span("lbm_warmup"):
+            with profiler.span("lbm_warmup"):
                 sim.run(args.warmup)
             sim.f = f_before
             sim.steps_done = 0
@@ -248,7 +247,7 @@ def main(argv=None) -> int:
         while step < end:
             due = [((step // e) + 1) * e for e in intervals]
             n = min(due + [end]) - step
-            with span("lbm_run"):
+            with profiler.span("lbm_run"):
                 sim.run(n)
             step += n
             if args.debug_nans and not _finite(sim.f):

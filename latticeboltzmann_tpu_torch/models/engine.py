@@ -91,7 +91,7 @@ from ..core.spec import NSPEEDS, W, LatticeConfig
 from ..ops import df64, ds_engine, fused_ds_kernel, fused_kernel
 from ..ops import stream_collide as torch_ops
 from ..parallel import sharded
-from ..utils import viz
+from ..utils import profiler, viz
 from ..utils.interop import round_bf16, state_tensor, storage_dtype, to_numpy
 from . import golden
 
@@ -340,11 +340,12 @@ class Simulation:
         """Advance n_steps on the device. With block (the default) the
         call returns after the device finished, so `elapsed` times the
         work and not its enqueueing."""
-        t0 = time.perf_counter()
-        self._advance(n_steps)
-        if block:
-            self._block()
-        self.elapsed += time.perf_counter() - t0
+        with profiler.span("Simulation.run", steps=n_steps):
+            t0 = time.perf_counter()
+            self._advance(n_steps)
+            if block:
+                self._block()
+            self.elapsed += time.perf_counter() - t0
         self.steps_done += n_steps
         return self
 
@@ -378,17 +379,19 @@ class Simulation:
 
         Raises ValueError, before any step, unless `every` divides
         n_steps and the probes are (P, 2) sites inside the lattice."""
-        sites = self._probe_sites(probes)
-        dtype = (torch.float64 if self.backend in _DS_BACKENDS
-                 else torch_ops.moment_dtype(storage_dtype(self.cfg.dtype)))
-        t0 = time.perf_counter()
-        series = torch_ops.sample_every(n_steps, every, len(sites), dtype, self.device,
-                                        self._advance, lambda: self._probe(sites))
-        if block:
-            self._block()
-        self.elapsed += time.perf_counter() - t0
-        self.steps_done += n_steps
-        return to_numpy(series)
+        with profiler.span("Simulation.run_probed", steps=n_steps, every=every):
+            sites = self._probe_sites(probes)
+            dtype = (torch.float64 if self.backend in _DS_BACKENDS
+                     else torch_ops.moment_dtype(storage_dtype(self.cfg.dtype)))
+            t0 = time.perf_counter()
+            series = torch_ops.sample_every(n_steps, every, len(sites), dtype, self.device,
+                                            self._advance, lambda: self._probe(sites))
+            if block:
+                self._block()
+            self.elapsed += time.perf_counter() - t0
+            self.steps_done += n_steps
+            with profiler.span("wait"):
+                return to_numpy(series)
 
     def probe_values(self, probes) -> np.ndarray:
         """(rho, u_x, u_y) at (P, 2) probe sites from the current state;
@@ -444,9 +447,22 @@ class Simulation:
         the other in float64, by golden.reynolds, as the JAX facade does
         through its golden model (models/engine.py:511-516 there): a
         device sum adds in another order."""
-        if self.backend in _DS_BACKENDS and col is None:
-            return golden.reynolds(self.state(), self.walls_np, self.cfg)
-        return float(torch_ops.reynolds(self._f64(), self.walls, self.cfg, col))
+        with profiler.span("Simulation.reynolds"):
+            if self.backend in _DS_BACKENDS and col is None:
+                return golden.reynolds(self.state(), self.walls_np, self.cfg)
+            re = torch_ops.reynolds(self._f64(), self.walls, self.cfg, col)
+            with profiler.span("wait"):
+                return float(re)
+
+    def counters(self) -> dict | None:
+        """What the kernel session ran so far: {"launches", "steps",
+        "samples"} (fused_kernel.Session's counters); None where no such
+        session runs (the engine backends, float64 on "cuda", and the ds
+        and sharded sessions, which count nothing of their own)."""
+        s = self._session
+        if not isinstance(s, fused_kernel.Session):
+            return None
+        return {"launches": s.launches, "steps": s.steps, "samples": s.samples}
 
     @property
     def mlups(self) -> float:

@@ -118,6 +118,7 @@ from torch.utils.weak import WeakIdKeyDictionary
 
 from ..core import geometry
 from ..core.spec import E, NSPEEDS, OPPOSITE, REFLECT_X, REFLECT_Y, W, LatticeConfig
+from ..utils import profiler
 from ..utils.interop import storage_dtype
 from . import cuda_build, stream_collide
 
@@ -2169,6 +2170,12 @@ class Session:
     bitwise the same. float64 storage raises NotImplementedError (ROADMAP
     B15); run_steps takes it to the portable engine.
 
+    The session counts what it ran, always: `launches` and `steps`, added
+    once an advance from its pass plan (n and n at depth 1; n // T +
+    (n % T > 0) and n at T), and `samples`, one a probe_values call.
+    advance, probe_values and state are spans of utils/profiler, and
+    block's synchronize a `wait` span.
+
     Usage:
         sess = Session(cfg, walls, device="cuda", wall_spec=spec)
         sess.load(f)       # copy the state in
@@ -2206,6 +2213,7 @@ class Session:
         self.geom = geom
         self.has_walls = self.geom is not None
         self._a = self._b = None
+        self.launches = self.steps = self.samples = 0
 
     def load(self, f: torch.Tensor) -> None:
         """Copy (9, NX, NY) state into the session's buffers (allocated
@@ -2220,26 +2228,33 @@ class Session:
         """n_steps steps: one launch per step, or at temporal T passes of
         T steps and one of the rest; the two buffers swap after each
         launch."""
-        a, b = self._a, self._b
-        if self.temporal == 1:
-            for _ in range(n_steps):
-                step(a, b, self.geom, self.cfg, fast_math=self.fast_math)
-                a, b = b, a
-        else:
-            full, rest = divmod(n_steps, self.temporal)
-            for steps in [self.temporal] * full + ([rest] if rest else []):
-                temporal_step(a, b, self.geom, self.cfg, steps, fast_math=self.fast_math)
-                a, b = b, a
-        self._a, self._b = a, b
+        depth = self.temporal
+        launches = -(-n_steps // depth)
+        self.launches += launches
+        self.steps += n_steps
+        with profiler.span("Session.advance", steps=n_steps, launches=launches, depth=depth):
+            a, b = self._a, self._b
+            if depth == 1:
+                for _ in range(n_steps):
+                    step(a, b, self.geom, self.cfg, fast_math=self.fast_math)
+                    a, b = b, a
+            else:
+                full, rest = divmod(n_steps, depth)
+                for steps in [depth] * full + ([rest] if rest else []):
+                    temporal_step(a, b, self.geom, self.cfg, steps, fast_math=self.fast_math)
+                    a, b = b, a
+            self._a, self._b = a, b
 
     def block(self) -> None:
         """Completion barrier for the launches so far."""
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            with profiler.span("wait"):
+                torch.cuda.synchronize(self.device)
 
     def state(self) -> torch.Tensor:
         """The current state, copied (the session keeps its buffers)."""
-        return self._a.clone()
+        with profiler.span("Session.state"):
+            return self._a.clone()
 
     def probe_sites(self, probes) -> torch.Tensor:
         """(P, 2) probe sites (i, j) as int64 on the session's device;
@@ -2250,7 +2265,9 @@ class Session:
         """(rho, u_x, u_y) at (P, 2) sites (probe_sites)
         of the live buffer: (P, 3), moments in at least float32. Copies
         nothing else of the state."""
-        return stream_collide.probe_values(self._a, sites)
+        self.samples += 1
+        with profiler.span("Session.probe_values"):
+            return stream_collide.probe_values(self._a, sites)
 
     def unload(self) -> torch.Tensor:
         """The current state; the session releases its buffers."""

@@ -79,7 +79,7 @@ probe on the shard that owns its row and copies the moments to the
 session's device; no shard's state is joined for it. shards() hands
 out the live shards and load() takes a sequence of them, one shard at a
 time (the shard-by-shard checkpoint). HaloExchange.start opens the span
-HALO_SPAN in a torch.profiler trace, so scripts/scaling.py reads the
+HALO_SPAN (utils/profiler.span), so scripts/scaling.py reads the
 exchange's share of the card's time from it. A multi-process
 transport (torch.distributed) is ROADMAP work; the union-mask launch
 partition of the JAX path is TPU launch economy (ROADMAP, "Not to
@@ -100,6 +100,7 @@ from ..ops import ds_engine, fused_ds_kernel, fused_kernel
 from ..ops import stream_collide as ops
 from ..ops.df64 import DS
 from ..ops.fused_kernel import ShardPlane
+from ..utils import profiler
 from ..utils.interop import compute_dtype
 
 # speeds that pull from the row above (e_x = +1) / below (e_x = -1)
@@ -215,10 +216,7 @@ class HaloExchange:
     def start(self, copies) -> None:
         global HALO_COPIES
         HALO_COPIES += len(copies)
-        if torch.autograd._profiler_enabled():
-            with torch.profiler.record_function(HALO_SPAN):
-                self._start(copies)
-        else:
+        with profiler.span(HALO_SPAN):
             self._start(copies)
 
     def _start(self, copies) -> None:

@@ -15,7 +15,6 @@ import json
 import pathlib
 import subprocess
 import sys
-import time
 
 import numpy as np
 import pytest
@@ -312,12 +311,8 @@ def test_bf16_checkpoint_without_ml_dtypes(tmp_path):
 
 
 def test_profiler_steptimer_and_trace(tmp_path):
-    t = profiler.StepTimer()
-    time.sleep(0.01)
-    lap = t.lap()
-    assert 0 < lap <= t.elapsed + 1e-6 and t.laps == [lap]
     with profiler.trace(str(tmp_path / "trace")):
-        with profiler.annotate("lbm-step"):
+        with profiler.span("lbm-step"):
             float(torch.ones(8, 8).sum())
     traces = list((tmp_path / "trace").glob("*.pt.trace.json"))
     assert len(traces) == 1
