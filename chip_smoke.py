@@ -23,9 +23,9 @@ Phases, each of which raises on failure:
    thread); also at a scene one thread wide (NY == the wide form's column
    count) and at 24x37, which only the narrow form takes (the wide form
    must refuse it);
-4. the main path: Simulation(backend="cuda") on the 800x4000 reference
-   scene (the wall spec variant, as the JAX main path) for 10,000 steps
-   after a warmup, every step a counted kernel launch of the form
+4. the one-step path: Simulation(backend="cuda", temporal=1) on the
+   800x4000 reference scene (the wall spec variant, as the JAX main path)
+   for 10,000 steps after a warmup, every step a counted kernel launch of the form
    fused_kernel.kernel_form names; the state must be finite and
    non-negative and Re finite, and a 20-step run must match the "torch"
    backend on the same card. Then the same path at 800x4002, an NY the
@@ -75,8 +75,8 @@ Phases, each of which raises on failure:
 12. fast math: the approximate-1/rho variant against step_reference
    (IEEE) after 10 chained steps, within fused_kernel.FAST_MATH_RTOL; then the
    Simulation(fast_math=True) path, counted;
-13. the bf16 main path: Simulation(LatticeConfig(800, 4000,
-   dtype="bfloat16"), backend="cuda") for 10,000 steps after a warmup,
+13. the bf16 one-step path: Simulation(LatticeConfig(800, 4000,
+   dtype="bfloat16"), backend="cuda", temporal=1) for 10,000 steps after a warmup,
    every step a counted launch of the form kernel_form names; finite and
    non-negative, Re finite, and within the JAX package's bf16 bar of the
    float32 main path of phase 4 after the same steps; a 20-step run
@@ -202,7 +202,8 @@ stands beside phase 6-8's in the kernels line.
    scripts/numerics_tiers.py, PROBED_STEPS steps at every = 1, 8 and 3;
    the series bitwise equal to the same launches run by run() with
    probe_values between chunks, the final state bitwise equal to an
-   unprobed run's, exactly PROBED_STEPS launches counted, all from
+   unprobed run's, exactly PROBED_STEPS steps counted in passes of the
+   session's default depth (fused_kernel.DEFAULT_TEMPORAL), all from
    phase 4's state after its 10,096 steps (the wake has reached the
    probes); the same on
    "cuda" with bf16 storage, on "cuda-ds64" (series in float64 from the
@@ -226,11 +227,12 @@ stands beside phase 6-8's in the kernels line.
    CLI_EVERY, the three wake probes every CLI_PROBE_EVERY, a
    torch.profiler trace and --debug-nans, then --resume latest for
    CLI_EVERY steps: its checkpoint's f.raw byte-equal to an unbroken CLI
-   run's, every step and warmup step a counted launch of the wide form,
+   run's, every step and warmup step counted in passes of the session's
+   default depth, each chunk the CLI runs between events one advance,
    the snapshots byte-equal to write_snapshot_csv of a Simulation run's
    speed_squared(), probes.csv bitwise equal to run() + probe_values, and
    the trace (entered before the warmup, closed after the last chunk's
-   events) naming lbm_stream_collide_wide once per launch and holding
+   events) naming lbm_temporal_steps once per pass and holding
    one lbm_warmup span and an lbm_run span per chunk; (b) bf16 cuda,
    cuda-ds64 and sharded-cuda-rdma over the visible cards (passes of 3
    through the rdma temporal form), CLI_OTHER_STEPS
@@ -258,13 +260,15 @@ stands beside phase 6-8's in the kernels line.
    us/step of Session(temporal=T) in turns for T in TEMPORAL_DEPTHS and
    the deepest pass, f32 and bf16, spec and plane at 800x4000, bf16 at
    4000x16000 and f32 at 400x2000 (the pace by CUDA events, the card's
-   time queued behind a spin, the host's enqueue); then the main path,
-   Simulation(backend="cuda", temporal=T) at the fastest T >= 2, f32 and
-   bf16: WARMUP + MAIN_STEPS steps bitwise equal to phases 4 and 13's
-   states in exactly (WARMUP + MAIN_STEPS) // T counted passes of T steps
-   and one of the rest (no one-step launch), run_probed at every = 1, 8
-   and 3 bitwise equal to temporal=None's, and a run split at a step
-   count no multiple of T bitwise equal to the unsplit one;
+   time queued behind a spin, the host's enqueue), the fastest T >= 2
+   printed beside the default; then the main path,
+   Simulation(backend="cuda") at its default depth T =
+   fused_kernel.DEFAULT_TEMPORAL, f32 and bf16: WARMUP + MAIN_STEPS steps
+   bitwise equal to phases 4 and 13's states in exactly (WARMUP +
+   MAIN_STEPS) // T counted passes of T steps and one of the rest (a
+   rest of one step a one-step launch), run_probed at every = 1, 8 and 3
+   bitwise equal to temporal=1's, and a run split at a step count no
+   multiple of T bitwise equal to the unsplit one;
 30. the pair-DP path's temporal form (ds_temporal_phase; the ds kernel's
    temporal form, csrc/lbm_ds_temporal_step.cu: a pass of L pair steps
    per launch): its tiles (two CTAs of 256 threads an SM, one of 512),
@@ -1114,7 +1118,7 @@ def main() -> int:
     # a Session's buffers are whole allocations: aligned
     form = fused_kernel.kernel_form(torch.float32, cfg.ny, ())
     reset_counts()
-    sim = Simulation(cfg, walls, backend="cuda")
+    sim = Simulation(cfg, walls, backend="cuda", temporal=1)
     sim.run(WARMUP)
     sim.elapsed, sim.steps_done = 0.0, 0
     sim.run(MAIN_STEPS)
@@ -1123,7 +1127,8 @@ def main() -> int:
     re = sim.reynolds()
     if not (np.isfinite(f32_main).all() and (f32_main >= 0).all() and np.isfinite(re)):
         raise AssertionError(f"main path state not finite/non-negative, or Re {re!r}")
-    print(f"main path: {MAIN_STEPS} steps (+{WARMUP} warmup) through backend=cuda, "
+    print(f"one-step path: {MAIN_STEPS} steps (+{WARMUP} warmup) through backend=cuda, "
+          f"temporal=1, "
           f"wall spec {sim.wall_spec}, {launches} kernel launches of the {form} form, "
           f"Re {re!r}, {sim.mlups!r} MLUPS ({sim.elapsed!r} s)")
     runs = {}
@@ -1327,6 +1332,18 @@ def passes(n_steps, temporal):
     """The passes of a session's advance(n_steps) at depth `temporal`:
     n_steps // temporal of temporal steps and one of the rest."""
     return -(-n_steps // temporal)
+
+
+def default_counts(n_steps, depth, variant, advances=1):
+    """{variant: launches} of `advances` advance(n_steps) calls of a
+    session at its default depth `depth`: n_steps // depth passes of the
+    temporal form and one of a rest above one step ("temporal-<variant>"),
+    a rest of one step, or every step at depth 1, a launch of the one-step
+    kernel (<variant>)."""
+    full, rest = divmod(n_steps, depth)
+    counts = ({variant: n_steps} if depth == 1 else
+              {f"temporal-{variant}": full + (rest > 1), variant: int(rest == 1)})
+    return {k: n * advances for k, n in counts.items() if n}
 
 
 def ds_passes(n_steps):
@@ -1548,7 +1565,7 @@ def option_phases(f32_main):
     form = fused_kernel.kernel_form(torch.float32, cfg.ny, ())
     walls, slip_x, slip_y = slip_scene(800, 4000)
     reset_counts()
-    sim = Simulation(cfg, walls, backend="cuda", slip_x=slip_x, slip_y=slip_y)
+    sim = Simulation(cfg, walls, backend="cuda", slip_x=slip_x, slip_y=slip_y, temporal=1)
     sim.run(OPTION_STEPS)
     slip_launches = expect_counts("slip path", {"f32-plane-slip": OPTION_STEPS},
                                   form)["f32-plane-slip"]
@@ -1595,7 +1612,7 @@ def option_phases(f32_main):
     print(f"fast math: the wide form's state == the narrow form's after {steps} steps")
     del ends, start
     reset_counts()
-    sim = Simulation(cfg, walls, backend="cuda", fast_math=True)
+    sim = Simulation(cfg, walls, backend="cuda", fast_math=True, temporal=1)
     sim.run(OPTION_STEPS)
     fast_launches = expect_counts("fast-math path", {"f32-spec-fast": OPTION_STEPS},
                                   form)["f32-spec-fast"]
@@ -1609,7 +1626,7 @@ def option_phases(f32_main):
     cfg16 = LatticeConfig(nx=800, ny=4000, dtype=bf16)
     form16 = fused_kernel.kernel_form(torch.bfloat16, cfg16.ny, ())
     reset_counts()
-    sim = Simulation(cfg16, walls, backend="cuda")
+    sim = Simulation(cfg16, walls, backend="cuda", temporal=1)
     sim.run(WARMUP)
     sim.elapsed, sim.steps_done = 0.0, 0
     sim.run(MAIN_STEPS)
@@ -1621,7 +1638,8 @@ def option_phases(f32_main):
             and np.isfinite(re)):
         raise AssertionError(f"bf16 main path state not finite/non-negative, or Re {re!r}")
     excess = np.abs(f - f32_main) - (BF16_ATOL + BF16_RTOL * np.abs(f32_main))
-    print(f"bf16 main path: {MAIN_STEPS} steps (+{WARMUP} warmup) through backend=cuda, "
+    print(f"bf16 one-step path: {MAIN_STEPS} steps (+{WARMUP} warmup) through backend=cuda, "
+          f"temporal=1, "
           f"{bf16_launches} kernel launches of the {form16} form, Re {re!r}, {sim.mlups!r} MLUPS "
           f"({sim.elapsed!r} s); vs the float32 main path: max |diff| "
           f"{float(np.abs(f - f32_main).max())!r}, worst margin to the bar "
@@ -2789,7 +2807,7 @@ def anatomy_phases():
     del want, got
     walls = geometry.empty(cfg.nx, cfg.ny)
     reset_counts()
-    sim = Simulation(cfg, walls, backend="cuda")
+    sim = Simulation(cfg, walls, backend="cuda", temporal=1)
     t = state_tensor(sim.state(), cfg.dtype, dev)
     want = sim.run(FLAT_STEPS).state()
     expect_counts("cuda backend on the empty lattice", {"f32-none": FLAT_STEPS})
@@ -3001,6 +3019,7 @@ def probed_phases(f32_main):
     then its cost per step beside run()'s."""
     from latticeboltzmann_tpu_torch import LatticeConfig, Simulation, geometry
     from latticeboltzmann_tpu_torch.models import engine
+    from latticeboltzmann_tpu_torch.ops import fused_kernel
     from latticeboltzmann_tpu_torch.parallel import sharded
     from latticeboltzmann_tpu_torch.scripts.numerics_tiers import PROBES
 
@@ -3013,8 +3032,14 @@ def probed_phases(f32_main):
     engine.register_backend("sharded-cuda-ds64", sharded.make_cuda_ds_backend(mesh))
     cases = (
         # (label, backend, dtype, launches of one run, form, the series it must also equal)
-        ("cuda f32", "cuda", np.float32, {"f32-spec": PROBED_STEPS}, "wide", None),
-        ("cuda bf16", "cuda", "bfloat16", {"bf16-spec": PROBED_STEPS}, "wide", None),
+        # passes of the session's default depth: every `every` steps one
+        # advance, an advance of one step a launch of the one-step kernel
+        ("cuda f32", "cuda", np.float32, lambda every: default_counts(
+            every, fused_kernel.DEFAULT_TEMPORAL[torch.float32], "f32-spec", PROBED_STEPS // every),
+         None, None),
+        ("cuda bf16", "cuda", "bfloat16", lambda every: default_counts(
+            every, fused_kernel.DEFAULT_TEMPORAL[torch.bfloat16], "bf16-spec",
+            PROBED_STEPS // every), None, None),
         # passes of the temporal form: every `every` steps one advance
         ("cuda-ds64", "cuda-ds64", np.float64,
          lambda every: {"ds-temporal": PROBED_STEPS // every * ds_passes(every)}, None, None),
@@ -3108,7 +3133,7 @@ def suite_phase(card):
     # form (cuda-ds64) and its ext-halo temporal form (sharded-cuda-ds64,
     # passes of 4); a key ending in "-" names a family of variants, any
     # other one kernel
-    for route, prefix in (("f32", "f32-"), ("bf16", "bf16-"),
+    for route, prefix in (("f32 temporal", "temporal-f32-"), ("bf16 temporal", "temporal-bf16-"),
                           ("ext-halo temporal", "ext-temporal-f32-"),
                           ("ds temporal", "ds-temporal"),
                           ("ds ext-halo temporal", "ds-ext-temporal")):
@@ -3136,8 +3161,7 @@ def validate_ds_phase():
 
 # the kernels-line entry of each kernel the CLI phase launches: the start
 # of its name, or (exact) its whole name
-CLI_ENTRIES = {"f32": ("lbm_stream_collide_wide<float,", False),
-               "bf16": ("lbm_stream_collide_wide<__nv_bfloat16,", False),
+CLI_ENTRIES = {"temporal": ("lbm_temporal_steps<", False),
                "ds": ("lbm_ds_temporal_steps<", False),
                "rdma": ("lbm_temporal_steps_rdma<", False)}
 
@@ -3167,6 +3191,19 @@ CLI_STATS_EVERY = 500
 CLI_PROBE_EVERY = 100
 CLI_WARMUP = 8
 CLI_OTHER_STEPS = 500
+
+
+def cli_passes(start, steps, intervals, depth):
+    """The passes at depth `depth` of a CLI run of `steps` steps from step
+    `start`: the warmup (CLI_WARMUP steps) one advance, then one advance a
+    chunk, each chunk to the earliest multiple of one of `intervals`
+    (cli.py's chunked run)."""
+    count, step, end = passes(CLI_WARMUP, depth), start, start + steps
+    while step < end:
+        n = min([(step // e + 1) * e for e in intervals] + [end]) - step
+        count += passes(n, depth)
+        step += n
+    return count
 
 
 def cli_call(label, argv):
@@ -3212,14 +3249,18 @@ def cli_phase(tmp):
     import shutil
 
     from latticeboltzmann_tpu_torch import LatticeConfig, Simulation, geometry
+    from latticeboltzmann_tpu_torch.ops import fused_kernel
     from latticeboltzmann_tpu_torch.scripts.numerics_tiers import PROBES
     from latticeboltzmann_tpu_torch.utils import checkpoint, native, viz
 
     torch.cuda.empty_cache()
     t_phase = time.perf_counter()
     nx, ny = CLI_NX, CLI_NY
+    # the CLI passes no depth: the session's default, in passes
+    depth = fused_kernel.DEFAULT_TEMPORAL[torch.float32]
+    depth16 = fused_kernel.DEFAULT_TEMPORAL[torch.bfloat16]
     scene = ["--nx", nx, "--ny", ny, "--geometry", "reference"]
-    launched = {"f32": 0, "bf16": 0, "ds": 0, "rdma": 0}
+    launched = {"temporal": 0, "ds": 0, "rdma": 0}
 
     def counted(label, argv, want, form, kernel, rc_want=0):
         reset_counts()
@@ -3240,16 +3281,18 @@ def cli_phase(tmp):
                             *probe_args, "--probe-every", CLI_PROBE_EVERY,
                             "--probe-out", a / "probes.csv", "--profile-dir", a / "prof",
                             "--debug-nans"],
-            {"f32-spec": CLI_STEPS + CLI_WARMUP}, "wide", "f32")
+            {"temporal-f32-spec": (a_passes := cli_passes(
+                0, CLI_STEPS, (CLI_STATS_EVERY, CLI_EVERY, CLI_PROBE_EVERY), depth))}, None, "temporal")
     end = CLI_STEPS + CLI_EVERY
     counted("f32 resumed", ["--resume", "latest", "--checkpoint-dir", a / "ck", "--backend", "cuda",
                             "--steps", CLI_EVERY, "--checkpoint-every", CLI_EVERY,
                             "--warmup", CLI_WARMUP, "--print-stats-every", CLI_STATS_EVERY],
-            {"f32-spec": CLI_EVERY + CLI_WARMUP}, "wide", "f32")
+            {"temporal-f32-spec": cli_passes(CLI_STEPS, CLI_EVERY, (CLI_STATS_EVERY, CLI_EVERY),
+                                             depth)}, None, "temporal")
     counted("f32 unbroken", scene + ["--backend", "cuda", "--steps", end, "--warmup", CLI_WARMUP,
                                      "--checkpoint-every", end, "--checkpoint-dir", a / "ck1",
                                      "--print-stats-every", CLI_EVERY],
-            {"f32-spec": end + CLI_WARMUP}, "wide", "f32")
+            {"temporal-f32-spec": cli_passes(0, end, (CLI_EVERY, end), depth)}, None, "temporal")
     resumed = (a / "ck" / f"{end}.lbmckpt" / "f.raw").read_bytes()
     if resumed != (a / "ck1" / f"{end}.lbmckpt" / "f.raw").read_bytes():
         raise AssertionError(f"cli f32: the resumed {end}.lbmckpt/f.raw differs from the "
@@ -3290,10 +3333,10 @@ def cli_phase(tmp):
         raise AssertionError(f"cli f32: traces {traces}")
     events = json.loads(traces[0].read_text())["traceEvents"]
     kernels = [e for e in events if e.get("cat") == "kernel"]
-    wide = [e for e in kernels if "lbm_stream_collide_wide" in e.get("name", "")]
-    if len(wide) != CLI_STEPS + CLI_WARMUP:
-        raise AssertionError(f"cli f32: the trace names lbm_stream_collide_wide {len(wide)} "
-                             f"times, expected {CLI_STEPS + CLI_WARMUP}; kernels "
+    wide = [e for e in kernels if "lbm_temporal_steps" in e.get("name", "")]
+    if len(wide) != a_passes:
+        raise AssertionError(f"cli f32: the trace names lbm_temporal_steps {len(wide)} "
+                             f"times, expected {a_passes}; kernels "
                              f"{sorted({e.get('name') for e in kernels})[:8]}")
     chunks = CLI_STEPS // CLI_PROBE_EVERY
     spans = [e.get("name") for e in events if e.get("cat") == "user_annotation"]
@@ -3303,9 +3346,9 @@ def cli_phase(tmp):
                              f"{chunks}")
     busy_us = sum(e["dur"] for e in kernels)
     print(f"cli f32 trace ({pathlib.Path(traces[0]).stat().st_size} B): the window from before "
-          f"the warmup to after the last chunk's events names lbm_stream_collide_wide "
-          f"{len(wide)} times (= {CLI_WARMUP} warmup + {CLI_STEPS} steps), {len(kernels)} kernels "
-          f"in all; the wide kernel {sum(e['dur'] for e in wide) / len(wide)!r}"
+          f"the warmup to after the last chunk's events names lbm_temporal_steps "
+          f"{len(wide)} times (passes of {depth} over {CLI_WARMUP} warmup + {CLI_STEPS} steps), "
+          f"{len(kernels)} kernels in all; the pass {sum(e['dur'] for e in wide) / len(wide)!r}"
           f" us a launch under the profiler, all kernels {busy_us!r} us; name "
           f"{wide[0]['name']!r}; spans: 1 lbm_warmup, {chunks} lbm_run (one a chunk)")
     shutil.rmtree(a / "prof")
@@ -3314,7 +3357,9 @@ def cli_phase(tmp):
     # (b) the other backend classes: a run, its resume, an unbroken run
     n_cards = torch.cuda.device_count()
     others = (
-        ("bf16", ["--backend", "cuda", "--precision", "bf16"], {"bf16-spec": 1}, "wide", "bf16"),
+        # the warmup and each chunk are one advance: passes of the default depth
+        ("bf16", ["--backend", "cuda", "--precision", "bf16"],
+         {"temporal-bf16-spec": lambda steps: passes(steps, depth16)}, None, "temporal"),
         # the warmup and each chunk are one advance: passes of the temporal form
         ("cuda-ds64", ["--backend", "cuda-ds64", "--precision", "f64"], {"ds-temporal": ds_passes},
          None, "ds"),
@@ -3380,12 +3425,13 @@ def cli_phase(tmp):
                                       "--warmup", CLI_WARMUP, "--print-stats-every",
                                       CLI_STATS_EVERY, "--checkpoint-every", CLI_STATS_EVERY,
                                       "--debug-nans"],
-                  {"f32-spec": CLI_STATS_EVERY + CLI_WARMUP}, "wide", "f32", rc_want=1)
+                  {"temporal-f32-spec": passes(CLI_WARMUP, depth) + passes(CLI_STATS_EVERY, depth)},
+                  None, "temporal", rc_want=1)
     if f"after step {first}" not in err or (nan_ck / f"{first}.lbmckpt").exists():
         raise AssertionError(f"cli --debug-nans: {err!r}")
     print(f"cli --debug-nans: a NaN planted at site {site} of {src.name} stops the resumed run "
-          f"after its first chunk (step {first}, {CLI_STATS_EVERY + CLI_WARMUP} launches, no "
-          "checkpoint written): exit 1")
+          f"after its first chunk (step {first}, {CLI_STATS_EVERY + CLI_WARMUP} steps in passes "
+          f"of {depth}, no checkpoint written): exit 1")
 
     # (d) refusals before any step, the movie, and host IO times
     refusals = [("orbax", ["--checkpoint-format", "orbax", "--checkpoint-every", CLI_EVERY])]
@@ -3397,7 +3443,7 @@ def cli_phase(tmp):
         refusals.append(("movie", ["--movie", tmp / "flow.gif", "--save-lattice-every", CLI_EVERY]))
     for label, args in refusals:
         counted(f"refusal {label}", scene + ["--backend", "cuda", "--steps", CLI_STEPS] + args,
-                {}, None, "f32", rc_want=2)
+                {}, None, "temporal", rc_want=2)
     if movie_error is None:
         t0 = time.perf_counter()
         out = viz.render_movie(a / "data", tmp / "flow.gif")
@@ -3536,14 +3582,15 @@ def temporal_phases(f32_main, bf16_main):
     in TEMPORAL_DEPTHS and the card's deepest pass, f32 and bf16, spec
     and plane, in turns (pace by CUDA events, the card's time queued
     behind a spin, the host's enqueue), then bf16 at 4000x16000 and f32 at
-    400x2000 (spec). (c) The main path: Simulation(reference_barrier(800,
-    4000), backend="cuda", temporal=T) at the fastest T >= 2 of (b), f32
-    and bf16: WARMUP + MAIN_STEPS steps bitwise equal to phase 4's and
-    phase 13's states (f32_main, bf16_main), exactly (WARMUP + MAIN_STEPS)
-    // T launches of T steps and one of the rest, no one-step launch;
-    run_probed at every = 1, 8 and 3 bitwise equal to temporal=None's
-    series and state; run(a) + run(b), a no multiple of T, bitwise equal
-    to run(a + b). Returns the kernels line's entry."""
+    400x2000 (spec); the fastest T >= 2 printed beside the default. (c)
+    The main path: Simulation(reference_barrier(800, 4000),
+    backend="cuda") at its default depth T (DEFAULT_TEMPORAL), f32 and
+    bf16: WARMUP + MAIN_STEPS steps bitwise equal to phase 4's and phase
+    13's states (f32_main, bf16_main), exactly (WARMUP + MAIN_STEPS) // T
+    launches of T steps and one of the rest (default_counts); run_probed
+    at every = 1, 8 and 3 bitwise equal to temporal=1's series and state;
+    run(a) + run(b), a no multiple of T, bitwise equal to run(a + b).
+    Returns the kernels line's entry, timed at that depth."""
     from latticeboltzmann_tpu_torch import LatticeConfig, Simulation, geometry, initial_state
     from latticeboltzmann_tpu_torch.ops import fused_kernel as fk
     from latticeboltzmann_tpu_torch.scripts import anatomy
@@ -3634,10 +3681,14 @@ def temporal_phases(f32_main, bf16_main):
             best[(st, kind)] = temporal_times(cfg, walls, kind, f, depths, TEMPORAL_TIMED_STEPS,
                                               rates, f"800x4000 {st}")
         del f
-    chosen = {st: min((d for d in depths_of[st] if d > 1), key=lambda d: best[(st, "spec")][d][0])
-              for st in dtypes.values()}
-    print(f"temporal depth chosen for the main path (fastest pace of the spec variant, T >= 2): "
-          f"{ {str(k): v for k, v in chosen.items()} }")
+    # the main path runs the session's default depth (fused_kernel.DEFAULT_TEMPORAL,
+    # set by scripts/depth_sweep.py); the fastest pace here is printed beside it
+    fastest = {st: min((d for d in depths_of[st] if d > 1), key=lambda d: best[(st, "spec")][d][0])
+               for st in dtypes.values()}
+    print(f"temporal depth of the fastest pace here (spec variant, T >= 2): "
+          f"{ {str(k): v for k, v in fastest.items()} }; the main path's default depth "
+          f"(fused_kernel.DEFAULT_TEMPORAL): "
+          f"{ {str(k): v for k, v in fk.DEFAULT_TEMPORAL.items()} }")
     big = LatticeConfig(nx=4000, ny=16000, dtype=bf16)
     f = state_tensor(initial_state(big), bf16, dev)
     best["4000x16000 bf16"] = temporal_times(
@@ -3656,60 +3707,65 @@ def temporal_phases(f32_main, bf16_main):
     print(f"phase 29b (times) took {time.perf_counter() - t_part:.1f} s")
     t_part = time.perf_counter()
 
-    # 29c. the main path at the chosen depths
+    # 29c. the main path: Simulation(backend="cuda") at its default depth
     n_main = WARMUP + MAIN_STEPS
-    entry_launches, variants, main_us = 0, {}, {}
+    entry_launches, variants, main_us, depths = 0, {}, {}, {}
     for dtype, want in ((np.float32, f32_main), (bf16, bf16_main)):
         cfg = LatticeConfig(nx=800, ny=4000, dtype=dtype)
         st = dtypes[dtype]
-        depth = chosen[st]
         label = "bf16" if dtype == bf16 else "f32"
         reset_counts()
-        sim = Simulation(cfg, walls, backend="cuda", temporal=depth)
+        sim = Simulation(cfg, walls, backend="cuda")
+        depth = depths[st] = sim._session.temporal
+        if (depth, sim._session.requested_temporal) != (fk.DEFAULT_TEMPORAL[st], None):
+            raise AssertionError(f"{label}: Simulation(backend='cuda') runs temporal={depth} "
+                                 f"(requested {sim._session.requested_temporal}), not "
+                                 f"DEFAULT_TEMPORAL {fk.DEFAULT_TEMPORAL[st]}")
         sim.run(n_main)
-        launches = n_main // depth + (1 if n_main % depth else 0)
-        got_counts = expect_counts(f"{label} temporal main path", {f"temporal-{label}-spec": launches})
-        if fk.TEMPORAL_STEPS != n_main:
-            raise AssertionError(f"{label} temporal main path: {fk.TEMPORAL_STEPS} steps counted")
-        entry_launches += launches
-        variants.update(got_counts)
+        plan = default_counts(n_main, depth, f"{label}-spec")
+        got_counts = expect_counts(f"{label} main path", plan)
+        passes_run = got_counts.get(f"temporal-{label}-spec", 0)
+        if fk.TEMPORAL_STEPS != n_main - plan.get(f"{label}-spec", 0):
+            raise AssertionError(f"{label} main path: {fk.TEMPORAL_STEPS} steps counted")
+        entry_launches += passes_run
+        variants.update({k: n for k, n in got_counts.items() if k.startswith("temporal-")})
         main_us[label] = sim.elapsed / n_main * 1e6
         state = sim.state()
         if not np.array_equal(state, want):
-            raise AssertionError(f"{label} temporal main path at T={depth} != the T=1 main path "
-                                 f"after {n_main} steps, max |diff| "
+            raise AssertionError(f"{label} main path at its default T={depth} != the T=1 main "
+                                 f"path after {n_main} steps, max |diff| "
                                  f"{float(np.abs(state - want).max())!r}")
-        print(f"temporal main path: Simulation(reference_barrier(800, 4000), backend=cuda, "
-              f"temporal={depth}), {label}, {n_main} steps in {launches} counted launches of the "
-              f"temporal form ({got_counts}), no one-step launch, {sim.mlups!r} MLUPS "
-              f"({sim.elapsed!r} s): bitwise equal to phase "
-              f"{13 if dtype == bf16 else 4}'s state at T=1")
-        one = Simulation(cfg, walls, backend="cuda", f0=want)
+        print(f"main path: Simulation(reference_barrier(800, 4000), backend=cuda) at its default "
+              f"depth temporal={depth} (fused_kernel.DEFAULT_TEMPORAL; the fastest pace in 29b "
+              f"T={fastest[st]}), {label}, {n_main} steps in {sim.counters()['launches']} counted "
+              f"launches ({got_counts}), {sim.mlups!r} MLUPS ({sim.elapsed!r} s): bitwise equal "
+              f"to phase {13 if dtype == bf16 else 4}'s state at T=1")
+        one = Simulation(cfg, walls, backend="cuda", f0=want, temporal=1)
         for every in PROBED_EVERY:
             a = one.run_probed(PROBED_STEPS, PROBES, every=every)
             b = sim.run_probed(PROBED_STEPS, PROBES, every=every)
             if not (np.array_equal(a, b) and np.array_equal(one.state(), sim.state())):
                 raise AssertionError(f"{label} temporal run_probed(every={every}) != T=1's")
-        print(f"temporal run_probed, {label}, T={depth}: {PROBED_STEPS} steps at every = "
-              f"{PROBED_EVERY}, series and state bitwise equal to temporal=None's")
+        print(f"main path run_probed, {label}, T={depth}: {PROBED_STEPS} steps at every = "
+              f"{PROBED_EVERY}, series and state bitwise equal to temporal=1's")
         first, second = TEMPORAL_SPLIT
         if first % depth == 0:
             raise AssertionError(f"the split run's {first} steps are a multiple of T={depth}")
-        split = Simulation(cfg, walls, backend="cuda", temporal=depth, f0=want)
-        whole = Simulation(cfg, walls, backend="cuda", temporal=depth, f0=want)
+        split = Simulation(cfg, walls, backend="cuda", f0=want)
+        whole = Simulation(cfg, walls, backend="cuda", f0=want)
         if not np.array_equal(split.run(first).run(second).state(),
                               whole.run(first + second).state()):
             raise AssertionError(f"{label} temporal T={depth}: run({first}) + run({second}) != "
                                  f"run({first + second})")
-        print(f"temporal {label}, T={depth}: run({first}) + run({second}) == "
+        print(f"main path {label}, T={depth}: run({first}) + run({second}) == "
               f"run({first + second}), bitwise")
         del sim, one, split, whole
 
     print(f"phase 29c (main paths) took {time.perf_counter() - t_part:.1f} s")
 
-    # the entry: one pass of the chosen f32 depth at 800x4000, spec variant
+    # the entry: one pass of the main path's f32 depth at 800x4000, spec variant
     cfg = LatticeConfig(nx=800, ny=4000, dtype=np.float32)
-    depth = chosen[torch.float32]
+    depth = depths[torch.float32]
     a = torch.as_tensor(perturbed_state(cfg, rng), device=dev)
     b = torch.empty_like(a)
     ms = queued_ms(lambda: fk.temporal_step(a, b, spec, cfg, depth), 100)
@@ -3734,8 +3790,8 @@ def temporal_phases(f32_main, bf16_main):
     entry = {
         "name": f"lbm_temporal_steps<T, GEOM> (a pass of L steps with walls, 2 CTAs of 256 "
                 f"threads an SM, a tile's rows in two groups of copies, its first level on the "
-                f"top rows while the bottom rows land; main path f32 T={chosen[torch.float32]}, "
-                f"bf16 T={chosen[torch.bfloat16]}; ms: one pass of {depth} steps, f32 spec, "
+                f"top rows while the bottom rows land; main path f32 T={depths[torch.float32]}, "
+                f"bf16 T={depths[torch.bfloat16]}; ms: one pass of {depth} steps, f32 spec, "
                 f"800x4000)",
         "route": "cuda",
         "source": "latticeboltzmann_tpu_torch/csrc/lbm_temporal_step.cu",
@@ -3750,7 +3806,8 @@ def temporal_phases(f32_main, bf16_main):
         **bound(2 * state_bytes, depth * F32_OPS_PER_SITE * cfg.sites),
         "bytes_as_tiled_bound_ms": tiled_ms,
         "read_factor": tiled_read / state_bytes,
-        "temporal": {str(k): v for k, v in chosen.items()},
+        "temporal": {str(k): v for k, v in depths.items()},
+        "fastest_pace_T": {str(k): v for k, v in fastest.items()},
         "main_path_us_per_step": main_us,
         "us_per_step_by_T": {f"{k[0]}-{k[1]}" if isinstance(k, tuple) else k:
                              {str(d): {"pace": t[0] * 1e3, "card": t[1] * 1e3,
@@ -5225,17 +5282,17 @@ CKPT_SCENE = (800, 4000)
 CKPT_SHARDS = 4
 CKPT_SAVED_AT = 12
 CKPT_MORE = 12
-# the kernels line's entries of rows 1, 1'-T and 3'-T by the launch
+# the kernels line's entries of rows 1-T, 1'-T and 3'-T by the launch
 # counts of read_counts that phase 34 makes of them (a prefix of the key;
 # the entry of row 1'-T is its float32 instantiation, so bf16's launches
 # of it, from the checkpoint's bf16 run, are printed but not counted there)
-SCALING_ENTRIES = {"f32-": "lbm_stream_collide_wide<float, ",
+SCALING_ENTRIES = {"temporal-f32-": "lbm_temporal_steps<T, GEOM> ",
                    "ext-temporal-f32-": "lbm_temporal_steps_ext<float, spec> ",
                    "ds-ext-temporal": "lbm_ds_temporal_steps_ext<HAS_WALLS, EXACT> "}
 
 
 def add_scaling_launches(entries, launches):
-    """Records phase 34's launches of rows 1, 1'-T (f32) and 3'-T
+    """Records phase 34's launches of rows 1-T, 1'-T (f32) and 3'-T
     beside their entries' launches, as scaling_launches; launches stays
     the count of the entry's own main path."""
     for key, name in SCALING_ENTRIES.items():

@@ -8,7 +8,8 @@ card. --geometry names a scene of core/geometry.build (default
 "reference", the reference's exact scene). --temporal T, the root
 bench.py's temporal-blocking depth, runs the cuda backend in f32 or bf16
 in passes of T steps (Simulation(temporal=T)); the line records it under
-"temporal" (null without the flag). Everywhere else it would select
+"temporal" (null without the flag, where the cuda session runs its
+default depth, fused_kernel.default_temporal). Everywhere else it would select
 nothing, so it is refused there (exit 2, before any step), as
 --skew/--no-skew are everywhere: a line must not record a setting that
 did not run. The rows of bench_suite.py run through the same flags.

@@ -85,9 +85,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "-Ofast analog, Makefile:2); other backends ignore it")
     p.add_argument("--skew", dest="skew", action="store_true", default=None,
                    help="the JAX package's wavefront time-skewing knob, accepted for "
-                        "its command lines: the port's kernels run one step per "
-                        "launch, and the schedules it selects there are bitwise "
-                        "equal, so it changes nothing here; --no-skew likewise")
+                        "its command lines: the schedules it selects there are "
+                        "bitwise equal, so it changes nothing here; --no-skew "
+                        "likewise")
     p.add_argument("--no-skew", dest="skew", action="store_false")
     p.add_argument("--debug-nans", action="store_true",
                    help="abort on NaN/inf like the reference's feenableexcept trap "

@@ -7,9 +7,11 @@ the port's backends.
   CUDA kernel, the counterpart of "pallas": float32 or bf16 storage, the
   mask computed in the kernel from geometry.infer_spec's closed form
   when there is one (as the JAX main path does), free-slip codes, fast
-  math and, with temporal=T, passes of T steps per launch (one step per
-  launch where NY holds no whole 16-byte vectors, as the session
-  chooses by shape). float64 storage, which no kernel takes, runs the
+  math and passes of T steps per launch: temporal=T, or by default
+  the session's measured depth (fused_kernel.DEFAULT_TEMPORAL, 6);
+  temporal=1 runs one step per launch, and so does every depth where NY
+  holds no whole 16-byte vectors, as the session chooses by shape.
+  float64 storage, which no kernel takes, runs the
   "torch" engine on the card with no session, as the JAX "pallas" runs
   float64 on its XLA engine: a choice by dtype (fused_kernel.run_steps),
   reported by Simulation.form as fused_kernel.F64_FORM ("torch-f64")
@@ -193,13 +195,16 @@ class Simulation:
     as given. temporal=T on "cuda" runs passes of T steps through the
     temporal form of the kernel (fused_kernel.Session(temporal=T): n steps
     as n // T passes of T and one of the rest), bitwise equal to one step
-    per launch; None (the default) and 1 keep one launch per step, and so
-    does any T where NY holds no whole 16-byte vectors (the session's
-    choice by shape). On every other backend, and on "cuda" with float64
-    storage, it selects nothing, as the JAX facade passes it only to
-    "pallas" (models/engine.py:341-342 there), whose planner ignores it
-    for float64. A temporal that is no integer or under 1 raises
-    ValueError on every backend, as the JAX planner does
+    per launch; None (the default) hands the choice to the session, which
+    runs its measured depth on the card (fused_kernel.default_temporal:
+    DEFAULT_TEMPORAL, 6 in float32 and bf16), and 1 keeps one launch per
+    step, as does any depth where NY holds no whole 16-byte vectors (the
+    session's choice by shape); `temporal` stays as given, the session's
+    `temporal` reads the depth that runs. On every other backend, and on
+    "cuda" with float64 storage, it selects nothing, as the JAX facade
+    passes it only to "pallas" (models/engine.py:341-342 there), whose
+    planner ignores it for float64. A temporal that is no integer or
+    under 1 raises ValueError on every backend, as the JAX planner does
     (ops/fused_kernel.py:2008-2015 there); "cuda" also refuses a depth
     past the temporal form's tile on the card (fused_kernel.Session).
     `form` reads what runs: fused_kernel.KERNEL_FORM ("kernel") where a

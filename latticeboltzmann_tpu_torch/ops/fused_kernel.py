@@ -63,10 +63,12 @@ kernel at temporal = T > 1 with walls: one launch runs a pass of L steps
 from src to dst, the session's two distinct buffers, the steps of the
 pass kept in shared memory in the flat kernel's tile with a solid class
 per tile site (`temporal_info` reads the tile the card gives it and
-the deepest pass it takes). `Session(temporal=T)`
-runs n steps as n // T passes of T steps and one of n % T. Its launches
-are counted in TEMPORAL_LAUNCHES and TEMPORAL_VARIANT_LAUNCHES, the steps
-they ran in TEMPORAL_STEPS.
+the deepest pass it takes). `Session(temporal=T)` runs n steps as n //
+T passes of T steps and one of n % T; on a card `Session()` runs T =
+DEFAULT_TEMPORAL wherever the form takes the rows (`default_temporal`),
+a rest of one step there through the one-step kernel.
+Its launches are counted in TEMPORAL_LAUNCHES and
+TEMPORAL_VARIANT_LAUNCHES, the steps they ran in TEMPORAL_STEPS.
 
 A shard's passes of the row-sharded path have two forms of their own,
 the temporal form's tile and levels on a shard whose rows beyond it come
@@ -152,6 +154,13 @@ FLAT_LAUNCHES = 0
 # temporal the wrapper takes (on a card, a depth whose pass leaves no
 # output tile in the card's tile is refused too)
 FLAT_TEMPORAL = {torch.float32: 6, torch.bfloat16: 8}
+# the depth Session(temporal=None) runs where the temporal form takes the
+# rows on a card (default_temporal), by storage: by scripts/depth_sweep.py
+# on an H100 the fastest of T = 1, 4-8 at 800x4000 and 4000x16000 in both
+# storages, from rest and in a developed flow, or within 1% of it (T = 5
+# in float32 at 4000x16000 from rest, at 800x4000 developed; PERF.md,
+# section 6, the default depth)
+DEFAULT_TEMPORAL = {torch.float32: 6, torch.bfloat16: 6}
 FLAT_RUNS = 4
 FLAT_MAX_TEMPORAL = 32
 # launches of the temporal form (`temporal_step`), in all and by variant
@@ -1450,6 +1459,18 @@ def temporal_form_takes(dtype: torch.dtype, ny: int) -> bool:
     return ny % WIDE_COLUMNS[dtype] == 0
 
 
+def default_temporal(dtype: torch.dtype, ny: int, device_type: str, max_steps: int) -> int:
+    """The depth Session(temporal=None) runs: on a CUDA card where the
+    temporal form takes rows of ny columns of storage `dtype`
+    (temporal_form_takes), DEFAULT_TEMPORAL[dtype], at most `max_steps`
+    (the deepest pass the card's tile takes: temporal_info); else 1, one
+    step a launch. On the CPU a pass is temporal_reference, a plain
+    emulation with nothing to gain."""
+    if device_type != "cuda" or not temporal_form_takes(dtype, ny):
+        return 1
+    return max(1, min(DEFAULT_TEMPORAL[dtype], max_steps))
+
+
 def _check_tile_depth(steps: int, dtype: torch.dtype, device: torch.device) -> None:
     """On a card, raise ValueError when a pass of `steps` steps is deeper
     than the temporal form's tile takes there (temporal_info)."""
@@ -2157,18 +2178,23 @@ class Session:
     else none for a wall-free mask, else the wall spec when one is given,
     else the walls as a uint8 plane.
 
-    temporal: None or 1 runs one step-kernel launch per step; T >= 2 runs
-    passes of T steps through the temporal form (temporal_step), n steps
-    as n // T launches of T steps and one of n % T, each a pass between
-    the two buffers. Where the temporal form does not take the rows (NY
-    of no whole 16-byte vectors: temporal_form_takes), T >= 2 runs one
-    step per launch, a choice by shape counted by form in FORM_LAUNCHES,
-    as the ds and sharded sessions choose; `temporal` reads the depth
-    that runs, `requested_temporal` the one asked. A depth no form takes
-    (no integer in [1, FLAT_MAX_TEMPORAL], on a card a pass deeper than
-    its tile takes) raises ValueError here, at any shape. Every result is
-    bitwise the same. float64 storage raises NotImplementedError (ROADMAP
-    B15); run_steps takes it to the portable engine.
+    temporal: 1 runs one step-kernel launch per step; T >= 2 runs passes
+    of T steps through the temporal form (temporal_step), n steps as n //
+    T launches of T steps and one of n % T, each a pass between the two
+    buffers. None runs default_temporal's depth: DEFAULT_TEMPORAL by
+    storage on a card, no deeper than its tile takes, and one step per
+    launch on the CPU; a pass of one step at that depth (an advance of 1,
+    or a rest of 1) is a launch of the one-step kernel, the faster form
+    of a single step, where an asked T runs it as a pass. Where the temporal form does not take the rows (NY
+    of no whole 16-byte vectors: temporal_form_takes), None and T >= 2
+    run one step per launch, a choice by shape counted by form in
+    FORM_LAUNCHES, as the ds and sharded sessions choose; `temporal`
+    reads the depth that runs, `requested_temporal` the one asked. A
+    depth no form takes (no integer in [1, FLAT_MAX_TEMPORAL], on a card
+    a pass deeper than its tile takes) raises ValueError here, at any
+    shape. Every result is bitwise the same. float64 storage raises
+    NotImplementedError (ROADMAP B15); run_steps takes it to the portable
+    engine.
 
     The session counts what it ran, always: `launches` and `steps`, added
     once an advance from its pass plan (n and n at depth 1; n // T +
@@ -2205,8 +2231,12 @@ class Session:
             if temporal > 1:
                 _check_tile_depth(temporal, self.dtype, self.device)
         self.requested_temporal = temporal
-        self.temporal = (temporal if temporal and temporal_form_takes(self.dtype, cfg.ny)
-                         else 1)
+        if temporal is None:
+            on_card = self.device.type == "cuda"
+            most = temporal_info(self.dtype, device=self.device)["max_steps"] if on_card else 0
+            self.temporal = default_temporal(self.dtype, cfg.ny, self.device.type, most)
+        else:
+            self.temporal = temporal if temporal_form_takes(self.dtype, cfg.ny) else 1
         geom = host_geometry(cfg, walls, wall_spec, slip_x, slip_y)
         if isinstance(geom, np.ndarray):
             geom = torch.as_tensor(geom, device=self.device)
@@ -2226,23 +2256,25 @@ class Session:
 
     def advance(self, n_steps: int) -> None:
         """n_steps steps: one launch per step, or at temporal T passes of
-        T steps and one of the rest; the two buffers swap after each
-        launch."""
+        T steps and one of the rest (at the default depth a rest of one
+        step a launch of the one-step kernel); the two buffers swap after
+        each launch."""
         depth = self.temporal
-        launches = -(-n_steps // depth)
-        self.launches += launches
+        full, rest = divmod(n_steps, depth)
+        plan = [depth] * full + ([rest] if rest else [])
+        # a pass of one step of the session's own depth runs the one-step
+        # kernel, faster than the temporal form at L = 1 (PERF.md, row 1-T)
+        one_step = depth == 1 or self.requested_temporal is None
+        self.launches += len(plan)
         self.steps += n_steps
-        with profiler.span("Session.advance", steps=n_steps, launches=launches, depth=depth):
+        with profiler.span("Session.advance", steps=n_steps, launches=len(plan), depth=depth):
             a, b = self._a, self._b
-            if depth == 1:
-                for _ in range(n_steps):
+            for steps in plan:
+                if steps == 1 and one_step:
                     step(a, b, self.geom, self.cfg, fast_math=self.fast_math)
-                    a, b = b, a
-            else:
-                full, rest = divmod(n_steps, depth)
-                for steps in [depth] * full + ([rest] if rest else []):
+                else:
                     temporal_step(a, b, self.geom, self.cfg, steps, fast_math=self.fast_math)
-                    a, b = b, a
+                a, b = b, a
             self._a, self._b = a, b
 
     def block(self) -> None:

@@ -242,7 +242,7 @@ def production(steps, nx, ny, dtype="float32", scene="reference", tag=""):
     walls = {"reference": geometry.reference_barrier, "scaled": geometry.channel_with_barrier,
              "empty": geometry.empty}[scene](nx, ny)
     spec = geometry.infer_spec(walls) if walls.any() else None
-    sess = fk.Session(cfg, walls, device="cuda", wall_spec=spec)
+    sess = fk.Session(cfg, walls, device="cuda", wall_spec=spec, temporal=1)
     sess.load(state_tensor(initial_state(cfg), cfg.dtype, "cuda"))
     # queued behind a spin: on a small lattice the host's launch rate, not
     # the card, would set a launch-per-step loop's pace

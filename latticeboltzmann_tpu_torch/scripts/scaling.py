@@ -392,7 +392,8 @@ def shares_text(s: TraceShares, compute_prefix: str = COMPUTE_PREFIX) -> str:
 
 # (backend, timed by slope (else by the host clock), note)
 GPU_ROWS = (
-    ("cuda", True, "the unsharded kernel, one step a launch; does not depend on the mesh"),
+    ("cuda", True, "the unsharded session at its default depth (passes of "
+                   "fused_kernel.DEFAULT_TEMPORAL); does not depend on the mesh"),
     ("sharded-cuda", True, "passes of 3 through the ext-halo temporal form, halos copied by "
                            "the host, overlap schedule"),
     ("sharded", False, "eager engine, overlapped exchange"),

@@ -240,13 +240,14 @@ def test_form_follows_the_pointers_on_the_card(dtype, cuda_device):
 
 @pytest.mark.cuda
 def test_cuda_backend_runs_the_form_kernel_form_names(cuda_device):
-    """Session's buffers are aligned: 24x40 runs the wide form, 24x37 the
-    narrow one, each counted by form."""
+    """Session's buffers are aligned: at temporal=1 (the one-step kernel)
+    24x40 runs the wide form, 24x37 the narrow one, each counted by
+    form."""
     for ny, form in ((40, "wide"), (37, "narrow")):
         cfg = LatticeConfig(nx=24, ny=ny, dtype=np.float32)
         assert fk.kernel_form(torch.float32, ny, ()) == form
         before = fk.FORM_LAUNCHES[form]
-        Simulation(cfg, geometry.channel(24, ny), backend="cuda").run(7)
+        Simulation(cfg, geometry.channel(24, ny), backend="cuda", temporal=1).run(7)
         assert fk.FORM_LAUNCHES[form] == before + 7
 
 
@@ -268,7 +269,7 @@ def test_fast_math_within_its_tolerance(cuda_device):
 def test_cuda_backend_tracks_torch_backend(cuda_device):
     cfg, walls = _scene("column0")  # channel + rect: the spec variant
     before = fk.VARIANT_LAUNCHES["f32-spec"]
-    out = Simulation(cfg, walls, backend="cuda").run(20).state()
+    out = Simulation(cfg, walls, backend="cuda", temporal=1).run(20).state()
     assert fk.VARIANT_LAUNCHES["f32-spec"] == before + 20
     ref = Simulation(cfg, walls, backend="torch", device=cuda_device).run(20).state()
     np.testing.assert_allclose(out, ref, rtol=1e-4, atol=1e-7)
@@ -318,7 +319,7 @@ def test_cuda_bf16_and_slip_track_torch_backend(cuda_device):
     cfg = LatticeConfig(nx=48, ny=96, dtype="bfloat16")
     walls = _plate_48x96()
     before = fk.VARIANT_LAUNCHES["bf16-spec"]
-    out = Simulation(cfg, walls, backend="cuda").run(20).state()
+    out = Simulation(cfg, walls, backend="cuda", temporal=1).run(20).state()
     assert fk.VARIANT_LAUNCHES["bf16-spec"] == before + 20
     ref = Simulation(cfg, walls, backend="torch", device=cuda_device).run(20).state()
     assert out.dtype == np.float32
@@ -1564,7 +1565,8 @@ def test_flat_kernel_equals_flat_reference(name, dtype, cuda_device):
             assert torch.equal(blocked, want), (n, temporal)
     assert fk.FLAT_LAUNCHES == before + len(counts) * len(FLAT_TEMPORALS)
     # the one-launch-per-step kernel gives the same state
-    assert torch.equal(want[0], fk.run_steps(f, geometry.empty(cfg.nx, cfg.ny), cfg, counts[-1]))
+    assert torch.equal(want[0], fk.run_steps(f, geometry.empty(cfg.nx, cfg.ny), cfg, counts[-1],
+                                             temporal=1))
 
 
 @pytest.mark.cuda
@@ -1695,12 +1697,12 @@ def test_temporal_session_equals_one_step_per_launch(dtype, cuda_device):
     """Simulation(backend="cuda", temporal=T) on a 48x96 plate (the spec
     variant) and a slip scene (the plane variant): run(7) + run(13) at
     T=3, passes of 3, 3, 1 and 3, 3, 3, 3, 1 steps and no one-step
-    launch, bitwise equal to 20 steps at temporal=None; run(20) at T=3
+    launch, bitwise equal to 20 steps at temporal=1; run(20) at T=3
     too."""
     cfg = LatticeConfig(nx=48, ny=96, dtype=dtype)
     walls, slip_x, slip_y = _slip_scene(48, 96)
     for walls_, kw in ((_plate_48x96(), {}), (walls, {"slip_x": slip_x, "slip_y": slip_y})):
-        want = Simulation(cfg, walls_, backend="cuda", **kw).run(20).state()
+        want = Simulation(cfg, walls_, backend="cuda", temporal=1, **kw).run(20).state()
         sim = Simulation(cfg, walls_, backend="cuda", temporal=3, **kw)
         before = (fk.LAUNCHES, fk.TEMPORAL_LAUNCHES, fk.TEMPORAL_STEPS)
         np.testing.assert_array_equal(sim.run(7).run(13).state(), want)
@@ -1759,6 +1761,72 @@ def test_temporal_at_an_ny_of_no_whole_vectors_runs_the_narrow_form(dtype, cuda_
     assert fk.FORM_LAUNCHES["narrow"] == narrow + 25 and fk.LAUNCHES == launches + 25
     assert fk.TEMPORAL_LAUNCHES == passes
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+def test_default_depth_follows_the_rows_on_the_card(dtype, cuda_device):
+    """Simulation(backend="cuda") with no depth: at 48x96 (whole 16-byte
+    vectors a row) passes of fused_kernel.DEFAULT_TEMPORAL through the
+    temporal form, a rest of one step (13 = 6 + 6 + 1) one launch of the
+    one-step kernel; at 48x98 one narrow launch of the one-step kernel per
+    step, no pass; each bitwise equal to temporal=1."""
+    for ny in (96, 98):
+        cfg = LatticeConfig(nx=48, ny=ny, dtype=dtype)
+        depth = fk.DEFAULT_TEMPORAL[fk._storage(cfg)] if ny == 96 else 1
+        walls = geometry.channel(48, ny)
+        walls[10:30, 20:25] = True
+        f0 = _perturbed(cfg, cuda_device).float().cpu().numpy()
+        want = Simulation(cfg, walls, backend="cuda", f0=f0, temporal=1).run(25).state()
+        counts = (fk.LAUNCHES, fk.FORM_LAUNCHES["narrow"], fk.TEMPORAL_LAUNCHES,
+                  fk.TEMPORAL_STEPS)
+        sim = Simulation(cfg, walls, backend="cuda", f0=f0)
+        assert sim.temporal is None
+        assert (sim._session.temporal, sim._session.requested_temporal) == (depth, None)
+        got = sim.run(13).run(12).state()
+        plans = [divmod(n, depth) for n in (13, 12)]
+        passes = sum(full + (rest > 1) for full, rest in plans)
+        ones = sum(rest == 1 for _, rest in plans)
+        assert (fk.LAUNCHES, fk.FORM_LAUNCHES["narrow"], fk.TEMPORAL_LAUNCHES,
+                fk.TEMPORAL_STEPS) == ((counts[0] + ones, counts[1], counts[2] + passes,
+                                        counts[3] + 25 - ones)
+                                       if depth > 1 else
+                                       (counts[0] + 25, counts[1] + 25, counts[2], counts[3]))
+        assert sim.counters() == {"launches": passes + ones if depth > 1 else 25, "steps": 25,
+                                  "samples": 0}
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nx, ny, dtype", [(800, 4000, np.float32), (4000, 16000, "bfloat16")])
+def test_default_depth_at_the_benchmark_configurations(nx, ny, dtype, cuda_device):
+    """The benchmark cells' two configurations (the upstream's channel
+    edges and 200x5 plate): Simulation(backend="cuda") runs
+    DEFAULT_TEMPORAL, a 1,000-step run in 1000 // T passes of T and one of
+    the rest, no one-step launch; from one perturbed state, run(1000) and then run_probed(1000, 3
+    probes, every=100) bitwise equal to temporal=1's states and series."""
+    cfg = LatticeConfig(nx=nx, ny=ny, dtype=dtype)
+    walls = geometry.reference_barrier(nx, ny)
+    sim = Simulation(cfg, walls, backend="cuda")
+    depth = fk.DEFAULT_TEMPORAL[fk._storage(cfg)]
+    assert (sim._session.temporal, sim._session.requested_temporal) == (depth, None)
+    one = Simulation(cfg, walls, backend="cuda", temporal=1)
+    gen = torch.Generator(device=cuda_device).manual_seed(26)
+    f = one.f.float()
+    f *= 1 + 0.05 * (2 * torch.rand(f.shape, generator=gen, device=cuda_device) - 1)
+    sim.f = one.f = f
+    del f
+    before = fk.LAUNCHES
+    sim.run(1000)
+    assert fk.LAUNCHES == before
+    assert sim.counters()["launches"] == -(-1000 // depth)
+    one.run(1000)
+    assert torch.equal(sim.f, one.f)
+    probes = [(50, 150), (120, 300), (200, 550)]
+    series = sim.run_probed(1000, probes, every=100)
+    np.testing.assert_array_equal(series, one.run_probed(1000, probes, every=100))
+    assert sim.counters()["launches"] == -(-1000 // depth) + 10 * -(-100 // depth)
+    assert torch.equal(sim.f, one.f)
 
 
 @pytest.mark.cuda
@@ -1976,11 +2044,12 @@ def test_run_probed_bitwise_run_and_probe_values(cuda_device, monkeypatch, backe
     """run_probed on the kernel backends (the sharded ones over 2 virtual
     shards of the card): the series bitwise equal to run() with
     probe_values between chunks, the final state bitwise equal to an
-    unprobed run's, one counted launch per step; on cuda-ds64 and the
-    sharded backends every step counted in the passes of their temporal
-    forms (sharded-cuda: the interior and two 3-row bands of each 8-row
-    shard; -rdma and -ds64: one launch per shard and pass), no one-step
-    launch."""
+    unprobed run's; every step counted in the passes of the backends'
+    temporal forms (cuda: the session's default depth; sharded-cuda: the
+    interior and two 3-row bands of each 8-row shard; -rdma and -ds64: one
+    launch per shard and pass), no one-step launch but where the cuda
+    session's default depth runs an advance of one step (every = 1) as
+    one."""
     from latticeboltzmann_tpu_torch.models import engine
 
     if backend.startswith("sharded"):
@@ -1994,20 +2063,24 @@ def test_run_probed_bitwise_run_and_probe_values(cuda_device, monkeypatch, backe
     def sim():
         return Simulation(cfg, walls, backend=backend, allow_experimental=True)
 
-    counts = {"cuda": (fk, "LAUNCHES"), "cuda-ds64": (fdk, "TEMPORAL_STEPS"),
+    counts = {"cuda": (fk, "TEMPORAL_STEPS"), "cuda-ds64": (fdk, "TEMPORAL_STEPS"),
               "sharded-cuda": (fk, "EXT_TEMPORAL_STEPS"),
               "sharded-cuda-rdma": (fk, "RDMA_TEMPORAL_STEPS"),
               "sharded-cuda-ds64": (fdk, "EXT_TEMPORAL_STEPS")}[backend]
     before = getattr(*counts)
-    one_step = (fdk.EXT_LAUNCHES, fk.EXT_LAUNCHES, fk.RDMA_LAUNCHES)
+    one_step = (fdk.EXT_LAUNCHES, fk.EXT_LAUNCHES, fk.RDMA_LAUNCHES, fk.LAUNCHES, fdk.LAUNCHES)
     probed = sim()
     series = probed.run_probed(n, PROBES, every=every)
     # passes of T and one of the rest per sample: each launch counts every
     # step of its pass
     per_step = {"sharded-cuda": 6, "sharded-cuda-rdma": 2, "sharded-cuda-ds64": 2}.get(backend, 1)
-    if backend.startswith("sharded"):
-        assert (fdk.EXT_LAUNCHES, fk.EXT_LAUNCHES, fk.RDMA_LAUNCHES) == one_step
-    assert getattr(*counts) - before == n * per_step
+    # the cuda session runs a rest of one step at its default depth as a
+    # one-step launch
+    depth = probed._session.temporal if backend == "cuda" else None
+    ones = 0 if depth is None else n if depth == 1 else n // every * (every % depth == 1)
+    assert (fdk.EXT_LAUNCHES, fk.EXT_LAUNCHES, fk.RDMA_LAUNCHES, fk.LAUNCHES - ones,
+            fdk.LAUNCHES) == one_step
+    assert getattr(*counts) - before == (n - ones) * per_step
     assert series.shape == (n // every, len(PROBES), 3) and probed.steps_done == n
     ref = sim()
     want = np.stack([ref.run(every).probe_values(PROBES) for _ in range(n // every)])
@@ -2061,8 +2134,10 @@ def test_cli_resumes_on_the_card(cuda_device, tmp_path, capsys, backend, precisi
     with a snapshot and a checkpoint, --resume latest for 20 more, against
     an unbroken 40-step run (bitwise; the ds pair within 1e-11 relative,
     since a float64 checkpoint is split again at load time); every step
-    a counted launch, or on cuda with float64 a counted step of the torch
-    engine (a float64 checkpoint resumes under --backend cuda); the
+    counted in a pass of the temporal form (the session's default depth
+    in f32, DS_TEMPORAL on cuda-ds64) with no one-step launch, or on cuda
+    with float64 a counted step of the torch engine (a float64 checkpoint
+    resumes under --backend cuda); the
     snapshot byte-equal to write_snapshot_csv of a Simulation run's
     speed_squared()."""
     from latticeboltzmann_tpu_torch import cli
@@ -2074,10 +2149,11 @@ def test_cli_resumes_on_the_card(cuda_device, tmp_path, capsys, backend, precisi
     ck, ck1, data = tmp_path / "ck", tmp_path / "ck1", tmp_path / "data"
     def launched():
         # the steps of the ds path's passes (the temporal form), the float64
-        # path's engine steps, or the f32 path's launches (one a step)
+        # path's engine steps, or the steps of the f32 path's passes (the
+        # session's default depth)
         if backend == "cuda-ds64":
             return fdk.TEMPORAL_STEPS
-        return fk.F64_STEPS if dtype == np.float64 else fk.LAUNCHES
+        return fk.F64_STEPS if dtype == np.float64 else fk.TEMPORAL_STEPS
 
     before, one_step_before, kernel_before = launched(), fdk.LAUNCHES, fk.LAUNCHES
     assert cli.main(scene + ["--steps", "20", "--checkpoint-every", "20", "--checkpoint-dir",
@@ -2090,7 +2166,7 @@ def test_cli_resumes_on_the_card(cuda_device, tmp_path, capsys, backend, precisi
     assert launched() - before == 22 + 22 + 42
     if backend == "cuda-ds64":
         assert fdk.LAUNCHES == one_step_before
-    elif dtype == np.float64:
+    else:
         assert fk.LAUNCHES == kernel_before
     assert "resumed from" in capsys.readouterr().out
     _, resumed, _, _ = checkpoint.load(ck / "40.lbmckpt")

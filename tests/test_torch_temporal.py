@@ -9,7 +9,9 @@ site, forcing at fluid sources of global column 0, each level site's
 class). Here the tiling is held bitwise against the chain for float32
 and bf16, every geometry source and L = 1-4, on tiles forced small; the
 Session's passes (n // T of T steps, one of the rest) bitwise against one
-step per launch; the Session against the JAX fused kernel at temporal=T
+step per launch; the default depth's rule (default_temporal) and the
+session's use of it on a card and on the CPU; the Session against the
+JAX fused kernel at temporal=T
 in interpret mode at the bars of the JAX package's own tests
 (tests/test_pallas.py:112-138, 234-246); at an NY of no whole 16-byte
 vectors the session's choice of one step per launch, bitwise to
@@ -134,6 +136,17 @@ def _record_passes(monkeypatch):
     return passes
 
 
+def _session_geometry(geom, g):
+    """(walls, Session keywords) of _scene's 16x40 geometry `g` of kind
+    `geom`."""
+    if geom == "spec":
+        return geometry.spec_mask(g, 16, 40), {"wall_spec": g}
+    if geom == "none":
+        return np.zeros((16, 40), bool), {}
+    walls = g.numpy() == 1
+    return walls, ({"slip_x": g.numpy() == 2, "slip_y": g.numpy() == 3} if geom == "slip" else {})
+
+
 @pytest.mark.parametrize("temporal", [2, 3, 5])
 @pytest.mark.parametrize("geom", GEOMS)
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -142,14 +155,7 @@ def test_session_passes_equal_one_step_per_launch(dtype, geom, temporal, monkeyp
     steps and one of n % T, bitwise equal to a session of one launch per
     step, with no one-step launch."""
     cfg, t, geoms = _scene(16, 40, dtype)
-    g = geoms[geom]
-    spec = g if geom == "spec" else None
-    walls = geometry.spec_mask(spec, 16, 40) if spec else np.zeros((16, 40), bool)
-    kw = {"wall_spec": spec} if spec else {}
-    if geom in ("plane", "slip"):
-        walls = g.numpy() == 1
-        if geom == "slip":
-            kw = {"slip_x": g.numpy() == 2, "slip_y": g.numpy() == 3}
+    walls, kw = _session_geometry(geom, geoms[geom])
     one = fk.Session(cfg, walls, device="cpu", **kw)
     sess = fk.Session(cfg, walls, device="cpu", temporal=temporal, **kw)
     assert one.temporal == 1 and sess.temporal == temporal
@@ -164,6 +170,101 @@ def test_session_passes_equal_one_step_per_launch(dtype, geom, temporal, monkeyp
         assert passes == [temporal] * (n // temporal) + ([n % temporal] if n % temporal else [])
         del passes[:]
         assert torch.equal(sess.state(), one.state())
+
+
+# the rows the temporal form takes (whole 16-byte vectors) and not, by storage
+DEFAULT_ROWS = {torch.float32: (40, 37), torch.bfloat16: (48, 44)}
+
+
+@pytest.mark.parametrize("device_type, max_steps, want", [
+    ("cpu", 21, 1), ("cuda", 21, 6), ("cuda", 32, 6), ("cuda", 4, 4), ("cuda", 1, 1),
+    ("cuda", 0, 1)])
+@pytest.mark.parametrize("whole", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_default_temporal_rule(dtype, whole, device_type, max_steps, want):
+    """The depth Session(temporal=None) runs: DEFAULT_TEMPORAL (6) on a
+    card where the temporal form takes the rows, no deeper than the card's
+    tile takes (the H100's 21 and 32 steps, a tile of 4, one that takes 1
+    or none); one step a launch on the CPU and at an NY of no whole
+    16-byte vectors."""
+    assert fk.DEFAULT_TEMPORAL[dtype] == 6
+    ny = DEFAULT_ROWS[dtype][0 if whole else 1]
+    assert fk.temporal_form_takes(dtype, ny) is whole
+    got = fk.default_temporal(dtype, ny, device_type, max_steps)
+    assert got == (want if whole else 1)
+
+
+@pytest.mark.parametrize("max_steps", [21, 4, 0])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_session_on_a_card_runs_the_default_depth(dtype, max_steps, monkeypatch):
+    """Session(device="cuda", temporal=None) as the card describes its
+    tile (temporal_info's max_steps; nothing is allocated before load):
+    default_temporal's depth where the rows are whole vectors, 1 where
+    they are not; requested_temporal stays None. An explicit depth is the
+    session's own there, as before."""
+    info = {"max_steps": max_steps, "rows": 2 * max_steps + 1, "width": 72}
+    monkeypatch.setattr(fk, "temporal_info", lambda dtype, *a, **kw: info)
+    st = fk._storage(LatticeConfig(nx=16, ny=40, dtype=dtype))
+    for ny, want in ((DEFAULT_ROWS[st][0], max(1, min(6, max_steps))), (DEFAULT_ROWS[st][1], 1)):
+        cfg = LatticeConfig(nx=16, ny=ny, dtype=dtype)
+        spec = (("channel",),)
+        walls = geometry.spec_mask(spec, 16, ny)
+        sess = fk.Session(cfg, walls, device="cuda", wall_spec=spec)
+        assert (sess.temporal, sess.requested_temporal) == (want, None)
+        if max_steps >= 3:
+            sess = fk.Session(cfg, walls, device="cuda", wall_spec=spec, temporal=3)
+            takes = fk.temporal_form_takes(st, ny)
+            assert (sess.temporal, sess.requested_temporal) == (3 if takes else 1, 3)
+        else:
+            with pytest.raises(ValueError, match="at most"):
+                fk.Session(cfg, walls, device="cuda", wall_spec=spec, temporal=3)
+        sess = fk.Session(cfg, walls, device="cuda", wall_spec=spec, temporal=1)
+        assert (sess.temporal, sess.requested_temporal) == (1, 1)
+
+
+@pytest.mark.parametrize("geom", GEOMS)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_session_on_the_cpu_runs_one_step_per_launch_by_default(dtype, geom, monkeypatch):
+    """Session(device="cpu") with no depth runs one launch of the one-step
+    wrapper per step (a pass there is temporal_reference, a plain
+    emulation), bitwise equal to temporal=1 and to temporal=6's passes."""
+    cfg, t, geoms = _scene(16, 40, dtype)
+    walls, kw = _session_geometry(geom, geoms[geom])
+    sessions = [fk.Session(cfg, walls, device="cpu", temporal=t_, **kw) for t_ in (None, 1, 6)]
+    assert [(s.temporal, s.requested_temporal) for s in sessions] == [(1, None), (1, 1), (6, 6)]
+    passes = _record_passes(monkeypatch)
+    for sess, want in zip(sessions, ([0] * 8, [0] * 8, [6, 2])):
+        sess.load(t)
+        sess.advance(8)
+        assert passes == want
+        passes.clear()
+    assert torch.equal(sessions[0].state(), sessions[1].state())
+    assert torch.equal(sessions[0].state(), sessions[2].state())
+
+
+@pytest.mark.parametrize("n, default_plan, asked_plan", [
+    (1, [0], [1]), (7, [6, 0], [6, 1]), (13, [6, 6, 0], [6, 6, 1]), (14, [6, 6, 2], [6, 6, 2]),
+    (12, [6, 6], [6, 6])])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_default_depth_runs_a_pass_of_one_step_as_one_step(dtype, n, default_plan, asked_plan,
+                                                           monkeypatch):
+    """At the default depth (default_temporal's 6, as on a card) a pass of
+    one step, an advance of 1 or a rest of 1, is a launch of the one-step
+    wrapper (0 in the plan); an asked temporal=6 runs it as a pass of 1.
+    Both count one launch a pass and equal temporal=1 bitwise."""
+    monkeypatch.setattr(fk, "default_temporal", lambda *a: 6)
+    cfg, t, geoms = _scene(16, 40, dtype)
+    walls, kw = _session_geometry("spec", geoms["spec"])
+    sessions = [fk.Session(cfg, walls, device="cpu", temporal=t_, **kw) for t_ in (None, 6, 1)]
+    assert [(s.temporal, s.requested_temporal) for s in sessions] == [(6, None), (6, 6), (1, 1)]
+    passes = _record_passes(monkeypatch)
+    for sess, want in zip(sessions, (default_plan, asked_plan, [0] * n)):
+        sess.load(t)
+        sess.advance(n)
+        assert passes == want and (sess.launches, sess.steps) == (len(want), n)
+        passes.clear()
+    assert torch.equal(sessions[0].state(), sessions[2].state())
+    assert torch.equal(sessions[1].state(), sessions[2].state())
 
 
 def test_run_steps_and_probed_runner_take_temporal(monkeypatch):
@@ -370,3 +471,26 @@ def test_session_with_a_wall_spec_vs_jax_temporal_blocking():
     got = fk.run_steps(state_tensor(initial_state(cfg), cfg.dtype, "cpu"), walls, cfg, 8,
                        wall_spec=port_spec, temporal=4)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-7)
+
+
+# ---- the sweep behind DEFAULT_TEMPORAL ----
+
+def test_depth_sweep_exits_2_without_a_card(monkeypatch, capsys):
+    from latticeboltzmann_tpu_torch.scripts import depth_sweep
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert depth_sweep.main(["--rounds", "1"]) == 2
+    assert "needs a CUDA card" in capsys.readouterr().err
+
+
+def test_depth_sweep_covers_the_benchmark_configurations():
+    """The sweep's default shapes: the benchmark's two configurations
+    (800x4000 float32, 4000x16000 bf16) and the other storage at each
+    size; its default depths hold T=1 and DEFAULT_TEMPORAL."""
+    from latticeboltzmann_tpu_torch.scripts import depth_sweep
+
+    assert depth_sweep._shapes(depth_sweep.SHAPES) == [
+        (800, 4000, "float32"), (4000, 16000, "bfloat16"), (4000, 16000, "float32"),
+        (800, 4000, "bfloat16")]
+    depths = {int(d) for d in depth_sweep.DEPTHS.split(",")}
+    assert {1, *fk.DEFAULT_TEMPORAL.values()} <= depths
