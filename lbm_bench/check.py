@@ -4,7 +4,7 @@ program's state is freed.
 
 A chunk's answers are the state it leaves, the Reynolds number the
 facade reads from that state, and (in a probed mix) the series of probe
-moments the gather took along it. Two things are checked in every run:
+moments the gather took along it. Three things are checked in every run:
 
 - the start: the state the program holds when the window opens, against
   the seed's own state, exactly (start_err, the largest gap of a value);
@@ -13,7 +13,12 @@ moments the gather took along it. Two things are checked in every run:
   just checked). There the reference follows the program from the
   program's own state, as a time-stepper can only be followed (see
   PERF.md); the chunks before k are checked by the state they hand on,
-  and by the runs that draw them.
+  and by the runs that draw them;
+- every chunk of the window: its Re, and in a probed mix every sample
+  of its series, is finite (nonfinite_chunks, the count of chunks that
+  are not, limit 0 in every cell; the readings name the first such
+  chunk as first_nonfinite_chunk). A flow that has blown up is no flow
+  the program claims to simulate, whatever chunk k read.
 
 The reference replays the chunk at the configuration's storage
 precision and in its arithmetic, on the card, on the configuration's
@@ -50,8 +55,10 @@ import torch
 from . import generator
 from .reference import d2q9, scene
 
-# every number the check works out; a cell's limits file names those it compares
-NUMBERS = ("start_err", "state_err", "momentum_err", "re_err", "probe_err")
+# every number the check works out; a cell's limits file names those it
+# compares, and FINITE is compared in every cell against 0
+FINITE = "nonfinite_chunks"
+NUMBERS = ("start_err", "state_err", "momentum_err", "re_err", "probe_err", FINITE)
 
 @dataclasses.dataclass
 class Outputs:
@@ -128,9 +135,17 @@ def chunk_numbers(start, end, re, series, walls, params, traffic, probes, device
     return out
 
 
+def nonfinite_chunks(outputs: Outputs) -> list[int]:
+    """The chunks whose Re, or a sample of whose series, is not finite."""
+    return [i for i in range(outputs.chunks_run)
+            if not math.isfinite(outputs.reynolds[i])
+            or (i in outputs.series and not np.isfinite(outputs.series[i]).all())]
+
+
 def judge(cell, traffic, params, seed: int, k: int, probes, outputs: Outputs, device) -> Verdict:
-    """The start, exactly, and chunk k (when the window reached it),
-    replayed with the reference, held to the cell's limits."""
+    """The start, exactly, chunk k (when the window reached it),
+    replayed with the reference, held to the cell's limits, and every
+    chunk's answers finite."""
     cfg = cell.config
     walls = d2q9.walls_tensor(scene.walls(cfg.walls, cfg.nx, cfg.ny), device)
     storage = getattr(torch, cfg.dtype)
@@ -139,6 +154,10 @@ def judge(cell, traffic, params, seed: int, k: int, probes, outputs: Outputs, de
     seeded = generator.initial_state(cfg.nx, cfg.ny, params, storage, seed, device)
     nums = {"start_err": float((loaded.double() - seeded.double()).abs().max())}
     del seeded
+    blown = nonfinite_chunks(outputs)
+    nums[FINITE] = len(blown)
+    if blown:
+        nums["first_nonfinite_chunk"] = blown[0]
     reached = k < outputs.chunks_run
     if reached:
         start = loaded if k == 0 else state_of(outputs.states[k - 1], storage, device)
@@ -146,9 +165,10 @@ def judge(cell, traffic, params, seed: int, k: int, probes, outputs: Outputs, de
         del loaded
         nums.update(chunk_numbers(start, end, outputs.reynolds[k], outputs.series.get(k), walls,
                                   params, traffic, probes, device, compute))
-    compared = {name: v for name, v in nums.items() if name in cell.limits}
-    bad = {name for name, v in compared.items() if not math.isfinite(v) or v > cell.limits[name]}
-    failed = int("start_err" in bad) + int(bool(bad - {"start_err"}))
-    numbers = {name: {"value": v, "limit": cell.limits[name]} for name, v in compared.items()}
-    return Verdict(correct=reached and not bad and compared.keys() == cell.limits.keys(),
+    limits = dict(cell.limits, **{FINITE: 0})
+    compared = {name: v for name, v in nums.items() if name in limits}
+    bad = {name for name, v in compared.items() if not math.isfinite(v) or v > limits[name]}
+    failed = int("start_err" in bad) + int(bool(bad - {"start_err", FINITE})) + int(FINITE in bad)
+    numbers = {name: {"value": v, "limit": limits[name]} for name, v in compared.items()}
+    return Verdict(correct=reached and not bad and compared.keys() == limits.keys(),
                    failed=failed, numbers=numbers, readings=nums)

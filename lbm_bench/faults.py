@@ -8,7 +8,10 @@ cell's own size on the card.
 - half_rows: the steps advance only the first half of the rows (the
   lattice's half left out);
 - reynolds: the Reynolds number off by one where it is produced;
-- series: the last probe sample's density off by 1%.
+- series: the last probe sample's density off by 1%;
+- late_nan: Re not a number from window chunk LATE_NAN_CHUNK on, past
+  any checked chunk k: a flow that blows up after the chunk the
+  reference replays.
 
 A one-card cell has no exchange between chips to leave out.
 """
@@ -19,7 +22,10 @@ import numpy as np
 
 from . import harness
 
-FAULTS = ("unchanged", "half_rows", "reynolds", "series")
+FAULTS = ("unchanged", "half_rows", "reynolds", "series", "late_nan")
+# the first window chunk whose Re late_nan spoils; the warm-up chunk
+# reads Re once before the window
+LATE_NAN_CHUNK = 5
 
 
 class Broken:
@@ -28,6 +34,7 @@ class Broken:
 
     def __init__(self, sim, fault: str):
         self.sim, self.fault = sim, fault
+        self.readbacks = 0
 
     def __getattr__(self, name):
         return getattr(self.sim, name)
@@ -68,6 +75,9 @@ class Broken:
 
     def reynolds(self, *a, **kw):
         re = self.sim.reynolds(*a, **kw)
+        self.readbacks += 1
+        if self.fault == "late_nan" and self.readbacks > LATE_NAN_CHUNK + 1:
+            return float("nan")
         return re + 1.0 if self.fault == "reynolds" else re
 
 

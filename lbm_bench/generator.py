@@ -7,12 +7,18 @@ A traffic file (traffic/<mix>.json) holds only parameters:
      "probes": null | {"count": 3, "every": 100,
                        "rows": [20, 220], "cols": [110, 600]},
      "check_chunk_below": 4,          # the checked chunk k is drawn in [0, this)
-     "trace_chunks": 6}               # chunks the --trace 1 run profiles
+     "trace_chunks": 6,               # chunks the --trace 1 run profiles
+     "steps_per_run": 10000}          # steps from one start of the flow to
+                                      # the next (absent: the whole window)
 
 Each chunk is one call of the program's entry (Simulation.run, or
 Simulation.run_probed when the mix names probes) followed by the
 readback (Simulation.reynolds() at the central column). The loop is
 closed: the next chunk starts when the host holds the last readback.
+A run is steps_per_run steps of chunks from the window's start state:
+before the first chunk of every run after the first, the harness loads
+that state back into the program, as a user starts the next run of a
+flow, so no chunk runs later into a flow than a run's length.
 
 The seed makes the inputs, the same for the same seed on any card: a
 density field of smooth bumps about the configuration's initial density,
@@ -51,6 +57,7 @@ class Traffic:
     probes: dict | None = None
     check_chunk_below: int = 4
     trace_chunks: int = 6
+    steps_per_run: int | None = None
 
     @classmethod
     def load(cls, path) -> "Traffic":
@@ -65,7 +72,24 @@ class Traffic:
             raise ValueError(f"{path}: probes.every must divide steps_per_chunk")
         if t.check_chunk_below < 1:
             raise ValueError(f"{path}: check_chunk_below must be at least 1")
+        if t.steps_per_run is not None:
+            if t.steps_per_run < 1 or t.steps_per_run % t.steps_per_chunk:
+                raise ValueError(f"{path}: steps_per_run must be a positive multiple of "
+                                 "steps_per_chunk")
+            if max(t.check_chunk_below, t.trace_chunks) > t.chunks_per_run:
+                raise ValueError(f"{path}: the checked and the traced chunks must fit in "
+                                 "steps_per_run")
         return t
+
+    @property
+    def chunks_per_run(self) -> int | None:
+        """Chunks from one load of the window's start state to the next;
+        None: one run for the whole window."""
+        return None if self.steps_per_run is None else self.steps_per_run // self.steps_per_chunk
+
+    def starts_run(self, i: int) -> bool:
+        """Whether window chunk i is the first of a run."""
+        return i % self.chunks_per_run == 0 if self.chunks_per_run else i == 0
 
     @property
     def samples_per_chunk(self) -> int:

@@ -3,10 +3,12 @@ slice, the per-layer readers and the check.
 
 The program under test is latticeboltzmann_tpu_torch: a cell builds
 Simulation(LatticeConfig(...), walls, backend=<the config's>) as its
-users do, with the program's defaults (no temporal), loads the seed's
-state through Simulation.f, and drives it chunk after chunk
-(generator.run_chunk). `program=` replaces that constructor: the
-control and the tests put another program in its place.
+users do, with the program's defaults (its default depth), loads the
+seed's state through Simulation.f, and drives it chunk after chunk
+(generator.run_chunk), loading the window's start state back at the
+start of every run of the traffic's steps_per_run. `program=` replaces
+that constructor: the control and the tests put another program in its
+place.
 """
 
 from __future__ import annotations
@@ -22,8 +24,9 @@ import torch
 from . import check, generator, manifest, trace
 from .reference import d2q9, scene
 
-# the traced slice starts after this share of the window has passed; the
-# profiler's first start (5.9-7.6 s of CUPTI set-up on an H100) falls in
+# the traced slice starts at the first chunk of a run once this share of
+# the window has passed, so no reload falls inside it; the profiler's
+# first start (5.9-7.6 s of CUPTI set-up on an H100) falls in
 # the window of a --trace 1 run, which reports no end-to-end metric, and
 # a second session in one process ran the probed chunks half again slower
 TRACE_AFTER = 0.4
@@ -99,8 +102,10 @@ def run_cell(cell: manifest.Cell, seed: int, seconds: float, traced: bool, t_sta
              device="cuda", program=default_program, storage: str | None = None,
              emit=print) -> dict:
     """One run; returns the result's fields (correct, attempted, failed,
-    metrics, device, breakdown, checks). `storage` overrides the
-    configuration's storage dtype (the control's lower precision)."""
+    metrics, device, breakdown, checks), the check's readings and the
+    window's times (window: window_s, chunks_s, runs, reload_s, and the
+    traced chunks). `storage` overrides the configuration's storage
+    dtype (the control's lower precision)."""
     from latticeboltzmann_tpu_torch import LatticeConfig
 
     cfg = cell.config
@@ -119,6 +124,7 @@ def run_cell(cell: manifest.Cell, seed: int, seconds: float, traced: bool, t_sta
     dtype = getattr(torch, storage)
     template = sim.f
     layout = [(t.shape, t.dtype) for t in parts(template)]
+    pair = type(template) if isinstance(template, tuple) else None
 
     def load_seed_state():
         sim.f = as_program_state(
@@ -149,13 +155,29 @@ def run_cell(cell: manifest.Cell, seed: int, seconds: float, traced: bool, t_sta
         for buf, part in zip(snaps[i], parts(sim.f)):
             buf.copy_(part)
 
-    snapshot(-1)  # the state the window starts from
+    def restart():
+        """The window's start state back into the program, copied from
+        the pinned host snapshot into its buffers (a copy on the CPU,
+        where a program could keep the buffer itself)."""
+        state = [buf if on_card else buf.clone() for buf in snaps[-1]]
+        sim.f = state[0] if pair is None else pair(*state)
+        if on_card:
+            torch.cuda.synchronize()
+
+    snapshot(-1)  # the state the window starts from, and every run after
     chunks, traced_idx, profiler = [], [], None
-    paused = 0.0
+    paused = reload_s = 0.0
     t_win = time.perf_counter()
     while True:
         i = len(chunks)
+        if i and traffic.starts_run(i):
+            t0 = time.perf_counter()
+            restart()
+            dt = time.perf_counter() - t0
+            reload_s += dt
+            paused += dt
         if (traced and profiler is None and i > k
+                and (traffic.steps_per_run is None or traffic.starts_run(i))
                 and time.perf_counter() - t_win - paused >= TRACE_AFTER * seconds):
             profiler = trace.Profiler()
             profiler.start()
@@ -175,20 +197,23 @@ def run_cell(cell: manifest.Cell, seed: int, seconds: float, traced: bool, t_sta
                 not traced or profiler is not None):
             break
     window_s = time.perf_counter() - t_win - paused
+    n = len(chunks)
+    runs = sum(traffic.starts_run(i) for i in range(n))
     counters = {name: v - counters0[name] for name, v in program_counters().items()}
     peak = max(peak_setup, torch.cuda.max_memory_allocated()) if on_card else 0
     session = getattr(sim, "_session", None)
     emit(f"depth that ran: temporal={getattr(session, 'temporal', None)} "
          f"(requested {getattr(sim, 'temporal', None)}); window launches {counters}; "
-         f"chunks {len(chunks)} of {traffic.steps_per_chunk} steps in {window_s:.6f} s; "
-         f"checked chunk {k}; snapshots {paused:.6f} s outside the window; "
+         f"chunks {n} of {traffic.steps_per_chunk} steps in {window_s:.6f} s; "
+         f"runs {runs} of {traffic.steps_per_run or n * traffic.steps_per_chunk} steps; "
+         f"checked chunk {k}; outside the window: {runs - 1} reloads {reload_s:.6f} s, "
+         f"snapshots {paused - reload_s:.6f} s; "
          "chunk ms p5/p50/p95/max "
          + "/".join(f"{generator.percentile([c.seconds for c in chunks], q) * 1e3:.3f}"
                     for q in (5, 50, 95, 100)))
     if on_card:
         emit(f"card: {card_power_limit()}")
 
-    n = len(chunks)
     view = profiler.view() if profiler is not None else None
     ctx = Context(cell=cell, traffic=traffic, chunks=chunks, window_s=window_s, setup_s=setup_s,
                   peak_bytes=peak, traced=traced_idx,
@@ -221,6 +246,8 @@ def run_cell(cell: manifest.Cell, seed: int, seconds: float, traced: bool, t_sta
     t_check = time.perf_counter()
     verdict = check.judge(cell, traffic, params, seed, k, probes, outputs, device)
     emit(f"check of chunk {k} by the reference: {time.perf_counter() - t_check:.3f} s")
+    window = {"window_s": window_s, "chunks_s": sum(c.seconds for c in chunks), "runs": runs,
+              "reload_s": reload_s, "traced": traced_idx}
     return {"correct": verdict.correct, "attempted": n, "failed": verdict.failed,
             "metrics": metrics, "device": dev, "breakdown": breakdown,
-            "checks": verdict.numbers, "readings": verdict.readings}
+            "checks": verdict.numbers, "readings": verdict.readings, "window": window}

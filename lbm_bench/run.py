@@ -73,7 +73,8 @@ def main(argv=None) -> int:
         print(f"lbm_bench: the run loaded {found}; the benchmark runs the port alone",
               file=sys.stderr)
         return 2
-    result.pop("readings")
+    readings = result.pop("readings")
+    result.pop("window")
     checks = result.pop("checks")
     breakdown = result.pop("breakdown")
     line = dict(result)
@@ -82,6 +83,9 @@ def main(argv=None) -> int:
     line["checks"] = checks
     for name, c in checks.items():
         print(f"check {name}: {c['value']!r} (limit {c['limit']!r})", file=sys.stderr)
+    if "first_nonfinite_chunk" in readings:
+        print(f"check first_nonfinite_chunk: {readings['first_nonfinite_chunk']}",
+              file=sys.stderr)
     print(f"check correct: {result['correct']}", file=sys.stderr)
     sys.stderr.flush()
     print(json.dumps(finite(line), allow_nan=False), flush=True)

@@ -9,7 +9,7 @@ import pytest
 import torch
 
 import lbm_bench_tiny as tiny
-from lbm_bench import control, generator, harness, manifest
+from lbm_bench import check, control, generator, harness, manifest
 
 
 @pytest.fixture(scope="module")
@@ -63,5 +63,6 @@ def test_at_the_cells_size_the_program_is_correct_and_the_control_is_not(card, n
     assert r["correct"], r["checks"]
     r = harness.run_cell(cell, control_seed, 1.0, False, time.perf_counter(), emit=lambda s: None,
                          **control.control_kwargs(cell.config))
-    assert set(r["checks"]) == set(cell.limits), "the control's chunk was not checked"
+    assert set(r["checks"]) == set(cell.limits) | {check.FINITE}, \
+        "the control's chunk was not checked"
     assert not r["correct"], r["checks"]

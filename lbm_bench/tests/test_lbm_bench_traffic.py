@@ -1,14 +1,17 @@
 """The generator: what a seed makes, the traffic files, and the closed
-loop of each mix at a tiny size on the CPU `torch` backend."""
+loop of each mix at a tiny size on the CPU `torch` backend, restarted
+from the window's start state at every run."""
 
 import json
+import math
+import time
 
 import numpy as np
 import pytest
 import torch
 
 import lbm_bench_tiny as tiny
-from lbm_bench import check, generator, manifest
+from lbm_bench import check, generator, harness, manifest
 from lbm_bench.reference import d2q9
 
 P = d2q9.Params()
@@ -59,6 +62,11 @@ def test_probe_sites_and_the_checked_chunk_come_from_the_seed():
     ({"steps_per_chunk": 8, "probes": {"count": 1, "every": 3, "rows": [0, 1], "cols": [0, 1]}},
      "divide"),
     ({"steps_per_chunk": 8, "check_chunk_below": 0}, "check_chunk_below"),
+    ({"steps_per_chunk": 8, "steps_per_run": 12}, "multiple"),
+    ({"steps_per_chunk": 8, "steps_per_run": 0}, "multiple"),
+    ({"steps_per_chunk": 8, "steps_per_run": -16}, "multiple"),
+    ({"steps_per_chunk": 8, "steps_per_run": 16, "check_chunk_below": 3}, "fit"),
+    ({"steps_per_chunk": 8, "steps_per_run": 16, "check_chunk_below": 2, "trace_chunks": 3}, "fit"),
 ])
 def test_malformed_traffic_is_refused(tmp_path, spec, what):
     path = tmp_path / "bad.json"
@@ -70,11 +78,94 @@ def test_malformed_traffic_is_refused(tmp_path, spec, what):
 def test_the_real_mixes_keep_the_cadences_users_run():
     """Re every 1000 steps (the upstream's PRINTSTATSEVERY and the CLI's
     --print-stats-every), probes every 100 (the CLI's --probe-every) at
-    the 3 sites of the README's example."""
+    the 3 sites of the README's example, runs of 10,000 steps (the
+    upstream's NTIMESTEPS and the CLI's --steps)."""
     for w in manifest.load()["workloads"]:
         t = generator.Traffic.load(manifest.cell(w["name"]).traffic_path)
-        assert t.steps_per_chunk == 1000
+        assert t.steps_per_chunk == 1000 and t.steps_per_run == 10000
         assert t.probes is None or (t.probes["every"], t.probes["count"]) == (100, 3)
+
+
+def test_without_steps_per_run_the_window_is_one_run():
+    t = generator.Traffic(steps_per_chunk=8)
+    assert t.chunks_per_run is None
+    assert [t.starts_run(i) for i in range(4)] == [True, False, False, False]
+    t = generator.Traffic(steps_per_chunk=8, steps_per_run=16)
+    assert [t.starts_run(i) for i in range(5)] == [True, False, True, False, True]
+
+
+class Recorder:
+    """The program, recording the state each chunk starts from and
+    taking RELOAD_S longer to load a state."""
+
+    RELOAD_S = 0.05
+
+    def __init__(self, sim):
+        self.sim, self.starts = sim, []
+
+    def __getattr__(self, name):
+        return getattr(self.sim, name)
+
+    @property
+    def f(self):
+        return self.sim.f
+
+    @f.setter
+    def f(self, value):
+        time.sleep(self.RELOAD_S)
+        self.sim.f = value
+
+    def run(self, n_steps, **kw):
+        self.starts.append(self.sim.f.clone())
+        self.sim.run(n_steps, **kw)
+        return self
+
+
+def recorded(root, name, **kw):
+    made = []
+
+    def program(*args):
+        made.append(Recorder(harness.default_program(*args)))
+        return made[0]
+
+    r = tiny.run(root, name, program=program, **kw)
+    return r, made[0].starts[1:]  # the first start is the warm-up chunk's
+
+
+def test_every_run_starts_from_the_windows_start_state_and_its_reload_is_not_timed(root):
+    r, starts = recorded(root, tiny.TINY_RUNS, seconds=1.0)
+    assert r["correct"], r["checks"]
+    n, w = r["attempted"], r["window"]
+    assert n >= 3 and len(starts) == n
+    seeded = generator.initial_state(32, 64, P, torch.float32, tiny.SEED, "cpu")
+    assert torch.equal(starts[0], seeded)
+    for i in range(1, n):
+        # each run's first chunk starts from the window's start, exactly;
+        # its second from where the first left the flow
+        assert torch.equal(starts[i], starts[0]) == (i % 2 == 0), i
+    assert w["runs"] == math.ceil(n / 2)
+    reloads = w["runs"] - 1
+    assert w["reload_s"] >= Recorder.RELOAD_S * reloads
+    # the reloads are outside the window: it holds the chunks and the
+    # loop between them, less than one reload
+    assert w["chunks_s"] <= w["window_s"] < w["chunks_s"] + Recorder.RELOAD_S
+    steps = n * 8
+    assert r["metrics"]["mlups"]["value"] == pytest.approx(steps * 32 * 64 / w["window_s"] / 1e6)
+
+
+@pytest.mark.parametrize("seed", [tiny.SEED, 2**31 + 77, 2**33 + 9])
+def test_no_traced_chunk_is_a_runs_reload_point(root, seed):
+    r, starts = recorded(root, tiny.TINY_RUNS, seconds=1.0, traced=True, seed=seed)
+    assert r["correct"], r["checks"]
+    traced = r["window"]["traced"]
+    t = generator.Traffic.load(manifest.cell(tiny.TINY_RUNS, root).traffic_path)
+    assert len(traced) == t.trace_chunks == 2
+    assert traced == list(range(traced[0], traced[0] + t.trace_chunks))
+    # the slice starts at a run's first chunk, after its reload, and no
+    # reload falls inside it
+    assert traced[0] > 0 and t.starts_run(traced[0])
+    assert not any(t.starts_run(i) for i in traced[1:])
+    assert torch.equal(starts[traced[0]], starts[0])
 
 
 @pytest.mark.parametrize("name", sorted(tiny.TINY) + [tiny.TINY_DS])
@@ -84,7 +175,9 @@ def test_the_loop_runs_and_checks_on_the_cpu(root, name):
     m = r["metrics"]
     assert set(m) == {"mlups", "chunk_ms_p95", "peak_mem_gib", "setup_s"}
     assert m["mlups"]["value"] > 0 and m["chunk_ms_p95"]["value"] > 0
-    assert set(r["checks"]) == set(manifest.cell(name, root).limits)
+    assert set(r["checks"]) == set(manifest.cell(name, root).limits) | {check.FINITE}
+    assert r["checks"][check.FINITE] == {"value": 0, "limit": 0}
+    assert r["window"]["runs"] == math.ceil(r["attempted"] / 3)
     assert set(r["readings"]) == set(check.NUMBERS) - (
         set() if tiny.TINY.get(name, (None, None, False))[2] else {"probe_err"})
     for c in r["checks"].values():
